@@ -1,0 +1,240 @@
+"""The AMB train steps with the worker dim on one device (paper §3).
+
+Counterpart of ``repro.dist.amb``:
+
+  * :func:`make_train_step` — *exact consensus* (eps = 0): one weighted
+    loss over the global batch, whose gradient is exactly
+    ``sum_i b_i g_i / sum_i b_i``, then the optimizer's update.
+  * :func:`make_gossip_train_step` — *decentralised consensus*: worker i
+    keeps its own dual ``z_i``, takes its masked gradient at its own primal
+    ``w_i = prox(z_i)``, packs ``n b_i (z_i + g_i)`` with the scalar
+    ``n b_i`` appended (eq. 6), and the stack goes through the consensus
+    strategy.
+
+The workers are the leading dim of each state tensor.  Where the JAX step
+vmaps the workers' gradients, a Python loop takes them one at a time and
+writes each worker's message row as soon as its gradient exists, so one
+worker's activations and gradient are live at a time.  The gossip rounds
+reuse the message stack as one of their two buffers, and the dual is
+updated in place.  Only the uncoded placement (redundancy 1) is ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..core.dual_averaging import BetaSchedule
+from ..kernels import ops as kops
+from ..models import lm_loss
+from .consensus import make_strategy
+
+
+@dataclasses.dataclass(frozen=True)
+class AMBConfig:
+    """Static AMB step configuration (consensus + dual-averaging knobs)."""
+
+    consensus: str = "exact"          # exact | gossip
+    gossip_rounds: int = 5
+    graph: str = "ring"
+    torus_shape: Optional[tuple] = None
+    lazy: float = 0.5
+    beta: BetaSchedule = BetaSchedule()   # gossip-path dual averaging
+    radius: Optional[float] = None
+
+
+# ---------------------------------------------------------------------------
+# Variable-minibatch masking (eq. 3)
+# ---------------------------------------------------------------------------
+
+def seq_weights_from_b(b: torch.Tensor, global_batch: int,
+                       n_workers: int) -> torch.Tensor:
+    """(global_batch,) fp32 0/1 weights: worker i's first b_i of its
+    ``global_batch // n_workers`` contiguous slots are included."""
+    if global_batch % n_workers:
+        raise ValueError(f"global_batch {global_batch} not divisible by "
+                         f"{n_workers} workers")
+    per = global_batch // n_workers
+    idx = torch.arange(global_batch, device=b.device)
+    return ((idx % per) < b[idx // per]).float()
+
+
+def epoch_weights(b: torch.Tensor, n: int, per: int):
+    """Uncoded (sw (n, per), bw (n,)): the eq.-3 weights and sample counts."""
+    sw = seq_weights_from_b(b, n * per, n).reshape(n, per)
+    return sw, torch.clamp(b, max=per).float()
+
+
+def _as_b(b, device) -> torch.Tensor:
+    return torch.as_tensor(b, dtype=torch.int32).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Message pack / unpack
+# ---------------------------------------------------------------------------
+
+def _pack_row(row: torch.Tensor, z_leaves, g_leaves, nb_i) -> None:
+    """Write ``nb_i (z + g)`` leaf after leaf, then ``nb_i``, into ``row``."""
+    off = 0
+    for zl, gl in zip(z_leaves, g_leaves):
+        size = zl.numel()
+        row[off:off + size] = (nb_i * (zl + gl.float())).reshape(-1)
+        off += size
+    row[off] = nb_i
+
+
+def _width(z: dict, n: int) -> int:
+    return sum(zl.numel() // n for zl in z.values())
+
+
+def pack_messages(z: dict, grads: dict, nb: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """(n, D+1) fp32 rows ``n b_i (z_i + g_i)`` with ``n b_i`` appended.
+
+    z / grads: dicts of (n, *param) leaves; nb: (n,).
+    """
+    msg = torch.empty((n, _width(z, n) + 1), dtype=torch.float32,
+                      device=nb.device)
+    for i in range(n):
+        _pack_row(msg[i], [zl[i] for zl in z.values()],
+                  [grads[k][i] for k in z], nb[i])
+    return msg
+
+
+def flatten_dual(z: dict, n: int) -> torch.Tensor:
+    """(n, W) row stack of a dual dict: the message layout without the
+    weight column."""
+    return torch.cat([zl.reshape(n, -1) for zl in z.values()], dim=1)
+
+
+def unflatten_dual(flat: torch.Tensor, z: dict, n: int) -> dict:
+    """Invert :func:`flatten_dual` onto the keys and shapes of ``z``."""
+    out, off = {}, 0
+    for k, zl in z.items():
+        size = zl.numel() // n
+        out[k] = flat[:, off:off + size].reshape(zl.shape)
+        off += size
+    return out
+
+
+@torch.no_grad()
+def unpack_duals(out: torch.Tensor, z: dict, n: int) -> dict:
+    """Invert :func:`pack_messages` on a consensus output, into ``z`` in
+    place (returned).  Rows are divided by the agreed scalar column; a
+    worker whose neighbourhood processed no samples (column <= 1e-6) keeps
+    its dual, as a zero gradient leaves z alone on the exact path."""
+    col = out[:, -1:]
+    keep = col > 1e-6
+    denom = torch.clamp(col, min=1e-12)
+    off = 0
+    for zl in z.values():
+        flat = zl.view(n, -1)
+        size = flat.shape[1]
+        flat.copy_(torch.where(keep, out[:, off:off + size] / denom, flat))
+        off += size
+    return z
+
+
+# ---------------------------------------------------------------------------
+# Exact-consensus train step (eps = 0)
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg, opt, n: int):
+    """step(params, opt_state, batch, b) -> (params, opt_state, metrics).
+
+    ``params`` is a dict of tensors that require grad (a
+    :class:`repro_torch.models.DenseLM`'s ``params()``); ``batch`` the
+    global batch in n contiguous worker blocks; ``b`` the (n,) minibatch
+    sizes of this epoch.  ``opt`` updates params and its state in place.
+    """
+
+    def step(params, opt_state, batch, b):
+        gb = batch["tokens"].shape[0]
+        per = gb // n
+        b = _as_b(b, batch["tokens"].device)
+        sw = seq_weights_from_b(b, gb, n)
+        with torch.enable_grad():
+            total, m = lm_loss(params, cfg, batch, sw)
+            grads = torch.autograd.grad(total, list(params.values()))
+        opt_state = opt.apply(dict(zip(params, grads)), opt_state, params)
+        metrics = {"loss": m["loss"].detach(), "ntok": m["ntok"],
+                   "global_batch": torch.clamp(b, max=per).sum()}
+        return params, opt_state, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Decentralised gossip train step (per-worker dual replicas)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def _prox_leaf(z_leaf, w0_leaf, beta_t: float, radius: Optional[float]):
+    """Eq.-7 prox with h(w) = ||w - w0||^2: fp32 math, w0's dtype out."""
+    return kops.dual_update(z_leaf, w0_leaf, beta_t, radius).to(w0_leaf.dtype)
+
+
+def make_gossip_train_step(cfg, n: int, amb: AMBConfig):
+    """Returns (init_state, step) for the decentralised AMB protocol.
+
+    State: ``z`` — per-worker duals, each leaf (n, *param) fp32; ``w0`` —
+    the shared initial parameters (prox anchor, their own dtypes); ``t`` —
+    the epoch count.  step(state, batch, b) -> (state, metrics).
+    """
+    beta, radius = amb.beta, amb.radius
+    strategy = make_strategy(amb.consensus, n, rounds=amb.gossip_rounds,
+                             graph=amb.graph, lazy=amb.lazy,
+                             torus_shape=amb.torus_shape)
+
+    def init_state(params: dict) -> dict:
+        return {"z": {k: torch.zeros((n,) + tuple(p.shape),
+                                     dtype=torch.float32, device=p.device)
+                      for k, p in params.items()},
+                "w0": {k: p.detach() for k, p in params.items()},
+                "t": 0}
+
+    def step(state, batch, b):
+        device = batch["tokens"].device
+        gb = batch["tokens"].shape[0]
+        per = gb // n
+        t = state["t"]
+        beta_t = beta(t + 1)                 # beta used for w(t)
+        sw, bw = epoch_weights(_as_b(b, device), n, per)
+        nb = n * bw
+        z, w0 = state["z"], state["w0"]
+        msg = torch.empty((n, _width(z, n) + 1), dtype=torch.float32,
+                          device=device)
+        losses = []
+        for i in range(n):
+            p_i = {k: _prox_leaf(z[k][i], w, beta_t, radius).requires_grad_()
+                   for k, w in w0.items()}
+            batch_i = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            with torch.enable_grad():
+                total, m = lm_loss(p_i, cfg, batch_i, sw[i])
+                g_i = torch.autograd.grad(total, list(p_i.values()))
+            del p_i, total
+            with torch.no_grad():
+                _pack_row(msg[i], [zl[i] for zl in z.values()], g_i, nb[i])
+            losses.append(m["loss"].detach())
+            del g_i, m
+        out = strategy.combine(msg)
+        del msg
+        unpack_duals(out, z, n)
+        del out
+        losses = torch.stack(losses)
+        bsum = torch.clamp(bw.sum(), min=1.0)
+        metrics = {"loss": (bw * losses).sum() / bsum,
+                   "global_batch": bw.sum(),
+                   "beta": beta(t + 2)}
+        state["t"] = t + 1
+        return state, metrics
+
+    return init_state, step
+
+
+def gossip_primal(state: dict, amb: AMBConfig) -> dict:
+    """Node-averaged primal: the train step's prox on the worker-mean dual."""
+    beta_t = amb.beta(state["t"] + 1)
+    return {k: _prox_leaf(state["z"][k].mean(dim=0), w, beta_t, amb.radius)
+            for k, w in state["w0"].items()}

@@ -1,0 +1,48 @@
+"""Public kernel wrappers: the CUDA kernel on the card, plain torch on CPU.
+
+Counterpart of ``repro.kernels.ops``.  Each wrapper asks
+:mod:`repro_torch.kernels.router` which body runs for its input tensor;
+``force`` overrides that for one call (tests, ``chip_smoke.py``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import ref, router
+from .dual_update import dual_update_cuda
+from .gossip_combine import check_out, gossip_combine_cuda
+
+
+def dual_update(z: torch.Tensor, w0: torch.Tensor, beta: float,
+                radius: Optional[float] = None,
+                force: Optional[str] = None) -> torch.Tensor:
+    """w = w0 - z/(2 beta) in fp32, optionally projected onto
+    ``||w - w0|| <= radius`` (the norm is taken over this one tensor)."""
+    if router.resolve(z, force) == "kernel":
+        w = dual_update_cuda(z, w0, beta)
+    else:
+        w = ref.dual_update_ref(z, w0, beta)
+    if radius is not None:
+        w0f = w0.float()
+        delta = w - w0f
+        nrm = torch.linalg.vector_norm(delta.reshape(-1))
+        w = w0f + delta * torch.clamp(radius / torch.clamp(nrm, min=1e-30),
+                                      max=1.0)
+    return w
+
+
+def gossip_combine(m: torch.Tensor, src: torch.Tensor, weights,
+                   out: Optional[torch.Tensor] = None,
+                   force: Optional[str] = None) -> torch.Tensor:
+    """One gossip round on the (n, D) stack: ``out[i] = sum_k weights[k] *
+    m[src[k, i]]``, fp32; ``src`` is the (K, n) tap table.  ``out``, if
+    given, receives the result: an (n, D) fp32 buffer apart from ``m``."""
+    if router.resolve(m, force) == "kernel":
+        return gossip_combine_cuda(m, src, weights, out)
+    res = ref.gossip_combine_ref(m, src, weights)
+    if out is None:
+        return res
+    check_out(m, out)
+    return out.copy_(res)

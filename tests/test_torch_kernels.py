@@ -1,0 +1,155 @@
+"""The port's kernel wrappers against the JAX package's Pallas kernels.
+
+On the CPU the wrappers run their plain PyTorch versions; the Pallas
+kernels run in interpret mode, as ``tests/test_kernels.py`` runs them.
+Inputs come from numpy and pass to both frameworks.
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.dist import consensus as jcons  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.dual_update import dual_update_pallas  # noqa: E402
+from repro.kernels.gossip_combine import gossip_combine_pallas  # noqa: E402
+from repro_torch.dist.consensus import GossipConsensus  # noqa: E402
+from repro_torch.kernels import ops, ref, router  # noqa: E402
+from repro_torch.kernels.dual_update import dual_update_cuda  # noqa: E402
+from repro_torch.kernels.gossip_combine import (  # noqa: E402
+    gossip_combine_cuda)
+
+TOL = dict(rtol=1e-5, atol=1e-5)   # fp32 elementwise math on both sides
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("shape", [(7,), (128,), (1000, 37), (3, 5, 129)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dual_update_matches_pallas_and_ref(shape, dtype):
+    rng = np.random.default_rng(0)
+    z = rng.standard_normal(shape).astype(np.float32)
+    w0 = jnp.asarray(rng.standard_normal(shape), dtype)
+    beta = 1.7
+    pallas = dual_update_pallas(jnp.asarray(z), w0, jnp.float32(beta),
+                                interpret=True, block=2048)
+    want = jref.dual_update_ref(jnp.asarray(z), w0, jnp.float32(beta))
+    got = ops.dual_update(_t(z), _t(w0, getattr(torch, dtype)), beta)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(
+        ref.dual_update_ref(_t(z), _t(w0, getattr(torch, dtype)),
+                            beta).numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("radius", [0.5, 1e3])
+def test_dual_update_radius_projection(radius):
+    rng = np.random.default_rng(1)
+    z = rng.standard_normal((16, 9)).astype(np.float32) * 30.0
+    w0 = rng.standard_normal((16, 9)).astype(np.float32)
+    want = jops.dual_update(jnp.asarray(z), jnp.asarray(w0),
+                            jnp.float32(0.9), radius=radius, force="ref")
+    got = ops.dual_update(_t(z), _t(w0), 0.9, radius=radius)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert float(torch.linalg.vector_norm(got - _t(w0))) <= radius * (1 + 1e-5)
+
+
+@pytest.mark.parametrize("k,n", [(2, 100), (3, 4096), (5, 999)])
+def test_gossip_combine_matches_pallas(k, n):
+    rng = np.random.default_rng(2)
+    msgs = rng.standard_normal((k, n)).astype(np.float32)
+    w = rng.random(k).astype(np.float32)
+    w /= w.sum()
+    pallas = gossip_combine_pallas(jnp.asarray(msgs), jnp.asarray(w),
+                                   interpret=True, block_rows=16)
+    # one output row that reads source row k in tap k
+    src = torch.arange(k, dtype=torch.int32)[:, None]
+    got = ops.gossip_combine(_t(msgs), src, w)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize("n,graph", [(2, "ring"), (4, "ring"),
+                                     (4, "torus")])
+def test_gossip_combine_matches_rolled_taps(n, graph):
+    """One round equals ``_roll_taps`` + the Pallas reference combine."""
+    rng = np.random.default_rng(3)
+    m = rng.standard_normal((n, 257)).astype(np.float32)
+    jstrat = jcons.GossipConsensus(n, 1, graph)
+    stacked = jcons._roll_taps(jnp.asarray(m), jstrat.taps)
+    want = jref.gossip_combine_ref(stacked.reshape(jstrat.taps.k, -1),
+                                   jnp.asarray(jstrat.taps.weights))
+    strat = GossipConsensus(n, 1, graph)
+    assert strat.taps.offsets == jstrat.taps.offsets
+    np.testing.assert_array_equal(strat.taps.weights, jstrat.taps.weights)
+    got = ops.gossip_combine(_t(m), strat.source_rows("cpu"),
+                             strat.taps.weights)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(n, -1),
+                               **TOL)
+
+
+def test_router_picks_plain_version_on_cpu_and_refuses_kernel():
+    x = torch.zeros(3)
+    assert router.resolve(x) == "ref"
+    assert router.resolve(x, force="ref") == "ref"
+    with pytest.raises(ValueError):
+        router.resolve(x, force="kernel")
+    with pytest.raises(ValueError):
+        router.resolve(x, force="pallas")
+    with pytest.raises(ValueError):
+        dual_update_cuda(x, x, 1.0)
+    with pytest.raises(ValueError):
+        gossip_combine_cuda(x[None], torch.zeros((1, 1), dtype=torch.int32),
+                            [1.0])
+
+
+def test_cpu_path_counts_no_launches():
+    router.reset_launches()
+    ops.dual_update(torch.ones(4), torch.ones(4), 2.0)
+    ops.gossip_combine(torch.ones((2, 3)),
+                       torch.tensor([[0, 1], [1, 0]], dtype=torch.int32),
+                       [0.5, 0.5])
+    assert router.launches() == {}
+
+
+def test_gossip_combine_writes_into_out_apart_from_m():
+    m = torch.arange(12, dtype=torch.float32).reshape(2, 6)
+    src = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32)
+    out = torch.empty_like(m)
+    got = ops.gossip_combine(m, src, [0.25, 0.75], out=out)
+    assert got is out
+    torch.testing.assert_close(out, ops.gossip_combine(m, src, [0.25, 0.75]),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="overlap"):
+        ops.gossip_combine(m, src, [0.25, 0.75], out=m)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        ops.gossip_combine(m, src, [0.25, 0.75], out=torch.empty((2, 5)))
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_versions_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    router.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        z = torch.randn(100003, generator=gen, device="cuda")
+        w0 = torch.randn(100003, generator=gen, device="cuda").to(dtype)
+        got = ops.dual_update(z, w0, 3.5)
+        want = ops.dual_update(z, w0, 3.5, force="ref")
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    strat = GossipConsensus(4, 1, "torus")
+    m = torch.randn((4, 1001), generator=gen, device="cuda")
+    src = strat.source_rows("cuda")
+    got = ops.gossip_combine(m, src, strat.taps.weights)
+    want = ops.gossip_combine(m, src, strat.taps.weights, force="ref")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    out = torch.empty_like(m)
+    assert ops.gossip_combine(m, src, strat.taps.weights, out=out) is out
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-6)
+    assert router.launches() == {"dual_update": 2, "gossip_combine": 2}
