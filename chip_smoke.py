@@ -11,12 +11,17 @@ Phases (any failure ends the run with a non-zero exit code):
      small shapes and at the shapes the main path gives it; print the
      error, the kernel's, the plain version's and one library call's
      median time (CUDA events), and the least time the card could take;
-  4. a small reference check: the smoke-size session on the card (CUDA
-     kernels) against the same session on the CPU (plain versions);
+     for the quantized round, also the time of its two plain-torch steps
+     (row grids and draws);
+  4. a small reference check: the quantized gossip strategy on a
+     smoke-width message stack, and the smoke-size sessions (exact, gossip,
+     gossip_q8), on the card (CUDA kernels) against the CPU (plain
+     versions), the quantized ones with rounding draws made on the CPU;
   5. the main path: AMBSession on qwen2-1.5b at full width, exact
-     consensus, all 28 layers, 3 epochs; then ring gossip (r = 5), cut to
-     8 layers, 3 epochs; launch counts are reset just before each and
-     read just after;
+     consensus, all 28 layers, 3 epochs; ring gossip (r = 5), cut to 8
+     layers; ring gossip_q8 (20 rounds) and gossip_q4 (40 rounds), cut to
+     4 layers; 3 epochs each; launch counts are reset just before each
+     session and read just after;
   6. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
@@ -35,9 +40,12 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 N_WORKERS, PER_WORKER, SEQ = 4, 8, 256      # the TrainSpec defaults, n = 4
 EPOCHS = 3
 GOSSIP_LAYERS = 8              # depth cut for the gossip session (memory)
+QUANT_LAYERS = 4               # depth cut for the quantized sessions
+GOSSIP_ROUNDS = 5              # x 32/bits for the quantized strategies
 DUAL_TOL = 2e-6    # multiply by 0.5/beta vs divide by 2 beta: one rounding
 COMBINE_TOL = 1e-6  # same products and sums in the same order: expect 0
 SESSION_TOL = 1e-4  # fp32 smoke session, card vs CPU (summation order)
+CHUNK = 1 << 24    # columns per slice for the plain versions at full shape
 
 
 def fail(msg: str) -> None:
@@ -177,12 +185,175 @@ def check_gossip_combine(torch, ops, GossipConsensus, d_full: int):
     return worst, full
 
 
+def in_chunks(fn, d: int) -> None:
+    """``fn(a, b)`` on the column slices [a, b) of an (n, d) stack: at the
+    main path's shape the plain versions' temporaries do not fit beside
+    their inputs in one piece, and they are elementwise per column."""
+    for a in range(0, d, CHUNK):
+        fn(a, min(a + CHUNK, d))
+
+
+def check_stochastic_quantize(torch, ops, ref, consensus, d_full: int):
+    """Levels and the new replica bit for bit against the plain version;
+    at the main path's shape, also the time of the round's two plain-torch
+    steps (the row grids and the draws)."""
+    row_grids = consensus.row_grids
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst, full = 0.0, None
+    for d in (1001, 129, d_full):
+        m = torch.randn((N_WORKERS, d), generator=gen, device="cuda")
+        h = torch.randn((N_WORKERS, d), generator=gen, device="cuda") * 0.3
+        rnd = torch.rand((N_WORKERS, d), generator=gen, device="cuda")
+        for levels in (255.0, 15.0):
+            lo, scale = row_grids(m, h, levels)
+            lvl, h_new = ops.stochastic_quantize(m, h, rnd, lo, scale, levels,
+                                                 force="kernel")
+            torch.cuda.synchronize()
+            flips, err = 0, 0.0
+
+            def compare(a, b):
+                nonlocal flips, err
+                want_l, want_h = ref.stochastic_quantize_ref(
+                    m[:, a:b], h[:, a:b], rnd[:, a:b], lo, scale, levels)
+                flips += int((want_l != lvl[:, a:b]).sum())
+                err = max(err, max_abs_err(torch, want_h, h_new[:, a:b]))
+
+            in_chunks(compare, d)
+            worst = max(worst, err, float(flips))
+            line = (f"stochastic_quantize n={N_WORKERS} D={d} "
+                    f"levels={levels:g} level_mismatches={flips} "
+                    f"h_new_max_abs_err={err:.3g}")
+            if flips or err:
+                fail(f"{line}: levels and h_new must match bit for bit")
+            print(line, flush=True)
+        if d == d_full:
+            # in place over h and into a kept plane, as the main path calls it
+            k_ms = time_ms(torch, lambda: ops.stochastic_quantize(
+                m, h, rnd, lo, scale, 15.0, out=(lvl, h), force="kernel"), 5)
+            p_ms = time_ms(torch, lambda: in_chunks(
+                lambda a, b: ref.stochastic_quantize_ref(
+                    m[:, a:b], h[:, a:b], rnd[:, a:b], lo, scale, 15.0),
+                d), 3)
+            n_el = m.numel()
+            b_ms, b_by = bound(17 * n_el, 8 * n_el)
+            full = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                        bound_ms=b_ms, bound_by=b_by,
+                        shape=f"n={N_WORKERS} D={d}, in place over h")
+            print(f"stochastic_quantize n={N_WORKERS} D={d} ms={k_ms:.4f} "
+                  f"plain_ms={p_ms:.4f} (column slices of {CHUNK}) "
+                  f"library_ms=none bound_ms={b_ms:.4f}", flush=True)
+            g_ms = time_ms(torch, lambda: row_grids(m, h, 255.0), 3)
+            draws = consensus.epoch_draws(0, 0)
+            r_ms = time_ms(torch, lambda: draws(0, rnd), 3)
+            print(f"quantized round, plain torch steps at n={N_WORKERS} "
+                  f"D={d}: row_grids ms={g_ms:.4f} draws ms={r_ms:.4f}",
+                  flush=True)
+        del m, h, rnd, lvl, h_new
+        gc.collect()
+        torch.cuda.empty_cache()
+    return worst, full
+
+
+def check_quantized_combine(torch, ops, ref, GossipConsensus, d_full: int):
+    """Output and neighbour replicas against the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst, full = 0.0, None
+    for graph, d in (("ring", 1001), ("torus", 129), ("ring", d_full)):
+        strat = GossipConsensus(N_WORKERS, 1, graph)
+        src, w = strat.source_rows("cuda"), strat.taps.weights
+        k = len(w)
+        m = torch.randn((N_WORKERS, d), generator=gen, device="cuda")
+        hnbr = torch.randn((k - 1, N_WORKERS, d), generator=gen,
+                           device="cuda")
+        lo = torch.randn((N_WORKERS, 1), generator=gen, device="cuda")
+        scale = torch.rand((N_WORKERS, 1), generator=gen,
+                           device="cuda") * 0.01
+        for levels in (255, 15):
+            lvl = torch.randint(0, levels + 1, (N_WORKERS, d), generator=gen,
+                                device="cuda", dtype=torch.uint8)
+            out, hnbr_new = ops.quantized_combine(m, hnbr, lvl, lo, scale,
+                                                  src, w, force="kernel")
+            torch.cuda.synchronize()
+            err = 0.0
+
+            def compare(a, b):
+                nonlocal err
+                want_o, want_h = ref.quantized_combine_ref(
+                    m[:, a:b], hnbr[:, :, a:b], lvl[:, a:b], lo, scale, src,
+                    w)
+                err = max(err, max_abs_err(torch, want_o, out[:, a:b]),
+                          max_abs_err(torch, want_h, hnbr_new[:, :, a:b]))
+
+            in_chunks(compare, d)
+            del out, hnbr_new
+            worst = max(worst, err)
+            line = (f"quantized_combine {graph} n={N_WORKERS} K={k} D={d} "
+                    f"levels={levels} max_abs_err={err:.3g}")
+            if err > COMBINE_TOL:
+                fail(f"{line} > {COMBINE_TOL}")
+            print(line, flush=True)
+        if d == d_full:
+            # in place over m and hnbr, as the main path calls it
+            k_ms = time_ms(torch, lambda: ops.quantized_combine(
+                m, hnbr, lvl, lo, scale, src, w, out=(m, hnbr),
+                force="kernel"), 5)
+            p_ms = time_ms(torch, lambda: in_chunks(
+                lambda a, b: ref.quantized_combine_ref(
+                    m[:, a:b], hnbr[:, :, a:b], lvl[:, a:b], lo, scale, src,
+                    w), d), 3)
+            n_el = m.numel()
+            b_ms, b_by = bound(n_el * (4 + 1 + 4 + 8 * (k - 1)),
+                               n_el * 4 * k)
+            full = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                        bound_ms=b_ms, bound_by=b_by,
+                        shape=f"ring n={N_WORKERS} K={k} D={d}, in place")
+            print(f"quantized_combine ring n={N_WORKERS} K={k} D={d} "
+                  f"ms={k_ms:.4f} plain_ms={p_ms:.4f} (column slices of "
+                  f"{CHUNK}) library_ms=none bound_ms={b_ms:.4f}",
+                  flush=True)
+        del m, hnbr, lvl
+        gc.collect()
+        torch.cuda.empty_cache()
+    return worst, full
+
+
+def cpu_draws(torch, rt):
+    """A draw source whose draws come from a CPU generator, moved to the
+    card: card and CPU runs then round with the same numbers."""
+    def source(seed, epoch):
+        on_cpu = rt.dist.consensus.epoch_draws(seed, epoch)
+
+        def draws(k, out):
+            return out.copy_(on_cpu(k, torch.empty(out.shape)))
+        return draws
+    return source
+
+
+def check_quantized_strategy(torch, rt, d: int) -> None:
+    """gossip_q8 and gossip_q4 on one smoke-width message stack: the card
+    (kernels) against the CPU (plain versions), same draws: expect 0."""
+    msg = torch.randn((N_WORKERS, d), generator=torch.Generator().manual_seed(
+        5)) * 3.0
+    draws = cpu_draws(torch, rt)(0, 0)
+    for name in ("gossip_q8", "gossip_q4"):
+        strat = rt.dist.consensus.make_strategy(name, N_WORKERS,
+                                                rounds=GOSSIP_ROUNDS)
+        want = strat.combine(msg.clone(), draws)
+        got = strat.combine(msg.cuda(), draws).cpu()
+        err = max_abs_err(torch, got, want)
+        print(f"reference {name} strategy: n={N_WORKERS} D={d} "
+              f"rounds={strat.rounds} card vs CPU max_abs_err={err:.3g}",
+              flush=True)
+        if err != 0.0:
+            fail(f"{name} strategy: card vs CPU differ by {err}")
+
+
 def reference_check(torch, rt) -> None:
     """Smoke-size fp32 sessions: card (kernels) vs CPU (plain versions)."""
     cfg = dataclasses.replace(rt.configs.smoke_config("qwen2-1.5b"),
                               dtype="float32")
     b = [2, 1, 0, 2]
-    for consensus in ("exact", "gossip"):
+    for consensus in ("exact", "gossip", "gossip_q8"):
         results = []
         for device in ("cpu", "cuda"):
             gen = torch.Generator().manual_seed(0)
@@ -193,7 +364,8 @@ def reference_check(torch, rt) -> None:
                                  batch_per_worker=2, seq_len=16),
                 rt.api.ClockSpec(kind="simulated"),
                 rt.api.ConsensusSpec(consensus=consensus), cfg=cfg,
-                params=params, device=device)
+                params=params, device=device,
+                draw_source=cpu_draws(torch, rt))
             src = rt.data.SyntheticSource(cfg.vocab_size, 16, N_WORKERS, 2,
                                           device="cpu")
             losses = [s.step({k: v.to(device) for k, v in
@@ -218,7 +390,7 @@ def run_session(torch, rt, cfg, consensus: str) -> dict:
                          seq_len=SEQ),
         rt.api.ClockSpec(kind="simulated"),
         rt.api.ConsensusSpec(consensus=consensus, graph="ring",
-                             gossip_rounds=5),
+                             gossip_rounds=GOSSIP_ROUNDS),
         cfg=cfg, device="cuda")
     source = rt.data.SyntheticSource(cfg.vocab_size, SEQ, N_WORKERS,
                                      PER_WORKER, seed=0, device="cuda")
@@ -265,7 +437,9 @@ def main() -> int:
     import repro_torch.api
     import repro_torch.configs
     import repro_torch.data
+    import repro_torch.dist
     import repro_torch.models
+    from repro_torch.dist import consensus
     from repro_torch.dist.consensus import GossipConsensus
     from repro_torch.kernels import build, ops, ref, router
     import repro_torch as rt
@@ -282,43 +456,63 @@ def main() -> int:
 
     full = rt.configs.get_config("qwen2-1.5b")
     gossip_cfg = dataclasses.replace(full, num_layers=GOSSIP_LAYERS)
+    quant_cfg = dataclasses.replace(full, num_layers=QUANT_LAYERS)
+    d_quant = dense_param_count(quant_cfg) + 1
     beta = rt.core.BetaSchedule(50.0, float(N_WORKERS * PER_WORKER),
                                 200.0)(2)
     du_err, du = check_dual_update(
         torch, ops, ref, (full.vocab_size, full.d_model), beta)
     gc_err, gcomb = check_gossip_combine(
         torch, ops, GossipConsensus, dense_param_count(gossip_cfg) + 1)
+    sq_err, squant = check_stochastic_quantize(torch, ops, ref, consensus,
+                                               d_quant)
+    qc_err, qcomb = check_quantized_combine(torch, ops, ref, GossipConsensus,
+                                            d_quant)
 
+    smoke = rt.configs.smoke_config("qwen2-1.5b")
+    check_quantized_strategy(torch, rt, dense_param_count(smoke) + 1)
     reference_check(torch, rt)
 
-    exact = run_session(torch, rt, full, "exact")
-    gossip = run_session(torch, rt, gossip_cfg, "gossip")
-    if exact.get("dual_update", 0) < 1:
-        fail("the exact session never launched dual_update")
-    if gossip.get("dual_update", 0) < 1:
-        fail("the gossip session never launched dual_update")
-    if gossip.get("gossip_combine", 0) != 5 * EPOCHS:
-        fail(f"gossip_combine launched {gossip.get('gossip_combine', 0)} "
-             f"times, expected {5 * EPOCHS}")
+    runs = {"exact": run_session(torch, rt, full, "exact"),
+            "gossip": run_session(torch, rt, gossip_cfg, "gossip"),
+            "gossip_q8": run_session(torch, rt, quant_cfg, "gossip_q8"),
+            "gossip_q4": run_session(torch, rt, quant_cfg, "gossip_q4")}
+    for name, counts in runs.items():
+        if counts.get("dual_update", 0) < 1:
+            fail(f"the {name} session never launched dual_update")
+    if runs["gossip"].get("gossip_combine", 0) != GOSSIP_ROUNDS * EPOCHS:
+        fail(f"gossip_combine launched "
+             f"{runs['gossip'].get('gossip_combine', 0)} times, expected "
+             f"{GOSSIP_ROUNDS * EPOCHS}")
+    for name, bits in (("gossip_q8", 8), ("gossip_q4", 4)):
+        want = {"dual_update": 15 * N_WORKERS * EPOCHS,
+                "stochastic_quantize": GOSSIP_ROUNDS * 32 // bits * EPOCHS,
+                "quantized_combine": GOSSIP_ROUNDS * 32 // bits * EPOCHS}
+        if runs[name] != want:
+            fail(f"{name} launched {runs[name]}, expected {want}")
+
+    def launches(name):
+        return sum(c.get(name, 0) for c in runs.values())
 
     def per_epoch(name):
-        return {s: c[name] / EPOCHS for s, c in
-                (("exact", exact), ("gossip", gossip)) if name in c}
+        return {s: c[name] / EPOCHS for s, c in runs.items() if name in c}
 
-    du_row = du[torch.float32]
+    def row(name, replaces, err, timing):
+        return dict(name=name, route="cuda",
+                    source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                    replaces=replaces, launches=launches(name),
+                    launches_per_epoch=per_epoch(name), max_abs_err=err,
+                    **timing)
+
     kernels = [
-        dict(name="dual_update", route="cuda",
-             source="src/repro_torch/kernels/csrc/dual_update.cu",
-             replaces="src/repro/kernels/dual_update.py:55",
-             launches=exact["dual_update"] + gossip["dual_update"],
-             launches_per_epoch=per_epoch("dual_update"),
-             max_abs_err=du_err, **du_row),
-        dict(name="gossip_combine", route="cuda",
-             source="src/repro_torch/kernels/csrc/gossip_combine.cu",
-             replaces="src/repro/kernels/gossip_combine.py:65",
-             launches=gossip["gossip_combine"],
-             launches_per_epoch=per_epoch("gossip_combine"),
-             max_abs_err=gc_err, **gcomb),
+        row("dual_update", "src/repro/kernels/dual_update.py:55", du_err,
+            du[torch.float32]),
+        row("gossip_combine", "src/repro/kernels/gossip_combine.py:65",
+            gc_err, gcomb),
+        row("stochastic_quantize", "src/repro/kernels/gossip_combine.py:131",
+            sq_err, squant),
+        row("quantized_combine", "src/repro/kernels/gossip_combine.py:194",
+            qc_err, qcomb),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

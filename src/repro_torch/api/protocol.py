@@ -61,24 +61,27 @@ class GossipProtocol(TrainProtocol):
 
     mode = "gossip"
 
-    def __init__(self, cfg, n: int, amb: AMBConfig):
+    def __init__(self, cfg, n: int, amb: AMBConfig, draw_source=None):
         self.amb = amb
-        self.init, self.step = make_gossip_train_step(cfg, n, amb)
+        self.init, self.step = make_gossip_train_step(cfg, n, amb,
+                                                      draw_source)
 
     def primal(self, state):
         return gossip_primal(state, self.amb)
 
 
-def build_protocol(cfg, n: int, amb: AMBConfig, *,
-                   optimizer=None) -> TrainProtocol:
+def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
+                   draw_source=None) -> TrainProtocol:
     """Exact consensus runs the weighted step under ``optimizer`` (default
     dual averaging with ``amb``'s beta); any other consensus runs the
-    decentralised dual-averaging protocol."""
+    decentralised dual-averaging protocol, whose quantized gossip takes
+    its rounding draws from ``draw_source`` (see
+    :func:`~repro_torch.dist.amb.make_gossip_train_step`)."""
     if amb.consensus != "exact":
         if optimizer is not None:
             raise ValueError("the gossip protocol runs the paper's dual "
                              "averaging; pass no optimizer")
-        return GossipProtocol(cfg, n, amb)
+        return GossipProtocol(cfg, n, amb, draw_source)
     if optimizer is None:
         optimizer = DualAveragingOpt(beta=amb.beta, radius=amb.radius)
     return ExactProtocol(cfg, n, optimizer)

@@ -42,11 +42,14 @@ class AMBSession:
       params: initial parameters, a :class:`DenseLM` or a dict of tensors
         in its layout; default: random from ``train.seed``.
       device: where the session runs ("cuda" unless told otherwise).
+      draw_source: ``(seed, epoch) -> draws(k, out)``, the quantized
+        gossip's rounding draws; default a ``torch.Generator`` on the
+        device per round (:func:`repro_torch.dist.consensus.epoch_draws`).
     """
 
     def __init__(self, train: TrainSpec, clock: Optional[ClockSpec] = None,
                  consensus: Optional[ConsensusSpec] = None, *, cfg=None,
-                 params=None, device="cuda"):
+                 params=None, device="cuda", draw_source=None):
         self.device = resolve_device(device)
         self.train = train
         self.clock_spec = clock if clock is not None else ClockSpec()
@@ -61,7 +64,8 @@ class AMBSession:
                                 train.batch_per_worker)
         self.protocol = build_protocol(
             self.cfg, self.n_workers,
-            self.consensus_spec.to_amb_config(self.global_batch))
+            self.consensus_spec.to_amb_config(self.global_batch, train.seed),
+            draw_source=draw_source)
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(train.seed)

@@ -60,7 +60,7 @@ class ClockSpec:
 class ConsensusSpec:
     """Consensus strategy and the dual-averaging beta schedule."""
 
-    consensus: str = "exact"          # exact | gossip
+    consensus: str = "exact"          # exact | gossip | gossip_q8 | gossip_q4
     graph: str = "ring"               # ring | torus
     gossip_rounds: int = 5
     torus_shape: Optional[Tuple[int, int]] = None
@@ -74,9 +74,10 @@ class ConsensusSpec:
         mu = float(global_batch) if self.beta_mu is None else self.beta_mu
         return BetaSchedule(k=self.beta_k, mu=mu, scale=self.beta_scale)
 
-    def to_amb_config(self, global_batch: int):
+    def to_amb_config(self, global_batch: int, seed: int = 0):
         from ..dist.amb import AMBConfig
         return AMBConfig(consensus=self.consensus,
                          gossip_rounds=self.gossip_rounds, graph=self.graph,
                          torus_shape=self.torus_shape, lazy=self.lazy,
-                         beta=self.beta(global_batch), radius=self.radius)
+                         beta=self.beta(global_batch), radius=self.radius,
+                         seed=seed)

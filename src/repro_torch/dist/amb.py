@@ -9,39 +9,42 @@ Counterpart of ``repro.dist.amb``:
     keeps its own dual ``z_i``, takes its masked gradient at its own primal
     ``w_i = prox(z_i)``, packs ``n b_i (z_i + g_i)`` with the scalar
     ``n b_i`` appended (eq. 6), and the stack goes through the consensus
-    strategy.
+    strategy (exact, fp32 gossip, or quantized gossip with the epoch's
+    rounding draws from ``(seed, t)``).
 
 The workers are the leading dim of each state tensor.  Where the JAX step
 vmaps the workers' gradients, a Python loop takes them one at a time and
 writes each worker's message row as soon as its gradient exists, so one
 worker's activations and gradient are live at a time.  The gossip rounds
-reuse the message stack as one of their two buffers, and the dual is
-updated in place.  Only the uncoded placement (redundancy 1) is ported.
+reuse the message stack (fp32 gossip: as one of two round buffers;
+quantized gossip: as the round's output), and the dual is updated in
+place.  Only the uncoded placement (redundancy 1) is ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ..core.dual_averaging import BetaSchedule
 from ..kernels import ops as kops
 from ..models import lm_loss
-from .consensus import make_strategy
+from .consensus import epoch_draws, make_strategy
 
 
 @dataclasses.dataclass(frozen=True)
 class AMBConfig:
     """Static AMB step configuration (consensus + dual-averaging knobs)."""
 
-    consensus: str = "exact"          # exact | gossip
+    consensus: str = "exact"          # exact | gossip | gossip_q8 | gossip_q4
     gossip_rounds: int = 5
     graph: str = "ring"
     torus_shape: Optional[tuple] = None
     lazy: float = 0.5
     beta: BetaSchedule = BetaSchedule()   # gossip-path dual averaging
     radius: Optional[float] = None
+    seed: int = 0                     # quantized-gossip rounding draws
 
 
 # ---------------------------------------------------------------------------
@@ -175,14 +178,18 @@ def _prox_leaf(z_leaf, w0_leaf, beta_t: float, radius: Optional[float]):
     return kops.dual_update(z_leaf, w0_leaf, beta_t, radius).to(w0_leaf.dtype)
 
 
-def make_gossip_train_step(cfg, n: int, amb: AMBConfig):
+def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
+                           draw_source: Optional[Callable] = None):
     """Returns (init_state, step) for the decentralised AMB protocol.
 
     State: ``z`` — per-worker duals, each leaf (n, *param) fp32; ``w0`` —
     the shared initial parameters (prox anchor, their own dtypes); ``t`` —
     the epoch count.  step(state, batch, b) -> (state, metrics).
+    ``draw_source(seed, t)`` gives epoch t's quantized-gossip rounding
+    draws (default :func:`~repro_torch.dist.consensus.epoch_draws`).
     """
     beta, radius = amb.beta, amb.radius
+    draw_source = draw_source or epoch_draws
     strategy = make_strategy(amb.consensus, n, rounds=amb.gossip_rounds,
                              graph=amb.graph, lazy=amb.lazy,
                              torus_shape=amb.torus_shape)
@@ -218,7 +225,7 @@ def make_gossip_train_step(cfg, n: int, amb: AMBConfig):
                 _pack_row(msg[i], [zl[i] for zl in z.values()], g_i, nb[i])
             losses.append(m["loss"].detach())
             del g_i, m
-        out = strategy.combine(msg)
+        out = strategy.combine(msg, draws=draw_source(amb.seed, t))
         del msg
         unpack_duals(out, z, n)
         del out

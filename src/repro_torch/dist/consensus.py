@@ -1,23 +1,27 @@
 """Consensus strategies on the per-worker message stack (paper §3).
 
-Counterpart of ``repro.dist.consensus`` for the exact and fp32 gossip
-strategies.  The worker dim is the leading dim of one tensor on one device.
-A ring or torus gossip round decomposes into K neighbour taps (``Taps``):
-on the TPU mesh each tap is a roll (a collective permute) and the rolled
-copies are combined by a Pallas kernel; here the (K, n) table of source
-rows (:meth:`Taps.source_rows`) drives one CUDA kernel that reads the
-neighbour rows in place (:func:`repro_torch.kernels.ops.gossip_combine`).
-Graphs that do not decompose fall back to the dense ``P @ m``.
+Counterpart of ``repro.dist.consensus`` for the exact, fp32 gossip and
+quantized gossip strategies.  The worker dim is the leading dim of one
+tensor on one device.  A ring or torus gossip round decomposes into K
+neighbour taps (``Taps``): on the TPU mesh each tap is a roll (a
+collective permute) and the rolled copies are combined by a Pallas kernel;
+here the (K, n) table of source rows (:meth:`Taps.source_rows`) drives
+CUDA kernels that read the neighbour rows in place
+(:func:`repro_torch.kernels.ops.gossip_combine`, and for quantized gossip
+:func:`~repro_torch.kernels.ops.stochastic_quantize` with
+:func:`~repro_torch.kernels.ops.quantized_combine`).  Graphs that do not
+decompose fall back to the dense operators.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core import consensus as cns
+from ..core.extensions import gossip_quantized
 from ..kernels import ops as kops
 
 
@@ -88,12 +92,39 @@ def roll_by_offset(x: torch.Tensor, taps: Taps, off) -> torch.Tensor:
     return torch.roll(full, tuple(-o for o in off), dims).reshape(x.shape)
 
 
+def epoch_draws(seed: int, epoch: int) -> Callable:
+    """The default rounding draws of one epoch's quantized gossip.
+
+    Returns ``draws(k_round, out)``, which fills ``out`` with U[0, 1) fp32
+    from a ``torch.Generator`` on ``out``'s device seeded from (seed,
+    epoch, k_round): the counterpart of ``fold_in(fold_in(PRNGKey(seed),
+    epoch), k_round)`` in ``repro.dist``.  A CUDA and a CPU generator give
+    different streams from one seed.
+    """
+    def draws(k_round: int, out: torch.Tensor) -> torch.Tensor:
+        gen = torch.Generator(device=out.device)
+        gen.manual_seed(((seed * 1_000_003 + epoch) * 1_000_003 + k_round)
+                        % (1 << 63))
+        return out.uniform_(generator=gen)
+
+    return draws
+
+
 class ConsensusStrategy:
-    """Operator on the per-worker message stack: (n, D) -> (n, D)."""
+    """Operator on the per-worker message stack: (n, D) -> (n, D).
+
+    ``draws`` is the rounding-draw source of quantized gossip (see
+    :func:`epoch_draws`); the other strategies ignore it.
+    """
 
     name: str = "base"
 
-    def combine(self, msg: torch.Tensor) -> torch.Tensor:
+    def combine(self, msg: torch.Tensor,
+                draws: Optional[Callable] = None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def wire_bytes_per_round(self, d: int) -> int:
+        """Bytes one worker sends per round for a D-element message."""
         raise NotImplementedError
 
 
@@ -104,19 +135,18 @@ class ExactConsensus(ConsensusStrategy):
     n: int
     name: str = dataclasses.field(default="exact", init=False)
 
-    def combine(self, msg):
+    def combine(self, msg, draws=None):
         return cns.exact_average(msg.float())
 
+    def wire_bytes_per_round(self, d):
+        return 4 * d          # fp32 all-reduce payload
 
-class GossipConsensus(ConsensusStrategy):
-    """r rounds of lazy-Metropolis gossip; tap-decomposed where possible.
 
-    Numerically the same operator as ``repro.core.consensus.gossip(m, P,
-    rounds)``; each ring/torus round is one
-    :func:`repro_torch.kernels.ops.gossip_combine` launch.
+class _TapGossip(ConsensusStrategy):
+    """The Metropolis P of a ring, torus or other graph, and its taps.
+
+    ``taps`` is None where P does not decompose (the dense fallback).
     """
-
-    name = "gossip"
 
     def __init__(self, n: int, rounds: int, graph: str = "ring",
                  lazy: float = 0.5, torus_shape: Optional[tuple] = None):
@@ -144,7 +174,22 @@ class GossipConsensus(ConsensusStrategy):
                                                 device=device)
         return self._src[device]
 
-    def combine(self, msg):
+    def wire_bytes_per_round(self, d):
+        k = self.taps.k if self.taps is not None else self.n
+        return 4 * d * (k - 1)     # fp32 message to each neighbour
+
+
+class GossipConsensus(_TapGossip):
+    """r rounds of lazy-Metropolis gossip; tap-decomposed where possible.
+
+    Numerically the same operator as ``repro.core.consensus.gossip(m, P,
+    rounds)``; each ring/torus round is one
+    :func:`repro_torch.kernels.ops.gossip_combine` launch.
+    """
+
+    name = "gossip"
+
+    def combine(self, msg, draws=None):
         """r rounds on the stack.  On the tap path an fp32 ``msg`` is one of
         the two round buffers and is overwritten, so two (n, D) stacks are
         live however many rounds run."""
@@ -161,16 +206,117 @@ class GossipConsensus(ConsensusStrategy):
         return m
 
 
-CONSENSUS_CHOICES = ("exact", "gossip")
+def row_grids(cur: torch.Tensor, h: torch.Tensor, levels: float,
+               chunk: int = 1 << 26) -> tuple:
+    """(lo, scale), each (n, 1): the min of each row of ``cur - h`` and
+    its range over ``levels`` (at least 1e-12).  The difference is formed
+    a chunk of one row at a time, never as an (n, D) temporary; min and
+    max are exact in any order."""
+    n, d = cur.shape
+    lo = torch.empty((n, 1), dtype=torch.float32, device=cur.device)
+    hi = torch.empty_like(lo)
+    for i in range(n):
+        parts = [torch.aminmax(cur[i, j:j + chunk] - h[i, j:j + chunk])
+                 for j in range(0, d, chunk)]
+        lo[i] = torch.stack([p.min for p in parts]).min()
+        hi[i] = torch.stack([p.max for p in parts]).max()
+    # a tensor divisor: CUDA turns a division by a host scalar into a
+    # product with its reciprocal, which can move the grid by an ulp
+    return lo, torch.clamp(hi - lo, min=1e-12) / torch.full_like(lo, levels)
+
+
+class QuantizedGossipConsensus(_TapGossip):
+    """Delta-compressed gossip (``repro_torch.core.extensions.
+    gossip_quantized``) on the taps.
+
+    Every worker keeps a public replica ``h`` of its own value and one
+    replica per neighbour tap; each round it stochastically quantizes
+    ``m - h`` onto a per-row uniform grid of ``bits`` bits, sends the
+    uint8 level plane and two grid scalars, and combines ``m <- P_ii m +
+    sum_k P_ik hnbr_k``.  Given the same per-round draws it is the dense
+    operator.  The rounds budget is scaled by the caller ((32/bits)x per
+    T_c, :func:`make_strategy`).
+    """
+
+    name = "gossip_q"
+
+    def __init__(self, n: int, rounds: int, bits: int = 8,
+                 graph: str = "ring", lazy: float = 0.5,
+                 torus_shape: Optional[tuple] = None):
+        super().__init__(n, rounds, graph, lazy, torus_shape)
+        if bits not in (4, 8):
+            raise ValueError("bits must be 4 or 8 (uint8 wire container)")
+        self.bits = int(bits)
+        self.name = f"gossip_q{bits}"
+
+    def wire_bytes_per_round(self, d):
+        # the level plane (two 4-bit levels per byte, as _pack sends it)
+        # plus the two fp32 grid scalars, to each neighbour
+        k = self.taps.k if self.taps is not None else self.n
+        per_msg = (-(-d // 2) if self.bits == 4 else d) + 8
+        return per_msg * (k - 1)
+
+    def _pack(self, lvl: torch.Tensor) -> torch.Tensor:
+        """4-bit wire format: two levels per byte (lossless)."""
+        if self.bits != 4:
+            return lvl
+        if lvl.shape[1] % 2:
+            lvl = torch.nn.functional.pad(lvl, (0, 1))
+        return lvl[:, ::2] | (lvl[:, 1::2] << 4)
+
+    def _unpack(self, packed: torch.Tensor, d: int) -> torch.Tensor:
+        if self.bits != 4:
+            return packed
+        both = torch.stack([packed & 0xF, packed >> 4], dim=-1)
+        return both.reshape(both.shape[0], -1)[:, :d]
+
+    def combine(self, msg, draws=None):
+        """r rounds on the stack; ``draws(k, out)`` fills round k's
+        U[0, 1) draws.  On the tap path an fp32 ``msg`` is overwritten with
+        the result, and the replicas, draws and levels are updated in
+        place round after round: K + 1 fp32 and one uint8 (n, D) stacks
+        are live beside the message.  On one card no byte crosses a link,
+        so the rounds read the unpacked level plane."""
+        if draws is None:
+            raise ValueError("QuantizedGossipConsensus needs a draw source")
+        m = msg.float()
+        if self.n < 2 or self.rounds < 1:
+            return m
+        # the fused path needs the self tap first (w[0] multiplies m)
+        if self.taps is None or any(self.taps.offsets[0]):
+            return gossip_quantized(m, self.p, self.rounds, self.bits, draws)
+        levels = float(2 ** self.bits - 1)
+        src, w = self.source_rows(m.device), self.taps.weights
+        h = torch.zeros_like(m)
+        hnbr = torch.zeros((self.taps.k - 1,) + tuple(m.shape),
+                           dtype=torch.float32, device=m.device)
+        rnd = torch.empty_like(m)
+        lvl = torch.empty(m.shape, dtype=torch.uint8, device=m.device)
+        for k in range(self.rounds):
+            lo, scale = row_grids(m, h, levels)
+            draws(k, rnd)
+            kops.stochastic_quantize(m, h, rnd, lo, scale, levels,
+                                     out=(lvl, h))
+            kops.quantized_combine(m, hnbr, lvl, lo, scale, src, w,
+                                   out=(m, hnbr))
+        return m
+
+
+CONSENSUS_CHOICES = ("exact", "gossip", "gossip_q8", "gossip_q4")
 
 
 def make_strategy(name: str, n: int, *, rounds: int = 5, graph: str = "ring",
                   lazy: float = 0.5,
                   torus_shape: Optional[tuple] = None) -> ConsensusStrategy:
-    """Build a strategy by name (the quantized ones are not ported yet)."""
+    """Build a strategy by name.  Quantized strategies get (32/bits)x the
+    rounds: the same byte budget per T_c."""
     if name == "exact":
         return ExactConsensus(n)
     if name == "gossip":
         return GossipConsensus(n, rounds, graph, lazy, torus_shape)
+    if name in ("gossip_q8", "gossip_q4"):
+        bits = int(name[-1])
+        return QuantizedGossipConsensus(n, rounds * 32 // bits, bits, graph,
+                                        lazy, torus_shape)
     raise ValueError(f"unknown consensus strategy {name!r}; "
                      f"choose from {CONSENSUS_CHOICES}")

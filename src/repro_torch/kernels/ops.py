@@ -13,6 +13,8 @@ import torch
 from . import ref, router
 from .dual_update import dual_update_cuda
 from .gossip_combine import check_out, gossip_combine_cuda
+from .quantized_combine import check_combine_out, quantized_combine_cuda
+from .stochastic_quantize import check_quantize_out, stochastic_quantize_cuda
 
 
 def dual_update(z: torch.Tensor, w0: torch.Tensor, beta: float,
@@ -46,3 +48,39 @@ def gossip_combine(m: torch.Tensor, src: torch.Tensor, weights,
         return res
     check_out(m, out)
     return out.copy_(res)
+
+
+def stochastic_quantize(m: torch.Tensor, h: torch.Tensor, rnd: torch.Tensor,
+                        lo: torch.Tensor, scale: torch.Tensor,
+                        levels: float = 255.0, out: Optional[tuple] = None,
+                        force: Optional[str] = None) -> tuple:
+    """Send half of a quantized gossip round on the (n, D) stack: the
+    uint8 levels of ``m - h`` on the row grids (lo, scale: (n, 1)) rounded
+    by the draws ``rnd``, and the new public replica.  ``out = (lvl,
+    h_new)``, if given, receives them; ``h_new`` may be ``h``."""
+    if router.resolve(m, force) == "kernel":
+        return stochastic_quantize_cuda(m, h, rnd, lo, scale, levels, out)
+    res = ref.stochastic_quantize_ref(m, h, rnd, lo, scale, levels)
+    if out is None:
+        return res
+    lvl, h_new = check_quantize_out(m, h, rnd, out)
+    return lvl.copy_(res[0]), h_new.copy_(res[1])
+
+
+def quantized_combine(m: torch.Tensor, hnbr: torch.Tensor, lvl: torch.Tensor,
+                      lo: torch.Tensor, scale: torch.Tensor,
+                      src: torch.Tensor, weights,
+                      out: Optional[tuple] = None,
+                      force: Optional[str] = None) -> tuple:
+    """Receive half: the (K-1, n, D) neighbour replicas take the levels
+    ``lvl`` (n, D) of the rows the (K, n) tap table ``src`` names, and
+    ``out = w0 m + sum_k w_k hnbr_new[k-1]``.  ``out = (out, hnbr_new)``,
+    if given, receives them; ``out`` may be ``m``, ``hnbr_new`` ``hnbr``."""
+    if router.resolve(m, force) == "kernel":
+        return quantized_combine_cuda(m, hnbr, lvl, lo, scale, src, weights,
+                                      out)
+    res = ref.quantized_combine_ref(m, hnbr, lvl, lo, scale, src, weights)
+    if out is None:
+        return res
+    dest, hnbr_new = check_combine_out(m, hnbr, lvl, out)
+    return dest.copy_(res[0]), hnbr_new.copy_(res[1])

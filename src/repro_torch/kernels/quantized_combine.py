@@ -1,0 +1,101 @@
+"""The receive half of a quantized gossip round on the card.
+
+Replaces ``repro.kernels.gossip_combine.quantized_combine_pallas`` (the
+Pallas TPU kernel) and the tap rolls of the level plane and grid scalars
+that feed it: the kernel ``csrc/quantized_combine.cu`` reads each
+neighbour's levels in place through the (K, n) source-row table.  Its
+plain version is :func:`repro_torch.kernels.ref.quantized_combine_ref`.
+For a ring (K = 3) an element moves 25 bytes for 4 K flops, so device
+memory bounds it.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import build, router
+from .stochastic_quantize import check_dest
+
+MAX_TAPS = 8
+_fns: dict = {}
+
+
+def check_combine_out(m, hnbr, lvl, out) -> tuple:
+    """``out = (out, hnbr_new)``: an (n, D) fp32 buffer that is m itself or
+    apart from m, hnbr and lvl, and a (K-1, n, D) fp32 buffer that is hnbr
+    itself or apart from every other operand.  None allocates both."""
+    if out is None:
+        return (torch.empty(m.shape, dtype=torch.float32, device=m.device),
+                torch.empty(hnbr.shape, dtype=torch.float32,
+                            device=hnbr.device))
+    res, hnbr_new = out
+    check_dest(res, m, torch.float32, "out", m, (m, hnbr, lvl))
+    check_dest(hnbr_new, hnbr, torch.float32, "hnbr_new", hnbr,
+               (m, hnbr, lvl, res))
+    return res, hnbr_new
+
+
+def _fn():
+    if "f32" not in _fns:
+        fn = build.library("quantized_combine").quantized_combine_f32
+        fn.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["f32"] = fn
+    return _fns["f32"]
+
+
+def quantized_combine_cuda(m: torch.Tensor, hnbr: torch.Tensor,
+                           lvl: torch.Tensor, lo: torch.Tensor,
+                           scale: torch.Tensor, src: torch.Tensor, weights,
+                           out: Optional[tuple] = None) -> tuple:
+    """m: (n, D) fp32; hnbr: (K-1, n, D) fp32; lvl: (n, D) uint8; lo,
+    scale: n fp32; src: (K, n) int32, self tap first; weights: K floats ->
+    (out (n, D), hnbr_new (K-1, n, D)).
+
+    ``out``, if given, is ``(out, hnbr_new)``; ``out`` may be ``m`` and
+    ``hnbr_new`` may be ``hnbr`` (the round then runs in place).
+    """
+    if m.device.type != "cuda" or any(
+            x.device != m.device for x in (hnbr, lvl, lo, scale, src)):
+        raise ValueError("quantized_combine_cuda takes its tensors on one "
+                         "CUDA device")
+    if any(x.dtype != torch.float32 for x in (m, hnbr, lo, scale)) \
+            or lvl.dtype != torch.uint8 or src.dtype != torch.int32:
+        raise TypeError("need float32 m, hnbr, lo, scale, uint8 lvl and "
+                        "int32 src")
+    if m.dim() != 2 or lvl.shape != m.shape or src.dim() != 2 \
+            or src.shape[1] != m.shape[0]:
+        raise ValueError(f"need m and lvl (n, D) and src (K, n), got "
+                         f"{tuple(m.shape)}, {tuple(lvl.shape)} and "
+                         f"{tuple(src.shape)}")
+    k, n = src.shape
+    d = m.shape[1]
+    w = [float(x) for x in weights]
+    if len(w) != k or not 1 <= k <= MAX_TAPS:
+        raise ValueError(f"need 1..{MAX_TAPS} taps with one weight each, got "
+                         f"{k} taps and {len(w)} weights")
+    if hnbr.shape != (k - 1, n, d):
+        raise ValueError(f"need hnbr {(k - 1, n, d)}, got "
+                         f"{tuple(hnbr.shape)}")
+    if lo.numel() != n or scale.numel() != n or not 1 <= n <= 65535:
+        raise ValueError(f"need 1..65535 rows and one grid per row, got "
+                         f"{n} rows, lo {tuple(lo.shape)}, scale "
+                         f"{tuple(scale.shape)}")
+    if not all(x.is_contiguous() for x in (m, hnbr, lvl, lo, scale, src)):
+        raise ValueError("quantized_combine_cuda takes contiguous tensors")
+    res, hnbr_new = check_combine_out(m, hnbr, lvl, out)
+    c_w = (ctypes.c_float * k)(*w)
+    with torch.cuda.device(m.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn()(m.data_ptr(), hnbr.data_ptr(), hnbr_new.data_ptr(),
+                    lvl.data_ptr(), lo.data_ptr(), scale.data_ptr(),
+                    src.data_ptr(), c_w, res.data_ptr(), k, n, d, stream)
+    if err:
+        raise RuntimeError(f"quantized_combine kernel launch failed: CUDA "
+                           f"error {err}")
+    router.count("quantized_combine")
+    return res, hnbr_new

@@ -31,3 +31,50 @@ def gossip_combine_ref(m: torch.Tensor, src: torch.Tensor,
     for k, w in enumerate(weights):
         out.add_(m[idx[k]].mul_(float(w)))
     return out
+
+
+def stochastic_quantize_ref(m: torch.Tensor, h: torch.Tensor,
+                            rnd: torch.Tensor, lo: torch.Tensor,
+                            scale: torch.Tensor, levels: float = 255.0):
+    """Send half of a quantized gossip round.
+
+    m, h, rnd: (n, D); lo, scale: (n, 1) row grids.  Returns (levels (n, D)
+    uint8, h_new (n, D) fp32): ``u = (m - h - lo) / scale`` rounded down,
+    plus one where ``rnd < frac(u)``, capped at ``levels``; and the public
+    replica ``(h + lo) + levels * scale``.  Each product and sum is its own
+    op, in the order of ``repro.kernels.ref.stochastic_quantize_ref``.
+    """
+    h = h.float()
+    lo, scale = lo.float().reshape(-1, 1), scale.float().reshape(-1, 1)
+    u = ((m.float() - h) - lo) / scale
+    fl = torch.floor(u)
+    lvl = torch.clamp(fl + (rnd < (u - fl)).float(), max=float(levels))
+    return lvl.to(torch.uint8), (h + lo) + lvl * scale
+
+
+def quantized_combine_ref(m: torch.Tensor, hnbr: torch.Tensor,
+                          lvl: torch.Tensor, lo: torch.Tensor,
+                          scale: torch.Tensor, src: torch.Tensor, weights):
+    """Receive half: dequantize the neighbours' deltas, update the
+    neighbour replicas, combine.
+
+    m: (n, D); hnbr: (K-1, n, D) replicas; lvl: (n, D) uint8, the level
+    plane every worker sent this round; lo, scale: (n, 1); src: (K, n)
+    source rows per tap, self tap first.  Tap k >= 1 of row i reads row
+    ``s = src[k, i]``: ``hnbr_new[k-1, i] = (hnbr[k-1, i] + lo[s]) +
+    lvl[s] * scale[s]``, and ``out = w0 m + sum_k w_k hnbr_new[k-1]``,
+    summed in tap order.  Returns (out (n, D), hnbr_new (K-1, n, D)); the
+    gathers are what ``taps.take`` does in ``repro.dist.consensus``.
+    """
+    idx = src.long()
+    w = [float(x) for x in weights]
+    lo, scale = lo.float().reshape(-1, 1), scale.float().reshape(-1, 1)
+    hnbr_new = torch.empty(hnbr.shape, dtype=torch.float32,
+                           device=hnbr.device)
+    out = w[0] * m.float()
+    for k in range(1, len(w)):
+        s = idx[k]
+        hnbr_new[k - 1] = (hnbr[k - 1].float() + lo[s]) \
+            + lvl[s].float() * scale[s]
+        out = out + w[k] * hnbr_new[k - 1]
+    return out, hnbr_new
