@@ -12,16 +12,24 @@ Phases (any failure ends the run with a non-zero exit code):
      error, the kernel's, the plain version's and one library call's
      median time (CUDA events), and the least time the card could take;
      for the quantized round, also the time of its two plain-torch steps
-     (row grids and draws);
+     (row grids and draws); flash attention over a sweep of small odd
+     shapes (GQA groups 1, 2, 6; causal or not; windows; query offsets,
+     rows with no valid key among them; hd 32, 64, 128; fp32 and bf16;
+     aligned and unaligned rows), then at the prefill shapes of the serve
+     run (2048, and the 2592 bucket);
   4. a small reference check: the quantized gossip strategy on a
-     smoke-width message stack, and the smoke-size sessions (exact, gossip,
-     gossip_q8), on the card (CUDA kernels) against the CPU (plain
+     smoke-width message stack, the smoke-size sessions (exact, gossip,
+     gossip_q8), and smoke-size serving (prefill logits, slot-engine
+     greedy tokens), on the card (CUDA kernels) against the CPU (plain
      versions), the quantized ones with rounding draws made on the CPU;
   5. the main path: AMBSession on qwen2-1.5b at full width, exact
      consensus, all 28 layers, 3 epochs; ring gossip (r = 5), cut to 8
      layers; ring gossip_q8 (20 rounds) and gossip_q4 (40 rounds), cut to
-     4 layers; 3 epochs each; launch counts are reset just before each
-     session and read just after;
+     4 layers; 3 epochs each; then the serve CLI
+     (``repro_torch.launch.serve``) at full width, all 28 layers, bf16:
+     16 requests of 2048 +- 512 prompt tokens and 32 new tokens over 8
+     slots, with background exact fine-tune epochs; launch counts are
+     reset just before each run and read just after;
   6. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
@@ -37,6 +45,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 dense, tensor cores
 N_WORKERS, PER_WORKER, SEQ = 4, 8, 256      # the TrainSpec defaults, n = 4
 EPOCHS = 3
 GOSSIP_LAYERS = 8              # depth cut for the gossip session (memory)
@@ -46,6 +55,20 @@ DUAL_TOL = 2e-6    # multiply by 0.5/beta vs divide by 2 beta: one rounding
 COMBINE_TOL = 1e-6  # same products and sums in the same order: expect 0
 SESSION_TOL = 1e-4  # fp32 smoke session, card vs CPU (summation order)
 CHUNK = 1 << 24    # columns per slice for the plain versions at full shape
+FLASH_F32_TOL = 1e-5   # x max(1, max|out|): fp32, another summation order
+SERVE_TOL = 1e-4   # fp32 smoke prefill logits, card vs CPU
+# the serve CLI run: prompt 2048 with jitter 512 and 32 new tokens give
+# slots of 2592 tokens; prompts pad to the 2048 or the 2592 bucket.  A
+# request takes about 1.2 to 1.8 s on one H100, so arrivals 2 s apart
+# leave idle budget in which fine-tune epochs run (0.25 s apart the slots
+# are never all idle inside a round while requests arrive)
+SERVE_REQUESTS, SERVE_NEW = 16, 32
+SERVE_ARGV = ["--arch", "qwen2-1.5b", "--batch", "8",
+              "--requests", str(SERVE_REQUESTS), "--prompt-len", "2048",
+              "--new-tokens", str(SERVE_NEW), "--arrival-gap", "2.0",
+              "--round-budget", "0.25", "--finetune", "2"]
+FLASH_MAIN = dict(b=1, h=12, kv=2, hd=128)     # qwen2-1.5b, batch-1 prefill
+FLASH_SEQS = (2048, 2592)
 
 
 def fail(msg: str) -> None:
@@ -88,10 +111,10 @@ def max_abs_err(torch, a, b) -> float:
     return err
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     """Least time (ms) on the card: bytes over HBM rate vs flops over peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -183,6 +206,113 @@ def check_gossip_combine(torch, ops, GossipConsensus, d_full: int):
             gc.collect()
             torch.cuda.empty_cache()
     return worst, full
+
+
+def model_layout(torch, gen, b, sq, skv, h, kv, hd, dtype, aligned=True):
+    """q (B, H, Sq, hd), k, v (B, KV, Skv, hd) as the prefill passes them:
+    (B, S, heads, hd) storage seen through a transpose.  Unaligned: the
+    first hd of hd + 1 columns, so rows do not start 16-byte aligned and
+    the kernel takes its element-wise load path."""
+    pad = 0 if aligned else 1
+
+    def make(s, heads):
+        return torch.randn((b, s, heads, hd + pad), generator=gen,
+                           device="cuda").to(dtype)[..., :hd].transpose(1, 2)
+    return make(sq, h), make(skv, kv), make(skv, kv)
+
+
+def flash_tol(torch, want) -> float:
+    """fp32: FLASH_F32_TOL x max(1, max|out|); bf16: one bf16 ulp of
+    max|out| (kernel and plain version round one fp32 result each)."""
+    top = float(want.float().abs().max())
+    if want.dtype == torch.float32:
+        return FLASH_F32_TOL * max(1.0, top)
+    return 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+
+
+def causal_pairs(sq: int, skv: int) -> int:
+    """(query, key) pairs a causal mask keeps at q_offset 0."""
+    n = min(sq, skv)
+    return n * (n + 1) // 2 + max(0, sq - skv) * skv
+
+
+def check_flash_attention(torch, ops):
+    """The kernel against its plain version: a sweep of small odd shapes,
+    then the serve run's prefill shapes, timed.  Returns the worst error
+    of each, and the main shape's timing."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = worst_ratio = 0
+    for h, kv in ((2, 2), (4, 2), (6, 1)):                 # G = 1, 2, 6
+        for hd in (32, 64, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                worst = 0.0
+                for sq in (1, 63, 257):
+                    for skv in (1, 63, 257):
+                        # Sq = 63: unaligned rows, element-wise loads
+                        q, k, v = model_layout(torch, gen, 2, sq, skv, h, kv,
+                                               hd, dtype, aligned=sq != 63)
+                        for causal in (True, False):
+                            for window in (0, 17):
+                                offsets = {0}
+                                if sq < skv:
+                                    offsets.add(skv - sq)
+                                if window:       # rows with no valid key
+                                    offsets.add(skv + window)
+                                for q_offset in sorted(offsets):
+                                    mask = dict(causal=causal, window=window,
+                                                q_offset=q_offset)
+                                    got = ops.flash_attention(
+                                        q, k, v, force="kernel", **mask)
+                                    torch.cuda.synchronize()
+                                    want = ops.flash_attention(
+                                        q, k, v, force="ref", **mask)
+                                    err = max_abs_err(torch, got, want)
+                                    tol = flash_tol(torch, want)
+                                    if not err <= tol:
+                                        fail(f"flash_attention H={h} KV={kv}"
+                                             f" hd={hd} {dtype} Sq={sq} "
+                                             f"Skv={skv} {mask}: max_abs_err "
+                                             f"{err} > {tol}")
+                                    worst = max(worst, err)
+                                    worst_ratio = max(worst_ratio, err / tol)
+                                    cases += 1
+                print(f"flash_attention sweep H={h} KV={kv} hd={hd} {dtype}:"
+                      f" max_abs_err={worst:.3g}", flush=True)
+    print(f"flash_attention sweep: {cases} cases, worst error "
+          f"{worst_ratio:.3f} of its tolerance", flush=True)
+    main = None
+    for s in FLASH_SEQS:
+        b, h, kv, hd = (FLASH_MAIN[x] for x in ("b", "h", "kv", "hd"))
+        q, k, v = model_layout(torch, gen, b, s, s, h, kv, hd,
+                               torch.bfloat16)
+        got = ops.flash_attention(q, k, v, force="kernel")
+        torch.cuda.synchronize()
+        want = ops.flash_attention(q, k, v, force="ref")
+        err, tol = max_abs_err(torch, got, want), flash_tol(torch, want)
+        line = (f"flash_attention B={b} H={h} KV={kv} hd={hd} S={s} bf16 "
+                f"causal max_abs_err={err:.3g} (tol {tol:.3g})")
+        if not err <= tol:
+            fail(line)
+        k_ms = time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, force="kernel"), 20)
+        p_ms = time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, force="ref"), 5)
+        l_ms = time_ms(torch, lambda: torch.nn.functional.
+                       scaled_dot_product_attention(
+                           q, k, v, is_causal=True, enable_gqa=True), 20)
+        flops = 4 * b * h * hd * causal_pairs(s, s)
+        nbytes = 2 * b * hd * s * (2 * h + 2 * kv)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        print(f"{line} ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms="
+              f"{l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.2f} "
+              f"GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+        if main is None:
+            main = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                        shape=f"B={b} H={h} KV={kv} hd={hd} "
+                              f"Sq=Skv={s} bf16 causal")
+        del q, k, v, got, want
+    return main
 
 
 def in_chunks(fn, d: int) -> None:
@@ -382,6 +512,53 @@ def reference_check(torch, rt) -> None:
             fail(f"reference {consensus} max_abs_err {err} > {SESSION_TOL}")
 
 
+def drain(engine, reqs) -> None:
+    """Serve ``reqs`` clock-free: insert as slots free up, decode rounds."""
+    pending = list(reqs)
+    while pending or engine.active_count:
+        while pending and engine.has_free:
+            engine.insert(pending.pop(0))
+        engine.decode_round()
+
+
+def serve_reference_check(torch, rt) -> None:
+    """Smoke-size fp32 serving, card (flash kernel) vs CPU (plain version):
+    prefill logits within SERVE_TOL, slot-engine greedy tokens equal."""
+    cfg = dataclasses.replace(rt.configs.smoke_config("qwen2-1.5b"),
+                              dtype="float32")
+    params = rt.models.init_params(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen)
+    last = torch.tensor([39, 17, 26])
+    out, tokens = {}, {}
+    for device in ("cpu", "cuda"):
+        p = {k: v.to(device) for k, v in params.items()}
+        rt.kernels.router.reset_launches()
+        logits, state = rt.models.prefill(p, cfg, {"tokens": toks.to(device)},
+                                          extra_capacity=8,
+                                          last_pos=last.to(device))
+        engine = rt.serve.SlotEngine(p, cfg, slots=2, cache_len=64)
+        reqs = rt.serve.synthetic_requests(
+            5, vocab_size=cfg.vocab_size, prompt_len=24, prompt_jitter=8,
+            max_new_tokens=8, seed=3)
+        drain(engine, reqs)
+        launches = rt.kernels.router.launches().get("flash_attention", 0)
+        if (device == "cuda") != (launches > 0):
+            fail(f"serve reference on {device}: {launches} flash launches")
+        out[device] = (logits.cpu(), state.caches.k.cpu())
+        tokens[device] = [r.out_tokens for r in reqs]
+    err = max(max_abs_err(torch, a, b) for a, b in zip(out["cpu"],
+                                                       out["cuda"]))
+    print(f"reference serve: prefill logits and caches card vs CPU "
+          f"max_abs_err={err:.3g}; slot-engine tokens equal: "
+          f"{tokens['cpu'] == tokens['cuda']}", flush=True)
+    if not err <= SERVE_TOL:
+        fail(f"serve reference max_abs_err {err} > {SERVE_TOL}")
+    if tokens["cpu"] != tokens["cuda"]:
+        fail(f"greedy tokens differ: card {tokens['cuda']} vs CPU "
+             f"{tokens['cpu']}")
+
+
 def run_session(torch, rt, cfg, consensus: str) -> dict:
     """The main path: AMBSession.step on SyntheticSource batches, EPOCHS
     epochs; returns the launch counts of exactly that run."""
@@ -424,6 +601,96 @@ def run_session(torch, rt, cfg, consensus: str) -> dict:
     return launches
 
 
+def timed(table: dict, key: str, fn):
+    """``fn`` with the host seconds of each call appended to table[key]
+    (each of the wrapped calls ends in a device sync: a token read back,
+    or the session step's synchronize)."""
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        table.setdefault(key, []).append(time.perf_counter() - t0)
+        return out
+    return wrapper
+
+
+def run_serve(torch, rt, cfg) -> dict:
+    """The serve CLI at full width (SERVE_ARGV): returns the launch counts
+    of exactly that run.  The engine's sampler is wrapped to see every
+    logits tensor it draws from, and the engine's insert (a prefill) and
+    decode round and the session's step are timed."""
+    from repro_torch.api import AMBSession
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serve import slots
+    sample, seen = slots.sample_token, []
+    wrapped = [(slots.SlotEngine, "insert"), (slots.SlotEngine,
+                                              "decode_round"),
+               (AMBSession, "step")]
+    originals = [getattr(owner, name) for owner, name in wrapped]
+    split: dict = {}
+
+    def checked(logits, *args, **kw):
+        seen.append(int((~torch.isfinite(logits)).sum()))
+        return sample(logits, *args, **kw)
+
+    slots.sample_token = checked
+    for (owner, name), fn in zip(wrapped, originals):
+        setattr(owner, name, timed(split, name, fn))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rt.kernels.router.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        report = serve_main(SERVE_ARGV)
+    finally:
+        slots.sample_token = sample
+        for (owner, name), fn in zip(wrapped, originals):
+            setattr(owner, name, fn)
+    wall = time.perf_counter() - t0
+    launches = rt.kernels.router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s = report.summary
+    print(f"serve: {cfg.name} layers={cfg.num_layers} {cfg.dtype} "
+          f"requests={s['n_requests']} rounds={report.rounds} "
+          f"fine-tune epochs={report.train_epochs} wall_s={wall:.1f} "
+          f"peak_GiB={peak:.2f}", flush=True)
+    print(f"  ttft_s p50={s['ttft_p50_s']:.4f} p99={s['ttft_p99_s']:.4f} "
+          f"tpot_s p50={s['tpot_p50_s']:.4f} p99={s['tpot_p99_s']:.4f} "
+          f"latency_s p50={s['latency_p50_s']:.4f} "
+          f"p99={s['latency_p99_s']:.4f} tokens_per_s="
+          f"{s['tokens_per_s']:.2f} train_loss={s.get('train_loss_first')}"
+          f"..{s.get('train_loss_last')}", flush=True)
+    for name, label in (("insert", "prefill (insert)"),
+                        ("decode_round", "decode round"),
+                        ("step", "fine-tune epoch")):
+        ts = sorted(split.get(name, []))
+        if ts:
+            print(f"  {label}: n={len(ts)} total_s={sum(ts):.3f} median_s="
+                  f"{ts[len(ts) // 2]:.4f} min_s={ts[0]:.4f} max_s="
+                  f"{ts[-1]:.4f}", flush=True)
+    print(f"  launches: {launches}", flush=True)
+    done = [r for r in report.requests
+            if len(r.out_tokens) == SERVE_NEW and r.finish_reason == "length"]
+    if len(done) != SERVE_REQUESTS:
+        fail(f"serve: {len(done)} of {SERVE_REQUESTS} requests finished "
+             f"with {SERVE_NEW} tokens")
+    want = cfg.num_layers * SERVE_REQUESTS
+    if launches.get("flash_attention", 0) != want:
+        fail(f"serve: flash_attention launched "
+             f"{launches.get('flash_attention', 0)} times, expected {want}")
+    if report.train_epochs < 1:
+        fail("serve: no fine-tune epoch was absorbed")
+    if launches.get("dual_update", 0) != 15 * report.train_epochs:
+        fail(f"serve: dual_update launched {launches.get('dual_update', 0)} "
+             f"times for {report.train_epochs} exact epochs")
+    losses = [s["train_loss_first"], s["train_loss_last"]]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"serve: fine-tune losses {losses}")
+    if any(seen) or len(seen) < SERVE_REQUESTS:
+        fail(f"serve: {sum(seen)} non-finite logits over {len(seen)} draws")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -439,6 +706,7 @@ def main() -> int:
     import repro_torch.data
     import repro_torch.dist
     import repro_torch.models
+    import repro_torch.serve
     from repro_torch.dist import consensus
     from repro_torch.dist.consensus import GossipConsensus
     from repro_torch.kernels import build, ops, ref, router
@@ -468,10 +736,12 @@ def main() -> int:
                                                d_quant)
     qc_err, qcomb = check_quantized_combine(torch, ops, ref, GossipConsensus,
                                             d_quant)
+    flash = check_flash_attention(torch, ops)
 
     smoke = rt.configs.smoke_config("qwen2-1.5b")
     check_quantized_strategy(torch, rt, dense_param_count(smoke) + 1)
     reference_check(torch, rt)
+    serve_reference_check(torch, rt)
 
     runs = {"exact": run_session(torch, rt, full, "exact"),
             "gossip": run_session(torch, rt, gossip_cfg, "gossip"),
@@ -490,9 +760,11 @@ def main() -> int:
                 "quantized_combine": GOSSIP_ROUNDS * 32 // bits * EPOCHS}
         if runs[name] != want:
             fail(f"{name} launched {runs[name]}, expected {want}")
+    served = run_serve(torch, rt, full)
 
     def launches(name):
-        return sum(c.get(name, 0) for c in runs.values())
+        return sum(c.get(name, 0) for c in runs.values()) \
+            + served.get(name, 0)
 
     def per_epoch(name):
         return {s: c[name] / EPOCHS for s, c in runs.items() if name in c}
@@ -501,7 +773,8 @@ def main() -> int:
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{name}.cu",
                     replaces=replaces, launches=launches(name),
-                    launches_per_epoch=per_epoch(name), max_abs_err=err,
+                    launches_per_epoch=per_epoch(name),
+                    launches_serve=served.get(name, 0), max_abs_err=err,
                     **timing)
 
     kernels = [
@@ -513,6 +786,8 @@ def main() -> int:
             sq_err, squant),
         row("quantized_combine", "src/repro/kernels/gossip_combine.py:194",
             qc_err, qcomb),
+        row("flash_attention", "src/repro/kernels/flash_attention.py:98",
+            flash.pop("max_abs_err"), flash),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

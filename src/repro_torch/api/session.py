@@ -12,9 +12,13 @@
 The session runs on the card unless ``device`` says otherwise, and raises
 if there is none.  Each epoch the clock draws per-gradient times from a
 ``torch.Generator`` seeded from (seed, epoch), the deadline T decides
-b_i(t), and the protocol takes one step.  Elastic membership, the
-controller, save/restore and the prefetching data plane are not ported
-yet.
+b_i(t), and the protocol takes one step; with ``metrics_path`` each epoch
+is appended to a JSONL file.  Elastic membership, the controller,
+save/restore and the prefetching data plane are not ported yet, and
+:meth:`AMBSession.batch_source` is the on-device
+:class:`~repro_torch.data.SyntheticSource` (the JAX session streams
+``LMTokenStream`` shards, whose vocab x vocab transition matrix is 92 GB
+at qwen2-1.5b width).
 """
 from __future__ import annotations
 
@@ -26,8 +30,11 @@ import torch
 
 from ..configs import get_config, smoke_config
 from ..core.stragglers import amb_batch_sizes
+from ..data import SyntheticSource
 from ..device import resolve_device
+from ..metrics import MetricsLogger
 from ..models import DenseLM, init_params
+from ..optim import DualAveragingOpt
 from .clock import make_clock
 from .protocol import build_protocol
 from .specs import ClockSpec, ConsensusSpec, TrainSpec
@@ -45,11 +52,18 @@ class AMBSession:
       draw_source: ``(seed, epoch) -> draws(k, out)``, the quantized
         gossip's rounding draws; default a ``torch.Generator`` on the
         device per round (:func:`repro_torch.dist.consensus.epoch_draws`).
+      metrics_path: optional JSONL path; every epoch's metrics are
+        appended through :class:`repro_torch.metrics.MetricsLogger`.
+
+    Exact consensus runs dual averaging with the spec's beta schedule and
+    no trust region, as the JAX session builds it (``ConsensusSpec.radius``
+    is not passed to it).
     """
 
     def __init__(self, train: TrainSpec, clock: Optional[ClockSpec] = None,
                  consensus: Optional[ConsensusSpec] = None, *, cfg=None,
-                 params=None, device="cuda", draw_source=None):
+                 params=None, device="cuda", draw_source=None,
+                 metrics_path=None):
         self.device = resolve_device(device)
         self.train = train
         self.clock_spec = clock if clock is not None else ClockSpec()
@@ -62,10 +76,14 @@ class AMBSession:
         self.global_batch = self.n_workers * train.batch_per_worker
         self.clock = make_clock(self.clock_spec, self.n_workers,
                                 train.batch_per_worker)
+        optimizer = None
+        if self.consensus_spec.consensus == "exact":
+            optimizer = DualAveragingOpt(
+                beta=self.consensus_spec.beta(self.global_batch))
         self.protocol = build_protocol(
             self.cfg, self.n_workers,
             self.consensus_spec.to_amb_config(self.global_batch, train.seed),
-            draw_source=draw_source)
+            optimizer=optimizer, draw_source=draw_source)
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(train.seed)
@@ -76,6 +94,8 @@ class AMBSession:
         self.state = self.protocol.init(self.model.params())
         self.steps_done = 0
         self.sim_wall = 0.0
+        self.metrics = MetricsLogger(metrics_path) if metrics_path \
+            else None
 
     def epoch_sizes(self, times: torch.Tensor, budget: float) -> torch.Tensor:
         """b_i(t) for one epoch: the deadline cut."""
@@ -102,10 +122,22 @@ class AMBSession:
         global_b = float(m["global_batch"])
         self.clock.update(step_s, global_b)
         self.steps_done += 1
-        return {"loss": loss, "global_batch": global_b,
-                "budget_s": float(budget), "step_s": step_s,
-                "sim_wall_s": self.sim_wall,
-                "b": np.asarray(torch.as_tensor(b).cpu())}
+        out = {"loss": loss, "global_batch": global_b,
+               "budget_s": float(budget), "step_s": step_s,
+               "sim_wall_s": self.sim_wall,
+               "b": np.asarray(torch.as_tensor(b).cpu())}
+        if self.metrics is not None:
+            self.metrics.log(self.steps_done,
+                             **{k: v for k, v in out.items() if k != "b"})
+        return out
+
+    def batch_source(self) -> SyntheticSource:
+        """The session's default input: uniform random tokens on the
+        session's device, ``n_workers`` blocks of ``batch_per_worker``
+        sequences of ``seq_len``, deterministic in (seed, epoch)."""
+        return SyntheticSource(self.cfg.vocab_size, self.train.seq_len,
+                               self.n_workers, self.train.batch_per_worker,
+                               seed=self.train.seed, device=self.device)
 
     def run(self, steps: int, source) -> Optional[dict]:
         """Run ``steps`` epochs on ``source.batch(epoch)`` (absolute epoch
@@ -118,6 +150,12 @@ class AMBSession:
     def flush(self) -> None:
         """Settle in-flight consensus (a no-op for the ported protocols)."""
         self.state = self.protocol.flush(self.state)
+
+    def close(self) -> None:
+        """Release the metrics logger (idempotent)."""
+        if self.metrics is not None:
+            self.metrics.close()
+            self.metrics = None
 
     @property
     def params(self) -> dict:

@@ -12,6 +12,7 @@ import torch
 
 from . import ref, router
 from .dual_update import dual_update_cuda
+from .flash_attention import flash_attention_cuda
 from .gossip_combine import check_out, gossip_combine_cuda
 from .quantized_combine import check_combine_out, quantized_combine_cuda
 from .stochastic_quantize import check_quantize_out, stochastic_quantize_cuda
@@ -84,3 +85,22 @@ def quantized_combine(m: torch.Tensor, hnbr: torch.Tensor, lvl: torch.Tensor,
         return res
     dest, hnbr_new = check_combine_out(m, hnbr, lvl, out)
     return dest.copy_(res[0]), hnbr_new.copy_(res[1])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    force: Optional[str] = None) -> torch.Tensor:
+    """(B, H, Sq, hd) x (B, KV, Skv, hd) -> (B, H, Sq, hd) in q's dtype.
+
+    Forward only: on the card it raises for inputs that require grad (there
+    is no backward kernel yet, and it never falls back to the plain version).
+    """
+    if router.resolve(q, force) == "kernel":
+        if q.requires_grad or k.requires_grad or v.requires_grad:
+            raise RuntimeError("flash_attention has no backward kernel yet; "
+                               "call it on tensors that do not require grad "
+                               "(torch.no_grad())")
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset).to(q.dtype)

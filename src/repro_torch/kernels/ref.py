@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+NEG_INF = -1e30
+
 
 def dual_update_ref(z: torch.Tensor, w0: torch.Tensor,
                     beta: float) -> torch.Tensor:
@@ -78,3 +80,34 @@ def quantized_combine_ref(m: torch.Tensor, hnbr: torch.Tensor,
             + lvl[s].float() * scale[s]
         out = out + w[k] * hnbr_new[k - 1]
     return out, hnbr_new
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Plain softmax attention, the oracle of the flash kernel.
+
+    q: (B, H, Sq, hd); k, v: (B, KV, Skv, hd); query head h reads KV head
+    h // G (H = KV G).  Scores are divided by the fp32 sqrt(hd) and set to
+    -1e30 where the mask says no (``k_pos <= q_pos`` when causal,
+    ``q_pos - k_pos < window`` when window > 0, ``q_pos = q_offset +
+    row``); a row with no valid key therefore averages v over all keys.
+    Returns (B, H, Sq, hd) fp32, as ``repro.kernels.ref.flash_attention_ref``.
+    """
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf = q.float().reshape(b, kvh, g, sq, hd)
+    root = torch.sqrt(torch.tensor(float(hd), device=q.device))
+    s = torch.einsum("bkgqh,bkch->bkgqc", qf, k.float()) / root
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqc,bkch->bkgqh", p, v.float())
+    return out.reshape(b, h, sq, hd)

@@ -1,0 +1,123 @@
+"""Serving driver: thin CLI over :mod:`repro_torch.serve` (counterpart of
+``repro.launch.serve``, with the same flags and defaults).
+
+Continuous batching over a fixed slot array with background AMB
+fine-tuning absorbed into the round budget: each round has a fixed
+wall-clock budget; requests contribute whatever tokens fit, and leftover
+budget goes to training instead of idling.  Prefill attention runs the
+hand-written flash kernel on the card.
+
+``--requests N`` synthesizes a staggered workload (``--arrival-gap``
+seconds between arrivals, prompt lengths jittered around
+``--prompt-len``); ``--batch`` sets the slot count; ``--finetune N``
+caps the background AMB epochs the scheduler may absorb.  The session
+owns the parameters, clock and consensus as in training;
+``session.params`` hands the primal to the slot engine.  SLO metrics
+(TTFT / TPOT / latency p50-p99, tokens/s) and per-epoch train loss
+stream to ``--metrics`` as JSONL.  The port runs on one device:
+``--model`` must be 1.
+
+Example (on the card; ``main(argv, device="cpu")`` runs on the CPU):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+      --smoke --batch 4 --requests 12 --prompt-len 64 --new-tokens 32 \\
+      --finetune 8 --round-budget 0.25
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+from ..api import AMBSession, ClockSpec, ConsensusSpec, TrainSpec
+from ..dist.consensus import CONSENSUS_CHOICES
+from ..serve import (AdmissionPolicy, RequestQueue, SamplingSpec,
+                     ServeMetrics, ServeScheduler, SlotEngine,
+                     synthetic_requests)
+
+
+def main(argv=None, device="cuda"):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="decode slots (concurrent requests)")
+    ap.add_argument("--requests", type=int, default=0, metavar="N",
+                    help="requests to serve (0 = one per slot)")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--arrival-gap", type=float, default=0.0, metavar="S",
+                    help="seconds between staggered arrivals")
+    ap.add_argument("--round-budget", type=float, default=0.25, metavar="S",
+                    help="fixed time budget per decode round (the AMB "
+                         "contract: budget fixed, work variable)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="restrict sampling to the k best tokens (0 = all)")
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--greedy", action="store_true",
+                    help="force greedy decode (same as --temperature 0)")
+    ap.add_argument("--finetune", type=int, default=0, metavar="STEPS",
+                    help="cap on background AMB fine-tune epochs absorbed "
+                         "into idle round budget (0 = serve only)")
+    ap.add_argument("--finetune-seq-len", type=int, default=64)
+    ap.add_argument("--finetune-batch-per-worker", type=int, default=2)
+    ap.add_argument("--consensus", default="exact",
+                    choices=list(CONSENSUS_CHOICES),
+                    help="consensus strategy for --finetune")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="JSONL path for SLO + fine-tune metrics")
+    args = ap.parse_args(argv)
+    if args.model != 1:
+        raise SystemExit(f"--model {args.model}: the port runs on one "
+                         f"device, so there is no model axis; use --model 1")
+
+    train = TrainSpec(arch=args.arch, smoke=args.smoke,
+                      seq_len=args.finetune_seq_len,
+                      batch_per_worker=args.finetune_batch_per_worker,
+                      data=args.data, seed=args.seed)
+    try:
+        session = AMBSession(train, ClockSpec(),
+                             ConsensusSpec(consensus=args.consensus),
+                             device=device, metrics_path=args.metrics)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    cfg = session.cfg
+
+    temperature = 0.0 if args.greedy else args.temperature
+    sampling = SamplingSpec(temperature=temperature, top_k=args.top_k,
+                            seed=args.seed)
+    jitter = min(args.prompt_len - 1, args.prompt_len // 4)
+    cache_len = args.prompt_len + jitter + args.new_tokens
+    n_req = args.requests or args.batch
+    reqs = synthetic_requests(
+        n_req, vocab_size=cfg.vocab_size, prompt_len=args.prompt_len,
+        prompt_jitter=jitter, max_new_tokens=args.new_tokens,
+        arrival_gap_s=args.arrival_gap, seed=args.seed + 1)
+    queue = RequestQueue(AdmissionPolicy(cache_len=cache_len))
+    for r in reqs:
+        queue.push(r)
+
+    try:
+        engine = SlotEngine(session.params, cfg, slots=args.batch,
+                            cache_len=cache_len, sampling=sampling)
+        sched = ServeScheduler(engine, queue,
+                               round_budget_s=args.round_budget,
+                               session=session if args.finetune else None,
+                               train_epochs=args.finetune,
+                               metrics=ServeMetrics(session.metrics))
+        report = sched.run()
+        session.flush()
+        print(json.dumps(report.summary, indent=2, sort_keys=True))
+        if report.requests:
+            r0 = min(report.requests, key=lambda r: r.rid)
+            print(f"request {r0.rid} tokens:", r0.out_tokens[:16],
+                  "..." if len(r0.out_tokens) > 16 else "")
+        return report
+    finally:
+        session.close()      # idempotent; flushes SLO + train JSONL
+
+
+if __name__ == "__main__":
+    main()

@@ -27,6 +27,7 @@ class ArchConfig:
     head_dim: int = 0               # 0 -> d_model // num_heads
     qkv_bias: bool = False
     rope_theta: float = 1_000_000.0
+    sliding_window: int = 0         # 0 = full attention (SWA is not ported)
     dtype: str = "bfloat16"
 
     @property

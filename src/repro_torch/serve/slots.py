@@ -1,0 +1,190 @@
+"""Slot engine: continuous batching over a fixed-shape decode batch
+(counterpart of ``repro.serve.slots``).
+
+The decode batch is a fixed array of ``slots`` rows sharing one
+``decode_step``: per-slot KV rows and positions
+(:func:`repro_torch.models.init_decode_state` with ``per_slot_pos=True``).
+Requests are prefilled one at a time (batch 1) at a *bucketed* prompt
+length, whose attention runs the flash kernel on the card, and written into
+a free row by :func:`repro_torch.models.insert_decode_state`; retirement
+(EOS or token budget) frees the row and zeroes it
+(:func:`repro_torch.models.evict_decode_state`).  Prompts are right-padded
+to the next power-of-two bucket (causal attention keeps the real prefix
+independent of trailing pads, and the padded cache rows stay masked until
+decode overwrites them).  Only the dense family with linear caches is
+ported (``init_decode_state`` and ``prefill`` raise for the rest).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..models import (decode_step, evict_decode_state, init_decode_state,
+                      insert_decode_state, prefill)
+from ..models.common import ArchConfig
+from .request import Request
+from .sampling import SamplingSpec, sample_generator, sample_token
+
+
+def bucket_len(plen: int, cache_len: int, *, exact: bool) -> int:
+    """Padded prefill length for a prompt of ``plen`` tokens."""
+    if exact:
+        return plen
+    b = 8
+    while b < plen:
+        b *= 2
+    return min(b, cache_len)
+
+
+class _Sampler:
+    """Draw n of a run: greedy, or a generator seeded from (seed, n)."""
+
+    def __init__(self, spec: SamplingSpec, device):
+        self.spec, self.device, self.n = spec, device, 0
+
+    def __call__(self, logits: torch.Tensor) -> torch.Tensor:
+        self.n += 1
+        gen = None if self.spec.greedy else sample_generator(
+            self.spec.seed, self.n, self.device)
+        return sample_token(logits, gen, temperature=self.spec.temperature,
+                            top_k=self.spec.top_k)
+
+
+def _finish(req: Request, tok: int, eos_id: Optional[int]) -> bool:
+    """Append ``tok``; mark and report retirement (EOS or token budget)."""
+    req.out_tokens.append(tok)
+    if eos_id is not None and tok == eos_id:
+        req.finish_reason = "eos"
+    elif len(req.out_tokens) >= req.max_new_tokens:
+        req.finish_reason = "length"
+    return req.done
+
+
+class SlotEngine:
+    """Continuous batching over ``slots`` fixed-shape decode rows.
+
+    The engine is clock-free: it moves tokens, the scheduler stamps time.
+    ``decode_round`` advances every row one token (inactive rows compute
+    garbage that is ignored and overwritten on insert) and returns the
+    requests that retired this round.  ``params`` is the parameter dict
+    the engine decodes with; the scheduler re-points it at the fine-tuned
+    primal after every absorbed epoch.
+    """
+
+    def __init__(self, params: dict, cfg: ArchConfig, *, slots: int,
+                 cache_len: int, sampling: Optional[SamplingSpec] = None,
+                 eos_id: Optional[int] = None):
+        self.params = params
+        self.cfg = cfg
+        self.slots = slots
+        self.cache_len = cache_len
+        self.sampling = sampling or SamplingSpec()
+        self.eos_id = eos_id
+        self.device = next(iter(params.values())).device
+        self.state = init_decode_state(cfg, slots, cache_len,
+                                       per_slot_pos=True, device=self.device)
+        self.last_tok = torch.zeros((slots,), dtype=torch.long,
+                                    device=self.device)
+        self.active: list[Optional[Request]] = [None] * slots
+        self.free_slots: list[int] = list(range(slots))
+        self.buckets: set[int] = set()     # prefill lengths used so far
+        self._sample = _Sampler(self.sampling, self.device)
+
+    # -- capacity ----------------------------------------------------------
+
+    @property
+    def has_free(self) -> bool:
+        return bool(self.free_slots)
+
+    @property
+    def active_count(self) -> int:
+        return self.slots - len(self.free_slots)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def insert(self, req: Request) -> int:
+        """Prefill ``req`` into a free slot; returns its first token.
+
+        The prompt is padded to its bucket, prefilled at batch 1 with
+        ``last_pos`` at the real last token, and written into the slot
+        row.  The first generated token is sampled from the prefill logits
+        (so TTFT is one prefill, not prefill + a round).
+        """
+        if not self.free_slots:
+            raise RuntimeError("no free slot")
+        if req.prompt_len + req.max_new_tokens > self.cache_len:
+            raise ValueError(
+                f"request {req.rid}: {req.prompt_len}+{req.max_new_tokens} "
+                f"tokens exceed cache_len={self.cache_len}")
+        slot = self.free_slots.pop(0)
+        bucket = bucket_len(req.prompt_len, self.cache_len, exact=False)
+        self.buckets.add(bucket)
+        toks = torch.tensor([req.prompt + [0] * (bucket - req.prompt_len)],
+                            dtype=torch.long, device=self.device)
+        logits, one = prefill(self.params, self.cfg, {"tokens": toks},
+                              extra_capacity=self.cache_len - bucket,
+                              last_pos=req.prompt_len - 1)
+        tok = self._sample(logits)
+        insert_decode_state(self.state, one, slot)
+        self.last_tok[slot] = tok[0]
+        first = int(tok[0])
+        req.slot = slot
+        self.active[slot] = req
+        if _finish(req, first, self.eos_id):
+            self._retire(req)
+        return first
+
+    def _retire(self, req: Request) -> None:
+        slot = req.slot
+        evict_decode_state(self.state, slot)
+        self.active[slot] = None
+        self.free_slots.append(slot)
+
+    def decode_round(self) -> list[Request]:
+        """Advance every slot one token; returns requests retired now."""
+        if self.active_count == 0:
+            return []
+        logits, self.state = decode_step(self.params, self.cfg, self.state,
+                                         self.last_tok)
+        self.last_tok = self._sample(logits)
+        toks = self.last_tok.tolist()
+        finished = []
+        for slot, req in enumerate(self.active):
+            if req is not None and _finish(req, toks[slot], self.eos_id):
+                self._retire(req)
+                finished.append(req)
+        return finished
+
+
+def static_generate(params: dict, cfg: ArchConfig, requests: list[Request],
+                    *, cache_len: int, sampling: Optional[SamplingSpec] = None,
+                    eos_id: Optional[int] = None) -> list[Request]:
+    """Static rebatching reference: one batch, everyone starts together.
+
+    Prompts are right-padded to the batch max, prefilled with a
+    per-request ``last_pos`` vector, then decoded with per-slot positions
+    until *every* request finishes (retired rows keep burning decode
+    rounds).  Clock-free: the parity reference of the slot engine.
+    Mutates and returns ``requests``.
+    """
+    device = next(iter(params.values())).device
+    sample = _Sampler(sampling or SamplingSpec(), device)
+    maxlen = max(r.prompt_len for r in requests)
+    toks = torch.tensor([r.prompt + [0] * (maxlen - r.prompt_len)
+                         for r in requests], dtype=torch.long, device=device)
+    last_pos = torch.tensor([r.prompt_len - 1 for r in requests],
+                            dtype=torch.long, device=device)
+    logits, state = prefill(params, cfg, {"tokens": toks},
+                            extra_capacity=cache_len - maxlen,
+                            last_pos=last_pos)
+    tok = sample(logits)
+    for r, t in zip(requests, tok.tolist()):
+        _finish(r, t, eos_id)
+    while any(not r.done for r in requests):
+        logits, state = decode_step(params, cfg, state, tok)
+        tok = sample(logits)
+        for r, t in zip(requests, tok.tolist()):
+            if not r.done:
+                _finish(r, t, eos_id)
+    return requests

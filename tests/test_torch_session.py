@@ -43,7 +43,7 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _setup(consensus):
+def _setup(consensus, radius=None):
     jcfg = dataclasses.replace(jconfigs.smoke_config("qwen2-1.5b"),
                                dtype="float32")
     cfg = dataclasses.replace(configs.smoke_config("qwen2-1.5b"),
@@ -51,7 +51,7 @@ def _setup(consensus):
     jparams = jmodels.init_params(jax.random.PRNGKey(3), jcfg)
     session = AMBSession(
         TRAIN, ClockSpec(kind="simulated"),
-        ConsensusSpec(consensus=consensus), cfg=cfg,
+        ConsensusSpec(consensus=consensus, radius=radius), cfg=cfg,
         params=models.from_jax_params(jax.tree.map(np.asarray, jparams),
                                       cfg, device="cpu"),
         device="cpu")
@@ -98,6 +98,56 @@ def test_session_steps_match_jax_for_three_epochs(consensus):
         np.testing.assert_allclose(got[k].detach().numpy(), w, rtol=1e-5,
                                    atol=1e-6, err_msg=k)
     assert session.steps_done == 3
+
+
+def test_exact_session_leaves_the_radius_out_of_its_optimizer():
+    """The JAX session builds its exact optimizer as
+    ``make_optimizer("dual_averaging", beta=...)``: no trust region, whatever
+    ``ConsensusSpec.radius`` says.  With a radius this small a projected
+    step would stay within 1e-4 of the start in each leaf."""
+    jcfg, jparams, session = _setup("exact", radius=1e-4)
+    jopt = JDualAveraging(beta=JBeta(50.0, float(N * PER), 200.0))
+    jstep = jax.jit(jamb.make_train_step(jcfg, jopt, STANDIN))
+    jstate = (jparams, jopt.init(jparams))
+    rng = np.random.default_rng(6)
+    for b in BS[:2]:
+        toks = rng.integers(0, 512, (N * PER, SEQ)).astype(np.int32)
+        labels = np.concatenate(
+            [toks[:, 1:], np.full((N * PER, 1), -1, np.int32)], 1)
+        p, o, _ = jstep(*jstate, {"tokens": jnp.asarray(toks),
+                                  "labels": jnp.asarray(labels)},
+                        jnp.asarray(b, jnp.int32))
+        jstate = (p, o)
+        session.step({"tokens": torch.from_numpy(toks).long(),
+                      "labels": torch.from_numpy(labels).long()}, b)
+    want, start = _flat(jstate[0]), _flat(jparams)
+    moved = max(float(np.linalg.norm(want[k] - start[k])) for k in want)
+    assert moved > 1e-3
+    for k, w in want.items():
+        np.testing.assert_allclose(session.params[k].detach().numpy(), w,
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    assert session.protocol.optimizer.radius is None
+
+
+def test_session_logs_each_epoch_and_serves_its_batch_source(tmp_path):
+    from repro_torch.metrics import read_metrics
+    path = tmp_path / "train.jsonl"
+    session = AMBSession(TRAIN, ClockSpec(kind="simulated"), device="cpu",
+                         metrics_path=str(path))
+    source = session.batch_source()
+    assert isinstance(source, SyntheticSource)
+    assert (source.vocab_size, source.seq_len, source.n_workers,
+            source.per_worker, source.seed) == (512, SEQ, N, PER, 0)
+    assert source.device == session.device
+    outs = [session.step(source.batch(e)) for e in range(2)]
+    session.close()
+    session.close()
+    lines = read_metrics(path)
+    assert [ln["step"] for ln in lines] == [1, 2]
+    for ln, out in zip(lines, outs):
+        assert ln.keys() == {"step", "elapsed_s", "loss", "global_batch",
+                             "budget_s", "step_s", "sim_wall_s"}
+        assert ln["loss"] == pytest.approx(out["loss"])
 
 
 def test_session_clock_draws_b_and_run_drives_a_source():
