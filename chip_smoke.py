@@ -16,20 +16,28 @@ Phases (any failure ends the run with a non-zero exit code):
      shapes (GQA groups 1, 2, 6; causal or not; windows; query offsets,
      rows with no valid key among them; hd 32, 64, 128; fp32 and bf16;
      aligned and unaligned rows), then at the prefill shapes of the serve
-     run (2048, and the 2592 bucket);
+     run (2048, and the 2592 bucket); the RWKV6 wkv scan, y and the final
+     state, over a sweep of small odd shapes (S not a multiple of the
+     chunk, BH 1 to 7, hd 32 and 64, fp32 and bf16, contiguous, the
+     model's strided layout and unaligned rows, random u, decays in [0.2,
+     1]), in the clip regime against the plain chunked scan at the
+     kernel's chunk, then at the rwkv6-3b prefill shapes (40 heads of 64,
+     S 2048 and 2560) through the model's layout;
   4. a small reference check: the quantized gossip strategy on a
      smoke-width message stack, the smoke-size sessions (exact, gossip,
-     gossip_q8), and smoke-size serving (prefill logits, slot-engine
-     greedy tokens), on the card (CUDA kernels) against the CPU (plain
-     versions), the quantized ones with rounding draws made on the CPU;
+     gossip_q8), and smoke-size serving of qwen2-1.5b and rwkv6-3b
+     (prefill logits and caches or states, slot-engine greedy tokens), on
+     the card (CUDA kernels) against the CPU (plain versions), the
+     quantized ones with rounding draws made on the CPU;
   5. the main path: AMBSession on qwen2-1.5b at full width, exact
      consensus, all 28 layers, 3 epochs; ring gossip (r = 5), cut to 8
      layers; ring gossip_q8 (20 rounds) and gossip_q4 (40 rounds), cut to
      4 layers; 3 epochs each; then the serve CLI
      (``repro_torch.launch.serve``) at full width, all 28 layers, bf16:
      16 requests of 2048 +- 512 prompt tokens and 32 new tokens over 8
-     slots, with background exact fine-tune epochs; launch counts are
-     reset just before each run and read just after;
+     slots, with background exact fine-tune epochs; the same serve run for
+     rwkv6-3b at full width, all 32 layers, bf16; launch counts are reset
+     just before each run and read just after;
   6. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
@@ -57,18 +65,30 @@ SESSION_TOL = 1e-4  # fp32 smoke session, card vs CPU (summation order)
 CHUNK = 1 << 24    # columns per slice for the plain versions at full shape
 FLASH_F32_TOL = 1e-5   # x max(1, max|out|): fp32, another summation order
 SERVE_TOL = 1e-4   # fp32 smoke prefill logits, card vs CPU
-# the serve CLI run: prompt 2048 with jitter 512 and 32 new tokens give
-# slots of 2592 tokens; prompts pad to the 2048 or the 2592 bucket.  A
+# the serve CLI runs: prompt 2048 with jitter 512 and 32 new tokens give
+# slots of 2592 tokens; qwen2-1.5b prompts pad to the 2048 or the 2592
+# bucket, rwkv6-3b prompts prefill at their exact length.  A qwen2-1.5b
 # request takes about 1.2 to 1.8 s on one H100, so arrivals 2 s apart
 # leave idle budget in which fine-tune epochs run (0.25 s apart the slots
-# are never all idle inside a round while requests arrive)
+# are never all idle inside a round while requests arrive).  An rwkv6-3b
+# request took up to 3 s (decode rounds of 60 to 90 ms in some calls) and
+# its epoch 0.7 to 1.3 s: at 2 s apart one run absorbed no epoch, so its
+# arrivals are 4 s apart
 SERVE_REQUESTS, SERVE_NEW = 16, 32
 SERVE_ARGV = ["--arch", "qwen2-1.5b", "--batch", "8",
               "--requests", str(SERVE_REQUESTS), "--prompt-len", "2048",
               "--new-tokens", str(SERVE_NEW), "--arrival-gap", "2.0",
               "--round-budget", "0.25", "--finetune", "2"]
+SERVE_RWKV_ARGV = ["--arch", "rwkv6-3b"] + SERVE_ARGV[2:]
+SERVE_RWKV_ARGV[SERVE_RWKV_ARGV.index("--arrival-gap") + 1] = "4.0"
 FLASH_MAIN = dict(b=1, h=12, kv=2, hd=128)     # qwen2-1.5b, batch-1 prefill
 FLASH_SEQS = (2048, 2592)
+# x max|want|: JAX's own tolerance for the Pallas scan against the
+# sequential oracle (tests/test_kernels.py), fp32 with another order
+RWKV_TOL = 2e-5
+RWKV_MAIN = dict(b=1, h=40, hd=64)    # rwkv6-3b, batch-1 prefill
+RWKV_SEQS = (2048, 2560)              # the prompt's mean and its top
+RWKV_CHUNK = 16                       # the kernel's (and Pallas's) chunk
 
 
 def fail(msg: str) -> None:
@@ -315,6 +335,120 @@ def check_flash_attention(torch, ops):
     return main
 
 
+def rwkv_inputs(torch, gen, b, s, h, hd, dtype, layout, lo=0.2, hi=1.0):
+    """r, k, v in ``dtype`` and decay in [lo, hi] as (B, H, S, hd), u (H,
+    hd) ~ N(0, 1).  Layout "model": (B, S, H, hd) storage seen through a
+    transpose, as prefill passes it (decay fp32); "unaligned": the first hd
+    of hd + 1 columns of such storage, so rows are not 16-byte aligned and
+    the kernel loads element-wise (decay fp32); "flat": contiguous (B, H,
+    S, hd), decay in ``dtype``."""
+    pad = 1 if layout == "unaligned" else 0
+
+    def view(t, dt):
+        t = t.to(dt)[..., :hd].transpose(1, 2)
+        return t.contiguous() if layout == "flat" else t
+    shape = (b, s, h, hd + pad)
+    r, k, v = (view(torch.randn(shape, generator=gen, device="cuda"), dtype)
+               for _ in range(3))
+    d_dtype = dtype if layout == "flat" else torch.float32
+    decay = view(lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                             device="cuda"), d_dtype)
+    return r, k, v, decay, torch.randn((h, hd), generator=gen, device="cuda")
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| / max |want| (the tolerance JAX states)."""
+    return max_abs_err(torch, got, want) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def check_rwkv6_scan(torch, ops, ssm):
+    """The scan kernel against its plain version (y and the final state):
+    a sweep of small odd shapes, the clip regime against the plain chunked
+    scan at the kernel's chunk, then the rwkv6-3b prefill shapes, timed.
+    Returns the worst error and the main shape's timing."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases, worst = 0, 0.0
+    for hd in (32, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in ("flat", "model", "unaligned"):
+                for b, h in ((1, 1), (1, 3), (2, 2), (1, 7)):
+                    for s in (1, 15, 17, 40, 129):
+                        ins = rwkv_inputs(torch, gen, b, s, h, hd, dtype,
+                                          layout)
+                        got = ops.rwkv6_scan(*ins, force="kernel")
+                        torch.cuda.synchronize()
+                        want = ops.rwkv6_scan(*ins, force="ref")
+                        err = max(rel_err(torch, g, w)
+                                  for g, w in zip(got, want))
+                        if not err <= RWKV_TOL:
+                            fail(f"rwkv6_scan B={b} H={h} S={s} hd={hd} "
+                                 f"{dtype} {layout}: error {err} of max|y|"
+                                 f" or max|state| > {RWKV_TOL}")
+                        worst = max(worst, err)
+                        cases += 1
+            print(f"rwkv6_scan sweep hd={hd} {dtype}: worst error "
+                  f"{worst:.3g} of max|out|", flush=True)
+    print(f"rwkv6_scan sweep: {cases} cases, y and state within "
+          f"{RWKV_TOL} of max|out|", flush=True)
+    for b, h, s, hd in ((1, 3, 100, 64), (2, 2, 37, 32)):
+        ins = rwkv_inputs(torch, gen, b, s, h, hd, torch.float32, "model",
+                          lo=1e-6, hi=0.05)
+        got = ops.rwkv6_scan(*ins, force="kernel")
+        torch.cuda.synchronize()
+        r, k, v, d, u = ins
+        y, st = ssm.rwkv6_chunked_scan(
+            *(t.transpose(1, 2).float() for t in (r, k, v, d)), u,
+            RWKV_CHUNK)
+        err = max(rel_err(torch, got[0], y.transpose(1, 2)),
+                  rel_err(torch, got[1], st))
+        seq_gap = rel_err(torch, ops.rwkv6_scan(*ins, force="ref")[0],
+                          y.transpose(1, 2))
+        print(f"rwkv6_scan clip regime B={b} H={h} S={s} hd={hd} decays in"
+              f" [1e-6, 0.05]: vs chunked scan at C={RWKV_CHUNK} error "
+              f"{err:.3g}; the sequential oracle is {seq_gap:.3g} away",
+              flush=True)
+        if not err <= RWKV_TOL:
+            fail(f"rwkv6_scan clip regime error {err} > {RWKV_TOL}")
+        worst = max(worst, err)
+    main = None
+    b, h, hd = (RWKV_MAIN[x] for x in ("b", "h", "hd"))
+    for s in RWKV_SEQS:
+        ins = rwkv_inputs(torch, gen, b, s, h, hd, torch.bfloat16, "model")
+        got = ops.rwkv6_scan(*ins, force="kernel")
+        torch.cuda.synchronize()
+        want = ops.rwkv6_scan(*ins, force="ref")
+        err = max(rel_err(torch, g, w) for g, w in zip(got, want))
+        line = (f"rwkv6_scan B={b} H={h} hd={hd} S={s} r/k/v bf16 decay "
+                f"fp32, model layout: error {err:.3g} of max|out|")
+        if not err <= RWKV_TOL:
+            fail(f"{line} > {RWKV_TOL}")
+        k_ms = time_ms(torch, lambda: ops.rwkv6_scan(*ins, force="kernel"),
+                       20)
+        p_ms = time_ms(torch, lambda: ops.rwkv6_scan(*ins, force="ref"), 3)
+        n = b * h * s * hd
+        nbytes = 3 * 2 * n + 4 * n + 4 * n + 4 * b * h * hd * hd + 4 * h * hd
+        # per token and head: the inter-chunk term r.state and the state
+        # update k^T v (2 hd^2 each), the causal part of the chunk's tile
+        # (rd.kd^T and att.v over the C - 1 earlier tokens of a chunk on
+        # average half: 2 (C - 1) hd) and the bonus (r u.k, then times v:
+        # 5 hd), as the flash row counts causal pairs only
+        flops = b * h * s * (4 * hd * hd + 2 * (RWKV_CHUNK - 1) * hd
+                             + 5 * hd)
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"{line} ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms=none "
+              f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB)", flush=True)
+        if main is None:
+            main = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                        bound_ms=b_ms, bound_by=b_by,
+                        shape=f"B={b} H={h} hd={hd} S={s}, r/k/v bf16, "
+                              f"decay fp32, model layout")
+        worst = max(worst, err)
+        del ins, got, want
+    return worst, main
+
+
 def in_chunks(fn, d: int) -> None:
     """``fn(a, b)`` on the column slices [a, b) of an (n, d) stack: at the
     main path's shape the plain versions' temporaries do not fit beside
@@ -521,35 +655,41 @@ def drain(engine, reqs) -> None:
         engine.decode_round()
 
 
-def serve_reference_check(torch, rt) -> None:
-    """Smoke-size fp32 serving, card (flash kernel) vs CPU (plain version):
-    prefill logits within SERVE_TOL, slot-engine greedy tokens equal."""
-    cfg = dataclasses.replace(rt.configs.smoke_config("qwen2-1.5b"),
-                              dtype="float32")
+def serve_reference_check(torch, rt, arch: str) -> None:
+    """Smoke-size fp32 serving, card (kernels) vs CPU (plain versions):
+    prefill logits and caches (dense: the K cache, with right-padded rows;
+    ssm: the wkv states, exact lengths) within SERVE_TOL, slot-engine
+    greedy tokens equal."""
+    cfg = dataclasses.replace(rt.configs.smoke_config(arch), dtype="float32")
+    kernel = "rwkv6_scan" if cfg.family == "ssm" else "flash_attention"
     params = rt.models.init_params(cfg, torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen)
-    last = torch.tensor([39, 17, 26])
+    last = None if cfg.family == "ssm" else torch.tensor([39, 17, 26])
     out, tokens = {}, {}
     for device in ("cpu", "cuda"):
         p = {k: v.to(device) for k, v in params.items()}
         rt.kernels.router.reset_launches()
-        logits, state = rt.models.prefill(p, cfg, {"tokens": toks.to(device)},
-                                          extra_capacity=8,
-                                          last_pos=last.to(device))
+        logits, state = rt.models.prefill(
+            p, cfg, {"tokens": toks.to(device)}, extra_capacity=8,
+            last_pos=None if last is None else last.to(device))
         engine = rt.serve.SlotEngine(p, cfg, slots=2, cache_len=64)
         reqs = rt.serve.synthetic_requests(
             5, vocab_size=cfg.vocab_size, prompt_len=24, prompt_jitter=8,
             max_new_tokens=8, seed=3)
         drain(engine, reqs)
-        launches = rt.kernels.router.launches().get("flash_attention", 0)
+        launches = rt.kernels.router.launches().get(kernel, 0)
         if (device == "cuda") != (launches > 0):
-            fail(f"serve reference on {device}: {launches} flash launches")
-        out[device] = (logits.cpu(), state.caches.k.cpu())
+            fail(f"serve reference {arch} on {device}: {launches} {kernel} "
+                 f"launches")
+        caches = (state.caches["tmix"].s if cfg.family == "ssm"
+                  else state.caches.k)
+        out[device] = (logits.cpu(), caches.cpu())
         tokens[device] = [r.out_tokens for r in reqs]
     err = max(max_abs_err(torch, a, b) for a, b in zip(out["cpu"],
                                                        out["cuda"]))
-    print(f"reference serve: prefill logits and caches card vs CPU "
+    print(f"reference serve {arch}: prefill logits and "
+          f"{'states' if cfg.family == 'ssm' else 'caches'} card vs CPU "
           f"max_abs_err={err:.3g}; slot-engine tokens equal: "
           f"{tokens['cpu'] == tokens['cuda']}", flush=True)
     if not err <= SERVE_TOL:
@@ -613,11 +753,14 @@ def timed(table: dict, key: str, fn):
     return wrapper
 
 
-def run_serve(torch, rt, cfg) -> dict:
-    """The serve CLI at full width (SERVE_ARGV): returns the launch counts
-    of exactly that run.  The engine's sampler is wrapped to see every
-    logits tensor it draws from, and the engine's insert (a prefill) and
-    decode round and the session's step are timed."""
+def run_serve(torch, rt, argv) -> dict:
+    """The serve CLI at full width (``argv``: SERVE_ARGV or its rwkv6-3b
+    form): returns the launch counts of exactly that run.  The engine's
+    sampler is wrapped to see every logits tensor it draws from, and the
+    engine's insert (a prefill) and decode round and the session's step
+    are timed.  Each request's prefill launches its attention kernel
+    (dense) or its scan kernel (ssm) once a layer, and each exact fine-tune
+    epoch the prox kernel once a parameter leaf."""
     from repro_torch.api import AMBSession
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.serve import slots
@@ -641,13 +784,17 @@ def run_serve(torch, rt, cfg) -> dict:
     rt.kernels.router.reset_launches()
     t0 = time.perf_counter()
     try:
-        report = serve_main(SERVE_ARGV)
+        report = serve_main(argv)
     finally:
         slots.sample_token = sample
         for (owner, name), fn in zip(wrapped, originals):
             setattr(owner, name, fn)
     wall = time.perf_counter() - t0
     launches = rt.kernels.router.launches()
+    arch = argv[argv.index("--arch") + 1]
+    cfg = rt.configs.get_config(arch)
+    leaves = len(rt.models.init_params(rt.configs.smoke_config(arch),
+                                       torch.Generator()))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     s = report.summary
     print(f"serve: {cfg.name} layers={cfg.num_layers} {cfg.dtype} "
@@ -674,15 +821,18 @@ def run_serve(torch, rt, cfg) -> dict:
     if len(done) != SERVE_REQUESTS:
         fail(f"serve: {len(done)} of {SERVE_REQUESTS} requests finished "
              f"with {SERVE_NEW} tokens")
-    want = cfg.num_layers * SERVE_REQUESTS
-    if launches.get("flash_attention", 0) != want:
-        fail(f"serve: flash_attention launched "
-             f"{launches.get('flash_attention', 0)} times, expected {want}")
+    prefill_kernel, other = (("rwkv6_scan", "flash_attention")
+                             if cfg.family == "ssm"
+                             else ("flash_attention", "rwkv6_scan"))
+    want = {prefill_kernel: cfg.num_layers * SERVE_REQUESTS, other: 0,
+            "dual_update": leaves * report.train_epochs}
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            fail(f"serve {cfg.name}: {name} launched "
+                 f"{launches.get(name, 0)} times, expected {n} "
+                 f"({report.train_epochs} exact epochs of {leaves} leaves)")
     if report.train_epochs < 1:
         fail("serve: no fine-tune epoch was absorbed")
-    if launches.get("dual_update", 0) != 15 * report.train_epochs:
-        fail(f"serve: dual_update launched {launches.get('dual_update', 0)} "
-             f"times for {report.train_epochs} exact epochs")
     losses = [s["train_loss_first"], s["train_loss_last"]]
     if not all(math.isfinite(x) for x in losses):
         fail(f"serve: fine-tune losses {losses}")
@@ -737,11 +887,13 @@ def main() -> int:
     qc_err, qcomb = check_quantized_combine(torch, ops, ref, GossipConsensus,
                                             d_quant)
     flash = check_flash_attention(torch, ops)
+    rwkv_err, rwkv = check_rwkv6_scan(torch, ops, rt.models.ssm)
 
     smoke = rt.configs.smoke_config("qwen2-1.5b")
     check_quantized_strategy(torch, rt, dense_param_count(smoke) + 1)
     reference_check(torch, rt)
-    serve_reference_check(torch, rt)
+    serve_reference_check(torch, rt, "qwen2-1.5b")
+    serve_reference_check(torch, rt, "rwkv6-3b")
 
     runs = {"exact": run_session(torch, rt, full, "exact"),
             "gossip": run_session(torch, rt, gossip_cfg, "gossip"),
@@ -760,11 +912,12 @@ def main() -> int:
                 "quantized_combine": GOSSIP_ROUNDS * 32 // bits * EPOCHS}
         if runs[name] != want:
             fail(f"{name} launched {runs[name]}, expected {want}")
-    served = run_serve(torch, rt, full)
+    served = {"qwen2-1.5b": run_serve(torch, rt, SERVE_ARGV),
+              "rwkv6-3b": run_serve(torch, rt, SERVE_RWKV_ARGV)}
 
     def launches(name):
         return sum(c.get(name, 0) for c in runs.values()) \
-            + served.get(name, 0)
+            + sum(c.get(name, 0) for c in served.values())
 
     def per_epoch(name):
         return {s: c[name] / EPOCHS for s, c in runs.items() if name in c}
@@ -774,7 +927,9 @@ def main() -> int:
                     source=f"src/repro_torch/kernels/csrc/{name}.cu",
                     replaces=replaces, launches=launches(name),
                     launches_per_epoch=per_epoch(name),
-                    launches_serve=served.get(name, 0), max_abs_err=err,
+                    launches_serve={a: c.get(name, 0)
+                                    for a, c in served.items()},
+                    max_abs_err=err,
                     **timing)
 
     kernels = [
@@ -788,6 +943,8 @@ def main() -> int:
             qc_err, qcomb),
         row("flash_attention", "src/repro/kernels/flash_attention.py:98",
             flash.pop("max_abs_err"), flash),
+        row("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:84", rwkv_err,
+            rwkv),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

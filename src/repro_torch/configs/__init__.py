@@ -2,9 +2,9 @@
 from __future__ import annotations
 
 from ..models.common import ArchConfig
-from . import qwen2_1p5b
+from . import qwen2_1p5b, rwkv6_3b
 
-_MODULES = {"qwen2-1.5b": qwen2_1p5b}
+_MODULES = {"qwen2-1.5b": qwen2_1p5b, "rwkv6-3b": rwkv6_3b}
 
 ARCH_NAMES = tuple(_MODULES)
 

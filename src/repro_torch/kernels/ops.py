@@ -15,6 +15,7 @@ from .dual_update import dual_update_cuda
 from .flash_attention import flash_attention_cuda
 from .gossip_combine import check_out, gossip_combine_cuda
 from .quantized_combine import check_combine_out, quantized_combine_cuda
+from .rwkv6_scan import rwkv6_scan_cuda
 from .stochastic_quantize import check_quantize_out, stochastic_quantize_cuda
 
 
@@ -104,3 +105,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     q_offset=q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset).to(q.dtype)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               decay: torch.Tensor, u: torch.Tensor,
+               force: Optional[str] = None) -> tuple:
+    """The RWKV6 wkv scan from a zero state.
+
+    r, k, v, decay: (B, H, S, hd), u (H, hd) (JAX's flat (BH, S, hd) form
+    is (1, BH, S, hd) here); any float dtype, computed in fp32.  Returns
+    (y fp32 (B, H, S, hd), the fp32 (B, H, hd, hd) state after token S).
+    Forward only: on the card it raises where autograd would need a
+    gradient of an input (there is no backward kernel, and it never falls
+    back to the plain version).
+    """
+    if router.resolve(r, force) == "kernel":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, decay, u)):
+            raise RuntimeError("rwkv6_scan has no backward kernel; call it "
+                               "under torch.no_grad() or on tensors that do "
+                               "not require grad")
+        return rwkv6_scan_cuda(r, k, v, decay, u)
+    return ref.rwkv6_chunk_ref(r, k, v, decay, u)

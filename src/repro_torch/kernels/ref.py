@@ -111,3 +111,27 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bkch->bkgqh", p, v.float())
     return out.reshape(b, h, sq, hd)
+
+
+def rwkv6_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    decay: torch.Tensor, u: torch.Tensor) -> tuple:
+    """RWKV6 wkv over the whole sequence from a zero state, the sequential
+    oracle of the scan kernel (no chunks, so no exponent clip).
+
+    r, k, v, decay: (B, H, S, hd), decay in (0, 1]; u: (H, hd) current-token
+    bonus.  Per token: ``y_t = r_t (S + u k_t^T v_t)``, then ``S <- d_t S +
+    k_t^T v_t``, in fp32, as ``repro.kernels.ref.rwkv6_chunk_ref``.
+    Returns (y (B, H, S, hd), the state after the last token (B, H, hd,
+    hd)), fp32.
+    """
+    b, h, s, hd = r.shape
+    rf, kf, vf, df = (t.float() for t in (r, k, v, decay))
+    uf = u.float()[None, :, :, None]
+    state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    y = torch.empty((b, h, s, hd), dtype=torch.float32, device=r.device)
+    for t in range(s):
+        kv = torch.einsum("bhd,bhe->bhde", kf[:, :, t], vf[:, :, t])
+        y[:, :, t] = torch.einsum("bhd,bhde->bhe", rf[:, :, t],
+                                  state + uf * kv)
+        state = df[:, :, t, :, None] * state + kv
+    return y, state

@@ -1,8 +1,9 @@
-"""Architecture config and the shared building blocks of the dense LM.
+"""Architecture config and the shared building blocks of the LMs.
 
-Counterpart of ``repro.models.common``, with the fields the dense family
-uses.  Layouts follow the JAX package: linears are ``(in, out)`` for
-``x @ W``, rotary embedding rotates split halves (not interleaved pairs).
+Counterpart of ``repro.models.common``, with the fields the dense and
+RWKV6 (``"ssm"``) families use.  Layouts follow the JAX package: linears
+are ``(in, out)`` for ``x @ W``, rotary embedding rotates split halves
+(not interleaved pairs).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ class ArchConfig:
     """One architecture (full or reduced/smoke variant)."""
 
     name: str
-    family: str                     # dense (the only family ported so far)
+    family: str                     # dense | ssm (RWKV6): the ported ones
     num_layers: int
     d_model: int
     num_heads: int
@@ -28,6 +29,10 @@ class ArchConfig:
     qkv_bias: bool = False
     rope_theta: float = 1_000_000.0
     sliding_window: int = 0         # 0 = full attention (SWA is not ported)
+    ssm_chunk: int = 256            # chunk of the RWKV6 training scan
+    head_pad_to: int = 0            # pad the RWKV6 decode state's heads to
+                                    # this count (0 = off); exact: padded
+                                    # channels stay zero
     dtype: str = "bfloat16"
 
     @property

@@ -4,15 +4,18 @@
 The decode batch is a fixed array of ``slots`` rows sharing one
 ``decode_step``: per-slot KV rows and positions
 (:func:`repro_torch.models.init_decode_state` with ``per_slot_pos=True``).
-Requests are prefilled one at a time (batch 1) at a *bucketed* prompt
-length, whose attention runs the flash kernel on the card, and written into
-a free row by :func:`repro_torch.models.insert_decode_state`; retirement
-(EOS or token budget) frees the row and zeroes it
-(:func:`repro_torch.models.evict_decode_state`).  Prompts are right-padded
-to the next power-of-two bucket (causal attention keeps the real prefix
-independent of trailing pads, and the padded cache rows stay masked until
-decode overwrites them).  Only the dense family with linear caches is
-ported (``init_decode_state`` and ``prefill`` raise for the rest).
+Requests are prefilled one at a time (batch 1), through the flash kernel
+(dense) or the wkv scan kernel (ssm) on the card, and written into a free
+row by :func:`repro_torch.models.insert_decode_state`; retirement (EOS or
+token budget) frees the row and zeroes it
+(:func:`repro_torch.models.evict_decode_state`).  Bucketing is
+family-aware, as in JAX: dense prompts are right-padded to the next
+power-of-two bucket (causal attention keeps the real prefix independent of
+trailing pads, and the padded cache rows stay masked until decode
+overwrites them); ssm prompts prefill at their exact length, because a
+recurrent state absorbs pads.  The dense family with linear caches and the
+RWKV6 ssm family are ported (``init_decode_state`` and ``prefill`` raise
+for the rest).
 """
 from __future__ import annotations
 
@@ -89,6 +92,8 @@ class SlotEngine:
         self.active: list[Optional[Request]] = [None] * slots
         self.free_slots: list[int] = list(range(slots))
         self.buckets: set[int] = set()     # prefill lengths used so far
+        # exact-length prefill where right-padding is unsound
+        self._exact_len = cfg.family not in ("dense", "vlm")
         self._sample = _Sampler(self.sampling, self.device)
 
     # -- capacity ----------------------------------------------------------
@@ -106,10 +111,10 @@ class SlotEngine:
     def insert(self, req: Request) -> int:
         """Prefill ``req`` into a free slot; returns its first token.
 
-        The prompt is padded to its bucket, prefilled at batch 1 with
-        ``last_pos`` at the real last token, and written into the slot
-        row.  The first generated token is sampled from the prefill logits
-        (so TTFT is one prefill, not prefill + a round).
+        The prompt is padded to its bucket (ssm: not padded), prefilled at
+        batch 1 with ``last_pos`` at the real last token, and written into
+        the slot row.  The first generated token is sampled from the
+        prefill logits (so TTFT is one prefill, not prefill + a round).
         """
         if not self.free_slots:
             raise RuntimeError("no free slot")
@@ -118,7 +123,8 @@ class SlotEngine:
                 f"request {req.rid}: {req.prompt_len}+{req.max_new_tokens} "
                 f"tokens exceed cache_len={self.cache_len}")
         slot = self.free_slots.pop(0)
-        bucket = bucket_len(req.prompt_len, self.cache_len, exact=False)
+        bucket = bucket_len(req.prompt_len, self.cache_len,
+                            exact=self._exact_len)
         self.buckets.add(bucket)
         toks = torch.tensor([req.prompt + [0] * (bucket - req.prompt_len)],
                             dtype=torch.long, device=self.device)
@@ -166,8 +172,13 @@ def static_generate(params: dict, cfg: ArchConfig, requests: list[Request],
     per-request ``last_pos`` vector, then decoded with per-slot positions
     until *every* request finishes (retired rows keep burning decode
     rounds).  Clock-free: the parity reference of the slot engine.
-    Mutates and returns ``requests``.
+    Mutates and returns ``requests``.  Padding to the batch max is sound
+    for the dense family only: other families raise.
     """
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            "static_generate pads to the batch max prompt length, which "
+            "is only sound for dense/vlm")
     device = next(iter(params.values())).device
     sample = _Sampler(sampling or SamplingSpec(), device)
     maxlen = max(r.prompt_len for r in requests)
