@@ -6,17 +6,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure ends the run with a non-zero exit code):
   1. a CUDA card is present; print its name and power limit (nvidia-smi);
   2. build every CUDA kernel from src/repro_torch/kernels/csrc (one nvcc
-     per source, started together) and print the build seconds;
+     per source, started together) and print the build seconds; print the
+     ptxas report (registers, shared memory, spills) of the tensor-core
+     flash-attention body and of the prox kernel, and count the tensor-core
+     body's HGMMA instructions in its SASS (cuobjdump);
   3. hold each kernel against its plain PyTorch version on the card, at
      small shapes and at the shapes the main path gives it; print the
-     error, the kernel's, the plain version's and one library call's
-     median time (CUDA events), and the least time the card could take;
+     error, the kernel's, the plain version's and one library call's time
+     per call (many calls queued between one pair of CUDA events, see
+     ``time_ms``), and the least time the card could take; the prox also
+     on views offset by 1 and 3 elements with odd lengths;
      for the quantized round, also the time of its two plain-torch steps
      (row grids and draws); flash attention over a sweep of small odd
      shapes (GQA groups 1, 2, 6; causal or not; windows; query offsets,
      rows with no valid key among them; hd 32, 64, 128; fp32 and bf16;
-     aligned and unaligned rows), then at the prefill shapes of the serve
-     run (2048, and the 2592 bucket); the RWKV6 wkv scan, y and the final
+     aligned and unaligned rows; each case names the body that took it,
+     and both bodies must have run), then at the prefill shapes of the
+     serve run (2048, and the 2592 bucket), the tensor-core body timed
+     beside the CUDA-core body; the RWKV6 wkv scan, y and the final
      state, over a sweep of small odd shapes (S not a multiple of the
      chunk, BH 1 to 7, hd 32 and 64, fp32 and bf16, contiguous, the
      model's strided layout and unaligned rows, random u, decays in [0.2,
@@ -35,9 +42,10 @@ Phases (any failure ends the run with a non-zero exit code):
      4 layers; 3 epochs each; then the serve CLI
      (``repro_torch.launch.serve``) at full width, all 28 layers, bf16:
      16 requests of 2048 +- 512 prompt tokens and 32 new tokens over 8
-     slots, with background exact fine-tune epochs; the same serve run for
-     rwkv6-3b at full width, all 32 layers, bf16; launch counts are reset
-     just before each run and read just after;
+     slots, with background exact fine-tune epochs, every prefill's
+     attention on the tensor-core body; the same serve run for rwkv6-3b at
+     full width, all 32 layers, bf16; launch counts are reset just before
+     each run and read just after;
   6. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
@@ -45,6 +53,8 @@ import dataclasses
 import gc
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -67,13 +77,12 @@ FLASH_F32_TOL = 1e-5   # x max(1, max|out|): fp32, another summation order
 SERVE_TOL = 1e-4   # fp32 smoke prefill logits, card vs CPU
 # the serve CLI runs: prompt 2048 with jitter 512 and 32 new tokens give
 # slots of 2592 tokens; qwen2-1.5b prompts pad to the 2048 or the 2592
-# bucket, rwkv6-3b prompts prefill at their exact length.  A qwen2-1.5b
-# request takes about 1.2 to 1.8 s on one H100, so arrivals 2 s apart
-# leave idle budget in which fine-tune epochs run (0.25 s apart the slots
-# are never all idle inside a round while requests arrive).  An rwkv6-3b
-# request took up to 3 s (decode rounds of 60 to 90 ms in some calls) and
-# its epoch 0.7 to 1.3 s: at 2 s apart one run absorbed no epoch, so its
-# arrivals are 4 s apart
+# bucket, rwkv6-3b prompts prefill at their exact length.  Decode rounds
+# are host-bound and read 44 to 90 ms between calls on the same code, so a
+# qwen2-1.5b request takes 1.4 to 3 s and arrivals 2 s apart leave idle
+# time between requests in most calls; an rwkv6-3b request took up to 3 s
+# and its epoch 0.7 to 1.3 s, so its arrivals are 4 s apart.  A fine-tune
+# epoch is required where the run left idle time (see ``idle_gaps``)
 SERVE_REQUESTS, SERVE_NEW = 16, 32
 SERVE_ARGV = ["--arch", "qwen2-1.5b", "--batch", "8",
               "--requests", str(SERVE_REQUESTS), "--prompt-len", "2048",
@@ -81,6 +90,8 @@ SERVE_ARGV = ["--arch", "qwen2-1.5b", "--batch", "8",
               "--round-budget", "0.25", "--finetune", "2"]
 SERVE_RWKV_ARGV = ["--arch", "rwkv6-3b"] + SERVE_ARGV[2:]
 SERVE_RWKV_ARGV[SERVE_RWKV_ARGV.index("--arrival-gap") + 1] = "4.0"
+# an idle time shorter than this may fall between two rounds unseen
+IDLE_MIN_S = 0.01
 FLASH_MAIN = dict(b=1, h=12, kv=2, hd=128)     # qwen2-1.5b, batch-1 prefill
 FLASH_SEQS = (2048, 2592)
 # x max|want|: JAX's own tolerance for the Pallas scan against the
@@ -89,6 +100,11 @@ RWKV_TOL = 2e-5
 RWKV_MAIN = dict(b=1, h=40, hd=64)    # rwkv6-3b, batch-1 prefill
 RWKV_SEQS = (2048, 2560)              # the prompt's mean and its top
 RWKV_CHUNK = 16                       # the kernel's (and Pallas's) chunk
+SLEEP_CYCLES_PER_S = 2e9   # torch.cuda._sleep's clock, at most ~1.98 GHz
+HOLD_S_MAX = 1.0           # the longest device-side hold time_ms queues
+# the kernels redesigned for Hopper's tensor cores and memory rate: their
+# ptxas reports are printed at set-up; the flash body must show HGMMA
+REPORTED_KERNELS = ("flash_attention_sm90", "dual_update")
 
 
 def fail(msg: str) -> None:
@@ -104,20 +120,46 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Median ms of ``reps`` launches, each between two CUDA events."""
+def time_ms(torch, fn, reps: int, what: str) -> float:
+    """ms per call of ``fn`` on the card: warm up, then queue ``reps``
+    calls between one pair of CUDA events and divide the elapsed time by
+    ``reps``.  A device-side sleep queued first holds the stream until the
+    host has queued every call, so the host's own work per call (argument
+    checks, allocation, the launch itself) overlaps the card's instead of
+    adding to it.  A call that synchronises inside (a host-scalar copy)
+    still waits for the card; the line says so when the host fell behind."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_s = min(HOLD_S_MAX, reps * (time.perf_counter() - t0) + 1e-3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_s * SLEEP_CYCLES_PER_S))
+    start.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
+    end.record()
+    behind = start.query()
+    end.synchronize()
+    if behind:
+        print(f"time_ms {what}: the host fell behind the card; the time "
+              f"includes host time", flush=True)
+    return start.elapsed_time(end) / reps
+
+
+def time_pair(torch, kernel, library, reps: int, what: str) -> tuple:
+    """(kernel ms, library ms), each the mean of two ``time_ms`` readings
+    taken in turns (library, kernel, kernel, library), so that a drift of
+    the card's clocks over the four windows falls on both alike."""
+    lib_a = time_ms(torch, library, reps, f"{what} library")
+    ker_a = time_ms(torch, kernel, reps, what)
+    ker_b = time_ms(torch, kernel, reps, what)
+    lib_b = time_ms(torch, library, reps, f"{what} library")
+    print(f"time_pair {what}: kernel {ker_a:.4f} {ker_b:.4f} library "
+          f"{lib_a:.4f} {lib_b:.4f} ms", flush=True)
+    return (ker_a + ker_b) / 2, (lib_a + lib_b) / 2
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -148,28 +190,40 @@ def dense_param_count(cfg) -> int:
 
 
 def check_dual_update(torch, ops, ref, full_shape, beta: float):
+    """The prox against its plain version: whole tensors, views whose
+    start is offset by (z, w0) elements with odd lengths (4: 16-byte
+    aligned, the vectors and a scalar tail; 1 and 3: the scalar loop),
+    then the embed leaf, timed."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst, full = 0.0, {}
-    for shape in [(1,), (127,), (2 ** 20 + 3,), full_shape]:
+    cases = [((1,), (0, 0)), ((127,), (0, 0)), ((2 ** 20 + 3,), (0, 0)),
+             ((1001,), (1, 1)), ((1001,), (3, 3)), ((1001,), (4, 4)),
+             ((2 ** 20 + 3,), (1, 1)), ((2 ** 20 + 3,), (3, 3)),
+             ((2 ** 20 + 1,), (1, 3)), ((2 ** 20 + 1,), (4, 4)),
+             ((3,), (1, 1)), (full_shape, (0, 0))]
+    for shape, (oz, ow) in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            z = torch.randn(shape, generator=gen, device="cuda")
-            w0 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            n = math.prod(shape)
+            z = torch.randn(n + oz, generator=gen, device="cuda")[oz:]
+            w0 = torch.randn(n + ow, generator=gen,
+                             device="cuda").to(dtype)[ow:]
+            z, w0 = z.view(shape), w0.view(shape)
             got = ops.dual_update(z, w0, beta, force="kernel")
             torch.cuda.synchronize()
             err = max_abs_err(torch, got, ref.dual_update_ref(z, w0, beta))
             worst = max(worst, err)
-            line = (f"dual_update shape={shape} w0={dtype} "
-                    f"max_abs_err={err:.3g}")
+            line = (f"dual_update shape={shape} offsets z={oz} w0={ow} "
+                    f"w0={dtype} max_abs_err={err:.3g}")
             if err > DUAL_TOL:
                 fail(f"{line} > {DUAL_TOL}")
             if shape == full_shape:
-                n = z.numel()
-                k_ms = time_ms(torch, lambda: ops.dual_update(
-                    z, w0, beta, force="kernel"), 20)
+                k_ms, l_ms = time_pair(
+                    torch, lambda: ops.dual_update(z, w0, beta,
+                                                   force="kernel"),
+                    lambda: torch.add(w0, z, alpha=-0.5 / beta), 50,
+                    f"dual_update w0 {dtype}")
                 p_ms = time_ms(torch, lambda: ops.dual_update(
-                    z, w0, beta, force="ref"), 10)
-                l_ms = time_ms(torch, lambda: torch.add(
-                    w0, z, alpha=-0.5 / beta), 20)
+                    z, w0, beta, force="ref"), 10, "dual_update plain")
                 b_ms, b_by = bound(n * (4 + w0.element_size() + 4), 2 * n)
                 full[dtype] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                    bound_ms=b_ms, bound_by=b_by,
@@ -202,18 +256,22 @@ def check_gossip_combine(torch, ops, GossipConsensus, d_full: int):
                 fail(f"{line} > {COMBINE_TOL}")
             if graph == "ring" and d == d_full:
                 # into a buffer kept across rounds, as the main path calls it
+                # into a buffer kept across rounds, as the main path calls
+                # it; timed alone (the library call's stacked rows do not
+                # fit beside that buffer)
                 k_ms = time_ms(torch, lambda: ops.gossip_combine(
-                    m, src, w, out=got, force="kernel"), 5)
+                    m, src, w, out=got, force="kernel"), 5, "gossip_combine")
                 del got
                 p_ms = time_ms(torch, lambda: ops.gossip_combine(
-                    m, src, w, force="ref"), 3)
+                    m, src, w, force="ref"), 3, "gossip_combine plain")
                 # the stacked neighbour rows, (n, K, D), and one batched
                 # (1, K) x (K, D) product per worker (one bmm: a plain
                 # (1, K) x (K, n D) product is past cuBLAS's 2^31 limit)
                 stacked = m[src.t().contiguous().long()]
                 wt = torch.tensor(w, device="cuda").view(1, 1, k).expand(
                     N_WORKERS, 1, k)
-                l_ms = time_ms(torch, lambda: torch.bmm(wt, stacked), 3)
+                l_ms = time_ms(torch, lambda: torch.bmm(wt, stacked), 3,
+                               "torch.bmm")
                 del stacked
                 b_ms, b_by = bound(2 * 4 * m.numel(), 2 * k * m.numel())
                 full = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
@@ -250,27 +308,53 @@ def flash_tol(torch, want) -> float:
     return 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
 
 
+def ulp_stats(torch, got, want) -> str:
+    """bf16 outputs against the plain version, element by element, in
+    bf16 ulps of each wanted value's own binade: how many differ, how many
+    by exactly one ulp, how many of those in the top binade of max|want|
+    (the flips the tolerance sees), and the largest distance in ulps below
+    the top binade."""
+    got, want = got.float().reshape(-1), want.float().reshape(-1)
+    mag = want.abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    ulps = (got - want).abs() / ulp
+    top = ulp == ulp.max()
+    below = ulps[~top]
+    return (f"{int((ulps > 0).sum())} of {ulps.numel()} differ, "
+            f"{int((ulps == 1).sum())} by one ulp, "
+            f"{int(((ulps > 0) & top).sum())} in the top binade; max "
+            f"{float(below.max()) if below.numel() else 0.0:.3g} ulps "
+            f"below it")
+
+
 def causal_pairs(sq: int, skv: int) -> int:
     """(query, key) pairs a causal mask keeps at q_offset 0."""
     n = min(sq, skv)
     return n * (n + 1) // 2 + max(0, sq - skv) * skv
 
 
-def check_flash_attention(torch, ops):
+def check_flash_attention(torch, ops, router, flash):
     """The kernel against its plain version: a sweep of small odd shapes,
-    then the serve run's prefill shapes, timed.  Returns the worst error
-    of each, and the main shape's timing."""
+    each case on the body ``flash.body`` gives it (both bodies must run,
+    and the per-body launch counts must agree), then the serve run's
+    prefill shapes on the tensor-core body, timed beside the CUDA-core
+    body.  Returns the main shape's timing and worst error."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    cases = worst_ratio = 0
+    cases = 0
+    bodies = dict.fromkeys(flash.BODIES, 0)
+    worst_ratio = dict.fromkeys(flash.BODIES, 0.0)
+    router.reset_launches()
     for h, kv in ((2, 2), (4, 2), (6, 1)):                 # G = 1, 2, 6
         for hd in (32, 64, 128):
             for dtype in (torch.float32, torch.bfloat16):
                 worst = 0.0
+                group = dict.fromkeys(flash.BODIES, 0)
                 for sq in (1, 63, 257):
                     for skv in (1, 63, 257):
                         # Sq = 63: unaligned rows, element-wise loads
                         q, k, v = model_layout(torch, gen, 2, sq, skv, h, kv,
                                                hd, dtype, aligned=sq != 63)
+                        which = flash.body(q, k, v)
                         for causal in (True, False):
                             for window in (0, 17):
                                 offsets = {0}
@@ -289,49 +373,78 @@ def check_flash_attention(torch, ops):
                                     err = max_abs_err(torch, got, want)
                                     tol = flash_tol(torch, want)
                                     if not err <= tol:
-                                        fail(f"flash_attention H={h} KV={kv}"
-                                             f" hd={hd} {dtype} Sq={sq} "
-                                             f"Skv={skv} {mask}: max_abs_err "
-                                             f"{err} > {tol}")
+                                        fail(f"flash_attention {which} H={h}"
+                                             f" KV={kv} hd={hd} {dtype} "
+                                             f"Sq={sq} Skv={skv} {mask}: "
+                                             f"max_abs_err {err} > {tol}")
                                     worst = max(worst, err)
-                                    worst_ratio = max(worst_ratio, err / tol)
+                                    worst_ratio[which] = max(
+                                        worst_ratio[which], err / tol)
+                                    group[which] += 1
                                     cases += 1
+                for name, n in group.items():
+                    bodies[name] += n
                 print(f"flash_attention sweep H={h} KV={kv} hd={hd} {dtype}:"
-                      f" max_abs_err={worst:.3g}", flush=True)
-    print(f"flash_attention sweep: {cases} cases, worst error "
-          f"{worst_ratio:.3f} of its tolerance", flush=True)
+                      f" max_abs_err={worst:.3g}; cases per body {group}",
+                      flush=True)
+    counted = {b: router.launches().get(f"flash_attention.{b}", 0)
+               for b in flash.BODIES}
+    ratios = ", ".join(f"{b} {r:.3f}" for b, r in worst_ratio.items())
+    print(f"flash_attention sweep: {cases} cases, worst error per body "
+          f"({ratios}) of its tolerance; cases per body {bodies}",
+          flush=True)
+    if counted != bodies:
+        fail(f"flash_attention sweep: launches per body {counted}, expected "
+             f"{bodies}")
+    if not all(bodies.values()):
+        fail(f"flash_attention sweep: a body never ran: {bodies}")
     main = None
     for s in FLASH_SEQS:
         b, h, kv, hd = (FLASH_MAIN[x] for x in ("b", "h", "kv", "hd"))
         q, k, v = model_layout(torch, gen, b, s, s, h, kv, hd,
                                torch.bfloat16)
+        if flash.body(q, k, v) != "tensor_core":
+            fail(f"flash_attention S={s}: the model's layout took the "
+                 f"{flash.body(q, k, v)} body")
         got = ops.flash_attention(q, k, v, force="kernel")
         torch.cuda.synchronize()
         want = ops.flash_attention(q, k, v, force="ref")
         err, tol = max_abs_err(torch, got, want), flash_tol(torch, want)
+        old = flash.flash_attention_cuda(q, k, v, force_body="cuda_core")
+        torch.cuda.synchronize()
+        err_old = max_abs_err(torch, old, want)
         line = (f"flash_attention B={b} H={h} KV={kv} hd={hd} S={s} bf16 "
-                f"causal max_abs_err={err:.3g} (tol {tol:.3g})")
-        if not err <= tol:
+                f"causal max_abs_err={err:.3g} (tensor_core), "
+                f"{err_old:.3g} (cuda_core) (tol {tol:.3g})")
+        if not (err <= tol and err_old <= tol):
             fail(line)
-        k_ms = time_ms(torch, lambda: ops.flash_attention(
-            q, k, v, force="kernel"), 20)
+        print(f"flash_attention S={s} bf16 ulps: tensor_core "
+              f"{ulp_stats(torch, got, want)}; cuda_core "
+              f"{ulp_stats(torch, old, want)}", flush=True)
+        k_ms, l_ms = time_pair(
+            torch, lambda: ops.flash_attention(q, k, v, force="kernel"),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 200,
+            f"flash_attention tensor_core S={s}")
+        c_ms = time_ms(torch, lambda: flash.flash_attention_cuda(
+            q, k, v, force_body="cuda_core"), 50,
+            "flash_attention cuda_core")
         p_ms = time_ms(torch, lambda: ops.flash_attention(
-            q, k, v, force="ref"), 5)
-        l_ms = time_ms(torch, lambda: torch.nn.functional.
-                       scaled_dot_product_attention(
-                           q, k, v, is_causal=True, enable_gqa=True), 20)
+            q, k, v, force="ref"), 10, "flash_attention plain")
         flops = 4 * b * h * hd * causal_pairs(s, s)
         nbytes = 2 * b * hd * s * (2 * h + 2 * kv)
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-        print(f"{line} ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms="
-              f"{l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.2f} "
-              f"GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+        print(f"{line} ms={k_ms:.4f} cuda_core_ms={c_ms:.4f} plain_ms="
+              f"{p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} "
+              f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
+              f"tensor_core {flops / k_ms / 1e9:.1f} TFLOP/s)", flush=True)
         if main is None:
-            main = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            main = dict(ms=k_ms, cuda_core_ms=c_ms, plain_ms=p_ms,
+                        library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                        max_abs_err=err,
                         shape=f"B={b} H={h} KV={kv} hd={hd} "
-                              f"Sq=Skv={s} bf16 causal")
-        del q, k, v, got, want
+                              f"Sq=Skv={s} bf16 causal, tensor_core body")
+        del q, k, v, got, want, old
     return main
 
 
@@ -424,8 +537,9 @@ def check_rwkv6_scan(torch, ops, ssm):
         if not err <= RWKV_TOL:
             fail(f"{line} > {RWKV_TOL}")
         k_ms = time_ms(torch, lambda: ops.rwkv6_scan(*ins, force="kernel"),
-                       20)
-        p_ms = time_ms(torch, lambda: ops.rwkv6_scan(*ins, force="ref"), 3)
+                       100, "rwkv6_scan")
+        p_ms = time_ms(torch, lambda: ops.rwkv6_scan(*ins, force="ref"), 3,
+                       "rwkv6_scan plain")
         n = b * h * s * hd
         nbytes = 3 * 2 * n + 4 * n + 4 * n + 4 * b * h * hd * hd + 4 * h * hd
         # per token and head: the inter-chunk term r.state and the state
@@ -493,11 +607,12 @@ def check_stochastic_quantize(torch, ops, ref, consensus, d_full: int):
         if d == d_full:
             # in place over h and into a kept plane, as the main path calls it
             k_ms = time_ms(torch, lambda: ops.stochastic_quantize(
-                m, h, rnd, lo, scale, 15.0, out=(lvl, h), force="kernel"), 5)
+                m, h, rnd, lo, scale, 15.0, out=(lvl, h), force="kernel"), 5,
+                "stochastic_quantize")
             p_ms = time_ms(torch, lambda: in_chunks(
                 lambda a, b: ref.stochastic_quantize_ref(
                     m[:, a:b], h[:, a:b], rnd[:, a:b], lo, scale, 15.0),
-                d), 3)
+                d), 3, "stochastic_quantize plain")
             n_el = m.numel()
             b_ms, b_by = bound(17 * n_el, 8 * n_el)
             full = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
@@ -506,9 +621,10 @@ def check_stochastic_quantize(torch, ops, ref, consensus, d_full: int):
             print(f"stochastic_quantize n={N_WORKERS} D={d} ms={k_ms:.4f} "
                   f"plain_ms={p_ms:.4f} (column slices of {CHUNK}) "
                   f"library_ms=none bound_ms={b_ms:.4f}", flush=True)
-            g_ms = time_ms(torch, lambda: row_grids(m, h, 255.0), 3)
+            g_ms = time_ms(torch, lambda: row_grids(m, h, 255.0), 3,
+                           "row_grids")
             draws = consensus.epoch_draws(0, 0)
-            r_ms = time_ms(torch, lambda: draws(0, rnd), 3)
+            r_ms = time_ms(torch, lambda: draws(0, rnd), 3, "draws")
             print(f"quantized round, plain torch steps at n={N_WORKERS} "
                   f"D={d}: row_grids ms={g_ms:.4f} draws ms={r_ms:.4f}",
                   flush=True)
@@ -560,11 +676,11 @@ def check_quantized_combine(torch, ops, ref, GossipConsensus, d_full: int):
             # in place over m and hnbr, as the main path calls it
             k_ms = time_ms(torch, lambda: ops.quantized_combine(
                 m, hnbr, lvl, lo, scale, src, w, out=(m, hnbr),
-                force="kernel"), 5)
+                force="kernel"), 5, "quantized_combine")
             p_ms = time_ms(torch, lambda: in_chunks(
                 lambda a, b: ref.quantized_combine_ref(
                     m[:, a:b], hnbr[:, :, a:b], lvl[:, a:b], lo, scale, src,
-                    w), d), 3)
+                    w), d), 3, "quantized_combine plain")
             n_el = m.numel()
             b_ms, b_by = bound(n_el * (4 + 1 + 4 + 8 * (k - 1)),
                                n_el * 4 * k)
@@ -741,6 +857,20 @@ def run_session(torch, rt, cfg, consensus: str) -> dict:
     return launches
 
 
+def idle_gaps(requests) -> list:
+    """Seconds in which no request was in the engine and the next had not
+    arrived, one entry for each such stretch between two requests.  The
+    scheduler spends idle time on fine-tune epochs: its first epoch runs in
+    the first such stretch whatever it costs (an unknown cost counts as
+    zero), so a run with one must absorb an epoch."""
+    gaps, busy_until = [], None
+    for r in sorted(requests, key=lambda r: r.arrival_s):
+        if busy_until is not None and r.arrival_s > busy_until:
+            gaps.append(r.arrival_s - busy_until)
+        busy_until = max(busy_until or r.finish_s, r.finish_s)
+    return gaps
+
+
 def timed(table: dict, key: str, fn):
     """``fn`` with the host seconds of each call appended to table[key]
     (each of the wrapped calls ends in a device sync: a token read back,
@@ -816,6 +946,10 @@ def run_serve(torch, rt, argv) -> dict:
                   f"{ts[len(ts) // 2]:.4f} min_s={ts[0]:.4f} max_s="
                   f"{ts[-1]:.4f}", flush=True)
     print(f"  launches: {launches}", flush=True)
+    gaps = [g for g in idle_gaps(report.requests) if g > IDLE_MIN_S]
+    print(f"  idle between requests: {len(gaps)} stretches, {sum(gaps):.3f}"
+          f" s in all; fine-tune epochs absorbed {report.train_epochs}",
+          flush=True)
     done = [r for r in report.requests
             if len(r.out_tokens) == SERVE_NEW and r.finish_reason == "length"]
     if len(done) != SERVE_REQUESTS:
@@ -826,19 +960,52 @@ def run_serve(torch, rt, argv) -> dict:
                              else ("flash_attention", "rwkv6_scan"))
     want = {prefill_kernel: cfg.num_layers * SERVE_REQUESTS, other: 0,
             "dual_update": leaves * report.train_epochs}
+    if cfg.family != "ssm":     # every prefill on the tensor cores
+        want["flash_attention.tensor_core"] = want["flash_attention"]
+        want["flash_attention.cuda_core"] = 0
     for name, n in want.items():
         if launches.get(name, 0) != n:
             fail(f"serve {cfg.name}: {name} launched "
                  f"{launches.get(name, 0)} times, expected {n} "
                  f"({report.train_epochs} exact epochs of {leaves} leaves)")
-    if report.train_epochs < 1:
-        fail("serve: no fine-tune epoch was absorbed")
-    losses = [s["train_loss_first"], s["train_loss_last"]]
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"serve: fine-tune losses {losses}")
+    if gaps and report.train_epochs < 1:
+        fail(f"serve: {len(gaps)} idle stretches absorbed no fine-tune "
+             f"epoch")
+    if report.train_epochs:
+        losses = [s["train_loss_first"], s["train_loss_last"]]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"serve: fine-tune losses {losses}")
     if any(seen) or len(seen) < SERVE_REQUESTS:
         fail(f"serve: {sum(seen)} non-finite logits over {len(seen)} draws")
     return launches
+
+
+def report_kernels(build) -> None:
+    """Set-up output: the ptxas report of each redesigned kernel (it must
+    not spill), the tensor-core flash body's dynamic shared memory and the
+    HGMMA count of its SASS."""
+    for name in REPORTED_KERNELS:
+        lines = build.ptxas_report(name)
+        for line in lines:
+            print(f"ptxas {name}: {line}", flush=True)
+        spills = [x for x in lines if any(
+            int(n) for n in re.findall(r"(\d+) bytes spill", x))]
+        if spills:
+            fail(f"{name} spills registers: {spills}")
+    smem = build.library(
+        "flash_attention_sm90").flash_attention_sm90_smem_bytes
+    print("dynamic shared memory flash_attention_sm90: " + ", ".join(
+        f"hd {hd}: {smem(hd)} bytes" for hd in (32, 64, 128))
+        + " a CTA (of 232,448)", flush=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(build.library_path("flash_attention_sm90"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"sass flash_attention_sm90: {hgmma} HGMMA instructions",
+          flush=True)
+    if not hgmma:
+        fail("flash_attention_sm90 has no HGMMA instruction in its SASS")
 
 
 def main() -> int:
@@ -860,6 +1027,7 @@ def main() -> int:
     from repro_torch.dist import consensus
     from repro_torch.dist.consensus import GossipConsensus
     from repro_torch.kernels import build, ops, ref, router
+    import repro_torch.kernels.flash_attention
     import repro_torch as rt
 
     card = card_line()
@@ -871,6 +1039,7 @@ def main() -> int:
         list(pool.map(build.library, names))
     print(f"build: {len(names)} kernels in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(names)})", flush=True)
+    report_kernels(build)
 
     full = rt.configs.get_config("qwen2-1.5b")
     gossip_cfg = dataclasses.replace(full, num_layers=GOSSIP_LAYERS)
@@ -886,7 +1055,8 @@ def main() -> int:
                                                d_quant)
     qc_err, qcomb = check_quantized_combine(torch, ops, ref, GossipConsensus,
                                             d_quant)
-    flash = check_flash_attention(torch, ops)
+    flash = check_flash_attention(torch, ops, router,
+                                  rt.kernels.flash_attention)
     rwkv_err, rwkv = check_rwkv6_scan(torch, ops, rt.models.ssm)
 
     smoke = rt.configs.smoke_config("qwen2-1.5b")
@@ -922,9 +1092,9 @@ def main() -> int:
     def per_epoch(name):
         return {s: c[name] / EPOCHS for s, c in runs.items() if name in c}
 
-    def row(name, replaces, err, timing):
+    def row(name, replaces, err, timing, source=None):
         return dict(name=name, route="cuda",
-                    source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                    source=source or f"src/repro_torch/kernels/csrc/{name}.cu",
                     replaces=replaces, launches=launches(name),
                     launches_per_epoch=per_epoch(name),
                     launches_serve={a: c.get(name, 0)
@@ -942,7 +1112,12 @@ def main() -> int:
         row("quantized_combine", "src/repro/kernels/gossip_combine.py:194",
             qc_err, qcomb),
         row("flash_attention", "src/repro/kernels/flash_attention.py:98",
-            flash.pop("max_abs_err"), flash),
+            flash.pop("max_abs_err"), flash,
+            "src/repro_torch/kernels/csrc/flash_attention_sm90.cu")
+        | {"launches_by_body": {b: launches(f"flash_attention.{b}")
+                                for b in rt.kernels.flash_attention.BODIES},
+           "cuda_core_source":
+               "src/repro_torch/kernels/csrc/flash_attention.cu"},
         row("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:84", rwkv_err,
             rwkv),
     ]

@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 scripts/torch_stream_probe.py
 
 For each placement of the operands (no offset, 1 MiB steps, odd element
-offsets) it prints the median time of five launches (CUDA events) and the
+offsets) it prints the time per launch (five launches queued between one
+pair of CUDA events, ``chip_smoke.time_ms``) and the
 rate in TB/s, counting each input read once and each output written once.
 """
 import sys
@@ -38,7 +39,7 @@ def stack(off: int, dtype=torch.float32, k: int = 1) -> torch.Tensor:
 
 
 def run(tag: str, fn, nbytes: int) -> None:
-    ms = cs.time_ms(torch, fn, 5)
+    ms = cs.time_ms(torch, fn, 5, tag)
     print(f"  {tag}: {ms:.3f} ms  {nbytes / ms / 1e9:.3f} TB/s", flush=True)
 
 

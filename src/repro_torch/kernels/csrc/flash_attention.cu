@@ -356,13 +356,27 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// The dynamic shared-memory limit, raised once per device.
+template <typename T, int HD>
+int allow_smem() {
+  static bool done[64] = {false};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 0 && dev < 64 && done[dev]) return 0;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes<HD>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 0 && dev < 64) done[dev] = true;
+  return 0;
+}
+
 template <typename T, int HD>
 int launch(const Args& a, int batch, int heads, void* stream) {
   const size_t smem = kSmemBytes<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = allow_smem<T, HD>();
+  if (err) return err;
   const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, heads, batch);
   flash_fwd_kernel<T, HD><<<grid, kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(a);

@@ -7,6 +7,8 @@ Tolerances: fp32 against JAX's plain softmax 1e-5 (the same math, other
 summation orders); against the Pallas kernel 2e-4, as
 ``tests/test_kernels.py`` holds it to the same oracle; bf16 outputs one
 bf16 ulp of the largest output (both round the same fp32 result once).
+On the card the bf16 tensor-core body takes P as two bf16 parts (off by
+at most 2^-17 of each weight), well inside that ulp.
 """
 import dataclasses
 import math
@@ -25,7 +27,8 @@ from repro.models import attention as jattn  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops, ref, router  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    check_inputs, flash_attention_cuda, launch_args, softmax_scale)
+    body, check_inputs, flash_attention_cuda, launch_args, softmax_scale,
+    tma_args)
 from repro_torch.models import attention as attn  # noqa: E402
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -151,17 +154,27 @@ def test_kernel_wrapper_checks():
         check_inputs(q[:, :3], k, v, 0, 0)
 
 
+def _model_views(b, s, kvh, g, hd, dtype=torch.float32):
+    """q, k as the prefill passes them: permuted views of (B, S, KV, G,
+    hd) and (B, S, KV, hd) storage."""
+    q5 = torch.zeros((b, s, kvh, g, hd), dtype=dtype)
+    k4 = torch.zeros((b, s, kvh, hd), dtype=dtype)
+    q = q5.permute(0, 2, 3, 1, 4).reshape(b, -1, s, hd)
+    assert q.data_ptr() == q5.data_ptr() and q.stride(-1) == 1
+    return q, k4.transpose(1, 2)
+
+
 def test_launch_args_read_the_model_layout_in_place():
     """The prefill passes permuted views of (B, S, KV, G, hd) q and
     (B, S, KV, hd) k, v: head h = kv G + g has stride hd, sequence stride
-    H hd, and the output's (B, H, S, hd) view is (B, S, H, hd) storage."""
+    H hd, and the output's (B, H, S, hd) view is (B, S, H, hd) storage.
+    In fp32 the CUDA-core body reads them through its 12 element strides;
+    in bf16 the tensor-core body reads the same strides, in bytes, through
+    its tensor maps."""
     b, s, kvh, g, hd = 2, 5, 2, 3, 32
-    q5 = torch.zeros((b, s, kvh, g, hd))
-    k4 = torch.zeros((b, s, kvh, hd))
-    q = q5.permute(0, 2, 3, 1, 4).reshape(b, -1, s, hd)
-    k = k4.transpose(1, 2)
-    assert q.data_ptr() == q5.data_ptr() and q.stride(-1) == 1
+    q, k = _model_views(b, s, kvh, g, hd)
     out = torch.empty((b, s, kvh * g, hd)).transpose(1, 2)
+    assert body(q, k, k) == "cuda_core"
     args = launch_args(q, k, k, out, True, 0, 3)
     assert args[:6] == (b, kvh * g, kvh, s, s, hd)
     assert list(args[6]) == [s * kvh * g * hd, hd, kvh * g * hd,
@@ -169,6 +182,57 @@ def test_launch_args_read_the_model_layout_in_place():
                              s * kvh * hd, hd, kvh * hd,
                              s * kvh * g * hd, hd, kvh * g * hd]
     assert args[7:] == (softmax_scale(hd), 1, 0, 3)
+    qb, kb = _model_views(b, s, kvh, g, hd, torch.bfloat16)
+    assert body(qb, kb, kb) == "tensor_core"
+    maps = tma_args(qb, kb, kb)
+    strides = [x for t in (qb, kb, kb) for x in reversed(t.stride()[:3])]
+    assert maps[4:7] + maps[13:16] + maps[22:25] == [2 * x for x in strides]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_tma_args_read_the_model_layout_in_place(hd):
+    """One 4-D tensor map per operand: dims (hd, S, heads, B) innermost
+    first, byte strides of S, heads and B (the model's layout: q's
+    sequence stride H hd and head stride hd, k's and v's sequence stride
+    KV hd), and a box of 128 rows by at most 64 columns (128 bytes, the
+    widest swizzle: at hd 128 a tile is two boxes)."""
+    b, sq, skv, kvh, g = 2, 7, 9, 2, 6
+    q, _ = _model_views(b, sq, kvh, g, hd, torch.bfloat16)
+    _, k = _model_views(b, skv, kvh, g, hd, torch.bfloat16)
+    v = torch.zeros((b, skv, kvh, hd), dtype=torch.bfloat16).transpose(1, 2)
+    h = kvh * g
+    box = [min(hd, 64), 128]
+    assert tma_args(q, k, v) == (
+        [hd, sq, h, b, 2 * h * hd, 2 * hd, 2 * sq * h * hd] + box
+        + [hd, skv, kvh, b, 2 * kvh * hd, 2 * hd, 2 * skv * kvh * hd] + box
+        + [hd, skv, kvh, b, 2 * kvh * hd, 2 * hd, 2 * skv * kvh * hd] + box)
+
+
+def _pitched(b, s, heads, hd, pad, offset, dtype):
+    """(B, heads, S, hd) view of (B, S, heads, hd + pad) storage that starts
+    ``offset`` elements into its buffer."""
+    n = b * s * heads * (hd + pad)
+    flat = torch.zeros(n + offset, dtype=dtype)[offset:]
+    return flat.view(b, s, heads, hd + pad)[..., :hd].transpose(1, 2)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype,pad,offset,want", [
+    (torch.bfloat16, 0, 0, "tensor_core"),   # the model's views
+    (torch.float32, 0, 0, "cuda_core"),      # fp32 (the fp32 smoke prefill)
+    (torch.bfloat16, 1, 0, "cuda_core"),     # a row pitch of hd + 1
+    (torch.bfloat16, 0, 1, "cuda_core"),     # a base offset by one element
+    (torch.bfloat16, 8, 8, "tensor_core"),   # pitch and base 16-byte aligned
+])
+def test_body_choice(hd, dtype, pad, offset, want):
+    """The tensor-core body takes bf16 q, k, v whose base addresses and
+    batch, head and sequence strides are multiples of 16 bytes; every
+    other input takes the CUDA-core body."""
+    q = _pitched(2, 9, 6, hd, pad, offset, dtype)
+    k = _pitched(2, 11, 2, hd, pad, offset, dtype)
+    check_inputs(q, k, k, 0, 0)
+    assert body(q, k, k) == want
+    assert body(q, k, _pitched(2, 11, 2, hd, 0, 1, dtype)) == "cuda_core"
 
 
 def _smoke_cfgs():
@@ -241,28 +305,44 @@ def test_decode_attend_matches_jax(per_slot):
 
 @pytest.mark.gpu
 def test_flash_kernel_matches_plain_version_on_card():
+    """Both bodies against the plain version: fp32 and unaligned bf16 rows
+    on the CUDA-core body, aligned bf16 on the tensor-core body and, forced,
+    on the CUDA-core body too; launches are counted per body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     router.reset_launches()
-    for case in CASES + [(1, 2, 1, 70, 70, 32, True, 5, 70)]:
+    cases = CASES + [(1, 2, 1, 70, 70, 32, True, 5, 70)]
+    for case in cases:
         b, h, kv, sq, skv, hd, causal, window, q_offset = case
         mask = dict(causal=causal, window=window, q_offset=q_offset)
-        for dtype, pad in ((torch.float32, 0), (torch.bfloat16, 0),
-                           (torch.bfloat16, 1)):
+        for dtype, pad, which in ((torch.float32, 0, "cuda_core"),
+                                  (torch.bfloat16, 0, "tensor_core"),
+                                  (torch.bfloat16, 1, "cuda_core")):
             # pad 1: rows not 16-byte aligned (the element-wise loads)
             q, k, v = (torch.from_numpy(np.pad(
                 x, [(0, 0)] * 3 + [(0, pad)])).to("cuda", dtype)[..., :hd]
                 for x in _inputs(b, h, kv, sq, skv, hd))
-            got = ops.flash_attention(q, k, v, **mask)
+            assert body(q, k, v) == which
+            outs = [ops.flash_attention(q, k, v, **mask)]
+            if which == "tensor_core":
+                outs.append(flash_attention_cuda(
+                    q, k, v, force_body="cuda_core", **mask))
             want = ops.flash_attention(q, k, v, force="ref", **mask)
             torch.cuda.synchronize()
             if dtype == torch.float32:
                 atol = 1e-5 * max(1.0, float(want.abs().max()))
             else:
                 atol = _bf16_ulp(want.float().cpu().numpy())
-            torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                                       atol=atol)
-    assert router.launches() == {"flash_attention": 3 * (len(CASES) + 1)}
+            for got in outs:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=0, atol=atol)
+    n = len(cases)
+    assert router.launches() == {"flash_attention": 4 * n,
+                                 "flash_attention.tensor_core": n,
+                                 "flash_attention.cuda_core": 3 * n}
+    with pytest.raises(ValueError, match="tensor-core body takes"):
+        flash_attention_cuda(q.float(), k.float(), v.float(),
+                             force_body="tensor_core")
     q.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         ops.flash_attention(q, k, v)

@@ -4,6 +4,8 @@ On the CPU the wrappers run their plain PyTorch versions; the Pallas
 kernels run in interpret mode, as ``tests/test_kernels.py`` runs them.
 Inputs come from numpy and pass to both frameworks.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -19,7 +21,7 @@ from repro.kernels.gossip_combine import (  # noqa: E402
     gossip_combine_pallas, quantized_combine_pallas,
     stochastic_quantize_pallas)
 from repro_torch.dist.consensus import GossipConsensus  # noqa: E402
-from repro_torch.kernels import ops, ref, router  # noqa: E402
+from repro_torch.kernels import build, ops, ref, router  # noqa: E402
 from repro_torch.kernels.dual_update import dual_update_cuda  # noqa: E402
 from repro_torch.kernels.gossip_combine import (  # noqa: E402
     gossip_combine_cuda)
@@ -35,23 +37,46 @@ def _t(x, dtype=torch.float32):
     return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
 
 
-@pytest.mark.parametrize("shape", [(7,), (128,), (1000, 37), (3, 5, 129)])
+# (length, z offset, w0 offset): odd lengths, views that start 1, 3 or 4
+# elements into their buffers, as per-worker dual views start where their
+# leaf's offset puts them.  On the card a start 4 elements in (16 bytes)
+# takes the kernel's vectors and scalar tail, one 1 or 3 in its scalar loop
+VIEWS = [(1001, 1, 1), (1001, 3, 3), (1001, 4, 4), (4099, 1, 3), (3, 1, 1),
+         (2 ** 16 + 5, 3, 1)]
+SHAPES = [((7,), (0, 0)), ((128,), (0, 0)), ((1000, 37), (0, 0)),
+          ((3, 5, 129), (0, 0))] + [((n,), (oz, ow)) for n, oz, ow in VIEWS]
+
+
+def _views(n, oz, ow, dtype, device="cpu", seed=0):
+    rng = np.random.default_rng(seed)
+    z = _t(rng.standard_normal(n + oz)).to(device)[oz:]
+    w0 = _t(rng.standard_normal(n + ow), dtype).to(device)[ow:]
+    return z, w0
+
+
+@pytest.mark.parametrize(
+    "shape,offsets", SHAPES,
+    ids=[f"shape{i}" for i in range(4)]
+    + [f"view{n}-z{oz}-w{ow}" for n, oz, ow in VIEWS])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_dual_update_matches_pallas_and_ref(shape, dtype):
-    rng = np.random.default_rng(0)
-    z = rng.standard_normal(shape).astype(np.float32)
-    w0 = jnp.asarray(rng.standard_normal(shape), dtype)
+def test_dual_update_matches_pallas_and_ref(shape, offsets, dtype):
+    """Whole tensors, and views that start ``offsets`` (z, w0) elements into
+    their buffers: the prox reads them in place."""
+    (n,), (oz, ow) = (math.prod(shape),), offsets
+    z, w0 = _views(n, oz, ow, getattr(torch, dtype))
+    z, w0 = z.view(shape), w0.view(shape)
+    assert z.storage_offset() == oz and w0.storage_offset() == ow
+    jz, jw0 = jnp.asarray(z.numpy()), jnp.asarray(w0.float().numpy(), dtype)
     beta = 1.7
-    pallas = dual_update_pallas(jnp.asarray(z), w0, jnp.float32(beta),
-                                interpret=True, block=2048)
-    want = jref.dual_update_ref(jnp.asarray(z), w0, jnp.float32(beta))
-    got = ops.dual_update(_t(z), _t(w0, getattr(torch, dtype)), beta)
+    pallas = dual_update_pallas(jz, jw0, jnp.float32(beta), interpret=True,
+                                block=2048)
+    want = jref.dual_update_ref(jz, jw0, jnp.float32(beta))
+    got = ops.dual_update(z, w0, beta)
     assert got.dtype == torch.float32 and tuple(got.shape) == shape
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    np.testing.assert_allclose(
-        ref.dual_update_ref(_t(z), _t(w0, getattr(torch, dtype)),
-                            beta).numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(ref.dual_update_ref(z, w0, beta).numpy(),
+                               np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("radius", [0.5, 1e3])
@@ -252,6 +277,26 @@ def test_quantized_ops_write_in_place_and_refuse_overlaps():
                               strat.taps.weights, out=(hnbr[0], hnbr))
 
 
+def test_ptxas_report_keeps_registers_and_spills(tmp_path, monkeypatch):
+    """The build keeps nvcc's output beside the library; the report is its
+    per-kernel lines: entry, spills, registers."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="no build log"):
+        build.ptxas_report("dual_update")
+    log = build.library_path("dual_update").with_suffix(".log")
+    assert log.parent == tmp_path and log.name.startswith("libdual_update-")
+    log.write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1kv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 58 registers, used 0 barriers\n")
+    assert build.ptxas_report("dual_update") == [
+        "ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 58 registers, used 0 barriers"]
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_card():
     if not torch.cuda.is_available():
@@ -287,3 +332,20 @@ def test_kernels_match_plain_versions_on_card():
     assert router.launches() == {"dual_update": 2, "gossip_combine": 2,
                                  "stochastic_quantize": 2,
                                  "quantized_combine": 2}
+
+
+@pytest.mark.gpu
+def test_dual_update_on_offset_views_on_card():
+    """The kernel on views offset by 1, 3 and 4 elements with odd lengths
+    (its scalar loop, and its vectors with a scalar tail), against its
+    plain version within DUAL_TOL (2e-6, chip_smoke.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    router.reset_launches()
+    for n, oz, ow in VIEWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            z, w0 = _views(n, oz, ow, dtype, device="cuda")
+            got = ops.dual_update(z, w0, 3.5)
+            want = ops.dual_update(z, w0, 3.5, force="ref")
+            torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    assert router.launches() == {"dual_update": 2 * len(VIEWS)}
