@@ -8,8 +8,9 @@ Phases (any failure ends the run with a non-zero exit code):
   2. build every CUDA kernel from src/repro_torch/kernels/csrc (one nvcc
      per source, started together) and print the build seconds; print the
      ptxas report (registers, shared memory, spills) of the tensor-core
-     flash-attention body and of the prox kernel, and count the tensor-core
-     body's HGMMA instructions in its SASS (cuobjdump);
+     flash-attention body, the prox kernel and the scan, none may spill,
+     and count the flash body's HGMMA and the scan's HMMA instructions in
+     their SASS (cuobjdump), none may be zero;
   3. hold each kernel against its plain PyTorch version on the card, at
      small shapes and at the shapes the main path gives it; print the
      error, the kernel's, the plain version's and one library call's time
@@ -25,11 +26,13 @@ Phases (any failure ends the run with a non-zero exit code):
      serve run (2048, and the 2592 bucket), the tensor-core body timed
      beside the CUDA-core body; the RWKV6 wkv scan, y and the final
      state, over a sweep of small odd shapes (S not a multiple of the
-     chunk, BH 1 to 7, hd 32 and 64, fp32 and bf16, contiguous, the
+     chunk and S around the 128-token segment boundaries up to five
+     segments, BH 1 to 7, hd 32 and 64, fp32 and bf16, contiguous, the
      model's strided layout and unaligned rows, random u, decays in [0.2,
      1]), in the clip regime against the plain chunked scan at the
-     kernel's chunk, then at the rwkv6-3b prefill shapes (40 heads of 64,
-     S 2048 and 2560) through the model's layout;
+     kernel's chunk (within a segment and across three), then at the
+     rwkv6-3b prefill shapes (40 heads of 64, S 2048 and 2560) through the
+     model's layout, with the segment plan (L, segments, scratch bytes);
   4. a small reference check: the quantized gossip strategy on a
      smoke-width message stack, the smoke-size sessions (exact, gossip,
      gossip_q8), and smoke-size serving of qwen2-1.5b and rwkv6-3b
@@ -103,8 +106,13 @@ RWKV_CHUNK = 16                       # the kernel's (and Pallas's) chunk
 SLEEP_CYCLES_PER_S = 2e9   # torch.cuda._sleep's clock, at most ~1.98 GHz
 HOLD_S_MAX = 1.0           # the longest device-side hold time_ms queues
 # the kernels redesigned for Hopper's tensor cores and memory rate: their
-# ptxas reports are printed at set-up; the flash body must show HGMMA
-REPORTED_KERNELS = ("flash_attention_sm90", "dual_update")
+# ptxas reports are printed at set-up (no spills), and the tensor-core
+# ones must show their tensor-core instruction in the SASS
+REPORTED_KERNELS = ("flash_attention_sm90", "dual_update", "rwkv6_scan")
+TENSOR_CORE_SASS = {"flash_attention_sm90": "HGMMA", "rwkv6_scan": "HMMA"}
+# the scan's sweep: odd lengths, and those around the segment boundaries
+# (segments of 8 chunks of 16 tokens: 128) up to five segments
+RWKV_SWEEP_SEQS = (1, 15, 17, 40, 128, 129, 255, 256, 257, 549)
 
 
 def fail(msg: str) -> None:
@@ -475,10 +483,11 @@ def rel_err(torch, got, want) -> float:
         float(want.float().abs().max()), 1e-30)
 
 
-def check_rwkv6_scan(torch, ops, ssm):
+def check_rwkv6_scan(torch, ops, ssm, scan):
     """The scan kernel against its plain version (y and the final state):
     a sweep of small odd shapes, the clip regime against the plain chunked
-    scan at the kernel's chunk, then the rwkv6-3b prefill shapes, timed.
+    scan at the kernel's chunk (within one segment and across three),
+    then the rwkv6-3b prefill shapes, timed, with the segment plan.
     Returns the worst error and the main shape's timing."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases, worst = 0, 0.0
@@ -486,7 +495,7 @@ def check_rwkv6_scan(torch, ops, ssm):
         for dtype in (torch.float32, torch.bfloat16):
             for layout in ("flat", "model", "unaligned"):
                 for b, h in ((1, 1), (1, 3), (2, 2), (1, 7)):
-                    for s in (1, 15, 17, 40, 129):
+                    for s in RWKV_SWEEP_SEQS:
                         ins = rwkv_inputs(torch, gen, b, s, h, hd, dtype,
                                           layout)
                         got = ops.rwkv6_scan(*ins, force="kernel")
@@ -504,7 +513,9 @@ def check_rwkv6_scan(torch, ops, ssm):
                   f"{worst:.3g} of max|out|", flush=True)
     print(f"rwkv6_scan sweep: {cases} cases, y and state within "
           f"{RWKV_TOL} of max|out|", flush=True)
-    for b, h, s, hd in ((1, 3, 100, 64), (2, 2, 37, 32)):
+    # the last two span three segments
+    for b, h, s, hd in ((1, 3, 100, 64), (2, 2, 37, 32), (1, 3, 300, 64),
+                        (2, 2, 270, 32)):
         ins = rwkv_inputs(torch, gen, b, s, h, hd, torch.float32, "model",
                           lo=1e-6, hi=0.05)
         got = ops.rwkv6_scan(*ins, force="kernel")
@@ -532,8 +543,13 @@ def check_rwkv6_scan(torch, ops, ssm):
         torch.cuda.synchronize()
         want = ops.rwkv6_scan(*ins, force="ref")
         err = max(rel_err(torch, g, w) for g, w in zip(got, want))
+        plan = scan.launch_plan(b, h, s, hd)
         line = (f"rwkv6_scan B={b} H={h} hd={hd} S={s} r/k/v bf16 decay "
-                f"fp32, model layout: error {err:.3g} of max|out|")
+                f"fp32, model layout, L={plan['seg_chunks']} "
+                f"segments={plan['segments']} blocks="
+                f"{plan['segments'] * h * b} scratch_bytes="
+                f"{plan['scratch_floats'] * 4}: error {err:.3g} of "
+                f"max|out|")
         if not err <= RWKV_TOL:
             fail(f"{line} > {RWKV_TOL}")
         k_ms = time_ms(torch, lambda: ops.rwkv6_scan(*ins, force="kernel"),
@@ -982,8 +998,10 @@ def run_serve(torch, rt, argv) -> dict:
 
 def report_kernels(build) -> None:
     """Set-up output: the ptxas report of each redesigned kernel (it must
-    not spill), the tensor-core flash body's dynamic shared memory and the
-    HGMMA count of its SASS."""
+    not spill), the tensor-core flash body's dynamic shared memory, and
+    the count of each tensor-core kernel's tensor-core instructions in its
+    SASS (HGMMA for the flash body's wgmma, HMMA for the scan's
+    mma.sync), which must not be zero."""
     for name in REPORTED_KERNELS:
         lines = build.ptxas_report(name)
         for line in lines:
@@ -998,14 +1016,14 @@ def report_kernels(build) -> None:
         f"hd {hd}: {smem(hd)} bytes" for hd in (32, 64, 128))
         + " a CTA (of 232,448)", flush=True)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run(
-        [tool, "-sass", str(build.library_path("flash_attention_sm90"))],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"sass flash_attention_sm90: {hgmma} HGMMA instructions",
-          flush=True)
-    if not hgmma:
-        fail("flash_attention_sm90 has no HGMMA instruction in its SASS")
+    for name, op in TENSOR_CORE_SASS.items():
+        sass = subprocess.run(
+            [tool, "-sass", str(build.library_path(name))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        count = sum(op in line for line in sass.splitlines())
+        print(f"sass {name}: {count} {op} instructions", flush=True)
+        if not count:
+            fail(f"{name} has no {op} instruction in its SASS")
 
 
 def main() -> int:
@@ -1028,6 +1046,7 @@ def main() -> int:
     from repro_torch.dist.consensus import GossipConsensus
     from repro_torch.kernels import build, ops, ref, router
     import repro_torch.kernels.flash_attention
+    import repro_torch.kernels.rwkv6_scan
     import repro_torch as rt
 
     card = card_line()
@@ -1057,7 +1076,8 @@ def main() -> int:
                                             d_quant)
     flash = check_flash_attention(torch, ops, router,
                                   rt.kernels.flash_attention)
-    rwkv_err, rwkv = check_rwkv6_scan(torch, ops, rt.models.ssm)
+    rwkv_err, rwkv = check_rwkv6_scan(torch, ops, rt.models.ssm,
+                                      rt.kernels.rwkv6_scan)
 
     smoke = rt.configs.smoke_config("qwen2-1.5b")
     check_quantized_strategy(torch, rt, dense_param_count(smoke) + 1)

@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
 """Where the time of one serve prefill goes on the card: the batch-1
-prefill that ``SlotEngine.insert`` runs for a qwen2-1.5b request of
-``chip_smoke.py``'s serve run, at full width (28 layers, bf16, random
-weights from a seed): a 2048-token prompt at its 2048 bucket, into a slot
-sized as the serve CLI sizes it.
+prefill that ``SlotEngine.insert`` runs for a request of
+``chip_smoke.py``'s serve runs, at full width (bf16, random weights from a
+seed), for two models:
+
+  * qwen2-1.5b (28 layers): a 2048-token prompt at its 2048 bucket, into a
+    slot sized as the serve CLI sizes it;
+  * rwkv6-3b (32 layers): a 2048-token prompt at its exact length, as the
+    slot engine prefills the RWKV6 family (32 ``rwkv6_scan`` launches).
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 scripts/torch_prefill_profile.py
 
-For each flash-attention kernel body in turn (the prefill's attention held
-to it: tensor core, CUDA core, CUDA core, tensor core, so that a drift falls
-on both alike) it prints the host-clock median of ``REPS`` prefills (each
-ends in a device sync, as the engine's first-token read does), then traces
-one with ``torch.profiler``: the card's busy time (the sum of kernel
-times), its idle share of the wall time, and the ``TOP`` kernels that take
-the most device time, with their calls and microseconds per call.
+For qwen2-1.5b, for each flash-attention kernel body in turn (the
+prefill's attention held to it: tensor core, CUDA core, CUDA core, tensor
+core, so that a drift falls on both alike), and then for rwkv6-3b once, it
+prints the host-clock median of ``REPS`` prefills (each ends in a device
+sync, as the engine's first-token read does), then traces one with
+``torch.profiler``: the card's busy time (the sum of kernel times), its
+idle share of the wall time, the ``TOP`` kernels that take the most device
+time, with their calls and microseconds per call, and (rwkv6-3b) the
+device time of the scan's kernels over its calls.
 """
 import statistics
 import sys
@@ -34,6 +40,7 @@ from repro_torch.kernels import ops, router  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 ARCH = "qwen2-1.5b"
+RWKV_ARCH = "rwkv6-3b"
 PROMPT = int(cs.SERVE_ARGV[cs.SERVE_ARGV.index("--prompt-len") + 1])
 SEQ = PROMPT                 # a power of two: the prompt's own bucket
 # the slot of launch/serve.py: prompt + its jitter + the new tokens
@@ -42,8 +49,10 @@ BODIES = ("tensor_core", "cuda_core", "cuda_core", "tensor_core")
 REPS, TOP = 5, 12
 
 
-def profile(one, label: str) -> None:
-    """Host-clock median of ``REPS`` calls of ``one``, then one traced."""
+def profile(one, label: str, scan: bool = False) -> None:
+    """Host-clock median of ``REPS`` calls of ``one``, then one traced;
+    with ``scan``, also the device time of the kernels whose name holds
+    ``rwkv6``."""
     for _ in range(2):
         one()
     times = []
@@ -67,6 +76,15 @@ def profile(one, label: str) -> None:
     print(f"traced prefill {label}: wall {wall * 1e3:.2f} ms, device busy "
           f"{busy:.2f} ms, idle share {1 - busy / (wall * 1e3):.3f}; "
           f"launches {router.launches()}", flush=True)
+    if scan:
+        mine = [e for e in events if "rwkv6" in e.key]
+        print(f"traced prefill {label}: rwkv6_scan device time "
+              f"{sum(e.device_time_total for e in mine) / 1e3:.3f} ms over "
+              f"{router.launches().get('rwkv6_scan', 0)} calls ("
+              + ", ".join(f"{e.key[e.key.find('rwkv6'):].split('(')[0]} "
+                          f"{e.count} x "
+                          f"{e.device_time_total / max(e.count, 1):.1f} us"
+                          for e in mine) + ")", flush=True)
     events.sort(key=lambda e: -e.device_time_total)
     for e in events[:TOP]:
         print(f"  {e.device_time_total / 1e3:8.3f} ms  {e.count:5d} calls "
@@ -99,6 +117,23 @@ def main() -> int:
             lambda q, k, v, _b=which, **kw: fa.flash_attention_cuda(
                 q, k, v, force_body=_b, **kw))
         profile(one, f"{cfg.name} S={SEQ} flash body {which}")
+
+    # the RWKV6 family: exact length, the scan kernel on every layer
+    del params
+    torch.cuda.empty_cache()
+    rcfg = configs.get_config(RWKV_ARCH)
+    rparams = models.init_params(
+        rcfg, torch.Generator(device="cuda").manual_seed(0))
+    rtoks = torch.randint(0, rcfg.vocab_size, (1, PROMPT), device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(1))
+
+    def rwkv_one():
+        with torch.no_grad():
+            logits, _ = models.prefill(rparams, rcfg, {"tokens": rtoks})
+        return int(logits.argmax())
+
+    profile(rwkv_one, f"{rcfg.name} S={PROMPT} exact length", scan=True)
     return 0
 
 

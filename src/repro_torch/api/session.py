@@ -5,7 +5,7 @@
                          ClockSpec(kind="simulated"),
                          ConsensusSpec(consensus="gossip"))
     source = SyntheticSource(session.cfg.vocab_size, 256, 4, 8)
-    metrics = session.run(3, source)      # or session.step(batch[, b])
+    metrics = session.run(3, source)      # source defaults to batch_source()
     session.flush()
     w = session.params                    # current primal iterate
 
@@ -125,6 +125,10 @@ class AMBSession:
         out = {"loss": loss, "global_batch": global_b,
                "budget_s": float(budget), "step_s": step_s,
                "sim_wall_s": self.sim_wall,
+               # JAX writes consensus_spec.staleness (default 1); the port
+               # has no staleness field yet, and its epochs are not
+               # pipelined, so it writes that default
+               "staleness": 1,
                "b": np.asarray(torch.as_tensor(b).cpu())}
         if self.metrics is not None:
             self.metrics.log(self.steps_done,
@@ -139,12 +143,22 @@ class AMBSession:
                                self.n_workers, self.train.batch_per_worker,
                                seed=self.train.seed, device=self.device)
 
-    def run(self, steps: int, source) -> Optional[dict]:
+    def run(self, steps: int, source=None, *,
+            on_step=None) -> Optional[dict]:
         """Run ``steps`` epochs on ``source.batch(epoch)`` (absolute epoch
-        indices from ``steps_done``); returns the last epoch's metrics."""
+        indices from ``steps_done``; default source :meth:`batch_source`);
+        returns the last epoch's metrics (None at 0 steps).
+        ``on_step(epoch, metrics)`` is called after every epoch with the
+        0-based absolute index of the epoch that just ran."""
+        if steps <= 0:
+            return None
+        if source is None:
+            source = self.batch_source()
         out = None
         for epoch in range(self.steps_done, self.steps_done + steps):
             out = self.step(source.batch(epoch))
+            if on_step is not None:
+                on_step(self.steps_done - 1, out)
         return out
 
     def flush(self) -> None:

@@ -1,5 +1,6 @@
-"""The port and its chip smoke script import neither JAX nor the JAX
-package (``repro``); ``repro_torch`` itself is allowed."""
+"""The port, its chip smoke script and its GPU scripts
+(``scripts/torch_*.py``) import neither JAX nor the JAX package
+(``repro``); ``repro_torch`` itself is allowed."""
 import ast
 from pathlib import Path
 
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 

@@ -32,8 +32,8 @@ from repro_torch import configs, models  # noqa: E402
 from repro_torch.api import (AMBSession, ClockSpec, ConsensusSpec,  # noqa
                              TrainSpec)
 from repro_torch.kernels import ops, router  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import (check_inputs,  # noqa: E402
-                                            rwkv6_scan_cuda)
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    CHUNK, SEGMENT_CHUNKS, check_inputs, launch_plan, rwkv6_scan_cuda)
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.serve import (Request, SlotEngine,  # noqa: E402
@@ -162,6 +162,138 @@ def test_chunked_scan_matches_the_plain_version(chunk):
     _assert_scaled(state.numpy(), want_s.numpy())
 
 
+# ---------------------------------------------------------------------------
+# the kernel's segment decomposition, mirrored in plain torch
+# ---------------------------------------------------------------------------
+
+def _chunk_factors(r, k, d):
+    """One chunk's factors, (..., C, hd): the function of the Pallas
+    kernel at its chunk."""
+    logd = torch.log(torch.clamp(d, min=1e-20))
+    cums = torch.cumsum(logd, dim=-2)
+    rd = r * torch.exp(torch.clamp(cums - logd, -60.0, 60.0))
+    kd = k * torch.exp(torch.clamp(-cums, -60.0, 60.0))
+    total = cums[..., -1, :]
+    kw = k * torch.exp(total[..., None, :] - cums)
+    return rd, kd, kw, total
+
+
+def _segment_scan(r, k, v, d, u, seg_chunks=SEGMENT_CHUNKS):
+    """The kernel's three passes in plain torch (a test helper, not the
+    package's): r, k, v, d (B, H, S, hd) fp32, u (H, hd).  A: each
+    segment's state from zero, chunk by chunk, and its decay row exp(sum
+    logd); B: the carry S_start[j + 1] = diag(a_j) S_start[j] + dS_j; C:
+    each segment's chunks from its start state.  Returns (y, final
+    state) as the scan does."""
+    b, h, s, hd = r.shape
+    plan = launch_plan(b, h, s, hd, seg_chunks)
+    nseg = plan["segments"]
+    pad = nseg * seg_chunks * CHUNK - s
+    pads = lambda t, fill=0.0: torch.nn.functional.pad(
+        t, (0, 0, 0, pad), value=fill).reshape(b, h, nseg, seg_chunks,
+                                               CHUNK, hd)
+    r, k, v, d = pads(r), pads(k), pads(v), pads(d, 1.0)
+    ds = torch.zeros((b, h, nseg, hd, hd))
+    seg_log = torch.zeros((b, h, nseg, hd))
+    for c in range(seg_chunks):                      # pass A
+        _, _, kw, total = _chunk_factors(r[:, :, :, c], k[:, :, :, c],
+                                         d[:, :, :, c])
+        ds = torch.exp(total)[..., None] * ds + torch.einsum(
+            "...ti,...te->...ie", kw, v[:, :, :, c])
+        seg_log = seg_log + total
+    starts, state = [], torch.zeros((b, h, hd, hd))
+    for j in range(nseg):                            # pass B
+        starts.append(state)
+        state = torch.exp(seg_log[:, :, j])[..., None] * state + ds[:, :, j]
+    st = torch.stack(starts, dim=2)
+    tri = torch.tril(torch.ones(CHUNK, CHUNK, dtype=torch.bool), -1)
+    ys = []
+    for c in range(seg_chunks):                      # pass C
+        rc, kc, vc = r[:, :, :, c], k[:, :, :, c], v[:, :, :, c]
+        rd, kd, kw, total = _chunk_factors(rc, kc, d[:, :, :, c])
+        att = torch.where(tri, torch.einsum("...ti,...si->...ts", rd, kd),
+                          0.0)
+        bonus = torch.einsum("...ti,...ti->...t", rc,
+                             u[None, :, None, None, :] * kc)
+        ys.append(torch.einsum("...ti,...ie->...te", rd, st) + att @ vc
+                  + bonus[..., None] * vc)
+        st = torch.exp(total)[..., None] * st + torch.einsum(
+            "...ti,...te->...ie", kw, vc)
+    y = torch.stack(ys, dim=3).reshape(b, h, nseg * seg_chunks * CHUNK, hd)
+    return y[:, :, :s], state
+
+
+def _hold_segments(b, h, s, hd, seed, lo=0.2, hi=1.0):
+    """The mirror against the interpreted Pallas kernel at chunk 16 (y)
+    and the plain chunked scan at chunk 16 (the final state)."""
+    r, k, v, d, u = _scan_inputs(b * h, s, hd, seed, lo, hi)
+    u = u[:h]
+    heads = lambda a: torch.from_numpy(a).reshape(b, h, s, hd)
+    y, state = _segment_scan(*(heads(a) for a in (r, k, v, d)),
+                             torch.from_numpy(u))
+    pallas = np.asarray(rwkv6_scan_pallas(
+        *map(jnp.asarray, (r, k, v, d)), jnp.asarray(np.tile(u, (b, 1))),
+        chunk=16, interpret=True))
+    _assert_scaled(y.reshape(b * h, s, hd).numpy(), pallas)
+    _, want = ssm.rwkv6_chunked_scan(
+        *(heads(a).transpose(1, 2) for a in (r, k, v, d)),
+        torch.from_numpy(u), 16)
+    _assert_scaled(state.numpy(), want.numpy())
+    return y, state
+
+
+# segment boundaries sit at multiples of SEGMENT_CHUNKS * 16 = 128 tokens
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("s", [1, 16, 127, 128, 129, 255, 256, 257, 549])
+def test_segment_decomposition_matches_pallas(s, hd):
+    """The segments (passes A, B, C) compute the Pallas kernel's function:
+    lengths around one and two segments, and 549 (five segments, the last
+    short), B 2 and H 2 (u per head), within JAX's 2e-5 x max|out|."""
+    _hold_segments(2, 2, s, hd, seed=s + hd)
+
+
+def test_segment_decomposition_in_the_clip_regime():
+    """Decays in [1e-6, 0.05] over three segments: the clip fires inside
+    every chunk, and the carry across segments (unclipped) still gives
+    the chunked function, not the sequential oracle's."""
+    y, _ = _hold_segments(2, 1, 300, 64, seed=11, lo=1e-6, hi=0.05)
+    r, k, v, d, u = _scan_inputs(2, 300, 64, seed=11, lo=1e-6, hi=0.05)
+    seq, _ = _scan(*map(torch.from_numpy, (r, k, v, d, u[:1].repeat(2, 0))))
+    got = y.reshape(2, 300, 64).numpy()
+    assert np.abs(seq.numpy() - got).max() > 1e-2 * np.abs(got).max()
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("b,h,s", [(1, 40, 2048), (1, 40, 2560),
+                                   (3, 5, 1), (2, 7, 129), (1, 3, 2047),
+                                   (4, 1, 2049)])
+def test_scan_launch_plan(b, h, s, hd):
+    """The wrapper's plan, computed here from the shapes: chunks of 16,
+    segments of SEGMENT_CHUNKS chunks that cover every chunk once and cut
+    only at chunk boundaries, a block per (segment, head, batch row) of
+    hd / 16 warps for passes A and C, a thread per state element for the
+    carry, and the scratch (one transposed state and one decay row per
+    segment)."""
+    plan = launch_plan(b, h, s, hd)
+    chunks = (s + 15) // 16
+    segs = (chunks + SEGMENT_CHUNKS - 1) // SEGMENT_CHUNKS
+    assert (plan["chunks"], plan["segments"]) == (chunks, segs)
+    assert plan["seg_chunks"] == SEGMENT_CHUNKS
+    owned = [c for j in range(segs)
+             for c in range(j * SEGMENT_CHUNKS,
+                            min((j + 1) * SEGMENT_CHUNKS, chunks))]
+    assert owned == list(range(chunks))
+    assert plan["segment_grid"] == (segs, h, b)
+    assert plan["segment_threads"] == hd * 2 == 32 * (hd // 16)
+    assert plan["carry_threads"] * plan["carry_grid"][0] >= b * h * hd * hd
+    assert plan["scratch"] == {"states": (b, h, segs, hd, hd),
+                               "decays": (b, h, segs, hd)}
+    assert plan["scratch_floats"] == b * h * segs * (hd * hd + hd)
+    if (b, h, s, hd) == (1, 40, 2048, 64):
+        assert segs == 16 and segs * h * b == 640        # blocks of A, C
+        assert plan["scratch_floats"] * 4 == 10_649_600  # bytes
+
+
 def test_scan_input_checks():
     r, k, v, d, u = map(torch.from_numpy, _scan_inputs(2, 5, 64, seed=0))
     four = [t[None] for t in (r, k, v, d)]
@@ -185,7 +317,9 @@ def test_scan_input_checks():
 def test_scan_kernel_matches_plain_version_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the full check")
-    for bh, s, hd, _ in KERNEL_SHAPES:
+    shapes = KERNEL_SHAPES + [(3, s, hd, 0) for hd in (32, 64)
+                              for s in (127, 128, 129, 255, 256, 257, 549)]
+    for bh, s, hd, _ in shapes:
         ins = [torch.from_numpy(a).cuda()
                for a in _scan_inputs(bh, s, hd, seed=s)]
         router.reset_launches()

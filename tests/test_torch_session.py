@@ -146,7 +146,8 @@ def test_session_logs_each_epoch_and_serves_its_batch_source(tmp_path):
     assert [ln["step"] for ln in lines] == [1, 2]
     for ln, out in zip(lines, outs):
         assert ln.keys() == {"step", "elapsed_s", "loss", "global_batch",
-                             "budget_s", "step_s", "sim_wall_s"}
+                             "budget_s", "step_s", "sim_wall_s",
+                             "staleness"}
         assert ln["loss"] == pytest.approx(out["loss"])
 
 
@@ -165,6 +166,81 @@ def test_session_clock_draws_b_and_run_drives_a_source():
     np.testing.assert_array_equal(
         session.epoch_sizes(torch.full((N, PER), 1.0), 1.5).numpy(),
         [1] * N)
+
+
+def _jax_step_keys() -> set:
+    """The keys of the metrics dict that ``repro.api.session.AMBSession.
+    step`` returns, read from its source (``out = {...}``): the JAX session
+    needs a device mesh whose steps do not run on this CPU, so the test
+    reads the keys rather than a run's output."""
+    import ast
+    import inspect
+    from repro.api.session import AMBSession as JAMBSession
+    tree = ast.parse(inspect.cleandoc("\n" + inspect.getsource(
+        JAMBSession.step)))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) \
+                and [t.id for t in node.targets] == ["out"]:
+            return {k.value for k in node.value.keys}
+    raise AssertionError("no `out = {...}` in the JAX session's step")
+
+
+def test_run_defaults_to_the_batch_source():
+    """``run(2)`` with no source equals ``run(2, batch_source())``, epoch
+    for epoch (the simulated clock draws the same b from (seed, epoch))."""
+    runs = []
+    for explicit in (False, True):
+        session = AMBSession(TRAIN, ClockSpec(kind="simulated"),
+                             ConsensusSpec(consensus="gossip"), device="cpu")
+        seen = []
+        args = (session.batch_source(),) if explicit else ()
+        last = session.run(2, *args, on_step=lambda e, m: seen.append(m))
+        assert last is seen[-1] and session.steps_done == 2
+        runs.append((seen, session.params))
+    (a, pa), (b, pb) = runs
+    for ma, mb in zip(a, b):
+        assert ma["loss"] == mb["loss"]
+        assert ma["global_batch"] == mb["global_batch"]
+        np.testing.assert_array_equal(ma["b"], mb["b"])
+    for k in pa:
+        torch.testing.assert_close(pa[k], pb[k], rtol=0, atol=0)
+
+
+def test_on_step_gets_jax_epoch_indices():
+    """``on_step(epoch, metrics)`` gets the 0-based absolute index of the
+    epoch just run (JAX's session passes ``steps_done - 1``, as
+    ``tests/test_api.py`` holds it), also after an earlier ``step``;
+    ``run(0)`` runs nothing and returns None."""
+    session = AMBSession(TRAIN, ClockSpec(kind="simulated"), device="cpu")
+    seen = []
+    assert session.run(0, on_step=lambda e, m: seen.append(e)) is None
+    assert seen == [] and session.steps_done == 0
+    session.step(session.batch_source().batch(0))
+    session.run(2, on_step=lambda e, m: seen.append((e, session.steps_done)))
+    assert seen == [(1, 2), (2, 3)]
+
+
+def test_step_output_and_metrics_lines_carry_staleness(tmp_path):
+    """Every step output and JSONL line has ``staleness`` 1, with JAX's
+    key set: the step output's keys are those of JAX's ``out`` dict
+    (``src/repro/api/session.py``), a line's are those less ``b`` plus the
+    logger's ``step`` and ``elapsed_s``."""
+    from repro_torch.metrics import read_metrics
+    jax_keys = _jax_step_keys()
+    assert "staleness" in jax_keys
+    session = AMBSession(TRAIN, ClockSpec(kind="simulated"), device="cpu",
+                         metrics_path=str(tmp_path / "train.jsonl"))
+    outs = []
+    session.step(session.batch_source().batch(0))
+    session.run(2, on_step=lambda e, m: outs.append(m))
+    session.close()
+    lines = read_metrics(tmp_path / "train.jsonl")
+    assert len(outs) == 2 and len(lines) == 3
+    for out in outs:
+        assert out.keys() == jax_keys and out["staleness"] == 1
+    for ln in lines:
+        assert ln.keys() == (jax_keys - {"b"}) | {"step", "elapsed_s"}
+        assert ln["staleness"] == 1
 
 
 @pytest.mark.parametrize("compute_time", [None, 0.0, 2.5])
