@@ -42,14 +42,30 @@ Phases (any failure ends the run with a non-zero exit code):
   5. the main path: AMBSession on qwen2-1.5b at full width, exact
      consensus, all 28 layers, 3 epochs; ring gossip (r = 5), cut to 8
      layers; ring gossip_q8 (20 rounds) and gossip_q4 (40 rounds), cut to
-     4 layers; 3 epochs each; then the serve CLI
-     (``repro_torch.launch.serve``) at full width, all 28 layers, bf16:
-     16 requests of 2048 +- 512 prompt tokens and 32 new tokens over 8
-     slots, with background exact fine-tune epochs, every prefill's
-     attention on the tensor-core body; the same serve run for rwkv6-3b at
-     full width, all 32 layers, bf16; launch counts are reset just before
-     each run and read just after;
-  6. print the kernels' JSON line, the card line, and the final ok line.
+     4 layers; 3 epochs each; launch counts are reset just before each
+     run and read just after;
+  6. the paper's §6 simulator (``repro_torch.core.engine``) on the card at
+     the paper's sizes (see ``SIM_*``): §6.1 linear regression (d =
+     100,000) and §6.2 logistic regression (784 x 10), AMB and FMB, one
+     prox launch an epoch; checks tests/test_engine.py's criteria, AMB's
+     epoch of exactly T + T_c, AMB ahead of FMB at paper_figs' target,
+     and a run with the plain prox (identical b(t), losses within
+     SIM_TOL); prints epochs/s and each time to target;
+  7. the train CLI (``repro_torch.launch.train``) at qwen2-1.5b full
+     width on the simulated clock: the LM stream's batch (tokens, labels,
+     build time, card tokens equal to the CPU's), then AMB under dual
+     averaging (6 epochs), FMB under dual averaging and AMB under AdamW (3
+     epochs each), and AMB with ``--prefetch 0`` (6 epochs);
+     checks the JSONL keys, b(t) and the simulated wall clock of each, the
+     prox launches, and equal losses with and without the prefetcher;
+     launch counts are reset just before each run and read just after;
+  8. the serve CLI (``repro_torch.launch.serve``) at full width, all 28
+     layers, bf16: 16 requests of 2048 +- 512 prompt tokens and 32 new
+     tokens over 8 slots, with background exact fine-tune epochs, every
+     prefill's attention on the tensor-core body; the same serve run for
+     rwkv6-3b at full width, all 32 layers, bf16; launch counts are reset
+     just before each run and read just after;
+  9. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import dataclasses
@@ -60,6 +76,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -113,6 +130,38 @@ TENSOR_CORE_SASS = {"flash_attention_sm90": "HGMMA", "rwkv6_scan": "HMMA"}
 # the scan's sweep: odd lengths, and those around the segment boundaries
 # (segments of 8 chunks of 16 tokens: 128) up to five segments
 RWKV_SWEEP_SEQS = (1, 15, 17, 40, 128, 129, 255, 256, 257, 549)
+# the paper's §6 simulator (repro_torch.core.engine) at its sizes: §6.1
+# linear regression at d = 100,000, n = 10, the paper graph, r = 5, b =
+# 600 (b_max 240, chunks of 60), shifted-exponential stragglers (lam 2/3,
+# zeta 1, b_ref 600), the Lemma-6 T and T_c = 0.3 T; §6.2 logistic
+# regression on LogRegStream's 784 dims and 10 classes, b = 8,000.  At d =
+# 100,000 a step of 1/(2 beta) with beta's k = 1 diverges: the minibatch
+# Hessian's second moment is (1 + (d+1)/b) I, so least squares takes at
+# most 2 / (1 + d/b) and contracts fastest at k = (1 + d/b) / 2, about
+# 1 - b/(d+b) an epoch; and b(t) samples an epoch cannot pin d = 100,000
+# unknowns before about d / b = 167 epochs.  Reaching 5% of the first
+# epoch's loss so takes about 600 epochs (the loss falls about
+# exp(-t / 168)), not the 100 of §6.2.
+SIM_D, SIM_N = 100_000, 10
+SIM_LINREG = dict(b_global=600, epochs=600, k=(1 + 100_000 / 600) / 2)
+SIM_LOGREG = dict(b_global=8_000, epochs=100, k=1.0)
+SIM_TOL = 1e-4     # kernel prox vs plain prox over the run, relative loss
+SIM_TARGET = 0.05  # benchmarks/paper_figs.py: 5% of the gap to the final
+# the train CLI at full width (qwen2-1.5b, 28 layers, bf16) on the
+# simulated clock: FMB under dual averaging and AMB under AdamW, 3 epochs;
+# AMB under dual averaging with the prefetcher and synchronously
+# (--prefetch 0), 6 epochs each: the first batch is built before the
+# first step in both, so the prefetcher has the other builds to hide
+TRAIN_CLI_ARGV = ["--arch", "qwen2-1.5b", "--data", str(N_WORKERS),
+                  "--batch-per-worker", str(PER_WORKER), "--seq-len",
+                  str(SEQ), "--sim-clock"]
+PREFETCH_EPOCHS = 6
+# the keys of a JSONL line of the JAX session (its step's out dict less b,
+# plus the logger's step and elapsed_s); tests/test_torch_train.py holds
+# the port's to JAX's source
+JSONL_KEYS = {"step", "elapsed_s", "loss", "global_batch", "budget_s",
+              "step_s", "sim_wall_s", "staleness"}
+COMM_TIME = 0.5                        # ClockSpec's default T_c
 
 
 def fail(msg: str) -> None:
@@ -996,6 +1045,282 @@ def run_serve(torch, rt, argv) -> dict:
     return launches
 
 
+def time_to(history, target: float) -> float:
+    """First simulated wall time at which the eval loss is <= target
+    (``benchmarks/paper_figs.py``'s ``_time_to_error``)."""
+    loss = history.eval_loss.cpu().numpy()
+    hit = [i for i, x in enumerate(loss) if x <= target]
+    return float(history.wall_time[hit[0]]) if hit else float("inf")
+
+
+def sim_run(torch, rt, label, objective, model, cfg, mode, epochs, **kw):
+    """One engine run on the card from generator seed 0; prints its rate."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = rt.core.engine.run(objective, model, cfg, mode=mode, epochs=epochs,
+                           generator=gen, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    loss = h.eval_loss.cpu().numpy()
+    print(f"  {label} {mode}: {epochs} epochs in {dt:.3f} s "
+          f"({epochs / dt:.1f} epochs/s), eval loss {loss[0]:.6g} -> "
+          f"{loss[-1]:.6g} ({loss[-1] / loss[0]:.4g} of the first), mean "
+          f"b(t) {float(h.global_batch.float().mean()):.2f}, wall "
+          f"{float(h.wall_time[-1]):.2f} s", flush=True)
+    for name in ("eval_loss", "train_loss", "consensus_eps", "regret"):
+        if not bool(torch.isfinite(getattr(h, name)).all()):
+            fail(f"simulator {label} {mode}: {name} is not finite")
+    return h, dt
+
+
+def run_simulator(torch, rt) -> dict:
+    """The §6 simulator at the paper's sizes (see SIM_*): AMB and FMB on
+    linear and logistic regression, launch counts reset just before and
+    read just after; then the linear AMB run again with the plain prox.
+    Checks tests/test_engine.py's criteria, AMB's epoch of exactly T +
+    T_c, AMB ahead of FMB at paper_figs' target, and the kernel prox
+    against the plain one (b(t) identical, losses within SIM_TOL)."""
+    import numpy as np
+    core, data, router = rt.core, rt.data, rt.kernels.router
+    beta = core.dual_averaging.BetaSchedule
+    out = {"launches": {}, "rows": {}}
+    lin = core.objectives.LinearRegression(dim=SIM_D)
+    w_star = data.LinRegStream(dim=SIM_D, seed=42, device="cuda").w_star()
+    stream = data.LogRegStream(seed=3, device="cuda")
+    log = core.objectives.LogisticRegression(dim=stream.dim,
+                                             num_classes=stream.num_classes)
+    means = stream.class_means()
+    eval_batch = log.sample(torch.Generator(device="cuda").manual_seed(9),
+                            (2048,), means)
+    cases = (("linreg", lin, SIM_LINREG, dict(
+        sample_args=(w_star,), f_star=0.5 * lin.noise_var,
+        eval_fn=lambda w: lin.population_loss(w, w_star))),
+        ("logreg", log, SIM_LOGREG, dict(
+            sample_args=(means,),
+            eval_fn=lambda w: log.loss(w, eval_batch))))
+    for label, objective, size, kw in cases:
+        b_global, epochs = size["b_global"], size["epochs"]
+        per = b_global // SIM_N
+        model = core.ShiftedExponential(lam=2 / 3, zeta=1.0, b_ref=b_global)
+        t_budget = core.amb_budget_from_fmb(model, SIM_N, b_global)
+        cfg = core.EngineConfig(
+            n=SIM_N, b_max=4 * per, chunk=per, compute_time=t_budget,
+            comm_time=0.3 * t_budget, fmb_batch_per_node=per, graph="paper",
+            consensus_rounds=5,
+            beta=beta(k=size["k"], mu=float(b_global)))
+        print(f"simulator {label}: d={objective.init_w().shape[0]} "
+              f"n={SIM_N} b={b_global} b_max={cfg.b_max} chunk={cfg.chunk} "
+              f"graph=paper r=5 T={t_budget:.6f} T_c={cfg.comm_time:.6f} "
+              f"beta k={size['k']:.4f}", flush=True)
+        router.reset_launches()
+        h_amb, s_amb = sim_run(torch, rt, label, objective, model, cfg, "amb",
+                               epochs, **kw)
+        h_fmb, s_fmb = sim_run(torch, rt, label, objective, model, cfg, "fmb",
+                               epochs, **kw)
+        launches = router.launches()
+        out["launches"][label] = launches
+        print(f"  launches (AMB and FMB): {launches}", flush=True)
+        if launches.get("dual_update", 0) != 2 * epochs:
+            fail(f"simulator {label}: dual_update launched "
+                 f"{launches.get('dual_update', 0)} times, expected "
+                 f"{2 * epochs} (one prox per epoch)")
+        la, lf = (h.eval_loss.cpu().numpy() for h in (h_amb, h_fmb))
+        lmin = max(la[-1], lf[-1])
+        target = lmin + SIM_TARGET * (la[0] - lmin)
+        t_amb, t_fmb = time_to(h_amb, target), time_to(h_fmb, target)
+        print(f"  time to target {target:.6g}: AMB {t_amb:.3f} s, FMB "
+              f"{t_fmb:.3f} s, FMB / AMB {t_fmb / t_amb:.4f}", flush=True)
+        if not t_amb < t_fmb:
+            fail(f"simulator {label}: AMB reached the target at {t_amb} s, "
+                 f"FMB at {t_fmb} s")
+        if label == "linreg":
+            if not la[-1] < 0.05 * la[0]:
+                fail(f"simulator linreg: AMB eval loss {la[-1]} is not "
+                     f"below 5% of {la[0]}")
+            if not la[-1] < 3 * lf[-1]:
+                fail(f"simulator linreg: AMB {la[-1]} vs FMB {lf[-1]}")
+        elif not la[-1] < 0.6 * la[0]:
+            fail(f"simulator logreg: AMB eval loss {la[-1]} is not below "
+                 f"60% of {la[0]}")
+        clock, want = np.float32(0.0), []
+        for _ in range(epochs):
+            clock = np.float32(clock + np.float32(cfg.compute_time
+                                                  + cfg.comm_time))
+            want.append(clock)
+        if not np.array_equal(h_amb.wall_time.cpu().numpy(), want):
+            fail(f"simulator {label}: AMB's epochs are not T + T_c")
+        out["rows"][label] = dict(epochs_per_s=(epochs / s_amb,
+                                                epochs / s_fmb),
+                                  t_amb=t_amb, t_fmb=t_fmb)
+        if label != "linreg":
+            continue
+        router.reset_launches()
+        router.set_mode("ref")
+        try:
+            h_ref, _ = sim_run(torch, rt, "linreg plain prox", objective,
+                               model, cfg, "amb", epochs, **kw)
+        finally:
+            router.set_mode(None)
+        if router.launches().get("dual_update", 0):
+            fail("simulator: the plain-prox run launched the kernel")
+        same_b = torch.equal(h_ref.batch_sizes, h_amb.batch_sizes)
+        errs = {name: float(((getattr(h_ref, name) - getattr(h_amb, name))
+                             .abs() / getattr(h_ref, name).abs()
+                             .clamp(min=1e-30)).max())
+                for name in ("eval_loss", "train_loss")}
+        print(f"  kernel prox vs plain prox: b(t) identical {same_b}; "
+              f"relative loss differences {errs} (tolerance {SIM_TOL})",
+              flush=True)
+        if not same_b or max(errs.values()) > SIM_TOL:
+            fail(f"simulator: kernel prox vs plain prox {same_b} {errs}")
+        out["prox_err"] = max(errs.values())
+    return out
+
+
+def check_lm_stream(torch, rt, vocab: int) -> float:
+    """The CLI's LM batch (4 x 8 x 256 at the full vocab) from the
+    session's source: tokens in [0, V), labels shifted with -1 last; the
+    card's tokens equal the CPU's on a short sequence; returns the build
+    time of one batch (ms, host clock around a synced build)."""
+    stream = rt.data.LMTokenStream(vocab, SEQ, seed=0, device="cuda")
+    src = rt.data.StreamSource(stream, N_WORKERS, PER_WORKER)
+    times = []
+    for epoch in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = src.batch(epoch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    toks, labels = batch["tokens"], batch["labels"]
+    if tuple(toks.shape) != (N_WORKERS * PER_WORKER, SEQ):
+        fail(f"LM batch shape {tuple(toks.shape)}")
+    if int(toks.min()) < 0 or int(toks.max()) >= vocab:
+        fail(f"LM tokens outside [0, {vocab})")
+    if not (torch.equal(labels[:, :-1], toks[:, 1:])
+            and bool((labels[:, -1] == -1).all())):
+        fail("LM labels are not the tokens shifted, -1 last")
+    short = [rt.data.LMTokenStream(vocab, 16, seed=1, device=d).batch(
+        2, 3, 2)["tokens"].cpu() for d in ("cuda", "cpu")]
+    if not torch.equal(*short):
+        fail("the LM stream's card tokens differ from the CPU's")
+    print(f"LM stream: V={vocab} batch {N_WORKERS} x {PER_WORKER} x {SEQ}"
+          f" build ms {', '.join(f'{t:.1f}' for t in times)} (the first "
+          f"warms up); card tokens equal the CPU's", flush=True)
+    return min(times[1:])
+
+
+def run_train_cli(torch, rt, extra, label: str, steps: int) -> dict:
+    """``repro_torch.launch.train.main`` at full width (TRAIN_CLI_ARGV plus
+    ``extra``, ``steps`` epochs); launch counts reset just before and read
+    just after.
+    Returns the JSONL lines, the loss, the counts, the peak memory and
+    the host seconds of ``AMBSession.run`` and of each step."""
+    from repro_torch.api import AMBSession
+    from repro_torch.launch.train import main as train_main
+    split: dict = {}
+    originals = {name: getattr(AMBSession, name) for name in ("run",
+                                                              "step")}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "train.jsonl"
+        for name, fn in originals.items():
+            setattr(AMBSession, name, timed(split, name, fn))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rt.kernels.router.reset_launches()
+        try:
+            loss = train_main(TRAIN_CLI_ARGV + extra + [
+                "--steps", str(steps), "--metrics", str(path)])
+        finally:
+            for name, fn in originals.items():
+                setattr(AMBSession, name, fn)
+        launches = rt.kernels.router.launches()
+        lines = rt.metrics.read_metrics(path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_times = split.get("step", [])
+    print(f"train CLI {label}: losses {[ln['loss'] for ln in lines]} b(t) "
+          f"{[ln['global_batch'] for ln in lines]} step_s "
+          f"{[round(t, 4) for t in step_times]} run_s {split['run'][0]:.3f} "
+          f"peak_GiB={peak:.2f} launches {launches}", flush=True)
+    if len(lines) != steps or not all(math.isfinite(ln["loss"])
+                                       for ln in lines):
+        fail(f"train CLI {label}: lines {lines}")
+    if any(set(ln) != JSONL_KEYS for ln in lines):
+        fail(f"train CLI {label}: JSONL keys {sorted(lines[0])}")
+    if loss != lines[-1]["loss"]:
+        fail(f"train CLI {label}: returned {loss}, logged {lines[-1]}")
+    return dict(lines=lines, launches=launches, peak=peak,
+                run_s=split["run"][0], step_times=step_times)
+
+
+def check_train_cli(torch, rt, full) -> dict:
+    """The train CLI phase: the LM stream, then AMB, FMB, AdamW AMB and a
+    synchronous AMB at full width (see TRAIN_CLI_ARGV)."""
+    build_ms = check_lm_stream(torch, rt, full.vocab_size)
+    runs = {"amb": run_train_cli(torch, rt, ["--mode", "amb"], "amb",
+                                 PREFETCH_EPOCHS),
+            "fmb": run_train_cli(torch, rt, ["--mode", "fmb"], "fmb",
+                                 EPOCHS),
+            "adamw": run_train_cli(torch, rt, ["--mode", "amb",
+                                               "--optimizer", "adamw"],
+                                   "adamw amb", EPOCHS),
+            "sync": run_train_cli(torch, rt, ["--mode", "amb",
+                                              "--prefetch", "0"],
+                                  "amb --prefetch 0", PREFETCH_EPOCHS)}
+    leaves = len(rt.models.init_params(rt.configs.smoke_config(
+        "qwen2-1.5b"), torch.Generator()))
+    for name in ("amb", "fmb", "sync"):
+        got = runs[name]["launches"].get("dual_update", 0)
+        want = leaves * len(runs[name]["lines"])
+        if got != want:
+            fail(f"train CLI {name}: dual_update launched {got} times, "
+                 f"expected {want}")
+    if runs["adamw"]["launches"]:
+        fail(f"train CLI adamw: launched {runs['adamw']['launches']}")
+    # the simulated clock: AMB adds T + T_c an epoch, FMB the slowest
+    # worker's batch_per_worker gradients, then T_c (the session's clock
+    # draws, replayed)
+    for name in ("amb", "adamw", "sync"):
+        wall = 0.0
+        for ln in runs[name]["lines"]:
+            wall += ln["budget_s"] + COMM_TIME
+            if ln["sim_wall_s"] != wall:
+                fail(f"train CLI {name}: sim_wall_s {ln['sim_wall_s']} != "
+                     f"{wall}")
+    twin = rt.api.clock.make_clock(rt.api.ClockSpec(kind="simulated"),
+                                   N_WORKERS, PER_WORKER)
+    wall = 0.0
+    for epoch, ln in enumerate(runs["fmb"]["lines"]):
+        times, _ = twin.epoch(torch.Generator().manual_seed(
+            10_000 + epoch))
+        wall += float(rt.core.fmb_finish_times(times, PER_WORKER).max()) \
+            + COMM_TIME
+        if ln["global_batch"] != N_WORKERS * PER_WORKER \
+                or ln["sim_wall_s"] != wall:
+            fail(f"train CLI fmb: line {ln}, expected b(t) "
+                 f"{N_WORKERS * PER_WORKER} and sim_wall_s {wall}")
+    same = [a["loss"] for a in runs["amb"]["lines"]] == \
+        [b["loss"] for b in runs["sync"]["lines"]]
+    # the first batch is built before the first step in both runs: the
+    # other PREFETCH_EPOCHS - 1 builds are what a prefetcher can overlap
+    # (a synchronous step also waits for its batch's graph replay, queued
+    # on the same stream)
+    hidden_ms = (runs["sync"]["run_s"] - runs["amb"]["run_s"]) * 1e3
+    could_ms = (PREFETCH_EPOCHS - 1) * build_ms
+    print(f"train CLI: prefetch 2 and 0 give identical losses: {same}; "
+          f"run_s prefetch 2 {runs['amb']['run_s']:.4f}, prefetch 0 "
+          f"{runs['sync']['run_s']:.4f} ({PREFETCH_EPOCHS} epochs); stream "
+          f"build {build_ms:.1f} ms a batch; the prefetcher hid "
+          f"{hidden_ms:.1f} ms of the {could_ms:.1f} ms of builds it could "
+          f"overlap ({hidden_ms / could_ms:.2f})", flush=True)
+    if not same:
+        fail("train CLI: --prefetch 2 and --prefetch 0 losses differ")
+    return dict(runs=runs, build_ms=build_ms)
+
+
 def report_kernels(build) -> None:
     """Set-up output: the ptxas report of each redesigned kernel (it must
     not spill), the tensor-core flash body's dynamic shared memory, and
@@ -1102,12 +1427,16 @@ def main() -> int:
                 "quantized_combine": GOSSIP_ROUNDS * 32 // bits * EPOCHS}
         if runs[name] != want:
             fail(f"{name} launched {runs[name]}, expected {want}")
+    sim = run_simulator(torch, rt)
+    cli = check_train_cli(torch, rt, full)
     served = {"qwen2-1.5b": run_serve(torch, rt, SERVE_ARGV),
               "rwkv6-3b": run_serve(torch, rt, SERVE_RWKV_ARGV)}
+    cli_launches = {k: r["launches"] for k, r in cli["runs"].items()}
 
     def launches(name):
-        return sum(c.get(name, 0) for c in runs.values()) \
-            + sum(c.get(name, 0) for c in served.values())
+        return sum(c.get(name, 0) for group in (
+            runs, served, sim["launches"], cli_launches)
+            for c in group.values())
 
     def per_epoch(name):
         return {s: c[name] / EPOCHS for s, c in runs.items() if name in c}
@@ -1119,6 +1448,10 @@ def main() -> int:
                     launches_per_epoch=per_epoch(name),
                     launches_serve={a: c.get(name, 0)
                                     for a, c in served.items()},
+                    launches_simulator={a: c.get(name, 0) for a, c in
+                                        sim["launches"].items()},
+                    launches_train_cli={a: c.get(name, 0) for a, c in
+                                        cli_launches.items()},
                     max_abs_err=err,
                     **timing)
 

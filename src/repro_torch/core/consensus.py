@@ -1,10 +1,14 @@
 """Averaging consensus over a communication graph (paper §3, Lemma 1).
 
-Counterpart of ``repro.core.consensus``: graph constructors and
-Metropolis weights in numpy (shared by every device), dense gossip and the
-exact average in torch.
+Counterpart of ``repro.core.consensus``: graph constructors (ring,
+torus, complete, star, Erdos-Renyi and the paper's 10-node graph),
+Metropolis weights, the spectral gap and Lemma 1's round count in numpy
+(shared by every device); dense gossip, the exact average and the
+consensus error in torch.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -53,6 +57,21 @@ def star_graph(n: int) -> np.ndarray:
     return a
 
 
+def erdos_renyi_graph(n: int, p: float, seed: int = 0) -> np.ndarray:
+    """Connected Erdos-Renyi graph (retries until connected)."""
+    rng = np.random.default_rng(seed)
+    for _ in range(1000):
+        u = rng.random((n, n))
+        a = np.triu(u < p, k=1)
+        a = a | a.T
+        if is_connected(a):
+            return a
+    raise RuntimeError("could not sample a connected G(n,p); raise p")
+
+
+PAPER_GRAPH_LAZY = 0.3
+
+
 def paper_graph() -> np.ndarray:
     """The 10-node ring plus chords (0,4), (2,6): lazy-0.3 Metropolis
     weights give the paper's lambda_2 = 0.888 (App. I.1)."""
@@ -84,12 +103,17 @@ def default_torus(n: int) -> tuple:
     return rows, n // rows
 
 
-def build_graph(name: str, n: int, rows=None) -> np.ndarray:
+def build_graph(name: str, n: int, **kw) -> np.ndarray:
+    """By name: ``ring``, ``torus`` (``rows=``), ``complete``, ``star``,
+    ``paper`` (n = 10) or ``erdos_renyi`` (``p=`` 0.4, ``seed=`` 0)."""
     if name == "ring":
         return ring_graph(n)
     if name == "torus":
+        rows = kw.get("rows")
         rows = rows if rows is not None else default_torus(n)[0]
         return torus_graph(rows, n // rows)
+    if name == "erdos_renyi":
+        return erdos_renyi_graph(n, kw.get("p", 0.4), kw.get("seed", 0))
     if name == "complete":
         return complete_graph(n)
     if name == "star":
@@ -117,9 +141,45 @@ def metropolis_weights(adj: np.ndarray, lazy: float = 0.5) -> np.ndarray:
     return p
 
 
+def lambda2(p: np.ndarray) -> float:
+    """Second-largest eigenvalue magnitude of a symmetric stochastic matrix."""
+    ev = np.linalg.eigvalsh(p)
+    return float(np.sort(np.abs(ev))[-2])
+
+
+def spectral_gap(p: np.ndarray) -> float:
+    return 1.0 - lambda2(p)
+
+
+def lemma1_rounds(n: int, lip_l: float, eps: float, p: np.ndarray) -> int:
+    """Paper Lemma 1: rounds needed for additive consensus accuracy eps."""
+    if eps <= 0:
+        raise ValueError("eps must be positive")
+    gap = spectral_gap(p)
+    return int(np.ceil(np.log(2.0 * np.sqrt(n) * (1.0 + 2.0 * lip_l / eps))
+                       / gap))
+
+
 # ---------------------------------------------------------------------------
 # Gossip execution
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ConsensusSpec:
+    """Static description of the consensus phase: a doubly-stochastic
+    (n, n) ``p`` and the maximum round count."""
+
+    p: np.ndarray
+    rounds: int
+
+    def __post_init__(self):
+        p = np.asarray(self.p)
+        if not np.allclose(p.sum(0), 1.0, atol=1e-8) or not np.allclose(
+                p.sum(1), 1.0, atol=1e-8):
+            raise ValueError("P must be doubly stochastic")
+        if (p < -1e-12).any():
+            raise ValueError("P must be non-negative")
+
 
 def gossip(messages: torch.Tensor, p, rounds: int) -> torch.Tensor:
     """``rounds`` synchronous rounds of ``m <- P m`` over dim 0 of (n, ...)."""
@@ -133,3 +193,10 @@ def gossip(messages: torch.Tensor, p, rounds: int) -> torch.Tensor:
 def exact_average(messages: torch.Tensor) -> torch.Tensor:
     """The r -> infinity limit: every node holds the global mean."""
     return messages.mean(dim=0, keepdim=True).expand_as(messages)
+
+
+def consensus_error(messages: torch.Tensor) -> torch.Tensor:
+    """max_i ||m_i - mean||: the epsilon of Lemma 1 for these messages."""
+    flat = messages.reshape(messages.shape[0], -1)
+    mean = flat.mean(dim=0, keepdim=True)
+    return torch.linalg.vector_norm(flat - mean, dim=-1).max()

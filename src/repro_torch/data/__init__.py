@@ -1,4 +1,8 @@
-"""The data plane (on-device synthetic source so far)."""
-from .loader import InputSource, SyntheticSource
+"""The data plane: synthetic streams, input sources and the prefetcher."""
+from .loader import (CostedSource, InputSource, Prefetcher, StreamSource,
+                     SyntheticSource, make_source)
+from .pipeline import LinRegStream, LMTokenStream, LogRegStream, make_stream
 
-__all__ = ["InputSource", "SyntheticSource"]
+__all__ = ["LMTokenStream", "LinRegStream", "LogRegStream", "make_stream",
+           "InputSource", "StreamSource", "SyntheticSource", "CostedSource",
+           "Prefetcher", "make_source"]

@@ -10,7 +10,9 @@ and its plain PyTorch version (:mod:`repro_torch.kernels.ref`):
 
 ``force="kernel"`` or ``force="ref"`` overrides the choice for one call:
 the tests and ``chip_smoke.py`` use it to hold a kernel against its plain
-version on the same CUDA tensors.
+version on the same CUDA tensors.  :func:`set_mode` pins the choice for
+the process (``TrainSpec.kernels``, ``--kernels``); a per-call ``force``
+still wins.
 
 Each kernel wrapper calls :func:`count` once per launch, so a run can show
 that its main path went through the kernels (:func:`launches`,
@@ -24,12 +26,32 @@ from typing import Optional
 import torch
 
 FORCES = ("kernel", "ref")
+MODES = ("auto",) + FORCES
 
 _launches: collections.Counter = collections.Counter()
+_mode: Optional[str] = None         # set_mode pin; None = by device
+
+
+def set_mode(mode: Optional[str]) -> None:
+    """Pin every call without a ``force`` to ``"kernel"`` or ``"ref"``;
+    ``"auto"`` or None decides from the tensor's device again."""
+    global _mode
+    if mode is not None and mode not in MODES:
+        raise ValueError(f"unknown kernel mode {mode!r}; choose from {MODES}")
+    _mode = None if mode in (None, "auto") else mode
+
+
+def mode() -> str:
+    """The pinned mode, or ``"auto"``."""
+    return _mode or "auto"
 
 
 def resolve(x: torch.Tensor, force: Optional[str] = None) -> str:
-    """``"kernel"`` for a CUDA tensor, ``"ref"`` for a CPU tensor."""
+    """``"kernel"`` for a CUDA tensor, ``"ref"`` for a CPU tensor, unless
+    ``force`` or the pinned mode says otherwise (``"kernel"`` raises for a
+    tensor that is not on a CUDA device)."""
+    if force is None:
+        force = _mode
     if force is not None:
         if force not in FORCES:
             raise ValueError(f"unknown kernel force {force!r}; "

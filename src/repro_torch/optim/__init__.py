@@ -1,4 +1,4 @@
-"""Optimizers (dual averaging so far)."""
-from .optimizers import DualAveragingOpt
+"""Optimizers: the paper's dual averaging and the AdamW / SGD baselines."""
+from .optimizers import AdamW, DualAveragingOpt, Optimizer, Sgd, make_optimizer
 
-__all__ = ["DualAveragingOpt"]
+__all__ = ["AdamW", "DualAveragingOpt", "Optimizer", "Sgd", "make_optimizer"]

@@ -24,7 +24,8 @@ from repro.optim import DualAveragingOpt as JDualAveraging  # noqa: E402
 from repro_torch import configs, models  # noqa: E402
 from repro_torch.api import (AMBSession, ClockSpec, ConsensusSpec,  # noqa
                              TrainSpec, clock)
-from repro_torch.data import SyntheticSource  # noqa: E402
+from repro_torch.data import (LMTokenStream, StreamSource,  # noqa: E402
+                              SyntheticSource)
 
 N, PER, SEQ = 4, 2, 16
 STANDIN = types.SimpleNamespace(axis_names=("data", "model"),
@@ -135,10 +136,12 @@ def test_session_logs_each_epoch_and_serves_its_batch_source(tmp_path):
     session = AMBSession(TRAIN, ClockSpec(kind="simulated"), device="cpu",
                          metrics_path=str(path))
     source = session.batch_source()
-    assert isinstance(source, SyntheticSource)
-    assert (source.vocab_size, source.seq_len, source.n_workers,
-            source.per_worker, source.seed) == (512, SEQ, N, PER, 0)
-    assert source.device == session.device
+    assert isinstance(source, StreamSource)
+    assert isinstance(source.stream, LMTokenStream)
+    assert (source.stream.vocab_size, source.stream.seq_len,
+            source.n_workers, source.per_worker, source.stream.seed) == (
+                512, SEQ, N, PER, 0)
+    assert torch.device(source.stream.device) == session.device
     outs = [session.step(source.batch(e)) for e in range(2)]
     session.close()
     session.close()
