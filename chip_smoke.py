@@ -59,19 +59,40 @@ Phases (any failure ends the run with a non-zero exit code):
      checks the JSONL keys, b(t) and the simulated wall clock of each, the
      prox launches, and equal losses with and without the prefetcher;
      launch counts are reset just before each run and read just after;
-  8. the serve CLI (``repro_torch.launch.serve``) at full width, all 28
+  8. the epoch drivers and the session's state at qwen2-1.5b width:
+     pipelined ring gossip (8 layers, 3 epochs and a flush: 5
+     gossip_combine launches a settle, the first epoch's zero payload
+     included; the simulated wall clock adds max(T, T_c) an epoch; one
+     pipelined step and a flush equal one sequential step bit for bit);
+     async gossip with D = 2 (4 layers, 3 epochs and a flush; max(T,
+     T_c / D) an epoch; D = 1 equals the pipelined driver bit for bit over
+     2 epochs and a flush); elastic membership on the 8-layer gossip
+     session (everyone, worker 1 out for two epochs on a ring of 3
+     survivors, then back: its b is 0 and its dual rows stay bit for bit,
+     an all-inactive mask raises and touches nothing); and checkpoints
+     (an exact session at full width cut to 2 layers, a pipelined and an
+     async D = 2 session at the smoke config, and the pipelined session
+     of this phase at 8 layers, 34 GB on disk: saved after 2 epochs,
+     restored on the card, the state bit for bit and the next epoch bit
+     for bit, the restore holding no second copy of the state on the
+     card; save seconds, and the restore's seconds split into the
+     session's construction and the state's read and landing, with GB/s);
+     the bit-for-bit epochs under deterministic algorithms;
+  9. the serve CLI (``repro_torch.launch.serve``) at full width, all 28
      layers, bf16: 16 requests of 2048 +- 512 prompt tokens and 32 new
      tokens over 8 slots, with background exact fine-tune epochs, every
      prefill's attention on the tensor-core body; the same serve run for
      rwkv6-3b at full width, all 32 layers, bf16; launch counts are reset
      just before each run and read just after;
-  9. print the kernels' JSON line, the card line, and the final ok line.
+ 10. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -162,6 +183,21 @@ PREFETCH_EPOCHS = 6
 JSONL_KEYS = {"step", "elapsed_s", "loss", "global_batch", "budget_s",
               "step_s", "sim_wall_s", "staleness"}
 COMM_TIME = 0.5                        # ClockSpec's default T_c
+# the pipelined, async, elastic and checkpoint phases: worker 1 leaves
+# the ring (3 survivors re-laid onto a ring), async keeps D = 2 payloads
+# in flight (at QUANT_LAYERS: one queued payload and two dual snapshots
+# stay live through the backward), the exact checkpoint is cut to 2 layers
+# and the full-width pipelined one runs at GOSSIP_LAYERS: a chip call may
+# write 45 GiB to its disk, deletions included, and the async session's
+# checkpoint at QUANT_LAYERS is 57 GB
+MASK = (True, False, True, True)
+STALENESS = 2
+CKPT_LAYERS = 2
+# the bit-for-bit comparisons on the card (a restored or pipelined epoch
+# against the uninterrupted or sequential one) run under
+# torch.use_deterministic_algorithms, which needs cuBLAS's workspace
+# fixed before CUDA starts: the loss's gather backward adds with atomics
+CUBLAS_WORKSPACE = ":4096:8"
 
 
 def fail(msg: str) -> None:
@@ -293,12 +329,26 @@ def check_dual_update(torch, ops, ref, full_shape, beta: float):
 
 
 def check_gossip_combine(torch, ops, GossipConsensus, d_full: int):
+    """The combine against its plain version on the ring's and the torus's
+    tables, and on a survivor table (worker 1 out: a ring of 3 re-laid
+    over rows 0, 2, 3, whose rows are not a rotation of arange(n))."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst, full = 0.0, None
-    for graph in ("ring", "torus"):
-        strat = GossipConsensus(N_WORKERS, 5, graph)
+    for graph, active in (("ring", None), ("torus", None), ("ring", MASK)):
+        strat = GossipConsensus(N_WORKERS, 5, graph, active=active)
         src, w = strat.source_rows("cuda"), strat.taps.weights
         k = len(w)
+        if active is not None:
+            table = src.cpu().numpy()
+            live = [i for i, a in enumerate(active) if a]
+            rotations = [[(i + o) % N_WORKERS for i in range(N_WORKERS)]
+                         for o in range(N_WORKERS)]
+            print(f"gossip_combine survivor table (worker 1 out): "
+                  f"{table.tolist()}", flush=True)
+            if not (set(table[:, live].ravel()) <= set(live) and all(
+                    row.tolist() not in rotations for row in table[1:])):
+                fail(f"survivor table {table.tolist()}")
+            graph = "ring survivors"
         for d in (129, d_full):
             m = torch.randn((N_WORKERS, d), generator=gen, device="cuda")
             got = ops.gossip_combine(m, src, w, force="kernel")
@@ -312,7 +362,6 @@ def check_gossip_combine(torch, ops, GossipConsensus, d_full: int):
             if err > COMBINE_TOL:
                 fail(f"{line} > {COMBINE_TOL}")
             if graph == "ring" and d == d_full:
-                # into a buffer kept across rounds, as the main path calls it
                 # into a buffer kept across rounds, as the main path calls
                 # it; timed alone (the library call's stacked rows do not
                 # fit beside that buffer)
@@ -883,13 +932,7 @@ def serve_reference_check(torch, rt, arch: str) -> None:
 def run_session(torch, rt, cfg, consensus: str) -> dict:
     """The main path: AMBSession.step on SyntheticSource batches, EPOCHS
     epochs; returns the launch counts of exactly that run."""
-    session = rt.api.AMBSession(
-        rt.api.TrainSpec(data=N_WORKERS, batch_per_worker=PER_WORKER,
-                         seq_len=SEQ),
-        rt.api.ClockSpec(kind="simulated"),
-        rt.api.ConsensusSpec(consensus=consensus, graph="ring",
-                             gossip_rounds=GOSSIP_ROUNDS),
-        cfg=cfg, device="cuda")
+    session = session_for(rt, cfg, consensus=consensus)
     source = rt.data.SyntheticSource(cfg.vocab_size, SEQ, N_WORKERS,
                                      PER_WORKER, seed=0, device="cuda")
     p = rt.models.param_count(session.model.params())
@@ -920,6 +963,408 @@ def run_session(torch, rt, cfg, consensus: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def session_for(rt, cfg, **spec):
+    """A full-width session spec (TrainSpec defaults, n = 4) on the card
+    with the simulated clock and ring gossip at GOSSIP_ROUNDS."""
+    return rt.api.AMBSession(
+        rt.api.TrainSpec(data=N_WORKERS, batch_per_worker=PER_WORKER,
+                         seq_len=SEQ),
+        rt.api.ClockSpec(kind="simulated"),
+        rt.api.ConsensusSpec(graph="ring", gossip_rounds=GOSSIP_ROUNDS,
+                             **spec),
+        cfg=cfg, device="cuda")
+
+
+def release(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms for a bit-for-bit comparison of two runs
+    on the card (see CUBLAS_WORKSPACE)."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def same_tree(torch, a, b) -> bool:
+    """Two states (dicts, lists, tensors, numbers) equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(torch, a[k], b[k])
+                                             for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_tree(torch, x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def drive(torch, rt, session, source, epochs: int, label: str, wall_rule,
+          start: int = 0) -> tuple:
+    """``epochs`` session steps on ``source``; checks each epoch's loss and
+    that the simulated wall clock adds ``wall_rule(T)`` an epoch.  Returns
+    (the last metrics, the peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    wall = session.sim_wall
+    for epoch in range(start, start + epochs):
+        m = session.step(source.batch(epoch))
+        wall += wall_rule(m["budget_s"])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  {label} epoch {epoch}: loss={m['loss']:.6f} "
+              f"b={m['b'].tolist()} step_ms={m['step_s'] * 1e3:.1f} "
+              f"sim_wall_s={m['sim_wall_s']!r} peak_GiB={peak:.2f}",
+              flush=True)
+        if not math.isfinite(m["loss"]):
+            fail(f"{label} epoch {epoch}: loss {m['loss']}")
+        if m["sim_wall_s"] != wall:
+            fail(f"{label} epoch {epoch}: sim_wall_s {m['sim_wall_s']!r} "
+                 f"!= {wall!r}")
+    return m, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def expect(label: str, launches: dict, want: dict) -> None:
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            fail(f"{label}: {name} launched {launches.get(name, 0)} times, "
+                 f"expected {n}")
+
+
+def run_pipelined(torch, rt, cfg) -> dict:
+    """Pipelined ring gossip (r = 5) at ``cfg`` (GOSSIP_LAYERS): EPOCHS
+    epochs and a flush, launch counts reset just before and read after
+    the flush.  A settle is GOSSIP_ROUNDS gossip_combine launches, the
+    first epoch's zero payload included (as JAX settles it), so EPOCHS + 1
+    settles; the prox runs for each worker's 15 leaves an epoch."""
+    session = session_for(rt, cfg, consensus="gossip", pipeline=True)
+    source = rt.data.SyntheticSource(cfg.vocab_size, SEQ, N_WORKERS,
+                                     PER_WORKER, seed=0, device="cuda")
+    print(f"pipelined gossip: {cfg.name} layers={cfg.num_layers} ring "
+          f"r={GOSSIP_ROUNDS} epochs={EPOCHS} and a flush", flush=True)
+    release(torch)
+    rt.kernels.router.reset_launches()
+    _, peak = drive(torch, rt, session, source, EPOCHS, "pipelined",
+                    lambda t: max(t, COMM_TIME))
+    session.flush()
+    launches = rt.kernels.router.launches()
+    print(f"  launches (3 epochs and a flush): {launches}; peak_GiB="
+          f"{peak:.2f}", flush=True)
+    expect("pipelined", launches, {
+        "gossip_combine": GOSSIP_ROUNDS * (EPOCHS + 1),
+        "dual_update": 15 * N_WORKERS * EPOCHS})
+    if bool(session.state["pending"].any()):
+        fail("pipelined: the flush left a payload in flight")
+    for name, leaf in session.params.items():
+        if not bool(torch.isfinite(leaf).all()):
+            fail(f"pipelined: parameter {name} is not finite")
+    del session
+    release(torch)
+    # one pipelined step and a flush against one sequential step, same
+    # batch and b, under deterministic algorithms
+    batch, b = source.batch(EPOCHS), [PER_WORKER, 5, 0, PER_WORKER]
+    with deterministic(torch):
+        seq = session_for(rt, cfg, consensus="gossip")
+        seq.step(batch, b)
+        want = seq.state["z"]
+        del seq
+        release(torch)
+        pipe = session_for(rt, cfg, consensus="gossip", pipeline=True)
+        pipe.step(batch, b)
+        pipe.flush()
+        same = same_tree(torch, pipe.state["z"], want)
+    print(f"  one pipelined step and a flush equal one sequential step bit "
+          f"for bit: {same}", flush=True)
+    if not same:
+        fail("pipelined step + flush differs from the sequential step")
+    del pipe, want
+    release(torch)
+    return launches
+
+
+def run_async(torch, rt, cfg) -> dict:
+    """Async gossip with D = STALENESS at ``cfg`` (QUANT_LAYERS): EPOCHS
+    epochs and a flush (EPOCHS + D settles of GOSSIP_ROUNDS launches: the
+    first D epochs settle zero payloads, the flush D slots); then D = 1
+    against the pipelined driver, 2 epochs and a flush, bit for bit."""
+    session = session_for(rt, cfg, consensus="gossip", async_epochs=True,
+                          staleness=STALENESS)
+    source = rt.data.SyntheticSource(cfg.vocab_size, SEQ, N_WORKERS,
+                                     PER_WORKER, seed=0, device="cuda")
+    print(f"async gossip: {cfg.name} layers={cfg.num_layers} ring "
+          f"r={GOSSIP_ROUNDS} D={STALENESS} epochs={EPOCHS} and a flush",
+          flush=True)
+    release(torch)
+    rt.kernels.router.reset_launches()
+    _, peak = drive(torch, rt, session, source, EPOCHS, "async",
+                    lambda t: max(t, COMM_TIME / STALENESS))
+    session.flush()
+    launches = rt.kernels.router.launches()
+    print(f"  launches (3 epochs and a flush): {launches}; peak_GiB="
+          f"{peak:.2f}", flush=True)
+    expect("async", launches, {
+        "gossip_combine": GOSSIP_ROUNDS * (EPOCHS + STALENESS),
+        "dual_update": 15 * N_WORKERS * EPOCHS})
+    del session
+    release(torch)
+    bs = ([PER_WORKER, 3, PER_WORKER, 0], [1, PER_WORKER, PER_WORKER, 6])
+    zs = []
+    with deterministic(torch):
+        for spec in (dict(async_epochs=True, staleness=1),
+                     dict(pipeline=True)):
+            s = session_for(rt, cfg, consensus="gossip", **spec)
+            for epoch, b in enumerate(bs):
+                s.step(source.batch(epoch), b)
+            s.flush()
+            zs.append(s.state["z"])
+            del s
+            release(torch)
+        same = same_tree(torch, *zs)
+    print(f"  async D=1 equals the pipelined driver bit for bit over 2 "
+          f"epochs and a flush: {same}", flush=True)
+    if not same:
+        fail("async D=1 differs from the pipelined driver")
+    del zs
+    release(torch)
+    return launches
+
+
+def run_elastic(torch, rt, cfg) -> dict:
+    """Elastic membership on the ring gossip session at ``cfg``
+    (GOSSIP_LAYERS): one epoch with everyone, worker 1 out for two (a ring
+    of 3 survivors through the survivor table), then back for one; every
+    epoch GOSSIP_ROUNDS gossip_combine launches."""
+    session = session_for(rt, cfg, consensus="gossip")
+    source = rt.data.SyntheticSource(cfg.vocab_size, SEQ, N_WORKERS,
+                                     PER_WORKER, seed=0, device="cuda")
+    print(f"elastic gossip: {cfg.name} layers={cfg.num_layers} mask "
+          f"{list(MASK)} for epochs 1-2", flush=True)
+    release(torch)
+    rt.kernels.router.reset_launches()
+
+    def step(epoch, label):
+        return drive(torch, rt, session, source, 1, label,
+                     lambda t: t + COMM_TIME, start=epoch)
+
+    _, peak = step(0, "all")
+    session.set_active(MASK)
+    kept = {k: v[1].clone() for k, v in session.state["z"].items()}
+    for epoch in (1, 2):
+        m, p = step(epoch, "worker 1 out")
+        peak = max(peak, p)
+        if m["b"][1] != 0:
+            fail(f"elastic: worker 1 took b = {m['b'][1]} while out")
+    if not all(torch.equal(session.state["z"][k][1], v)
+               for k, v in kept.items()):
+        fail("elastic: worker 1's dual rows changed while it was out")
+    del kept
+    release(torch)
+    before = {k: v.clone() for k, v in session.state["z"].items()}
+    try:
+        session.set_active([False] * N_WORKERS)
+        fail("elastic: an all-inactive mask was accepted")
+    except ValueError as e:
+        print(f"  an all-inactive mask raises: {e}", flush=True)
+    untouched = session.active.tolist() == list(MASK) and same_tree(
+        torch, session.state["z"], before)
+    del before
+    release(torch)
+    if not untouched:
+        fail("elastic: the rejected mask changed the session")
+    session.set_active([True] * N_WORKERS)
+    _, p = step(3, "rejoined")
+    launches = rt.kernels.router.launches()
+    print(f"  worker 1's dual rows unchanged bit for bit while out; the "
+          f"rejected mask left the state untouched; launches (4 epochs): "
+          f"{launches}; peak_GiB={max(peak, p):.2f}", flush=True)
+    expect("elastic", launches, {
+        "gossip_combine": GOSSIP_ROUNDS * 4,
+        "dual_update": 15 * N_WORKERS * 4})
+    del session
+    release(torch)
+    return launches
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def tensors(torch, tree):
+    """The tensor leaves of a state (dicts in key order, lists)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tensors(torch, tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensors(torch, v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def digest(torch, tree) -> list:
+    """Exact checksums of a state's bits, for a state too large to keep a
+    second copy of: for each tensor leaf its dtype, its shape, and the sum
+    and the position-weighted sum of its words as int64 (mod 2**64, so
+    the reduction order cannot change them; any one changed word changes
+    the first); each number as it is."""
+    words = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64}
+    out = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, torch.Tensor):
+            flat = x.detach().contiguous().view(-1).view(
+                words[x.element_size()])
+            s = torch.zeros((), dtype=torch.int64, device=x.device)
+            w = torch.zeros_like(s)
+            for lo in range(0, flat.numel(), CHUNK):
+                c = flat[lo:lo + CHUNK].to(torch.int64)
+                s += c.sum()
+                w += (c * torch.arange(lo + 1, lo + 1 + c.numel(),
+                                       device=x.device)).sum()
+            out.append((str(x.dtype), tuple(x.shape), int(s), int(w)))
+        else:
+            out.append(x)
+
+    walk(tree)
+    return out
+
+
+@contextlib.contextmanager
+def time_calls(torch, module, name: str, spent: list):
+    """Replace ``module.name`` for the block by a wrapper that appends the
+    host seconds of each call, from a device sync to a device sync."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield spent
+    finally:
+        setattr(module, name, fn)
+
+
+def check_checkpoints(torch, rt, full, smoke) -> dict:
+    """Save after 2 epochs, restore on the card, then one more epoch on
+    both: an exact session at full width cut to CKPT_LAYERS, a pipelined
+    and an async (D = STALENESS) session at the smoke config, and the
+    pipelined session at full width cut to GOSSIP_LAYERS.  That one has
+    the card to itself: the uninterrupted session takes its next epoch and
+    goes before the restore, the two are held to each other by
+    ``digest`` (the others also tensor by tensor), and the restore's peak
+    must stay below the restored session's footprint plus half its state:
+    a restore that landed a second copy of the state before copying it in
+    would hold all of it twice.  The restored state, step count, wall
+    clock and mask equal the saved ones and the next epoch the
+    uninterrupted one's, bit for bit (under deterministic algorithms).
+    The restore's time is split into the state's read and landing
+    (``load_checkpoint_into``, timed inside the call) and the rest, the
+    session's construction.  The checkpoints go to a directory under the
+    git-ignored build/ that the phase deletes."""
+    cases = (("exact", dataclasses.replace(full, num_layers=CKPT_LAYERS),
+              dict(consensus="exact"), False),
+             ("pipelined", smoke, dict(consensus="gossip", pipeline=True),
+              False),
+             ("async", smoke, dict(consensus="gossip", async_epochs=True,
+                                   staleness=STALENESS), False),
+             ("pipelined full width",
+              dataclasses.replace(full, num_layers=GOSSIP_LAYERS),
+              dict(consensus="gossip", pipeline=True), True))
+    session_mod = sys.modules["repro_torch.api.session"]
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    for label, cfg, spec, alone in cases:
+        source = rt.data.SyntheticSource(cfg.vocab_size, SEQ, N_WORKERS,
+                                         PER_WORKER, seed=0, device="cuda")
+        tmp = Path(tempfile.mkdtemp(dir=ROOT / "build", prefix="ckpt_"))
+        try:
+            with deterministic(torch):
+                a = session_for(rt, cfg, **spec)
+                for epoch in range(2):
+                    a.step(source.batch(epoch))
+                saved = digest(torch, a.state)
+                meta = (a.steps_done, a.sim_wall, a.active.tolist())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.save(tmp)
+                save_s = time.perf_counter() - t0
+                size = dir_bytes(tmp)
+                state_size = dir_bytes(tmp / "session_state")
+                if alone:
+                    ma = a.step(source.batch(2))
+                    want = digest(torch, a.state)
+                    del a
+                    release(torch)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with time_calls(torch, session_mod, "load_checkpoint_into",
+                                []) as spent:
+                    b = rt.api.AMBSession.restore(tmp, cfg=cfg,
+                                                  device="cuda")
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                read_s = sum(spent)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                live = torch.cuda.memory_allocated() / 2 ** 30
+                state_gib = sum(t.numel() * t.element_size()
+                                for t in tensors(torch, b.state)) / 2 ** 30
+                same_state = digest(torch, b.state) == saved
+                same_meta = (b.steps_done, b.sim_wall,
+                             b.active.tolist()) == meta
+                if not alone:
+                    same_state &= same_tree(torch, b.state, a.state)
+                    ma = a.step(source.batch(2))
+                mb = b.step(source.batch(2))
+                if alone:
+                    same_next = digest(torch, b.state) == want
+                else:
+                    same_next = same_tree(torch, b.state, a.state)
+                same_next &= ma["loss"] == mb["loss"]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"checkpoint {label}: {cfg.name} layers={cfg.num_layers} "
+              f"{size / 1e9:.3f} GB on disk ({state_size / 1e9:.3f} GB of "
+              f"state); save {save_s:.3f} s ({size / 1e9 / save_s:.3f} "
+              f"GB/s); restore {load_s:.3f} s: construction "
+              f"{load_s - read_s:.3f} s, the state's read and landing "
+              f"{read_s:.3f} s ({state_size / 1e9 / read_s:.3f} GB/s); "
+              f"restore peak_GiB={peak:.2f} over the restored session's "
+              f"{live:.2f} ({state_gib:.2f} of state); state equal bit for bit "
+              f"{same_state}; steps, wall clock and mask equal {same_meta}; "
+              f"the next epoch equal bit for bit {same_next} (loss "
+              f"{ma['loss']!r})", flush=True)
+        if not (same_state and same_meta and same_next):
+            fail(f"checkpoint {label}: state {same_state}, counters "
+                 f"{same_meta}, next epoch {same_next}")
+        if alone and peak >= live + state_gib / 2:
+            fail(f"checkpoint {label}: the restore peaked at {peak:.2f} GiB "
+                 f"for a session of {live:.2f}: a second copy of its "
+                 f"{state_gib:.2f} GiB state")
+        out[label] = dict(bytes=size, save_s=save_s, load_s=load_s,
+                          read_s=read_s, peak_gib=peak)
+        if not alone:
+            del a
+        del b
+        release(torch)
+    return out
 
 
 def idle_gaps(requests) -> list:
@@ -1357,6 +1802,7 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1429,13 +1875,17 @@ def main() -> int:
             fail(f"{name} launched {runs[name]}, expected {want}")
     sim = run_simulator(torch, rt)
     cli = check_train_cli(torch, rt, full)
+    drivers = {"pipelined": run_pipelined(torch, rt, gossip_cfg),
+               "async": run_async(torch, rt, quant_cfg),
+               "elastic": run_elastic(torch, rt, gossip_cfg)}
+    check_checkpoints(torch, rt, full, smoke)
     served = {"qwen2-1.5b": run_serve(torch, rt, SERVE_ARGV),
               "rwkv6-3b": run_serve(torch, rt, SERVE_RWKV_ARGV)}
     cli_launches = {k: r["launches"] for k, r in cli["runs"].items()}
 
     def launches(name):
         return sum(c.get(name, 0) for group in (
-            runs, served, sim["launches"], cli_launches)
+            runs, served, sim["launches"], cli_launches, drivers)
             for c in group.values())
 
     def per_epoch(name):
@@ -1452,6 +1902,8 @@ def main() -> int:
                                         sim["launches"].items()},
                     launches_train_cli={a: c.get(name, 0) for a, c in
                                         cli_launches.items()},
+                    launches_drivers={a: c.get(name, 0) for a, c in
+                                      drivers.items()},
                     max_abs_err=err,
                     **timing)
 

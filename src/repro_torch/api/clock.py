@@ -28,6 +28,10 @@ class Clock:
     def update(self, step_seconds: float, global_b: float) -> None:
         pass
 
+    def set_budget(self, budget: float) -> None:
+        """Pin the compute budget T (a restore re-pins the one in force)."""
+        raise NotImplementedError
+
 
 class SimulatedClock(Clock):
     """Paper-evaluation clock: model times, Lemma-6 (or explicit) T."""
@@ -41,6 +45,9 @@ class SimulatedClock(Clock):
     def epoch(self, generator):
         return (self.model.per_gradient_times(generator, self.n, self.bpw),
                 self.budget_t)
+
+    def set_budget(self, budget):
+        self.budget_t = float(budget)
 
 
 class MeasuredClock(Clock):
@@ -74,6 +81,10 @@ class MeasuredClock(Clock):
         budget = self.budget() if self.compute_time is None \
             else self.compute_time
         return rel * self._unit(), budget
+
+    def set_budget(self, budget):
+        # pinning ends the clock's own Lemma-6 re-derivation
+        self.compute_time = float(budget)
 
 
 def make_clock(spec: ClockSpec, n: int, batch_per_worker: int) -> Clock:

@@ -1,5 +1,5 @@
-"""One ``TrainProtocol`` surface over the exact and gossip steps
-(counterpart of ``repro.api.protocol``, unpipelined drivers only).
+"""One ``TrainProtocol`` surface over the exact, gossip, pipelined and
+async steps (counterpart of ``repro.api.protocol``).
 
     ``init(params) -> state``                     the mode's TrainState
     ``step(state, batch, b) -> (state, metrics)`` one AMB epoch
@@ -8,6 +8,9 @@
 
   * :class:`ExactProtocol` — ``{"params", "opt", "t"}``.
   * :class:`GossipProtocol` — ``{"z", "w0", "t"}``.
+  * :class:`PipelinedProtocol` — the gossip state and ``"pending"``.
+  * :class:`AsyncProtocol` — the gossip state, ``"queue"`` and, for
+    staleness > 1, ``"snaps"``.
 
 Steps update the state's tensors in place and return the same dict.
 """
@@ -15,6 +18,8 @@ from __future__ import annotations
 
 from ..dist.amb import (AMBConfig, gossip_primal, make_gossip_train_step,
                         make_train_step)
+from ..dist.async_epochs import make_async_gossip_train_step
+from ..dist.pipeline import make_pipelined_gossip_train_step
 from ..optim import DualAveragingOpt
 
 
@@ -70,17 +75,75 @@ class GossipProtocol(TrainProtocol):
         return gossip_primal(state, self.amb)
 
 
+class PipelinedProtocol(TrainProtocol):
+    """Staleness-1 pipelined epochs.  State: z/w0/t/pending."""
+
+    mode = "pipelined"
+
+    def __init__(self, cfg, n: int, amb: AMBConfig, draw_source=None):
+        self.amb = amb
+        self.init, self.step, self.flush = make_pipelined_gossip_train_step(
+            cfg, n, amb, draw_source)
+
+    def primal(self, state):
+        return gossip_primal(state, self.amb)
+
+
+class AsyncProtocol(TrainProtocol):
+    """AMB-DG bounded-staleness epochs.  State: z/w0/t/queue (and snaps).
+
+    ``queue`` holds ``staleness`` in-flight payloads, oldest first; each
+    step settles the due head, takes delayed gradients at the last settled
+    dual and enqueues at the tail; ``flush`` drains the whole queue.
+    """
+
+    mode = "async"
+
+    def __init__(self, cfg, n: int, amb: AMBConfig, staleness: int = 1,
+                 draw_source=None):
+        self.amb = amb
+        self.staleness = staleness
+        self.init, self.step, self.flush = make_async_gossip_train_step(
+            cfg, n, amb, staleness, draw_source)
+
+    def primal(self, state):
+        return gossip_primal(state, self.amb)
+
+
 def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
-                   draw_source=None) -> TrainProtocol:
-    """Exact consensus runs the weighted step under ``optimizer`` (default
-    dual averaging with ``amb``'s beta); any other consensus runs the
-    decentralised dual-averaging protocol, whose quantized gossip takes
-    its rounding draws from ``draw_source`` (see
-    :func:`~repro_torch.dist.amb.make_gossip_train_step`)."""
+                   pipeline: bool = False, async_epochs: bool = False,
+                   staleness: int = 1, draw_source=None) -> TrainProtocol:
+    """The protocol for (consensus, driver, optimizer), by JAX's rules.
+
+    ``pipeline``, ``async_epochs`` or a non-exact consensus selects the
+    decentralised dual-averaging family (per-worker duals; quantized
+    gossip takes its rounding draws from ``draw_source``, see
+    :func:`~repro_torch.dist.amb.make_gossip_train_step`); exact consensus
+    without either driver runs the weighted step under ``optimizer``
+    (default dual averaging with ``amb``'s beta).  ``async_epochs``
+    generalises ``pipeline`` to ``staleness`` in-flight payloads; the two
+    are mutually exclusive.  Elastic membership rides on ``amb.active``.
+    """
+    if pipeline and async_epochs:
+        raise ValueError("--pipeline is the hardcoded staleness-1 driver; "
+                         "--async generalizes it — choose one (async with "
+                         "staleness 1 is the pipelined schedule)")
+    if staleness != 1 and not async_epochs:
+        raise ValueError(f"staleness={staleness} is the async driver's "
+                         "knob; pass --async (async_epochs=True) — "
+                         "without it the staleness would be silently "
+                         "ignored")
+    decentralized = pipeline or async_epochs or amb.consensus != "exact"
+    if decentralized and optimizer is not None and \
+            not isinstance(optimizer, DualAveragingOpt):
+        raise ValueError("gossip / pipelined / async modes run the paper's "
+                         "dual-averaging protocol; use the dual_averaging "
+                         "optimizer")
+    if async_epochs:
+        return AsyncProtocol(cfg, n, amb, staleness, draw_source)
+    if pipeline:
+        return PipelinedProtocol(cfg, n, amb, draw_source)
     if amb.consensus != "exact":
-        if optimizer is not None:
-            raise ValueError("the gossip protocol runs the paper's dual "
-                             "averaging; pass no optimizer")
         return GossipProtocol(cfg, n, amb, draw_source)
     if optimizer is None:
         optimizer = DualAveragingOpt(beta=amb.beta, radius=amb.radius)

@@ -5,7 +5,8 @@
                          ClockSpec(kind="simulated"),
                          ConsensusSpec(consensus="gossip"))
     metrics = session.run(3)              # prefetched data plane
-    session.flush()
+    session.flush()                       # settle in-flight consensus
+    session.save("ckpt/")                 # primal + full state
     w = session.params                    # current primal iterate
 
 The session runs on the card unless ``device`` says otherwise, and raises
@@ -19,17 +20,30 @@ appended to a JSONL file.  ``run`` feeds the session from an input source
 :class:`~repro_torch.data.LMTokenStream`, generated on the session's
 device) through a :class:`~repro_torch.data.Prefetcher`, which builds the
 next batches on a side CUDA stream while the current epoch steps.
-Elastic membership, the controller, save/restore and fault injection are
-not ported yet.
+
+The epoch driver is sequential, pipelined (``ConsensusSpec.pipeline``) or
+async with D in-flight payloads (``async_epochs``, ``staleness``); the
+simulated wall clock adds T + T_c, max(T, T_c) or max(T, T_c / D) an
+epoch.  Elastic membership: ``set_active(mask)`` forces a masked worker's
+b_i(t) to 0 and rebuilds the gossip operator over the survivors (a ring or
+torus re-laid onto a smaller one, :func:`repro_torch.dist.consensus.
+survivor_taps`), after draining any in-flight consensus; the state carries
+over, so a rejoining worker resumes from its stale dual.
+``set_slowdown`` scales workers' clock draws before the deadline cut.
+``save`` / ``restore`` write and read JAX's checkpoint layout and resume
+exactly.  The controller and fault injection are not ported yet.
 """
 from __future__ import annotations
 
+import json
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..ckpt import load_checkpoint_into, save_checkpoint
 from ..configs import get_config, smoke_config
 from ..core.stragglers import amb_batch_sizes, fmb_finish_times
 from ..data import LMTokenStream, Prefetcher, StreamSource
@@ -61,9 +75,9 @@ class AMBSession:
     Exact consensus runs ``train.optimizer``: dual averaging with the
     spec's beta schedule and no trust region, as the JAX session builds it
     (``ConsensusSpec.radius`` is not passed to it), or AdamW or SGD with
-    their defaults.  Gossip consensus runs the paper's dual averaging
-    only.  ``train.kernels`` other than ``auto`` pins the kernel routing
-    for the process, as in JAX.
+    their defaults.  Gossip consensus and the pipelined and async drivers
+    run the paper's dual averaging only.  ``train.kernels`` other than
+    ``auto`` pins the kernel routing for the process, as in JAX.
     """
 
     def __init__(self, train: TrainSpec, clock: Optional[ClockSpec] = None,
@@ -87,22 +101,26 @@ class AMBSession:
         self.global_batch = self.n_workers * train.batch_per_worker
         self.clock = make_clock(self.clock_spec, self.n_workers,
                                 train.batch_per_worker)
-        optimizer = None
-        if self.consensus_spec.consensus == "exact":
+        self._decentralized = (self.consensus_spec.pipeline
+                               or self.consensus_spec.async_epochs
+                               or self.consensus_spec.consensus != "exact")
+        self._optimizer = None
+        if not self._decentralized:
             if train.optimizer == "dual_averaging":
-                optimizer = make_optimizer(
+                self._optimizer = make_optimizer(
                     "dual_averaging",
                     beta=self.consensus_spec.beta(self.global_batch))
             else:
-                optimizer = make_optimizer(train.optimizer)
+                self._optimizer = make_optimizer(train.optimizer)
         elif train.optimizer != "dual_averaging":
             raise ValueError("gossip / pipelined / async modes run the "
                              "paper's dual-averaging protocol; use "
                              "optimizer='dual_averaging'")
-        self.protocol = build_protocol(
-            self.cfg, self.n_workers,
-            self.consensus_spec.to_amb_config(self.global_batch, train.seed),
-            optimizer=optimizer, draw_source=draw_source)
+        self._draw_source = draw_source
+        self._slow: Optional[np.ndarray] = None   # per-worker slowdowns
+        self._active: Optional[tuple] = None
+        self._protocols: dict = {}       # (mask, staleness) -> protocol
+        self._build_protocol()
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(train.seed)
@@ -116,13 +134,92 @@ class AMBSession:
         self.metrics = MetricsLogger(metrics_path) if metrics_path \
             else None
 
+    # -- construction ------------------------------------------------------
+
+    def _build_protocol(self, active: Optional[tuple] = None) -> None:
+        """(Re)build the epoch driver: at init, on ``set_active`` and on a
+        staleness retune.  Exact consensus ignores ``active`` (a masked
+        worker's b_i = 0 already drops it out of the eq.-6 average); the
+        gossip family is cached by ``(mask, staleness)``, so a rejoin
+        reuses the built protocol and its device source tables."""
+        mask = active if self._decentralized else None
+        key = (mask, self.consensus_spec.staleness) \
+            if self._decentralized else None
+        if key not in self._protocols:
+            spec = self.consensus_spec
+            self._protocols[key] = build_protocol(
+                self.cfg, self.n_workers,
+                spec.to_amb_config(self.global_batch, self.train.seed,
+                                   active=mask),
+                optimizer=self._optimizer, pipeline=spec.pipeline,
+                async_epochs=spec.async_epochs, staleness=spec.staleness,
+                draw_source=self._draw_source)
+        self.protocol = self._protocols[key]
+
+    # -- elastic membership ------------------------------------------------
+
+    @property
+    def active(self) -> np.ndarray:
+        """Bool (n_workers,) membership mask (all True when fully manned)."""
+        if self._active is None:
+            return np.ones(self.n_workers, dtype=bool)
+        return np.asarray(self._active, dtype=bool)
+
+    def set_active(self, mask) -> None:
+        """Elastic worker join/leave: re-mask b_i(t), rebuild gossip taps.
+
+        A False worker takes b_i(t) = 0 every epoch and is cut out of the
+        gossip graph: a ring or torus re-lays the survivors onto a smaller
+        one, other graphs take dense Metropolis weights on the induced
+        subgraph.  One survivor is the identity; an all-inactive mask
+        raises before anything is touched.  The state carries over, so a
+        re-admitted worker resumes from its stale dual.  In-flight
+        consensus (pipelined, async) is drained first, under the operator
+        it was packed for; the protocol is built before the mask is
+        committed, so a rejected mask leaves the session as it was, apart
+        from that drain, which is always a valid state transition.
+        """
+        mask = np.asarray(mask, dtype=bool).reshape(-1)
+        if mask.shape[0] != self.n_workers:
+            raise ValueError(f"mask has {mask.shape[0]} entries for "
+                             f"{self.n_workers} workers")
+        if not mask.any():
+            raise ValueError("at least one worker must stay active")
+        active = None if mask.all() else tuple(bool(m) for m in mask)
+        if active != self._active:
+            self.flush()     # drain in-flight rounds under the old operator
+        self._build_protocol(active)
+        self._active = active
+
+    def set_slowdown(self, slow) -> None:
+        """Per-worker multipliers on the clock's per-gradient times (None
+        clears them): each epoch's draws are scaled before the deadline
+        cut, so a slow worker's b_i(t) shrinks through the paper's own
+        variable-minibatch rule."""
+        if slow is None:
+            self._slow = None
+            return
+        slow = np.asarray(slow, dtype=np.float64).reshape(-1)
+        if slow.shape[0] != self.n_workers:
+            raise ValueError(f"slowdown has {slow.shape[0]} entries for "
+                             f"{self.n_workers} workers")
+        if (slow <= 0).any():
+            raise ValueError("slowdown multipliers must be positive")
+        self._slow = None if np.all(slow == 1.0) else slow
+
+    # -- the epoch ---------------------------------------------------------
+
     def epoch_sizes(self, times: torch.Tensor, budget: float) -> torch.Tensor:
         """b_i(t) for one epoch: the deadline cut (AMB), or every worker's
-        ``batch_per_worker`` (FMB)."""
+        ``batch_per_worker`` (FMB); 0 for the workers masked out."""
         if self.train.mode == "amb":
-            return amb_batch_sizes(times, budget)
-        return torch.full((self.n_workers,), self.train.batch_per_worker,
-                          dtype=torch.int32)
+            b = amb_batch_sizes(times, budget)
+        else:
+            b = torch.full((self.n_workers,), self.train.batch_per_worker,
+                           dtype=torch.int32)
+        if self._active is not None:
+            b = torch.where(torch.as_tensor(self.active), b, 0)
+        return b
 
     def step(self, batch: dict, b=None) -> dict:
         """Run one AMB epoch on a global batch; returns its metrics.
@@ -133,12 +230,28 @@ class AMBSession:
         gen.manual_seed(self.train.seed * 1_000_003 + 10_000
                         + self.steps_done)
         times, budget = self.clock.epoch(gen)
+        if self._slow is not None:
+            # scale each worker's per-gradient times: the deadline cut
+            # below turns a slowdown into a smaller b_i(t)
+            times = times * torch.as_tensor(self._slow,
+                                            dtype=times.dtype)[:, None]
         if b is None:
             b = self.epoch_sizes(times, budget)
-        # simulated wall clock: AMB epochs take T + T_c; FMB waits for the
+        # simulated wall clock: pipelined epochs hide T_c under the next
+        # epoch's compute; async epochs give each consensus D compute
+        # windows, so only T_c / D must fit an epoch; FMB waits for the
         # slowest worker's batch_per_worker gradients, then T_c
+        spec = self.consensus_spec
         if self.train.mode == "amb":
-            self.sim_wall += float(budget) + self.clock_spec.comm_time
+            if spec.async_epochs:
+                self.sim_wall += max(float(budget),
+                                     self.clock_spec.comm_time
+                                     / spec.staleness)
+            elif spec.pipeline:
+                self.sim_wall += max(float(budget),
+                                     self.clock_spec.comm_time)
+            else:
+                self.sim_wall += float(budget) + self.clock_spec.comm_time
         else:
             self.sim_wall += float(fmb_finish_times(
                 times, self.train.batch_per_worker).max()) \
@@ -155,10 +268,7 @@ class AMBSession:
         out = {"loss": loss, "global_batch": global_b,
                "budget_s": float(budget), "step_s": step_s,
                "sim_wall_s": self.sim_wall,
-               # JAX writes consensus_spec.staleness (default 1); the port
-               # has no staleness field yet, and its epochs are not
-               # pipelined, so it writes that default
-               "staleness": 1,
+               "staleness": spec.staleness,
                "b": np.asarray(torch.as_tensor(b).cpu())}
         if self.metrics is not None:
             self.metrics.log(self.steps_done,
@@ -210,8 +320,33 @@ class AMBSession:
         return out
 
     def flush(self) -> None:
-        """Settle in-flight consensus (a no-op for the ported protocols)."""
+        """Settle in-flight consensus (pipelined, async); no-op otherwise."""
         self.state = self.protocol.flush(self.state)
+
+    def _apply_staleness(self, staleness: int) -> None:
+        """Retune the async driver's D mid-run: drain, rebuild, migrate.
+
+        The queue is drained first (a ``flush``): every payload was packed
+        with the old D's damping and settles under it.  The new driver
+        starts from an empty queue; the settled dual ``z``, ``w0`` and the
+        epoch count ``t`` carry over.  Rebuilds go through the ``(mask,
+        staleness)`` protocol cache, as in :meth:`set_active`.
+        """
+        if staleness == self.consensus_spec.staleness:
+            return
+        if not self.consensus_spec.async_epochs:
+            raise ValueError("staleness is the async driver's knob; this "
+                             f"session runs {self.protocol.mode!r}")
+        self.flush()    # settle the queue under the D it was packed for
+        self.consensus_spec = self.consensus_spec.replace(
+            staleness=int(staleness))
+        self._build_protocol(self._active)
+        old = self.state
+        for key in ("queue", "snaps"):
+            old.pop(key, None)          # the drained slots of the old D
+        fresh = self.protocol.init(old["w0"])
+        fresh.update(z=old["z"], w0=old["w0"], t=old["t"])
+        self.state = fresh
 
     def close(self) -> None:
         """Release the metrics logger (idempotent)."""
@@ -221,5 +356,82 @@ class AMBSession:
 
     @property
     def params(self) -> dict:
-        """The current primal iterate (gossip: the node-averaged prox)."""
+        """The current primal iterate (gossip: the node-averaged prox of the
+        active workers' duals).  Pipelined and async sessions should
+        ``flush()`` first so the in-flight payloads are folded in."""
         return self.protocol.primal(self.state)
+
+    def save(self, directory) -> None:
+        """Checkpoint the primal and the full state at the current step.
+
+        JAX's layout: ``<dir>/step_<n>/`` holds the primal (what serving
+        reads), ``<dir>/session_state/step_<n>/`` the protocol's state
+        (optimizer or per-worker duals, any in-flight queue, the epoch
+        count), and ``session.json``, written per step and at the root
+        (the latest step), the spec triple and the session's counters.
+        """
+        directory = Path(directory)
+        save_checkpoint(directory, self.steps_done, self.params)
+        state_dir = save_checkpoint(directory / "session_state",
+                                    self.steps_done, self.state)
+        meta = {
+            "step": self.steps_done,
+            "sim_wall_s": self.sim_wall,
+            "train": self.train.to_dict(),
+            "clock": self.clock_spec.to_dict(),
+            # the current spec: its staleness shapes the saved queue
+            "consensus": self.consensus_spec.to_dict(),
+            "active": None if self._active is None else list(self._active),
+            "sec_per_grad": getattr(self.clock, "sec_per_grad", None),
+            # the budget in force
+            "clock_budget": getattr(
+                self.clock, "budget_t",
+                getattr(self.clock, "compute_time", None)),
+            "controller": None,
+        }
+        blob = json.dumps(meta, sort_keys=True, indent=1)
+        # the per-step copy first: restore(step=) reads the counters and
+        # the mask of the state it lands
+        (state_dir / "session.json").write_text(blob)
+        (directory / "session.json").write_text(blob)
+
+    @classmethod
+    def restore(cls, directory, *, step: Optional[int] = None, cfg=None,
+                device="cuda", metrics_path=None) -> "AMBSession":
+        """Rebuild a session from a :meth:`save` directory, resuming exactly.
+
+        The specs come from ``session.json``; then the membership mask
+        (applied before the state lands, so its drain touches nothing
+        restored), the full state, the step count, the simulated wall
+        clock, the measured clock's seconds per gradient and the budget in
+        force.  The clock's draws are seeded from the step count, so they
+        resume too.  ``step`` picks a checkpoint (default the latest), and
+        its own ``session.json`` copy; ``cfg`` is required when the saved
+        session had a custom config.
+        """
+        directory = Path(directory)
+        meta = json.loads((directory / "session.json").read_text())
+        step_sel = meta["step"] if step is None else step
+        per_step = (directory / "session_state" / f"step_{step_sel:08d}"
+                    / "session.json")
+        if per_step.exists():
+            meta = json.loads(per_step.read_text())
+        session = cls(TrainSpec.from_dict(meta["train"]),
+                      ClockSpec.from_dict(meta["clock"]),
+                      ConsensusSpec.from_dict(meta["consensus"]), cfg=cfg,
+                      device=device, metrics_path=metrics_path)
+        if meta.get("active") is not None:
+            session.set_active(meta["active"])
+        # into the fresh state in place, leaf by leaf: the card never
+        # holds the state twice
+        load_checkpoint_into(directory / "session_state", step_sel,
+                             session.state)
+        session.steps_done = step_sel
+        session.sim_wall = float(meta.get("sim_wall_s", 0.0))
+        if meta.get("sec_per_grad") is not None \
+                and hasattr(session.clock, "sec_per_grad"):
+            session.clock.sec_per_grad = float(meta["sec_per_grad"])
+        if meta.get("clock_budget") is not None:
+            session.clock.set_budget(float(meta["clock_budget"]))
+        return session
+

@@ -7,13 +7,13 @@
     budget T (explicit, or Lemma 6 when ``None``; an explicit 0.0 is
     honoured), window T_c, measured or simulated timing.
   * :class:`ConsensusSpec` — how workers agree: strategy, gossip graph and
-    rounds, the dual-averaging beta schedule.
+    rounds, the epoch driver (sequential, pipelined or async with
+    staleness D), the dual-averaging beta schedule.
 
 Each spec round-trips through JSON (``to_json`` / ``from_json``) and
 through argparse (``add_cli_args`` / ``from_args``, with the JAX CLI's
 flag names, defaults and choices).  The JAX flags of modules the port has
-not taken yet (coded redundancy, pipelined and async epochs, the
-controller) are not registered.
+not taken yet (coded redundancy, the controller) are not registered.
 """
 from __future__ import annotations
 
@@ -177,13 +177,21 @@ class ClockSpec(_Spec):
 
 @dataclasses.dataclass(frozen=True)
 class ConsensusSpec(_Spec):
-    """Consensus strategy and the dual-averaging beta schedule."""
+    """Consensus strategy, epoch driver and the dual-averaging beta schedule.
+
+    ``pipeline`` is the staleness-1 overlap; ``async_epochs`` with
+    ``staleness`` generalises it to AMB-DG (``staleness`` in-flight
+    payloads).  The two drivers are mutually exclusive.
+    """
 
     consensus: str = "exact"          # exact | gossip | gossip_q8 | gossip_q4
     graph: str = "ring"               # ring | torus
     gossip_rounds: int = 5
     torus_shape: Optional[Tuple[int, int]] = None
     lazy: float = 0.5
+    pipeline: bool = False            # staleness-1 pipelined epochs
+    async_epochs: bool = False        # AMB-DG bounded-staleness epochs
+    staleness: int = 1                # D: in-flight consensus payloads
     radius: Optional[float] = None    # prox trust region (per leaf)
     beta_k: float = 50.0              # beta_mu=None defaults to the
     beta_mu: Optional[float] = None   # global batch b
@@ -193,13 +201,16 @@ class ConsensusSpec(_Spec):
         mu = float(global_batch) if self.beta_mu is None else self.beta_mu
         return BetaSchedule(k=self.beta_k, mu=mu, scale=self.beta_scale)
 
-    def to_amb_config(self, global_batch: int, seed: int = 0):
+    def to_amb_config(self, global_batch: int, seed: int = 0,
+                      active: Optional[tuple] = None,
+                      relayout: bool = True):
+        """The dist layer's :class:`repro_torch.dist.amb.AMBConfig`."""
         from ..dist.amb import AMBConfig
         return AMBConfig(consensus=self.consensus,
                          gossip_rounds=self.gossip_rounds, graph=self.graph,
                          torus_shape=self.torus_shape, lazy=self.lazy,
                          beta=self.beta(global_batch), radius=self.radius,
-                         seed=seed)
+                         seed=seed, active=active, relayout=relayout)
 
     @staticmethod
     def add_cli_args(ap: argparse.ArgumentParser) -> None:
@@ -215,8 +226,23 @@ class ConsensusSpec(_Spec):
                         help="worker gossip graph")
         ap.add_argument("--gossip-rounds", type=int,
                         default=ConsensusSpec.gossip_rounds)
+        ap.add_argument("--pipeline", action="store_true",
+                        help="staleness-1 pipelined epochs: overlap each "
+                             "step's gossip with the next forward/backward")
+        ap.add_argument("--async", dest="async_epochs", action="store_true",
+                        help="AMB-DG delayed-gradient epochs: consensus "
+                             "settles asynchronously with bounded "
+                             "staleness (--staleness); generalizes "
+                             "--pipeline beyond staleness 1")
+        ap.add_argument("--staleness", type=int,
+                        default=ConsensusSpec.staleness,
+                        help="D: number of in-flight consensus payloads "
+                             "under --async (1 = the pipelined schedule)")
 
     @classmethod
     def from_args(cls, args: argparse.Namespace) -> "ConsensusSpec":
         return cls(consensus=args.consensus, graph=args.graph,
-                   gossip_rounds=args.gossip_rounds)
+                   gossip_rounds=args.gossip_rounds,
+                   pipeline=args.pipeline,
+                   async_epochs=args.async_epochs,
+                   staleness=args.staleness)

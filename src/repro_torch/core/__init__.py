@@ -8,7 +8,9 @@ from .consensus import (build_graph, exact_average, gossip, is_connected,
 from .dual_averaging import (BetaSchedule, DualAveraging, prox_step,
                              prox_step_tree)
 from .engine import EngineConfig, History, run, run_amb, run_fmb
-from .extensions import gossip_quantized, quantize_unbiased
+from .extensions import (gossip_quantized, quantize_unbiased,
+                         run_amb_delayed, run_amb_pipelined,
+                         run_amb_quantized)
 from .stragglers import (Deterministic, InducedGroups, PauseModel,
                          ShiftedExponential, StragglerModel, amb_batch_sizes,
                          amb_budget_calibrated, amb_budget_from_fmb,
@@ -23,5 +25,6 @@ __all__ = [
     "amb_budget_calibrated", "amb_budget_from_fmb", "fmb_finish_times",
     "build_graph", "exact_average", "gossip", "gossip_quantized",
     "is_connected", "metropolis_weights", "quantize_unbiased", "ring_graph",
+    "run_amb_delayed", "run_amb_pipelined", "run_amb_quantized",
     "torus_graph",
 ]

@@ -165,6 +165,50 @@ def _to(batch, device):
     return tuple(torch.as_tensor(x, device=device) for x in batch)
 
 
+def _setup(cfg: EngineConfig, objective, generator, draws, device) -> tuple:
+    """(device, generator, P, the zero (n, d) iterate) of a run: a given
+    generator's device is the run's; without draws the default generator
+    is seeded 0 on ``device``."""
+    if generator is not None:
+        device = generator.device
+    device = resolve_device(device)
+    if generator is None and draws is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    p = torch.tensor(cfg.build_p(), dtype=torch.float32, device=device)
+    d = objective.init_w().shape[0]
+    zeros = torch.zeros((cfg.n, d), dtype=torch.float32, device=device)
+    return device, generator, p, zeros
+
+
+def _chunks(objective, generator, cfg: EngineConfig, sample_args):
+    """An epoch's data drawn from ``generator``, chunk by chunk."""
+    return (objective.sample(generator, (cfg.n, cfg.chunk), *sample_args)
+            for _ in range(cfg.b_max // cfg.chunk))
+
+
+def _eval(eval_fn, w: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
+    return zero if eval_fn is None \
+        else torch.as_tensor(eval_fn(w.mean(0)), device=w.device)
+
+
+def _history(trace: list) -> History:
+    """Stack the epochs' metric dicts into a :class:`History`."""
+    def stacked(key):
+        return torch.stack([m[key] for m in trace])
+
+    return History(
+        wall_time=stacked("wall_time"),
+        batch_sizes=stacked("batch_sizes"),
+        global_batch=stacked("global_batch"),
+        eval_loss=stacked("eval_loss"),
+        train_loss=stacked("train_loss"),
+        consensus_eps=stacked("consensus_eps"),
+        regret=torch.cumsum(stacked("regret_inc"), dim=0),
+        potential_samples=stacked("potential"),
+    )
+
+
 def run(objective, model: StragglerModel, cfg: EngineConfig, *, mode: str,
         epochs: int, generator: Optional[torch.Generator] = None,
         sample_args=(), eval_fn: Optional[Callable] = None,
@@ -179,18 +223,10 @@ def run(objective, model: StragglerModel, cfg: EngineConfig, *, mode: str,
     """
     if mode not in ("amb", "fmb"):
         raise ValueError(mode)
-    if generator is not None:
-        device = generator.device
-    device = resolve_device(device)
-    if generator is None and draws is None:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(0)
+    device, generator, p, zeros = _setup(cfg, objective, generator, draws,
+                                         device)
     n = cfg.n
-    p = torch.tensor(cfg.build_p(), dtype=torch.float32, device=device)
-    d = objective.init_w().shape[0]
-
-    w = torch.zeros((n, d), dtype=torch.float32, device=device)  # eq. 2
-    z = torch.zeros((n, d), dtype=torch.float32, device=device)
+    w, z = zeros, zeros                                            # eq. 2
     clock = torch.zeros((), dtype=torch.float32, device=device)
     zero = torch.zeros((), dtype=torch.float32, device=device)
     trace = []
@@ -201,9 +237,7 @@ def run(objective, model: StragglerModel, cfg: EngineConfig, *, mode: str,
             chunks = (_to(batch, device) for batch in data)
         else:
             times = model.per_gradient_times(generator, n, cfg.b_max)
-            chunks = (objective.sample(generator, (n, cfg.chunk),
-                                       *sample_args)
-                      for _ in range(cfg.b_max // cfg.chunk))
+            chunks = _chunks(objective, generator, cfg, sample_args)
 
         if mode == "amb":
             b = amb_batch_sizes(times, cfg.compute_time)
@@ -221,23 +255,9 @@ def run(objective, model: StragglerModel, cfg: EngineConfig, *, mode: str,
                                 f_star, a)
         clock = clock + epoch_time
         m["wall_time"] = clock
-        m["eval_loss"] = zero if eval_fn is None \
-            else torch.as_tensor(eval_fn(w.mean(0)), device=device)
+        m["eval_loss"] = _eval(eval_fn, w, zero)
         trace.append(m)
-
-    def stacked(key):
-        return torch.stack([m[key] for m in trace])
-
-    return History(
-        wall_time=stacked("wall_time"),
-        batch_sizes=stacked("batch_sizes"),
-        global_batch=stacked("global_batch"),
-        eval_loss=stacked("eval_loss"),
-        train_loss=stacked("train_loss"),
-        consensus_eps=stacked("consensus_eps"),
-        regret=torch.cumsum(stacked("regret_inc"), dim=0),
-        potential_samples=stacked("potential"),
-    )
+    return _history(trace)
 
 
 run_amb = partial(run, mode="amb")

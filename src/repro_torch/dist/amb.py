@@ -12,6 +12,12 @@ Counterpart of ``repro.dist.amb``:
     strategy (exact, fp32 gossip, or quantized gossip with the epoch's
     rounding draws from ``(seed, t)``).
 
+The pipelined and async drivers (:mod:`repro_torch.dist.pipeline`,
+:mod:`repro_torch.dist.async_epochs`) share this module's per-worker
+gradient and its row-wise settle.  ``AMBConfig.active`` masks workers out
+of the gossip operator (elastic membership; the session also zeroes their
+b_i), and :func:`gossip_primal` then averages only the active duals.
+
 The workers are the leading dim of each state tensor.  Where the JAX step
 vmaps the workers' gradients, a Python loop takes them one at a time and
 writes each worker's message row as soon as its gradient exists, so one
@@ -25,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..core.dual_averaging import BetaSchedule
@@ -45,6 +52,18 @@ class AMBConfig:
     beta: BetaSchedule = BetaSchedule()   # gossip-path dual averaging
     radius: Optional[float] = None
     seed: int = 0                     # quantized-gossip rounding draws
+    active: Optional[tuple] = None    # elastic worker mask (None = all)
+    relayout: bool = True             # survivors on a fresh ring/torus
+                                      # (taps) instead of the dense masked
+                                      # P @ m
+
+
+def strategy_from_config(amb: AMBConfig, n: int):
+    """The configured consensus strategy for ``n`` workers."""
+    return make_strategy(amb.consensus, n, rounds=amb.gossip_rounds,
+                         graph=amb.graph, lazy=amb.lazy,
+                         torus_shape=amb.torus_shape, active=amb.active,
+                         relayout=amb.relayout)
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +106,9 @@ def _pack_row(row: torch.Tensor, z_leaves, g_leaves, nb_i) -> None:
     row[off] = nb_i
 
 
-def _width(z: dict, n: int) -> int:
-    return sum(zl.numel() // n for zl in z.values())
+def msg_width(z: dict, n: int) -> int:
+    """The payload's width: every dual element of a worker, plus one."""
+    return sum(zl.numel() // n for zl in z.values()) + 1
 
 
 def pack_messages(z: dict, grads: dict, nb: torch.Tensor,
@@ -97,7 +117,7 @@ def pack_messages(z: dict, grads: dict, nb: torch.Tensor,
 
     z / grads: dicts of (n, *param) leaves; nb: (n,).
     """
-    msg = torch.empty((n, _width(z, n) + 1), dtype=torch.float32,
+    msg = torch.empty((n, msg_width(z, n)), dtype=torch.float32,
                       device=nb.device)
     for i in range(n):
         _pack_row(msg[i], [zl[i] for zl in z.values()],
@@ -119,6 +139,34 @@ def unflatten_dual(flat: torch.Tensor, z: dict, n: int) -> dict:
         out[k] = flat[:, off:off + size].reshape(zl.shape)
         off += size
     return out
+
+
+@torch.no_grad()
+def settle_row(agreed: torch.Tensor, z: dict, i: int,
+               snapshot: Optional[torch.Tensor] = None,
+               gamma: float = 1.0) -> None:
+    """Fold row i of a consensus output into worker i's dual, in place.
+
+    Without ``snapshot`` it is :func:`unpack_duals` on one row (the
+    replacement); with the (W,) ``snapshot`` the row was packed on, the
+    async increment ``z_i + (agreed_i - gamma snapshot_i)``.  A row whose
+    neighbourhood processed no samples (weight column <= 1e-6) leaves z_i
+    as it is in both forms.
+    """
+    col = agreed[-1:]
+    keep = col > 1e-6
+    denom = torch.clamp(col, min=1e-12)
+    off = 0
+    for zl in z.values():
+        flat = zl[i].view(-1)
+        size = flat.numel()
+        got = agreed[off:off + size] / denom
+        if snapshot is None:
+            flat.copy_(torch.where(keep, got, flat))
+        else:
+            flat.copy_(flat + torch.where(
+                keep, got - gamma * snapshot[off:off + size], 0.0))
+        off += size
 
 
 @torch.no_grad()
@@ -178,6 +226,38 @@ def _prox_leaf(z_leaf, w0_leaf, beta_t: float, radius: Optional[float]):
     return kops.dual_update(z_leaf, w0_leaf, beta_t, radius).to(w0_leaf.dtype)
 
 
+def local_grad(cfg, z: dict, w0: dict, batch: dict, sw: torch.Tensor,
+               beta_t: float, radius: Optional[float], i: int,
+               per: int) -> tuple:
+    """Worker i's masked gradient at its own primal ``prox(z_i)``: (the
+    gradient leaves in ``w0``'s order, the detached loss)."""
+    p_i = {k: _prox_leaf(z[k][i], w, beta_t, radius).requires_grad_()
+           for k, w in w0.items()}
+    batch_i = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+    with torch.enable_grad():
+        total, m = lm_loss(p_i, cfg, batch_i, sw[i])
+        g_i = torch.autograd.grad(total, list(p_i.values()))
+    return g_i, m["loss"].detach()
+
+
+def epoch_metrics(bw: torch.Tensor, losses: list, beta, t: int) -> dict:
+    """The decentralised step's metrics: the b-weighted loss, b(t) and
+    the next epoch's beta."""
+    losses = torch.stack(losses)
+    bsum = torch.clamp(bw.sum(), min=1.0)
+    return {"loss": (bw * losses).sum() / bsum, "global_batch": bw.sum(),
+            "beta": beta(t + 2)}
+
+
+def init_gossip_state(params: dict, n: int) -> dict:
+    """Per-worker zero duals (fp32), the prox anchor and the epoch count."""
+    return {"z": {k: torch.zeros((n,) + tuple(p.shape), dtype=torch.float32,
+                                 device=p.device)
+                  for k, p in params.items()},
+            "w0": {k: p.detach() for k, p in params.items()},
+            "t": 0}
+
+
 def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
                            draw_source: Optional[Callable] = None):
     """Returns (init_state, step) for the decentralised AMB protocol.
@@ -190,58 +270,55 @@ def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
     """
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
-    strategy = make_strategy(amb.consensus, n, rounds=amb.gossip_rounds,
-                             graph=amb.graph, lazy=amb.lazy,
-                             torus_shape=amb.torus_shape)
+    strategy = strategy_from_config(amb, n)
 
     def init_state(params: dict) -> dict:
-        return {"z": {k: torch.zeros((n,) + tuple(p.shape),
-                                     dtype=torch.float32, device=p.device)
-                      for k, p in params.items()},
-                "w0": {k: p.detach() for k, p in params.items()},
-                "t": 0}
+        return init_gossip_state(params, n)
 
     def step(state, batch, b):
         device = batch["tokens"].device
-        gb = batch["tokens"].shape[0]
-        per = gb // n
+        per = batch["tokens"].shape[0] // n
         t = state["t"]
         beta_t = beta(t + 1)                 # beta used for w(t)
         sw, bw = epoch_weights(_as_b(b, device), n, per)
         nb = n * bw
         z, w0 = state["z"], state["w0"]
-        msg = torch.empty((n, _width(z, n) + 1), dtype=torch.float32,
+        msg = torch.empty((n, msg_width(z, n)), dtype=torch.float32,
                           device=device)
         losses = []
         for i in range(n):
-            p_i = {k: _prox_leaf(z[k][i], w, beta_t, radius).requires_grad_()
-                   for k, w in w0.items()}
-            batch_i = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-            with torch.enable_grad():
-                total, m = lm_loss(p_i, cfg, batch_i, sw[i])
-                g_i = torch.autograd.grad(total, list(p_i.values()))
-            del p_i, total
+            g_i, loss = local_grad(cfg, z, w0, batch, sw, beta_t, radius, i,
+                                   per)
             with torch.no_grad():
                 _pack_row(msg[i], [zl[i] for zl in z.values()], g_i, nb[i])
-            losses.append(m["loss"].detach())
-            del g_i, m
+            losses.append(loss)
+            del g_i
         out = strategy.combine(msg, draws=draw_source(amb.seed, t))
         del msg
         unpack_duals(out, z, n)
         del out
-        losses = torch.stack(losses)
-        bsum = torch.clamp(bw.sum(), min=1.0)
-        metrics = {"loss": (bw * losses).sum() / bsum,
-                   "global_batch": bw.sum(),
-                   "beta": beta(t + 2)}
         state["t"] = t + 1
-        return state, metrics
+        return state, epoch_metrics(bw, losses, beta, t)
 
     return init_state, step
 
 
 def gossip_primal(state: dict, amb: AMBConfig) -> dict:
-    """Node-averaged primal: the train step's prox on the worker-mean dual."""
+    """Node-averaged primal: the train step's prox on the worker-mean dual.
+
+    Under an elastic ``amb.active`` mask only the active workers' duals
+    are averaged: a departed worker's dual is frozen at its leave-time
+    value and would bias the iterate away from the active set's."""
     beta_t = amb.beta(state["t"] + 1)
-    return {k: _prox_leaf(state["z"][k].mean(dim=0), w, beta_t, amb.radius)
+    if amb.active is None:
+        def zbar(zl):
+            return zl.mean(dim=0)
+    else:
+        w = np.asarray(amb.active, np.float32)
+        w = w / w.sum()
+
+        def zbar(zl):
+            return torch.tensordot(torch.as_tensor(w, device=zl.device), zl,
+                                   dims=([0], [0]))
+    return {k: _prox_leaf(zbar(state["z"][k]), w, beta_t, amb.radius)
             for k, w in state["w0"].items()}

@@ -11,6 +11,13 @@ CUDA kernels that read the neighbour rows in place
 :func:`~repro_torch.kernels.ops.stochastic_quantize` with
 :func:`~repro_torch.kernels.ops.quantized_combine`).  Graphs that do not
 decompose fall back to the dense operators.
+
+Elastic membership: an ``active`` mask re-lays the survivors of a ring or
+torus onto a fresh ring or torus (:func:`survivor_taps`), whose (K, n)
+table names only survivor rows and so drives the same kernels; inactive
+rows end equal to the epoch's input rows.  One survivor is the identity;
+other graphs, or ``relayout=False``, take the dense
+:func:`masked_metropolis` operator.
 """
 from __future__ import annotations
 
@@ -85,11 +92,161 @@ def group_taps(p: np.ndarray, shape: Sequence[int]) -> Optional[Taps]:
                 weights=np.asarray(weights, np.float32), shape=shape)
 
 
+def masked_metropolis(adj: np.ndarray, active, lazy: float) -> np.ndarray:
+    """Metropolis weights on the subgraph induced by the ``active`` mask.
+
+    Edges touching an inactive worker go, the degrees are re-derived on
+    the induced subgraph, and inactive workers become identity rows (their
+    stale dual survives until they rejoin).  The active subgraph must stay
+    connected: a partitioned fleet cannot reach consensus.  This is the
+    dense membership operator (``P @ m`` per round), the fallback for
+    non-circulant graphs and for ``relayout=False``.
+    """
+    active = np.asarray(active, dtype=bool)
+    adj = np.asarray(adj, dtype=bool) & active[None, :] & active[:, None]
+    n_act = int(active.sum())
+    if n_act >= 2 and not cns.is_connected(adj[np.ix_(active, active)]):
+        raise ValueError("active worker subgraph is disconnected; "
+                         "consensus cannot mix across the partition")
+    return cns.metropolis_weights(adj, lazy=lazy)
+
+
 def roll_by_offset(x: torch.Tensor, taps: Taps, off) -> torch.Tensor:
     """``out[i] = x[i + off]`` over the taps' cyclic group (one tap)."""
     full = x.reshape(taps.shape + tuple(x.shape[1:]))
     dims = tuple(range(len(taps.shape)))
     return torch.roll(full, tuple(-o for o in off), dims).reshape(x.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class SurvivorTaps:
+    """Tap decomposition of a survivor-relayout gossip operator.
+
+    The ``n_act`` survivors (by physical index) are re-enumerated as ranks
+    of a fresh ring or torus over ``Z_{n_act}``, whose operator is
+    circulant again.  Rank r's tap-i neighbour sits ``delta = p_{r+o_i} -
+    p_r (mod n)`` physical rows away.  ``offsets`` / ``weights`` /
+    ``shape`` describe the small operator on survivor ranks (self tap
+    first); ``hops[i]`` realises tap i as ``(delta, (n,) bool mask)`` pairs
+    with disjoint masks; ``active`` is the membership mask, ``n`` the
+    fleet size.  Inactive rows are identity rows: the strategies put the
+    epoch's input rows back after the combine.
+    """
+
+    offsets: tuple            # survivor-rank offsets, self tap first
+    weights: np.ndarray       # (K,) float32
+    shape: tuple              # survivor group shape, prod == n_act
+    hops: tuple               # per tap: ((delta, (n,) bool mask), ...)
+    active: np.ndarray        # (n,) bool membership mask
+    n: int                    # full fleet size
+
+    @property
+    def k(self) -> int:
+        return len(self.offsets)
+
+    def source_rows(self) -> np.ndarray:
+        """(K, n) int32: active row p of tap k reads row ``src[k, p]``, a
+        survivor; an inactive row names itself in every tap (its result is
+        replaced by its input row after the rounds)."""
+        src = np.tile(np.arange(self.n, dtype=np.int32), (self.k, 1))
+        for i, hop in enumerate(self.hops):
+            for delta, mask in hop:
+                rows = np.nonzero(mask)[0]
+                src[i, rows] = (rows + delta) % self.n
+        return src
+
+    def dense(self) -> np.ndarray:
+        """The (n, n) operator this realises: the relayout P on the
+        survivor block, identity rows elsewhere."""
+        p = np.zeros((self.n, self.n))
+        idx = np.arange(self.n)
+        for w, hop in zip(self.weights, self.hops):
+            for delta, mask in hop:
+                rows = idx[mask]
+                p[rows, (rows + delta) % self.n] += float(w)
+        inact = ~np.asarray(self.active, bool)
+        p[inact, idx[inact]] = 1.0
+        return p
+
+
+def survivor_taps(active, graph: str = "ring",
+                  lazy: float = 0.5) -> Optional[SurvivorTaps]:
+    """Relayout the active set onto a fresh ring or torus; None if the tap
+    form is unavailable (fewer than 2 survivors, another graph, or a
+    non-circulant relayout).
+
+    A torus fleet whose survivor count factors into a true 2-D torus
+    takes the most-square ``rows x cols`` torus, otherwise a ring.  The
+    construction is checked by rebuilding the dense operator against the
+    embedded small P.
+    """
+    act = np.asarray(active, dtype=bool)
+    n = act.size
+    surv = np.nonzero(act)[0]
+    n_act = surv.size
+    if n_act < 2:
+        return None
+    if graph == "torus":
+        rows, cols = cns.default_torus(n_act)
+        if rows >= 2 and cols >= 2:
+            shape, adj = (rows, cols), cns.torus_graph(rows, cols)
+        else:                       # prime or tiny survivor counts: ring
+            shape, adj = (n_act,), cns.ring_graph(n_act)
+    elif graph == "ring":
+        shape, adj = (n_act,), cns.ring_graph(n_act)
+    else:
+        return None
+    p_small = cns.metropolis_weights(adj, lazy=lazy)
+    taps_small = group_taps(p_small, shape)
+    if taps_small is None:
+        return None
+    coords = np.stack(np.unravel_index(np.arange(n_act), shape), axis=1)
+    hops = []
+    for off in taps_small.offsets:
+        src_rank = np.ravel_multi_index(
+            tuple((coords[:, a] + off[a]) % shape[a]
+                  for a in range(len(shape))), shape)
+        delta = (surv[src_rank] - surv) % n       # physical hop per rank
+        tap_hops = []
+        for d in sorted({int(x) for x in delta}):
+            mask = np.zeros(n, dtype=bool)
+            mask[surv[delta == d]] = True
+            tap_hops.append((d, mask))
+        hops.append(tuple(tap_hops))
+    taps = SurvivorTaps(offsets=taps_small.offsets,
+                        weights=taps_small.weights, shape=shape,
+                        hops=tuple(hops), active=act.copy(), n=n)
+    emb = np.eye(n)
+    emb[np.ix_(surv, surv)] = p_small
+    if not np.allclose(taps.dense(), emb, atol=1e-12):
+        return None
+    return taps
+
+
+def _inactive_rows(m: torch.Tensor, taps) -> Optional[torch.Tensor]:
+    """A copy of the inactive workers' rows of ``m``, taken before rounds
+    that overwrite it (None for full-fleet taps)."""
+    active = getattr(taps, "active", None)
+    if active is None:
+        return None
+    rows = torch.as_tensor(np.nonzero(~np.asarray(active, bool))[0],
+                           device=m.device)
+    return m[rows]
+
+
+def _mask_rows(out: torch.Tensor, kept: Optional[torch.Tensor],
+               active) -> torch.Tensor:
+    """Put the inactive workers' input rows ``kept`` (from
+    :func:`_inactive_rows`) back into ``out`` in place after a survivor-tap
+    combine; a no-op for full-fleet operators.  Per-tap weights that sum
+    to 1 are not an exact identity in fp32, so the rows are copied back
+    rather than left to self-pointing table rows."""
+    if active is None:
+        return out
+    rows = torch.as_tensor(np.nonzero(~np.asarray(active, bool))[0],
+                           device=out.device)
+    out[rows] = kept
+    return out
 
 
 def epoch_draws(seed: int, epoch: int) -> Callable:
@@ -99,7 +256,9 @@ def epoch_draws(seed: int, epoch: int) -> Callable:
     from a ``torch.Generator`` on ``out``'s device seeded from (seed,
     epoch, k_round): the counterpart of ``fold_in(fold_in(PRNGKey(seed),
     epoch), k_round)`` in ``repro.dist``.  A CUDA and a CPU generator give
-    different streams from one seed.
+    different streams from one seed.  ``epoch`` may be negative: the
+    pipelined and async drivers settle their first, zero payloads under
+    the keys of epochs before 0.
     """
     def draws(k_round: int, out: torch.Tensor) -> torch.Tensor:
         gen = torch.Generator(device=out.device)
@@ -146,12 +305,22 @@ class _TapGossip(ConsensusStrategy):
     """The Metropolis P of a ring, torus or other graph, and its taps.
 
     ``taps`` is None where P does not decompose (the dense fallback).
+    Elastic membership: an ``active`` mask with at least 2 survivors on a
+    ring or torus re-lays them out (:func:`survivor_taps`; ``relayout=False``
+    forces the dense :func:`masked_metropolis`); one survivor is the
+    identity; an all-inactive mask is rejected.
     """
 
     def __init__(self, n: int, rounds: int, graph: str = "ring",
-                 lazy: float = 0.5, torus_shape: Optional[tuple] = None):
+                 lazy: float = 0.5, torus_shape: Optional[tuple] = None,
+                 active: Optional[Sequence[bool]] = None,
+                 relayout: bool = True):
         self.n, self.rounds, self.graph = int(n), int(rounds), graph
         self.lazy = float(lazy)
+        self.relayout = bool(relayout)
+        self.identity = False
+        self.active = None if active is None or all(active) \
+            else tuple(bool(a) for a in active)
         self._src: dict = {}         # device -> (K, n) int32 source rows
         if self.n < 2:
             self.p, self.taps = np.ones((1, 1)), None
@@ -163,8 +332,29 @@ class _TapGossip(ConsensusStrategy):
             adj, shape = cns.torus_graph(rows, cols), (rows, cols)
         else:
             adj, shape = cns.build_graph(graph, self.n), (self.n,)
-        self.p = cns.metropolis_weights(adj, lazy=self.lazy)
-        self.taps = group_taps(self.p, shape)
+        if self.active is None:
+            self.p = cns.metropolis_weights(adj, lazy=self.lazy)
+            self.taps = group_taps(self.p, shape)
+            return
+        if len(self.active) != self.n:
+            raise ValueError(f"active mask has {len(self.active)} entries "
+                             f"for {self.n} workers")
+        n_act = sum(self.active)
+        if n_act == 0:
+            raise ValueError("at least one worker must stay active; an "
+                             "all-inactive fleet has no consensus operator")
+        if n_act == 1:
+            # one survivor: consensus is the identity, the dual untouched
+            self.identity = True
+            self.p, self.taps = np.eye(self.n), None
+            return
+        if self.relayout:
+            self.taps = survivor_taps(self.active, graph, self.lazy)
+            if self.taps is not None:
+                self.p = self.taps.dense()
+                return
+        self.p = masked_metropolis(adj, self.active, self.lazy)
+        self.taps = None
 
     def source_rows(self, device) -> torch.Tensor:
         """The taps' (K, n) source-row table on ``device`` (built once)."""
@@ -192,18 +382,22 @@ class GossipConsensus(_TapGossip):
     def combine(self, msg, draws=None):
         """r rounds on the stack.  On the tap path an fp32 ``msg`` is one of
         the two round buffers and is overwritten, so two (n, D) stacks are
-        live however many rounds run."""
+        live however many rounds run (plus the inactive rows' copy under a
+        survivor relayout)."""
         m = msg.float()
-        if self.n < 2 or self.rounds < 1:
+        if self.n < 2 or self.rounds < 1 or self.identity:
             return m
         if self.taps is None:        # dense fallback (non-circulant graph)
             return cns.gossip(m, self.p, self.rounds)
+        kept = _inactive_rows(m, self.taps)
         src = self.source_rows(m.device)
         spare = torch.empty_like(m)
         for _ in range(self.rounds):
             m, spare = kops.gossip_combine(m, src, self.taps.weights,
                                            out=spare), m
-        return m
+        # survivor relayout: no active row reads an inactive one, so one
+        # final select equals the dense masked operator's identity rows
+        return _mask_rows(m, kept, getattr(self.taps, "active", None))
 
 
 def row_grids(cur: torch.Tensor, h: torch.Tensor, levels: float,
@@ -242,8 +436,11 @@ class QuantizedGossipConsensus(_TapGossip):
 
     def __init__(self, n: int, rounds: int, bits: int = 8,
                  graph: str = "ring", lazy: float = 0.5,
-                 torus_shape: Optional[tuple] = None):
-        super().__init__(n, rounds, graph, lazy, torus_shape)
+                 torus_shape: Optional[tuple] = None,
+                 active: Optional[Sequence[bool]] = None,
+                 relayout: bool = True):
+        super().__init__(n, rounds, graph, lazy, torus_shape, active,
+                         relayout)
         if bits not in (4, 8):
             raise ValueError("bits must be 4 or 8 (uint8 wire container)")
         self.bits = int(bits)
@@ -280,11 +477,12 @@ class QuantizedGossipConsensus(_TapGossip):
         if draws is None:
             raise ValueError("QuantizedGossipConsensus needs a draw source")
         m = msg.float()
-        if self.n < 2 or self.rounds < 1:
+        if self.n < 2 or self.rounds < 1 or self.identity:
             return m
         # the fused path needs the self tap first (w[0] multiplies m)
         if self.taps is None or any(self.taps.offsets[0]):
             return gossip_quantized(m, self.p, self.rounds, self.bits, draws)
+        kept = _inactive_rows(m, self.taps)
         levels = float(2 ** self.bits - 1)
         src, w = self.source_rows(m.device), self.taps.weights
         h = torch.zeros_like(m)
@@ -299,24 +497,31 @@ class QuantizedGossipConsensus(_TapGossip):
                                      out=(lvl, h))
             kops.quantized_combine(m, hnbr, lvl, lo, scale, src, w,
                                    out=(m, hnbr))
-        return m
+        # survivor relayout: no active row reads an inactive row's levels,
+        # so putting the input rows back is exact
+        return _mask_rows(m, kept, getattr(self.taps, "active", None))
 
 
 CONSENSUS_CHOICES = ("exact", "gossip", "gossip_q8", "gossip_q4")
 
 
 def make_strategy(name: str, n: int, *, rounds: int = 5, graph: str = "ring",
-                  lazy: float = 0.5,
-                  torus_shape: Optional[tuple] = None) -> ConsensusStrategy:
+                  lazy: float = 0.5, torus_shape: Optional[tuple] = None,
+                  active: Optional[Sequence[bool]] = None,
+                  relayout: bool = True) -> ConsensusStrategy:
     """Build a strategy by name.  Quantized strategies get (32/bits)x the
-    rounds: the same byte budget per T_c."""
+    rounds: the same byte budget per T_c.  An ``active`` mask rebuilds the
+    gossip operator over the survivors (see :class:`_TapGossip`); exact
+    consensus needs no rebuild, since a departed worker's b_i = 0 already
+    drops it out of the eq.-6 average."""
     if name == "exact":
         return ExactConsensus(n)
     if name == "gossip":
-        return GossipConsensus(n, rounds, graph, lazy, torus_shape)
+        return GossipConsensus(n, rounds, graph, lazy, torus_shape, active,
+                               relayout)
     if name in ("gossip_q8", "gossip_q4"):
         bits = int(name[-1])
         return QuantizedGossipConsensus(n, rounds * 32 // bits, bits, graph,
-                                        lazy, torus_shape)
+                                        lazy, torus_shape, active, relayout)
     raise ValueError(f"unknown consensus strategy {name!r}; "
                      f"choose from {CONSENSUS_CHOICES}")

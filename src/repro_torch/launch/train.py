@@ -10,19 +10,25 @@ dual averaging only), AMB or FMB epochs (``--mode``), and the prefetched
 data plane: per-worker shards of the arch's LM token stream, built on a
 side CUDA stream ``--prefetch`` batches ahead.  Per-epoch metrics go to
 ``--metrics`` or ``artifacts/train_<arch>_<mode>.jsonl``.  The port runs
-on one device: ``--model`` and ``--pod`` must be 1.  Checkpoints, the
-controller, coded redundancy, churn and pipelined or async epochs are not
+on one device: ``--model`` and ``--pod`` must be 1.  ``--pipeline`` runs
+staleness-1 pipelined epochs, ``--async --staleness D`` the AMB-DG
+queue of D payloads.  The run flushes in-flight consensus at its end;
+``--ckpt-dir`` then saves the session, and ``--restore DIR`` resumes a
+saved one (its specs override the spec flags), continuing the data order
+and the logged step.  The controller, coded redundancy and churn are not
 ported, so their flags are not registered.
 
 Example (on the card; ``main(argv, device="cpu")`` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
-      --smoke --steps 20 --data 4 --consensus gossip --sim-clock
+      --smoke --steps 20 --data 4 --consensus gossip --async \\
+      --staleness 2 --sim-clock --ckpt-dir ckpt/
 """
 from __future__ import annotations
 
 import argparse
 
 from ..api import AMBSession, ClockSpec, ConsensusSpec, TrainSpec
+from ..metrics import MetricsLogger
 
 
 def main(argv=None, device="cuda"):
@@ -36,6 +42,11 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--prefetch", type=int, default=2,
                     help="data-plane prefetch depth (batches built ahead "
                          "of the step; 0 = synchronous)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--restore", default=None, metavar="DIR",
+                    help="resume from an AMBSession.save directory "
+                         "(params, opt/dual state, and step counter; the "
+                         "saved specs override the spec flags)")
     ap.add_argument("--metrics", default=None)
     args = ap.parse_args(argv)
     for flag in ("model", "pod"):
@@ -44,14 +55,26 @@ def main(argv=None, device="cuda"):
                              f"runs on one device, so there is no {flag} "
                              f"axis; use --{flag} 1")
 
-    train = TrainSpec.from_args(args)
     try:
-        session = AMBSession(
-            train, ClockSpec.from_args(args), ConsensusSpec.from_args(args),
-            device=device, metrics_path=args.metrics
-            or f"artifacts/train_{train.arch}_{train.mode}.jsonl")
+        if args.restore:
+            session = AMBSession.restore(args.restore, device=device,
+                                         metrics_path=args.metrics)
+            if session.metrics is None:     # the arch-derived default
+                session.metrics = MetricsLogger(
+                    f"artifacts/train_{session.train.arch}_"
+                    f"{session.train.mode}.jsonl")
+        else:
+            train = TrainSpec.from_args(args)
+            session = AMBSession(
+                train, ClockSpec.from_args(args),
+                ConsensusSpec.from_args(args), device=device,
+                metrics_path=args.metrics
+                or f"artifacts/train_{train.arch}_{train.mode}.jsonl")
     except ValueError as e:
         raise SystemExit(str(e))
+    # run draws epochs at the session's own count, so a restored run
+    # continues the data order and the logged step where the saved one
+    # stopped
     last = session.steps_done + args.steps - 1
 
     def on_step(step, m):
@@ -63,7 +86,10 @@ def main(argv=None, device="cuda"):
 
     try:
         m = session.run(args.steps, prefetch=args.prefetch, on_step=on_step)
-        session.flush()
+        session.flush()      # settle in-flight gossip (pipelined, async)
+        if args.ckpt_dir:
+            session.save(args.ckpt_dir)
+            print(f"checkpoint saved to {args.ckpt_dir}", flush=True)
     finally:
         session.close()
     return None if m is None else m["loss"]

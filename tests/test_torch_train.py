@@ -41,10 +41,9 @@ STANDIN = types.SimpleNamespace(axis_names=("data", "model"),
 TRAIN = TrainSpec(smoke=True, data=N, batch_per_worker=PER, seq_len=SEQ)
 SMOKE = ["--smoke", "--data", str(N), "--batch-per-worker", str(PER),
          "--seq-len", str(SEQ), "--sim-clock"]
-# JAX CLI flags of modules the port has not taken yet (ROADMAP.md items 4
-# to 7); --model and --pod are the train CLI's own (they must be 1)
-UNPORTED_FLAGS = {"--redundancy", "--pipeline", "--async", "--staleness",
-                  "--ckpt-dir", "--restore", "--churn", "--churn-rejoin",
+# JAX CLI flags of modules the port has not taken yet (ROADMAP.md items 6
+# and 7); --model and --pod are the train CLI's own (they must be 1)
+UNPORTED_FLAGS = {"--redundancy", "--churn", "--churn-rejoin",
                   "--churn-seed", "--controller", "--controller-interval",
                   "--controller-warmup", "--controller-dmax"}
 
@@ -137,8 +136,7 @@ def test_cli_flags_names_defaults_and_choices_match_jax():
     for spec in (jspecs.TrainSpec, jspecs.ClockSpec, jspecs.ConsensusSpec):
         spec.add_cli_args(ref)
     got, want = _options(mine), _options(ref)
-    assert set(want) - set(got) == {"--model", "--pod", "--redundancy",
-                                    "--pipeline", "--async", "--staleness"}
+    assert set(want) - set(got) == {"--model", "--pod", "--redundancy"}
     assert set(got) <= set(want)
     for flag, action in got.items():
         other = want[flag]
@@ -155,14 +153,17 @@ def test_cli_flags_names_defaults_and_choices_match_jax():
         "32", "--seed", "3", "--optimizer", "sgd", "--mode", "fmb",
         "--kernels", "ref", "--sim-clock", "--compute-time", "0.0",
         "--comm-time", "2.0", "--consensus", "gossip", "--graph", "torus",
-        "--gossip-rounds", "7"])
+        "--gossip-rounds", "7", "--async", "--staleness", "3"])
     assert TrainSpec.from_args(args) == TrainSpec(
         smoke=True, data=4, batch_per_worker=2, seq_len=32, seed=3,
         optimizer="sgd", mode="fmb", kernels="ref")
     assert ClockSpec.from_args(args) == ClockSpec(
         kind="simulated", compute_time=0.0, comm_time=2.0)
     assert ConsensusSpec.from_args(args) == ConsensusSpec(
-        consensus="gossip", graph="torus", gossip_rounds=7)
+        consensus="gossip", graph="torus", gossip_rounds=7,
+        async_epochs=True, staleness=3)
+    assert ConsensusSpec.from_args(mine.parse_args(["--pipeline"])) == \
+        ConsensusSpec(pipeline=True)
 
 
 def test_train_cli_flags_are_jax_less_the_unported(monkeypatch):
@@ -375,3 +376,33 @@ def test_train_cli_default_metrics_path_and_refusals(tmp_path, monkeypatch):
     assert router.mode() == "auto"
     line = json.dumps(TrainSpec(mode="fmb").to_dict())
     assert TrainSpec.from_json(line).mode == "fmb"
+
+
+def test_train_cli_checkpoints_and_a_restored_run_continues(tmp_path,
+                                                           capsys):
+    """``--ckpt-dir`` after 2 epochs, then ``--restore`` for 2 more: the
+    logged steps run on (3, 4) and the epochs are the uninterrupted 4-epoch
+    run's, bit for bit (the data order and the clock's draws resume from
+    the step count); the restored specs override the spec flags."""
+    ckpt = tmp_path / "ckpt"
+    gossip = SMOKE + ["--consensus", "gossip", "--prefetch", "0"]
+    main(gossip + ["--steps", "2", "--ckpt-dir", str(ckpt), "--metrics",
+                   str(tmp_path / "a.jsonl")], device="cpu")
+    assert "checkpoint saved to" in capsys.readouterr().out
+    assert (ckpt / "step_00000002" / "arrays.npz").exists()
+    assert (ckpt / "session_state" / "step_00000002" / "session.json"
+            ).exists()
+    loss = main(["--restore", str(ckpt), "--steps", "2", "--consensus",
+                 "exact", "--metrics", str(tmp_path / "b.jsonl")],
+                device="cpu")
+    out = capsys.readouterr().out.splitlines()
+    assert [ln.split()[:2] for ln in out] == [["step", "3"]]
+    main(gossip + ["--steps", "4", "--metrics", str(tmp_path / "c.jsonl")],
+         device="cpu")
+    resumed = read_metrics(tmp_path / "b.jsonl")
+    whole = read_metrics(tmp_path / "c.jsonl")
+    assert [ln["step"] for ln in resumed] == [3, 4]
+    for a, b in zip(resumed, whole[2:]):
+        for k in ("loss", "global_batch", "budget_s", "sim_wall_s"):
+            assert a[k] == b[k], k
+    assert loss == resumed[-1]["loss"]
