@@ -78,13 +78,28 @@ Phases (any failure ends the run with a non-zero exit code):
      card; save seconds, and the restore's seconds split into the
      session's construction and the state's read and landing, with GB/s);
      the bit-for-bit epochs under deterministic algorithms;
-  9. the serve CLI (``repro_torch.launch.serve``) at full width, all 28
+  9. coded placement, faults and the controller at qwen2-1.5b width:
+     the coded exact step (28 layers, rho 2) under four b that each cover
+     every distinct slot once in total weight (b(t) 16 and the duals
+     equal within CODED_TOL); Poisson churn with rho 2 through the
+     prefetcher (8 layers: JAX's six masks, 5 gossip_combine launches an
+     epoch on survivor tables of 3 and 2, down workers' dual rows bit for
+     bit, the LM stream's coded and uncoded builds); the controller
+     through the train CLI (8 layers, budget 40 toward Lemma 6's T, the
+     noise statistics on every epoch, the peak); a staleness retune D 1
+     -> 2 on the async driver (4 layers: the drain before the rebuild,
+     the staleness metric, the peak); run_amb_adaptive on §6.1 across a
+     3x slow-down (T within ADAPT_TOL of each regime's Lemma-6 T; epochs/s
+     beside run_amb's); a restore mid-churn (2 layers, bit for bit under
+     deterministic algorithms); launch counts reset before each and read
+     after;
+ 10. the serve CLI (``repro_torch.launch.serve``) at full width, all 28
      layers, bf16: 16 requests of 2048 +- 512 prompt tokens and 32 new
      tokens over 8 slots, with background exact fine-tune epochs, every
      prefill's attention on the tensor-core body; the same serve run for
      rwkv6-3b at full width, all 32 layers, bf16; launch counts are reset
      just before each run and read just after;
- 10. print the kernels' JSON line, the card line, and the final ok line.
+ 11. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -193,6 +208,44 @@ COMM_TIME = 0.5                        # ClockSpec's default T_c
 MASK = (True, False, True, True)
 STALENESS = 2
 CKPT_LAYERS = 2
+# coded placement, faults and the controller (qwen2-1.5b width, 4 x 8 x
+# 256, ring r 5): the coded exact step at the exact session's depth under
+# rho = 2 from one initial state with b that each cover every distinct
+# slot with total weight 1.  A full b (8 = per) covers a block whatever
+# its rotation; the complementary halves (4, 4, 4, 4) are what test that
+# the rolls and the decode weights share one index map.  The gradients
+# are bf16 (the model's dtype; the embedding's sums each token's rows),
+# so the duals may differ by a few bf16 roundings of a gradient element:
+# CODED_TOL of each leaf's largest |z|, four bf16 ulps (a wrong index map
+# weighs other samples, an error of the order of |z| itself)
+CODED_RHO = 2
+CODED_BS = ((8, 0, 8, 0), (0, 8, 0, 8), (8, 8, 8, 8), (4, 4, 4, 4))
+CODED_TOL = 2.0 ** -5
+# PoissonChurn(0.25, 0.5, seed=1) over 4 workers: the masks of epochs 0
+# to 5 (the first and five changes; a 2-survivor ring, workers 0 and 3, at
+# epoch 3); the gossip cut, and the restore mid-churn at RESTORE_LAYERS
+CHURN = dict(leave_rate=0.25, rejoin_rate=0.5, seed=1)
+CHURN_MASKS = ("1111", "1110", "1011", "1001", "1111", "1101")
+RESTORE_LAYERS = 2
+# the controller through the train CLI (as scripts/controller_smoke.py
+# drives JAX's), at GOSSIP_LAYERS: a 16x mistuned budget, r = 2
+CONTROLLER_ARGV = ["--sim-clock", "--compute-time", "40.0", "--comm-time",
+                   "0.5", "--consensus", "gossip", "--gossip-rounds", "2",
+                   "--controller", "--controller-interval", "1",
+                   "--controller-warmup", "2"]
+CONTROLLER_STEPS = 5
+# the staleness retune on the async driver at QUANT_LAYERS: T_c = 5.0
+# over the Lemma-6 T of 2.8125 is 1.78 > 1 + hysteresis, so D goes 1 -> 2;
+# d_max 2 keeps it there (D = 3 would not fit the card at this depth)
+RETUNE_COMM = 5.0
+RETUNE_EPOCHS = 5
+# run_amb_adaptive on §6.1 (SIM_*): a 3x mistuned T, the cluster 3x
+# slower from epoch ADAPT_SHIFT on; T within ADAPT_TOL of each regime's
+# Lemma-6 T over the last ADAPT_TAIL epochs before the shift and the end
+ADAPT_EPOCHS = 300
+ADAPT_SHIFT = 150
+ADAPT_TAIL = 50
+ADAPT_TOL = 0.10
 # the bit-for-bit comparisons on the card (a restored or pipelined epoch
 # against the uninterrupted or sequential one) run under
 # torch.use_deterministic_algorithms, which needs cuBLAS's workspace
@@ -965,15 +1018,20 @@ def run_session(torch, rt, cfg, consensus: str) -> dict:
     return launches
 
 
-def session_for(rt, cfg, **spec):
+def session_for(rt, cfg, *, train=None, clock=None, controller=None,
+                **spec):
     """A full-width session spec (TrainSpec defaults, n = 4) on the card
-    with the simulated clock and ring gossip at GOSSIP_ROUNDS."""
+    with the simulated clock and ring gossip at GOSSIP_ROUNDS; ``train``
+    and ``clock`` add fields to those specs, ``controller`` is a
+    ControllerSpec's fields."""
     return rt.api.AMBSession(
         rt.api.TrainSpec(data=N_WORKERS, batch_per_worker=PER_WORKER,
-                         seq_len=SEQ),
-        rt.api.ClockSpec(kind="simulated"),
+                         seq_len=SEQ, **(train or {})),
+        rt.api.ClockSpec(kind="simulated", **(clock or {})),
         rt.api.ConsensusSpec(graph="ring", gossip_rounds=GOSSIP_ROUNDS,
                              **spec),
+        None if controller is None
+        else rt.api.ControllerSpec(enabled=True, **controller),
         cfg=cfg, device="cuda")
 
 
@@ -1367,6 +1425,412 @@ def check_checkpoints(torch, rt, full, smoke) -> dict:
     return out
 
 
+def run_coded_exact(torch, rt, cfg) -> dict:
+    """The coded exact step at ``cfg`` (all 28 layers), rho = CODED_RHO:
+    one epoch from the same initial state under each b of CODED_BS, on
+    the session's coded LM source (each group's block, rolled per
+    member).  Each b covers every distinct slot with total weight 1, so
+    b(t) is 16 in each and the duals z after the step agree within
+    CODED_TOL of each leaf's largest |z|.  Launch counts are reset
+    before the epochs and read after."""
+    print(f"coded exact: {cfg.name} layers={cfg.num_layers} rho="
+          f"{CODED_RHO} b={[list(b) for b in CODED_BS]}", flush=True)
+    rt.kernels.router.reset_launches()
+    first, errs, times = None, [], []
+    for b in CODED_BS:
+        session = session_for(rt, cfg, train=dict(redundancy=CODED_RHO),
+                              consensus="exact")
+        batch = session.batch_source().batch(0)
+        torch.cuda.reset_peak_memory_stats()
+        m = session.step(batch, list(b))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        times.append(m["step_s"])
+        z = session.state["opt"]["z"]
+        if first is None:
+            first = {k: v.clone() for k, v in z.items()}
+            err = 0.0
+        else:
+            err = max(max_abs_err(torch, z[k], first[k])
+                      / float(first[k].abs().max().clamp(min=1e-30))
+                      for k in first)
+            errs.append(err)
+        print(f"  b={list(b)}: loss={m['loss']:.6f} global_batch="
+              f"{m['global_batch']} step_ms={m['step_s'] * 1e3:.1f} "
+              f"peak_GiB={peak:.2f} max |z - z_first| / max |z_first| = "
+              f"{err:.3e} (tolerance {CODED_TOL:.3e})", flush=True)
+        if m["global_batch"] != N_WORKERS * PER_WORKER / CODED_RHO:
+            fail(f"coded exact b={b}: global_batch {m['global_batch']}")
+        if not math.isfinite(m["loss"]) or err > CODED_TOL:
+            fail(f"coded exact b={b}: loss {m['loss']}, error {err}")
+        del session, batch, z
+        release(torch)
+    launches = rt.kernels.router.launches()
+    print(f"  launches ({len(CODED_BS)} epochs): {launches}", flush=True)
+    expect("coded exact", launches, {"dual_update": 15 * len(CODED_BS)})
+    del first
+    release(torch)
+    return dict(launches=launches, err=max(errs), step_s=times)
+
+
+def lm_build_ms(torch, rt, vocab: int, assignment) -> float:
+    """One LM batch's build (ms, host clock around a synced build; the
+    least of two after a warm-up) under ``assignment``."""
+    src = rt.data.StreamSource(
+        rt.data.LMTokenStream(vocab, SEQ, seed=0, device="cuda"),
+        N_WORKERS, PER_WORKER, assignment=assignment)
+    times = []
+    for epoch in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src.batch(epoch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times[1:])
+
+
+def worker_rows(torch, session, i: int) -> list:
+    return digest(torch, {k: v[i] for k, v in session.state["z"].items()})
+
+
+def run_churn(torch, rt, cfg) -> dict:
+    """``AMBSession.run(6, faults=PoissonChurn(**CHURN))`` with rho =
+    CODED_RHO on the ring gossip session at ``cfg`` (GOSSIP_LAYERS),
+    through the prefetcher and the coded LM source.  Requires JAX's masks
+    (CHURN_MASKS: the first and five changes), a down worker's b 0 and
+    its dual rows unchanged bit for bit over its down epochs (a digest
+    before and after each), GOSSIP_ROUNDS gossip_combine launches every
+    epoch (survivor tables of 3 and 2 workers, the 2-survivor ring on the
+    kernel's table, never the dense operator), finite losses.  Launch
+    counts are reset before the run and read after; then the LM stream's
+    build, coded (n / rho blocks) and uncoded."""
+    model = rt.faults.PoissonChurn(**CHURN)
+    pair = rt.dist.make_strategy("gossip", N_WORKERS, rounds=GOSSIP_ROUNDS,
+                                 active=(True, False, False, True))
+    if not isinstance(pair.taps, rt.dist.SurvivorTaps):
+        fail("churn: the 2-survivor ring has no survivor table")
+    print(f"churn: {cfg.name} layers={cfg.num_layers} rho={CODED_RHO} "
+          f"PoissonChurn{tuple(CHURN.values())} masks {list(CHURN_MASKS)};"
+          f" the 2-survivor table {pair.taps.source_rows().tolist()}",
+          flush=True)
+    session = session_for(rt, cfg, train=dict(redundancy=CODED_RHO),
+                          consensus="gossip")
+    injector = rt.faults.FaultInjector(model)
+    held, rows, bad = {}, [], []
+    last = {"launches": {}}
+
+    def down(epoch):
+        return [i for i, c in enumerate(CHURN_MASKS[epoch]) if c == "0"]
+
+    def on_step(epoch, m):
+        counts = rt.kernels.router.launches()
+        delta = {k: v - last["launches"].get(k, 0) for k, v in counts.items()}
+        last["launches"] = counts
+        mask = "".join(str(int(a)) for a in session.active)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for i in down(epoch):
+            if worker_rows(torch, session, i) != held.pop(i):
+                bad.append((epoch, i))
+        if epoch + 1 < len(CHURN_MASKS):
+            for i in down(epoch + 1):
+                held[i] = worker_rows(torch, session, i)
+        rows.append(dict(epoch=epoch, mask=mask, b=m["b"].tolist(),
+                         loss=m["loss"], step_s=m["step_s"], launches=delta,
+                         global_batch=m["global_batch"]))
+        print(f"  churn epoch {epoch}: mask {mask} b={m['b'].tolist()} "
+              f"global_batch={m['global_batch']} loss={m['loss']:.6f} "
+              f"step_ms={m['step_s'] * 1e3:.1f} launches {delta} "
+              f"peak_GiB={peak:.2f}", flush=True)
+
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    rt.kernels.router.reset_launches()
+    session.run(len(CHURN_MASKS), faults=injector, on_step=on_step)
+    launches = rt.kernels.router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    events = ["".join(str(a) for a in e["active"]) for e in injector.events]
+    print(f"  events {events} ({injector.membership_changes} applied); "
+          f"launches ({len(CHURN_MASKS)} epochs): {launches}; peak_GiB="
+          f"{peak:.2f}; down workers' dual rows unchanged: {not bad}",
+          flush=True)
+    if events != list(CHURN_MASKS):
+        fail(f"churn: events {events}, expected {list(CHURN_MASKS)}")
+    for r in rows:
+        if r["mask"] != CHURN_MASKS[r["epoch"]] \
+                or not math.isfinite(r["loss"]) \
+                or any(r["b"][i] for i in down(r["epoch"])) \
+                or r["launches"].get("gossip_combine", 0) != GOSSIP_ROUNDS:
+            fail(f"churn epoch {r['epoch']}: {r}")
+    if bad:
+        fail(f"churn: dual rows of down workers changed: {bad}")
+    expect("churn", launches, {
+        "gossip_combine": GOSSIP_ROUNDS * len(CHURN_MASKS),
+        "dual_update": 15 * N_WORKERS * len(CHURN_MASKS)})
+    del session
+    release(torch)
+    coded = lm_build_ms(torch, rt, cfg.vocab_size,
+                        rt.dist.CodedAssignment(N_WORKERS, CODED_RHO))
+    plain = lm_build_ms(torch, rt, cfg.vocab_size, None)
+    print(f"  LM stream build: coded ({N_WORKERS // CODED_RHO} blocks) "
+          f"{coded:.1f} ms, uncoded ({N_WORKERS} blocks) {plain:.1f} ms",
+          flush=True)
+    return dict(launches=launches, peak=peak, rows=rows, build_ms=(coded,
+                                                                  plain))
+
+
+def check_restore_mid_churn(torch, rt, cfg) -> dict:
+    """At ``cfg`` (RESTORE_LAYERS), rho = CODED_RHO, ring gossip: 6
+    churned epochs uninterrupted, against 3, ``save``, ``restore`` and 3
+    more under a fresh FaultInjector over the same model; losses and the
+    state equal bit for bit (digests), under deterministic algorithms.
+    The checkpoint goes under the git-ignored build/ and is deleted."""
+    model = rt.faults.PoissonChurn(**CHURN)
+    half = len(CHURN_MASKS) // 2
+    release(torch)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build", prefix="churn_"))
+    try:
+        with deterministic(torch):
+            ref = session_for(rt, cfg, train=dict(redundancy=CODED_RHO),
+                              consensus="gossip")
+            want = []
+            ref.run(len(CHURN_MASKS), faults=model,
+                    on_step=lambda e, m: want.append(m["loss"]))
+            want_state = digest(torch, ref.state)
+            del ref
+            release(torch)
+            a = session_for(rt, cfg, train=dict(redundancy=CODED_RHO),
+                            consensus="gossip")
+            got = []
+            a.run(half, faults=rt.faults.FaultInjector(model),
+                  on_step=lambda e, m: got.append(m["loss"]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.save(tmp)
+            save_s = time.perf_counter() - t0
+            size = dir_bytes(tmp)
+            del a
+            release(torch)
+            t0 = time.perf_counter()
+            b = rt.api.AMBSession.restore(tmp, cfg=cfg, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            b.run(len(CHURN_MASKS) - half,
+                  faults=rt.faults.FaultInjector(model),
+                  on_step=lambda e, m: got.append(m["loss"]))
+            same = got == want and digest(torch, b.state) == want_state
+            del b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    release(torch)
+    print(f"restore mid-churn: {cfg.name} layers={cfg.num_layers} rho="
+          f"{CODED_RHO}; {half} epochs, save ({size / 1e9:.3f} GB, "
+          f"{save_s:.3f} s), restore ({load_s:.3f} s), {half} more under a "
+          f"fresh injector: losses {got} equal the uninterrupted run's and "
+          f"the state bit for bit: {same}", flush=True)
+    if not same:
+        fail(f"restore mid-churn: {got} against {want}")
+    return dict(bytes=size, save_s=save_s, load_s=load_s)
+
+
+def run_controller_cli(torch, rt, cfg) -> dict:
+    """The controller through the train CLI (CONTROLLER_ARGV, at
+    ``cfg``: the CLI has no depth flag, so the phase hands the session
+    this config), CONTROLLER_STEPS steps.  Requires a budget action, the
+    budget moving from 40 toward Lemma 6's T, finite non-negative noise
+    statistics on every epoch (read where the session's control hook
+    takes them), and the peak within the gossip session's plus the
+    running mean's (W fp32) and one fp32 copy of the largest leaf."""
+    session_mod = sys.modules["repro_torch.api.session"]
+    real_config, real_control = session_mod.get_config, \
+        rt.api.AMBSession._control
+    noise = []
+
+    def control(self, m, out, times):
+        noise.append((float(m["grad_sq_norm"]), float(m["grad_var"])))
+        return real_control(self, m, out, times)
+
+    session_mod.get_config = lambda arch: cfg
+    rt.api.AMBSession._control = control
+    try:
+        res = run_train_cli(torch, rt, CONTROLLER_ARGV, "controller",
+                            CONTROLLER_STEPS)
+    finally:
+        session_mod.get_config = real_config
+        rt.api.AMBSession._control = real_control
+    model = rt.api.ClockSpec().make_model(PER_WORKER)
+    lemma6 = rt.core.amb_budget_from_fmb(model, N_WORKERS,
+                                         N_WORKERS * PER_WORKER)
+    budgets = [ln["budget_s"] for ln in res["lines"]]
+    acts = [ln["action"] for ln in res["lines"] if "action" in ln]
+    # the 8-layer gossip session's peak, the running mean (W fp32), one
+    # fp32 copy of the largest leaf, and 1 GiB for the data plane's graph
+    # and batches
+    w = dense_param_count(cfg)
+    allowed = 39.23 + (w + cfg.vocab_size * cfg.d_model) * 4 / 2 ** 30 + 1.0
+    print(f"  controller: budgets {budgets} (Lemma 6's T {lemma6!r}); "
+          f"actions {[a['reason'] for a in acts]}; noise (grad_sq_norm, "
+          f"grad_var) {noise}; peak_GiB={res['peak']:.2f} (allowed "
+          f"{allowed:.2f})", flush=True)
+    if not acts or acts[0]["budget"] is None \
+            or not abs(budgets[-1] - lemma6) < abs(budgets[0] - lemma6):
+        fail(f"controller: actions {acts}, budgets {budgets}")
+    if len(noise) != CONTROLLER_STEPS or not all(
+            math.isfinite(x) and x >= 0.0 for pair in noise for x in pair):
+        fail(f"controller: noise statistics {noise}")
+    if res["peak"] > allowed:
+        fail(f"controller: peak {res['peak']:.2f} GiB > {allowed:.2f}")
+    expect("controller", res["launches"], {
+        "dual_update": 15 * N_WORKERS * CONTROLLER_STEPS,
+        "gossip_combine": 2 * CONTROLLER_STEPS})
+    return dict(launches=res["launches"], peak=res["peak"],
+                budgets=budgets, noise=noise, lemma6=lemma6,
+                step_s=res["step_times"])
+
+
+def run_staleness_retune(torch, rt, cfg) -> dict:
+    """Async gossip from D = 1 at ``cfg`` (QUANT_LAYERS) with the
+    controller (interval 1, warm-up 2, d_max 2) and T_c = RETUNE_COMM:
+    RETUNE_EPOCHS epochs and a flush.  Requires a D 1 -> 2 action with
+    gamma 1/4, the drain (flush) before the rebuild, the ``staleness``
+    metric following it, a queue of 2 after it, and the peak."""
+    session = session_for(rt, cfg, clock=dict(comm_time=RETUNE_COMM),
+                          controller=dict(interval=1, warmup=2, d_max=2),
+                          consensus="gossip", async_epochs=True,
+                          staleness=1)
+    source = rt.data.SyntheticSource(cfg.vocab_size, SEQ, N_WORKERS,
+                                     PER_WORKER, seed=0, device="cuda")
+    order = []
+    real_flush, real_build = session.flush, session._build_protocol
+
+    def flush():
+        order.append(("flush", len(session.state.get("queue", []))))
+        return real_flush()
+
+    def build(*args):
+        order.append(("build", session.consensus_spec.staleness))
+        return real_build(*args)
+
+    session.flush, session._build_protocol = flush, build
+    rows = []
+
+    def on_step(epoch, m):
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows.append(dict(epoch=epoch, staleness=m["staleness"],
+                         action=m.get("action"), step_s=m["step_s"],
+                         budget=m["budget_s"], loss=m["loss"], peak=peak))
+        print(f"  retune epoch {epoch}: staleness={m['staleness']} "
+              f"T={m['budget_s']!r} loss={m['loss']:.6f} step_ms="
+              f"{m['step_s'] * 1e3:.1f} action={m.get('action')} "
+              f"peak_GiB={peak:.2f}", flush=True)
+
+    print(f"staleness retune: {cfg.name} layers={cfg.num_layers} async "
+          f"D=1, T_c={RETUNE_COMM}, controller interval 1 warm-up 2 "
+          f"d_max 2", flush=True)
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    rt.kernels.router.reset_launches()
+    session.run(RETUNE_EPOCHS, source=source, on_step=on_step)
+    session.flush()
+    # the wrappers hold the session: drop them, or the session lives on
+    # in a reference cycle until the next collection
+    del session.flush, session._build_protocol, flush, build
+    del real_flush, real_build
+    launches = rt.kernels.router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    acts = [r for r in rows if r["action"] and r["action"]["staleness"]]
+    print(f"  flush / rebuild order {order}; launches: {launches}; "
+          f"peak_GiB={peak:.2f}", flush=True)
+    if len(acts) != 1 or acts[0]["action"]["staleness"] != 2 \
+            or acts[0]["action"]["gamma"] != 0.25:
+        fail(f"retune: staleness actions {[r['action'] for r in acts]}")
+    at = acts[0]["epoch"]
+    if [r["staleness"] for r in rows] != [1] * (at + 1) + [2] * (
+            RETUNE_EPOCHS - at - 1):
+        fail(f"retune: staleness metric {[r['staleness'] for r in rows]}")
+    if order[:2] != [("flush", 1), ("build", 2)] \
+            or len(session.state["queue"]) != 2:
+        fail(f"retune: drain and rebuild {order}, queue "
+             f"{len(session.state['queue'])}")
+    # a settle an epoch, the retune's drain of 1 slot, the final flush's 2
+    expect("retune", launches, {
+        "gossip_combine": GOSSIP_ROUNDS * (RETUNE_EPOCHS + 1 + 2),
+        "dual_update": 15 * N_WORKERS * RETUNE_EPOCHS})
+    del session, source
+    release(torch)
+    return dict(launches=launches, peak=peak, rows=rows)
+
+
+def run_adaptive(torch, rt) -> dict:
+    """``run_amb_adaptive`` on §6.1 (SIM_D, SIM_N, the paper graph, b
+    600): a 3x mistuned T, the cluster 3x slower (lam 2/9, zeta 3) from
+    epoch ADAPT_SHIFT.  Requires T (each epoch's wall-clock step less
+    T_c) within ADAPT_TOL of each regime's Lemma-6 T on average over the
+    last ADAPT_TAIL epochs of the regime, finite losses, one prox launch
+    an epoch; then ``run_amb`` on the first regime for its epochs/s."""
+    import numpy as np
+    core = rt.core
+    size = SIM_LINREG
+    b_global = size["b_global"]
+    per = b_global // SIM_N
+    lin = core.objectives.LinearRegression(dim=SIM_D)
+    w_star = rt.data.LinRegStream(dim=SIM_D, seed=42,
+                                  device="cuda").w_star()
+    fast = core.ShiftedExponential(lam=2 / 3, zeta=1.0, b_ref=b_global)
+    slow = core.ShiftedExponential(lam=2 / 9, zeta=3.0, b_ref=b_global)
+    lemma6 = [core.amb_budget_from_fmb(m, SIM_N, b_global)
+              for m in (fast, slow)]
+    cfg = core.EngineConfig(
+        n=SIM_N, b_max=4 * per, chunk=per, compute_time=3.0 * lemma6[0],
+        comm_time=0.3 * lemma6[0], graph="paper", consensus_rounds=5,
+        beta=core.BetaSchedule(k=size["k"], mu=float(b_global)))
+    kw = dict(sample_args=(w_star,), f_star=0.5 * lin.noise_var,
+              eval_fn=lambda w: lin.population_loss(w, w_star))
+    print(f"adaptive budget: §6.1 d={SIM_D} n={SIM_N} b={b_global} "
+          f"b_max={cfg.b_max} T0={cfg.compute_time:.6f} T_c="
+          f"{cfg.comm_time:.6f}; Lemma 6's T {lemma6[0]:.6f}, then "
+          f"{lemma6[1]:.6f} from epoch {ADAPT_SHIFT}", flush=True)
+    rt.kernels.router.reset_launches()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = core.run_amb_adaptive(
+        lin, lambda t: fast if t < ADAPT_SHIFT else slow, cfg,
+        controller=core.AdaptiveBudget(b_target=b_global),
+        epochs=ADAPT_EPOCHS, generator=gen, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = rt.kernels.router.launches()
+    wall = h.wall_time.double().cpu().numpy()
+    budget = np.diff(np.concatenate([[0.0], wall])) - cfg.comm_time
+    tails = [budget[ADAPT_SHIFT - 1 - ADAPT_TAIL:ADAPT_SHIFT - 1],
+             budget[-ADAPT_TAIL:]]
+    errs = [abs(float(t.mean()) / t6 - 1.0) for t, t6 in zip(tails,
+                                                             lemma6)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    core.run_amb(lin, fast, dataclasses.replace(
+        cfg, compute_time=lemma6[0]), epochs=ADAPT_EPOCHS, generator=gen,
+        **kw)
+    torch.cuda.synchronize()
+    dt_amb = time.perf_counter() - t0
+    loss = h.eval_loss.cpu().numpy()
+    print(f"  T: epoch 1 {budget[0]:.6f}, mean of the last {ADAPT_TAIL} "
+          f"before the shift {tails[0].mean():.6f} ({errs[0]:.4f} off "
+          f"Lemma 6), of the last {ADAPT_TAIL} {tails[1].mean():.6f} "
+          f"({errs[1]:.4f} off; tolerance {ADAPT_TOL}); eval loss "
+          f"{loss[0]:.6g} -> {loss[-1]:.6g}; {ADAPT_EPOCHS / dt:.1f} "
+          f"epochs/s, run_amb {ADAPT_EPOCHS / dt_amb:.1f}; launches "
+          f"{launches}", flush=True)
+    if max(errs) > ADAPT_TOL:
+        fail(f"adaptive: T off Lemma 6 by {errs}")
+    if not bool(torch.isfinite(h.eval_loss).all()):
+        fail("adaptive: eval loss is not finite")
+    expect("adaptive", launches, {"dual_update": ADAPT_EPOCHS})
+    return dict(launches=launches, errs=errs,
+                epochs_per_s=(ADAPT_EPOCHS / dt, ADAPT_EPOCHS / dt_amb))
+
+
 def idle_gaps(requests) -> list:
     """Seconds in which no request was in the engine and the next had not
     arrived, one entry for each such stretch between two requests.  The
@@ -1693,7 +2157,7 @@ def run_train_cli(torch, rt, extra, label: str, steps: int) -> dict:
     if len(lines) != steps or not all(math.isfinite(ln["loss"])
                                        for ln in lines):
         fail(f"train CLI {label}: lines {lines}")
-    if any(set(ln) != JSONL_KEYS for ln in lines):
+    if any(set(ln) - {"action"} != JSONL_KEYS for ln in lines):
         fail(f"train CLI {label}: JSONL keys {sorted(lines[0])}")
     if loss != lines[-1]["loss"]:
         fail(f"train CLI {label}: returned {loss}, logged {lines[-1]}")
@@ -1809,6 +2273,8 @@ def main() -> int:
         return 1
     import repro_torch.api
     import repro_torch.configs
+    import repro_torch.control
+    import repro_torch.faults
     import repro_torch.data
     import repro_torch.dist
     import repro_torch.models
@@ -1879,14 +2345,22 @@ def main() -> int:
                "async": run_async(torch, rt, quant_cfg),
                "elastic": run_elastic(torch, rt, gossip_cfg)}
     check_checkpoints(torch, rt, full, smoke)
+    coded = {"coded exact": run_coded_exact(torch, rt, full),
+             "churn": run_churn(torch, rt, gossip_cfg),
+             "controller": run_controller_cli(torch, rt, gossip_cfg),
+             "retune": run_staleness_retune(torch, rt, quant_cfg),
+             "adaptive": run_adaptive(torch, rt)}
+    check_restore_mid_churn(torch, rt, dataclasses.replace(
+        full, num_layers=RESTORE_LAYERS))
+    coded_launches = {k: r["launches"] for k, r in coded.items()}
     served = {"qwen2-1.5b": run_serve(torch, rt, SERVE_ARGV),
               "rwkv6-3b": run_serve(torch, rt, SERVE_RWKV_ARGV)}
     cli_launches = {k: r["launches"] for k, r in cli["runs"].items()}
 
     def launches(name):
         return sum(c.get(name, 0) for group in (
-            runs, served, sim["launches"], cli_launches, drivers)
-            for c in group.values())
+            runs, served, sim["launches"], cli_launches, drivers,
+            coded_launches) for c in group.values())
 
     def per_epoch(name):
         return {s: c[name] / EPOCHS for s, c in runs.items() if name in c}
@@ -1904,6 +2378,8 @@ def main() -> int:
                                         cli_launches.items()},
                     launches_drivers={a: c.get(name, 0) for a, c in
                                       drivers.items()},
+                    launches_faults_control={a: c.get(name, 0) for a, c in
+                                             coded_launches.items()},
                     max_abs_err=err,
                     **timing)
 

@@ -3,9 +3,10 @@ from .clock import Clock, MeasuredClock, SimulatedClock, make_clock
 from .protocol import (AsyncProtocol, ExactProtocol, GossipProtocol,
                        PipelinedProtocol, TrainProtocol, build_protocol)
 from .session import AMBSession
-from .specs import ClockSpec, ConsensusSpec, TrainSpec
+from .specs import ClockSpec, ConsensusSpec, ControllerSpec, TrainSpec
 
 __all__ = ["AMBSession", "AsyncProtocol", "Clock", "ClockSpec",
-           "ConsensusSpec", "ExactProtocol", "GossipProtocol",
-           "MeasuredClock", "PipelinedProtocol", "SimulatedClock",
-           "TrainProtocol", "TrainSpec", "build_protocol", "make_clock"]
+           "ConsensusSpec", "ControllerSpec", "ExactProtocol",
+           "GossipProtocol", "MeasuredClock", "PipelinedProtocol",
+           "SimulatedClock", "TrainProtocol", "TrainSpec", "build_protocol",
+           "make_clock"]

@@ -45,9 +45,11 @@ class ExactProtocol(TrainProtocol):
 
     mode = "exact"
 
-    def __init__(self, cfg, n: int, optimizer: DualAveragingOpt):
+    def __init__(self, cfg, n: int, optimizer: DualAveragingOpt,
+                 amb: AMBConfig = AMBConfig()):
+        self.amb = amb
         self.optimizer = optimizer
-        self._step = make_train_step(cfg, optimizer, n)
+        self._step = make_train_step(cfg, optimizer, n, amb)
 
     def init(self, params):
         return {"params": params, "opt": self.optimizer.init(params), "t": 0}
@@ -147,4 +149,4 @@ def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
         return GossipProtocol(cfg, n, amb, draw_source)
     if optimizer is None:
         optimizer = DualAveragingOpt(beta=amb.beta, radius=amb.radius)
-    return ExactProtocol(cfg, n, optimizer)
+    return ExactProtocol(cfg, n, optimizer, amb)

@@ -30,8 +30,15 @@ torus re-laid onto a smaller one, :func:`repro_torch.dist.consensus.
 survivor_taps`), after draining any in-flight consensus; the state carries
 over, so a rejoining worker resumes from its stale dual.
 ``set_slowdown`` scales workers' clock draws before the deadline cut.
-``save`` / ``restore`` write and read JAX's checkpoint layout and resume
-exactly.  The controller and fault injection are not ported yet.
+``run(..., faults=)`` drives a :mod:`repro_torch.faults` model through
+both before each epoch.  ``TrainSpec.redundancy`` > 1 is coded placement
+(:mod:`repro_torch.dist.redundancy`): the default source places rotated
+copies of each group's block, and the steps weigh them by their decode
+weights.  With an enabled :class:`ControllerSpec` each epoch feeds a
+:class:`repro_torch.control.Controller`, whose actions move the budget
+(into the clock) and the async driver's staleness (drain and rebuild).
+``save`` / ``restore`` write and read JAX's checkpoint layout, the
+controller's state included, and resume exactly.
 """
 from __future__ import annotations
 
@@ -45,16 +52,20 @@ import torch
 
 from ..ckpt import load_checkpoint_into, save_checkpoint
 from ..configs import get_config, smoke_config
+from ..control import Controller, EpochRecord
 from ..core.stragglers import amb_batch_sizes, fmb_finish_times
 from ..data import LMTokenStream, Prefetcher, StreamSource
 from ..device import resolve_device
+from ..dist.redundancy import CodedAssignment
+from ..faults import FaultInjector
 from ..kernels import router
 from ..metrics import MetricsLogger
 from ..models import DenseLM, init_params
 from ..optim import make_optimizer
 from .clock import make_clock
 from .protocol import build_protocol
-from .specs import MODES, ClockSpec, ConsensusSpec, TrainSpec
+from .specs import (MODES, ClockSpec, ConsensusSpec, ControllerSpec,
+                    TrainSpec)
 
 
 class AMBSession:
@@ -62,6 +73,11 @@ class AMBSession:
 
     Args:
       train, clock, consensus: the spec triple (defaults as in JAX).
+      controller: a :class:`ControllerSpec`; when ``enabled`` every step
+        feeds a telemetry record to a :class:`repro_torch.control.
+        Controller` and applies its actions in place: the budget into
+        the clock, the staleness by :meth:`_apply_staleness`.  The
+        decentralised steps then emit the gradient-noise statistics.
       cfg: an explicit architecture config (e.g. a depth-cut one).
       params: initial parameters, a :class:`DenseLM` or a dict of tensors
         in its layout; default: random from ``train.seed``.
@@ -81,7 +97,8 @@ class AMBSession:
     """
 
     def __init__(self, train: TrainSpec, clock: Optional[ClockSpec] = None,
-                 consensus: Optional[ConsensusSpec] = None, *, cfg=None,
+                 consensus: Optional[ConsensusSpec] = None,
+                 controller: Optional[ControllerSpec] = None, *, cfg=None,
                  params=None, device="cuda", draw_source=None,
                  metrics_path=None):
         self.device = resolve_device(device)
@@ -99,6 +116,12 @@ class AMBSession:
             else get_config(train.arch))
         self.n_workers = train.data
         self.global_batch = self.n_workers * train.batch_per_worker
+        # coded redundancy, checked here: one CodedAssignment drives the
+        # data placement (batch_source) and the decode weights (the steps)
+        self._assignment = None
+        if train.redundancy > 1:
+            self._assignment = CodedAssignment(self.n_workers,
+                                               train.redundancy)
         self.clock = make_clock(self.clock_spec, self.n_workers,
                                 train.batch_per_worker)
         self._decentralized = (self.consensus_spec.pipeline
@@ -116,6 +139,16 @@ class AMBSession:
             raise ValueError("gossip / pipelined / async modes run the "
                              "paper's dual-averaging protocol; use "
                              "optimizer='dual_averaging'")
+        self.controller_spec = controller if controller is not None \
+            else ControllerSpec()
+        self.controller: Optional[Controller] = None
+        if self.controller_spec.enabled:
+            self.controller = Controller(
+                self.controller_spec, n_workers=self.n_workers,
+                comm_time=self.clock_spec.comm_time,
+                b_target=self.global_batch, b_cap=self.global_batch,
+                staleness=self.consensus_spec.staleness,
+                async_mode=self.consensus_spec.async_epochs)
         self._draw_source = draw_source
         self._slow: Optional[np.ndarray] = None   # per-worker slowdowns
         self._active: Optional[tuple] = None
@@ -150,7 +183,9 @@ class AMBSession:
             self._protocols[key] = build_protocol(
                 self.cfg, self.n_workers,
                 spec.to_amb_config(self.global_batch, self.train.seed,
-                                   active=mask),
+                                   active=mask,
+                                   noise_stats=self.controller is not None,
+                                   redundancy=self.train.redundancy),
                 optimizer=self._optimizer, pipeline=spec.pipeline,
                 async_epochs=spec.async_epochs, staleness=spec.staleness,
                 draw_source=self._draw_source)
@@ -270,6 +305,10 @@ class AMBSession:
                "sim_wall_s": self.sim_wall,
                "staleness": spec.staleness,
                "b": np.asarray(torch.as_tensor(b).cpu())}
+        if self.controller is not None:
+            action = self._control(m, out, times)
+            if action is not None:
+                out["action"] = action.to_dict()
         if self.metrics is not None:
             self.metrics.log(self.steps_done,
                              **{k: v for k, v in out.items() if k != "b"})
@@ -278,15 +317,18 @@ class AMBSession:
     def batch_source(self) -> StreamSource:
         """The session's default input: per-worker shards of the arch's LM
         token stream on the session's device (worker i draws stream node
-        i: distinct i.i.d. shards, deterministic in (seed, node, epoch))."""
+        i: distinct i.i.d. shards, deterministic in (seed, node, epoch));
+        under coded redundancy, rotated copies of each group's block from
+        the group's node."""
         return StreamSource(
             LMTokenStream(vocab_size=self.cfg.vocab_size,
                           seq_len=self.train.seq_len, seed=self.train.seed,
                           device=str(self.device)),
-            self.n_workers, self.train.batch_per_worker)
+            self.n_workers, self.train.batch_per_worker,
+            assignment=self._assignment)
 
     def run(self, steps: int, source=None, *, prefetch: int = 2,
-            on_step=None) -> Optional[dict]:
+            on_step=None, faults=None) -> Optional[dict]:
         """Run ``steps`` epochs on ``source.batch(epoch)`` at absolute epoch
         indices from ``steps_done`` (default source :meth:`batch_source`);
         returns the last epoch's metrics (None at 0 steps).
@@ -295,14 +337,29 @@ class AMBSession:
         builds that many batches ahead on a side CUDA stream (a thread on
         the CPU); ``prefetch=0`` builds each batch, then steps on it.
         ``on_step(epoch, metrics)`` is called after every epoch with the
-        0-based absolute index of the epoch that just ran."""
+        0-based absolute index of the epoch that just ran.
+
+        ``faults`` is a :class:`repro_torch.faults.FaultModel` (or a
+        :class:`~repro_torch.faults.FaultInjector`) applied before each
+        epoch: membership through :meth:`set_active`, slowdowns through
+        :meth:`set_slowdown`.  The trajectory is a pure function of the
+        epoch, so a restored session under the same model replays it.  The
+        data plane still fills every worker's slots: a down worker's
+        samples weigh 0 (or, under coded placement, its group's members
+        cover them)."""
         if steps <= 0:
             return None
         if source is None:
             source = self.batch_source()
+        injector = None
+        if faults is not None:
+            injector = faults if isinstance(faults, FaultInjector) \
+                else FaultInjector(faults)
         out = None
         if prefetch < 1:
             for epoch in range(self.steps_done, self.steps_done + steps):
+                if injector is not None:
+                    injector.apply(self, epoch)
                 out = self.step(source.batch(epoch))
                 if on_step is not None:
                     on_step(self.steps_done - 1, out)
@@ -311,13 +368,51 @@ class AMBSession:
                         steps=steps, device=self.device)
         try:
             for batch in pf:
-                # the prefetcher yields epochs in order from steps_done
+                # the prefetcher yields epochs in order from steps_done,
+                # so the batch's epoch is the session's count
+                if injector is not None:
+                    injector.apply(self, self.steps_done)
                 out = self.step(batch)
                 if on_step is not None:
                     on_step(self.steps_done - 1, out)
         finally:
             pf.close()
         return out
+
+    def _control(self, m: dict, out: dict, times: torch.Tensor):
+        """Feed the epoch to the controller; apply any action in place."""
+        # the measured mean seconds per gradient, from the time each node
+        # spent on the gradients it finished: exact even when b_i reaches
+        # the data cap and the node idles out the window (T / b_i would
+        # over-bill those nodes and the Lemma-6 re-solve would feed back)
+        tnp, bnp = times.cpu().numpy(), out["b"]
+        eff = np.minimum(bnp, tnp.shape[1])
+        done = eff >= 1
+        tau_s = None
+        if done.any():
+            elapsed = np.cumsum(tnp, axis=1)[np.arange(tnp.shape[0]),
+                                             np.maximum(eff, 1) - 1]
+            tau_s = float(np.mean(elapsed[done] / eff[done]))
+        rec = EpochRecord(
+            t=self.steps_done, budget_s=out["budget_s"],
+            comm_time_s=self.clock_spec.comm_time, step_s=out["step_s"],
+            loss=out["loss"], b=bnp, tau_s=tau_s,
+            global_batch=out["global_batch"],
+            staleness=self.consensus_spec.staleness
+            if self.consensus_spec.async_epochs else 1,
+            grad_sq_norm=(float(m["grad_sq_norm"])
+                          if "grad_sq_norm" in m else None),
+            grad_var=float(m["grad_var"]) if "grad_var" in m else None)
+        action = self.controller.observe(rec)
+        if action is None:
+            return None
+        if action.budget is not None:
+            self.clock.set_budget(action.budget)
+        if action.staleness is not None:
+            self._apply_staleness(action.staleness)
+        # a b_target move needs no actuation: it feeds the next Lemma-6
+        # re-solve, so the batch moves through the deadline T
+        return action
 
     def flush(self) -> None:
         """Settle in-flight consensus (pipelined, async); no-op otherwise."""
@@ -387,7 +482,9 @@ class AMBSession:
             "clock_budget": getattr(
                 self.clock, "budget_t",
                 getattr(self.clock, "compute_time", None)),
-            "controller": None,
+            "controller": None if self.controller is None else {
+                "spec": self.controller_spec.to_dict(),
+                "state": self.controller.to_state()},
         }
         blob = json.dumps(meta, sort_keys=True, indent=1)
         # the per-step copy first: restore(step=) reads the counters and
@@ -400,14 +497,15 @@ class AMBSession:
                 device="cuda", metrics_path=None) -> "AMBSession":
         """Rebuild a session from a :meth:`save` directory, resuming exactly.
 
-        The specs come from ``session.json``; then the membership mask
-        (applied before the state lands, so its drain touches nothing
-        restored), the full state, the step count, the simulated wall
-        clock, the measured clock's seconds per gradient and the budget in
-        force.  The clock's draws are seeded from the step count, so they
-        resume too.  ``step`` picks a checkpoint (default the latest), and
-        its own ``session.json`` copy; ``cfg`` is required when the saved
-        session had a custom config.
+        The specs come from ``session.json``, the controller's too; then
+        the membership mask (applied before the state lands, so its drain
+        touches nothing restored), the full state, the step count, the
+        simulated wall clock, the measured clock's seconds per gradient,
+        the budget in force and the controller's state.  The clock's draws
+        are seeded from the step count, so they resume too.  ``step``
+        picks a checkpoint (default the latest), and its own
+        ``session.json`` copy; ``cfg`` is required when the saved session
+        had a custom config.
         """
         directory = Path(directory)
         meta = json.loads((directory / "session.json").read_text())
@@ -416,9 +514,12 @@ class AMBSession:
                     / "session.json")
         if per_step.exists():
             meta = json.loads(per_step.read_text())
+        ctl = meta.get("controller")
         session = cls(TrainSpec.from_dict(meta["train"]),
                       ClockSpec.from_dict(meta["clock"]),
-                      ConsensusSpec.from_dict(meta["consensus"]), cfg=cfg,
+                      ConsensusSpec.from_dict(meta["consensus"]),
+                      None if ctl is None
+                      else ControllerSpec.from_dict(ctl["spec"]), cfg=cfg,
                       device=device, metrics_path=metrics_path)
         if meta.get("active") is not None:
             session.set_active(meta["active"])
@@ -433,5 +534,7 @@ class AMBSession:
             session.clock.sec_per_grad = float(meta["sec_per_grad"])
         if meta.get("clock_budget") is not None:
             session.clock.set_budget(float(meta["clock_budget"]))
+        if ctl is not None and session.controller is not None:
+            session.controller.load_state(ctl["state"])
         return session
 

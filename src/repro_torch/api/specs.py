@@ -2,18 +2,19 @@
 (counterpart of ``repro.api.specs``), with the fields the port has.
 
   * :class:`TrainSpec` — what trains: architecture, worker count, sizes,
-    optimizer, AMB or FMB, seed, kernel routing.
+    optimizer, AMB or FMB, seed, kernel routing, coded redundancy.
   * :class:`ClockSpec` — the fixed-compute-time contract: straggler model,
     budget T (explicit, or Lemma 6 when ``None``; an explicit 0.0 is
     honoured), window T_c, measured or simulated timing.
   * :class:`ConsensusSpec` — how workers agree: strategy, gossip graph and
     rounds, the epoch driver (sequential, pipelined or async with
     staleness D), the dual-averaging beta schedule.
+  * :class:`ControllerSpec` — the online controller of budget T,
+    staleness D and batch target (:mod:`repro_torch.control`).
 
 Each spec round-trips through JSON (``to_json`` / ``from_json``) and
 through argparse (``add_cli_args`` / ``from_args``, with the JAX CLI's
-flag names, defaults and choices).  The JAX flags of modules the port has
-not taken yet (coded redundancy, the controller) are not registered.
+flag names, defaults and choices).
 """
 from __future__ import annotations
 
@@ -77,6 +78,9 @@ class TrainSpec(_Spec):
     kernels: str = "auto"             # auto | pallas (the CUDA kernels) |
                                       # ref (the plain versions); see
                                       # router_mode
+    redundancy: int = 1               # rho: coded data replication (groups
+                                      # of rho workers hold rotated copies
+                                      # of one block; 1 = uncoded)
 
     def router_mode(self) -> str:
         """``kernels`` in the port's router: ``pallas`` is the CUDA
@@ -112,13 +116,23 @@ class TrainSpec(_Spec):
                              "CPU; pallas forces the kernels, ref the "
                              "plain versions (pallas_interpret is "
                              "refused)")
+        ap.add_argument("--redundancy", type=int,
+                        default=TrainSpec.redundancy,
+                        help="coded data replication factor rho (must "
+                             "divide the worker count): groups of rho "
+                             "workers hold rotated copies of one data "
+                             "block and decode-on-settle weights keep the "
+                             "gradient estimate unbiased under worker "
+                             "loss; 1 = uncoded")
 
     @classmethod
     def from_args(cls, args: argparse.Namespace) -> "TrainSpec":
         return cls(arch=args.arch, smoke=args.smoke, seq_len=args.seq_len,
                    batch_per_worker=args.batch_per_worker, data=args.data,
                    optimizer=args.optimizer, mode=args.mode, seed=args.seed,
-                   kernels=getattr(args, "kernels", TrainSpec.kernels))
+                   kernels=getattr(args, "kernels", TrainSpec.kernels),
+                   redundancy=getattr(args, "redundancy",
+                                      TrainSpec.redundancy))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,6 +217,7 @@ class ConsensusSpec(_Spec):
 
     def to_amb_config(self, global_batch: int, seed: int = 0,
                       active: Optional[tuple] = None,
+                      noise_stats: bool = False, redundancy: int = 1,
                       relayout: bool = True):
         """The dist layer's :class:`repro_torch.dist.amb.AMBConfig`."""
         from ..dist.amb import AMBConfig
@@ -210,7 +225,8 @@ class ConsensusSpec(_Spec):
                          gossip_rounds=self.gossip_rounds, graph=self.graph,
                          torus_shape=self.torus_shape, lazy=self.lazy,
                          beta=self.beta(global_batch), radius=self.radius,
-                         seed=seed, active=active, relayout=relayout)
+                         seed=seed, active=active, noise_stats=noise_stats,
+                         redundancy=redundancy, relayout=relayout)
 
     @staticmethod
     def add_cli_args(ap: argparse.ArgumentParser) -> None:
@@ -246,3 +262,55 @@ class ConsensusSpec(_Spec):
                    pipeline=args.pipeline,
                    async_epochs=args.async_epochs,
                    staleness=args.staleness)
+
+
+@dataclasses.dataclass(frozen=True)
+class ControllerSpec(_Spec):
+    """Online self-tuning of budget T, staleness D and batch target b.
+
+    When ``enabled``, :class:`repro_torch.api.AMBSession` feeds each
+    epoch's telemetry (measured per-gradient times, T_c / T, the gradient
+    noise scale) to a :class:`repro_torch.control.Controller`, which
+    re-solves the Lemma-6 budget, retunes the AMB-DG staleness D (and
+    gamma = 1/(2D)) and grows the batch target as gradient noise falls.
+    Decisions are rate-limited (``max_step``), deadbanded (``deadband``),
+    hysteretic (``hysteresis``), and made every ``interval`` epochs after
+    ``warmup`` epochs of observation only.
+    """
+
+    enabled: bool = False
+    interval: int = 5                 # epochs between decisions
+    warmup: int = 5                   # observe-only epochs before deciding
+    ema: float = 0.8                  # telemetry EMA smoothing
+    budget: bool = True               # retune T (Lemma 6, online)
+    staleness: bool = True            # retune D / gamma (async only)
+    batch: bool = True                # grow the b target with the noise
+    d_max: int = 8                    # staleness ceiling
+    hysteresis: float = 0.25          # D-change hysteresis (T_c/T units)
+    deadband: float = 0.1             # least relative budget change acted on
+    max_step: float = 2.0             # most budget change factor a decision
+
+    @staticmethod
+    def add_cli_args(ap: argparse.ArgumentParser) -> None:
+        ap.add_argument("--controller", action="store_true",
+                        help="enable the online self-tuning controller "
+                             "(budget T, staleness D, batch target)")
+        ap.add_argument("--controller-interval", type=int,
+                        default=ControllerSpec.interval,
+                        help="epochs between controller decisions")
+        ap.add_argument("--controller-warmup", type=int,
+                        default=ControllerSpec.warmup,
+                        help="observe-only epochs before the first decision")
+        ap.add_argument("--controller-dmax", type=int,
+                        default=ControllerSpec.d_max,
+                        help="staleness ceiling for the controller")
+
+    @classmethod
+    def from_args(cls, args: argparse.Namespace) -> "ControllerSpec":
+        return cls(enabled=getattr(args, "controller", False),
+                   interval=getattr(args, "controller_interval",
+                                    ControllerSpec.interval),
+                   warmup=getattr(args, "controller_warmup",
+                                  ControllerSpec.warmup),
+                   d_max=getattr(args, "controller_dmax",
+                                 ControllerSpec.d_max))

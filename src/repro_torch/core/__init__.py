@@ -8,7 +8,8 @@ from .consensus import (build_graph, exact_average, gossip, is_connected,
 from .dual_averaging import (BetaSchedule, DualAveraging, prox_step,
                              prox_step_tree)
 from .engine import EngineConfig, History, run, run_amb, run_fmb
-from .extensions import (gossip_quantized, quantize_unbiased,
+from .extensions import (AdaptiveBudget, gossip_quantized,
+                         quantize_unbiased, run_amb_adaptive,
                          run_amb_delayed, run_amb_pipelined,
                          run_amb_quantized)
 from .stragglers import (Deterministic, InducedGroups, PauseModel,
@@ -18,13 +19,15 @@ from .stragglers import (Deterministic, InducedGroups, PauseModel,
 
 __all__ = [
     "consensus", "dual_averaging", "engine", "extensions", "objectives",
-    "regret", "stragglers", "BetaSchedule", "DualAveraging", "prox_step",
-    "prox_step_tree", "EngineConfig", "History", "run", "run_amb",
-    "run_fmb", "Deterministic", "InducedGroups", "PauseModel",
+    "regret", "stragglers", "AdaptiveBudget", "BetaSchedule",
+    "DualAveraging", "prox_step", "prox_step_tree", "EngineConfig",
+    "History", "run", "run_amb", "run_fmb", "Deterministic",
+    "InducedGroups", "PauseModel",
     "ShiftedExponential", "StragglerModel", "amb_batch_sizes",
     "amb_budget_calibrated", "amb_budget_from_fmb", "fmb_finish_times",
     "build_graph", "exact_average", "gossip", "gossip_quantized",
     "is_connected", "metropolis_weights", "quantize_unbiased", "ring_graph",
-    "run_amb_delayed", "run_amb_pipelined", "run_amb_quantized",
+    "run_amb_adaptive", "run_amb_delayed", "run_amb_pipelined",
+    "run_amb_quantized",
     "torus_graph",
 ]

@@ -16,12 +16,15 @@
    the same T_c; the dense operator is what
    :class:`repro_torch.dist.consensus.QuantizedGossipConsensus` falls
    back to and is tested against.
+3. **Adaptive compute budget** (:func:`run_amb_adaptive`): the online
+   Lemma 6 of :class:`repro_torch.control.BudgetPolicy` (alias
+   :data:`AdaptiveBudget`) re-solves T every epoch from the observed
+   b_i(t), under a straggler model that may change with the epoch.
 
 The uniform draws come from the caller: JAX's threefry stream cannot be
 reproduced, so a test hands both packages the same draws.  The runs take
 the engine's seams (see :func:`repro_torch.core.engine.run`): a
 ``torch.Generator``, or ``draws(t)`` whose tuple each function states.
-The adaptive-budget run waits for the control plane.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..control.policies import BudgetPolicy
 from . import consensus as cns
 from .engine import (EngineConfig, History, _chunks, _eval, _history,
                      _masked_grads, _prox_rows, _setup, _to)
@@ -282,3 +286,85 @@ def run_amb_quantized(objective, model: StragglerModel, cfg: EngineConfig, *,
             potential=b.sum().to(torch.int32)))
         w, z = w_new, z_new
     return _history(trace)
+
+
+# ---------------------------------------------------------------------------
+# 3. Adaptive compute budget: online Lemma 6
+# ---------------------------------------------------------------------------
+
+# the online Lemma-6 controller is repro_torch.control.BudgetPolicy, one
+# of the three policies behind repro_torch.control.Controller; this name
+# is JAX's, kept for its callers
+AdaptiveBudget = BudgetPolicy
+
+
+def run_amb_adaptive(objective, model_fn: Callable, cfg: EngineConfig, *,
+                     controller: BudgetPolicy, epochs: int,
+                     generator: Optional[torch.Generator] = None,
+                     sample_args=(), eval_fn: Optional[Callable] = None,
+                     f_star: float = 0.0, draws: Optional[Callable] = None,
+                     device="cuda") -> History:
+    """AMB whose budget T follows ``controller`` (online Lemma 6).
+
+    ``model_fn(t)`` is epoch t's straggler model, so the cluster may
+    change under the run (the case a fixed T cannot follow).  Epoch t
+    cuts at the budget in force, then ``controller.update`` re-solves it
+    from b(t); the epoch takes that T plus T_c.  Every tensor stays on
+    the device: the wall clock and the regret add up in fp64 there (as
+    JAX adds host floats), and the History is built once at the end.
+    ``draws(t)`` returns (times, chunks), as for
+    :func:`repro_torch.core.engine.run`.
+    """
+    device, generator, p, zeros = _setup(cfg, objective, generator, draws,
+                                         device)
+    n = cfg.n
+    w, z = zeros, zeros
+    ctrl = controller.init(cfg.compute_time, device=device)
+    clock = torch.zeros((), dtype=torch.float64, device=device)
+    regret = torch.zeros((), dtype=torch.float64, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    trace = []
+    for t in range(1, epochs + 1):
+        if draws is not None:
+            times, data = draws(t)
+            times = torch.as_tensor(times, device=device)
+            chunks = (_to(c, device) for c in data)
+        else:
+            times = model_fn(t).per_gradient_times(generator, n, cfg.b_max)
+            chunks = _chunks(objective, generator, cfg, sample_args)
+        t_budget = ctrl["t_budget"]
+        b = amb_batch_sizes(times, t_budget)
+        g, lsum = _masked_grads(objective, w, b, cfg, chunks)
+        bw = b.to(w.dtype)
+        msg = torch.cat([n * bw[:, None] * (z + g), n * bw[:, None]], dim=1)
+        exact = cns.exact_average(msg)
+        out = exact if cfg.consensus_mode == "exact" \
+            else cns.gossip(msg, p, cfg.consensus_rounds)
+        z_new = _normalise(out)
+        eps = torch.linalg.vector_norm(z_new - _normalise(exact),
+                                       dim=1).max()
+        w_new = _prox_rows(z_new, cfg.beta(t + 1), cfg.radius)
+        ctrl = controller.update({"t_budget": t_budget, "tau": ctrl["tau"]},
+                                 b)
+        clock = clock + (t_budget + cfg.comm_time).double()
+        regret = regret + torch.sum(lsum - bw * f_star).double()
+        w, z = w_new, z_new
+        gsum = b.sum().to(torch.float32)
+        trace.append(dict(
+            wall_time=clock, batch_sizes=b, global_batch=gsum,
+            eval_loss=_eval(eval_fn, w, zero).to(torch.float32),
+            train_loss=lsum.sum() / torch.clamp(bw.sum(), min=1.0),
+            consensus_eps=eps, regret=regret, potential=gsum))
+
+    def stacked(key):
+        return torch.stack([m[key] for m in trace])
+
+    return History(
+        wall_time=stacked("wall_time").to(torch.float32),
+        batch_sizes=stacked("batch_sizes"),
+        global_batch=stacked("global_batch"),
+        eval_loss=stacked("eval_loss"),
+        train_loss=stacked("train_loss"),
+        consensus_eps=stacked("consensus_eps"),
+        regret=stacked("regret").to(torch.float32),
+        potential_samples=stacked("potential"))

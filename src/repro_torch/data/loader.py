@@ -8,7 +8,8 @@ worker's first b_i(t) samples, so variable minibatches cost the data plane
 nothing.
 
   * :class:`StreamSource` — per-worker shards of a deterministic stream
-    (:mod:`repro_torch.data.pipeline`): worker i draws stream node i.
+    (:mod:`repro_torch.data.pipeline`): worker i draws stream node i, or
+    under coded placement its group's node, rotated.
   * :class:`SyntheticSource` — uniform random tokens drawn on the device.
   * :class:`CostedSource` — a source with a fixed host cost per batch.
   * :class:`Prefetcher` — a daemon thread that builds the next ``depth``
@@ -65,26 +66,50 @@ class StreamSource(InputSource):
 
     Worker i's block is ``stream.batch(node=i, epoch, per_worker)``, the
     blocks concatenated in worker order: distinct node indices give each
-    worker its own i.i.d. shard (paper §3).  ``assignment`` belongs to
-    coded redundancy, which is not ported: only ``None`` is accepted.
+    worker its own i.i.d. shard (paper §3).
+
+    An ``assignment`` (:class:`repro_torch.dist.redundancy.
+    CodedAssignment`) with ``rho > 1`` is coded placement: each group of
+    ``rho`` workers shares one block, drawn from the group's stream node,
+    and member m's shard is that block rolled by ``-shift_m`` along the
+    batch axis, so its slot s holds block slot ``(s + shift_m) % per``,
+    the index map of the decode weights.  A stream with ``batch_nodes``
+    builds the n / rho group blocks in one go.
     """
 
     def __init__(self, stream, n_workers: int, per_worker: int,
                  assignment=None):
-        if assignment is not None:
-            raise NotImplementedError(
-                "coded placement (dist.redundancy) is not ported; pass "
-                "assignment=None")
         self.stream = stream
         self.n_workers = int(n_workers)
         self.per_worker = int(per_worker)
-        self.assignment = None
+        self.assignment = assignment
+        if assignment is not None and assignment.n != self.n_workers:
+            raise ValueError(f"assignment covers {assignment.n} workers, "
+                             f"source has {self.n_workers}")
+
+    def _blocks(self, nodes, epoch: int) -> list:
+        """One ``per_worker`` block per node, in node order."""
+        per = self.per_worker
+        if hasattr(self.stream, "batch_nodes"):     # all blocks in one go
+            built = self.stream.batch_nodes(nodes, epoch, per)
+            return [_tree_map(lambda x, j=j: x[j * per:(j + 1) * per],
+                              built) for j in range(len(nodes))]
+        return [self.stream.batch(i, epoch, per) for i in nodes]
 
     def batch(self, epoch: int):
-        nodes = range(self.n_workers)
-        if hasattr(self.stream, "batch_nodes"):     # all shards in one go
-            return self.stream.batch_nodes(nodes, epoch, self.per_worker)
-        shards = [self.stream.batch(i, epoch, self.per_worker) for i in nodes]
+        a = self.assignment
+        if a is None or a.rho <= 1:
+            nodes = range(self.n_workers)
+            if hasattr(self.stream, "batch_nodes"):
+                return self.stream.batch_nodes(nodes, epoch, self.per_worker)
+            shards = self._blocks(nodes, epoch)
+        else:
+            blocks = self._blocks(range(a.groups), epoch)
+            data_nodes = a.data_nodes()
+            shifts = a.shifts(self.per_worker)
+            shards = [_tree_map(
+                lambda x, s=int(shifts[i]): torch.roll(x, -s, dims=0),
+                blocks[int(data_nodes[i])]) for i in range(self.n_workers)]
         return _tree_map(lambda *xs: torch.cat(xs, dim=0), *shards)
 
 

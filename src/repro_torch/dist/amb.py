@@ -14,9 +14,14 @@ Counterpart of ``repro.dist.amb``:
 
 The pipelined and async drivers (:mod:`repro_torch.dist.pipeline`,
 :mod:`repro_torch.dist.async_epochs`) share this module's per-worker
-gradient and its row-wise settle.  ``AMBConfig.active`` masks workers out
-of the gossip operator (elastic membership; the session also zeroes their
-b_i), and :func:`gossip_primal` then averages only the active duals.
+gradient, its row-wise settle and its gradient-noise statistics.
+``AMBConfig.active`` masks workers out of the gossip operator (elastic
+membership; the session also zeroes their b_i), and :func:`gossip_primal`
+then averages only the active duals.  ``AMBConfig.redundancy`` > 1 is
+coded placement (:mod:`repro_torch.dist.redundancy`): the eq.-3 0/1
+weights become ``1/copies`` decode weights and b(t) counts distinct
+samples.  ``AMBConfig.noise_stats`` adds ``grad_sq_norm`` and
+``grad_var`` to the decentralised steps' metrics (:class:`NoiseStats`).
 
 The workers are the leading dim of each state tensor.  Where the JAX step
 vmaps the workers' gradients, a Python loop takes them one at a time and
@@ -24,7 +29,7 @@ writes each worker's message row as soon as its gradient exists, so one
 worker's activations and gradient are live at a time.  The gossip rounds
 reuse the message stack (fp32 gossip: as one of two round buffers;
 quantized gossip: as the round's output), and the dual is updated in
-place.  Only the uncoded placement (redundancy 1) is ported.
+place.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ from ..core.dual_averaging import BetaSchedule
 from ..kernels import ops as kops
 from ..models import lm_loss
 from .consensus import epoch_draws, make_strategy
+from .redundancy import (CodedAssignment, epoch_weights,  # noqa: F401
+                         seq_weights_from_b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +60,11 @@ class AMBConfig:
     radius: Optional[float] = None
     seed: int = 0                     # quantized-gossip rounding draws
     active: Optional[tuple] = None    # elastic worker mask (None = all)
+    noise_stats: bool = False         # grad_sq_norm / grad_var metrics for
+                                      # the controller's telemetry (opt-in:
+                                      # an epoch without it is unchanged)
+    redundancy: int = 1               # rho: coded data replication (1 =
+                                      # uncoded, the eq.-3 weights)
     relayout: bool = True             # survivors on a fresh ring/torus
                                       # (taps) instead of the dense masked
                                       # P @ m
@@ -66,26 +78,12 @@ def strategy_from_config(amb: AMBConfig, n: int):
                          relayout=amb.relayout)
 
 
-# ---------------------------------------------------------------------------
-# Variable-minibatch masking (eq. 3)
-# ---------------------------------------------------------------------------
-
-def seq_weights_from_b(b: torch.Tensor, global_batch: int,
-                       n_workers: int) -> torch.Tensor:
-    """(global_batch,) fp32 0/1 weights: worker i's first b_i of its
-    ``global_batch // n_workers`` contiguous slots are included."""
-    if global_batch % n_workers:
-        raise ValueError(f"global_batch {global_batch} not divisible by "
-                         f"{n_workers} workers")
-    per = global_batch // n_workers
-    idx = torch.arange(global_batch, device=b.device)
-    return ((idx % per) < b[idx // per]).float()
-
-
-def epoch_weights(b: torch.Tensor, n: int, per: int):
-    """Uncoded (sw (n, per), bw (n,)): the eq.-3 weights and sample counts."""
-    sw = seq_weights_from_b(b, n * per, n).reshape(n, per)
-    return sw, torch.clamp(b, max=per).float()
+def assignment_from_config(amb: AMBConfig,
+                           n: int) -> Optional[CodedAssignment]:
+    """The coded data placement, or None for the uncoded path."""
+    if amb.redundancy <= 1:
+        return None
+    return CodedAssignment(n, amb.redundancy)
 
 
 def _as_b(b, device) -> torch.Tensor:
@@ -191,26 +189,35 @@ def unpack_duals(out: torch.Tensor, z: dict, n: int) -> dict:
 # Exact-consensus train step (eps = 0)
 # ---------------------------------------------------------------------------
 
-def make_train_step(cfg, opt, n: int):
+def make_train_step(cfg, opt, n: int, amb: AMBConfig = AMBConfig()):
     """step(params, opt_state, batch, b) -> (params, opt_state, metrics).
 
     ``params`` is a dict of tensors that require grad (a
     :class:`repro_torch.models.DenseLM`'s ``params()``); ``batch`` the
     global batch in n contiguous worker blocks; ``b`` the (n,) minibatch
     sizes of this epoch.  ``opt`` updates params and its state in place.
+    Under coded redundancy (``amb.redundancy > 1``) the weights are the
+    ``1/copies`` decode weights and ``global_batch`` counts distinct
+    covered samples.
     """
+    assignment = assignment_from_config(amb, n)
 
     def step(params, opt_state, batch, b):
         gb = batch["tokens"].shape[0]
         per = gb // n
         b = _as_b(b, batch["tokens"].device)
-        sw = seq_weights_from_b(b, gb, n)
+        if assignment is None:
+            sw = seq_weights_from_b(b, gb, n)
+            gbatch = torch.clamp(b, max=per).sum()
+        else:
+            sw2, bw = epoch_weights(b, n, per, assignment)
+            sw, gbatch = sw2.reshape(gb), bw.sum()
         with torch.enable_grad():
             total, m = lm_loss(params, cfg, batch, sw)
             grads = torch.autograd.grad(total, list(params.values()))
         opt_state = opt.apply(dict(zip(params, grads)), opt_state, params)
         metrics = {"loss": m["loss"].detach(), "ntok": m["ntok"],
-                   "global_batch": torch.clamp(b, max=per).sum()}
+                   "global_batch": gbatch}
         return params, opt_state, metrics
 
     return step
@@ -240,13 +247,94 @@ def local_grad(cfg, z: dict, w0: dict, batch: dict, sw: torch.Tensor,
     return g_i, m["loss"].detach()
 
 
-def epoch_metrics(bw: torch.Tensor, losses: list, beta, t: int) -> dict:
-    """The decentralised step's metrics: the b-weighted loss, b(t) and
-    the next epoch's beta."""
+class NoiseStats:
+    """:func:`grad_noise_stats` in one pass over gradients given one
+    worker at a time, so no two workers' gradients are ever held.
+
+    ``w = bw / max(sum bw, 1)`` is known before the loop (it need not
+    sum to 1: a worker of a coded group weighs 1/copies, and all of them
+    may be 0).  A weighted running mean (West's update: one (W,) fp32
+    buffer) gives ``mu = sum_i w_i g_i / S`` with ``S = sum_i w_i``, and
+    a scalar ``M2 = sum_i w_i ||g_i - mu||^2`` accumulated in fp64 on the
+    device.  With ``gbar = S mu``:
+
+        ||gbar||^2                 = S^2 ||mu||^2
+        sum_i w_i ||g_i - gbar||^2 = M2 + S (1 - S)^2 ||mu||^2
+
+    JAX's definition exactly, without the cancelling form
+    ``sum_i w_i ||g_i||^2 - ||gbar||^2``.
+    """
+
+    def __init__(self, bw: torch.Tensor, like: dict, n: int):
+        w = bw.float() / torch.clamp(bw.float().sum(), min=1.0)
+        self.w = [float(x) for x in w.tolist()]
+        self.seen = 0.0
+        device = bw.device
+        self.sizes = [zl.numel() // n for zl in like.values()]
+        self.mean = torch.zeros((sum(self.sizes),), dtype=torch.float32,
+                                device=device)
+        self.m2 = torch.zeros((), dtype=torch.float64, device=device)
+
+    @torch.no_grad()
+    def add(self, i: int, grads) -> None:
+        """Fold worker i's gradient leaves (in the dual's order)."""
+        wi = self.w[i]
+        if wi <= 0.0:
+            return
+        before = self.seen
+        self.seen += wi
+        off = 0
+        for size, g in zip(self.sizes, grads):
+            mu = self.mean[off:off + size]
+            delta = g.reshape(-1).float()
+            delta.sub_(mu)
+            self.m2 += (wi * before / self.seen) * torch.dot(
+                delta, delta).double()
+            mu.add_(delta, alpha=wi / self.seen)
+            off += size
+            del delta
+
+    def result(self) -> dict:
+        """``grad_sq_norm`` and ``grad_var`` (fp64 scalars on the device);
+        the running mean is released."""
+        s = self.seen
+        mu2 = torch.dot(self.mean, self.mean).double()
+        self.mean = None
+        return {"grad_sq_norm": s * s * mu2,
+                "grad_var": self.m2 + s * (1.0 - s) ** 2 * mu2}
+
+
+def grad_noise_stats(grads: dict, bw: torch.Tensor) -> dict:
+    """Gradient-noise signals from per-worker mean gradients (dict of (n,
+    *param) leaves) and the (n,) effective sample counts, for
+    :mod:`repro_torch.control.telemetry`:
+
+      * ``grad_sq_norm`` — ``||gbar||^2`` of the eq.-6 weighted mean
+        ``gbar = sum_i w_i g_i``, ``w = bw / max(sum bw, 1)``;
+      * ``grad_var`` — ``sum_i w_i ||g_i - gbar||^2``, the between-worker
+        dispersion, expectation ``tr(Sigma) (n-1)/B``.
+
+    The steps fold each worker's gradient as it is made
+    (:class:`NoiseStats`); this is the same pass over a stack."""
+    n = bw.shape[0]
+    stats = NoiseStats(bw, grads, n)
+    for i in range(n):
+        stats.add(i, [g[i] for g in grads.values()])
+    return stats.result()
+
+
+def epoch_metrics(bw: torch.Tensor, losses: list, beta, t: int,
+                  stats: Optional[NoiseStats] = None) -> dict:
+    """The decentralised step's metrics: the b-weighted loss, b(t), the
+    next epoch's beta and, with ``stats``, the noise statistics (call it
+    before the consensus: it releases the running mean)."""
     losses = torch.stack(losses)
     bsum = torch.clamp(bw.sum(), min=1.0)
-    return {"loss": (bw * losses).sum() / bsum, "global_batch": bw.sum(),
-            "beta": beta(t + 2)}
+    out = {"loss": (bw * losses).sum() / bsum, "global_batch": bw.sum(),
+           "beta": beta(t + 2)}
+    if stats is not None:
+        out.update(stats.result())
+    return out
 
 
 def init_gossip_state(params: dict, n: int) -> dict:
@@ -271,6 +359,7 @@ def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
     strategy = strategy_from_config(amb, n)
+    assignment = assignment_from_config(amb, n)
 
     def init_state(params: dict) -> dict:
         return init_gossip_state(params, n)
@@ -280,9 +369,10 @@ def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
         per = batch["tokens"].shape[0] // n
         t = state["t"]
         beta_t = beta(t + 1)                 # beta used for w(t)
-        sw, bw = epoch_weights(_as_b(b, device), n, per)
+        sw, bw = epoch_weights(_as_b(b, device), n, per, assignment)
         nb = n * bw
         z, w0 = state["z"], state["w0"]
+        stats = NoiseStats(bw, z, n) if amb.noise_stats else None
         msg = torch.empty((n, msg_width(z, n)), dtype=torch.float32,
                           device=device)
         losses = []
@@ -291,14 +381,18 @@ def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
                                    per)
             with torch.no_grad():
                 _pack_row(msg[i], [zl[i] for zl in z.values()], g_i, nb[i])
+            if stats is not None:
+                stats.add(i, g_i)
             losses.append(loss)
             del g_i
+        metrics = epoch_metrics(bw, losses, beta, t, stats)
+        del stats
         out = strategy.combine(msg, draws=draw_source(amb.seed, t))
         del msg
         unpack_duals(out, z, n)
         del out
         state["t"] = t + 1
-        return state, epoch_metrics(bw, losses, beta, t)
+        return state, metrics
 
     return init_state, step
 

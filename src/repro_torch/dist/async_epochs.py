@@ -40,9 +40,10 @@ from typing import Callable, Optional
 
 import torch
 
-from .amb import (AMBConfig, _as_b, _pack_row, epoch_metrics,
-                  epoch_weights, init_gossip_state, local_grad, msg_width,
-                  settle_row, strategy_from_config)
+from .amb import (AMBConfig, NoiseStats, _as_b, _pack_row,
+                  assignment_from_config, epoch_metrics, epoch_weights,
+                  init_gossip_state, local_grad, msg_width, settle_row,
+                  strategy_from_config)
 from .consensus import epoch_draws
 
 
@@ -64,6 +65,7 @@ def make_async_gossip_train_step(cfg, n: int, amb: AMBConfig,
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
     strategy = strategy_from_config(amb, n)
+    assignment = assignment_from_config(amb, n)
     D = staleness
     gamma = 1.0 if D == 1 else 1.0 / (2.0 * D)   # delayed-mixing damping
 
@@ -90,9 +92,10 @@ def make_async_gossip_train_step(cfg, n: int, amb: AMBConfig,
         per = batch["tokens"].shape[0] // n
         t = state["t"]
         beta_t = beta(t + 1)
-        sw, bw = epoch_weights(_as_b(b, device), n, per)
+        sw, bw = epoch_weights(_as_b(b, device), n, per, assignment)
         nb = n * bw
         z, w0 = state["z"], state["w0"]
+        stats = NoiseStats(bw, z, n) if amb.noise_stats else None
         queue = state["queue"]
         # (1) the due payload's consensus, under its enqueue epoch's draws
         payload = queue.pop(0)
@@ -117,13 +120,15 @@ def make_async_gossip_train_step(cfg, n: int, amb: AMBConfig,
                 if snap is not None:
                     torch.cat([zl[i].reshape(-1) for zl in z.values()],
                               out=snap[i])
+            if stats is not None:
+                stats.add(i, g_i)
             losses.append(loss)
             del g_i
         queue.append(agreed)
         if snap is not None:
             state["snaps"].append(snap)
         state["t"] = t + 1
-        return state, epoch_metrics(bw, losses, beta, t)
+        return state, epoch_metrics(bw, losses, beta, t, stats)
 
     @torch.no_grad()
     def flush(state):

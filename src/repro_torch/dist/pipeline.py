@@ -33,9 +33,10 @@ from typing import Callable, Optional
 
 import torch
 
-from .amb import (AMBConfig, _as_b, _pack_row, epoch_metrics,
-                  epoch_weights, init_gossip_state, local_grad, msg_width,
-                  settle_row, strategy_from_config, unpack_duals)
+from .amb import (AMBConfig, NoiseStats, _as_b, _pack_row,
+                  assignment_from_config, epoch_metrics, epoch_weights,
+                  init_gossip_state, local_grad, msg_width, settle_row,
+                  strategy_from_config, unpack_duals)
 from .consensus import epoch_draws
 
 
@@ -53,6 +54,7 @@ def make_pipelined_gossip_train_step(cfg, n: int, amb: AMBConfig,
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
     strategy = strategy_from_config(amb, n)
+    assignment = assignment_from_config(amb, n)
 
     def init_state(params: dict) -> dict:
         state = init_gossip_state(params, n)
@@ -66,9 +68,10 @@ def make_pipelined_gossip_train_step(cfg, n: int, amb: AMBConfig,
         per = batch["tokens"].shape[0] // n
         t = state["t"]
         beta_t = beta(t + 1)
-        sw, bw = epoch_weights(_as_b(b, device), n, per)
+        sw, bw = epoch_weights(_as_b(b, device), n, per, assignment)
         nb = n * bw
         z, w0 = state["z"], state["w0"]
+        stats = NoiseStats(bw, z, n) if amb.noise_stats else None
         # (1) the consensus of epoch t-1's payload, under its draws
         pending = state.pop("pending")
         # exact consensus returns a broadcast view: rows are written below
@@ -85,11 +88,13 @@ def make_pipelined_gossip_train_step(cfg, n: int, amb: AMBConfig,
             with torch.no_grad():
                 _pack_row(agreed[i], [zl[i] for zl in z.values()], g_i,
                           nb[i])
+            if stats is not None:
+                stats.add(i, g_i)
             losses.append(loss)
             del g_i
         state["pending"] = agreed
         state["t"] = t + 1
-        return state, epoch_metrics(bw, losses, beta, t)
+        return state, epoch_metrics(bw, losses, beta, t, stats)
 
     @torch.no_grad()
     def flush(state):

@@ -187,8 +187,21 @@ def test_stream_source_layout_matches_jax(kind):
             torch.testing.assert_close(g[2 * i:2 * i + 2], s, rtol=0, atol=0)
     assert not torch.equal(got_leaves[0][0:2], got_leaves[0][2:4])
     assert src.global_batch == 8
-    with pytest.raises(NotImplementedError, match="coded"):
-        StreamSource(stream, 4, 2, assignment=object())
+    # coded placement (tests/test_torch_faults.py holds it against JAX):
+    # the members of a group of 2 hold node g's block, the second rolled
+    from repro_torch.dist.redundancy import CodedAssignment
+    with pytest.raises(ValueError, match="assignment covers 8 workers"):
+        StreamSource(stream, 4, 2, assignment=CodedAssignment(8, 2))
+    coded = StreamSource(stream, 4, 2, assignment=CodedAssignment(4, 2))
+    got = coded.batch(5)
+    got_leaves = list(got.values()) if kind == "lm" else list(got)
+    for i in range(4):
+        block = stream.batch(i // 2, 5, 2)
+        block = list(block.values()) if kind == "lm" else list(block)
+        for g, s in zip(got_leaves, block):
+            torch.testing.assert_close(g[2 * i:2 * i + 2],
+                                       torch.roll(s, -(i % 2), dims=0),
+                                       rtol=0, atol=0)
 
 
 def test_make_source_registry():

@@ -28,7 +28,7 @@ from repro.dist import amb as jamb  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
 from repro_torch import configs, models  # noqa: E402
 from repro_torch.api import (AMBSession, ClockSpec, ConsensusSpec,  # noqa
-                             TrainSpec, clock)
+                             ControllerSpec, TrainSpec, clock)
 from repro_torch.data import LMTokenStream, StreamSource  # noqa: E402
 from repro_torch.kernels import router  # noqa: E402
 from repro_torch.launch.train import main  # noqa: E402
@@ -41,11 +41,10 @@ STANDIN = types.SimpleNamespace(axis_names=("data", "model"),
 TRAIN = TrainSpec(smoke=True, data=N, batch_per_worker=PER, seq_len=SEQ)
 SMOKE = ["--smoke", "--data", str(N), "--batch-per-worker", str(PER),
          "--seq-len", str(SEQ), "--sim-clock"]
-# JAX CLI flags of modules the port has not taken yet (ROADMAP.md items 6
-# and 7); --model and --pod are the train CLI's own (they must be 1)
-UNPORTED_FLAGS = {"--redundancy", "--churn", "--churn-rejoin",
-                  "--churn-seed", "--controller", "--controller-interval",
-                  "--controller-warmup", "--controller-dmax"}
+# JAX CLI flags of modules the port has not taken yet (none since coded
+# redundancy, faults and the controller); --model and --pod are the train
+# CLI's own (they must be 1)
+UNPORTED_FLAGS: set = set()
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +98,10 @@ def test_optimizer_defaults_and_bf16_params():
 
 def test_spec_json_roundtrip():
     specs = [TrainSpec(arch="rwkv6-3b", smoke=True, data=4,
-                       optimizer="adamw", mode="fmb", seed=7, kernels="ref"),
+                       optimizer="adamw", mode="fmb", seed=7, kernels="ref",
+                       redundancy=2),
+             ControllerSpec(enabled=True, interval=2, warmup=1, d_max=3,
+                            batch=False, max_step=1.5),
              ClockSpec(kind="simulated", compute_time=0.0, comm_time=1.5,
                        straggler="deterministic"),
              ConsensusSpec(consensus="gossip_q4", graph="torus",
@@ -118,7 +120,8 @@ def test_spec_json_roundtrip():
     # the port's spec fields are JAX's, with JAX's defaults
     for mine, ref in ((TrainSpec, jspecs.TrainSpec),
                       (ClockSpec, jspecs.ClockSpec),
-                      (ConsensusSpec, jspecs.ConsensusSpec)):
+                      (ConsensusSpec, jspecs.ConsensusSpec),
+                      (ControllerSpec, jspecs.ControllerSpec)):
         theirs = {f.name: f.default for f in dataclasses.fields(ref)}
         for f in dataclasses.fields(mine):
             assert theirs[f.name] == f.default, f.name
@@ -131,12 +134,13 @@ def _options(ap):
 
 def test_cli_flags_names_defaults_and_choices_match_jax():
     mine, ref = argparse.ArgumentParser(), argparse.ArgumentParser()
-    for spec in (TrainSpec, ClockSpec, ConsensusSpec):
+    for spec in (TrainSpec, ClockSpec, ConsensusSpec, ControllerSpec):
         spec.add_cli_args(mine)
-    for spec in (jspecs.TrainSpec, jspecs.ClockSpec, jspecs.ConsensusSpec):
+    for spec in (jspecs.TrainSpec, jspecs.ClockSpec, jspecs.ConsensusSpec,
+                 jspecs.ControllerSpec):
         spec.add_cli_args(ref)
     got, want = _options(mine), _options(ref)
-    assert set(want) - set(got) == {"--model", "--pod", "--redundancy"}
+    assert set(want) - set(got) == {"--model", "--pod"}
     assert set(got) <= set(want)
     for flag, action in got.items():
         other = want[flag]
@@ -187,6 +191,70 @@ def test_train_cli_flags_are_jax_less_the_unported(monkeypatch):
         other = want[flag]
         assert (action.dest, action.default, action.choices) == (
             other.dest, other.default, other.choices), flag
+
+
+NEW_FLAGS = ["--redundancy", "2", "--controller", "--controller-interval",
+             "1", "--controller-warmup", "2", "--controller-dmax", "3",
+             "--churn", "0.25", "--churn-rejoin", "0.4", "--churn-seed",
+             "7"]
+
+
+def test_new_train_flags_parse_to_jax_specs(monkeypatch):
+    """Coded redundancy, the controller and churn: both CLIs parse the
+    same argv to specs whose ``to_dict`` is JAX's (the port's TrainSpec
+    has no mesh extents) and to the same churn model."""
+    from repro.launch.train import main as jmain
+    parsers = []
+
+    def grab(self, *args, **kw):
+        parsers.append(self)
+        raise SystemExit(0)
+
+    real = argparse.ArgumentParser.parse_args
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    for fn in (jmain, lambda argv: main(argv, device="cpu")):
+        with pytest.raises(SystemExit):
+            fn([])
+    want, got = (real(ap, NEW_FLAGS) for ap in parsers)
+    mine = TrainSpec.from_args(got).to_dict()
+    theirs = jspecs.TrainSpec.from_args(want).to_dict()
+    assert mine == {k: theirs[k] for k in mine}
+    assert mine["redundancy"] == 2
+    assert ControllerSpec.from_args(got).to_dict() == \
+        jspecs.ControllerSpec.from_args(want).to_dict() == ControllerSpec(
+            enabled=True, interval=1, warmup=2, d_max=3).to_dict()
+    assert (got.churn, got.churn_rejoin, got.churn_seed) == \
+        (want.churn, want.churn_rejoin, want.churn_seed) == (0.25, 0.4, 7)
+
+
+def test_train_cli_churn_coded_and_controlled(tmp_path, capsys):
+    """``--churn`` with ``--redundancy 2`` and ``--controller`` at smoke
+    size: a down worker's b is 0 on its epochs, every line has finite
+    loss and b(t), an action prints its ``controller:`` line and lands in
+    the JSONL line of its epoch."""
+    from repro_torch.faults import PoissonChurn
+    path = tmp_path / "m.jsonl"
+    loss = main(SMOKE + ["--steps", "6", "--consensus", "gossip",
+                         "--gossip-rounds", "2", "--compute-time", "40.0",
+                         "--redundancy", "2", "--churn", "0.25",
+                         "--churn-seed", "1", "--controller",
+                         "--controller-interval", "1",
+                         "--controller-warmup", "2", "--metrics",
+                         str(path)], device="cpu")
+    out = capsys.readouterr().out
+    lines = read_metrics(path)
+    assert len(lines) == 6 and loss == lines[-1]["loss"]
+    assert all(np.isfinite(ln["loss"]) for ln in lines)
+    acts = [ln for ln in lines if "action" in ln]
+    assert acts and acts[0]["action"]["budget"] < 40.0
+    assert out.count("controller: T 40->") == 1
+    assert out.count("controller:") == len(acts)
+    churn = PoissonChurn(0.25, 0.5, seed=1)
+    for epoch, ln in enumerate(lines):
+        # a group of two covers its block whenever one member is up
+        up = churn.fleet(epoch, N).active
+        assert ln["global_batch"] <= PER * sum(
+            up[g * 2:(g + 1) * 2].any() for g in range(N // 2))
 
 
 def test_kernels_field_maps_onto_the_router():
