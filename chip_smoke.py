@@ -33,12 +33,20 @@ Phases (any failure ends the run with a non-zero exit code):
      kernel's chunk (within a segment and across three), then at the
      rwkv6-3b prefill shapes (40 heads of 64, S 2048 and 2560) through the
      model's layout, with the segment plan (L, segments, scratch bytes);
+     flash attention at the new models' prefill shapes: qwen3-moe's GQA
+     group 8 (S 2048 and 2560, causal), qwen3-8b's window 4096 at S 8192
+     (library: SDPA with the windowed mask) and 32,768 (its last 512 rows
+     against the plain version through ``q_offset``), and the long_500k
+     prompt (524,288 tokens) in the model's query chunks;
   4. a small reference check: the quantized gossip strategy on a
      smoke-width message stack, the smoke-size sessions (exact, gossip,
      gossip_q8), and smoke-size serving of qwen2-1.5b and rwkv6-3b
      (prefill logits and caches or states, slot-engine greedy tokens), on
      the card (CUDA kernels) against the CPU (plain versions), the
-     quantized ones with rounding draws made on the CPU;
+     quantized ones with rounding draws made on the CPU; then qwen3-8b with
+     window 8 (ring caches, prefill and 6 decode steps) and qwen3-moe
+     (prefill and slot-engine tokens; tokens routed to other experts on
+     the card than on the CPU are counted and left out);
   5. the main path: AMBSession on qwen2-1.5b at full width, exact
      consensus, all 28 layers, 3 epochs; ring gossip (r = 5), cut to 8
      layers; ring gossip_q8 (20 rounds) and gossip_q4 (40 rounds), cut to
@@ -99,7 +107,20 @@ Phases (any failure ends the run with a non-zero exit code):
      prefill's attention on the tensor-core body; the same serve run for
      rwkv6-3b at full width, all 32 layers, bf16; launch counts are reset
      just before each run and read just after;
- 11. print the kernels' JSON line, the card line, and the final ok line.
+ 11. the rest of the zoo's dense branch at full width, bf16: qwen3-moe-30b-a3b
+     served through the slot engine and scheduler with no session (48
+     layers, 8 slots, 16 requests of 2048 +- 512 tokens at exact length,
+     32 new tokens, arrivals 2.0 s apart: TTFT, TPOT, the decode round's
+     median, the peak; 48 tensor-core flash launches a request); the
+     serve CLI on it cut to 4 layers with 2 fine-tune epochs; an exact
+     AMBSession on it at 4 layers, 4 x 8 x 256, 3 epochs (loss and aux
+     each epoch, 15 prox launches an epoch, the peak); qwen3-8b at
+     long_500k (window 4096, 36 layers): a 32,768-token prefill, 64 ring
+     decode steps held against a linear cache masked to the window (and
+     each layer's attention in fp32 on the same keys), then the
+     524,288-token prefill and 16 decode steps past it (seconds,
+     tokens/s, the peak); launch counts reset before each and read after;
+ 12. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -335,6 +356,17 @@ def dense_param_count(cfg) -> int:
     return 2 * cfg.vocab_size * d + d + cfg.num_layers * per_layer
 
 
+def hold_dual_update(torch, ops, ref, z, w0, beta: float, what: str):
+    """max |kernel - plain| of the prox on (z, w0); fails past DUAL_TOL."""
+    got = ops.dual_update(z, w0, beta, force="kernel")
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, ref.dual_update_ref(z, w0, beta))
+    if err > DUAL_TOL:
+        fail(f"dual_update {what} w0 {w0.dtype}: max_abs_err {err} > "
+             f"{DUAL_TOL}")
+    return err
+
+
 def check_dual_update(torch, ops, ref, full_shape, beta: float):
     """The prox against its plain version: whole tensors, views whose
     start is offset by (z, w0) elements with odd lengths (4: 16-byte
@@ -354,14 +386,11 @@ def check_dual_update(torch, ops, ref, full_shape, beta: float):
             w0 = torch.randn(n + ow, generator=gen,
                              device="cuda").to(dtype)[ow:]
             z, w0 = z.view(shape), w0.view(shape)
-            got = ops.dual_update(z, w0, beta, force="kernel")
-            torch.cuda.synchronize()
-            err = max_abs_err(torch, got, ref.dual_update_ref(z, w0, beta))
+            err = hold_dual_update(torch, ops, ref, z, w0, beta,
+                                   f"shape={shape} offsets z={oz} w0={ow}")
             worst = max(worst, err)
             line = (f"dual_update shape={shape} offsets z={oz} w0={ow} "
                     f"w0={dtype} max_abs_err={err:.3g}")
-            if err > DUAL_TOL:
-                fail(f"{line} > {DUAL_TOL}")
             if shape == full_shape:
                 k_ms, l_ms = time_pair(
                     torch, lambda: ops.dual_update(z, w0, beta,
@@ -377,7 +406,7 @@ def check_dual_update(torch, ops, ref, full_shape, beta: float):
                 line += (f" ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                          f"library_ms={l_ms:.4f} bound_ms={b_ms:.4f}")
             print(line, flush=True)
-            del z, w0, got
+            del z, w0
     return worst, full
 
 
@@ -565,45 +594,33 @@ def check_flash_attention(torch, ops, router, flash):
         if flash.body(q, k, v) != "tensor_core":
             fail(f"flash_attention S={s}: the model's layout took the "
                  f"{flash.body(q, k, v)} body")
-        got = ops.flash_attention(q, k, v, force="kernel")
-        torch.cuda.synchronize()
-        want = ops.flash_attention(q, k, v, force="ref")
-        err, tol = max_abs_err(torch, got, want), flash_tol(torch, want)
-        old = flash.flash_attention_cuda(q, k, v, force_body="cuda_core")
-        torch.cuda.synchronize()
-        err_old = max_abs_err(torch, old, want)
-        line = (f"flash_attention B={b} H={h} KV={kv} hd={hd} S={s} bf16 "
-                f"causal max_abs_err={err:.3g} (tensor_core), "
-                f"{err_old:.3g} (cuda_core) (tol {tol:.3g})")
-        if not (err <= tol and err_old <= tol):
-            fail(line)
-        print(f"flash_attention S={s} bf16 ulps: tensor_core "
-              f"{ulp_stats(torch, got, want)}; cuda_core "
-              f"{ulp_stats(torch, old, want)}", flush=True)
-        k_ms, l_ms = time_pair(
-            torch, lambda: ops.flash_attention(q, k, v, force="kernel"),
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 200,
-            f"flash_attention tensor_core S={s}")
-        c_ms = time_ms(torch, lambda: flash.flash_attention_cuda(
-            q, k, v, force_body="cuda_core"), 50,
-            "flash_attention cuda_core")
-        p_ms = time_ms(torch, lambda: ops.flash_attention(
-            q, k, v, force="ref"), 10, "flash_attention plain")
-        flops = 4 * b * h * hd * causal_pairs(s, s)
-        nbytes = 2 * b * hd * s * (2 * h + 2 * kv)
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-        print(f"{line} ms={k_ms:.4f} cuda_core_ms={c_ms:.4f} plain_ms="
-              f"{p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} "
-              f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
-              f"tensor_core {flops / k_ms / 1e9:.1f} TFLOP/s)", flush=True)
-        if main is None:
-            main = dict(ms=k_ms, cuda_core_ms=c_ms, plain_ms=p_ms,
-                        library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                        max_abs_err=err,
-                        shape=f"B={b} H={h} KV={kv} hd={hd} "
-                              f"Sq=Skv={s} bf16 causal, tensor_core body")
-        del q, k, v, got, want, old
+
+        def cuda_core(got, want, tol):
+            """The CUDA-core body at the same shape: held, its bf16 ulps
+            printed beside the tensor-core body's, timed."""
+            old = flash.flash_attention_cuda(q, k, v, force_body="cuda_core")
+            torch.cuda.synchronize()
+            err_old = max_abs_err(torch, old, want)
+            if not err_old <= tol:
+                fail(f"flash_attention S={s} cuda_core: max_abs_err "
+                     f"{err_old} > {tol}")
+            print(f"flash_attention S={s} bf16 ulps: tensor_core "
+                  f"{ulp_stats(torch, got, want)}; cuda_core "
+                  f"{ulp_stats(torch, old, want)}", flush=True)
+            del old
+            c_ms = time_ms(torch, lambda: flash.flash_attention_cuda(
+                q, k, v, force_body="cuda_core"), 50,
+                "flash_attention cuda_core")
+            return dict(cuda_core_ms=c_ms, cuda_core_max_abs_err=err_old)
+
+        entry = flash_entry(
+            torch, ops, q, k, v, 0,
+            f"B={b} H={h} KV={kv} hd={hd} S={s} bf16 causal, tensor_core "
+            f"body", lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), reps=200,
+            extra=cuda_core)
+        main = main or entry
+        del q, k, v
     return main
 
 
@@ -1857,9 +1874,11 @@ def timed(table: dict, key: str, fn):
     return wrapper
 
 
-def run_serve(torch, rt, argv) -> dict:
+def run_serve(torch, rt, argv, cfg=None) -> dict:
     """The serve CLI at full width (``argv``: SERVE_ARGV or its rwkv6-3b
-    form): returns the launch counts of exactly that run.  The engine's
+    or qwen3-moe form; ``cfg`` a depth-cut config the CLI's session gets
+    in place of the registry's, as the CLI has no depth flag): returns the
+    launch counts of exactly that run.  The engine's
     sampler is wrapped to see every logits tensor it draws from, and the
     engine's insert (a prefill) and decode round and the session's step
     are timed.  Each request's prefill launches its attention kernel
@@ -1879,7 +1898,13 @@ def run_serve(torch, rt, argv) -> dict:
         seen.append(int((~torch.isfinite(logits)).sum()))
         return sample(logits, *args, **kw)
 
+    session_mod = sys.modules["repro_torch.api.session"]
+    real_config = session_mod.get_config
+    arch = argv[argv.index("--arch") + 1]
+    if cfg is None:
+        cfg = rt.configs.get_config(arch)
     slots.sample_token = checked
+    session_mod.get_config = lambda name: cfg
     for (owner, name), fn in zip(wrapped, originals):
         setattr(owner, name, timed(split, name, fn))
     gc.collect()
@@ -1891,12 +1916,11 @@ def run_serve(torch, rt, argv) -> dict:
         report = serve_main(argv)
     finally:
         slots.sample_token = sample
+        session_mod.get_config = real_config
         for (owner, name), fn in zip(wrapped, originals):
             setattr(owner, name, fn)
     wall = time.perf_counter() - t0
     launches = rt.kernels.router.launches()
-    arch = argv[argv.index("--arch") + 1]
-    cfg = rt.configs.get_config(arch)
     leaves = len(rt.models.init_params(rt.configs.smoke_config(arch),
                                        torch.Generator()))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2230,6 +2254,702 @@ def check_train_cli(torch, rt, full) -> dict:
     return dict(runs=runs, build_ms=build_ms)
 
 
+# ---------------------------------------------------------------------------
+# the rest of the zoo's dense branch: qwen3-moe-30b-a3b (GQA group 8, 128
+# experts top-8) and qwen3-8b at long_500k (sliding window 4096, ring caches)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, LONG_ARCH = "qwen3-moe-30b-a3b", "qwen3-8b"
+FLASH_MOE = dict(b=1, h=32, kv=4, hd=128)      # qwen3-moe, batch-1 prefill
+FLASH_MOE_SEQS = (2048, 2560)
+FLASH_LONG = dict(b=1, h=32, kv=8, hd=128)     # qwen3-8b
+FLASH_LONG_SEQS = (8192, 32768)    # 8192: the plain version and the
+                                   # library take it whole
+FLASH_ROWS = 512        # query rows held against the plain version where
+                        # its whole scores do not fit (137 GB at 32,768)
+MOE_LAYERS = 4          # depth cut of the MoE session and serve CLI (memory)
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH] + SERVE_ARGV[2:]
+MOE_SERVE_ARGV[MOE_SERVE_ARGV.index("--arrival-gap") + 1] = "1.0"
+LONG_WINDOW = 4096      # repro_torch.configs.SWA_WINDOW, long_500k's
+LONG_SEQ = 524288       # repro_torch.configs.SHAPES["long_500k"].seq_len
+LONG_PREFIX = 32768     # eight windows
+LONG_DECODE = 64        # ring decode steps held against a linear cache
+LONG_TAIL = 16          # decode steps after the long_500k prompt
+# ring vs linear decode, bf16, 36 layers: max |a - b| / max |a| of a step.
+# The two sum the softmax over 4096 and over 32,832 rows, and a bf16
+# rounding flip grows through the layers: two linear caches that differ
+# only in capacity (the same keys) differ by up to 0.027 (an H100 80GB
+# HBM3 at 700 W), above JAX's 0.02 for this identity at 2 layers.  So
+# the ring must stay within LONG_NOISE x that control, measured in the
+# same run; the layouts themselves are held in fp32, layer by layer, on
+# the same keys
+LONG_NOISE = 2.0
+LONG_LAYER_TOL = 1e-5   # x max |out|: fp32, sums over 4096 vs 32,833 rows
+MOE_AUX = (0.9, 1.5)    # aux per layer at init (balanced routing gives 1)
+MOE_PROMPT = 64         # smoke prefill prompts: one dispatch group each
+MOE_HELD_PROMPTS = 2    # of 3: prompts routed alike card vs CPU, at least
+MOE_FLIPS = 2           # token rows routed differently card vs CPU (fp32
+                        # near-ties of the router), at most
+
+
+def window_pairs(s: int, w: int) -> int:
+    """(query, key) pairs a causal mask of window ``w`` keeps over S."""
+    n = min(s, w)
+    return n * (n + 1) // 2 + (s - n) * w
+
+
+def flash_entry(torch, ops, q, k, v, window, what, library, *, reps,
+                plain=True, run=None, got=None, held=None, extra=None):
+    """One causal flash shape on the tensor-core body, q, k, v (B, H, S,
+    hd): the kernel's output (``got``, else one call of ``run``, else of
+    the kernel) against the plain version, whole (``plain``) or in blocks
+    of FLASH_ROWS query rows from each start in ``held`` (default: the
+    last block) through ``q_offset``; then the ms of ``run`` (or the
+    kernel), of the plain version (``plain``) and of ``library`` (None:
+    no time), and the bound.  ``extra(got, want, tol)`` makes its own
+    checks and returns keys for the entry."""
+    b, h, s, hd = q.shape
+    kvh = k.shape[1]
+    if run is None:
+        run = lambda: ops.flash_attention(  # noqa: E731
+            q, k, v, force="kernel", window=window)
+    if got is None:
+        got = run()
+        torch.cuda.synchronize()
+    if plain:
+        blocks = [(got, ops.flash_attention(q, k, v, force="ref",
+                                            window=window))]
+    else:
+        blocks = []
+        for r0 in held or (s - FLASH_ROWS,):
+            r1 = r0 + FLASH_ROWS
+            k0 = max(0, r0 - window + 1) if window else 0
+            blocks.append((got[:, :, r0:r1], ops.flash_attention(
+                q[:, :, r0:r1], k[:, :, k0:r1], v[:, :, k0:r1], force="ref",
+                window=window, q_offset=r0 - k0)))
+    err = max(max_abs_err(torch, g, w) for g, w in blocks)
+    tol = max(flash_tol(torch, w) for _, w in blocks)
+    if not err <= tol:
+        fail(f"flash_attention {what}: max_abs_err {err} > {tol}")
+    more = extra(got, blocks[0][1], tol) if extra else {}
+    del got, blocks
+    if library is None:
+        k_ms, l_ms = time_ms(torch, run, reps, what), None
+    else:
+        k_ms, l_ms = time_pair(torch, run, library, reps, what)
+    p_ms = time_ms(torch, lambda: ops.flash_attention(
+        q, k, v, force="ref", window=window), 5, f"{what} plain") \
+        if plain else None
+    pairs = window_pairs(s, window) if window else causal_pairs(s, s)
+    flops = 4 * b * h * hd * pairs
+    nbytes = 2 * b * hd * s * (2 * h + 2 * kvh)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    rows = s if plain else FLASH_ROWS * len(held or (0,))
+    entry = dict(shape=what, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                 checked_rows=rows, **more)
+    print(f"flash_attention {what}: max_abs_err={err:.3g} (tol {tol:.3g}, "
+          f"{rows} rows) ms={k_ms:.4f} plain_ms={p_ms} library_ms={l_ms} "
+          f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB; {flops / k_ms / 1e9:.1f} TFLOP/s)"
+          + "".join(f" {k}={x}" for k, x in more.items()), flush=True)
+    return entry
+
+
+def check_flash_zoo(torch, ops, router, flash, attn) -> list:
+    """The flash kernel at the new models' prefill shapes: qwen3-moe's GQA
+    group 8 (causal; library: SDPA with ``is_causal`` and ``enable_gqa``),
+    qwen3-8b's window 4096 at S 8192 (library: SDPA with the windowed mask
+    given explicitly) and 32,768 (the last FLASH_ROWS rows against the
+    plain version through ``q_offset``), and the long_500k prompt through
+    ``attn.flash_prefill``: query chunks of ``attn.PREFILL_ROWS`` rows,
+    each with its keys from ``window - 1`` before it (its first and last
+    FLASH_ROWS rows held against the plain version)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entries = []
+    for s in FLASH_MOE_SEQS:
+        b, h, kv, hd = (FLASH_MOE[x] for x in ("b", "h", "kv", "hd"))
+        q, k, v = model_layout(torch, gen, b, s, s, h, kv, hd,
+                               torch.bfloat16)
+        if flash.body(q, k, v) != "tensor_core":
+            fail(f"flash_attention {MOE_ARCH} S={s}: not the tensor cores")
+        entries.append(flash_entry(
+            torch, ops, q, k, v, 0,
+            f"B={b} H={h} KV={kv} hd={hd} S={s} bf16 causal ({MOE_ARCH})",
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+            reps=200))
+        del q, k, v
+    w = LONG_WINDOW
+    for s in FLASH_LONG_SEQS:
+        b, h, kv, hd = (FLASH_LONG[x] for x in ("b", "h", "kv", "hd"))
+        q, k, v = model_layout(torch, gen, b, s, s, h, kv, hd,
+                               torch.bfloat16)
+        library = None
+        if s == FLASH_LONG_SEQS[0]:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (
+                pos[:, None] - pos[None, :] < w)
+            library = lambda: sdpa(q, k, v, attn_mask=mask,  # noqa: E731
+                                   enable_gqa=True)
+        entries.append(flash_entry(
+            torch, ops, q, k, v, w,
+            f"B={b} H={h} KV={kv} hd={hd} S={s} bf16 causal window {w} "
+            f"({LONG_ARCH})", library, plain=s == FLASH_LONG_SEQS[0],
+            reps=20))
+        del q, k, v, library
+        release(torch)
+    # the long_500k prompt, chunked as the model's prefill calls it
+    b, h, kv, hd = (FLASH_LONG[x] for x in ("b", "h", "kv", "hd"))
+    s = LONG_SEQ
+    q = torch.randn((b, s, kv, h // kv, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn((b, s, kv, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, s, kv, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    calls = -(-s // attn.PREFILL_ROWS)
+    router.reset_launches()
+    out = attn.flash_prefill(q, k, v, w).reshape(b, s, h, hd)
+    torch.cuda.synchronize()
+    n = router.launches().get("flash_attention.tensor_core", 0)
+    if n != calls:
+        fail(f"flash_prefill S={s}: {n} tensor-core launches, expected "
+             f"{calls}")
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, h, s, hd)
+    entries.append(flash_entry(
+        torch, ops, qh, k.transpose(1, 2), v.transpose(1, 2), w,
+        f"B={b} H={h} KV={kv} hd={hd} S={s} bf16 causal window {w} "
+        f"({LONG_ARCH} long_500k), {calls} calls of {attn.PREFILL_ROWS} "
+        f"query rows", None, reps=3, plain=False,
+        run=lambda: attn.flash_prefill(q, k, v, w),
+        got=out.transpose(1, 2), held=(0, s - FLASH_ROWS)))
+    del q, k, v, qh, out
+    release(torch)
+    return entries
+
+
+class RoutingLog:
+    """Records each ``moe_forward`` call's expert picks (idx of its top-k)
+    while installed on the model module, so that two runs can be compared
+    call by call."""
+
+    def __init__(self, torch, model_mod):
+        self.torch, self.mod, self.calls = torch, model_mod, []
+
+    def __enter__(self):
+        real = self.real = self.mod.moe.moe_forward
+        torch = self.torch
+
+        def logged(p, x, cfg):
+            probs = torch.softmax(torch.einsum(
+                "bsd,de->bse", x.float(), p["router"]), dim=-1)
+            idx = torch.topk(probs, cfg.experts_per_token, dim=-1).indices
+            self.calls.append(idx.sort(-1).values.cpu())
+            return real(p, x, cfg)
+
+        self.mod.moe.moe_forward = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe.moe_forward = self.real
+
+
+def routing_diff(a: list, b: list) -> list:
+    """Per call, the token rows whose picks differ between two logs."""
+    if len(a) != len(b):
+        fail(f"routing logs of {len(a)} and {len(b)} calls")
+    return [int((x != y).any(-1).sum()) for x, y in zip(a, b)]
+
+
+def zoo_reference_check(torch, rt) -> None:
+    """Smoke-size fp32 card (kernels) vs CPU (plain versions) for the new
+    models: qwen3-8b with window 8, a 20-token prompt (ring caches of 8
+    rows) and 6 greedy decode steps; qwen3-moe-30b-a3b prefill (3 prompts
+    of MOE_PROMPT tokens, right-padded) and the slot engine's greedy
+    tokens.  Where the MoE routes a token to other experts on the card
+    than on the CPU, the differing rows are counted (at most MOE_FLIPS)
+    and the rest held: the prompts routed alike in every layer (at least
+    MOE_HELD_PROMPTS) within SERVE_TOL, and each request's greedy tokens
+    equal, and the logits they came from within SERVE_TOL, up to the
+    first engine call that served it with a row routed differently (at
+    least half of all tokens held)."""
+    cfg = dataclasses.replace(rt.configs.smoke_config(LONG_ARCH),
+                              dtype="float32", sliding_window=8)
+    params = rt.models.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = {k: v.to(device) for k, v in params.items()}
+        rt.kernels.router.reset_launches()
+        logits, st = rt.models.prefill(p, cfg, {"tokens": toks.to(device)})
+        seq = [logits.cpu()]
+        tok = logits.argmax(-1)
+        for _ in range(6):
+            logits, st = rt.models.decode_step(p, cfg, st, tok)
+            seq.append(logits.cpu())
+            tok = logits.argmax(-1)
+        if (device == "cuda") != (rt.kernels.router.launches().get(
+                "flash_attention", 0) == cfg.num_layers):
+            fail(f"reference {LONG_ARCH} window: flash launches "
+                 f"{rt.kernels.router.launches()}")
+        out[device] = (torch.stack(seq), st.caches.k.cpu(),
+                       st.caches.v.cpu())
+    err = max(max_abs_err(torch, a, b) for a, b in zip(out["cpu"],
+                                                       out["cuda"]))
+    print(f"reference {LONG_ARCH} window 8: prefill and 6 decode steps' "
+          f"logits and ring caches card vs CPU max_abs_err={err:.3g}",
+          flush=True)
+    if not err <= SERVE_TOL:
+        fail(f"reference {LONG_ARCH} window: max_abs_err {err} > "
+             f"{SERVE_TOL}")
+
+    cfg = dataclasses.replace(rt.configs.smoke_config(MOE_ARCH),
+                              dtype="float32")
+    params = rt.models.init_params(cfg, torch.Generator().manual_seed(0))
+    # prompts of MOE_PROMPT tokens: each its own dispatch group (JAX's
+    # rule), so a token routed differently can only change its own
+    # prompt's capacity drops
+    toks = torch.randint(0, cfg.vocab_size, (3, MOE_PROMPT),
+                         generator=torch.Generator().manual_seed(1))
+    if rt.models.moe.num_groups(3, MOE_PROMPT) != 3:
+        fail(f"reference {MOE_ARCH}: prompts share a dispatch group")
+    last = torch.tensor([MOE_PROMPT - 1, 17, 40])
+    model_mod = sys.modules["repro_torch.models.model"]
+    res = {}
+    for device in ("cpu", "cuda"):
+        p = {k: v.to(device) for k, v in params.items()}
+        with RoutingLog(torch, model_mod) as pre:
+            logits, st = rt.models.prefill(
+                p, cfg, {"tokens": toks.to(device)}, extra_capacity=8,
+                last_pos=last.to(device))
+        engine = rt.serve.SlotEngine(p, cfg, slots=2, cache_len=64)
+        reqs = rt.serve.synthetic_requests(
+            5, vocab_size=cfg.vocab_size, prompt_len=24, prompt_jitter=8,
+            max_new_tokens=8, seed=3)
+        with RoutingLog(torch, model_mod) as eng:
+            calls = engine_calls(engine, eng)
+            drain(engine, reqs)
+        res[device] = dict(logits=logits.cpu(), k=st.caches.k.cpu(),
+                           v=st.caches.v.cpu(), pre=pre.calls,
+                           eng=eng.calls, calls=calls,
+                           rids=[r.rid for r in reqs],
+                           tokens=[r.out_tokens for r in reqs])
+    cpu, gpu = res["cpu"], res["cuda"]
+    # a prompt with a row routed differently in any layer is left out
+    rows_off = torch.zeros(3, dtype=torch.bool)
+    for x, y in zip(cpu["pre"], gpu["pre"]):
+        rows_off |= (x != y).any(-1).any(-1)
+    keep = ~rows_off
+    held = int(keep.sum())
+    err = max(max_abs_err(torch, cpu[n][:, keep] if n != "logits"
+                          else cpu[n][keep],
+                          gpu[n][:, keep] if n != "logits"
+                          else gpu[n][keep])
+              for n in ("logits", "k", "v")) if held else float("inf")
+    pre_diff = routing_diff(cpu["pre"], gpu["pre"])
+    eng_diff = routing_diff(cpu["eng"], gpu["eng"])
+    lim, eng_err = held_tokens(cpu["calls"], gpu["calls"], cpu["eng"],
+                               gpu["eng"])
+    upto = [lim.get(r, len(t)) for r, t in zip(gpu["rids"], gpu["tokens"])]
+    got = sum(len(t) for t in gpu["tokens"])
+    same = sum(len(t[:n]) for t, n in zip(gpu["tokens"], upto))
+    print(f"reference {MOE_ARCH}: prefill token rows routed differently "
+          f"per call {pre_diff}; prompts held {held} of 3, logits and "
+          f"caches card vs CPU max_abs_err={err:.3g}; slot engine rows "
+          f"routed differently {sum(eng_diff)} over {len(eng_diff)} calls, "
+          f"greedy tokens held {same} of {got} (per request {upto}), "
+          f"their logits max_abs_err={eng_err:.3g}", flush=True)
+    if held < MOE_HELD_PROMPTS or sum(pre_diff) + sum(eng_diff) > MOE_FLIPS:
+        fail(f"reference {MOE_ARCH}: {held} of 3 prompts routed alike, "
+             f"{sum(pre_diff) + sum(eng_diff)} rows routed differently "
+             f"(at most {MOE_FLIPS})")
+    if not max(err, eng_err) <= SERVE_TOL:
+        fail(f"reference {MOE_ARCH}: max_abs_err {err} (prefill), "
+             f"{eng_err} (slot engine) > {SERVE_TOL}")
+    if 2 * same < got:
+        fail(f"reference {MOE_ARCH}: {same} of {got} greedy tokens came "
+             f"before a call routed differently")
+    for t_cpu, t_gpu, n in zip(cpu["tokens"], gpu["tokens"], upto):
+        if t_cpu[:n] != t_gpu[:n]:
+            fail(f"reference {MOE_ARCH}: greedy tokens differ before any "
+                 f"call routed differently: card {t_gpu[:n]} vs CPU "
+                 f"{t_cpu[:n]}")
+
+
+def engine_calls(engine, log) -> list:
+    """Wraps ``engine``'s insert, decode_round and sampler: each call made
+    records (the slice of ``log.calls`` it made, for every request it
+    served the tokens that request held before it and its row of the
+    logits, and the logits it sampled from)."""
+    calls, seen, sample = [], [], engine._sample
+
+    def sampled(logits):
+        seen.append(logits.float().cpu())
+        return sample(logits)
+
+    def wrap(fn, served, row):
+        def call(*args):
+            before = {r.rid: (len(r.out_tokens), row(r))
+                      for r in served(*args)}
+            n0, s0 = len(log.calls), len(seen)
+            out = fn(*args)
+            calls.append((slice(n0, len(log.calls)), before, seen[s0:]))
+            return out
+        return call
+
+    engine._sample = sampled
+    engine.insert = wrap(engine.insert, lambda req: [req], lambda r: 0)
+    engine.decode_round = wrap(
+        engine.decode_round,
+        lambda: [r for r in engine.active if r is not None],
+        lambda r: r.slot)
+    return calls
+
+
+def held_tokens(calls_a, calls_b, log_a, log_b) -> tuple:
+    """Holds runs a and b of the slot engine request by request up to the
+    first call that served it with any token routed differently (a decode
+    round's rows share one dispatch group, so one row routed differently
+    may change every row's drops).  Returns (rid -> the greedy tokens it
+    made before that call, absent where there was none; the max abs
+    difference of the logits it sampled from before it).  Fails if the
+    two runs' schedules differ."""
+    if [c[1] for c in calls_a] != [c[1] for c in calls_b]:
+        fail("reference: the slot engine's schedules differ")
+    upto, err = {}, 0.0
+    for (sa, served, la), (sb, _, lb) in zip(calls_a, calls_b):
+        routed = any(bool((x != y).any()) for x, y in zip(log_a[sa],
+                                                           log_b[sb]))
+        for rid, (n, row) in served.items():
+            if rid in upto:
+                continue
+            if routed:
+                upto[rid] = n
+            else:
+                err = max(err, float((la[0][row] - lb[0][row]).abs().max()))
+    return upto, err
+
+
+def init_on_card(torch, rt, cfg) -> tuple:
+    """(parameters from seed 0 on the card, seconds), printed with the
+    parameter count and bytes."""
+    t0 = time.perf_counter()
+    params = rt.models.init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    print(f"{cfg.name}: layers={cfg.num_layers} "
+          f"P={rt.models.param_count(params)} weights_GB={nbytes / 1e9:.2f} "
+          f"init_s={dt:.1f}", flush=True)
+    return params, dt
+
+
+def run_moe_serve(torch, rt) -> dict:
+    """qwen3-moe-30b-a3b at full width, all 48 layers, bf16, through
+    ``SlotEngine`` and ``ServeScheduler`` with no session (an
+    AMBSession's fp32 z and w0 would add 244 GB): 8 slots, SERVE_REQUESTS
+    prompts of 2048 +- 512 tokens at their exact lengths, SERVE_NEW greedy
+    tokens, arrivals 2.0 s apart, round budget 0.25 s.  Requires every
+    request to finish, finite logits, and one tensor-core flash launch a
+    layer a request; returns the launch counts of the run."""
+    from repro_torch.serve import slots
+    cfg = rt.configs.get_config(MOE_ARCH)
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = init_on_card(torch, rt, cfg)
+    cache_len = 2048 + 512 + SERVE_NEW
+    reqs = rt.serve.synthetic_requests(
+        SERVE_REQUESTS, vocab_size=cfg.vocab_size, prompt_len=2048,
+        prompt_jitter=512, max_new_tokens=SERVE_NEW, arrival_gap_s=2.0,
+        seed=1)
+    queue = rt.serve.RequestQueue(rt.serve.AdmissionPolicy(
+        cache_len=cache_len))
+    for r in reqs:
+        queue.push(r)
+    engine = rt.serve.SlotEngine(params, cfg, slots=8, cache_len=cache_len)
+    split: dict = {}
+    engine.insert = timed(split, "insert", engine.insert)
+    engine.decode_round = timed(split, "decode_round", engine.decode_round)
+    sample, seen = slots.sample_token, []
+
+    def checked(logits, *args, **kw):
+        seen.append(int((~torch.isfinite(logits)).sum()))
+        return sample(logits, *args, **kw)
+
+    slots.sample_token = checked
+    rt.kernels.router.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        report = rt.serve.ServeScheduler(engine, queue,
+                                         round_budget_s=0.25).run()
+    finally:
+        slots.sample_token = sample
+    wall = time.perf_counter() - t0
+    launches = rt.kernels.router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s = report.summary
+    print(f"serve {MOE_ARCH}: layers={cfg.num_layers} bf16 slots=8 "
+          f"requests={s['n_requests']} rounds={report.rounds} "
+          f"wall_s={wall:.1f} peak_GiB={peak:.2f}", flush=True)
+    print(f"  ttft_s p50={s['ttft_p50_s']:.4f} p99={s['ttft_p99_s']:.4f} "
+          f"tpot_s p50={s['tpot_p50_s']:.4f} p99={s['tpot_p99_s']:.4f} "
+          f"latency_s p50={s['latency_p50_s']:.4f} "
+          f"p99={s['latency_p99_s']:.4f} tokens_per_s="
+          f"{s['tokens_per_s']:.2f}", flush=True)
+    for name, label in (("insert", "prefill (insert)"),
+                        ("decode_round", "decode round")):
+        ts = sorted(split.get(name, []))
+        print(f"  {label}: n={len(ts)} total_s={sum(ts):.3f} median_s="
+              f"{ts[len(ts) // 2]:.4f} min_s={ts[0]:.4f} max_s="
+              f"{ts[-1]:.4f}", flush=True)
+    print(f"  launches: {launches}", flush=True)
+    done = [r for r in report.requests
+            if len(r.out_tokens) == SERVE_NEW and r.finish_reason == "length"]
+    if len(done) != SERVE_REQUESTS:
+        fail(f"serve {MOE_ARCH}: {len(done)} of {SERVE_REQUESTS} requests "
+             f"finished with {SERVE_NEW} tokens")
+    want = cfg.num_layers * SERVE_REQUESTS
+    expect(f"serve {MOE_ARCH}", launches, {
+        "flash_attention": want, "flash_attention.tensor_core": want,
+        "flash_attention.cuda_core": 0, "dual_update": 0})
+    if any(seen) or len(seen) < SERVE_REQUESTS:
+        fail(f"serve {MOE_ARCH}: {sum(seen)} non-finite logits over "
+             f"{len(seen)} draws")
+    del engine, params, report
+    release(torch)
+    return launches
+
+
+def run_moe_session(torch, rt, cfg, beta: float) -> tuple:
+    """AMBSession exact on qwen3-moe-30b-a3b at full width cut to
+    MOE_LAYERS layers, N_WORKERS x PER_WORKER x SEQ, EPOCHS epochs: loss
+    and aux finite each epoch (aux read where the exact step takes its
+    loss), aux per layer within MOE_AUX at init, one prox launch a leaf an
+    epoch; prints each epoch's peak.  Then the prox at the leaves only
+    this path gives it, held against its plain version on the session's
+    own z and fp32 w0 buffers after the last epoch, z redrawn from N(0, 1)
+    (three epochs leave most experts' z near 0, where a wrong prox would
+    still agree): the fp32 router (L, d, E) and the three expert leaves
+    (L, E, d, ff) and (L, E, ff, d), the first also with its w0 in bf16.
+    Returns (the launch counts, the prox's worst error)."""
+    amb_mod = sys.modules["repro_torch.dist.amb"]
+    real, auxes = amb_mod.lm_loss, []
+
+    def loss(*args, **kw):
+        total, m = real(*args, **kw)
+        auxes.append(float(m["aux"].detach()))
+        return total, m
+
+    release(torch)
+    session = session_for(rt, cfg, consensus="exact")
+    leaves = len(session.params)
+    source = rt.data.SyntheticSource(cfg.vocab_size, SEQ, N_WORKERS,
+                                     PER_WORKER, seed=0, device="cuda")
+    print(f"session exact {cfg.name}: layers={cfg.num_layers} "
+          f"P={rt.models.param_count(session.params)} leaves={leaves} "
+          f"workers={N_WORKERS} batch/worker={PER_WORKER} seq={SEQ}",
+          flush=True)
+    amb_mod.lm_loss = loss
+    rt.kernels.router.reset_launches()
+    try:
+        for epoch in range(EPOCHS):
+            torch.cuda.reset_peak_memory_stats()
+            m = session.step(source.batch(epoch))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"  epoch {epoch}: loss={m['loss']:.6f} aux="
+                  f"{auxes[-1]:.6f} (per layer "
+                  f"{auxes[-1] / cfg.num_layers:.4f}) b={m['b'].tolist()} "
+                  f"step_ms={m['step_s'] * 1e3:.1f} peak_GiB={peak:.2f}",
+                  flush=True)
+            if not (math.isfinite(m["loss"]) and math.isfinite(auxes[-1])):
+                fail(f"MoE session epoch {epoch}: loss {m['loss']} aux "
+                     f"{auxes[-1]}")
+    finally:
+        amb_mod.lm_loss = real
+    launches = rt.kernels.router.launches()
+    print(f"  launches: {launches}", flush=True)
+    lo, hi = MOE_AUX
+    if not lo <= auxes[0] / cfg.num_layers <= hi:
+        fail(f"MoE session: aux per layer at init {auxes[0]} / "
+             f"{cfg.num_layers} outside {MOE_AUX}")
+    expect("MoE session", launches, {"dual_update": leaves * EPOCHS})
+    if leaves != 15:
+        fail(f"MoE session: {leaves} leaves, expected 15")
+    del source
+    release(torch)
+    opt, worst = session.state["opt"], 0.0
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        key = f"blocks.moe.{name}"
+        z = opt["z"][key].normal_(generator=gen)
+        for w0 in (opt["w0"][key], opt["w0"][key].bfloat16()) \
+                if name == "w_gate" else (opt["w0"][key],):
+            what = f"{key} {tuple(z.shape)}"
+            err = hold_dual_update(torch, rt.kernels.ops, rt.kernels.ref, z,
+                                   w0, beta, what)
+            ms = time_ms(torch, lambda: rt.kernels.ops.dual_update(
+                z, w0, beta, force="kernel"), 5, f"dual_update {key}")
+            b_ms, _ = bound(z.numel() * (4 + w0.element_size() + 4),
+                            2 * z.numel())
+            print(f"  dual_update {what} z fp32 N(0, 1) w0 {w0.dtype}: "
+                  f"max_abs_err={err:.3g} (tol {DUAL_TOL}) ms={ms:.4f} "
+                  f"bound_ms={b_ms:.4f}; launches in the epochs "
+                  f"{launches['dual_update']}", flush=True)
+            worst = max(worst, err)
+            del w0
+    del session, opt, z
+    release(torch)
+    return launches, worst
+
+
+def linear_from_ring(torch, rt, state, s: int, extra: int):
+    """The linear cache (rows 0..s+extra-1) holding what a ring state after
+    an s-token prompt holds: position p at row p, positions before the
+    ring's reach zero (the window masks them)."""
+    rk, rv = state.caches.k, state.caches.v
+    cap = rk.shape[2]
+    shape = rk.shape[:2] + (s + extra,) + rk.shape[3:]
+    lk, lv = rk.new_zeros(shape), rv.new_zeros(shape)
+    pos = torch.arange(s - cap, s, device=rk.device)
+    lk[:, :, pos] = rk[:, :, pos % cap]
+    lv[:, :, pos] = rv[:, :, pos % cap]
+    return rt.models.DecodeState(rt.models.KVCache(lk, lv, False),
+                                 state.pos.clone())
+
+
+def ring_layers_fp32(torch, rt, params, cfg, ring) -> float:
+    """Each layer's decode attention in fp32 at the ring's position, over
+    its ring cache and over a linear cache holding the same keys (built
+    from it): the worst max |ring - linear| / max |out|."""
+    pos = int(ring.pos)
+    linear = linear_from_ring(torch, rt, ring, pos, 1)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    for layer, lp in enumerate(rt.models.model._layers(params, cfg)):
+        p32 = {k: v.float() for k, v in lp["attn"].items()}
+        x = torch.randn((1, 1, cfg.d_model), generator=gen, device="cuda")
+        outs = []
+        for st, is_ring in ((ring, True), (linear, False)):
+            cache = rt.models.KVCache(st.caches.k[layer].float(),
+                                      st.caches.v[layer].float(), is_ring)
+            outs.append(rt.models.decode_attend(
+                p32, x, st.pos, cache, c32, window=cfg.sliding_window)[0])
+        worst = max(worst, float((outs[0] - outs[1]).abs().max()
+                                 / outs[0].abs().max()))
+    del linear
+    return worst
+
+
+def run_long_context(torch, rt) -> dict:
+    """qwen3-8b at ``get_config(shape="long_500k")`` (window 4096), full
+    width, all 36 layers, bf16, batch 1: a LONG_PREFIX-token prefill
+    through the kernel (ring caches of 4096 rows), LONG_DECODE greedy
+    decode steps on the ring held step by step against the same steps on
+    a linear cache masked to the window (within LONG_NOISE x the gap
+    between two linear caches that differ only in capacity), and each
+    layer's attention in fp32 on the same keys in both layouts; then a
+    prefill
+    at the shape's own length (524,288 tokens: query chunks of
+    ``PREFILL_ROWS`` rows) and LONG_TAIL decode steps past it.  Returns
+    the launch counts of the two prefills and their decodes."""
+    cfg = rt.configs.get_config(LONG_ARCH, shape="long_500k")
+    seq = rt.configs.SHAPES["long_500k"].seq_len
+    if (cfg.sliding_window, seq) != (LONG_WINDOW, LONG_SEQ):
+        fail(f"{LONG_ARCH} long_500k: window {cfg.sliding_window}, "
+             f"{seq} tokens")
+    rows = rt.models.attention.PREFILL_ROWS
+    release(torch)
+    params, _ = init_on_card(torch, rt, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                         device="cuda")
+    rt.kernels.router.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, ring = rt.models.prefill(params, cfg,
+                                     {"tokens": toks[:, :LONG_PREFIX]})
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    if not (ring.caches.ring and ring.caches.k.shape[2] == cfg.sliding_window):
+        fail(f"{LONG_ARCH} long: prefill gave no ring cache of "
+             f"{cfg.sliding_window} rows")
+    linear = linear_from_ring(torch, rt, ring, LONG_PREFIX, LONG_DECODE)
+    control = linear_from_ring(torch, rt, ring, LONG_PREFIX,
+                               LONG_DECODE + LONG_WINDOW)
+    worst, noise, agree = 0.0, 0.0, 0
+    tok = logits.argmax(-1)
+    t0 = time.perf_counter()
+    for _ in range(LONG_DECODE):
+        a, ring = rt.models.decode_step(params, cfg, ring, tok)
+        b, linear = rt.models.decode_step(params, cfg, linear, tok)
+        c, control = rt.models.decode_step(params, cfg, control, tok)
+        af, bf, cf = a.float(), b.float(), c.float()
+        top = af.abs().max()
+        worst = max(worst, float((af - bf).abs().max() / top))
+        noise = max(noise, float((bf - cf).abs().max() / top))
+        agree += int(torch.equal(a.argmax(-1), b.argmax(-1)))
+        if not bool(torch.isfinite(af).all()):
+            fail(f"{LONG_ARCH} long: non-finite decode logits")
+        tok = a.argmax(-1)
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+    layer_err = ring_layers_fp32(torch, rt, params, cfg, ring)
+    print(f"long {LONG_ARCH} window {cfg.sliding_window}: prefill "
+          f"{LONG_PREFIX} tokens in {pre_s:.2f} s "
+          f"({LONG_PREFIX / pre_s:.0f} tokens/s); {LONG_DECODE} decode "
+          f"steps ring vs linear cache: worst rel err {worst:.3g} (two "
+          f"linear caches of other capacities: {noise:.3g}; tol "
+          f"{LONG_NOISE} x that), greedy tokens agree {agree}/"
+          f"{LONG_DECODE}, {steps_s / LONG_DECODE * 1e3:.1f} ms a step "
+          f"triple; fp32 attention on the same keys, ring vs linear, worst "
+          f"layer {layer_err:.3g} of max |out| (tol {LONG_LAYER_TOL}); "
+          f"peak_GiB={peak_a:.2f}", flush=True)
+    if not (worst <= LONG_NOISE * noise and layer_err <= LONG_LAYER_TOL):
+        fail(f"{LONG_ARCH} long: ring vs linear decode rel err {worst} "
+             f"(control {noise}), fp32 layers {layer_err}")
+    if int(ring.pos) != LONG_PREFIX + LONG_DECODE:
+        fail(f"{LONG_ARCH} long: ring position {int(ring.pos)}")
+    del ring, linear, control, logits, a, b, c
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, st = rt.models.prefill(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    peak_p = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    tok = logits.argmax(-1)
+    t0 = time.perf_counter()
+    for _ in range(LONG_TAIL):
+        logits, st = rt.models.decode_step(params, cfg, st, tok)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    peak_d = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = rt.kernels.router.launches()
+    print(f"long {LONG_ARCH} long_500k: prefill {seq} tokens in "
+          f"{pre_s:.2f} s ({seq / pre_s:.0f} tokens/s; {-(-seq // rows)} "
+          f"flash calls a layer) peak_GiB={peak_p:.2f}; {LONG_TAIL} decode "
+          f"steps past it in {dec_s:.3f} s ({dec_s / LONG_TAIL * 1e3:.1f} "
+          f"ms a token) peak_GiB={peak_d:.2f}; launches {launches}",
+          flush=True)
+    if not bool(torch.isfinite(logits.float()).all()) \
+            or int(st.pos) != seq + LONG_TAIL:
+        fail(f"{LONG_ARCH} long_500k: logits or position {int(st.pos)}")
+    calls = cfg.num_layers * (1 + -(-seq // rows))
+    expect(f"{LONG_ARCH} long", launches, {
+        "flash_attention": calls, "flash_attention.tensor_core": calls})
+    del params, st, logits, toks
+    release(torch)
+    return dict(launches=launches, prefill_s=pre_s, seq=seq,
+                peak_prefill_gib=peak_p)
+
+
 def report_kernels(build) -> None:
     """Set-up output: the ptxas report of each redesigned kernel (it must
     not spill), the tensor-core flash body's dynamic shared memory, and
@@ -2315,12 +3035,16 @@ def main() -> int:
                                   rt.kernels.flash_attention)
     rwkv_err, rwkv = check_rwkv6_scan(torch, ops, rt.models.ssm,
                                       rt.kernels.rwkv6_scan)
+    flash_zoo = check_flash_zoo(torch, ops, router,
+                                rt.kernels.flash_attention,
+                                rt.models.attention)
 
     smoke = rt.configs.smoke_config("qwen2-1.5b")
     check_quantized_strategy(torch, rt, dense_param_count(smoke) + 1)
     reference_check(torch, rt)
     serve_reference_check(torch, rt, "qwen2-1.5b")
     serve_reference_check(torch, rt, "rwkv6-3b")
+    zoo_reference_check(torch, rt)
 
     runs = {"exact": run_session(torch, rt, full, "exact"),
             "gossip": run_session(torch, rt, gossip_cfg, "gossip"),
@@ -2356,11 +3080,20 @@ def main() -> int:
     served = {"qwen2-1.5b": run_serve(torch, rt, SERVE_ARGV),
               "rwkv6-3b": run_serve(torch, rt, SERVE_RWKV_ARGV)}
     cli_launches = {k: r["launches"] for k, r in cli["runs"].items()}
+    moe_cut = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
+                                  num_layers=MOE_LAYERS)
+    zoo = {"serve qwen3-moe": run_moe_serve(torch, rt),
+           "serve cli qwen3-moe": run_serve(torch, rt, MOE_SERVE_ARGV,
+                                            cfg=moe_cut)}
+    zoo["session qwen3-moe"], moe_du_err = run_moe_session(
+        torch, rt, moe_cut, beta)
+    du_err = max(du_err, moe_du_err)
+    zoo["qwen3-8b long_500k"] = run_long_context(torch, rt)["launches"]
 
     def launches(name):
         return sum(c.get(name, 0) for group in (
             runs, served, sim["launches"], cli_launches, drivers,
-            coded_launches) for c in group.values())
+            coded_launches, zoo) for c in group.values())
 
     def per_epoch(name):
         return {s: c[name] / EPOCHS for s, c in runs.items() if name in c}
@@ -2380,6 +3113,8 @@ def main() -> int:
                                       drivers.items()},
                     launches_faults_control={a: c.get(name, 0) for a, c in
                                              coded_launches.items()},
+                    launches_zoo={a: c.get(name, 0) for a, c in
+                                  zoo.items()},
                     max_abs_err=err,
                     **timing)
 
@@ -2398,7 +3133,8 @@ def main() -> int:
         | {"launches_by_body": {b: launches(f"flash_attention.{b}")
                                 for b in rt.kernels.flash_attention.BODIES},
            "cuda_core_source":
-               "src/repro_torch/kernels/csrc/flash_attention.cu"},
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "zoo_shapes": flash_zoo},
         row("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:84", rwkv_err,
             rwkv),
     ]

@@ -50,9 +50,10 @@ REPS, TOP = 5, 12
 
 
 def profile(one, label: str, scan: bool = False) -> None:
-    """Host-clock median of ``REPS`` calls of ``one``, then one traced;
-    with ``scan``, also the device time of the kernels whose name holds
-    ``rwkv6``."""
+    """Host-clock median of ``REPS`` calls of ``one``, then one traced:
+    busy time, idle share, kernel launches (all, and the repo's by
+    counter) and the ``TOP`` kernels; with ``scan``, also the device time
+    of the kernels whose name holds ``rwkv6``."""
     for _ in range(2):
         one()
     times = []
@@ -60,7 +61,7 @@ def profile(one, label: str, scan: bool = False) -> None:
         t0 = time.perf_counter()
         one()
         times.append(time.perf_counter() - t0)
-    print(f"prefill {label}: median {statistics.median(times) * 1e3:.2f} ms "
+    print(f"{label}: median {statistics.median(times) * 1e3:.2f} ms "
           f"over {REPS} (min {min(times) * 1e3:.2f}, max "
           f"{max(times) * 1e3:.2f})", flush=True)
     router.reset_launches()
@@ -73,12 +74,13 @@ def profile(one, label: str, scan: bool = False) -> None:
     events = [e for e in prof.key_averages() if e.device_time_total > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in events) / 1e3
-    print(f"traced prefill {label}: wall {wall * 1e3:.2f} ms, device busy "
-          f"{busy:.2f} ms, idle share {1 - busy / (wall * 1e3):.3f}; "
-          f"launches {router.launches()}", flush=True)
+    print(f"traced {label}: wall {wall * 1e3:.2f} ms, device busy "
+          f"{busy:.2f} ms, idle share {1 - busy / (wall * 1e3):.3f}, "
+          f"{sum(e.count for e in events)} kernel launches; launches "
+          f"{router.launches()}", flush=True)
     if scan:
         mine = [e for e in events if "rwkv6" in e.key]
-        print(f"traced prefill {label}: rwkv6_scan device time "
+        print(f"traced {label}: rwkv6_scan device time "
               f"{sum(e.device_time_total for e in mine) / 1e3:.3f} ms over "
               f"{router.launches().get('rwkv6_scan', 0)} calls ("
               + ", ".join(f"{e.key[e.key.find('rwkv6'):].split('(')[0]} "
@@ -116,7 +118,7 @@ def main() -> int:
         ops.flash_attention_cuda = (
             lambda q, k, v, _b=which, **kw: fa.flash_attention_cuda(
                 q, k, v, force_body=_b, **kw))
-        profile(one, f"{cfg.name} S={SEQ} flash body {which}")
+        profile(one, f"prefill {cfg.name} S={SEQ} flash body {which}")
 
     # the RWKV6 family: exact length, the scan kernel on every layer
     del params
@@ -133,7 +135,8 @@ def main() -> int:
             logits, _ = models.prefill(rparams, rcfg, {"tokens": rtoks})
         return int(logits.argmax())
 
-    profile(rwkv_one, f"{rcfg.name} S={PROMPT} exact length", scan=True)
+    profile(rwkv_one, f"prefill {rcfg.name} S={PROMPT} exact length",
+            scan=True)
     return 0
 
 

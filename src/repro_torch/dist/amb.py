@@ -216,8 +216,8 @@ def make_train_step(cfg, opt, n: int, amb: AMBConfig = AMBConfig()):
             total, m = lm_loss(params, cfg, batch, sw)
             grads = torch.autograd.grad(total, list(params.values()))
         opt_state = opt.apply(dict(zip(params, grads)), opt_state, params)
-        metrics = {"loss": m["loss"].detach(), "ntok": m["ntok"],
-                   "global_batch": gbatch}
+        metrics = {"loss": m["loss"].detach(), "aux": m["aux"].detach(),
+                   "ntok": m["ntok"], "global_batch": gbatch}
         return params, opt_state, metrics
 
     return step

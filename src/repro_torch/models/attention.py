@@ -1,5 +1,6 @@
 """GQA causal self-attention: training, prefill and KV-cache decode
-(counterpart of ``repro.models.attention``, linear caches).
+(counterpart of ``repro.models.attention``: qk-norm, sliding windows,
+linear and ring caches).
 
 Queries are laid out (B, S, KV, G, hd): query head h = kv * G + g reads
 KV head kv.  The JAX package computes the softmax blockwise (online
@@ -7,16 +8,23 @@ softmax, ``flash_attention``) in plain JAX, outside any Pallas kernel.
 Here:
 
   * training (``attend_train``) is one masked softmax in plain torch ops,
-    in fp32, with the same masking: it is differentiated, and the flash
-    kernel has no backward yet.  The scores of one layer, (B, S, H, S)
-    fp32, are 100 MB at the qwen2-1.5b session shape;
-  * prefill (``attend_train(..., return_kv=True)``) runs
+    in fp32, with the same masking (causal, and the sliding window): it
+    is differentiated, and the flash kernel has no backward yet.  The
+    scores of one layer, (B, S, H, S) fp32, are 100 MB at the qwen2-1.5b
+    session shape;
+  * prefill (:func:`qkv_rope`, a token chunk at a time, then
+    :func:`flash_prefill`) runs
     :func:`repro_torch.kernels.ops.flash_attention`, the hand-written
     kernel on the card, on permuted views of the (B, S, KV, G, hd)
-    tensors;
-  * decode (``decode_attend``) attends one new token per row to its
-    linear cache in plain torch, as the JAX package does outside any
-    Pallas kernel; it writes the new K/V row into the cache in place.
+    tensors, in query chunks of ``PREFILL_ROWS`` rows, each with the keys
+    it can see (from ``window - 1`` before it under a window) and its
+    ``q_offset``;
+  * decode (``decode_attend``) attends one new token per row to its cache
+    in plain torch, as the JAX package does outside any Pallas kernel; it
+    writes the new K/V row into the cache in place.  A linear cache holds
+    position p at row p; a ring cache (sliding window, capacity <= the
+    window) at row p % capacity, and a row's validity follows from the
+    absolute position it holds.
 """
 from __future__ import annotations
 
@@ -26,9 +34,12 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
-from .common import ArchConfig, apply_rope, init_linear
+from .common import ArchConfig, apply_rope, init_linear, rms_norm
 
 NEG_INF = -1e30
+# query rows one flash call takes at prefill: keeps q under the kernel's
+# 2^31-element limit at the long_500k shape (524,288 x 32 x 128)
+PREFILL_ROWS = 65536
 
 
 def attention_params(cfg: ArchConfig, generator: torch.Generator,
@@ -47,6 +58,11 @@ def attention_params(cfg: ArchConfig, generator: torch.Generator,
         p["bq"] = torch.zeros((layers, h * hd), dtype=dt, device=dev)
         p["bk"] = torch.zeros((layers, kv * hd), dtype=dt, device=dev)
         p["bv"] = torch.zeros((layers, kv * hd), dtype=dt, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((layers, hd), dtype=torch.float32,
+                                 device=dev)
+        p["k_norm"] = torch.ones((layers, hd), dtype=torch.float32,
+                                 device=dev)
     return p
 
 
@@ -58,19 +74,35 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, kv, g, hd), k.reshape(b, s, kv, hd),
-            v.reshape(b, s, kv, hd))
+    q, k = q.reshape(b, s, kv, g, hd), k.reshape(b, s, kv, hd)
+    if "q_norm" in p:                          # per head, before rope
+        q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
+    return q, k, v.reshape(b, s, kv, hd)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """q (B,S,KV,G,hd), k/v (B,S,KV,hd) -> (B,S,KV,G,hd) in q's dtype."""
+def qkv_rope(p: dict, x: torch.Tensor, positions: torch.Tensor,
+             cfg: ArchConfig) -> tuple:
+    """q (B,S,KV,G,hd), k, v (B,S,KV,hd), q and k rotated to
+    ``positions``."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q.reshape(b, s, -1, cfg.hd), positions,
+                   cfg.rope_theta).reshape(q.shape)
+    return q, apply_rope(k, positions, cfg.rope_theta), v
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
+    """q (B,S,KV,G,hd), k/v (B,S,KV,hd) -> (B,S,KV,G,hd) in q's dtype;
+    ``window`` > 0 also masks keys ``window`` or more positions back."""
     s, hd = q.shape[1], q.shape[-1]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     scores = torch.einsum("bqkgh,bckh->bqgkc", q.float(), k.float()) * scale
     pos = torch.arange(s, device=q.device)
-    future = pos[None, :] > pos[:, None]                   # (q, c)
-    scores = scores.masked_fill(future[None, :, None, None, :], NEG_INF)
+    hidden = pos[None, :] > pos[:, None]                   # (q, c) future
+    if window > 0:
+        hidden |= (pos[:, None] - pos[None, :]) >= window
+    scores = scores.masked_fill(hidden[None, :, None, None, :], NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     denom = p.sum(dim=-1).clamp(min=1e-30)
@@ -78,28 +110,43 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
     return out.transpose(2, 3).to(q.dtype)
 
 
-def attend_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ArchConfig, *, return_kv: bool = False):
-    """Full-sequence causal self-attention with rotary positions.
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: int) -> torch.Tensor:
+    """Causal attention of a prompt through the flash kernel: q
+    (B,S,KV,G,hd), k/v (B,S,KV,hd) -> (B, S, H hd) in q's dtype.
 
-    With ``return_kv`` (prefill) the attention runs the flash kernel and
-    the roped k and v, (B, S, KV, hd) each, come back too: the decode cache
-    contents after a prefill of this sequence.
+    Queries go in chunks of ``PREFILL_ROWS`` rows; the chunk from row c
+    reads keys from ``c - window + 1`` (under a window; else from 0) and
+    passes the rows' offset into that slice as ``q_offset``, so every
+    call stays under the kernel's size limit and no call reads a key its
+    rows cannot see.
     """
-    b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
-    q = apply_rope(q.reshape(b, s, -1, cfg.hd), positions,
-                   cfg.rope_theta).reshape(q.shape)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if not return_kv:
-        return causal_attention(q, k, v).reshape(b, s, -1) @ p["wo"]
+    b, s, kvh, g, hd = q.shape
     # (B, KV, G, S, hd) merges to (B, H, S, hd) as a view: head kv G + g
-    out = kops.flash_attention(
-        q.permute(0, 2, 3, 1, 4).reshape(b, -1, s, cfg.hd),
-        k.transpose(1, 2), v.transpose(1, 2), causal=True, window=0,
-        q_offset=0)
-    out = out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
-    return out, (k, v)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, hd)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    if s <= PREFILL_ROWS:
+        out = kops.flash_attention(qh, kh, vh, causal=True, window=window,
+                                   q_offset=0)
+        return out.transpose(1, 2).reshape(b, s, -1)
+    out = q.new_empty((b, s, kvh * g, hd))
+    for c0 in range(0, s, PREFILL_ROWS):
+        c1 = min(c0 + PREFILL_ROWS, s)
+        k0 = max(0, c0 - window + 1) if window > 0 else 0
+        out[:, c0:c1] = kops.flash_attention(
+            qh[:, :, c0:c1], kh[:, :, k0:c1], vh[:, :, k0:c1], causal=True,
+            window=window, q_offset=c0 - k0).transpose(1, 2)
+    return out.reshape(b, s, -1)
+
+
+def attend_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence causal self-attention with rotary positions, masked
+    to ``cfg.sliding_window`` when it is set."""
+    b, s, _ = x.shape
+    q, k, v = qkv_rope(p, x, positions, cfg)
+    return causal_attention(q, k, v, cfg.sliding_window).reshape(
+        b, s, -1) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +156,7 @@ def attend_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
 @dataclasses.dataclass
 class KVCache:
     """A KV cache: k, v (..., B, cap, KV, hd); ``ring`` selects the ring
-    layout of sliding-window caches, which is not ported."""
+    layout of sliding-window caches (position p at row p % cap)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -118,9 +165,6 @@ class KVCache:
 
 def init_cache(cfg: ArchConfig, batch: int, capacity: int, *, ring: bool,
                device) -> KVCache:
-    if ring:
-        raise NotImplementedError("ring (sliding-window) KV caches are not "
-                                  "ported")
     shape = (batch, capacity, cfg.num_kv_heads, cfg.hd)
     return KVCache(torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
                    torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
@@ -134,24 +178,19 @@ def decode_attend(p: dict, x: torch.Tensor, pos, cache: KVCache,
     ``pos`` is a scalar (every row at one position) or a (B,) vector of
     per-row positions (the slot engine: each row writes its own cache row
     and masks its own valid prefix).  The new K/V row is written into
-    ``cache`` in place; returns (out (B, 1, d), cache).
+    ``cache`` in place, at row ``pos`` (linear; clamped to the last row)
+    or ``pos % cap`` (ring); returns (out (B, 1, d), cache).
     """
     b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"decode takes one token per row, got {s}")
-    if cache.ring:
-        raise NotImplementedError("ring (sliding-window) KV caches are not "
-                                  "ported")
     hd = cfg.hd
-    q, k, v = _project_qkv(p, x, cfg)
     pos = torch.as_tensor(pos, device=x.device)
     posq = pos.reshape(-1, 1)              # (B, 1) per row or (1, 1) shared
-    q = apply_rope(q.reshape(b, 1, -1, hd), posq,
-                   cfg.rope_theta).reshape(q.shape)
-    k = apply_rope(k, posq, cfg.rope_theta)
+    q, k, v = qkv_rope(p, x, posq, cfg)
 
     cap = cache.k.shape[1]
-    row = pos.clamp(0, cap - 1)
+    row = pos % cap if cache.ring else pos.clamp(0, cap - 1)
     if pos.dim() == 1:
         rows = torch.arange(b, device=x.device)
         cache.k[rows, row] = k[:, 0].to(cache.k.dtype)
@@ -161,9 +200,15 @@ def decode_attend(p: dict, x: torch.Tensor, pos, cache: KVCache,
         cache.v.index_copy_(1, row.reshape(1), v.to(cache.v.dtype))
 
     idx = torch.arange(cap, device=x.device)[None, :]
-    valid = idx <= posq
+    if cache.ring:
+        # row i holds the largest position p <= pos with p % cap == i
+        abs_pos = posq - (posq - idx) % cap
+        valid = (abs_pos >= 0) & (abs_pos <= posq)
+    else:
+        abs_pos = idx
+        valid = idx <= posq
     if window > 0:
-        valid &= (posq - idx) < window
+        valid &= (posq - abs_pos) < window
     root = torch.sqrt(torch.tensor(float(hd), device=x.device))
     scores = torch.einsum("bqkgh,bckh->bqgkc", q.float(),
                           cache.k.float()) / root

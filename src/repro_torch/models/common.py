@@ -1,7 +1,7 @@
 """Architecture config and the shared building blocks of the LMs.
 
-Counterpart of ``repro.models.common``, with the fields the dense and
-RWKV6 (``"ssm"``) families use.  Layouts follow the JAX package: linears
+Counterpart of ``repro.models.common``, with the fields the dense, MoE
+and RWKV6 (``"ssm"``) families use.  Layouts follow the JAX package: linears
 are ``(in, out)`` for ``x @ W``, rotary embedding rotates split halves
 (not interleaved pairs).
 """
@@ -18,7 +18,8 @@ class ArchConfig:
     """One architecture (full or reduced/smoke variant)."""
 
     name: str
-    family: str                     # dense | ssm (RWKV6): the ported ones
+    family: str                     # dense | moe | ssm (RWKV6): the
+                                    # ported ones
     num_layers: int
     d_model: int
     num_heads: int
@@ -26,18 +27,30 @@ class ArchConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0               # 0 -> d_model // num_heads
+    qk_norm: bool = False           # RMS-norm q and k per head (qwen3)
     qkv_bias: bool = False
     rope_theta: float = 1_000_000.0
-    sliding_window: int = 0         # 0 = full attention (SWA is not ported)
+    sliding_window: int = 0         # 0 = full attention; >0 = SWA width
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
     ssm_chunk: int = 256            # chunk of the RWKV6 training scan
     head_pad_to: int = 0            # pad the RWKV6 decode state's heads to
                                     # this count (0 = off); exact: padded
                                     # channels stay zero
     dtype: str = "bfloat16"
+    # bf16 expert products return fp32 (JAX's preferred_element_type on
+    # the MXU); the smoke configs turn it off, as JAX's do
+    mxu_f32_accum: bool = True
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -1,29 +1,35 @@
 """The decoder-only LMs: init, training forward, loss, weight bridge.
 
-Counterpart of ``repro.models.model`` for the dense family and the RWKV6
+Counterpart of ``repro.models.model`` for the dense family (GQA, with
+optional qk-norm, QKV bias and sliding window), the ``"moe"`` family
+(dense attention and a top-k MoE feed-forward, :mod:`.moe`) and the RWKV6
 ``"ssm"`` family.  Parameters are a flat dict keyed by dotted names
 (``"blocks.attn.wq"``) in the JAX package's leaf order, so a dual or a
 gradient is a dict of the same keys.  As in JAX, each block leaf is
 stacked over the layers, ``(L, ...)``, and a linear is stored ``(in,
-out)`` for ``x @ W``: the dense model has 15 leaves at any depth, the
+out)`` for ``x @ W``: the qwen2 model has 15 leaves at any depth, the
 RWKV6 model 20.  :class:`DenseLM` is the ``nn.Module`` that owns them (of
-either family); :func:`forward` and :func:`lm_loss` are plain functions of
-a parameter dict, so the gossip step can evaluate each worker's own
-primal.  Each block is recomputed in the backward pass
-(``torch.utils.checkpoint``), as the JAX model checkpoints each scanned
-block.
+any family); :func:`forward_aux` (hidden and the MoE load-balance loss)
+and :func:`lm_loss` are plain functions of a parameter dict, so the
+gossip step can evaluate each worker's own primal.  Each block is
+recomputed in the backward pass (``torch.utils.checkpoint``), as the JAX
+model checkpoints each scanned block.
 
-Serving: :func:`prefill` runs a prompt (dense: attention through the flash
+Serving: :func:`prefill` runs a prompt (attention through the flash
 kernel; ssm: the wkv scan through its kernel) and returns the last real
 token's logits and a :class:`DecodeState`; :func:`decode_step` advances
 every row one token.  The caches are stacked over the layers with batch on
-axis 1, as in JAX: dense KV caches (L, B, cap, KV, hd); ssm states
+axis 1, as in JAX: KV caches (L, B, cap, KV, hd), linear, or ring caches
+of capacity ``min(window, S)`` under a sliding window; ssm states
 ``{"tmix": RWKVState(s (L, B, heads, hd, hd), x_prev (L, B, d)),
 "cmix_prev": (L, B, d)}``.  They are updated in place (a copy per step
 would move the whole cache); :func:`insert_decode_state` and
 :func:`evict_decode_state` write and clear one slot row of every cache
-tensor in place.  Sliding-window ring caches and the other families raise
-``NotImplementedError``.
+tensor in place.  The prefill takes a prompt's token-wise work (norms,
+projections, rope, the dense MLP) ``attn.PREFILL_ROWS`` tokens at a time,
+so a 524,288-token prompt holds no (S, d_ff) tensor; the MoE
+feed-forward takes the whole prompt (its groups and capacities are per
+sequence).  The other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,10 +44,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as attn
-from . import ssm
+from . import moe, ssm
 from .common import ArchConfig, init_linear, rms_norm, swiglu
 
 BLOCKS = "blocks."
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def _leaf_key(name: str) -> tuple:
@@ -50,9 +57,9 @@ def _leaf_key(name: str) -> tuple:
 
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     """Random parameters on the generator's device, JAX names and layout."""
-    if cfg.family not in ("dense", "ssm"):
-        raise ValueError(f"only the dense and ssm families are ported, got "
-                         f"{cfg.family!r}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"only the {', '.join(FAMILIES)} families are "
+                         f"ported, got {cfg.family!r}")
     L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
     dt, dev = cfg.torch_dtype, generator.device
     ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=dev)
@@ -74,11 +81,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
             "blocks.cmix.w_r": init_linear((L, d, d), dt, generator),
         })
         return ordered(params)
-    params.update({
-        "blocks.mlp.w_gate": init_linear((L, d, ff), dt, generator),
-        "blocks.mlp.w_up": init_linear((L, d, ff), dt, generator),
-        "blocks.mlp.w_down": init_linear((L, ff, d), dt, generator),
-    })
+    if cfg.is_moe:
+        for k, v in moe.moe_params(cfg, generator, L).items():
+            params[f"blocks.moe.{k}"] = v
+    else:
+        params.update({
+            "blocks.mlp.w_gate": init_linear((L, d, ff), dt, generator),
+            "blocks.mlp.w_up": init_linear((L, d, ff), dt, generator),
+            "blocks.mlp.w_down": init_linear((L, ff, d), dt, generator),
+        })
     for k, v in attn.attention_params(cfg, generator, L).items():
         params[f"blocks.attn.{k}"] = v
     return ordered(params)
@@ -105,10 +116,13 @@ def _nest(flat: dict) -> dict:
 
 
 def _dense_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
-                 p: dict) -> torch.Tensor:
+                 p: dict) -> tuple:
+    """(the block's output, its load-balance loss: None without
+    experts)."""
     x = x + attn.attend_train(p["attn"], rms_norm(x, p["ln1"]), positions,
                               cfg)
-    return x + _mlp(x, p)
+    h, aux = _ffn(x, p, cfg)
+    return x + h, aux
 
 
 def _cmix(x: torch.Tensor, xn: torch.Tensor, xp: torch.Tensor,
@@ -122,10 +136,11 @@ def _cmix(x: torch.Tensor, xn: torch.Tensor, xp: torch.Tensor,
 
 
 def _rwkv_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
-                p: dict) -> torch.Tensor:
+                p: dict) -> tuple:
+    """(the block's output, None: no load-balance loss)."""
     x = x + ssm.rwkv6_forward(p["tmix"], rms_norm(x, p["ln1"]), cfg)
     xn = rms_norm(x, p["ln2"])
-    return _cmix(x, xn, F.pad(xn, (0, 0, 1, 0))[:, :-1], p["cmix"])
+    return _cmix(x, xn, F.pad(xn, (0, 0, 1, 0))[:, :-1], p["cmix"]), None
 
 
 def _layers(params: dict, cfg: ArchConfig):
@@ -136,24 +151,40 @@ def _layers(params: dict, cfg: ArchConfig):
         yield _nest({k: v[layer] for k, v in per_layer.items()})
 
 
-def _mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+def _ffn(x: torch.Tensor, p: dict, cfg: ArchConfig) -> tuple:
+    """The block's feed-forward of the residual x: (h, the fp32
+    load-balance loss, None without experts)."""
+    xn = rms_norm(x, p["ln2"])
+    if cfg.is_moe:
+        return moe.moe_forward(p["moe"], xn, cfg)
     mp = p["mlp"]
-    return swiglu(rms_norm(x, p["ln2"]), mp["w_gate"], mp["w_up"],
-                  mp["w_down"])
+    return swiglu(xn, mp["w_gate"], mp["w_up"], mp["w_down"]), None
+
+
+def forward_aux(params: dict, cfg: ArchConfig,
+                tokens: torch.Tensor) -> tuple:
+    """Training forward: (B, S) tokens -> (final-normed hidden (B, S, d),
+    the fp32 load-balance loss summed over the layers), as JAX's
+    ``forward``."""
+    x = F.embedding(tokens, params["embed"])
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    block = _rwkv_block if cfg.family == "ssm" else _dense_block
+    for lp in _layers(params, cfg):
+        if torch.is_grad_enabled():
+            x, a = checkpoint(block, x, positions, cfg, lp,
+                              use_reentrant=False)
+        else:
+            x, a = block(x, positions, cfg, lp)
+        if a is not None:
+            aux = aux + a
+    return rms_norm(x, params["final_norm"]), aux
 
 
 def forward(params: dict, cfg: ArchConfig,
             tokens: torch.Tensor) -> torch.Tensor:
     """Training forward: (B, S) tokens -> final-normed hidden (B, S, d)."""
-    x = F.embedding(tokens, params["embed"])
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    block = _rwkv_block if cfg.family == "ssm" else _dense_block
-    for lp in _layers(params, cfg):
-        if torch.is_grad_enabled():
-            x = checkpoint(block, x, positions, cfg, lp, use_reentrant=False)
-        else:
-            x = block(x, positions, cfg, lp)
-    return rms_norm(x, params["final_norm"])
+    return forward_aux(params, cfg, tokens)[0]
 
 
 def logits_fn(params: dict, hidden: torch.Tensor) -> torch.Tensor:
@@ -162,13 +193,15 @@ def logits_fn(params: dict, hidden: torch.Tensor) -> torch.Tensor:
 
 def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
             seq_weights: Optional[torch.Tensor] = None):
-    """Next-token cross-entropy; returns (total, {"loss", "ntok"}).
+    """Next-token cross-entropy plus ``0.01 * aux`` (the MoE load-balance
+    loss, 0 without experts); returns (total, {"loss", "aux", "ntok"}), as
+    JAX's.
 
     Labels < 0 are masked.  ``seq_weights`` (B,) are AMB's eq.-3
     per-sequence inclusion weights: the loss is the weighted mean over the
     included sequences, with denominator ``max(sum mask * w, 1)``.
     """
-    hidden = forward(params, cfg, batch["tokens"])
+    hidden, aux = forward_aux(params, cfg, batch["tokens"])
     logits = logits_fn(params, hidden).float()
     labels = batch["labels"]
     mask = (labels >= 0).float()
@@ -183,7 +216,7 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
     else:
         denom = torch.clamp(mask.sum(), min=1.0)
         loss = tok_nll.sum() / denom
-    return loss, {"loss": loss, "ntok": denom}
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux, "ntok": denom}
 
 
 # ---------------------------------------------------------------------------
@@ -191,12 +224,9 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
 # ---------------------------------------------------------------------------
 
 def _check_servable(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"serving the {cfg.family!r} family is not "
-                                  f"ported (dense only, and ssm)")
-    if cfg.sliding_window > 0:
-        raise NotImplementedError("sliding-window ring caches are not "
-                                  "ported; serve with linear caches")
+                                  f"ported ({', '.join(FAMILIES)} only)")
 
 
 class DecodeState:
@@ -263,19 +293,71 @@ def _prefill_ssm(params: dict, cfg: ArchConfig, x: torch.Tensor) -> tuple:
     return x, caches
 
 
+def _ring_from_linear(k: torch.Tensor, cap: int) -> torch.Tensor:
+    """The last ``cap`` positions of (B, S, ...) in their ring rows
+    (position p at row p % cap); zero-padded to ``cap`` when S < cap."""
+    b, s = k.shape[:2]
+    out = k.new_zeros((b, cap) + k.shape[2:])
+    if s <= cap:
+        out[:, :s] = k
+        return out
+    slots = torch.arange(s - cap, s, device=k.device) % cap
+    out[:, slots] = k[:, s - cap:]
+    return out
+
+
+def _prefill_attn_stack(params: dict, cfg: ArchConfig, x: torch.Tensor,
+                        caches: attn.KVCache) -> torch.Tensor:
+    """The dense or MoE stack over a prompt, writing each layer's k and v
+    into ``caches`` (linear: rows 0..S-1; ring: packed as it comes);
+    returns the last layer's output.  ``x`` is updated in place."""
+    b, s, _ = x.shape
+    kvh, hd = cfg.num_kv_heads, cfg.hd
+    positions = torch.arange(s, device=x.device)[None, :]
+    chunks = [slice(c, min(c + attn.PREFILL_ROWS, s))
+              for c in range(0, s, attn.PREFILL_ROWS)]
+    for layer, lp in enumerate(_layers(params, cfg)):
+        ap = lp["attn"]
+        q = x.new_empty((b, s, kvh, cfg.num_heads // kvh, hd))
+        if caches.ring:
+            k, v = x.new_empty((b, s, kvh, hd)), x.new_empty((b, s, kvh, hd))
+        else:
+            k, v = caches.k[layer, :, :s], caches.v[layer, :, :s]
+        for c in chunks:
+            q[:, c], k[:, c], v[:, c] = attn.qkv_rope(
+                ap, rms_norm(x[:, c], lp["ln1"]), positions[:, c], cfg)
+        out = attn.flash_prefill(q, k, v, cfg.sliding_window)
+        del q
+        if caches.ring:
+            cap = caches.k.shape[2]
+            caches.k[layer] = _ring_from_linear(k, cap)
+            caches.v[layer] = _ring_from_linear(v, cap)
+        del k, v
+        for c in chunks:
+            x[:, c].add_(out[:, c] @ ap["wo"])
+            if not cfg.is_moe:
+                x[:, c].add_(_ffn(x[:, c], lp, cfg)[0])
+        del out
+        if cfg.is_moe:
+            x.add_(_ffn(x, lp, cfg)[0])
+    return x
+
+
 @torch.no_grad()
 def prefill(params: dict, cfg: ArchConfig, batch: dict,
             extra_capacity: int = 0, last_pos=None) -> tuple:
     """Process a full prompt; returns (last-token logits (B, V) in the
     parameters' dtype, DecodeState ready for :func:`decode_step`).
 
-    Dense: the caches hold the prompt's S positions and ``extra_capacity``
-    empty slots.  ``last_pos`` (int or (B,)) is each request's final real
-    prompt token, for prompts right-padded to a shared length: logits are
-    taken there and decode resumes at ``last_pos + 1`` (causal attention
-    keeps the real prefix independent of the padding, and the padded cache
-    rows stay masked until decode overwrites them).  Ssm: the states after
-    the prompt's last token, their heads padded to ``cfg.head_pad_to``
+    Dense and MoE: the caches hold the prompt's S positions and
+    ``extra_capacity`` empty slots, or under a sliding window are ring
+    caches of capacity ``min(window, S)`` (no extra capacity, as in JAX).
+    ``last_pos`` (int or (B,)) is each request's final real prompt token,
+    for prompts right-padded to a shared length: logits are taken there
+    and decode resumes at ``last_pos + 1`` (causal attention keeps the
+    real prefix independent of the padding, and the padded cache rows stay
+    masked until decode overwrites them).  Ssm: the states after the
+    prompt's last token, their heads padded to ``cfg.head_pad_to``
     (``extra_capacity`` does not apply; a recurrent state absorbs padding,
     so serve prompts at their exact length).
     """
@@ -284,21 +366,15 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     x = F.embedding(tokens, params["embed"])
     if cfg.family == "ssm":
         x, caches = _prefill_ssm(params, cfg, x)
-        hidden, pos = _last_hidden(params, x, last_pos)
-        return (hidden @ params["unembed"])[:, 0], DecodeState(caches, pos)
-    b, s, _ = x.shape
-    dev = x.device
-    positions = torch.arange(s, device=dev)[None, :]
-    shape = (cfg.num_layers, b, s + extra_capacity, cfg.num_kv_heads, cfg.hd)
-    caches = attn.KVCache(torch.zeros(shape, dtype=x.dtype, device=dev),
-                          torch.zeros(shape, dtype=x.dtype, device=dev))
-    for layer, lp in enumerate(_layers(params, cfg)):
-        h, (k, v) = attn.attend_train(lp["attn"], rms_norm(x, lp["ln1"]),
-                                      positions, cfg, return_kv=True)
-        caches.k[layer, :, :s] = k
-        caches.v[layer, :, :s] = v
-        x = x + h
-        x = x + _mlp(x, lp)
+    else:
+        b, s, _ = x.shape
+        window = cfg.sliding_window
+        cap = min(window, s) if window > 0 else s + extra_capacity
+        shape = (cfg.num_layers, b, cap, cfg.num_kv_heads, cfg.hd)
+        caches = attn.KVCache(
+            torch.zeros(shape, dtype=x.dtype, device=x.device),
+            torch.zeros(shape, dtype=x.dtype, device=x.device), window > 0)
+        x = _prefill_attn_stack(params, cfg, x, caches)
     hidden, pos = _last_hidden(params, x, last_pos)
     return (hidden @ params["unembed"])[:, 0], DecodeState(caches, pos)
 
@@ -306,19 +382,22 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       per_slot_pos: bool = False,
                       device="cuda") -> DecodeState:
-    """Zero caches for ``cache_len`` tokens per row (ssm: zero states, of
-    a size independent of ``cache_len``); ``per_slot_pos`` gives a
-    (batch,) position vector (the slot array, rows decode at their own
-    depths) instead of a shared scalar."""
+    """Zero caches for ``cache_len`` tokens per row (ring caches of
+    ``min(window, cache_len)`` rows under a sliding window; ssm: zero
+    states, of a size independent of ``cache_len``); ``per_slot_pos``
+    gives a (batch,) position vector (the slot array, rows decode at their
+    own depths) instead of a shared scalar."""
     _check_servable(cfg)
     device = resolve_device(device)
     if cfg.family == "ssm":
         caches = _ssm_caches(cfg, batch, device)
     else:
-        shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, cfg.hd)
+        ring = cfg.sliding_window > 0
+        cap = min(cfg.sliding_window, cache_len) if ring else cache_len
+        shape = (cfg.num_layers, batch, cap, cfg.num_kv_heads, cfg.hd)
         caches = attn.KVCache(
             torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            torch.zeros(shape, dtype=cfg.torch_dtype, device=device))
+            torch.zeros(shape, dtype=cfg.torch_dtype, device=device), ring)
     pos = torch.zeros((batch,) if per_slot_pos else (), dtype=torch.long,
                       device=device)
     return DecodeState(caches, pos)
@@ -365,13 +444,14 @@ def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
 
 def _decode_dense(params: dict, cfg: ArchConfig, caches: attn.KVCache,
                   pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """One token through the dense stack; the KV rows are written in place."""
+    """One token through the dense or MoE stack (the window masks a linear
+    cache too); the KV rows are written in place."""
     for layer, lp in enumerate(_layers(params, cfg)):
-        cache = attn.KVCache(caches.k[layer], caches.v[layer])
+        cache = attn.KVCache(caches.k[layer], caches.v[layer], caches.ring)
         h, _ = attn.decode_attend(lp["attn"], rms_norm(x, lp["ln1"]), pos,
                                   cache, cfg, window=cfg.sliding_window)
         x = x + h
-        x = x + _mlp(x, lp)
+        x = x + _ffn(x, lp, cfg)[0]
     return x
 
 
@@ -394,7 +474,7 @@ def _decode_ssm(params: dict, cfg: ArchConfig, caches: dict,
 
 
 class DenseLM(nn.Module):
-    """The LM (dense or ssm family) as an ``nn.Module``; parameters keep
+    """The LM (of any ported family) as an ``nn.Module``; parameters keep
     their dotted JAX names (``named_parameters()``), and :meth:`params`
     gives the flat dict the functional :func:`forward` and :func:`lm_loss`
     take."""

@@ -232,7 +232,12 @@ def serve_static(params, cfg, requests: list[Request], *, batch: int,
     member finishes (retired rows burn rounds).  Early arrivals pay the
     barrier in TTFT; short generations pay the group tail in latency:
     the two costs the slot engine's continuous admission removes.
+    Padding to the group max is sound for the dense family only: other
+    families raise, as in JAX.
     """
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError("serve_static pads to the group max "
+                                  "prompt length; dense/vlm only")
     clock = clock if clock is not None else WallClock()
     metrics = metrics if metrics is not None else ServeMetrics()
     device = next(iter(params.values())).device

@@ -12,10 +12,11 @@ token budget) frees the row and zeroes it
 family-aware, as in JAX: dense prompts are right-padded to the next
 power-of-two bucket (causal attention keeps the real prefix independent of
 trailing pads, and the padded cache rows stay masked until decode
-overwrites them); ssm prompts prefill at their exact length, because a
-recurrent state absorbs pads.  The dense family with linear caches and the
-RWKV6 ssm family are ported (``init_decode_state`` and ``prefill`` raise
-for the rest).
+overwrites them); MoE prompts (pads would compete with real tokens for
+expert capacity) and ssm prompts (a recurrent state absorbs pads) prefill
+at their exact length.  Linear caches only: the engine refuses a sliding
+window (ring caches are sized by prompt length at prefill) and the audio
+family, with JAX's messages.
 """
 from __future__ import annotations
 
@@ -78,6 +79,15 @@ class SlotEngine:
     def __init__(self, params: dict, cfg: ArchConfig, *, slots: int,
                  cache_len: int, sampling: Optional[SamplingSpec] = None,
                  eos_id: Optional[int] = None):
+        if cfg.family == "audio":
+            raise NotImplementedError(
+                "serve: audio (encoder-decoder) requests need per-request "
+                "encoder features; not supported by the slot engine")
+        if cfg.sliding_window > 0:
+            raise NotImplementedError(
+                "serve: sliding-window ring caches are sized by prompt "
+                "length at prefill and cannot be slot-inserted; serve "
+                "with linear caches")
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -111,10 +121,11 @@ class SlotEngine:
     def insert(self, req: Request) -> int:
         """Prefill ``req`` into a free slot; returns its first token.
 
-        The prompt is padded to its bucket (ssm: not padded), prefilled at
-        batch 1 with ``last_pos`` at the real last token, and written into
-        the slot row.  The first generated token is sampled from the
-        prefill logits (so TTFT is one prefill, not prefill + a round).
+        The prompt is padded to its bucket (moe, ssm: not padded),
+        prefilled at batch 1 with ``last_pos`` at the real last token, and
+        written into the slot row.  The first generated token is sampled
+        from the prefill logits (so TTFT is one prefill, not prefill + a
+        round).
         """
         if not self.free_slots:
             raise RuntimeError("no free slot")

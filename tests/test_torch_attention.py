@@ -261,9 +261,9 @@ def test_attend_train_prefill_matches_jax():
     jout, (jk, jv) = jattn.attend_train(jp, jnp.asarray(x), jnp.asarray(pos),
                                         jcfg, return_kv=True)
     router.reset_launches()
-    out, (k, v) = attn.attend_train(tp, torch.from_numpy(x),
-                                    torch.from_numpy(pos), cfg,
-                                    return_kv=True)
+    q, k, v = attn.qkv_rope(tp, torch.from_numpy(x), torch.from_numpy(pos),
+                            cfg)
+    out = attn.flash_prefill(q, k, v, cfg.sliding_window) @ tp["wo"]
     assert router.launches() == {}          # the plain version on the CPU
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-4,
                                atol=1e-5)

@@ -129,12 +129,12 @@ def test_prefill_scalar_position_and_unservable_configs():
     log, st = models.prefill(tp, cfg, {"tokens": torch.from_numpy(toks)})
     _close(log, jlog)
     assert st.pos.dim() == 0 and int(st.pos) == int(jst.pos) == 10
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        models.prefill(tp, dataclasses.replace(cfg, sliding_window=8),
-                       {"tokens": torch.from_numpy(toks)})
-    with pytest.raises(NotImplementedError, match="dense only"):
-        models.init_decode_state(dataclasses.replace(cfg, family="moe"), 2,
-                                 16, device="cpu")
+    _, ring = models.prefill(tp, dataclasses.replace(cfg, sliding_window=8),
+                             {"tokens": torch.from_numpy(toks)})
+    assert ring.caches.ring and ring.caches.k.shape[2] == 8
+    with pytest.raises(NotImplementedError, match="'hybrid' family"):
+        models.init_decode_state(dataclasses.replace(cfg, family="hybrid"),
+                                 2, 16, device="cpu")
 
 
 def test_insert_evict_state_helpers_match_jax():
