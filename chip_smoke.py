@@ -37,7 +37,9 @@ Phases (any failure ends the run with a non-zero exit code):
      group 8 (S 2048 and 2560, causal), qwen3-8b's window 4096 at S 8192
      (library: SDPA with the windowed mask) and 32,768 (its last 512 rows
      against the plain version through ``q_offset``), and the long_500k
-     prompt (524,288 tokens) in the model's query chunks;
+     prompt (524,288 tokens) in the model's query chunks; and zamba2's
+     shared block (MHA, group 1, hd 64, S 2048 and 2560, causal;
+     library: SDPA);
   4. a small reference check: the quantized gossip strategy on a
      smoke-width message stack, the smoke-size sessions (exact, gossip,
      gossip_q8), and smoke-size serving of qwen2-1.5b and rwkv6-3b
@@ -46,7 +48,9 @@ Phases (any failure ends the run with a non-zero exit code):
      quantized ones with rounding draws made on the CPU; then qwen3-8b with
      window 8 (ring caches, prefill and 6 decode steps) and qwen3-moe
      (prefill and slot-engine tokens; tokens routed to other experts on
-     the card than on the CPU are counted and left out);
+     the card than on the CPU are counted and left out); and zamba2
+     (prefill logits, Mamba2 states and shared caches, 6 decode steps,
+     slot-engine tokens, a 3-epoch exact session's duals);
   5. the main path: AMBSession on qwen2-1.5b at full width, exact
      consensus, all 28 layers, 3 epochs; ring gossip (r = 5), cut to 8
      layers; ring gossip_q8 (20 rounds) and gossip_q4 (40 rounds), cut to
@@ -120,7 +124,16 @@ Phases (any failure ends the run with a non-zero exit code):
      each layer's attention in fp32 on the same keys), then the
      524,288-token prefill and 16 decode steps past it (seconds,
      tokens/s, the peak); launch counts reset before each and read after;
- 12. print the kernels' JSON line, the card line, and the final ok line.
+ 12. the Mamba2 hybrid at full width, bf16: zamba2-1.2b (38 Mamba2
+     layers, the shared dense block after every 6th, 6 applications)
+     through the serve CLI (SERVE_ARGV's workload with up to 2 fine-tune
+     epochs; an epoch outlasts the round budget, so a run absorbs one: 6
+     tensor-core flash launches a request, 20 prox launches an absorbed
+     epoch; TTFT, TPOT, tokens/s, the peak), then an exact AMBSession,
+     4 x 8 x 256, 3 epochs (every gradient and dual finite after each, 60
+     prox launches, step ms and the peak; the prox held at the Mamba2
+     w_in leaf); launch counts reset before each and read after;
+ 13. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -1875,15 +1888,16 @@ def timed(table: dict, key: str, fn):
 
 
 def run_serve(torch, rt, argv, cfg=None) -> dict:
-    """The serve CLI at full width (``argv``: SERVE_ARGV or its rwkv6-3b
-    or qwen3-moe form; ``cfg`` a depth-cut config the CLI's session gets
+    """The serve CLI at full width (``argv``: SERVE_ARGV or its rwkv6-3b,
+    qwen3-moe or zamba2 form; ``cfg`` a depth-cut config the CLI's session gets
     in place of the registry's, as the CLI has no depth flag): returns the
     launch counts of exactly that run.  The engine's
     sampler is wrapped to see every logits tensor it draws from, and the
     engine's insert (a prefill) and decode round and the session's step
     are timed.  Each request's prefill launches its attention kernel
-    (dense) or its scan kernel (ssm) once a layer, and each exact fine-tune
-    epoch the prox kernel once a parameter leaf."""
+    (dense) or its scan kernel (ssm) once a layer, or its attention kernel
+    once an application of the shared block (hybrid), and each exact
+    fine-tune epoch the prox kernel once a parameter leaf."""
     from repro_torch.api import AMBSession
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.serve import slots
@@ -1935,6 +1949,11 @@ def run_serve(torch, rt, argv, cfg=None) -> dict:
           f"p99={s['latency_p99_s']:.4f} tokens_per_s="
           f"{s['tokens_per_s']:.2f} train_loss={s.get('train_loss_first')}"
           f"..{s.get('train_loss_last')}", flush=True)
+    rates = [len(r.out_tokens) / (r.finish_s - r.arrival_s)
+             for r in report.requests]
+    pct = sys.modules["repro_torch.serve.metrics"]._pct
+    print(f"  per-request tokens_per_s p50={pct(rates, 50):.2f} "
+          f"p99={pct(rates, 99):.2f}", flush=True)
     for name, label in (("insert", "prefill (insert)"),
                         ("decode_round", "decode round"),
                         ("step", "fine-tune epoch")):
@@ -1956,7 +1975,10 @@ def run_serve(torch, rt, argv, cfg=None) -> dict:
     prefill_kernel, other = (("rwkv6_scan", "flash_attention")
                              if cfg.family == "ssm"
                              else ("flash_attention", "rwkv6_scan"))
-    want = {prefill_kernel: cfg.num_layers * SERVE_REQUESTS, other: 0,
+    # hybrid: one flash call for each application of the shared block
+    calls = (cfg.num_layers // cfg.attn_every if cfg.family == "hybrid"
+             else cfg.num_layers)
+    want = {prefill_kernel: calls * SERVE_REQUESTS, other: 0,
             "dual_update": leaves * report.train_epochs}
     if cfg.family != "ssm":     # every prefill on the tensor cores
         want["flash_attention.tensor_core"] = want["flash_attention"]
@@ -2950,6 +2972,210 @@ def run_long_context(torch, rt) -> dict:
                 peak_prefill_gib=peak_p)
 
 
+# ---------------------------------------------------------------------------
+# the Mamba2 hybrid: zamba2-1.2b (38 Mamba2 layers, one shared dense block
+# applied after every 6th layer: MHA, GQA group 1, hd 64)
+# ---------------------------------------------------------------------------
+
+ZAMBA_ARCH = "zamba2-1.2b"
+FLASH_ZAMBA = dict(b=1, h=32, kv=32, hd=64)    # the shared block's prefill
+FLASH_ZAMBA_SEQS = (2048, 2560)
+ZAMBA_LEAVES, ZAMBA_P = 20, 1_170_313_344      # JAX's init_params, full
+ZAMBA_DECODE = 6        # smoke decode steps held card vs CPU
+# the serve CLI at full width (see SERVE_*): a zamba2 request took 2.04 s
+# at the median (a 0.21 to 0.44 s prefill, 32 decode rounds of 39 to 90
+# ms), so arrivals 2.0 s apart leave idle time between requests (8
+# stretches, 1.3 s); a fine-tune epoch (0.85 s) is past the round's
+# budget, so a run absorbs one
+SERVE_ZAMBA_ARGV = ["--arch", ZAMBA_ARCH] + SERVE_ARGV[2:]
+
+
+def check_flash_zamba(torch, ops, flash) -> list:
+    """The flash kernel at the shared block's prefill shapes (MHA: GQA
+    group 1, hd 64; causal; S 2048 and 2560), on the tensor-core body;
+    library: SDPA with ``is_causal``."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, kv, hd = (FLASH_ZAMBA[x] for x in ("b", "h", "kv", "hd"))
+    entries = []
+    for s in FLASH_ZAMBA_SEQS:
+        q, k, v = model_layout(torch, gen, b, s, s, h, kv, hd,
+                               torch.bfloat16)
+        if flash.body(q, k, v) != "tensor_core":
+            fail(f"flash_attention {ZAMBA_ARCH} S={s}: not the tensor cores")
+        entries.append(flash_entry(
+            torch, ops, q, k, v, 0,
+            f"B={b} H={h} KV={kv} hd={hd} S={s} bf16 causal ({ZAMBA_ARCH})",
+            lambda: sdpa(q, k, v, is_causal=True), reps=200))
+        del q, k, v
+    release(torch)
+    return entries
+
+
+def zamba_reference_check(torch, rt) -> None:
+    """Smoke-size fp32 zamba2, card (kernels) vs CPU (plain versions): a
+    40-token prefill of 2 rows with 8 free cache rows (logits, every
+    layer's Mamba2 h and conv tail, the shared block's K and V) and
+    ZAMBA_DECODE greedy decode steps, within SERVE_TOL of each tensor's
+    largest value; the slot engine's greedy tokens equal; and a 3-epoch
+    exact session's losses and duals (SESSION_TOL of each leaf's largest
+    |z|).  One flash launch a prefill on the card, none on the CPU."""
+    cfg = dataclasses.replace(rt.configs.smoke_config(ZAMBA_ARCH),
+                              dtype="float32")
+    params = rt.models.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    apps = cfg.num_layers // cfg.attn_every
+    out, tokens, duals = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        p = {k: v.to(device) for k, v in params.items()}
+        rt.kernels.router.reset_launches()
+        logits, st = rt.models.prefill(p, cfg, {"tokens": toks.to(device)},
+                                       extra_capacity=8)
+        # copies: decode updates the caches in place, and on the CPU
+        # .cpu() would return the tensor itself
+        snap = rt.models.model._cache_tensors(st.caches)
+        seq = [t.to("cpu", copy=True) for t in [logits] + snap]
+        tok = logits.argmax(-1)
+        for _ in range(ZAMBA_DECODE):
+            logits, st = rt.models.decode_step(p, cfg, st, tok)
+            seq.append(logits.to("cpu", copy=True))
+            tok = logits.argmax(-1)
+        seq += [t.to("cpu", copy=True) for t in snap]
+        engine = rt.serve.SlotEngine(p, cfg, slots=2, cache_len=64)
+        reqs = rt.serve.synthetic_requests(
+            5, vocab_size=cfg.vocab_size, prompt_len=24, prompt_jitter=8,
+            max_new_tokens=8, seed=3)
+        drain(engine, reqs)
+        n = rt.kernels.router.launches().get("flash_attention", 0)
+        if n != (apps * (1 + len(reqs)) if device == "cuda" else 0):
+            fail(f"reference {ZAMBA_ARCH} on {device}: {n} flash launches")
+        out[device] = seq
+        tokens[device] = [r.out_tokens for r in reqs]
+        s = rt.api.AMBSession(
+            rt.api.TrainSpec(arch=ZAMBA_ARCH, smoke=True, data=N_WORKERS,
+                             batch_per_worker=2, seq_len=16),
+            rt.api.ClockSpec(kind="simulated"),
+            rt.api.ConsensusSpec(consensus="exact"), cfg=cfg,
+            params={k: v.clone() for k, v in p.items()}, device=device)
+        src = rt.data.SyntheticSource(cfg.vocab_size, 16, N_WORKERS, 2,
+                                      device="cpu")
+        losses = [s.step({k: v.to(device) for k, v in src.batch(e).items()},
+                         [2, 1, 0, 2])["loss"] for e in range(EPOCHS)]
+        duals[device] = (losses, {k: v.cpu() for k, v in
+                                  s.state["opt"]["z"].items()})
+    errs = [max_abs_err(torch, a, b) / max(float(a.abs().max()), 1e-30)
+            for a, b in zip(out["cpu"], out["cuda"])]
+    err = max(errs)
+    (l_cpu, z_cpu), (l_gpu, z_gpu) = duals["cpu"], duals["cuda"]
+    z_err = max(max_abs_err(torch, z_cpu[k], z_gpu[k])
+                / max(float(z_cpu[k].abs().max()), 1e-30) for k in z_cpu)
+    l_err = max(abs(a - b) for a, b in zip(l_cpu, l_gpu))
+    print(f"reference {ZAMBA_ARCH}: prefill logits, Mamba2 h and conv, "
+          f"shared K and V, {ZAMBA_DECODE} decode steps card vs CPU worst "
+          f"rel err {err:.3g} (each: {', '.join(f'{e:.2g}' for e in errs)}"
+          f"); slot-engine tokens equal: "
+          f"{tokens['cpu'] == tokens['cuda']}; exact session {EPOCHS} "
+          f"epochs losses {l_gpu} vs {l_cpu}, {len(z_cpu)} duals worst rel "
+          f"err {z_err:.3g}", flush=True)
+    if not (err <= SERVE_TOL and z_err <= SESSION_TOL
+            and l_err <= SESSION_TOL):
+        fail(f"reference {ZAMBA_ARCH}: rel err {err} (serving), {z_err} "
+             f"(duals), {l_err} (losses)")
+    if tokens["cpu"] != tokens["cuda"]:
+        fail(f"reference {ZAMBA_ARCH}: greedy tokens differ: card "
+             f"{tokens['cuda']} vs CPU {tokens['cpu']}")
+    if len(z_cpu) != ZAMBA_LEAVES:
+        fail(f"reference {ZAMBA_ARCH}: {len(z_cpu)} duals")
+
+
+def all_finite(torch, tree: dict, what: str) -> None:
+    for name, t in tree.items():
+        if not bool(torch.isfinite(t).all()):
+            fail(f"{what} {name} is not finite")
+
+
+def run_zamba_session(torch, rt, beta: float) -> tuple:
+    """AMBSession exact on zamba2-1.2b at full width, all 38 layers, bf16,
+    N_WORKERS x PER_WORKER x SEQ (256 tokens: one full Mamba2 chunk),
+    EPOCHS epochs: the loss finite, and every gradient leaf (seen where
+    the optimizer takes it) and every dual finite after each epoch; step
+    ms and the peak each epoch; one prox launch a leaf an epoch.  Then the
+    prox at the Mamba2 input projection ``blocks.mamba.w_in`` (38, 2048,
+    8384), held against its plain version on the session's own z (redrawn
+    N(0, 1)) and fp32 w0, and on w0 in bf16.  Returns (the launch counts,
+    the prox's worst error)."""
+    cfg = rt.configs.get_config(ZAMBA_ARCH)
+    release(torch)
+    session = session_for(rt, cfg, consensus="exact")
+    leaves, p = len(session.params), rt.models.param_count(session.params)
+    print(f"session exact {cfg.name}: layers={cfg.num_layers} P={p} "
+          f"leaves={leaves} workers={N_WORKERS} batch/worker={PER_WORKER} "
+          f"seq={SEQ} chunk={cfg.ssm_chunk}", flush=True)
+    if (leaves, p) != (ZAMBA_LEAVES, ZAMBA_P):
+        fail(f"zamba2 session: {leaves} leaves, P={p}; expected "
+             f"{ZAMBA_LEAVES}, {ZAMBA_P}")
+    opt_cls = type(session._optimizer)
+    real, seen = opt_cls.apply, []
+
+    def apply(self, grads, state, params):
+        all_finite(torch, grads, "zamba2 session gradient")
+        seen.append(len(grads))
+        return real(self, grads, state, params)
+
+    source = rt.data.SyntheticSource(cfg.vocab_size, SEQ, N_WORKERS,
+                                     PER_WORKER, seed=0, device="cuda")
+    opt_cls.apply = apply
+    rt.kernels.router.reset_launches()
+    try:
+        for epoch in range(EPOCHS):
+            torch.cuda.reset_peak_memory_stats()
+            m = session.step(source.batch(epoch))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"  epoch {epoch}: loss={m['loss']:.6f} b="
+                  f"{m['b'].tolist()} step_ms={m['step_s'] * 1e3:.1f} "
+                  f"peak_GiB={peak:.2f}", flush=True)
+            if not math.isfinite(m["loss"]):
+                fail(f"zamba2 session epoch {epoch}: loss {m['loss']}")
+            if epoch == 0 and abs(m["loss"] - math.log(cfg.vocab_size)) > 3:
+                fail(f"zamba2 session: first loss {m['loss']} is far from "
+                     f"ln(vocab)")
+            all_finite(torch, session.state["opt"]["z"], "zamba2 dual")
+            all_finite(torch, session.params, "zamba2 parameter")
+    finally:
+        opt_cls.apply = real
+    launches = rt.kernels.router.launches()
+    print(f"  launches: {launches}; gradient trees checked {len(seen)} "
+          f"of {leaves} leaves each", flush=True)
+    if seen != [leaves] * EPOCHS:
+        fail(f"zamba2 session: gradients seen {seen}")
+    expect("zamba2 session", launches, {"dual_update": leaves * EPOCHS,
+                                        "flash_attention": 0})
+    del source
+    release(torch)
+    key = "blocks.mamba.w_in"
+    z = session.state["opt"]["z"][key].normal_(
+        generator=torch.Generator(device="cuda").manual_seed(2))
+    w0 = session.state["opt"]["w0"][key]
+    worst = 0.0
+    for w in (w0, w0.bfloat16()):
+        what = f"{key} {tuple(z.shape)}"
+        err = hold_dual_update(torch, rt.kernels.ops, rt.kernels.ref, z, w,
+                               beta, what)
+        ms = time_ms(torch, lambda: rt.kernels.ops.dual_update(
+            z, w, beta, force="kernel"), 5, f"dual_update {key}")
+        b_ms, _ = bound(z.numel() * (4 + w.element_size() + 4),
+                        2 * z.numel())
+        print(f"  dual_update {what} z fp32 N(0, 1) w0 {w.dtype}: "
+              f"max_abs_err={err:.3g} (tol {DUAL_TOL}) ms={ms:.4f} "
+              f"bound_ms={b_ms:.4f}", flush=True)
+        worst = max(worst, err)
+        del w
+    del session, z, w0
+    release(torch)
+    return launches, worst
+
+
 def report_kernels(build) -> None:
     """Set-up output: the ptxas report of each redesigned kernel (it must
     not spill), the tensor-core flash body's dynamic shared memory, and
@@ -3038,6 +3264,7 @@ def main() -> int:
     flash_zoo = check_flash_zoo(torch, ops, router,
                                 rt.kernels.flash_attention,
                                 rt.models.attention)
+    flash_zoo += check_flash_zamba(torch, ops, rt.kernels.flash_attention)
 
     smoke = rt.configs.smoke_config("qwen2-1.5b")
     check_quantized_strategy(torch, rt, dense_param_count(smoke) + 1)
@@ -3045,6 +3272,7 @@ def main() -> int:
     serve_reference_check(torch, rt, "qwen2-1.5b")
     serve_reference_check(torch, rt, "rwkv6-3b")
     zoo_reference_check(torch, rt)
+    zamba_reference_check(torch, rt)
 
     runs = {"exact": run_session(torch, rt, full, "exact"),
             "gossip": run_session(torch, rt, gossip_cfg, "gossip"),
@@ -3089,6 +3317,10 @@ def main() -> int:
         torch, rt, moe_cut, beta)
     du_err = max(du_err, moe_du_err)
     zoo["qwen3-8b long_500k"] = run_long_context(torch, rt)["launches"]
+    zoo[f"serve cli {ZAMBA_ARCH}"] = run_serve(torch, rt, SERVE_ZAMBA_ARGV)
+    zoo[f"session {ZAMBA_ARCH}"], zamba_du_err = run_zamba_session(
+        torch, rt, beta)
+    du_err = max(du_err, zamba_du_err)
 
     def launches(name):
         return sum(c.get(name, 0) for group in (

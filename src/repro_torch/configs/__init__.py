@@ -6,13 +6,15 @@ import dataclasses
 
 from ..models.common import ArchConfig
 from . import (command_r_plus_104b, internlm2_20b, phi3p5_moe_42b,
-               qwen2_1p5b, qwen3_8b, qwen3_moe_30b_a3b, rwkv6_3b)
+               qwen2_1p5b, qwen3_8b, qwen3_moe_30b_a3b, rwkv6_3b,
+               zamba2_1p2b)
 
 _MODULES = {
     "qwen3-8b": qwen3_8b,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "command-r-plus-104b": command_r_plus_104b,
     "internlm2-20b": internlm2_20b,
+    "zamba2-1.2b": zamba2_1p2b,
     "rwkv6-3b": rwkv6_3b,
     "phi3.5-moe-42b-a6.6b": phi3p5_moe_42b,
     "qwen2-1.5b": qwen2_1p5b,
@@ -41,8 +43,9 @@ SWA_WINDOW = 4096   # sliding-window width of the long-context variant
 
 def get_config(name: str, *, shape: str | None = None) -> ArchConfig:
     """The published (full-width) configuration; with
-    ``shape="long_500k"`` an attention family gets the sliding-window
-    variant (window ``SWA_WINDOW``; ssm is natively O(1) in context)."""
+    ``shape="long_500k"`` a family with attention (the hybrid's shared
+    block too) gets the sliding-window variant (window ``SWA_WINDOW``;
+    ssm is natively O(1) in context)."""
     cfg = _MODULES[name].FULL
     if shape == "long_500k" and cfg.family != "ssm":
         cfg = dataclasses.replace(cfg, sliding_window=SWA_WINDOW)

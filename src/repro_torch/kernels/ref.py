@@ -3,6 +3,8 @@
 Counterpart of ``repro.kernels.ref``: each CUDA kernel in this package has
 a function here that computes the same thing.  The CPU path and the tests
 run these; ``chip_smoke.py`` holds each kernel against them on the card.
+The Mamba2 chunked scan has no kernel (nor a Pallas one in the JAX
+package); its sequential oracle sits here all the same, as in JAX.
 """
 from __future__ import annotations
 
@@ -135,3 +137,26 @@ def rwkv6_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   state + uf * kv)
         state = df[:, :, t, :, None] * state + kv
     return y, state
+
+
+def mamba2_chunk_ref(x: torch.Tensor, b_mat: torch.Tensor,
+                     c_mat: torch.Tensor, decay: torch.Tensor) -> tuple:
+    """Mamba2 (SSD) over the whole sequence from a zero state, the
+    sequential oracle of the chunked scan (no chunks, no exponent).
+
+    x: (B, S, H, hd) dt-scaled inputs; b_mat, c_mat: (B, S, ns); decay:
+    (B, S, H) in (0, 1].  Per token: ``h <- d_t h + x_t^T B_t``, then
+    ``y_t = h C_t``, in fp32, as ``repro.kernels.ref.mamba2_chunk_ref``.
+    Returns (y (B, S, H, hd), the state after the last token (B, H, hd,
+    ns)), fp32.
+    """
+    bsz, s, h, hd = x.shape
+    xf, bf, cf, df = (t.float() for t in (x, b_mat, c_mat, decay))
+    state = torch.zeros((bsz, h, hd, b_mat.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(s):
+        state = df[:, t, :, None, None] * state + torch.einsum(
+            "bhd,bs->bhds", xf[:, t], bf[:, t])
+        ys.append(torch.einsum("bhds,bs->bhd", state, cf[:, t]))
+    return torch.stack(ys, dim=1), state

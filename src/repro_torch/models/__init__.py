@@ -1,4 +1,4 @@
-"""The LM model zoo (the dense, MoE and RWKV6 families so far)."""
+"""The LM model zoo (the dense, MoE, RWKV6 and hybrid families so far)."""
 from .attention import KVCache, decode_attend, init_cache
 from .common import ArchConfig
 from .model import (DecodeState, DenseLM, decode_step, evict_decode_state,

@@ -1,9 +1,9 @@
 """Architecture config and the shared building blocks of the LMs.
 
-Counterpart of ``repro.models.common``, with the fields the dense, MoE
-and RWKV6 (``"ssm"``) families use.  Layouts follow the JAX package: linears
-are ``(in, out)`` for ``x @ W``, rotary embedding rotates split halves
-(not interleaved pairs).
+Counterpart of ``repro.models.common``, with the fields the dense, MoE,
+RWKV6 (``"ssm"``) and Mamba2 hybrid (``"hybrid"``) families use.
+Layouts follow the JAX package: linears are ``(in, out)`` for ``x @ W``,
+rotary embedding rotates split halves (not interleaved pairs).
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ class ArchConfig:
     """One architecture (full or reduced/smoke variant)."""
 
     name: str
-    family: str                     # dense | moe | ssm (RWKV6): the
+    family: str                     # dense | moe | ssm (RWKV6) | hybrid
+                                    # (Mamba2 + shared attention): the
                                     # ported ones
     num_layers: int
     d_model: int
@@ -35,10 +36,16 @@ class ArchConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     capacity_factor: float = 1.25
-    ssm_chunk: int = 256            # chunk of the RWKV6 training scan
+    # SSM / hybrid
+    ssm_state: int = 0              # Mamba2 state width (B and C columns)
+    ssm_expand: int = 2             # Mamba2 inner width over d_model
+    conv_width: int = 4             # Mamba2 depthwise causal conv taps
+    ssm_chunk: int = 256            # chunk of the RWKV6 and Mamba2 scans
     head_pad_to: int = 0            # pad the RWKV6 decode state's heads to
                                     # this count (0 = off); exact: padded
                                     # channels stay zero
+    attn_every: int = 0             # hybrid: the shared attention block
+                                    # after every k-th layer (0 = none)
     dtype: str = "bfloat16"
     # bf16 expert products return fp32 (JAX's preferred_element_type on
     # the MXU); the smoke configs turn it off, as JAX's do

@@ -2,34 +2,42 @@
 
 Counterpart of ``repro.models.model`` for the dense family (GQA, with
 optional qk-norm, QKV bias and sliding window), the ``"moe"`` family
-(dense attention and a top-k MoE feed-forward, :mod:`.moe`) and the RWKV6
-``"ssm"`` family.  Parameters are a flat dict keyed by dotted names
-(``"blocks.attn.wq"``) in the JAX package's leaf order, so a dual or a
-gradient is a dict of the same keys.  As in JAX, each block leaf is
-stacked over the layers, ``(L, ...)``, and a linear is stored ``(in,
-out)`` for ``x @ W``: the qwen2 model has 15 leaves at any depth, the
-RWKV6 model 20.  :class:`DenseLM` is the ``nn.Module`` that owns them (of
-any family); :func:`forward_aux` (hidden and the MoE load-balance loss)
-and :func:`lm_loss` are plain functions of a parameter dict, so the
-gossip step can evaluate each worker's own primal.  Each block is
+(dense attention and a top-k MoE feed-forward, :mod:`.moe`), the RWKV6
+``"ssm"`` family and the ``"hybrid"`` family (zamba2: Mamba2 blocks and
+one *shared* dense block applied after every ``attn_every``-th layer).
+Parameters are a flat dict keyed by dotted names (``"blocks.attn.wq"``)
+in the JAX package's leaf order, so a dual or a gradient is a dict of the
+same keys.  As in JAX, each block leaf is stacked over the layers, ``(L,
+...)``, the hybrid's shared block (``"shared_attn.*"``) is not, and a
+linear is stored ``(in, out)`` for ``x @ W``: the qwen2 model has 15
+leaves at any depth, the RWKV6 model 20, the hybrid 20.
+:class:`DenseLM` is the ``nn.Module`` that owns them (of any family);
+:func:`forward_aux` (hidden and the MoE load-balance loss) and
+:func:`lm_loss` are plain functions of a parameter dict, so the gossip
+step can evaluate each worker's own primal.  Each block is
 recomputed in the backward pass (``torch.utils.checkpoint``), as the JAX
 model checkpoints each scanned block.
 
 Serving: :func:`prefill` runs a prompt (attention through the flash
-kernel; ssm: the wkv scan through its kernel) and returns the last real
-token's logits and a :class:`DecodeState`; :func:`decode_step` advances
-every row one token.  The caches are stacked over the layers with batch on
-axis 1, as in JAX: KV caches (L, B, cap, KV, hd), linear, or ring caches
-of capacity ``min(window, S)`` under a sliding window; ssm states
-``{"tmix": RWKVState(s (L, B, heads, hd, hd), x_prev (L, B, d)),
-"cmix_prev": (L, B, d)}``.  They are updated in place (a copy per step
-would move the whole cache); :func:`insert_decode_state` and
+kernel; ssm: the wkv scan through its kernel; hybrid: the Mamba2 scan in
+plain torch and the shared block's attention through the flash kernel)
+and returns the last real token's logits and a :class:`DecodeState`;
+:func:`decode_step` advances every row one token.  The caches are stacked
+over the layers with batch on axis 1, as in JAX: KV caches (L, B, cap,
+KV, hd), linear, or ring caches of capacity ``min(window, S)`` under a
+sliding window; ssm states ``{"tmix": RWKVState(s (L, B, heads, hd, hd),
+x_prev (L, B, d)), "cmix_prev": (L, B, d)}``; hybrid ``{"mamba":
+MambaState(h (L, B, heads, hd, ns), conv (L, B, K-1, d_in + 2 ns)),
+"attn": KVCache (A, B, cap, KV, hd)}``, one KV row for each of the A
+applications of the shared block.  They are updated in place (a copy per
+step would move the whole cache); :func:`insert_decode_state` and
 :func:`evict_decode_state` write and clear one slot row of every cache
 tensor in place.  The prefill takes a prompt's token-wise work (norms,
 projections, rope, the dense MLP) ``attn.PREFILL_ROWS`` tokens at a time,
 so a 524,288-token prompt holds no (S, d_ff) tensor; the MoE
 feed-forward takes the whole prompt (its groups and capacities are per
-sequence).  The other families raise ``NotImplementedError``.
+sequence).  The other families (audio, vlm) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,7 +56,8 @@ from . import moe, ssm
 from .common import ArchConfig, init_linear, rms_norm, swiglu
 
 BLOCKS = "blocks."
-FAMILIES = ("dense", "moe", "ssm")
+SHARED = "shared_attn."
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _leaf_key(name: str) -> tuple:
@@ -67,13 +76,21 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
         "embed": init_linear((cfg.vocab_size, d), dt, generator, scale=1.0),
         "unembed": init_linear((d, cfg.vocab_size), dt, generator),
         "final_norm": ones(d),
-        "blocks.ln1": ones(L, d),
-        "blocks.ln2": ones(L, d),
     }
+    if cfg.family == "hybrid":
+        params["blocks.ln1"] = ones(L, d)
+        for k, v in ssm.mamba2_params(cfg, generator, L).items():
+            params[f"blocks.mamba.{k}"] = v
+        if cfg.attn_every:
+            params.update({SHARED + k: v[0] for k, v in _dense_params(
+                cfg, generator, 1).items()})
+        return ordered(params)
     if cfg.family == "ssm":
         for k, v in ssm.rwkv6_params(cfg, generator, L).items():
             params[f"blocks.tmix.{k}"] = v
         params.update({
+            "blocks.ln1": ones(L, d),
+            "blocks.ln2": ones(L, d),
             "blocks.cmix.mu": torch.full((L, 2, d), 0.5, dtype=dt,
                                          device=dev),
             "blocks.cmix.w_k": init_linear((L, d, ff), dt, generator),
@@ -81,18 +98,32 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
             "blocks.cmix.w_r": init_linear((L, d, d), dt, generator),
         })
         return ordered(params)
-    if cfg.is_moe:
-        for k, v in moe.moe_params(cfg, generator, L).items():
-            params[f"blocks.moe.{k}"] = v
-    else:
-        params.update({
-            "blocks.mlp.w_gate": init_linear((L, d, ff), dt, generator),
-            "blocks.mlp.w_up": init_linear((L, d, ff), dt, generator),
-            "blocks.mlp.w_down": init_linear((L, ff, d), dt, generator),
-        })
-    for k, v in attn.attention_params(cfg, generator, L).items():
-        params[f"blocks.attn.{k}"] = v
+    params.update({BLOCKS + k: v for k, v in _dense_params(
+        cfg, generator, L).items()})
     return ordered(params)
+
+
+def _dense_params(cfg: ArchConfig, generator: torch.Generator,
+                  layers: int) -> dict:
+    """A dense (or MoE) block's leaves, stacked over ``layers``, keyed
+    below the block (``"attn.wq"``)."""
+    d, ff, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
+    p = {"ln1": torch.ones((layers, d), dtype=torch.float32,
+                           device=generator.device),
+         "ln2": torch.ones((layers, d), dtype=torch.float32,
+                           device=generator.device)}
+    if cfg.is_moe:
+        for k, v in moe.moe_params(cfg, generator, layers).items():
+            p[f"moe.{k}"] = v
+    else:
+        p.update({
+            "mlp.w_gate": init_linear((layers, d, ff), dt, generator),
+            "mlp.w_up": init_linear((layers, d, ff), dt, generator),
+            "mlp.w_down": init_linear((layers, ff, d), dt, generator),
+        })
+    for k, v in attn.attention_params(cfg, generator, layers).items():
+        p[f"attn.{k}"] = v
+    return p
 
 
 def ordered(params: dict) -> dict:
@@ -143,6 +174,26 @@ def _rwkv_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
     return _cmix(x, xn, F.pad(xn, (0, 0, 1, 0))[:, :-1], p["cmix"]), None
 
 
+def _mamba_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
+                 p: dict) -> tuple:
+    """(the block's output, None: no load-balance loss)."""
+    return x + ssm.mamba2_forward(p["mamba"], rms_norm(x, p["ln1"]),
+                                  cfg), None
+
+
+def _shared(params: dict) -> dict:
+    """The hybrid's shared dense block, nested (``{"attn": ..., "mlp":
+    ...}``)."""
+    return _nest({k[len(SHARED):]: v for k, v in params.items()
+                  if k.startswith(SHARED)})
+
+
+def _applies_shared(cfg: ArchConfig, layer: int) -> bool:
+    """Whether the hybrid's shared block follows ``layer`` (layers k-1,
+    2k-1, ... for ``attn_every`` k; never for k = 0)."""
+    return bool(cfg.attn_every) and (layer + 1) % cfg.attn_every == 0
+
+
 def _layers(params: dict, cfg: ArchConfig):
     """Each layer's nested block parameters, in order."""
     per_layer = {k[len(BLOCKS):]: v.unbind(0) for k, v in params.items()
@@ -169,15 +220,21 @@ def forward_aux(params: dict, cfg: ArchConfig,
     x = F.embedding(tokens, params["embed"])
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    block = _rwkv_block if cfg.family == "ssm" else _dense_block
-    for lp in _layers(params, cfg):
+    block = {"ssm": _rwkv_block, "hybrid": _mamba_block}.get(cfg.family,
+                                                             _dense_block)
+    shared = _shared(params) if cfg.family == "hybrid" else None
+
+    def run(fn, x, p):
         if torch.is_grad_enabled():
-            x, a = checkpoint(block, x, positions, cfg, lp,
-                              use_reentrant=False)
-        else:
-            x, a = block(x, positions, cfg, lp)
+            return checkpoint(fn, x, positions, cfg, p, use_reentrant=False)
+        return fn(x, positions, cfg, p)
+
+    for layer, lp in enumerate(_layers(params, cfg)):
+        x, a = run(block, x, lp)
         if a is not None:
             aux = aux + a
+        if _applies_shared(cfg, layer):
+            x, _ = run(_dense_block, x, shared)
     return rms_norm(x, params["final_norm"]), aux
 
 
@@ -230,9 +287,10 @@ def _check_servable(cfg: ArchConfig) -> None:
 
 
 class DecodeState:
-    """Decode state: the layer-stacked caches (a :class:`KVCache`, or the
-    ssm state dict) and the position(s) the next token is written at (a
-    0-d tensor, or (B,) per slot)."""
+    """Decode state: the layer-stacked caches (a :class:`KVCache`, the
+    ssm state dict, or the hybrid's ``{"mamba", "attn"}``) and the
+    position(s) the next token is written at (a 0-d tensor, or (B,) per
+    slot)."""
 
     def __init__(self, caches, pos: torch.Tensor):
         self.caches, self.pos = caches, pos
@@ -306,41 +364,81 @@ def _ring_from_linear(k: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
-def _prefill_attn_stack(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                        caches: attn.KVCache) -> torch.Tensor:
-    """The dense or MoE stack over a prompt, writing each layer's k and v
-    into ``caches`` (linear: rows 0..S-1; ring: packed as it comes);
-    returns the last layer's output.  ``x`` is updated in place."""
+def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                         caches: attn.KVCache, row: int) -> None:
+    """One dense or MoE block ``p`` over a prompt, in place on ``x``: its
+    token-wise work ``attn.PREFILL_ROWS`` tokens at a time, its attention
+    through the flash kernel, its k and v written into cache row ``row``
+    (linear: rows 0..S-1; ring: packed as it comes)."""
     b, s, _ = x.shape
     kvh, hd = cfg.num_kv_heads, cfg.hd
     positions = torch.arange(s, device=x.device)[None, :]
     chunks = [slice(c, min(c + attn.PREFILL_ROWS, s))
               for c in range(0, s, attn.PREFILL_ROWS)]
+    ap = p["attn"]
+    q = x.new_empty((b, s, kvh, cfg.num_heads // kvh, hd))
+    if caches.ring:
+        k, v = x.new_empty((b, s, kvh, hd)), x.new_empty((b, s, kvh, hd))
+    else:
+        k, v = caches.k[row, :, :s], caches.v[row, :, :s]
+    for c in chunks:
+        q[:, c], k[:, c], v[:, c] = attn.qkv_rope(
+            ap, rms_norm(x[:, c], p["ln1"]), positions[:, c], cfg)
+    out = attn.flash_prefill(q, k, v, cfg.sliding_window)
+    del q
+    if caches.ring:
+        cap = caches.k.shape[2]
+        caches.k[row] = _ring_from_linear(k, cap)
+        caches.v[row] = _ring_from_linear(v, cap)
+    del k, v
+    for c in chunks:
+        x[:, c].add_(out[:, c] @ ap["wo"])
+        if not cfg.is_moe:
+            x[:, c].add_(_ffn(x[:, c], p, cfg)[0])
+    del out
+    if cfg.is_moe:
+        x.add_(_ffn(x, p, cfg)[0])
+
+
+def _kv_caches(cfg: ArchConfig, rows: int, batch: int, cap: int, dtype,
+               device) -> attn.KVCache:
+    """Zero KV caches (rows, B, cap, KV, hd), ring under a window."""
+    shape = (rows, batch, cap, cfg.num_kv_heads, cfg.hd)
+    return attn.KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device),
+                        cfg.sliding_window > 0)
+
+
+def _hybrid_caches(cfg: ArchConfig, batch: int, cap: int, device) -> dict:
+    """Zero hybrid caches: every layer's Mamba2 state, and a KV cache of
+    ``cap`` rows for each application of the shared block (one, unused,
+    without it, as in JAX)."""
+    one = ssm.mamba2_init_state(cfg, batch, device)
+    apps = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    return {"mamba": ssm.MambaState(*(t.new_zeros((cfg.num_layers,)
+                                                  + t.shape) for t in one)),
+            "attn": _kv_caches(cfg, max(apps, 1), batch, cap,
+                               cfg.torch_dtype, device)}
+
+
+def _prefill_hybrid(params: dict, cfg: ArchConfig, x: torch.Tensor,
+                    cap: int) -> tuple:
+    """The hybrid stack over a prompt: (the last layer's output, {"mamba":
+    each layer's state after the prompt, "attn": each application's KV
+    cache of ``cap`` rows}).  ``x`` is updated in place."""
+    caches = _hybrid_caches(cfg, x.shape[0], cap, x.device)
+    shared, app = _shared(params), 0
     for layer, lp in enumerate(_layers(params, cfg)):
-        ap = lp["attn"]
-        q = x.new_empty((b, s, kvh, cfg.num_heads // kvh, hd))
-        if caches.ring:
-            k, v = x.new_empty((b, s, kvh, hd)), x.new_empty((b, s, kvh, hd))
-        else:
-            k, v = caches.k[layer, :, :s], caches.v[layer, :, :s]
-        for c in chunks:
-            q[:, c], k[:, c], v[:, c] = attn.qkv_rope(
-                ap, rms_norm(x[:, c], lp["ln1"]), positions[:, c], cfg)
-        out = attn.flash_prefill(q, k, v, cfg.sliding_window)
-        del q
-        if caches.ring:
-            cap = caches.k.shape[2]
-            caches.k[layer] = _ring_from_linear(k, cap)
-            caches.v[layer] = _ring_from_linear(v, cap)
-        del k, v
-        for c in chunks:
-            x[:, c].add_(out[:, c] @ ap["wo"])
-            if not cfg.is_moe:
-                x[:, c].add_(_ffn(x[:, c], lp, cfg)[0])
-        del out
-        if cfg.is_moe:
-            x.add_(_ffn(x, lp, cfg)[0])
-    return x
+        h, st = ssm.mamba2_forward(lp["mamba"], rms_norm(x, lp["ln1"]), cfg,
+                                   return_state=True)
+        x.add_(h)
+        caches["mamba"].h[layer] = st.h
+        caches["mamba"].conv[layer] = st.conv
+        del h, st
+        if _applies_shared(cfg, layer):
+            _prefill_dense_block(shared, cfg, x, caches["attn"], app)
+            app += 1
+    return x, caches
 
 
 @torch.no_grad()
@@ -359,22 +457,24 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     masked until decode overwrites them).  Ssm: the states after the
     prompt's last token, their heads padded to ``cfg.head_pad_to``
     (``extra_capacity`` does not apply; a recurrent state absorbs padding,
-    so serve prompts at their exact length).
+    so serve prompts at their exact length).  Hybrid: the Mamba2 states
+    after the prompt, and one KV cache row for each application of the
+    shared block, sized as the dense family's.
     """
     _check_servable(cfg)
     tokens = batch["tokens"]
     x = F.embedding(tokens, params["embed"])
+    b, s, _ = x.shape
+    window = cfg.sliding_window
+    cap = min(window, s) if window > 0 else s + extra_capacity
     if cfg.family == "ssm":
         x, caches = _prefill_ssm(params, cfg, x)
+    elif cfg.family == "hybrid":
+        x, caches = _prefill_hybrid(params, cfg, x, cap)
     else:
-        b, s, _ = x.shape
-        window = cfg.sliding_window
-        cap = min(window, s) if window > 0 else s + extra_capacity
-        shape = (cfg.num_layers, b, cap, cfg.num_kv_heads, cfg.hd)
-        caches = attn.KVCache(
-            torch.zeros(shape, dtype=x.dtype, device=x.device),
-            torch.zeros(shape, dtype=x.dtype, device=x.device), window > 0)
-        x = _prefill_attn_stack(params, cfg, x, caches)
+        caches = _kv_caches(cfg, cfg.num_layers, b, cap, x.dtype, x.device)
+        for layer, lp in enumerate(_layers(params, cfg)):
+            _prefill_dense_block(lp, cfg, x, caches, layer)
     hidden, pos = _last_hidden(params, x, last_pos)
     return (hidden @ params["unembed"])[:, 0], DecodeState(caches, pos)
 
@@ -389,15 +489,15 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     own depths) instead of a shared scalar."""
     _check_servable(cfg)
     device = resolve_device(device)
+    ring = cfg.sliding_window > 0
+    cap = min(cfg.sliding_window, cache_len) if ring else cache_len
     if cfg.family == "ssm":
         caches = _ssm_caches(cfg, batch, device)
+    elif cfg.family == "hybrid":
+        caches = _hybrid_caches(cfg, batch, cap, device)
     else:
-        ring = cfg.sliding_window > 0
-        cap = min(cfg.sliding_window, cache_len) if ring else cache_len
-        shape = (cfg.num_layers, batch, cap, cfg.num_kv_heads, cfg.hd)
-        caches = attn.KVCache(
-            torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            torch.zeros(shape, dtype=cfg.torch_dtype, device=device), ring)
+        caches = _kv_caches(cfg, cfg.num_layers, batch, cap,
+                            cfg.torch_dtype, device)
     pos = torch.zeros((batch,) if per_slot_pos else (), dtype=torch.long,
                       device=device)
     return DecodeState(caches, pos)
@@ -435,7 +535,8 @@ def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
     ``pos + 1`` over the same, updated, caches)."""
     _check_servable(cfg)
     x = F.embedding(token.long(), params["embed"])[:, None, :]
-    decode = _decode_ssm if cfg.family == "ssm" else _decode_dense
+    decode = {"ssm": _decode_ssm, "hybrid": _decode_hybrid}.get(
+        cfg.family, _decode_dense)
     x = decode(params, cfg, state.caches, state.pos, x)
     hidden = rms_norm(x, params["final_norm"])
     logits = (hidden @ params["unembed"])[:, 0]
@@ -470,6 +571,30 @@ def _decode_ssm(params: dict, cfg: ArchConfig, caches: dict,
         xn = rms_norm(x, lp["ln2"])
         x = _cmix(x, xn, caches["cmix_prev"][layer][:, None], lp["cmix"])
         caches["cmix_prev"][layer] = xn[:, 0]
+    return x
+
+
+def _decode_hybrid(params: dict, cfg: ArchConfig, caches: dict,
+                   pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One token through the hybrid stack: each Mamba2 layer's state and
+    each application's KV row are updated in place."""
+    mamba, kv = caches["mamba"], caches["attn"]
+    shared, app = _shared(params), 0
+    for layer, lp in enumerate(_layers(params, cfg)):
+        h, new = ssm.mamba2_decode(
+            lp["mamba"], rms_norm(x, lp["ln1"]),
+            ssm.MambaState(mamba.h[layer], mamba.conv[layer]), cfg)
+        mamba.h[layer] = new.h
+        mamba.conv[layer] = new.conv
+        x = x + h
+        if _applies_shared(cfg, layer):
+            cache = attn.KVCache(kv.k[app], kv.v[app], kv.ring)
+            h, _ = attn.decode_attend(shared["attn"],
+                                      rms_norm(x, shared["ln1"]), pos,
+                                      cache, cfg, window=cfg.sliding_window)
+            x = x + h
+            x = x + _ffn(x, shared, cfg)[0]
+            app += 1
     return x
 
 

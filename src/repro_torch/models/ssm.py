@@ -1,7 +1,18 @@
-"""RWKV6 ("Finch") time-mix with data-dependent per-channel decay.
+"""Sequence-state blocks: Mamba2 (SSD) and RWKV6 ("Finch") time-mix.
 
-Counterpart of the RWKV6 half of ``repro.models.ssm`` (Mamba2 is not
-ported).  The wkv recurrence runs in two forms:
+Counterpart of ``repro.models.ssm``.  Mamba2, the backbone of the
+``"hybrid"`` family (zamba2), runs in two forms, both plain torch as the
+JAX package's are plain ``jnp`` (it has no Pallas kernel):
+
+  * training and prefill, :func:`mamba2_forward`: the chunked SSD scan
+    :func:`ssd_chunked_scan` at ``cfg.ssm_chunk``, the JAX model's
+    ``chunk_step``, except that the intra-chunk decay is masked *before*
+    its exponent (JAX exponentiates the positive t < u exponents, which
+    overflow past about 88, and masks after: the value is the same, but
+    its gradient is 0 x inf = NaN once a chunk holds about 130 tokens);
+  * decode, :func:`mamba2_decode`: the O(1)-state one-token step.
+
+The wkv recurrence of RWKV6 runs in two forms:
 
   * prefill and training, :func:`rwkv6_forward`: under autograd the plain
     chunked scan :func:`rwkv6_chunked_scan` at ``cfg.ssm_chunk`` (the JAX
@@ -23,6 +34,194 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from .common import ArchConfig, init_linear
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, a scalar decay per head)
+# ---------------------------------------------------------------------------
+
+MAMBA_HD = 64
+
+
+def mamba2_dims(cfg: ArchConfig) -> tuple:
+    """(inner width, heads, head dim) of the Mamba2 block."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    return d_in, d_in // MAMBA_HD, MAMBA_HD
+
+
+def mamba2_params(cfg: ArchConfig, generator: torch.Generator,
+                  layers: int) -> dict:
+    """The Mamba2 leaves, stacked over ``layers``, with JAX's names, dtypes
+    and init: ``w_in`` projects to [x | z | B C | dt], the depthwise conv
+    is truncated normal times 0.5, a_log and dt_bias 0, the D skip and
+    the output norm 1 (fp32)."""
+    d, L, ns = cfg.d_model, layers, cfg.ssm_state
+    d_in, heads, _ = mamba2_dims(cfg)
+    dt, dev = cfg.torch_dtype, generator.device
+
+    def f32(fill, *shape):
+        return torch.full((L,) + shape, fill, dtype=torch.float32,
+                          device=dev)
+
+    return {
+        "w_in": init_linear((L, d, 2 * d_in + 2 * ns + heads), dt,
+                            generator),
+        "conv_w": init_linear((L, cfg.conv_width, d_in + 2 * ns), dt,
+                              generator, scale=0.5),
+        "a_log": f32(0.0, heads),
+        "dt_bias": f32(0.0, heads),
+        "d_skip": f32(1.0, heads),
+        "w_out": init_linear((L, d_in, d), dt, generator),
+        "norm_z": f32(1.0, d_in),
+    }
+
+
+class MambaState(NamedTuple):
+    h: torch.Tensor        # (B, heads, hd, ns) SSM state, fp32
+    conv: torch.Tensor     # (B, conv_width - 1, d_in + 2 ns) conv tail
+
+
+def _mamba_split(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple:
+    """x @ w_in split into x (..., d_in), z (..., d_in), B C (..., 2 ns)
+    and dt (..., heads)."""
+    d_in, _, _ = mamba2_dims(cfg)
+    ns = cfg.ssm_state
+    proj = x @ p["w_in"]
+    return (proj[..., :d_in], proj[..., d_in:2 * d_in],
+            proj[..., 2 * d_in:2 * d_in + 2 * ns],
+            proj[..., 2 * d_in + 2 * ns:])
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor, tail) -> tuple:
+    """Depthwise causal conv and SiLU.  u: (B, S, C); w: (K, C); tail:
+    (B, K-1, C) or None (zeros).  The taps are summed in JAX's order,
+    first to last.  Returns (out, the new tail: the last K-1 inputs)."""
+    k, s = w.shape[0], u.shape[1]
+    if tail is None:
+        tail = u.new_zeros((u.shape[0], k - 1, u.shape[2]))
+    up = torch.cat([tail, u], dim=1)
+    out = up[:, :s] * w[0]
+    for i in range(1, k):
+        out = out + up[:, i:i + s] * w[i]
+    return F.silu(out), (up[:, s:] if k > 1 else tail)
+
+
+def ssd_chunked_scan(x: torch.Tensor, b_mat: torch.Tensor,
+                     c_mat: torch.Tensor, decay: torch.Tensor,
+                     chunk: int) -> tuple:
+    """The chunked SSD scan in plain torch, differentiable.
+
+    x: (B, S, H, hd) dt-scaled inputs, b_mat, c_mat: (B, S, ns), decay:
+    (B, S, H) in (0, 1], all fp32.  Per chunk: the intra-chunk term
+    ``y_t = sum_{u <= t} exp(cums_t - cums_u) (C_t . B_u) x_u`` from the
+    gated (B, H, t, u) scores and one batched product over u (never a
+    (B, t, u, H, hd) tensor), the carried state's term, and the state
+    update.  The t < u exponents are set to -inf before ``exp``.  The
+    tail is padded with x = B = C = 0, decay 1, which leaves the state
+    alone.  Returns (y (B, S, H, hd), the state after token S (B, H, hd,
+    ns)).
+    """
+    bsz, s, h, hd = x.shape
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        b_mat, c_mat = (F.pad(t, (0, 0, 0, pad)) for t in (b_mat, c_mat))
+        decay = F.pad(decay, (0, 0, 0, pad), value=1.0)
+    idx = torch.arange(chunk, device=x.device)
+    future = idx[None, :] > idx[:, None]                  # (t, u): u > t
+    state = x.new_zeros((bsz, h, hd, b_mat.shape[-1]))
+    ys = []
+    for xc, bc, cc, dc in zip(*(t.split(chunk, dim=1)
+                                for t in (x, b_mat, c_mat, decay))):
+        cums = torch.cumsum(torch.log(torch.clamp(dc, min=1e-20)), dim=1)
+        ch = cums.transpose(1, 2)                         # (B, H, C)
+        gate = (ch[..., :, None] - ch[..., None, :]).masked_fill(
+            future, float("-inf")).exp()                  # (B, H, t, u)
+        scores = gate * (cc @ bc.transpose(1, 2))[:, None]
+        y_intra = (scores @ xc.transpose(1, 2)).transpose(1, 2)
+        y_inter = torch.einsum("bts,bhds->bthd", cc,
+                               state) * cums.exp()[..., None]
+        total = cums[:, -1]                               # (B, H)
+        w_u = torch.exp(total[:, None, :] - cums)         # (B, C, H)
+        state = (total.exp()[:, :, None, None] * state
+                 + torch.einsum("buhd,bus->bhds", xc * w_u[..., None], bc))
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1)[:, :s], state
+
+
+def _gated_norm_out(p: dict, y: torch.Tensor, z: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """The gated RMS norm of y (..., d_in) fp32 by SiLU(z), then the
+    output projection in x's dtype."""
+    y = y * torch.rsqrt((y * y).mean(dim=-1, keepdim=True) + 1e-6)
+    y = y * p["norm_z"] * F.silu(z.float())
+    return y.to(x.dtype) @ p["w_out"]
+
+
+def _dt_decay(p: dict, dt: torch.Tensor) -> tuple:
+    """(softplus(dt + dt_bias), exp(dt * -exp(a_log))), fp32."""
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    return dt, torch.exp(dt * -torch.exp(p["a_log"]))
+
+
+def mamba2_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                   chunk: int = 0, return_state: bool = False):
+    """Mamba2 over a sequence.  x: (B, S, d), normed -> (B, S, d).
+
+    The SSD scan is :func:`ssd_chunked_scan` at ``chunk`` (or
+    ``cfg.ssm_chunk``).  ``return_state`` also returns the
+    :class:`MambaState` after the sequence (the decode hand-off)."""
+    b, s, _ = x.shape
+    d_in, heads, hd = mamba2_dims(cfg)
+    k = cfg.conv_width
+    xi, z, bc, dt = _mamba_split(p, x, cfg)
+    conv_in = torch.cat([xi, bc], dim=-1)
+    conv_tail = (conv_in[:, s - (k - 1):] if s >= k - 1
+                 else F.pad(conv_in, (0, 0, k - 1 - s, 0)))
+    conv_out, _ = _causal_conv(conv_in, p["conv_w"], None)
+    bmat, cmat = conv_out[..., d_in:].float().chunk(2, dim=-1)
+    dt, decay = _dt_decay(p, dt)
+    xh = conv_out[..., :d_in].reshape(b, s, heads, hd).float()
+    y, h_final = ssd_chunked_scan(xh * dt[..., None], bmat, cmat, decay,
+                                  chunk or cfg.ssm_chunk)
+    y = (y + p["d_skip"][:, None] * xh).reshape(b, s, d_in)
+    out = _gated_norm_out(p, y, z, x)
+    if return_state:
+        return out, MambaState(h_final, conv_tail.to(cfg.torch_dtype))
+    return out
+
+
+def mamba2_init_state(cfg: ArchConfig, batch: int, device) -> MambaState:
+    d_in, heads, hd = mamba2_dims(cfg)
+    return MambaState(
+        torch.zeros((batch, heads, hd, cfg.ssm_state), dtype=torch.float32,
+                    device=device),
+        torch.zeros((batch, cfg.conv_width - 1, d_in + 2 * cfg.ssm_state),
+                    dtype=cfg.torch_dtype, device=device))
+
+
+def mamba2_decode(p: dict, x: torch.Tensor, state: MambaState,
+                  cfg: ArchConfig) -> tuple:
+    """One-token step.  x: (B, 1, d), normed.  Returns (out (B, 1, d), the
+    new :class:`MambaState`)."""
+    b = x.shape[0]
+    d_in, heads, hd = mamba2_dims(cfg)
+    xi, z, bc, dt = _mamba_split(p, x, cfg)
+    conv_out, tail = _causal_conv(torch.cat([xi, bc], dim=-1), p["conv_w"],
+                                  state.conv)
+    bmat, cmat = conv_out[:, 0, d_in:].float().chunk(2, dim=-1)
+    dt, decay = _dt_decay(p, dt[:, 0])                    # (B, heads)
+    xh = conv_out[:, 0, :d_in].reshape(b, heads, hd).float()
+    h_new = decay[..., None, None] * state.h + torch.einsum(
+        "bhd,bs->bhds", xh * dt[..., None], bmat)
+    y = torch.einsum("bhds,bs->bhd", h_new, cmat) + p["d_skip"][:, None] * xh
+    return (_gated_norm_out(p, y.reshape(b, 1, d_in), z, x),
+            MambaState(h_new, tail))
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 ("Finch") time-mix with data-dependent decay
+# ---------------------------------------------------------------------------
 
 RWKV_HD = 64
 LORA = 64            # rank of the decay's low-rank projection

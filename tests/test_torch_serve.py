@@ -132,8 +132,8 @@ def test_prefill_scalar_position_and_unservable_configs():
     _, ring = models.prefill(tp, dataclasses.replace(cfg, sliding_window=8),
                              {"tokens": torch.from_numpy(toks)})
     assert ring.caches.ring and ring.caches.k.shape[2] == 8
-    with pytest.raises(NotImplementedError, match="'hybrid' family"):
-        models.init_decode_state(dataclasses.replace(cfg, family="hybrid"),
+    with pytest.raises(NotImplementedError, match="'audio' family"):
+        models.init_decode_state(dataclasses.replace(cfg, family="audio"),
                                  2, 16, device="cpu")
 
 

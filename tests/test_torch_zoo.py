@@ -520,6 +520,6 @@ def test_slot_engine_and_static_paths_refuse_what_jax_refuses():
         static_generate(tp, cfg, reqs, cache_len=16)
     with pytest.raises(NotImplementedError, match="dense/vlm"):
         serve_static(tp, cfg, reqs, batch=2, cache_len=16)
-    with pytest.raises(NotImplementedError, match="'hybrid' family"):
-        models.init_decode_state(dataclasses.replace(cfg, family="hybrid"),
+    with pytest.raises(NotImplementedError, match="'audio' family"):
+        models.init_decode_state(dataclasses.replace(cfg, family="audio"),
                                  1, 8, device="cpu")
