@@ -39,7 +39,10 @@ Phases (any failure ends the run with a non-zero exit code):
      against the plain version through ``q_offset``), and the long_500k
      prompt (524,288 tokens) in the model's query chunks; and zamba2's
      shared block (MHA, group 1, hd 64, S 2048 and 2560, causal;
-     library: SDPA);
+     library: SDPA); whisper's encoder (1500 x 1500 frames) and
+     cross-attention (224 x 1500), both with no causal mask (MHA, hd 64;
+     library: SDPA, ``is_causal=False``), and internvl2's prefill (GQA
+     group 8, hd 128, S 2048 and 2560, causal);
   4. a small reference check: the quantized gossip strategy on a
      smoke-width message stack, the smoke-size sessions (exact, gossip,
      gossip_q8), and smoke-size serving of qwen2-1.5b and rwkv6-3b
@@ -50,7 +53,10 @@ Phases (any failure ends the run with a non-zero exit code):
      (prefill and slot-engine tokens; tokens routed to other experts on
      the card than on the CPU are counted and left out); and zamba2
      (prefill logits, Mamba2 states and shared caches, 6 decode steps,
-     slot-engine tokens, a 3-epoch exact session's duals);
+     slot-engine tokens, a 3-epoch exact session's duals); whisper
+     (prefill logits, K and V caches and the encoder's cross K and V, 6
+     decode steps, a 3-epoch exact session's duals on batches that carry
+     frames) and internvl2 (slot-engine tokens on embeddings prompts);
   5. the main path: AMBSession on qwen2-1.5b at full width, exact
      consensus, all 28 layers, 3 epochs; ring gossip (r = 5), cut to 8
      layers; ring gossip_q8 (20 rounds) and gossip_q4 (40 rounds), cut to
@@ -133,7 +139,21 @@ Phases (any failure ends the run with a non-zero exit code):
      4 x 8 x 256, 3 epochs (every gradient and dual finite after each, 60
      prox launches, step ms and the peak; the prox held at the Mamba2
      w_in leaf); launch counts reset before each and read after;
- 13. print the kernels' JSON line, the card line, and the final ok line.
+ 13. the encoder-decoder and the embeddings-in path, bf16: whisper-base at
+     full width (6 + 6 layers) served through the model-level functions
+     (the slot engine refuses audio, as JAX's does): 16 requests, each
+     with its own 1500 frames and a prompt of 4 to 224 tokens, in two
+     waves of 8 slots, each prefilled alone and inserted, 128 greedy
+     tokens at per-slot positions, the rows evicted between the waves
+     (18 tensor-core flash launches a request; the prefill's and the
+     decode round's medians, tokens/s, the peak); an exact AMBSession on
+     it, 4 x 8 x 256 tokens with their frames, 3 epochs (27 prox launches
+     an epoch, step ms, the peak); internvl2-76b cut to 32 of 80 layers
+     through the slot engine and scheduler with no session (8 requests of
+     2048 +- 512 tokens as embeddings, 1.0 s apart, 16 new tokens; 32
+     tensor-core flash launches a request; TTFT, TPOT, the peak); launch
+     counts reset before each and read after;
+ 14. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -2321,26 +2341,28 @@ def window_pairs(s: int, w: int) -> int:
 
 
 def flash_entry(torch, ops, q, k, v, window, what, library, *, reps,
-                plain=True, run=None, got=None, held=None, extra=None):
-    """One causal flash shape on the tensor-core body, q, k, v (B, H, S,
-    hd): the kernel's output (``got``, else one call of ``run``, else of
-    the kernel) against the plain version, whole (``plain``) or in blocks
-    of FLASH_ROWS query rows from each start in ``held`` (default: the
-    last block) through ``q_offset``; then the ms of ``run`` (or the
+                plain=True, run=None, got=None, held=None, extra=None,
+                causal=True):
+    """One flash shape on the tensor-core body, q (B, H, Sq, hd), k, v (B,
+    KV, Skv, hd), causal (Sq = Skv) unless ``causal`` is off: the
+    kernel's output (``got``, else one call of ``run``, else of the
+    kernel) against the plain version, whole (``plain``) or, causal, in
+    blocks of FLASH_ROWS query rows from each start in ``held`` (default:
+    the last block) through ``q_offset``; then the ms of ``run`` (or the
     kernel), of the plain version (``plain``) and of ``library`` (None:
     no time), and the bound.  ``extra(got, want, tol)`` makes its own
     checks and returns keys for the entry."""
     b, h, s, hd = q.shape
-    kvh = k.shape[1]
+    kvh, skv = k.shape[1], k.shape[2]
     if run is None:
         run = lambda: ops.flash_attention(  # noqa: E731
-            q, k, v, force="kernel", window=window)
+            q, k, v, force="kernel", causal=causal, window=window)
     if got is None:
         got = run()
         torch.cuda.synchronize()
     if plain:
         blocks = [(got, ops.flash_attention(q, k, v, force="ref",
-                                            window=window))]
+                                            causal=causal, window=window))]
     else:
         blocks = []
         for r0 in held or (s - FLASH_ROWS,):
@@ -2360,11 +2382,14 @@ def flash_entry(torch, ops, q, k, v, window, what, library, *, reps,
     else:
         k_ms, l_ms = time_pair(torch, run, library, reps, what)
     p_ms = time_ms(torch, lambda: ops.flash_attention(
-        q, k, v, force="ref", window=window), 5, f"{what} plain") \
-        if plain else None
-    pairs = window_pairs(s, window) if window else causal_pairs(s, s)
+        q, k, v, force="ref", causal=causal, window=window), 5,
+        f"{what} plain") if plain else None
+    if not causal:
+        pairs = s * skv
+    else:
+        pairs = window_pairs(s, window) if window else causal_pairs(s, s)
     flops = 4 * b * h * hd * pairs
-    nbytes = 2 * b * hd * s * (2 * h + 2 * kvh)
+    nbytes = 2 * b * hd * (2 * h * s + 2 * kvh * skv)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
     rows = s if plain else FLASH_ROWS * len(held or (0,))
     entry = dict(shape=what, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
@@ -2669,24 +2694,27 @@ def init_on_card(torch, rt, cfg) -> tuple:
     return params, dt
 
 
-def run_moe_serve(torch, rt) -> dict:
-    """qwen3-moe-30b-a3b at full width, all 48 layers, bf16, through
-    ``SlotEngine`` and ``ServeScheduler`` with no session (an
-    AMBSession's fp32 z and w0 would add 244 GB): 8 slots, SERVE_REQUESTS
-    prompts of 2048 +- 512 tokens at their exact lengths, SERVE_NEW greedy
-    tokens, arrivals 2.0 s apart, round budget 0.25 s.  Requires every
-    request to finish, finite logits, and one tensor-core flash launch a
-    layer a request; returns the launch counts of the run."""
+def run_engine_serve(torch, rt, cfg, requests: int, new: int,
+                     gap_s: float, seed: int) -> dict:
+    """``cfg`` at full width, bf16, through ``SlotEngine`` and
+    ``ServeScheduler`` with no session (an AMBSession's fp32 z and w0
+    would add 244 GB at qwen3-moe's 48 layers): 8 slots, ``requests``
+    prompts of 2048 +- 512 tokens (MoE: at their exact lengths; vlm: as
+    their embedding rows, padded to their buckets), ``new`` greedy
+    tokens, arrivals ``gap_s`` apart, round budget 0.25 s.  Requires
+    every request to finish, finite logits, and one tensor-core flash
+    launch a layer a request; prints TTFT, TPOT, the prefill's and the
+    decode round's times and the peak; returns the launch counts of the
+    run."""
     from repro_torch.serve import slots
-    cfg = rt.configs.get_config(MOE_ARCH)
     release(torch)
     torch.cuda.reset_peak_memory_stats()
     params, _ = init_on_card(torch, rt, cfg)
-    cache_len = 2048 + 512 + SERVE_NEW
+    cache_len = 2048 + 512 + new
     reqs = rt.serve.synthetic_requests(
-        SERVE_REQUESTS, vocab_size=cfg.vocab_size, prompt_len=2048,
-        prompt_jitter=512, max_new_tokens=SERVE_NEW, arrival_gap_s=2.0,
-        seed=1)
+        requests, vocab_size=cfg.vocab_size, prompt_len=2048,
+        prompt_jitter=512, max_new_tokens=new, arrival_gap_s=gap_s,
+        seed=seed)
     queue = rt.serve.RequestQueue(rt.serve.AdmissionPolicy(
         cache_len=cache_len))
     for r in reqs:
@@ -2713,9 +2741,10 @@ def run_moe_serve(torch, rt) -> dict:
     launches = rt.kernels.router.launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     s = report.summary
-    print(f"serve {MOE_ARCH}: layers={cfg.num_layers} bf16 slots=8 "
-          f"requests={s['n_requests']} rounds={report.rounds} "
-          f"wall_s={wall:.1f} peak_GiB={peak:.2f}", flush=True)
+    print(f"serve {cfg.name}: layers={cfg.num_layers} bf16 slots=8 "
+          f"requests={s['n_requests']} buckets={sorted(engine.buckets)} "
+          f"rounds={report.rounds} wall_s={wall:.1f} peak_GiB={peak:.2f}",
+          flush=True)
     print(f"  ttft_s p50={s['ttft_p50_s']:.4f} p99={s['ttft_p99_s']:.4f} "
           f"tpot_s p50={s['tpot_p50_s']:.4f} p99={s['tpot_p99_s']:.4f} "
           f"latency_s p50={s['latency_p50_s']:.4f} "
@@ -2729,16 +2758,16 @@ def run_moe_serve(torch, rt) -> dict:
               f"{ts[-1]:.4f}", flush=True)
     print(f"  launches: {launches}", flush=True)
     done = [r for r in report.requests
-            if len(r.out_tokens) == SERVE_NEW and r.finish_reason == "length"]
-    if len(done) != SERVE_REQUESTS:
-        fail(f"serve {MOE_ARCH}: {len(done)} of {SERVE_REQUESTS} requests "
-             f"finished with {SERVE_NEW} tokens")
-    want = cfg.num_layers * SERVE_REQUESTS
-    expect(f"serve {MOE_ARCH}", launches, {
+            if len(r.out_tokens) == new and r.finish_reason == "length"]
+    if len(done) != requests:
+        fail(f"serve {cfg.name}: {len(done)} of {requests} requests "
+             f"finished with {new} tokens")
+    want = cfg.num_layers * requests
+    expect(f"serve {cfg.name}", launches, {
         "flash_attention": want, "flash_attention.tensor_core": want,
         "flash_attention.cuda_core": 0, "dual_update": 0})
-    if any(seen) or len(seen) < SERVE_REQUESTS:
-        fail(f"serve {MOE_ARCH}: {sum(seen)} non-finite logits over "
+    if any(seen) or len(seen) < requests:
+        fail(f"serve {cfg.name}: {sum(seen)} non-finite logits over "
              f"{len(seen)} draws")
     del engine, params, report
     release(torch)
@@ -3176,6 +3205,317 @@ def run_zamba_session(torch, rt, beta: float) -> tuple:
     return launches, worst
 
 
+WHISPER_ARCH, VLM_ARCH = "whisper-base", "internvl2-76b"
+FLASH_WHISPER = dict(b=1, h=8, kv=8, hd=64)     # MHA, group 1
+WHISPER_FRAMES = 1500   # the encoder's frames: one 30 s audio window
+WHISPER_PROMPT = (4, 224)   # the start-of-transcript tokens, up to the
+                            # 224-token prompt limit (previous text)
+FLASH_VLM = dict(b=1, h=64, kv=8, hd=128)       # internvl2's prefill
+FLASH_VLM_SEQS = (2048, 2560)
+WHISPER_LEAVES, WHISPER_P = 27, 109_854_720     # JAX's init_params, full
+WHISPER_SLOTS, WHISPER_NEW = 8, 128     # two waves of 8 requests
+WHISPER_DECODE = 6      # smoke decode steps held card vs CPU
+# internvl2-76b at 32 of its 80 layers: 70,553,706,496 parameters (141 GB
+# in bf16) do not fit one 80 GB card; 32 layers are 29.48 B (58.96 GB)
+VLM_LAYERS = 32
+VLM_REQUESTS, VLM_NEW, VLM_GAP_S = 8, 16, 1.0
+
+
+def check_flash_whisper(torch, ops, flash) -> list:
+    """The flash kernel at the new models' prefill shapes, each on the
+    tensor-core body against its plain version: whisper's encoder (MHA,
+    hd 64, 1500 x 1500 frames, no causal mask) and its cross-attention
+    (224 prompt rows against the 1500 frames, no mask), library SDPA with
+    ``is_causal=False``; internvl2's prefill (GQA group 8, hd 128, causal,
+    S 2048 and 2560), library SDPA with ``is_causal`` and
+    ``enable_gqa``."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, kv, hd = (FLASH_WHISPER[x] for x in ("b", "h", "kv", "hd"))
+    entries = []
+    for sq, what in ((WHISPER_FRAMES, "encoder"),
+                     (WHISPER_PROMPT[1], "cross-attention")):
+        q, k, v = model_layout(torch, gen, b, sq, WHISPER_FRAMES, h, kv, hd,
+                               torch.bfloat16)
+        if flash.body(q, k, v) != "tensor_core":
+            fail(f"flash_attention {WHISPER_ARCH} {what}: not the tensor "
+                 f"cores")
+        entries.append(flash_entry(
+            torch, ops, q, k, v, 0,
+            f"B={b} H={h} KV={kv} hd={hd} Sq={sq} Skv={WHISPER_FRAMES} bf16 "
+            f"non-causal ({WHISPER_ARCH} {what})",
+            lambda: sdpa(q, k, v, is_causal=False), reps=200, causal=False))
+        del q, k, v
+    b, h, kv, hd = (FLASH_VLM[x] for x in ("b", "h", "kv", "hd"))
+    for s in FLASH_VLM_SEQS:
+        q, k, v = model_layout(torch, gen, b, s, s, h, kv, hd,
+                               torch.bfloat16)
+        if flash.body(q, k, v) != "tensor_core":
+            fail(f"flash_attention {VLM_ARCH} S={s}: not the tensor cores")
+        entries.append(flash_entry(
+            torch, ops, q, k, v, 0,
+            f"B={b} H={h} KV={kv} hd={hd} S={s} bf16 causal ({VLM_ARCH})",
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+            reps=50))
+        del q, k, v
+    release(torch)
+    return entries
+
+
+def whisper_batch(torch, cfg, rows: int, seq: int, gen, device) -> dict:
+    """Seeded whisper inputs: ``rows`` prompts of ``seq`` tokens and their
+    frames (``cfg.encoder_seq`` of them, N(0, 1), in the model's dtype),
+    drawn with ``gen`` on its device and moved to ``device``."""
+    dev = gen.device
+    return {"tokens": torch.randint(0, cfg.vocab_size, (rows, seq),
+                                    generator=gen, device=dev).to(device),
+            "enc_embeds": torch.randn(
+                (rows, cfg.encoder_seq, cfg.d_model), generator=gen,
+                device=dev).to(device=device, dtype=cfg.torch_dtype)}
+
+
+def encdec_reference_check(torch, rt) -> None:
+    """Smoke-size fp32, card (kernels) vs CPU (plain versions): whisper's
+    prefill (logits, the decoder's K and V caches, ``enc_kv``) of 2 rows
+    of 40 tokens with their frames and 8 free cache rows, then
+    WHISPER_DECODE greedy decode steps, each within SERVE_TOL of its
+    largest value, one flash launch a layer and an encoder layer, and
+    the cross-attention's, on the card (6); a 3-epoch exact session on
+    batches that carry ``enc_embeds`` (losses and the 27 duals within
+    SESSION_TOL); internvl2's slot engine on embeddings prompts (greedy
+    tokens equal)."""
+    cfg = dataclasses.replace(rt.configs.smoke_config(WHISPER_ARCH),
+                              dtype="float32")
+    params = rt.models.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = whisper_batch(torch, cfg, 2, 40, torch.Generator().manual_seed(1),
+                          "cpu")
+    src = rt.data.SyntheticSource(cfg.vocab_size, 16, N_WORKERS, 2,
+                                  device="cpu")
+    fgen = torch.Generator().manual_seed(2)
+    frames = [torch.randn((N_WORKERS * 2, cfg.encoder_seq, cfg.d_model),
+                          generator=fgen) for _ in range(EPOCHS)]
+    out, duals = {}, {}
+    for device in ("cpu", "cuda"):
+        p = {k: v.to(device) for k, v in params.items()}
+        rt.kernels.router.reset_launches()
+        logits, st = rt.models.prefill(
+            p, cfg, {k: v.to(device) for k, v in batch.items()},
+            extra_capacity=8)
+        n = rt.kernels.router.launches().get("flash_attention", 0)
+        want = cfg.encoder_layers + 2 * cfg.num_layers
+        if n != (want if device == "cuda" else 0):
+            fail(f"reference {WHISPER_ARCH} on {device}: {n} flash launches")
+        # copies: decode updates the caches in place, and on the CPU
+        # .cpu() would return the tensor itself
+        seq = [t.to("cpu", copy=True) for t in [logits] + (
+            rt.models.model._cache_tensors((st.caches, st.enc_kv)))]
+        tok = logits.argmax(-1)
+        for _ in range(WHISPER_DECODE):
+            logits, st = rt.models.decode_step(p, cfg, st, tok)
+            seq.append(logits.to("cpu", copy=True))
+            tok = logits.argmax(-1)
+        seq += [t.to("cpu", copy=True) for t in (st.caches.k, st.caches.v)]
+        out[device] = seq
+        s = rt.api.AMBSession(
+            rt.api.TrainSpec(arch=WHISPER_ARCH, smoke=True, data=N_WORKERS,
+                             batch_per_worker=2, seq_len=16),
+            rt.api.ClockSpec(kind="simulated"),
+            rt.api.ConsensusSpec(consensus="exact"), cfg=cfg,
+            params={k: v.clone() for k, v in p.items()}, device=device)
+        losses = [s.step({k: v.to(device) for k, v in (
+            src.batch(e) | {"enc_embeds": frames[e]}).items()},
+            [2, 1, 0, 2])["loss"] for e in range(EPOCHS)]
+        duals[device] = (losses, {k: v.cpu() for k, v in
+                                  s.state["opt"]["z"].items()})
+    errs = [max_abs_err(torch, a, b) / max(float(a.abs().max()), 1e-30)
+            for a, b in zip(out["cpu"], out["cuda"])]
+    err = max(errs)
+    (l_cpu, z_cpu), (l_gpu, z_gpu) = duals["cpu"], duals["cuda"]
+    z_err = max(max_abs_err(torch, z_cpu[k], z_gpu[k])
+                / max(float(z_cpu[k].abs().max()), 1e-30) for k in z_cpu)
+    l_err = max(abs(a - b) for a, b in zip(l_cpu, l_gpu))
+    print(f"reference {WHISPER_ARCH}: prefill logits, K and V caches, "
+          f"enc_kv, {WHISPER_DECODE} decode steps card vs CPU worst rel "
+          f"err {err:.3g} (each: {', '.join(f'{e:.2g}' for e in errs)}); "
+          f"exact session {EPOCHS} epochs losses {l_gpu} vs {l_cpu}, "
+          f"{len(z_cpu)} duals worst rel err {z_err:.3g}", flush=True)
+    if not (err <= SERVE_TOL and z_err <= SESSION_TOL
+            and l_err <= SESSION_TOL):
+        fail(f"reference {WHISPER_ARCH}: rel err {err} (serving), {z_err} "
+             f"(duals), {l_err} (losses)")
+    if len(z_cpu) != WHISPER_LEAVES:
+        fail(f"reference {WHISPER_ARCH}: {len(z_cpu)} duals")
+    cfg = dataclasses.replace(rt.configs.smoke_config(VLM_ARCH),
+                              dtype="float32")
+    params = rt.models.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = {}
+    for device in ("cpu", "cuda"):
+        p = {k: v.to(device) for k, v in params.items()}
+        engine = rt.serve.SlotEngine(p, cfg, slots=2, cache_len=64)
+        reqs = rt.serve.synthetic_requests(
+            5, vocab_size=cfg.vocab_size, prompt_len=24, prompt_jitter=8,
+            max_new_tokens=8, seed=3)
+        rt.kernels.router.reset_launches()
+        drain(engine, reqs)
+        n = rt.kernels.router.launches().get("flash_attention", 0)
+        if n != (cfg.num_layers * len(reqs) if device == "cuda" else 0):
+            fail(f"reference {VLM_ARCH} on {device}: {n} flash launches")
+        tokens[device] = [r.out_tokens for r in reqs]
+    print(f"reference {VLM_ARCH}: slot-engine tokens on embeddings prompts "
+          f"equal card vs CPU: {tokens['cpu'] == tokens['cuda']}", flush=True)
+    if tokens["cpu"] != tokens["cuda"]:
+        fail(f"reference {VLM_ARCH}: greedy tokens differ: card "
+             f"{tokens['cuda']} vs CPU {tokens['cpu']}")
+
+
+def run_whisper_serve(torch, rt) -> dict:
+    """whisper-base at full width (6 + 6 layers), bf16, through the
+    model-level serving functions (the slot engine refuses audio, as
+    JAX's does): SERVE_REQUESTS requests, each its own seeded 1500 frames
+    and a prompt of WHISPER_PROMPT tokens, in two waves of WHISPER_SLOTS;
+    each request prefilled alone (batch 1, its own length, the rest of
+    the cache as ``extra_capacity``) and inserted into a slot row, then
+    WHISPER_NEW - 1 greedy decode rounds at per-slot positions, and every
+    row evicted between the waves (its caches and ``enc_kv`` zero).
+    Requires 18 tensor-core flash launches a request (6 encoder, 6 self,
+    6 cross), finite logits and no token id at or past the vocabulary;
+    prints the prefill's and the decode round's medians, tokens/s and the
+    peak; returns the launch counts."""
+    cfg = rt.configs.get_config(WHISPER_ARCH)
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = init_on_card(torch, rt, cfg)
+    p = rt.models.param_count(params)
+    if (len(params), p) != (WHISPER_LEAVES, WHISPER_P):
+        fail(f"{WHISPER_ARCH}: {len(params)} leaves, P={p}; expected "
+             f"{WHISPER_LEAVES}, {WHISPER_P}")
+    models = rt.models
+    cache_len = WHISPER_PROMPT[1] + WHISPER_NEW
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lens = torch.randint(WHISPER_PROMPT[0], WHISPER_PROMPT[1] + 1,
+                         (SERVE_REQUESTS,),
+                         generator=torch.Generator().manual_seed(5)).tolist()
+    lens[0], lens[-1] = WHISPER_PROMPT      # both ends of the range
+    state = models.init_decode_state(cfg, WHISPER_SLOTS, cache_len,
+                                     per_slot_pos=True, device="cuda")
+    prefill_s, round_s, outs = [], [], []
+    bad = torch.zeros((), dtype=torch.long, device="cuda")
+    rt.kernels.router.reset_launches()
+    t0 = time.perf_counter()
+    for wave in range(SERVE_REQUESTS // WHISPER_SLOTS):
+        last = torch.zeros((WHISPER_SLOTS,), dtype=torch.long, device="cuda")
+        for slot in range(WHISPER_SLOTS):
+            plen = lens[wave * WHISPER_SLOTS + slot]
+            batch = whisper_batch(torch, cfg, 1, plen, gen, "cuda")
+            t = time.perf_counter()
+            logits, one = models.prefill(params, cfg, batch,
+                                         extra_capacity=cache_len - plen)
+            models.insert_decode_state(state, one, slot)
+            last[slot] = logits.argmax(-1)[0]
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t)
+            bad += (~torch.isfinite(logits)).sum()
+            del one, logits
+        toks = [last]
+        for _ in range(WHISPER_NEW - 1):
+            t = time.perf_counter()
+            logits, state = models.decode_step(params, cfg, state, toks[-1])
+            toks.append(logits.argmax(-1))
+            bad += (~torch.isfinite(logits)).sum()
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t)
+        outs.append(torch.stack(toks, 1))
+        for slot in range(WHISPER_SLOTS):
+            models.evict_decode_state(state, slot)
+        left = [t for t in models.model._cache_tensors(
+            (state.caches, state.enc_kv)) if t.any()]
+        if left or state.pos.any():
+            fail(f"serve {WHISPER_ARCH}: the evicted slots are not zero")
+    wall = time.perf_counter() - t0
+    launches = rt.kernels.router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    outs = torch.cat(outs)
+    ntok = outs.numel()
+    prefill_s.sort()
+    round_s.sort()
+    print(f"serve {WHISPER_ARCH}: layers={cfg.num_layers}+"
+          f"{cfg.encoder_layers} bf16 slots={WHISPER_SLOTS} requests="
+          f"{SERVE_REQUESTS} frames={cfg.encoder_seq} prompts "
+          f"{min(lens)}..{max(lens)} new={WHISPER_NEW} rounds={len(round_s)} "
+          f"wall_s={wall:.2f} tokens_per_s={ntok / wall:.1f} "
+          f"peak_GiB={peak:.2f}", flush=True)
+    print(f"  prefill (batch 1, encoder + decoder, insert): median_s="
+          f"{prefill_s[len(prefill_s) // 2]:.4f} min_s={prefill_s[0]:.4f} "
+          f"max_s={prefill_s[-1]:.4f}; decode round of {WHISPER_SLOTS}: "
+          f"median_ms={round_s[len(round_s) // 2] * 1e3:.2f} min_ms="
+          f"{round_s[0] * 1e3:.2f} max_ms={round_s[-1] * 1e3:.2f}",
+          flush=True)
+    print(f"  launches: {launches}", flush=True)
+    if int(bad):
+        fail(f"serve {WHISPER_ARCH}: {int(bad)} non-finite logits")
+    if int(outs.max()) >= cfg.vocab_size or int(outs.min()) < 0:
+        fail(f"serve {WHISPER_ARCH}: token ids {int(outs.min())}.."
+             f"{int(outs.max())} outside the vocabulary of "
+             f"{cfg.vocab_size}")
+    want = (cfg.encoder_layers + 2 * cfg.num_layers) * SERVE_REQUESTS
+    expect(f"serve {WHISPER_ARCH}", launches, {
+        "flash_attention": want, "flash_attention.tensor_core": want,
+        "flash_attention.cuda_core": 0, "dual_update": 0})
+    del params, state, outs
+    release(torch)
+    return launches
+
+
+def run_whisper_session(torch, rt) -> dict:
+    """AMBSession exact on whisper-base at full width (6 + 6 layers),
+    bf16, N_WORKERS x PER_WORKER x SEQ tokens, each sequence with its own
+    seeded 1500 frames, EPOCHS epochs: the loss finite (the first near
+    ln(vocab)), every dual and parameter finite after each epoch, one
+    prox launch a leaf an epoch (27), no flash launch (training runs the
+    plain masked softmax); step ms and the peak each epoch.  Returns the
+    launch counts."""
+    cfg = rt.configs.get_config(WHISPER_ARCH)
+    release(torch)
+    session = session_for(rt, cfg, consensus="exact")
+    leaves, p = len(session.params), rt.models.param_count(session.params)
+    print(f"session exact {cfg.name}: layers={cfg.num_layers}+"
+          f"{cfg.encoder_layers} P={p} leaves={leaves} workers={N_WORKERS} "
+          f"batch/worker={PER_WORKER} seq={SEQ} frames={cfg.encoder_seq}",
+          flush=True)
+    if (leaves, p) != (WHISPER_LEAVES, WHISPER_P):
+        fail(f"whisper session: {leaves} leaves, P={p}")
+    source = rt.data.SyntheticSource(cfg.vocab_size, SEQ, N_WORKERS,
+                                     PER_WORKER, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rt.kernels.router.reset_launches()
+    for epoch in range(EPOCHS):
+        batch = source.batch(epoch)
+        batch["enc_embeds"] = torch.randn(
+            (N_WORKERS * PER_WORKER, cfg.encoder_seq, cfg.d_model),
+            generator=gen, device="cuda", dtype=cfg.torch_dtype)
+        torch.cuda.reset_peak_memory_stats()
+        m = session.step(batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  epoch {epoch}: loss={m['loss']:.6f} b={m['b'].tolist()} "
+              f"step_ms={m['step_s'] * 1e3:.1f} peak_GiB={peak:.2f}",
+              flush=True)
+        if not math.isfinite(m["loss"]):
+            fail(f"whisper session epoch {epoch}: loss {m['loss']}")
+        if epoch == 0 and abs(m["loss"] - math.log(cfg.vocab_size)) > 3:
+            fail(f"whisper session: first loss {m['loss']} is far from "
+                 f"ln(vocab)")
+        all_finite(torch, session.state["opt"]["z"], "whisper dual")
+        all_finite(torch, session.params, "whisper parameter")
+        del batch
+    launches = rt.kernels.router.launches()
+    print(f"  launches: {launches}", flush=True)
+    expect("whisper session", launches, {"dual_update": leaves * EPOCHS,
+                                         "flash_attention": 0})
+    del session, source
+    release(torch)
+    return launches
+
+
 def report_kernels(build) -> None:
     """Set-up output: the ptxas report of each redesigned kernel (it must
     not spill), the tensor-core flash body's dynamic shared memory, and
@@ -3265,6 +3605,7 @@ def main() -> int:
                                 rt.kernels.flash_attention,
                                 rt.models.attention)
     flash_zoo += check_flash_zamba(torch, ops, rt.kernels.flash_attention)
+    flash_zoo += check_flash_whisper(torch, ops, rt.kernels.flash_attention)
 
     smoke = rt.configs.smoke_config("qwen2-1.5b")
     check_quantized_strategy(torch, rt, dense_param_count(smoke) + 1)
@@ -3273,6 +3614,7 @@ def main() -> int:
     serve_reference_check(torch, rt, "rwkv6-3b")
     zoo_reference_check(torch, rt)
     zamba_reference_check(torch, rt)
+    encdec_reference_check(torch, rt)
 
     runs = {"exact": run_session(torch, rt, full, "exact"),
             "gossip": run_session(torch, rt, gossip_cfg, "gossip"),
@@ -3310,7 +3652,9 @@ def main() -> int:
     cli_launches = {k: r["launches"] for k, r in cli["runs"].items()}
     moe_cut = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
                                   num_layers=MOE_LAYERS)
-    zoo = {"serve qwen3-moe": run_moe_serve(torch, rt),
+    zoo = {"serve qwen3-moe": run_engine_serve(
+        torch, rt, rt.configs.get_config(MOE_ARCH), SERVE_REQUESTS,
+        SERVE_NEW, 2.0, 1),
            "serve cli qwen3-moe": run_serve(torch, rt, MOE_SERVE_ARGV,
                                             cfg=moe_cut)}
     zoo["session qwen3-moe"], moe_du_err = run_moe_session(
@@ -3321,6 +3665,12 @@ def main() -> int:
     zoo[f"session {ZAMBA_ARCH}"], zamba_du_err = run_zamba_session(
         torch, rt, beta)
     du_err = max(du_err, zamba_du_err)
+    zoo[f"serve {WHISPER_ARCH}"] = run_whisper_serve(torch, rt)
+    zoo[f"session {WHISPER_ARCH}"] = run_whisper_session(torch, rt)
+    zoo[f"serve {VLM_ARCH} {VLM_LAYERS} layers"] = run_engine_serve(
+        torch, rt, dataclasses.replace(rt.configs.get_config(VLM_ARCH),
+                                       num_layers=VLM_LAYERS),
+        VLM_REQUESTS, VLM_NEW, VLM_GAP_S, 2)
 
     def launches(name):
         return sum(c.get(name, 0) for group in (

@@ -1,13 +1,13 @@
-"""Architecture and input-shape registry (the architectures ported so
-far; counterpart of ``repro.configs``)."""
+"""Architecture and input-shape registry (counterpart of
+``repro.configs``: the same ten architectures, in its order)."""
 from __future__ import annotations
 
 import dataclasses
 
 from ..models.common import ArchConfig
-from . import (command_r_plus_104b, internlm2_20b, phi3p5_moe_42b,
-               qwen2_1p5b, qwen3_8b, qwen3_moe_30b_a3b, rwkv6_3b,
-               zamba2_1p2b)
+from . import (command_r_plus_104b, internlm2_20b, internvl2_76b,
+               phi3p5_moe_42b, qwen2_1p5b, qwen3_8b, qwen3_moe_30b_a3b,
+               rwkv6_3b, whisper_base, zamba2_1p2b)
 
 _MODULES = {
     "qwen3-8b": qwen3_8b,
@@ -15,9 +15,11 @@ _MODULES = {
     "command-r-plus-104b": command_r_plus_104b,
     "internlm2-20b": internlm2_20b,
     "zamba2-1.2b": zamba2_1p2b,
+    "whisper-base": whisper_base,
     "rwkv6-3b": rwkv6_3b,
     "phi3.5-moe-42b-a6.6b": phi3p5_moe_42b,
     "qwen2-1.5b": qwen2_1p5b,
+    "internvl2-76b": internvl2_76b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -90,6 +90,20 @@ def _as_b(b, device) -> torch.Tensor:
     return torch.as_tensor(b, dtype=torch.int32).to(device)
 
 
+def _grads(total: torch.Tensor, params: dict) -> tuple:
+    """d total / d each leaf, zeros for a leaf the loss does not read (a
+    batch of ``"embeds"`` does not read the embedding), as JAX's."""
+    return torch.autograd.grad(total, list(params.values()),
+                               allow_unused=True, materialize_grads=True)
+
+
+def first_leaf(batch: dict) -> torch.Tensor:
+    """The batch's first leaf in JAX's order (sorted keys): its size and
+    device are the batch's, whatever its keys (``{"embeds", "labels"}``
+    carries no tokens)."""
+    return batch[min(batch)]
+
+
 # ---------------------------------------------------------------------------
 # Message pack / unpack
 # ---------------------------------------------------------------------------
@@ -203,9 +217,10 @@ def make_train_step(cfg, opt, n: int, amb: AMBConfig = AMBConfig()):
     assignment = assignment_from_config(amb, n)
 
     def step(params, opt_state, batch, b):
-        gb = batch["tokens"].shape[0]
+        lead = first_leaf(batch)
+        gb = lead.shape[0]
         per = gb // n
-        b = _as_b(b, batch["tokens"].device)
+        b = _as_b(b, lead.device)
         if assignment is None:
             sw = seq_weights_from_b(b, gb, n)
             gbatch = torch.clamp(b, max=per).sum()
@@ -214,7 +229,7 @@ def make_train_step(cfg, opt, n: int, amb: AMBConfig = AMBConfig()):
             sw, gbatch = sw2.reshape(gb), bw.sum()
         with torch.enable_grad():
             total, m = lm_loss(params, cfg, batch, sw)
-            grads = torch.autograd.grad(total, list(params.values()))
+            grads = _grads(total, params)
         opt_state = opt.apply(dict(zip(params, grads)), opt_state, params)
         metrics = {"loss": m["loss"].detach(), "aux": m["aux"].detach(),
                    "ntok": m["ntok"], "global_batch": gbatch}
@@ -243,7 +258,7 @@ def local_grad(cfg, z: dict, w0: dict, batch: dict, sw: torch.Tensor,
     batch_i = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
     with torch.enable_grad():
         total, m = lm_loss(p_i, cfg, batch_i, sw[i])
-        g_i = torch.autograd.grad(total, list(p_i.values()))
+        g_i = _grads(total, p_i)
     return g_i, m["loss"].detach()
 
 
@@ -365,8 +380,8 @@ def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
         return init_gossip_state(params, n)
 
     def step(state, batch, b):
-        device = batch["tokens"].device
-        per = batch["tokens"].shape[0] // n
+        lead = first_leaf(batch)
+        device, per = lead.device, lead.shape[0] // n
         t = state["t"]
         beta_t = beta(t + 1)                 # beta used for w(t)
         sw, bw = epoch_weights(_as_b(b, device), n, per, assignment)

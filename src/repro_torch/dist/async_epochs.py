@@ -40,7 +40,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .amb import (AMBConfig, NoiseStats, _as_b, _pack_row,
+from .amb import (AMBConfig, NoiseStats, _as_b, _pack_row, first_leaf,
                   assignment_from_config, epoch_metrics, epoch_weights,
                   init_gossip_state, local_grad, msg_width, settle_row,
                   strategy_from_config)
@@ -88,8 +88,8 @@ def make_async_gossip_train_step(cfg, n: int, amb: AMBConfig,
             payload, draws=draw_source(amb.seed, enqueue_epoch)).contiguous()
 
     def step(state, batch, b):
-        device = batch["tokens"].device
-        per = batch["tokens"].shape[0] // n
+        lead = first_leaf(batch)
+        device, per = lead.device, lead.shape[0] // n
         t = state["t"]
         beta_t = beta(t + 1)
         sw, bw = epoch_weights(_as_b(b, device), n, per, assignment)

@@ -33,7 +33,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .amb import (AMBConfig, NoiseStats, _as_b, _pack_row,
+from .amb import (AMBConfig, NoiseStats, _as_b, _pack_row, first_leaf,
                   assignment_from_config, epoch_metrics, epoch_weights,
                   init_gossip_state, local_grad, msg_width, settle_row,
                   strategy_from_config, unpack_duals)
@@ -64,8 +64,8 @@ def make_pipelined_gossip_train_step(cfg, n: int, amb: AMBConfig,
         return state
 
     def step(state, batch, b):
-        device = batch["tokens"].device
-        per = batch["tokens"].shape[0] // n
+        lead = first_leaf(batch)
+        device, per = lead.device, lead.shape[0] // n
         t = state["t"]
         beta_t = beta(t + 1)
         sw, bw = epoch_weights(_as_b(b, device), n, per, assignment)

@@ -1,6 +1,6 @@
-"""GQA causal self-attention: training, prefill and KV-cache decode
-(counterpart of ``repro.models.attention``: qk-norm, sliding windows,
-linear and ring caches).
+"""GQA attention: training, prefill and KV-cache decode (counterpart of
+``repro.models.attention``: qk-norm, sliding windows, linear and ring
+caches, and whisper's non-causal encoder and cross-attention).
 
 Queries are laid out (B, S, KV, G, hd): query head h = kv * G + g reads
 KV head kv.  The JAX package computes the softmax blockwise (online
@@ -8,27 +8,31 @@ softmax, ``flash_attention``) in plain JAX, outside any Pallas kernel.
 Here:
 
   * training (``attend_train``) is one masked softmax in plain torch ops,
-    in fp32, with the same masking (causal, and the sliding window): it
-    is differentiated, and the flash kernel has no backward yet.  The
-    scores of one layer, (B, S, H, S) fp32, are 100 MB at the qwen2-1.5b
-    session shape;
+    in fp32, with the same masking (causal or not, and the sliding
+    window; Sq may differ from Skv): it is differentiated, and the flash
+    kernel has no backward yet.  The scores of one layer, (B, Sq, H, Skv)
+    fp32, are 100 MB at the qwen2-1.5b session shape and 2.3 GB in
+    whisper's encoder (32 x 1500 frames);
   * prefill (:func:`qkv_rope`, a token chunk at a time, then
     :func:`flash_prefill`) runs
     :func:`repro_torch.kernels.ops.flash_attention`, the hand-written
     kernel on the card, on permuted views of the (B, S, KV, G, hd)
     tensors, in query chunks of ``PREFILL_ROWS`` rows, each with the keys
-    it can see (from ``window - 1`` before it under a window) and its
-    ``q_offset``;
+    it can see (from ``window - 1`` before it under a window; every key
+    when not causal) and its ``q_offset``;
   * decode (``decode_attend``) attends one new token per row to its cache
     in plain torch, as the JAX package does outside any Pallas kernel; it
     writes the new K/V row into the cache in place.  A linear cache holds
     position p at row p; a ring cache (sliding window, capacity <= the
     window) at row p % capacity, and a row's validity follows from the
-    absolute position it holds.
+    absolute position it holds.  With ``cross_kv`` it is whisper's
+    cross-attention: q unroped against the encoder's fixed K and V, every
+    row valid, the cache untouched.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,8 +47,9 @@ PREFILL_ROWS = 65536
 
 
 def attention_params(cfg: ArchConfig, generator: torch.Generator,
-                     layers: int) -> dict:
-    """Stacked (layers, ...) attention leaves, JAX names and layout."""
+                     layers: int, *, cross: bool = False) -> dict:
+    """Stacked (layers, ...) attention leaves, JAX names and layout; a
+    cross-attention (``cross``) never takes the QKV bias."""
     d, hd = cfg.d_model, cfg.hd
     h, kv = cfg.num_heads, cfg.num_kv_heads
     dt, dev = cfg.torch_dtype, generator.device
@@ -54,7 +59,7 @@ def attention_params(cfg: ArchConfig, generator: torch.Generator,
         "wv": init_linear((layers, d, kv * hd), dt, generator),
         "wo": init_linear((layers, h * hd, d), dt, generator),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((layers, h * hd), dtype=dt, device=dev)
         p["bk"] = torch.zeros((layers, kv * hd), dtype=dt, device=dev)
         p["bv"] = torch.zeros((layers, kv * hd), dtype=dt, device=dev)
@@ -66,18 +71,22 @@ def attention_params(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
-def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
-    """Returns q (B,S,KV,G,hd), k, v (B,S,KV,hd)."""
+def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                 kv_input: Optional[torch.Tensor] = None):
+    """Returns q (B,S,KV,G,hd), k, v (B,Skv,KV,hd); k and v project
+    ``kv_input`` (cross-attention) when it is given, else x."""
     b, s, _ = x.shape
     kv, hd = cfg.num_kv_heads, cfg.hd
     g = cfg.num_heads // kv
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    xkv = x if kv_input is None else kv_input
+    skv = xkv.shape[1]
+    q, k, v = x @ p["wq"], xkv @ p["wk"], xkv @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q, k = q.reshape(b, s, kv, g, hd), k.reshape(b, s, kv, hd)
+    q, k = q.reshape(b, s, kv, g, hd), k.reshape(b, skv, kv, hd)
     if "q_norm" in p:                          # per head, before rope
         q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
-    return q, k, v.reshape(b, s, kv, hd)
+    return q, k, v.reshape(b, skv, kv, hd)
 
 
 def qkv_rope(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -91,17 +100,21 @@ def qkv_rope(p: dict, x: torch.Tensor, positions: torch.Tensor,
     return q, apply_rope(k, positions, cfg.rope_theta), v
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     window: int = 0) -> torch.Tensor:
-    """q (B,S,KV,G,hd), k/v (B,S,KV,hd) -> (B,S,KV,G,hd) in q's dtype;
-    ``window`` > 0 also masks keys ``window`` or more positions back."""
-    s, hd = q.shape[1], q.shape[-1]
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int = 0, *, causal: bool = True) -> torch.Tensor:
+    """q (B,Sq,KV,G,hd), k/v (B,Skv,KV,hd) -> (B,Sq,KV,G,hd) in q's dtype,
+    query i at position i and key j at j: ``causal`` masks keys past the
+    query, ``window`` > 0 keys ``window`` or more positions back."""
+    sq, skv, hd = q.shape[1], k.shape[1], q.shape[-1]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     scores = torch.einsum("bqkgh,bckh->bqgkc", q.float(), k.float()) * scale
-    pos = torch.arange(s, device=q.device)
-    hidden = pos[None, :] > pos[:, None]                   # (q, c) future
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    hidden = torch.zeros((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        hidden |= kpos > qpos                              # (q, c) future
     if window > 0:
-        hidden |= (pos[:, None] - pos[None, :]) >= window
+        hidden |= (qpos - kpos) >= window
     scores = scores.masked_fill(hidden[None, :, None, None, :], NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
@@ -111,41 +124,56 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: int) -> torch.Tensor:
-    """Causal attention of a prompt through the flash kernel: q
-    (B,S,KV,G,hd), k/v (B,S,KV,hd) -> (B, S, H hd) in q's dtype.
+                  window: int, *, causal: bool = True) -> torch.Tensor:
+    """Attention of a prompt through the flash kernel: q (B,Sq,KV,G,hd),
+    k/v (B,Skv,KV,hd) -> (B, Sq, H hd) in q's dtype (query i at position
+    i, key j at j, as :func:`masked_attention`).
 
-    Queries go in chunks of ``PREFILL_ROWS`` rows; the chunk from row c
-    reads keys from ``c - window + 1`` (under a window; else from 0) and
-    passes the rows' offset into that slice as ``q_offset``, so every
-    call stays under the kernel's size limit and no call reads a key its
-    rows cannot see.
+    Queries go in chunks of ``PREFILL_ROWS`` rows; the chunk of rows c0
+    to c1 reads keys from ``c0 - window + 1`` (under a window; else from
+    0) to c1 (causal; else to Skv) and passes the rows' offset into that
+    slice as ``q_offset``, so every call stays under the kernel's size
+    limit and no call reads a key its rows cannot see.
     """
     b, s, kvh, g, hd = q.shape
+    skv = k.shape[1]
     # (B, KV, G, S, hd) merges to (B, H, S, hd) as a view: head kv G + g
     qh = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, hd)
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     if s <= PREFILL_ROWS:
-        out = kops.flash_attention(qh, kh, vh, causal=True, window=window,
+        out = kops.flash_attention(qh, kh, vh, causal=causal, window=window,
                                    q_offset=0)
         return out.transpose(1, 2).reshape(b, s, -1)
     out = q.new_empty((b, s, kvh * g, hd))
     for c0 in range(0, s, PREFILL_ROWS):
         c1 = min(c0 + PREFILL_ROWS, s)
         k0 = max(0, c0 - window + 1) if window > 0 else 0
+        k1 = c1 if causal else skv
         out[:, c0:c1] = kops.flash_attention(
-            qh[:, :, c0:c1], kh[:, :, k0:c1], vh[:, :, k0:c1], causal=True,
+            qh[:, :, c0:c1], kh[:, :, k0:k1], vh[:, :, k0:k1], causal=causal,
             window=window, q_offset=c0 - k0).transpose(1, 2)
     return out.reshape(b, s, -1)
 
 
 def attend_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence causal self-attention with rotary positions, masked
-    to ``cfg.sliding_window`` when it is set."""
+                 cfg: ArchConfig, *, causal: bool = True,
+                 window: Optional[int] = None,
+                 kv_input: Optional[torch.Tensor] = None,
+                 rope: bool = True) -> torch.Tensor:
+    """Full-sequence attention (training; whisper's encoder and
+    cross-attention too): rotary positions unless ``rope`` is off (the
+    keys of ``kv_input`` at 0..Skv-1), masked causally unless ``causal``
+    is off and to ``window`` (default ``cfg.sliding_window``)."""
     b, s, _ = x.shape
-    q, k, v = qkv_rope(p, x, positions, cfg)
-    return causal_attention(q, k, v, cfg.sliding_window).reshape(
+    q, k, v = _project_qkv(p, x, cfg, kv_input)
+    if rope:
+        kv_pos = positions if kv_input is None else torch.arange(
+            k.shape[1], device=x.device)
+        q = apply_rope(q.reshape(b, s, -1, cfg.hd), positions,
+                       cfg.rope_theta).reshape(q.shape)
+        k = apply_rope(k, kv_pos, cfg.rope_theta)
+    window = cfg.sliding_window if window is None else window
+    return masked_attention(q, k, v, window, causal=causal).reshape(
         b, s, -1) @ p["wo"]
 
 
@@ -171,20 +199,45 @@ def init_cache(cfg: ArchConfig, batch: int, capacity: int, *, ring: bool,
                    ring)
 
 
+def _softmax_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """One query per row: q (B,1,KV,G,hd) against k/v (B,C,KV,hd) in fp32,
+    keys masked where the (B|1, C) ``valid`` is false -> (B, 1, H hd)
+    fp32."""
+    b, hd = q.shape[0], q.shape[-1]
+    root = torch.sqrt(torch.tensor(float(hd), device=q.device))
+    scores = torch.einsum("bqkgh,bckh->bqgkc", q.float(), k.float()) / root
+    if valid is not None:
+        scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bqgkc,bckh->bqgkh", probs, v.float())
+    return out.permute(0, 1, 3, 2, 4).reshape(b, 1, -1)
+
+
 def decode_attend(p: dict, x: torch.Tensor, pos, cache: KVCache,
-                  cfg: ArchConfig, *, window: int = 0) -> tuple:
+                  cfg: ArchConfig, *, window: int = 0,
+                  cross_kv: Optional[tuple] = None) -> tuple:
     """One-token decode.  x: (B, 1, d); pos: the current position.
 
     ``pos`` is a scalar (every row at one position) or a (B,) vector of
     per-row positions (the slot engine: each row writes its own cache row
     and masks its own valid prefix).  The new K/V row is written into
     ``cache`` in place, at row ``pos`` (linear; clamped to the last row)
-    or ``pos % cap`` (ring); returns (out (B, 1, d), cache).
+    or ``pos % cap`` (ring); returns (out (B, 1, d), cache).  With
+    ``cross_kv = (k, v)``, each (B, Skv, KV, hd), this is cross-attention
+    against the encoder's K and V (whisper): q is not roped, every key is
+    valid, and ``cache`` is returned untouched.
     """
     b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"decode takes one token per row, got {s}")
-    hd = cfg.hd
+    if cross_kv is not None:
+        kvh = cfg.num_kv_heads
+        q = (x @ p["wq"]).reshape(b, 1, kvh, cfg.num_heads // kvh, cfg.hd)
+        if "q_norm" in p:
+            q = rms_norm(q, p["q_norm"])
+        out = _softmax_read(q, *cross_kv, None).to(x.dtype)
+        return out @ p["wo"], cache
     pos = torch.as_tensor(pos, device=x.device)
     posq = pos.reshape(-1, 1)              # (B, 1) per row or (1, 1) shared
     q, k, v = qkv_rope(p, x, posq, cfg)
@@ -209,11 +262,5 @@ def decode_attend(p: dict, x: torch.Tensor, pos, cache: KVCache,
         valid = idx <= posq
     if window > 0:
         valid &= (posq - abs_pos) < window
-    root = torch.sqrt(torch.tensor(float(hd), device=x.device))
-    scores = torch.einsum("bqkgh,bckh->bqgkc", q.float(),
-                          cache.k.float()) / root
-    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bqgkc,bckh->bqgkh", probs, cache.v.float())
-    out = out.permute(0, 1, 3, 2, 4).reshape(b, 1, -1).to(x.dtype)
+    out = _softmax_read(q, cache.k, cache.v, valid).to(x.dtype)
     return out @ p["wo"], cache

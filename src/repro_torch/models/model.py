@@ -1,16 +1,23 @@
-"""The decoder-only LMs: init, training forward, loss, weight bridge.
+"""The LMs: init, training forward, loss, serving, weight bridge.
 
-Counterpart of ``repro.models.model`` for the dense family (GQA, with
-optional qk-norm, QKV bias and sliding window), the ``"moe"`` family
-(dense attention and a top-k MoE feed-forward, :mod:`.moe`), the RWKV6
-``"ssm"`` family and the ``"hybrid"`` family (zamba2: Mamba2 blocks and
-one *shared* dense block applied after every ``attn_every``-th layer).
+Counterpart of ``repro.models.model`` for all of its families: dense
+(GQA, with optional qk-norm, QKV bias and sliding window), ``"vlm"`` (the
+dense stack fed embeddings, ``batch["embeds"]``: the vision front end is
+stubbed, as in JAX), ``"moe"`` (dense attention and a top-k MoE
+feed-forward, :mod:`.moe`), the RWKV6 ``"ssm"`` family, the ``"hybrid"``
+family (zamba2: Mamba2 blocks and one *shared* dense block applied after
+every ``attn_every``-th layer) and ``"audio"`` (whisper: an encoder of
+dense blocks with no causal mask over ``batch["enc_embeds"]``, the
+precomputed frame embeddings, and decoder blocks of causal
+self-attention, cross-attention to the encoder's output and an MLP).
 Parameters are a flat dict keyed by dotted names (``"blocks.attn.wq"``)
 in the JAX package's leaf order, so a dual or a gradient is a dict of the
 same keys.  As in JAX, each block leaf is stacked over the layers, ``(L,
-...)``, the hybrid's shared block (``"shared_attn.*"``) is not, and a
-linear is stored ``(in, out)`` for ``x @ W``: the qwen2 model has 15
-leaves at any depth, the RWKV6 model 20, the hybrid 20.
+...)``, the hybrid's shared block (``"shared_attn.*"``) is not, the
+encoder's blocks are ``"encoder.blocks.*"``, the embed and unembed take
+``cfg.padded_vocab`` rows (logits are sliced back to ``vocab_size``), and
+a linear is stored ``(in, out)`` for ``x @ W``: the qwen2 model has 15
+leaves at any depth, the RWKV6 model 20, the hybrid 20, whisper 27.
 :class:`DenseLM` is the ``nn.Module`` that owns them (of any family);
 :func:`forward_aux` (hidden and the MoE load-balance loss) and
 :func:`lm_loss` are plain functions of a parameter dict, so the gossip
@@ -20,8 +27,10 @@ model checkpoints each scanned block.
 
 Serving: :func:`prefill` runs a prompt (attention through the flash
 kernel; ssm: the wkv scan through its kernel; hybrid: the Mamba2 scan in
-plain torch and the shared block's attention through the flash kernel)
-and returns the last real token's logits and a :class:`DecodeState`;
+plain torch and the shared block's attention through the flash kernel;
+audio: the encoder, the decoder's self-attention and its
+cross-attention, each through the flash kernel) and returns the last
+real token's logits and a :class:`DecodeState`;
 :func:`decode_step` advances every row one token.  The caches are stacked
 over the layers with batch on axis 1, as in JAX: KV caches (L, B, cap,
 KV, hd), linear, or ring caches of capacity ``min(window, S)`` under a
@@ -29,15 +38,17 @@ sliding window; ssm states ``{"tmix": RWKVState(s (L, B, heads, hd, hd),
 x_prev (L, B, d)), "cmix_prev": (L, B, d)}``; hybrid ``{"mamba":
 MambaState(h (L, B, heads, hd, ns), conv (L, B, K-1, d_in + 2 ns)),
 "attn": KVCache (A, B, cap, KV, hd)}``, one KV row for each of the A
-applications of the shared block.  They are updated in place (a copy per
-step would move the whole cache); :func:`insert_decode_state` and
-:func:`evict_decode_state` write and clear one slot row of every cache
-tensor in place.  The prefill takes a prompt's token-wise work (norms,
-projections, rope, the dense MLP) ``attn.PREFILL_ROWS`` tokens at a time,
-so a 524,288-token prompt holds no (S, d_ff) tensor; the MoE
-feed-forward takes the whole prompt (its groups and capacities are per
-sequence).  The other families (audio, vlm) raise
-``NotImplementedError``.
+applications of the shared block; audio the decoder's KV caches and,
+beside them, ``DecodeState.enc_kv``: the cross-attention's K and V of
+the encoder output, (L, B, encoder_seq, KV, hd) each, fixed after the
+prefill.  They are updated in place (a copy per step would move the
+whole cache); :func:`insert_decode_state` and :func:`evict_decode_state`
+write and clear one slot row of every cache tensor in place.  The
+prefill takes a prompt's token-wise work (norms, projections, rope, the
+dense MLP) ``attn.PREFILL_ROWS`` tokens at a time, so a 524,288-token
+prompt holds no (S, d_ff) tensor; the MoE feed-forward takes the whole
+prompt (its groups and capacities are per sequence); whisper's blocks
+take a prompt (at most 448 tokens) and the 1500 frames whole.
 """
 from __future__ import annotations
 
@@ -57,7 +68,8 @@ from .common import ArchConfig, init_linear, rms_norm, swiglu
 
 BLOCKS = "blocks."
 SHARED = "shared_attn."
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+ENCODER = "encoder."
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def _leaf_key(name: str) -> tuple:
@@ -73,10 +85,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     dt, dev = cfg.torch_dtype, generator.device
     ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=dev)
     params = {
-        "embed": init_linear((cfg.vocab_size, d), dt, generator, scale=1.0),
-        "unembed": init_linear((d, cfg.vocab_size), dt, generator),
+        "embed": init_linear((cfg.padded_vocab, d), dt, generator,
+                             scale=1.0),
+        "unembed": init_linear((d, cfg.padded_vocab), dt, generator),
         "final_norm": ones(d),
     }
+    if cfg.family == "audio":
+        params.update({BLOCKS + k: v for k, v in _encdec_params(
+            cfg, generator, L).items()})
+        params.update({ENCODER + BLOCKS + k: v for k, v in _dense_params(
+            cfg, generator, cfg.encoder_layers).items()})
+        params[ENCODER + "final_norm"] = ones(d)
+        return ordered(params)
     if cfg.family == "hybrid":
         params["blocks.ln1"] = ones(L, d)
         for k, v in ssm.mamba2_params(cfg, generator, L).items():
@@ -126,6 +146,20 @@ def _dense_params(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
+def _encdec_params(cfg: ArchConfig, generator: torch.Generator,
+                   layers: int) -> dict:
+    """A whisper decoder block's leaves, stacked over ``layers``: a dense
+    block's (ln1, the self-attention, ln2, the MLP), then ln_x and the
+    cross-attention (no QKV bias)."""
+    p = _dense_params(cfg, generator, layers)
+    p["ln_x"] = torch.ones((layers, cfg.d_model), dtype=torch.float32,
+                           device=generator.device)
+    for k, v in attn.attention_params(cfg, generator, layers,
+                                      cross=True).items():
+        p[f"xattn.{k}"] = v
+    return p
+
+
 def ordered(params: dict) -> dict:
     """The dict in the JAX package's leaf order (sorted key paths)."""
     return {k: params[k] for k in sorted(params, key=_leaf_key)}
@@ -147,13 +181,32 @@ def _nest(flat: dict) -> dict:
 
 
 def _dense_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
-                 p: dict) -> tuple:
+                 p: dict, causal: bool = True) -> tuple:
     """(the block's output, its load-balance loss: None without
     experts)."""
     x = x + attn.attend_train(p["attn"], rms_norm(x, p["ln1"]), positions,
-                              cfg)
+                              cfg, causal=causal)
     h, aux = _ffn(x, p, cfg)
     return x + h, aux
+
+
+def _encoder_block(x: torch.Tensor, positions: torch.Tensor,
+                   cfg: ArchConfig, p: dict) -> torch.Tensor:
+    """A whisper encoder block: a dense block with no causal mask (its
+    self-attention roped over the frames)."""
+    return _dense_block(x, positions, cfg, p, causal=False)[0]
+
+
+def _encdec_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
+                  p: dict, enc_out: torch.Tensor) -> torch.Tensor:
+    """A whisper decoder block: causal self-attention, cross-attention to
+    ``enc_out`` (no rope, no mask), the MLP."""
+    x = x + attn.attend_train(p["attn"], rms_norm(x, p["ln1"]), positions,
+                              cfg)
+    x = x + attn.attend_train(p["xattn"], rms_norm(x, p["ln_x"]), positions,
+                              cfg, causal=False, window=0, kv_input=enc_out,
+                              rope=False)
+    return x + _ffn(x, p, cfg)[0]
 
 
 def _cmix(x: torch.Tensor, xn: torch.Tensor, xp: torch.Tensor,
@@ -194,11 +247,13 @@ def _applies_shared(cfg: ArchConfig, layer: int) -> bool:
     return bool(cfg.attn_every) and (layer + 1) % cfg.attn_every == 0
 
 
-def _layers(params: dict, cfg: ArchConfig):
-    """Each layer's nested block parameters, in order."""
-    per_layer = {k[len(BLOCKS):]: v.unbind(0) for k, v in params.items()
-                 if k.startswith(BLOCKS)}
-    for layer in range(cfg.num_layers):
+def _layers(params: dict, cfg: ArchConfig, prefix: str = BLOCKS):
+    """Each layer's nested block parameters, in order: the decoder's
+    (``"blocks."``), or the encoder's (``"encoder.blocks."``)."""
+    per_layer = {k[len(prefix):]: v.unbind(0) for k, v in params.items()
+                 if k.startswith(prefix)}
+    layers = cfg.encoder_layers if prefix != BLOCKS else cfg.num_layers
+    for layer in range(layers):
         yield _nest({k: v[layer] for k, v in per_layer.items()})
 
 
@@ -212,40 +267,78 @@ def _ffn(x: torch.Tensor, p: dict, cfg: ArchConfig) -> tuple:
     return swiglu(xn, mp["w_gate"], mp["w_up"], mp["w_down"]), None
 
 
-def forward_aux(params: dict, cfg: ArchConfig,
-                tokens: torch.Tensor) -> tuple:
-    """Training forward: (B, S) tokens -> (final-normed hidden (B, S, d),
-    the fp32 load-balance loss summed over the layers), as JAX's
-    ``forward``."""
-    x = F.embedding(tokens, params["embed"])
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+def _embed(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """The decoder's input: ``batch["embeds"]`` in the model's dtype (a
+    copy: the prefill updates it in place), else the tokens' rows of the
+    embedding."""
+    if "embeds" in batch:
+        return batch["embeds"].to(cfg.torch_dtype, copy=True)
+    return F.embedding(batch["tokens"], params["embed"])
+
+
+def _run(fn, x: torch.Tensor, *args):
+    """``fn(x, *args)``, recomputed in the backward pass
+    (``torch.utils.checkpoint``) when a gradient is being taken."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, x, *args, use_reentrant=False)
+    return fn(x, *args)
+
+
+def _encoder_forward(params: dict, cfg: ArchConfig,
+                     enc_embeds: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over (B, frames, d) embeddings: the blocks with
+    no causal mask, each checkpointed, then the final norm."""
+    x = enc_embeds.to(cfg.torch_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for lp in _layers(params, cfg, ENCODER + BLOCKS):
+        x = _run(_encoder_block, x, positions, cfg, lp)
+    return rms_norm(x, params[ENCODER + "final_norm"])
+
+
+def forward_aux(params: dict, cfg: ArchConfig, batch) -> tuple:
+    """Training forward: a batch (``{"tokens"}``, ``{"embeds"}``, and
+    ``"enc_embeds"`` for audio; a bare (B, S) token tensor is taken as
+    ``{"tokens": ...}``) -> (final-normed hidden (B, S, d), the fp32
+    load-balance loss summed over the layers), as JAX's ``forward``."""
+    if isinstance(batch, torch.Tensor):
+        batch = {"tokens": batch}
+    x = _embed(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "audio":
+        enc_out = _encoder_forward(params, cfg, batch["enc_embeds"])
+        for lp in _layers(params, cfg):
+            x = _run(_encdec_block, x, positions, cfg, lp, enc_out)
+        return rms_norm(x, params["final_norm"]), aux
     block = {"ssm": _rwkv_block, "hybrid": _mamba_block}.get(cfg.family,
                                                              _dense_block)
     shared = _shared(params) if cfg.family == "hybrid" else None
-
-    def run(fn, x, p):
-        if torch.is_grad_enabled():
-            return checkpoint(fn, x, positions, cfg, p, use_reentrant=False)
-        return fn(x, positions, cfg, p)
-
     for layer, lp in enumerate(_layers(params, cfg)):
-        x, a = run(block, x, lp)
+        x, a = _run(block, x, positions, cfg, lp)
         if a is not None:
             aux = aux + a
         if _applies_shared(cfg, layer):
-            x, _ = run(_dense_block, x, shared)
+            x, _ = _run(_dense_block, x, positions, cfg, shared)
     return rms_norm(x, params["final_norm"]), aux
 
 
-def forward(params: dict, cfg: ArchConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Training forward: (B, S) tokens -> final-normed hidden (B, S, d)."""
-    return forward_aux(params, cfg, tokens)[0]
+def forward(params: dict, cfg: ArchConfig, batch) -> torch.Tensor:
+    """Training forward: a batch or (B, S) tokens (as
+    :func:`forward_aux`) -> final-normed hidden (B, S, d)."""
+    return forward_aux(params, cfg, batch)[0]
 
 
-def logits_fn(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    return hidden @ params["unembed"]
+def _vocab(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Logits without the padded vocabulary's columns."""
+    if cfg.padded_vocab != cfg.vocab_size:
+        return logits[..., :cfg.vocab_size]
+    return logits
+
+
+def logits_fn(params: dict, cfg: ArchConfig,
+              hidden: torch.Tensor) -> torch.Tensor:
+    """(..., d) hidden -> (..., vocab_size) logits."""
+    return _vocab(cfg, hidden @ params["unembed"])
 
 
 def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
@@ -258,8 +351,8 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
     per-sequence inclusion weights: the loss is the weighted mean over the
     included sequences, with denominator ``max(sum mask * w, 1)``.
     """
-    hidden, aux = forward_aux(params, cfg, batch["tokens"])
-    logits = logits_fn(params, hidden).float()
+    hidden, aux = forward_aux(params, cfg, batch)
+    logits = logits_fn(params, cfg, hidden).float()
     labels = batch["labels"]
     mask = (labels >= 0).float()
     labels = labels.clamp(min=0)
@@ -288,12 +381,13 @@ def _check_servable(cfg: ArchConfig) -> None:
 
 class DecodeState:
     """Decode state: the layer-stacked caches (a :class:`KVCache`, the
-    ssm state dict, or the hybrid's ``{"mamba", "attn"}``) and the
+    ssm state dict, or the hybrid's ``{"mamba", "attn"}``), the
     position(s) the next token is written at (a 0-d tensor, or (B,) per
-    slot)."""
+    slot), and for audio ``enc_kv``, the cross-attention's (k, v) of the
+    encoder output (None for the other families)."""
 
-    def __init__(self, caches, pos: torch.Tensor):
-        self.caches, self.pos = caches, pos
+    def __init__(self, caches, pos: torch.Tensor, enc_kv=None):
+        self.caches, self.pos, self.enc_kv = caches, pos, enc_kv
 
 
 def _cache_tensors(tree) -> list:
@@ -365,11 +459,14 @@ def _ring_from_linear(k: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                         caches: attn.KVCache, row: int) -> None:
+                         caches: Optional[attn.KVCache], row: int, *,
+                         causal: bool = True) -> None:
     """One dense or MoE block ``p`` over a prompt, in place on ``x``: its
     token-wise work ``attn.PREFILL_ROWS`` tokens at a time, its attention
-    through the flash kernel, its k and v written into cache row ``row``
-    (linear: rows 0..S-1; ring: packed as it comes)."""
+    through the flash kernel (with no causal mask unless ``causal``: the
+    whisper encoder), its k and v written into cache row ``row`` (linear:
+    rows 0..S-1; ring: packed as it comes; ``caches`` None: kept
+    nowhere)."""
     b, s, _ = x.shape
     kvh, hd = cfg.num_kv_heads, cfg.hd
     positions = torch.arange(s, device=x.device)[None, :]
@@ -377,16 +474,16 @@ def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
               for c in range(0, s, attn.PREFILL_ROWS)]
     ap = p["attn"]
     q = x.new_empty((b, s, kvh, cfg.num_heads // kvh, hd))
-    if caches.ring:
+    if caches is None or caches.ring:
         k, v = x.new_empty((b, s, kvh, hd)), x.new_empty((b, s, kvh, hd))
     else:
         k, v = caches.k[row, :, :s], caches.v[row, :, :s]
     for c in chunks:
         q[:, c], k[:, c], v[:, c] = attn.qkv_rope(
             ap, rms_norm(x[:, c], p["ln1"]), positions[:, c], cfg)
-    out = attn.flash_prefill(q, k, v, cfg.sliding_window)
+    out = attn.flash_prefill(q, k, v, cfg.sliding_window, causal=causal)
     del q
-    if caches.ring:
+    if caches is not None and caches.ring:
         cap = caches.k.shape[2]
         caches.k[row] = _ring_from_linear(k, cap)
         caches.v[row] = _ring_from_linear(v, cap)
@@ -398,6 +495,59 @@ def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     del out
     if cfg.is_moe:
         x.add_(_ffn(x, p, cfg)[0])
+
+
+def _prefill_encdec_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                          enc_out: torch.Tensor, caches: attn.KVCache,
+                          enc_kv: tuple, row: int) -> None:
+    """One whisper decoder block over a prompt, in place on ``x``: causal
+    self-attention through the flash kernel (its k and v into cache row
+    ``row``), cross-attention to ``enc_out`` through the flash kernel with
+    no mask and no rope (its k and v into ``enc_kv``'s row ``row``), the
+    MLP."""
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = attn.qkv_rope(p["attn"], rms_norm(x, p["ln1"]), positions,
+                            cfg)
+    if caches.ring:
+        cap = caches.k.shape[2]
+        caches.k[row] = _ring_from_linear(k, cap)
+        caches.v[row] = _ring_from_linear(v, cap)
+    else:
+        caches.k[row, :, :s] = k
+        caches.v[row, :, :s] = v
+    x.add_(attn.flash_prefill(q, k, v, cfg.sliding_window)
+           @ p["attn"]["wo"])
+    q, k, v = attn._project_qkv(p["xattn"], rms_norm(x, p["ln_x"]), cfg,
+                                kv_input=enc_out)
+    enc_kv[0][row], enc_kv[1][row] = k, v
+    x.add_(attn.flash_prefill(q, k, v, 0, causal=False) @ p["xattn"]["wo"])
+    x.add_(_ffn(x, p, cfg)[0])
+
+
+def _prefill_audio(params: dict, cfg: ArchConfig, x: torch.Tensor,
+                   enc_embeds: torch.Tensor, cap: int) -> tuple:
+    """Whisper over a prompt: the encoder (its blocks through
+    :func:`_prefill_dense_block` with no causal mask and no cache), then
+    the decoder in place on ``x``; returns (the decoder's KV caches of
+    ``cap`` rows, ``enc_kv``: (k, v) each (L, B, frames, KV, hd))."""
+    enc = enc_embeds.to(cfg.torch_dtype, copy=True)
+    for lp in _layers(params, cfg, ENCODER + BLOCKS):
+        _prefill_dense_block(lp, cfg, enc, None, 0, causal=False)
+    enc = rms_norm(enc, params[ENCODER + "final_norm"])
+    b = x.shape[0]
+    caches = _kv_caches(cfg, cfg.num_layers, b, cap, x.dtype, x.device)
+    enc_kv = _enc_kv(cfg, b, enc.shape[1], x.device)
+    for layer, lp in enumerate(_layers(params, cfg)):
+        _prefill_encdec_block(lp, cfg, x, enc, caches, enc_kv, layer)
+    return caches, enc_kv
+
+
+def _enc_kv(cfg: ArchConfig, batch: int, frames: int, device) -> tuple:
+    """Zero cross-attention K and V, (L, B, frames, KV, hd) each."""
+    shape = (cfg.num_layers, batch, frames, cfg.num_kv_heads, cfg.hd)
+    return tuple(torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+                 for _ in range(2))
 
 
 def _kv_caches(cfg: ArchConfig, rows: int, batch: int, cap: int, dtype,
@@ -459,24 +609,31 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     (``extra_capacity`` does not apply; a recurrent state absorbs padding,
     so serve prompts at their exact length).  Hybrid: the Mamba2 states
     after the prompt, and one KV cache row for each application of the
-    shared block, sized as the dense family's.
+    shared block, sized as the dense family's.  Audio: the decoder's KV
+    caches, sized as the dense family's, and ``enc_kv``.  The batch is
+    ``{"tokens"}`` or ``{"embeds"}`` (vlm), with ``"enc_embeds"`` for
+    audio; the logits have ``vocab_size`` columns.
     """
     _check_servable(cfg)
-    tokens = batch["tokens"]
-    x = F.embedding(tokens, params["embed"])
+    x = _embed(params, cfg, batch)
     b, s, _ = x.shape
     window = cfg.sliding_window
     cap = min(window, s) if window > 0 else s + extra_capacity
+    enc_kv = None
     if cfg.family == "ssm":
         x, caches = _prefill_ssm(params, cfg, x)
     elif cfg.family == "hybrid":
         x, caches = _prefill_hybrid(params, cfg, x, cap)
+    elif cfg.family == "audio":
+        caches, enc_kv = _prefill_audio(params, cfg, x, batch["enc_embeds"],
+                                        cap)
     else:
         caches = _kv_caches(cfg, cfg.num_layers, b, cap, x.dtype, x.device)
         for layer, lp in enumerate(_layers(params, cfg)):
             _prefill_dense_block(lp, cfg, x, caches, layer)
     hidden, pos = _last_hidden(params, x, last_pos)
-    return (hidden @ params["unembed"])[:, 0], DecodeState(caches, pos)
+    return (logits_fn(params, cfg, hidden)[:, 0],
+            DecodeState(caches, pos, enc_kv))
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
@@ -484,13 +641,17 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       device="cuda") -> DecodeState:
     """Zero caches for ``cache_len`` tokens per row (ring caches of
     ``min(window, cache_len)`` rows under a sliding window; ssm: zero
-    states, of a size independent of ``cache_len``); ``per_slot_pos``
-    gives a (batch,) position vector (the slot array, rows decode at their
-    own depths) instead of a shared scalar."""
+    states, of a size independent of ``cache_len``; audio: also a zero
+    ``enc_kv`` of ``encoder_seq`` frames, 1500 if it is unset, as in JAX);
+    ``per_slot_pos`` gives a (batch,) position vector (the slot array,
+    rows decode at their own depths) instead of a shared scalar."""
     _check_servable(cfg)
     device = resolve_device(device)
     ring = cfg.sliding_window > 0
     cap = min(cfg.sliding_window, cache_len) if ring else cache_len
+    enc_kv = None
+    if cfg.family == "audio":
+        enc_kv = _enc_kv(cfg, batch, cfg.encoder_seq or 1500, device)
     if cfg.family == "ssm":
         caches = _ssm_caches(cfg, batch, device)
     elif cfg.family == "hybrid":
@@ -500,7 +661,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                             cfg.torch_dtype, device)
     pos = torch.zeros((batch,) if per_slot_pos else (), dtype=torch.long,
                       device=device)
-    return DecodeState(caches, pos)
+    return DecodeState(caches, pos, enc_kv)
 
 
 @torch.no_grad()
@@ -509,10 +670,10 @@ def insert_decode_state(state: DecodeState, one: DecodeState,
     """Write a batch-1 state (from :func:`prefill`) into row ``slot`` of the
     slot array, in place: row ``slot`` of every cache tensor (batch on axis
     1) is overwritten whole, so ``one``'s caches must match it (dense:
-    prefill with ``extra_capacity = cap - prompt_len``); ``state.pos``
-    must be the per-slot (B,) form."""
-    for big, small in zip(_cache_tensors(state.caches),
-                          _cache_tensors(one.caches)):
+    prefill with ``extra_capacity = cap - prompt_len``; audio: ``enc_kv``
+    too); ``state.pos`` must be the per-slot (B,) form."""
+    for big, small in zip(_cache_tensors((state.caches, state.enc_kv)),
+                          _cache_tensors((one.caches, one.enc_kv))):
         big[:, slot] = small[:, 0]
     state.pos[slot] = one.pos.reshape(-1)[0]
     return state
@@ -521,8 +682,9 @@ def insert_decode_state(state: DecodeState, one: DecodeState,
 @torch.no_grad()
 def evict_decode_state(state: DecodeState, slot: int) -> DecodeState:
     """Zero row ``slot``'s caches and position in place (a retired slot
-    keeps no residue of its last request)."""
-    for big in _cache_tensors(state.caches):
+    keeps no residue of its last request; audio: its ``enc_kv`` row
+    too)."""
+    for big in _cache_tensors((state.caches, state.enc_kv)):
         big[:, slot] = 0
     state.pos[slot] = 0
     return state
@@ -531,16 +693,19 @@ def evict_decode_state(state: DecodeState, slot: int) -> DecodeState:
 @torch.no_grad()
 def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
                 token: torch.Tensor) -> tuple:
-    """One-token decode.  token: (B,) -> (logits (B, V), DecodeState at
-    ``pos + 1`` over the same, updated, caches)."""
+    """One-token decode.  token: (B,) -> (logits (B, vocab_size),
+    DecodeState at ``pos + 1`` over the same, updated, caches)."""
     _check_servable(cfg)
     x = F.embedding(token.long(), params["embed"])[:, None, :]
-    decode = {"ssm": _decode_ssm, "hybrid": _decode_hybrid}.get(
-        cfg.family, _decode_dense)
-    x = decode(params, cfg, state.caches, state.pos, x)
+    if cfg.family == "audio":
+        x = _decode_audio(params, cfg, state, x)
+    else:
+        decode = {"ssm": _decode_ssm, "hybrid": _decode_hybrid}.get(
+            cfg.family, _decode_dense)
+        x = decode(params, cfg, state.caches, state.pos, x)
     hidden = rms_norm(x, params["final_norm"])
-    logits = (hidden @ params["unembed"])[:, 0]
-    return logits, DecodeState(state.caches, state.pos + 1)
+    logits = logits_fn(params, cfg, hidden)[:, 0]
+    return logits, DecodeState(state.caches, state.pos + 1, state.enc_kv)
 
 
 def _decode_dense(params: dict, cfg: ArchConfig, caches: attn.KVCache,
@@ -551,6 +716,25 @@ def _decode_dense(params: dict, cfg: ArchConfig, caches: attn.KVCache,
         cache = attn.KVCache(caches.k[layer], caches.v[layer], caches.ring)
         h, _ = attn.decode_attend(lp["attn"], rms_norm(x, lp["ln1"]), pos,
                                   cache, cfg, window=cfg.sliding_window)
+        x = x + h
+        x = x + _ffn(x, lp, cfg)[0]
+    return x
+
+
+def _decode_audio(params: dict, cfg: ArchConfig, state: DecodeState,
+                  x: torch.Tensor) -> torch.Tensor:
+    """One token through whisper's decoder: self-attention to the KV
+    caches (rows written in place), cross-attention to ``enc_kv``."""
+    caches, (ek, ev) = state.caches, state.enc_kv
+    for layer, lp in enumerate(_layers(params, cfg)):
+        cache = attn.KVCache(caches.k[layer], caches.v[layer], caches.ring)
+        h, _ = attn.decode_attend(lp["attn"], rms_norm(x, lp["ln1"]),
+                                  state.pos, cache, cfg,
+                                  window=cfg.sliding_window)
+        x = x + h
+        h, _ = attn.decode_attend(lp["xattn"], rms_norm(x, lp["ln_x"]),
+                                  state.pos, cache, cfg,
+                                  cross_kv=(ek[layer], ev[layer]))
         x = x + h
         x = x + _ffn(x, lp, cfg)[0]
     return x
@@ -619,8 +803,8 @@ class DenseLM(nn.Module):
     def params(self) -> dict:
         return ordered(dict(self.named_parameters()))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self.params(), self.cfg, tokens)
+    def forward(self, batch) -> torch.Tensor:
+        return forward(self.params(), self.cfg, batch)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ from ..models import decode_step, prefill
 from .metrics import ServeMetrics
 from .request import Request, RequestQueue
 from .sampling import SamplingSpec
-from .slots import SlotEngine, _finish, _Sampler
+from .slots import SlotEngine, _finish, _Sampler, prompt_batch
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +264,7 @@ def serve_static(params, cfg, requests: list[Request], *, batch: int,
                             device=device)
         last_pos = torch.tensor([r.prompt_len - 1 for r in group],
                                 dtype=torch.long, device=device)
-        logits, state = prefill(params, cfg, {"tokens": toks},
+        logits, state = prefill(params, cfg, prompt_batch(params, cfg, toks),
                                 extra_capacity=cache_len - maxlen,
                                 last_pos=last_pos)
         tok = sample(logits)

@@ -5,7 +5,8 @@ The decode batch is a fixed array of ``slots`` rows sharing one
 ``decode_step``: per-slot KV rows and positions
 (:func:`repro_torch.models.init_decode_state` with ``per_slot_pos=True``).
 Requests are prefilled one at a time (batch 1), through the flash kernel
-(dense) or the wkv scan kernel (ssm) on the card, and written into a free
+(dense) or the wkv scan kernel (ssm) on the card (vlm prompts go in as
+their embedding rows, ``prompt_batch``), and written into a free
 row by :func:`repro_torch.models.insert_decode_state`; retirement (EOS or
 token budget) frees the row and zeroes it
 (:func:`repro_torch.models.evict_decode_state`).  Bucketing is
@@ -39,6 +40,15 @@ def bucket_len(plen: int, cache_len: int, *, exact: bool) -> int:
     while b < plen:
         b *= 2
     return min(b, cache_len)
+
+
+def prompt_batch(params: dict, cfg: ArchConfig, toks: torch.Tensor) -> dict:
+    """The prefill's batch for prompt tokens: ``{"tokens"}``, or under
+    ``input_mode == "embeds"`` (vlm) their embedding rows as
+    ``{"embeds"}``, as JAX's engine feeds a stubbed front end."""
+    if cfg.input_mode == "embeds":
+        return {"embeds": params["embed"][toks]}
+    return {"tokens": toks}
 
 
 class _Sampler:
@@ -139,7 +149,8 @@ class SlotEngine:
         self.buckets.add(bucket)
         toks = torch.tensor([req.prompt + [0] * (bucket - req.prompt_len)],
                             dtype=torch.long, device=self.device)
-        logits, one = prefill(self.params, self.cfg, {"tokens": toks},
+        logits, one = prefill(self.params, self.cfg,
+                              prompt_batch(self.params, self.cfg, toks),
                               extra_capacity=self.cache_len - bucket,
                               last_pos=req.prompt_len - 1)
         tok = self._sample(logits)
@@ -197,7 +208,7 @@ def static_generate(params: dict, cfg: ArchConfig, requests: list[Request],
                          for r in requests], dtype=torch.long, device=device)
     last_pos = torch.tensor([r.prompt_len - 1 for r in requests],
                             dtype=torch.long, device=device)
-    logits, state = prefill(params, cfg, {"tokens": toks},
+    logits, state = prefill(params, cfg, prompt_batch(params, cfg, toks),
                             extra_capacity=cache_len - maxlen,
                             last_pos=last_pos)
     tok = sample(logits)

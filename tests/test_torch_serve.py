@@ -132,9 +132,16 @@ def test_prefill_scalar_position_and_unservable_configs():
     _, ring = models.prefill(tp, dataclasses.replace(cfg, sliding_window=8),
                              {"tokens": torch.from_numpy(toks)})
     assert ring.caches.ring and ring.caches.k.shape[2] == 8
-    with pytest.raises(NotImplementedError, match="'audio' family"):
-        models.init_decode_state(dataclasses.replace(cfg, family="audio"),
-                                 2, 16, device="cpu")
+    # the audio family is served since whisper's port: JAX's state, a
+    # zero enc_kv of encoder_seq (unset here: 1500) frames beside the
+    # caches
+    audio = models.init_decode_state(dataclasses.replace(cfg, family="audio"),
+                                     2, 16, device="cpu")
+    want = (cfg.num_layers, 2, 1500, cfg.num_kv_heads, cfg.hd)
+    assert [tuple(t.shape) for t in audio.enc_kv] == [want, want]
+    assert not any(t.any() for t in audio.enc_kv)
+    assert audio.caches.k.shape == (cfg.num_layers, 2, 16, cfg.num_kv_heads,
+                                    cfg.hd)
 
 
 def test_insert_evict_state_helpers_match_jax():

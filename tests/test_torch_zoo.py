@@ -309,7 +309,7 @@ def test_ring_decode_equals_linear_cache_with_window_mask(per_slot):
         _close(a, b.numpy(), rtol=1e-5, atol=1e-5)
         outs.append(a)
     with torch.no_grad():
-        want = models.logits_fn(tp, models.forward(tp, cfg, toks))
+        want = models.logits_fn(tp, cfg, models.forward(tp, cfg, toks))
     _close(torch.stack(outs, 1), want.numpy())
 
 
@@ -331,7 +331,7 @@ def test_chunked_prefill_attention_equals_one_call(monkeypatch):
             m.setattr(attn, "PREFILL_ROWS", 8)
             chunked = attn.flash_prefill(q, k, v, window)
         torch.testing.assert_close(chunked, whole, rtol=1e-6, atol=1e-6)
-        want = attn.causal_attention(q, k, v, window).reshape(1, 30, -1)
+        want = attn.masked_attention(q, k, v, window).reshape(1, 30, -1)
         torch.testing.assert_close(whole, want, rtol=1e-5, atol=1e-5)
 
 
@@ -520,6 +520,9 @@ def test_slot_engine_and_static_paths_refuse_what_jax_refuses():
         static_generate(tp, cfg, reqs, cache_len=16)
     with pytest.raises(NotImplementedError, match="dense/vlm"):
         serve_static(tp, cfg, reqs, batch=2, cache_len=16)
-    with pytest.raises(NotImplementedError, match="'audio' family"):
-        models.init_decode_state(dataclasses.replace(cfg, family="audio"),
-                                 1, 8, device="cpu")
+    # init_decode_state takes the audio family since whisper's port, as
+    # JAX's: an enc_kv of (L, B, encoder_seq or 1500, KV, hd) each
+    audio = models.init_decode_state(dataclasses.replace(cfg, family="audio"),
+                                     1, 8, device="cpu")
+    assert [tuple(t.shape) for t in audio.enc_kv] == [
+        (cfg.num_layers, 1, 1500, cfg.num_kv_heads, cfg.hd)] * 2
