@@ -153,7 +153,32 @@ Phases (any failure ends the run with a non-zero exit code):
      2048 +- 512 tokens as embeddings, 1.0 s apart, 16 new tokens; 32
      tensor-core flash launches a request; TTFT, TPOT, the peak); launch
      counts reset before each and read after;
- 14. print the kernels' JSON line, the card line, and the final ok line.
+ 14. one process per worker (``torch.distributed``), ranks started by
+     ``python -m torch.distributed.run --standalone`` on this script
+     (``--rank-phase``), each under a time limit, after the parent has
+     built every kernel and released its card memory; the ranks only load
+     the built libraries.  First the one-process references (exact at 8
+     layers, ring gossip r 5 at 4, qwen2-1.5b width, 4 x 8 x 256, 2
+     epochs, simulated clock, deterministic algorithms); then one NCCL
+     rank: ``make_host_mesh(1, 1)`` and an exact session at 28 layers
+     through the process-group path, parameters and losses bit for bit
+     the one-process ``data=1`` session's; then four gloo ranks sharing
+     the card (compute on the card, the gossip rows through pinned host
+     buffers): exact (losses within MESH_LOSS_TOL, every rank's
+     parameters equal, rank 0's within MESH_PARAM_TOL of the reference)
+     and ring gossip (each rank's shard and dual row equal by digest to
+     its row of the one-process session), each rank's peak, epoch
+     seconds, bytes sent and staged a round, ``gossip_combine`` (r an
+     epoch) and ``dual_update`` (15 an epoch) launches, the peaks' sum
+     under MESH_PEAK_SUM_GIB; then the train CLI under torchrun, gloo,
+     ``--pod 2 --data 2 --graph torus`` at the smoke config, its losses
+     equal to the one-process ``--data 4`` CLI's; then the dry-run
+     (``repro_torch.launch.dryrun``) of qwen2-1.5b train_4k on (16, 16)
+     and of the exact ranks' own configuration on (4, 1), whose per-rank
+     argument bytes must not pass the ranks' measured peak.  The
+     per-rank ``gossip_combine`` round (3 received rows into one) is held
+     bit for bit against the stacked round's row in phase 3;
+ 15. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -3516,6 +3541,483 @@ def run_whisper_session(torch, rt) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# One process per worker (phase 14): torch.distributed ranks on the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4                 # gloo ranks sharing the one card
+MESH_EXACT_LAYERS = 8          # depth cuts: the four ranks' peaks must sum
+MESH_GOSSIP_LAYERS = 4         # under MESH_PEAK_SUM_GIB (the two embedding
+MESH_PEAK_SUM_GIB = 70.0       # tables, 467 M parameters, dominate)
+MESH_EPOCHS = 2
+MESH_TIMEOUT_S = {"nccl1": 300, "gloo4": 480, "cli": 240}
+MESH_PG_TIMEOUT_S = 300        # a collective waiting longer fails its rank
+# exact over four ranks: each rank's bf16 gradient is rounded before the
+# fp32 sum across ranks and rounded again after it (five roundings of
+# 2^-9 against one backward's one), and a sum that cancels magnifies them
+# against its result; the biases start at 0, so a bias leaf is its update
+# alone (blocks.attn.bk read 0.0097 of its largest value in a first run):
+# 2^-5 of each leaf's largest magnitude; the losses move by the rounding
+# of the bf16 logits of 8 rows against 32
+MESH_PARAM_TOL = 2.0 ** -5
+MESH_LOSS_TOL = 1e-3
+MESH_CLI_ARGV = ["--smoke", "--sim-clock", "--consensus", "gossip",
+                 "--graph", "torus", "--steps", str(MESH_EPOCHS)]
+
+
+def check_gossip_combine_rank(torch, ops, ref, GossipConsensus, own_row,
+                              d_full: int):
+    """The per-rank round: the K rows a worker receives, in tap order,
+    through a (K, 1) table into one row, against the stacked round's row
+    of that worker, kernel and plain version, bit for bit (ring, n = 4,
+    at the D of the MESH_GOSSIP_LAYERS-layer message); timed."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    strat = GossipConsensus(N_WORKERS, GOSSIP_ROUNDS, "ring")
+    src, w = strat.source_rows("cuda"), strat.taps.weights
+    k = strat.taps.k
+    table = own_row(k, "cuda")
+    timing = None
+    for d in (129, d_full):
+        m = torch.randn((N_WORKERS, d), generator=gen, device="cuda")
+        stacked = ops.gossip_combine(m, src, w, force="kernel")
+        buf = torch.empty((k, d), device="cuda")
+        out = torch.empty((1, d), device="cuda")
+        for r in range(N_WORKERS):
+            buf[0] = m[r]
+            for tap, s, _ in strat.rank_plan(r):
+                buf[tap] = m[s]
+            ops.gossip_combine(buf, table, w, out=out, force="kernel")
+            torch.cuda.synchronize()
+            if not torch.equal(out[0], stacked[r]):
+                fail(f"gossip_combine per-rank row {r} D={d} differs from "
+                     f"the stacked round's")
+            err = max_abs_err(torch, out, ops.gossip_combine(
+                buf, table, w, force="ref"))
+            if err:
+                fail(f"gossip_combine per-rank row {r} D={d}: kernel vs "
+                     f"plain {err}")
+        del stacked, m
+        line = (f"gossip_combine per-rank K={k} rows -> 1 D={d}: bit for "
+                f"bit the stacked round's row (4 workers) and the plain "
+                f"version's")
+        if d == d_full:
+            wt = torch.tensor(w, device="cuda").view(1, k)
+            k_ms, l_ms = time_pair(
+                torch, lambda: ops.gossip_combine(buf, table, w, out=out,
+                                                  force="kernel"),
+                lambda: torch.mm(wt, buf), 10, "gossip_combine per-rank")
+            p_ms = time_ms(torch, lambda: ops.gossip_combine(
+                buf, table, w, force="ref"), 3, "gossip_combine per-rank "
+                "plain")
+            b_ms, b_by = bound(4 * (k + 1) * d, 2 * k * d)
+            timing = dict(shape=f"K={k} received rows -> 1, D={d}",
+                          ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+            line += (f" ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms="
+                     f"{l_ms:.4f} (torch.mm of the (1, K) weights) "
+                     f"bound_ms={b_ms:.4f} ({b_by})")
+        print(line, flush=True)
+        del buf, out
+        release(torch)
+    return timing
+
+
+def mesh_session(rt, cfg, consensus: str, mesh, data: int = N_WORKERS,
+                 pod: int = 1):
+    """A session of the mesh phases: TrainSpec's defaults, the simulated
+    clock, ring gossip at GOSSIP_ROUNDS, on the card; ``mesh`` None is
+    every worker in one process."""
+    return rt.api.AMBSession(
+        rt.api.TrainSpec(data=data, pod=pod, batch_per_worker=PER_WORKER,
+                         seq_len=SEQ),
+        rt.api.ClockSpec(kind="simulated"),
+        rt.api.ConsensusSpec(consensus=consensus, graph="ring",
+                             gossip_rounds=GOSSIP_ROUNDS),
+        cfg=cfg, device="cuda", mesh=mesh)
+
+
+def as_json(x):
+    """``x`` as it reads back from JSON (tuples become lists), to compare
+    a digest with one another process wrote."""
+    return json.loads(json.dumps(x))
+
+
+def batch_digests(torch, session, n: int, epochs: int) -> list:
+    """Per epoch, per worker: the digest of that worker's rows of the
+    session's own batch (the whole batch in one process; the rank's shard
+    over a group)."""
+    source = session.batch_source()
+    out = []
+    for epoch in range(epochs):
+        batch = source.batch(epoch)
+        per = batch[min(batch)].shape[0] // n
+        out.append([digest(torch, {k: v[i * per:(i + 1) * per]
+                                   for k, v in batch.items()})
+                    for i in range(n)])
+    return out
+
+
+def mesh_epochs(torch, rt, session, label: str) -> dict:
+    """MESH_EPOCHS epochs through ``run`` (the session's own source, no
+    prefetcher); per epoch the loss, b, the host seconds from a sync to a
+    sync, the peak; the launch counts of exactly these epochs."""
+    rt.kernels.router.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for epoch in range(MESH_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = session.run(1, prefetch=0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        if not math.isfinite(m["loss"]):
+            fail(f"{label} epoch {epoch}: loss {m['loss']}")
+    return {"losses": losses, "epoch_s": secs,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": rt.kernels.router.launches()}
+
+
+def mesh_references(torch, rt, full, work: Path) -> dict:
+    """The one-process sessions the ranks are held against, run before
+    any rank starts: exact at MESH_EXACT_LAYERS (losses; the parameters
+    saved leaf by leaf for rank 0) and ring gossip at MESH_GOSSIP_LAYERS
+    (losses, each worker's dual row's digest, each worker's batch rows'
+    digests), MESH_EPOCHS epochs each, under deterministic algorithms."""
+    refs = {}
+    with deterministic(torch):
+        cfg = dataclasses.replace(full, num_layers=MESH_EXACT_LAYERS)
+        session = mesh_session(rt, cfg, "exact", None)
+        res = mesh_epochs(torch, rt, session, "exact reference")
+        torch.save({k: v.detach().cpu() for k, v in session.params.items()},
+                   work / "exact_params.pt")
+        refs["exact"] = {"losses": res["losses"]}
+        print(f"mesh reference exact ({MESH_EXACT_LAYERS} layers, one "
+              f"process, {N_WORKERS} workers): losses {res['losses']} "
+              f"epoch_s {[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+              f"{res['peak_gib']:.2f} [{card_line()}]", flush=True)
+        del session
+        release(torch)
+        cfg = dataclasses.replace(full, num_layers=MESH_GOSSIP_LAYERS)
+        session = mesh_session(rt, cfg, "gossip", None)
+        refs["gossip_batches"] = batch_digests(torch, session, N_WORKERS,
+                                               MESH_EPOCHS)
+        res = mesh_epochs(torch, rt, session, "gossip reference")
+        z = session.state["z"]
+        refs["gossip"] = {"losses": res["losses"], "rows": [
+            digest(torch, {k: v[r] for k, v in z.items()})
+            for r in range(N_WORKERS)]}
+        print(f"mesh reference gossip ({MESH_GOSSIP_LAYERS} layers, one "
+              f"process, {N_WORKERS} workers): losses {res['losses']} "
+              f"epoch_s {[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+              f"{res['peak_gib']:.2f} [{card_line()}]", flush=True)
+        del session, z
+    release(torch)
+    (work / "reference.json").write_text(json.dumps(refs))
+    return refs
+
+
+def launch_ranks(phase: str, work: Path, n: int, extra_env=None) -> None:
+    """``python -m torch.distributed.run --standalone --nproc-per-node n
+    chip_smoke.py --rank-phase phase --work work`` in its own process
+    group, killed whole past MESH_TIMEOUT_S[phase]; a rank that fails or
+    runs out of time fails the run."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"),
+           "--rank-phase", phase, "--work", str(work)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               **(extra_env or {}))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=str(ROOT),
+                            start_new_session=True)
+    try:
+        code = proc.wait(timeout=MESH_TIMEOUT_S[phase])
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        fail(f"rank phase {phase}: still running after "
+             f"{MESH_TIMEOUT_S[phase]} s; killed")
+    if code:
+        fail(f"rank phase {phase}: exit code {code}")
+    print(f"rank phase {phase}: {n} ranks done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def rank_report(label: str, rank: int, res: dict, group, rounds: int):
+    per_round = (f"sent_bytes_per_round={group.sent_bytes // rounds} "
+                 f"staged_bytes_per_round={group.staged_bytes // rounds}"
+                 if rounds else f"sent_bytes={group.sent_bytes} "
+                 f"staged_bytes={group.staged_bytes}")
+    print(f"  rank {rank} {label}: peak_GiB={res['peak_gib']:.2f} epoch_s="
+          f"{[round(x, 4) for x in res['epoch_s']]} {per_round} "
+          f"launches={res['launches']} losses={res['losses']} "
+          f"[{card_line()}]", flush=True)
+
+
+def rank_nccl1(torch, rt, dist, work: Path) -> None:
+    """One NCCL rank: make_host_mesh(1, 1) and an exact session at full
+    width through the process-group path, against the one-process data=1
+    session, parameters bit for bit, under deterministic algorithms."""
+    full = rt.configs.get_config("qwen2-1.5b")
+    mesh = rt.launch.mesh.make_host_mesh(1, 1, device="cuda")
+    out = {}
+    with deterministic(torch):
+        for label, m in (("mesh", mesh), ("one process", None)):
+            session = mesh_session(rt, full, "exact", m, data=1)
+            if (session.group is None) != (m is None):
+                fail(f"nccl1 {label}: the session's group is "
+                     f"{session.group}")
+            res = mesh_epochs(torch, rt, session, f"nccl1 {label}")
+            res["digest"] = digest(torch, session.params)
+            out[label] = res
+            print(f"  rank 0 nccl1 {label} (28 layers, data=1): losses "
+                  f"{res['losses']} epoch_s "
+                  f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+                  f"{res['peak_gib']:.2f} launches {res['launches']} "
+                  f"[{card_line()}]", flush=True)
+            del session
+            release(torch)
+    if out["mesh"]["digest"] != out["one process"]["digest"] \
+            or out["mesh"]["losses"] != out["one process"]["losses"]:
+        fail("nccl1: the one-rank process-group session's parameters or "
+             "losses differ from the one-process session's")
+    print("  nccl1: parameters and losses bit for bit the one-process "
+          "session's", flush=True)
+    (work / "nccl1.json").write_text(json.dumps(
+        {k: {"launches": v["launches"], "peak_gib": v["peak_gib"],
+             "epoch_s": v["epoch_s"]} for k, v in out.items()}))
+
+
+def rank_gloo4(torch, rt, dist, work: Path) -> None:
+    """Four gloo ranks on the one card: exact (MESH_EXACT_LAYERS) and
+    ring gossip (MESH_GOSSIP_LAYERS), MESH_EPOCHS epochs each, under
+    deterministic algorithms, held against the parent's one-process
+    references: gossip dual rows and batch rows by digest, bit for bit;
+    exact losses and (rank 0) parameters within MESH_PARAM_TOL, every
+    rank's parameters equal."""
+    rank = dist.get_rank()
+    refs = json.loads((work / "reference.json").read_text())
+    full = rt.configs.get_config("qwen2-1.5b")
+    mesh = rt.launch.mesh.make_host_mesh(MESH_RANKS, 1, device="cuda")
+    out = {}
+    with deterministic(torch):
+        cfg = dataclasses.replace(full, num_layers=MESH_EXACT_LAYERS)
+        session = mesh_session(rt, cfg, "exact", mesh)
+        res = mesh_epochs(torch, rt, session, "gloo4 exact")
+        rank_report("exact", rank, res, session.group, 0)
+        expect(f"gloo4 exact rank {rank}", res["launches"],
+               {"dual_update": 15 * MESH_EPOCHS})
+        for got, want in zip(res["losses"], refs["exact"]["losses"]):
+            if abs(got - want) > MESH_LOSS_TOL * abs(want):
+                fail(f"gloo4 exact rank {rank}: loss {got} vs {want}")
+        mine = digest(torch, session.params)
+        every = [None] * MESH_RANKS
+        dist.all_gather_object(every, mine)
+        if any(d != every[0] for d in every):
+            fail("gloo4 exact: the ranks' parameters differ")
+        if rank == 0:
+            want = torch.load(work / "exact_params.pt", mmap=True)
+            errs = {}
+            for k, p in session.params.items():
+                ref_leaf = want[k].to("cuda")
+                scale = float(ref_leaf.float().abs().max())
+                errs[k] = max_abs_err(torch, p, ref_leaf) / max(scale, 1e-30)
+            print(f"  gloo4 exact: each leaf's max |rank - one process| "
+                  f"over its largest value: " + ", ".join(
+                      f"{k} {e:.3g}" for k, e in errs.items()), flush=True)
+            worst = max(errs, key=errs.get)
+            if errs[worst] > MESH_PARAM_TOL:
+                fail(f"gloo4 exact {worst}: {errs[worst]} of its largest "
+                     f"value > {MESH_PARAM_TOL}")
+            print(f"  gloo4 exact: parameters within {errs[worst]:.3g} "
+                  f"({worst}) of the one-process session's (tol "
+                  f"{MESH_PARAM_TOL}); losses within {MESH_LOSS_TOL} "
+                  f"relative; all ranks equal", flush=True)
+        out["exact"] = {k: res[k] for k in ("launches", "peak_gib",
+                                            "epoch_s", "losses")}
+        out["exact"]["sent_bytes"] = session.group.sent_bytes
+        del session
+        release(torch)
+        cfg = dataclasses.replace(full, num_layers=MESH_GOSSIP_LAYERS)
+        session = mesh_session(rt, cfg, "gossip", mesh)
+        batches = batch_digests(torch, session, 1, MESH_EPOCHS)
+        for epoch, rows in enumerate(as_json(batches)):
+            if rows[0] != refs["gossip_batches"][epoch][rank]:
+                fail(f"gloo4 rank {rank} epoch {epoch}: its shard differs "
+                     f"from its rows of the one-process batch")
+        res = mesh_epochs(torch, rt, session, "gloo4 gossip")
+        rounds = MESH_EPOCHS * GOSSIP_ROUNDS
+        rank_report("gossip", rank, res, session.group, rounds)
+        row = as_json(digest(torch, {k: v[0] for k, v in
+                                     session.state["z"].items()}))
+        if row != refs["gossip"]["rows"][rank]:
+            fail(f"gloo4 gossip rank {rank}: its dual row differs from the "
+                 f"one-process session's row {rank}")
+        if res["losses"] != refs["gossip"]["losses"]:
+            fail(f"gloo4 gossip rank {rank}: losses {res['losses']} vs "
+                 f"{refs['gossip']['losses']}")
+        expect(f"gloo4 gossip rank {rank}", res["launches"],
+               {"gossip_combine": rounds, "dual_update": 15 * MESH_EPOCHS})
+        print(f"  gloo4 gossip rank {rank}: dual row and shards bit for bit "
+              f"the one-process session's row {rank}", flush=True)
+        out["gossip"] = {k: res[k] for k in ("launches", "peak_gib",
+                                             "epoch_s", "losses")}
+        out["gossip"].update(sent_bytes=session.group.sent_bytes,
+                             staged_bytes=session.group.staged_bytes,
+                             rounds=rounds)
+        del session
+    release(torch)
+    (work / f"gloo4_rank{rank}.json").write_text(json.dumps(out))
+
+
+def rank_cli(torch, rt, dist, work: Path) -> None:
+    """The train CLI's ``main`` under torchrun (it initialises nothing:
+    torchrun's group is up), under deterministic algorithms."""
+    with deterministic(torch):
+        rt.launch.train.main(MESH_CLI_ARGV + [
+            "--pod", "2", "--data", "2", "--dist-backend", "gloo",
+            "--metrics", str(work / "cli_ranks.jsonl")])
+
+
+RANK_PHASES = {"nccl1": rank_nccl1, "gloo4": rank_gloo4, "cli": rank_cli}
+
+
+def rank_main(argv) -> int:
+    """A rank of a mesh phase, started by ``launch_ranks`` under torchrun:
+    ``--rank-phase NAME --work DIR``.  Loads the kernels the parent built;
+    builds none."""
+    phase, work = argv[argv.index("--rank-phase") + 1], \
+        Path(argv[argv.index("--work") + 1])
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import repro_torch as rt
+    import repro_torch.api
+    import repro_torch.launch.mesh
+    import repro_torch.launch.train
+    torch.cuda.set_device(0)
+    if phase == "cli":
+        RANK_PHASES[phase](torch, rt, dist, work)
+        return 0
+    backend = "nccl" if phase == "nccl1" else "gloo"
+    dist.init_process_group(backend, init_method="env://", timeout=(
+        datetime.timedelta(seconds=MESH_PG_TIMEOUT_S)))
+    try:
+        if dist.get_rank() == 0:
+            print(f"rank phase {phase}: backend {backend}, world "
+                  f"{dist.get_world_size()} [{card_line()}]", flush=True)
+        RANK_PHASES[phase](torch, rt, dist, work)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_cli(torch, rt, work: Path) -> dict:
+    """The train CLI under torchrun, gloo, four ranks (``--pod 2 --data
+    2``, a (2, 2) torus) against the one-process CLI (``--data 4``: the
+    most-square torus, (2, 2)), both under deterministic algorithms:
+    losses equal."""
+    with deterministic(torch):
+        rt.launch.train.main(MESH_CLI_ARGV + [
+            "--data", "4", "--metrics", str(work / "cli_one.jsonl")])
+    release(torch)
+    launch_ranks("cli", work, MESH_RANKS)
+    one, ranks = ([json.loads(x)["loss"] for x in
+                   (work / name).read_text().splitlines()]
+                  for name in ("cli_one.jsonl", "cli_ranks.jsonl"))
+    print(f"mesh train CLI (smoke, gossip, torus): one process {one}, four "
+          f"ranks (pod 2 x data 2) {ranks}", flush=True)
+    if len(one) != MESH_EPOCHS or ranks != one:
+        fail(f"the train CLI over four ranks lost {ranks}, one process "
+             f"{one}")
+    return {"one": one, "ranks": ranks}
+
+
+def run_mesh(torch, rt, full) -> dict:
+    """Phase 14: the references, then the NCCL rank, the four gloo ranks,
+    the CLI under torchrun and the dry-run; returns the ranks' launch
+    counts and numbers."""
+    release(torch)
+    work = Path(tempfile.mkdtemp(prefix="mesh-", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    try:
+        mesh_references(torch, rt, full, work)
+        release(torch)
+        launch_ranks("nccl1", work, 1)
+        launch_ranks("gloo4", work, MESH_RANKS)
+        ranks = [json.loads((work / f"gloo4_rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+        nccl1 = json.loads((work / "nccl1.json").read_text())
+        for kind, layers in (("exact", MESH_EXACT_LAYERS),
+                             ("gossip", MESH_GOSSIP_LAYERS)):
+            peaks = [r[kind]["peak_gib"] for r in ranks]
+            print(f"gloo4 {kind} ({layers} layers): peaks GiB {peaks}, sum "
+                  f"{sum(peaks):.2f} (limit {MESH_PEAK_SUM_GIB}) "
+                  f"[{card_line()}]", flush=True)
+            if sum(peaks) > MESH_PEAK_SUM_GIB:
+                fail(f"gloo4 {kind}: the ranks' peaks sum to "
+                     f"{sum(peaks):.2f} GiB")
+        cli = run_mesh_cli(torch, rt, work)
+        dry = run_mesh_dryrun(rt, full, work, max(
+            r["exact"]["peak_gib"] for r in ranks))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 14 (one process per worker): {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    launches = {"nccl1 mesh": nccl1["mesh"]["launches"],
+                "nccl1 one process": nccl1["one process"]["launches"]}
+    for r, res in enumerate(ranks):
+        launches[f"gloo4 exact rank {r}"] = res["exact"]["launches"]
+        launches[f"gloo4 gossip rank {r}"] = res["gossip"]["launches"]
+    return {"launches": launches, "ranks": ranks, "cli": cli, "dry": dry}
+
+
+def run_mesh_dryrun(rt, full, work: Path, peak_gib: float) -> dict:
+    """The dry-run on this machine (no JAX): qwen2-1.5b train_4k on the
+    (16, 16) mesh, and the gloo exact phase's own configuration on a (4,
+    1) mesh, whose per-rank argument bytes (a lower bound) must not pass
+    the phase's measured per-rank peak."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract
+    t0 = time.perf_counter()
+    rec = dryrun.run_one("qwen2-1.5b", "train_4k", False, work / "dry")
+    print(f"dryrun qwen2-1.5b train_4k 16x16: flops/rank "
+          f"{rec['flops']:.4e} bytes/rank {rec['bytes']:.4e} (upper bound) "
+          f"collective traffic {rec['collectives']['traffic_bytes']:.4e} B "
+          f"args {rec['argument_size_in_bytes']} B; compute "
+          f"{rec['compute_s_roofline']:.4f} s memory "
+          f"{rec['memory_s_roofline']:.4f} s collective "
+          f"{rec['collective_s_roofline']:.4f} s, dominant "
+          f"{rec['dominant_term']}, useful {rec['useful_flops_frac']:.3f}; "
+          f"counted in {rec['count_s']} s", flush=True)
+    shape = rt.configs.InputShape("mesh_exact", SEQ, N_WORKERS * PER_WORKER,
+                                  "train")
+    own = dryrun.run_one(
+        "qwen2-1.5b", "mesh_exact", False, work / "dry",
+        cfg=dataclasses.replace(full, num_layers=MESH_EXACT_LAYERS),
+        shape=shape, mesh=abstract((MESH_RANKS, 1), ("data", "model")))
+    args_gib = own["argument_size_in_bytes"] / 2 ** 30
+    print(f"dryrun gloo4 exact ({MESH_EXACT_LAYERS} layers, 4x1): "
+          f"argument bytes per rank {own['argument_size_in_bytes']} "
+          f"({args_gib:.2f} GiB) vs the measured per-rank peak "
+          f"{peak_gib:.2f} GiB [{card_line()}]; {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    if args_gib > peak_gib:
+        fail(f"dryrun: argument bytes {args_gib:.2f} GiB pass the measured "
+             f"peak {peak_gib:.2f} GiB")
+    return {"train_4k": {k: rec[k] for k in (
+        "flops", "bytes", "dominant_term", "useful_flops_frac",
+        "argument_size_in_bytes")}, "own_args_gib": args_gib,
+        "peak_gib": peak_gib}
+
+
 def report_kernels(build) -> None:
     """Set-up output: the ptxas report of each redesigned kernel (it must
     not spill), the tensor-core flash body's dynamic shared memory, and
@@ -3569,7 +4071,10 @@ def main() -> int:
     from repro_torch.dist.consensus import GossipConsensus
     from repro_torch.kernels import build, ops, ref, router
     import repro_torch.kernels.flash_attention
+    import repro_torch.kernels.gossip_combine
     import repro_torch.kernels.rwkv6_scan
+    import repro_torch.launch.mesh
+    import repro_torch.launch.train
     import repro_torch as rt
 
     card = card_line()
@@ -3606,6 +4111,10 @@ def main() -> int:
                                 rt.models.attention)
     flash_zoo += check_flash_zamba(torch, ops, rt.kernels.flash_attention)
     flash_zoo += check_flash_whisper(torch, ops, rt.kernels.flash_attention)
+    gcomb["per_rank"] = check_gossip_combine_rank(
+        torch, ops, ref, GossipConsensus,
+        rt.kernels.gossip_combine.own_row_table, dense_param_count(
+            dataclasses.replace(full, num_layers=MESH_GOSSIP_LAYERS)) + 1)
 
     smoke = rt.configs.smoke_config("qwen2-1.5b")
     check_quantized_strategy(torch, rt, dense_param_count(smoke) + 1)
@@ -3671,11 +4180,12 @@ def main() -> int:
         torch, rt, dataclasses.replace(rt.configs.get_config(VLM_ARCH),
                                        num_layers=VLM_LAYERS),
         VLM_REQUESTS, VLM_NEW, VLM_GAP_S, 2)
+    mesh = run_mesh(torch, rt, full)
 
     def launches(name):
         return sum(c.get(name, 0) for group in (
             runs, served, sim["launches"], cli_launches, drivers,
-            coded_launches, zoo) for c in group.values())
+            coded_launches, zoo, mesh["launches"]) for c in group.values())
 
     def per_epoch(name):
         return {s: c[name] / EPOCHS for s, c in runs.items() if name in c}
@@ -3697,6 +4207,8 @@ def main() -> int:
                                              coded_launches.items()},
                     launches_zoo={a: c.get(name, 0) for a, c in
                                   zoo.items()},
+                    launches_mesh={a: c.get(name, 0) for a, c in
+                                   mesh["launches"].items()},
                     max_abs_err=err,
                     **timing)
 
@@ -3729,4 +4241,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(rank_main(sys.argv) if "--rank-phase" in sys.argv
+                     else main())

@@ -13,12 +13,17 @@ async steps (counterpart of ``repro.api.protocol``).
     staleness > 1, ``"snaps"``.
 
 Steps update the state's tensors in place and return the same dict.
+With a :class:`~repro_torch.dist.group.WorkerGroup` (one process per
+worker) the exact and gossip protocols run this process's worker; the
+pipelined and async drivers are not ported over a group yet (ROADMAP.md,
+module item 4b) and are refused.
 """
 from __future__ import annotations
 
 from ..dist.amb import (AMBConfig, gossip_primal, make_gossip_train_step,
                         make_train_step)
 from ..dist.async_epochs import make_async_gossip_train_step
+from ..dist.consensus import OVER_GROUP_TODO
 from ..dist.pipeline import make_pipelined_gossip_train_step
 from ..optim import DualAveragingOpt
 
@@ -46,10 +51,10 @@ class ExactProtocol(TrainProtocol):
     mode = "exact"
 
     def __init__(self, cfg, n: int, optimizer: DualAveragingOpt,
-                 amb: AMBConfig = AMBConfig()):
+                 amb: AMBConfig = AMBConfig(), group=None):
         self.amb = amb
         self.optimizer = optimizer
-        self._step = make_train_step(cfg, optimizer, n, amb)
+        self._step = make_train_step(cfg, optimizer, n, amb, group)
 
     def init(self, params):
         return {"params": params, "opt": self.optimizer.init(params), "t": 0}
@@ -68,13 +73,15 @@ class GossipProtocol(TrainProtocol):
 
     mode = "gossip"
 
-    def __init__(self, cfg, n: int, amb: AMBConfig, draw_source=None):
+    def __init__(self, cfg, n: int, amb: AMBConfig, draw_source=None,
+                 group=None):
         self.amb = amb
+        self.group = group
         self.init, self.step = make_gossip_train_step(cfg, n, amb,
-                                                      draw_source)
+                                                      draw_source, group)
 
     def primal(self, state):
-        return gossip_primal(state, self.amb)
+        return gossip_primal(state, self.amb, self.group)
 
 
 class PipelinedProtocol(TrainProtocol):
@@ -114,7 +121,8 @@ class AsyncProtocol(TrainProtocol):
 
 def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
                    pipeline: bool = False, async_epochs: bool = False,
-                   staleness: int = 1, draw_source=None) -> TrainProtocol:
+                   staleness: int = 1, draw_source=None,
+                   group=None) -> TrainProtocol:
     """The protocol for (consensus, driver, optimizer), by JAX's rules.
 
     ``pipeline``, ``async_epochs`` or a non-exact consensus selects the
@@ -125,6 +133,7 @@ def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
     (default dual averaging with ``amb``'s beta).  ``async_epochs``
     generalises ``pipeline`` to ``staleness`` in-flight payloads; the two
     are mutually exclusive.  Elastic membership rides on ``amb.active``.
+    ``group`` runs the exact or gossip protocol one process per worker.
     """
     if pipeline and async_epochs:
         raise ValueError("--pipeline is the hardcoded staleness-1 driver; "
@@ -141,12 +150,16 @@ def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
         raise ValueError("gossip / pipelined / async modes run the paper's "
                          "dual-averaging protocol; use the dual_averaging "
                          "optimizer")
+    if group is not None and (pipeline or async_epochs):
+        raise NotImplementedError(
+            f"the {'async' if async_epochs else 'pipelined'} driver over a "
+            f"process group is not ported yet ({OVER_GROUP_TODO})")
     if async_epochs:
         return AsyncProtocol(cfg, n, amb, staleness, draw_source)
     if pipeline:
         return PipelinedProtocol(cfg, n, amb, draw_source)
     if amb.consensus != "exact":
-        return GossipProtocol(cfg, n, amb, draw_source)
+        return GossipProtocol(cfg, n, amb, draw_source, group)
     if optimizer is None:
         optimizer = DualAveragingOpt(beta=amb.beta, radius=amb.radius)
-    return ExactProtocol(cfg, n, optimizer, amb)
+    return ExactProtocol(cfg, n, optimizer, amb, group)

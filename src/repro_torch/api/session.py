@@ -39,9 +39,23 @@ weights.  With an enabled :class:`ControllerSpec` each epoch feeds a
 (into the clock) and the async driver's staleness (drain and rebuild).
 ``save`` / ``restore`` write and read JAX's checkpoint layout, the
 controller's state included, and resume exactly.
+
+One process per worker: with ``mesh=`` (a :func:`repro_torch.launch.
+mesh.make_host_mesh` mesh), or whenever a process group of more than one
+rank is initialised (the session then builds ``make_host_mesh(data,
+model, pod=pod)``), each rank runs the worker at its (pod, data)
+coordinate on its own shard of the stream, and the steps sum across the
+ranks (:mod:`repro_torch.dist.amb`).  b_i(t) is the same on every rank:
+the simulated clock draws from (seed, epoch), and the measured clock
+takes the slowest rank's step seconds.  Only rank 0 writes the metrics
+file.  Over a group the exact and gossip sequential epochs run; the
+pipelined and async drivers, quantized gossip, coded redundancy, the
+controller, ``set_active``, ``save`` and ``restore`` raise (ROADMAP.md,
+module item 4b).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -49,6 +63,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ckpt import load_checkpoint_into, save_checkpoint
 from ..configs import get_config, smoke_config
@@ -56,6 +71,8 @@ from ..control import Controller, EpochRecord
 from ..core.stragglers import amb_batch_sizes, fmb_finish_times
 from ..data import LMTokenStream, Prefetcher, StreamSource
 from ..device import resolve_device
+from ..dist.consensus import OVER_GROUP_TODO, torus_shape_for_mesh
+from ..dist.group import WorkerGroup, num_workers
 from ..dist.redundancy import CodedAssignment
 from ..faults import FaultInjector
 from ..kernels import router
@@ -69,7 +86,8 @@ from .specs import (MODES, ClockSpec, ConsensusSpec, ControllerSpec,
 
 
 class AMBSession:
-    """One AMB training session on one device.
+    """One AMB training session: every worker on one device, or this
+    process's worker of a process group (``mesh``).
 
     Args:
       train, clock, consensus: the spec triple (defaults as in JAX).
@@ -86,7 +104,12 @@ class AMBSession:
         gossip's rounding draws; default a ``torch.Generator`` on the
         device per round (:func:`repro_torch.dist.consensus.epoch_draws`).
       metrics_path: optional JSONL path; every epoch's metrics are
-        appended through :class:`repro_torch.metrics.MetricsLogger`.
+        appended through :class:`repro_torch.metrics.MetricsLogger` (by
+        rank 0 alone over a process group).
+      mesh: a mesh over the initialised process group: one process per
+        worker (see the module note).  Default: none in a single process,
+        ``make_host_mesh(data, model, pod=pod)`` when more than one rank
+        is initialised.
 
     Exact consensus runs ``train.optimizer``: dual averaging with the
     spec's beta schedule and no trust region, as the JAX session builds it
@@ -100,7 +123,7 @@ class AMBSession:
                  consensus: Optional[ConsensusSpec] = None,
                  controller: Optional[ControllerSpec] = None, *, cfg=None,
                  params=None, device="cuda", draw_source=None,
-                 metrics_path=None):
+                 metrics_path=None, mesh=None):
         self.device = resolve_device(device)
         self.train = train
         if train.mode not in MODES:
@@ -114,7 +137,16 @@ class AMBSession:
         self.cfg = cfg if cfg is not None else (
             smoke_config(train.arch) if train.smoke
             else get_config(train.arch))
-        self.n_workers = train.data
+        if mesh is None and dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            from ..launch.mesh import make_host_mesh
+            mesh = make_host_mesh(train.data, train.model, pod=train.pod,
+                                  device=self.device.type)
+        self.mesh = mesh
+        self.group = None if mesh is None \
+            else WorkerGroup(mesh, self.device)
+        self.n_workers = train.pod * train.data if mesh is None \
+            else num_workers(mesh)
         self.global_batch = self.n_workers * train.batch_per_worker
         # coded redundancy, checked here: one CodedAssignment drives the
         # data placement (batch_source) and the decode weights (the steps)
@@ -165,9 +197,21 @@ class AMBSession:
         self.steps_done = 0
         self.sim_wall = 0.0
         self.metrics = MetricsLogger(metrics_path) if metrics_path \
-            else None
+            and self.rank == 0 else None
 
     # -- construction ------------------------------------------------------
+
+    @property
+    def rank(self) -> int:
+        """This process's worker (0 when every worker shares the
+        process)."""
+        return 0 if self.group is None else self.group.worker
+
+    def _refuse(self, what: str) -> None:
+        if self.group is not None:
+            raise NotImplementedError(
+                f"{what} over a process group (one process per worker) is "
+                f"not ported yet ({OVER_GROUP_TODO})")
 
     def _build_protocol(self, active: Optional[tuple] = None) -> None:
         """(Re)build the epoch driver: at init, on ``set_active`` and on a
@@ -180,15 +224,21 @@ class AMBSession:
             if self._decentralized else None
         if key not in self._protocols:
             spec = self.consensus_spec
+            amb = spec.to_amb_config(self.global_batch, self.train.seed,
+                                     active=mask,
+                                     noise_stats=self.controller is not None,
+                                     redundancy=self.train.redundancy)
+            if amb.torus_shape is None:
+                # JAX's default torus: the (pod, data) extents
+                amb = dataclasses.replace(amb, torus_shape=(
+                    torus_shape_for_mesh(self.mesh) if self.mesh is not None
+                    else (self.train.pod, self.train.data)
+                    if self.train.pod > 1 else None))
             self._protocols[key] = build_protocol(
-                self.cfg, self.n_workers,
-                spec.to_amb_config(self.global_batch, self.train.seed,
-                                   active=mask,
-                                   noise_stats=self.controller is not None,
-                                   redundancy=self.train.redundancy),
+                self.cfg, self.n_workers, amb,
                 optimizer=self._optimizer, pipeline=spec.pipeline,
                 async_epochs=spec.async_epochs, staleness=spec.staleness,
-                draw_source=self._draw_source)
+                draw_source=self._draw_source, group=self.group)
         self.protocol = self._protocols[key]
 
     # -- elastic membership ------------------------------------------------
@@ -214,6 +264,7 @@ class AMBSession:
         committed, so a rejected mask leaves the session as it was, apart
         from that drain, which is always a valid state transition.
         """
+        self._refuse("elastic membership (set_active)")
         mask = np.asarray(mask, dtype=bool).reshape(-1)
         if mask.shape[0] != self.n_workers:
             raise ValueError(f"mask has {mask.shape[0]} entries for "
@@ -297,6 +348,10 @@ class AMBSession:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         step_s = time.perf_counter() - t0
+        if self.group is not None:
+            # every rank feeds the clock the slowest worker's seconds, so
+            # the measured budget (and b_i(t)) stays equal across ranks
+            step_s = self.group.max_float(step_s)
         global_b = float(m["global_batch"])
         self.clock.update(step_s, global_b)
         self.steps_done += 1
@@ -319,13 +374,14 @@ class AMBSession:
         token stream on the session's device (worker i draws stream node
         i: distinct i.i.d. shards, deterministic in (seed, node, epoch));
         under coded redundancy, rotated copies of each group's block from
-        the group's node."""
+        the group's node.  Over a process group: this rank's shard only."""
         return StreamSource(
             LMTokenStream(vocab_size=self.cfg.vocab_size,
                           seq_len=self.train.seq_len, seed=self.train.seed,
                           device=str(self.device)),
             self.n_workers, self.train.batch_per_worker,
-            assignment=self._assignment)
+            assignment=self._assignment,
+            rank=None if self.group is None else self.group.worker)
 
     def run(self, steps: int, source=None, *, prefetch: int = 2,
             on_step=None, faults=None) -> Optional[dict]:
@@ -465,6 +521,7 @@ class AMBSession:
         count), and ``session.json``, written per step and at the root
         (the latest step), the spec triple and the session's counters.
         """
+        self._refuse("save")
         directory = Path(directory)
         save_checkpoint(directory, self.steps_done, self.params)
         state_dir = save_checkpoint(directory / "session_state",
@@ -507,6 +564,11 @@ class AMBSession:
         ``session.json`` copy; ``cfg`` is required when the saved session
         had a custom config.
         """
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                f"restore over a process group (one process per worker) is "
+                f"not ported yet ({OVER_GROUP_TODO})")
         directory = Path(directory)
         meta = json.loads((directory / "session.json").read_text())
         step_sel = meta["step"] if step is None else step

@@ -65,13 +65,22 @@ class _Spec:
 
 @dataclasses.dataclass(frozen=True)
 class TrainSpec(_Spec):
-    """Architecture, workers, optimizer: ``data`` workers on one device."""
+    """Architecture, workers, optimizer.
+
+    The mesh extents are JAX's: ``pod * data`` workers, in one process
+    (the workers a loop on one device) or one process per worker over an
+    initialised ``torch.distributed`` group (:mod:`repro_torch.launch.
+    mesh`).  ``model > 1``, tensor parallelism inside a worker, is
+    refused (ROADMAP.md, module item 4a).
+    """
 
     arch: str = "qwen2-1.5b"
     smoke: bool = False               # reduced config variant
     seq_len: int = 256
     batch_per_worker: int = 8         # b/n: target per-worker minibatch
-    data: int = 1
+    data: int = 1                     # mesh extents; workers = pod * data
+    model: int = 1
+    pod: int = 1
     optimizer: str = "dual_averaging"
     mode: str = "amb"                 # amb | fmb
     seed: int = 0
@@ -81,6 +90,13 @@ class TrainSpec(_Spec):
     redundancy: int = 1               # rho: coded data replication (groups
                                       # of rho workers hold rotated copies
                                       # of one block; 1 = uncoded)
+
+    def __post_init__(self):
+        if self.model != 1:
+            raise ValueError(
+                f"model={self.model}: tensor parallelism inside a worker "
+                f"is not ported yet (ROADMAP.md, module item 4a: live "
+                f"FSDP x TP and model > 1); use model=1")
 
     def router_mode(self) -> str:
         """``kernels`` in the port's router: ``pallas`` is the CUDA
@@ -104,6 +120,8 @@ class TrainSpec(_Spec):
         ap.add_argument("--batch-per-worker", type=int,
                         default=TrainSpec.batch_per_worker)
         ap.add_argument("--data", type=int, default=TrainSpec.data)
+        ap.add_argument("--model", type=int, default=TrainSpec.model)
+        ap.add_argument("--pod", type=int, default=TrainSpec.pod)
         ap.add_argument("--optimizer", default=TrainSpec.optimizer,
                         choices=list(OPTIMIZERS))
         ap.add_argument("--mode", default=TrainSpec.mode,
@@ -129,7 +147,8 @@ class TrainSpec(_Spec):
     def from_args(cls, args: argparse.Namespace) -> "TrainSpec":
         return cls(arch=args.arch, smoke=args.smoke, seq_len=args.seq_len,
                    batch_per_worker=args.batch_per_worker, data=args.data,
-                   optimizer=args.optimizer, mode=args.mode, seed=args.seed,
+                   model=args.model, pod=args.pod, optimizer=args.optimizer,
+                   mode=args.mode, seed=args.seed,
                    kernels=getattr(args, "kernels", TrainSpec.kernels),
                    redundancy=getattr(args, "redundancy",
                                       TrainSpec.redundancy))

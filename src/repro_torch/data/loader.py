@@ -9,7 +9,10 @@ nothing.
 
   * :class:`StreamSource` — per-worker shards of a deterministic stream
     (:mod:`repro_torch.data.pipeline`): worker i draws stream node i, or
-    under coded placement its group's node, rotated.
+    under coded placement its group's node, rotated.  With ``rank`` it
+    builds only that worker's shard (one process per worker).
+  * :func:`local_rows` — a worker's rows of a global batch (the
+    counterpart of JAX's ``put_batch`` onto the worker axes).
   * :class:`SyntheticSource` — uniform random tokens drawn on the device.
   * :class:`CostedSource` — a source with a fixed host cost per batch.
   * :class:`Prefetcher` — a daemon thread that builds the next ``depth``
@@ -46,6 +49,15 @@ def _leaves(tree) -> list:
     return out
 
 
+def local_rows(batch, rank: int, n: int):
+    """Worker ``rank``'s block, rows ``[rank*per, (rank+1)*per)``, of every
+    leaf of a global batch of ``n`` worker blocks."""
+    def rows(x):
+        per = x.shape[0] // n
+        return x[rank * per:(rank + 1) * per]
+    return _tree_map(rows, batch)
+
+
 class InputSource:
     """Contract: ``batch(epoch)`` is deterministic in ``epoch`` and safe to
     call from a background thread."""
@@ -75,17 +87,26 @@ class StreamSource(InputSource):
     batch axis, so its slot s holds block slot ``(s + shift_m) % per``,
     the index map of the decode weights.  A stream with ``batch_nodes``
     builds the n / rho group blocks in one go.
+
+    ``rank`` (one process per worker, uncoded) makes ``batch(epoch)`` the
+    rank's block alone, built from its node only: rows ``[rank*per,
+    (rank+1)*per)`` of the global batch, as :func:`local_rows` cuts them.
     """
 
     def __init__(self, stream, n_workers: int, per_worker: int,
-                 assignment=None):
+                 assignment=None, rank: Optional[int] = None):
         self.stream = stream
         self.n_workers = int(n_workers)
         self.per_worker = int(per_worker)
         self.assignment = assignment
+        self.rank = rank
         if assignment is not None and assignment.n != self.n_workers:
             raise ValueError(f"assignment covers {assignment.n} workers, "
                              f"source has {self.n_workers}")
+        if rank is not None and assignment is not None \
+                and assignment.rho > 1:
+            raise ValueError("a rank's own shard under coded placement is "
+                             "not ported yet (ROADMAP.md, module item 4b)")
 
     def _blocks(self, nodes, epoch: int) -> list:
         """One ``per_worker`` block per node, in node order."""
@@ -97,6 +118,8 @@ class StreamSource(InputSource):
         return [self.stream.batch(i, epoch, per) for i in nodes]
 
     def batch(self, epoch: int):
+        if self.rank is not None:
+            return self._blocks([self.rank], epoch)[0]
         a = self.assignment
         if a is None or a.rho <= 1:
             nodes = range(self.n_workers)

@@ -30,6 +30,18 @@ worker's activations and gradient are live at a time.  The gossip rounds
 reuse the message stack (fp32 gossip: as one of two round buffers;
 quantized gossip: as the round's output), and the dual is updated in
 place.
+
+One process per worker: given a :class:`~repro_torch.dist.group.
+WorkerGroup` (``group=``), each step runs this process's worker only, on
+its rows of the global batch (rows ``[r*per, (r+1)*per)`` of worker r).
+The exact step backpropagates the worker's share of the weighted loss,
+whose denominator is the global one (summed across the workers before
+the backward), sums the gradients across the workers in flat fp32
+buckets and runs the optimizer identically on every rank, so the
+parameters stay equal.  The gossip step holds only the worker's dual
+row (each ``z`` leaf is (1, *param)) and runs the strategy's
+:meth:`~repro_torch.dist.consensus.ConsensusStrategy.combine_rank`.
+The losses and :func:`gossip_primal` sum across the workers.
 """
 from __future__ import annotations
 
@@ -42,7 +54,7 @@ import torch
 from ..core.dual_averaging import BetaSchedule
 from ..kernels import ops as kops
 from ..models import lm_loss
-from .consensus import epoch_draws, make_strategy
+from .consensus import OVER_GROUP_TODO, epoch_draws, make_strategy
 from .redundancy import (CodedAssignment, epoch_weights,  # noqa: F401
                          seq_weights_from_b)
 
@@ -203,17 +215,67 @@ def unpack_duals(out: torch.Tensor, z: dict, n: int) -> dict:
 # Exact-consensus train step (eps = 0)
 # ---------------------------------------------------------------------------
 
-def make_train_step(cfg, opt, n: int, amb: AMBConfig = AMBConfig()):
+def _refuse_over_group(amb: AMBConfig, cfg=None) -> None:
+    """What one process per worker does not run yet."""
+    if amb.consensus in ("gossip_q8", "gossip_q4"):
+        raise NotImplementedError(
+            f"{amb.consensus} over a process group is not ported yet: its "
+            f"wire must pack the levels before a send ({OVER_GROUP_TODO})")
+    if amb.redundancy > 1:
+        raise NotImplementedError(f"coded redundancy over a process group "
+                                  f"is not ported yet ({OVER_GROUP_TODO})")
+    if amb.noise_stats:
+        raise NotImplementedError(f"the controller's noise statistics over "
+                                  f"a process group are not ported yet "
+                                  f"({OVER_GROUP_TODO})")
+    if cfg is not None and cfg.is_moe:
+        raise NotImplementedError(
+            f"the MoE exact step over a process group is not ported yet: "
+            f"its aux is taken over the global routing statistics "
+            f"({OVER_GROUP_TODO})")
+
+
+def _rank_train_step(cfg, opt, n: int, group):
+    """The exact step of one process per worker (see the module note)."""
+    r = group.worker
+
+    def step(params, opt_state, batch, b):
+        lead = first_leaf(batch)
+        per = lead.shape[0]
+        b = _as_b(b, lead.device)
+        sw = seq_weights_from_b(b, per * n, n)[r * per:(r + 1) * per]
+        gbatch = torch.clamp(b, max=per).sum()
+        mask = (batch["labels"] >= 0).float()
+        denom = torch.clamp(group.sum_scalar((mask * sw[:, None]).sum()),
+                            min=1.0)
+        with torch.enable_grad():
+            total, m = lm_loss(params, cfg, batch, sw, denom=denom)
+            grads = _grads(total, params)
+        group.all_reduce_(grads)
+        opt_state = opt.apply(dict(zip(params, grads)), opt_state, params)
+        metrics = {"loss": group.sum_scalar(m["loss"]),
+                   "aux": m["aux"].detach(), "ntok": denom,
+                   "global_batch": gbatch}
+        return params, opt_state, metrics
+
+    return step
+
+
+def make_train_step(cfg, opt, n: int, amb: AMBConfig = AMBConfig(),
+                    group=None):
     """step(params, opt_state, batch, b) -> (params, opt_state, metrics).
 
     ``params`` is a dict of tensors that require grad (a
     :class:`repro_torch.models.DenseLM`'s ``params()``); ``batch`` the
-    global batch in n contiguous worker blocks; ``b`` the (n,) minibatch
-    sizes of this epoch.  ``opt`` updates params and its state in place.
-    Under coded redundancy (``amb.redundancy > 1``) the weights are the
-    ``1/copies`` decode weights and ``global_batch`` counts distinct
-    covered samples.
+    global batch in n contiguous worker blocks (with ``group``, this
+    worker's block); ``b`` the (n,) minibatch sizes of this epoch.
+    ``opt`` updates params and its state in place.  Under coded
+    redundancy (``amb.redundancy > 1``) the weights are the ``1/copies``
+    decode weights and ``global_batch`` counts distinct covered samples.
     """
+    if group is not None:
+        _refuse_over_group(amb, cfg)
+        return _rank_train_step(cfg, opt, n, group)
     assignment = assignment_from_config(amb, n)
 
     def step(params, opt_state, batch, b):
@@ -361,16 +423,59 @@ def init_gossip_state(params: dict, n: int) -> dict:
             "t": 0}
 
 
+def _rank_gossip_step(cfg, n: int, amb: AMBConfig, draw_source, group):
+    """(init_state, step) of one process per worker (see the module note):
+    the state holds this worker's dual row."""
+    beta, radius = amb.beta, amb.radius
+    strategy = strategy_from_config(amb, n)
+    r = group.worker
+
+    def init_state(params: dict) -> dict:
+        return init_gossip_state(params, 1)
+
+    def step(state, batch, b):
+        lead = first_leaf(batch)
+        device, per = lead.device, lead.shape[0]
+        t = state["t"]
+        beta_t = beta(t + 1)
+        sw, bw = epoch_weights(_as_b(b, device), n, per)
+        z, w0 = state["z"], state["w0"]
+        g, loss = local_grad(cfg, z, w0, batch, sw[r:r + 1], beta_t, radius,
+                             0, per)
+        buf = strategy.rank_buffer(msg_width(z, 1), device)
+        with torch.no_grad():
+            _pack_row(buf[0], [zl[0] for zl in z.values()], g, n * bw[r])
+        del g
+        losses = torch.zeros((n,), dtype=torch.float32, device=device)
+        losses[r] = loss
+        group.all_reduce_([losses])
+        metrics = epoch_metrics(bw, list(losses.unbind(0)), beta, t)
+        out = strategy.combine_rank(buf, group,
+                                    draws=(draw_source or epoch_draws)(
+                                        amb.seed, t))
+        del buf
+        unpack_duals(out, z, 1)
+        state["t"] = t + 1
+        return state, metrics
+
+    return init_state, step
+
+
 def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
-                           draw_source: Optional[Callable] = None):
+                           draw_source: Optional[Callable] = None,
+                           group=None):
     """Returns (init_state, step) for the decentralised AMB protocol.
 
-    State: ``z`` — per-worker duals, each leaf (n, *param) fp32; ``w0`` —
-    the shared initial parameters (prox anchor, their own dtypes); ``t`` —
-    the epoch count.  step(state, batch, b) -> (state, metrics).
-    ``draw_source(seed, t)`` gives epoch t's quantized-gossip rounding
-    draws (default :func:`~repro_torch.dist.consensus.epoch_draws`).
+    State: ``z`` — per-worker duals, each leaf (n, *param) fp32 (with
+    ``group``, this worker's (1, *param) row); ``w0`` — the shared initial
+    parameters (prox anchor, their own dtypes); ``t`` — the epoch count.
+    step(state, batch, b) -> (state, metrics).  ``draw_source(seed, t)``
+    gives epoch t's quantized-gossip rounding draws (default
+    :func:`~repro_torch.dist.consensus.epoch_draws`).
     """
+    if group is not None:
+        _refuse_over_group(amb)
+        return _rank_gossip_step(cfg, n, amb, draw_source, group)
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
     strategy = strategy_from_config(amb, n)
@@ -412,14 +517,21 @@ def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
     return init_state, step
 
 
-def gossip_primal(state: dict, amb: AMBConfig) -> dict:
+def gossip_primal(state: dict, amb: AMBConfig, group=None) -> dict:
     """Node-averaged primal: the train step's prox on the worker-mean dual.
 
     Under an elastic ``amb.active`` mask only the active workers' duals
     are averaged: a departed worker's dual is frozen at its leave-time
-    value and would bias the iterate away from the active set's."""
+    value and would bias the iterate away from the active set's.  With
+    ``group`` the mean is a sum across the workers (every rank must call
+    it), one leaf at a time."""
     beta_t = amb.beta(state["t"] + 1)
-    if amb.active is None:
+    if group is not None:
+        def zbar(zl):
+            total = zl[0].clone()
+            group.all_reduce_([total])
+            return total.div_(float(group.n))
+    elif amb.active is None:
         def zbar(zl):
             return zl.mean(dim=0)
     else:

@@ -18,6 +18,15 @@ table names only survivor rows and so drives the same kernels; inactive
 rows end equal to the epoch's input rows.  One survivor is the identity;
 other graphs, or ``relayout=False``, take the dense
 :func:`masked_metropolis` operator.
+
+One process per worker (:class:`repro_torch.dist.group.WorkerGroup`):
+each rank holds only its own row.  :meth:`ConsensusStrategy.rank_buffer`
+gives the (K, D) buffer whose row 0 the step packs, and
+:meth:`ConsensusStrategy.combine_rank` runs the rounds: each round the
+rank sends its row to the ranks the taps name and receives the K - 1 rows
+it reads, in tap order, and one ``gossip_combine`` launch on a (K, 1)
+table writes its row, bit for bit the stacked round's row.  The dense
+fallback all-gathers the rows; exact consensus is an all-reduce mean.
 """
 from __future__ import annotations
 
@@ -30,6 +39,11 @@ import torch
 from ..core import consensus as cns
 from ..core.extensions import gossip_quantized
 from ..kernels import ops as kops
+from ..kernels.gossip_combine import own_row_table
+from ..launch.mesh import axis_names, mesh_shape
+
+# what one process per worker does not run yet (ROADMAP.md, module item 4b)
+OVER_GROUP_TODO = "ROADMAP.md, module item 4b"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,6 +300,19 @@ class ConsensusStrategy:
         """Bytes one worker sends per round for a D-element message."""
         raise NotImplementedError
 
+    def rank_buffer(self, width: int, device) -> torch.Tensor:
+        """The buffer of :meth:`combine_rank`: row 0 takes this worker's
+        message, the other rows what it receives."""
+        return torch.empty((1, width), dtype=torch.float32, device=device)
+
+    def combine_rank(self, buf: torch.Tensor, group,
+                     draws: Optional[Callable] = None) -> torch.Tensor:
+        """One process per worker: this worker's (1, D) row of
+        :meth:`combine` on the stack of every worker's row 0 of ``buf``."""
+        raise NotImplementedError(
+            f"{self.name} consensus over a process group is not ported yet "
+            f"({OVER_GROUP_TODO})")
+
 
 @dataclasses.dataclass(frozen=True)
 class ExactConsensus(ConsensusStrategy):
@@ -296,6 +323,12 @@ class ExactConsensus(ConsensusStrategy):
 
     def combine(self, msg, draws=None):
         return cns.exact_average(msg.float())
+
+    def combine_rank(self, buf, group, draws=None):
+        """The all-reduce mean of every worker's row."""
+        row = buf[:1]
+        group.all_reduce_([row])
+        return row.div_(float(self.n))
 
     def wire_bytes_per_round(self, d):
         return 4 * d          # fp32 all-reduce payload
@@ -368,6 +401,21 @@ class _TapGossip(ConsensusStrategy):
         k = self.taps.k if self.taps is not None else self.n
         return 4 * d * (k - 1)     # fp32 message to each neighbour
 
+    def _identity(self) -> bool:
+        return self.n < 2 or self.rounds < 1 or self.identity
+
+    def rank_buffer(self, width, device):
+        k = 1 if self._identity() or self.taps is None else self.taps.k
+        return torch.empty((k, width), dtype=torch.float32, device=device)
+
+    def rank_plan(self, worker: int) -> tuple:
+        """For each tap k >= 1: (tap, the worker this one reads, the
+        worker that reads this one) on the full-fleet taps."""
+        src = self.taps.source_rows()
+        return tuple((k, int(src[k, worker]),
+                      int(np.flatnonzero(src[k] == worker)[0]))
+                     for k in range(1, self.taps.k))
+
 
 class GossipConsensus(_TapGossip):
     """r rounds of lazy-Metropolis gossip; tap-decomposed where possible.
@@ -398,6 +446,39 @@ class GossipConsensus(_TapGossip):
         # survivor relayout: no active row reads an inactive one, so one
         # final select equals the dense masked operator's identity rows
         return _mask_rows(m, kept, getattr(self.taps, "active", None))
+
+    def combine_rank(self, buf, group, draws=None):
+        """r rounds with this worker's message in row 0 of the (K, D)
+        ``buf`` (:meth:`rank_buffer`); returns its (1, D) row.  Each round
+        exchanges rows with the taps' neighbours into rows 1..K-1, in tap
+        order, and one :func:`~repro_torch.kernels.ops.gossip_combine`
+        launch on the (K, 1) table sums them in the stacked round's order.
+        The dense fallback all-gathers the rows each round and takes this
+        worker's row of P; an ``active`` mask is not ported over a group.
+        """
+        if self.active is not None:
+            raise NotImplementedError(
+                f"elastic membership over a process group is not ported "
+                f"yet ({OVER_GROUP_TODO})")
+        if self._identity():
+            return buf[:1]
+        if self.taps is None:        # dense fallback (non-circulant graph)
+            p = torch.as_tensor(self.p[group.worker][None],
+                                dtype=torch.float32, device=buf.device)
+            row = buf[:1]
+            for _ in range(self.rounds):
+                row = p @ group.all_gather(row[0])
+            return row
+        plan = self.rank_plan(group.worker)
+        table = own_row_table(self.taps.k, buf.device)
+        out = torch.empty_like(buf[:1])
+        for r in range(self.rounds):
+            group.exchange(buf[0], [(dst, k) for k, _, dst in plan],
+                           [(src, k, buf[k]) for k, src, _ in plan])
+            kops.gossip_combine(buf, table, self.taps.weights, out=out)
+            if r + 1 < self.rounds:
+                buf[0].copy_(out[0])
+        return out
 
 
 def row_grids(cur: torch.Tensor, h: torch.Tensor, levels: float,
@@ -500,6 +581,20 @@ class QuantizedGossipConsensus(_TapGossip):
         # survivor relayout: no active row reads an inactive row's levels,
         # so putting the input rows back is exact
         return _mask_rows(m, kept, getattr(self.taps, "active", None))
+
+
+def torus_shape_for_mesh(mesh) -> Optional[tuple]:
+    """The physical worker-axis extents as the torus (rows, cols).
+
+    A ("pod", "data", "model") mesh gossips over pod x data, so the
+    natural torus is (pod_extent, data_extent); a single-worker-axis mesh
+    falls back to the most-square factorisation (None).
+    """
+    waxes = [a for a in axis_names(mesh) if a != "model"]
+    if len(waxes) == 2:
+        shape = mesh_shape(mesh)
+        return int(shape[waxes[0]]), int(shape[waxes[1]])
+    return None
 
 
 CONSENSUS_CHOICES = ("exact", "gossip", "gossip_q8", "gossip_q4")

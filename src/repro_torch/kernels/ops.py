@@ -40,15 +40,17 @@ def dual_update(z: torch.Tensor, w0: torch.Tensor, beta: float,
 def gossip_combine(m: torch.Tensor, src: torch.Tensor, weights,
                    out: Optional[torch.Tensor] = None,
                    force: Optional[str] = None) -> torch.Tensor:
-    """One gossip round on the (n, D) stack: ``out[i] = sum_k weights[k] *
-    m[src[k, i]]``, fp32; ``src`` is the (K, n) tap table.  ``out``, if
-    given, receives the result: an (n, D) fp32 buffer apart from ``m``."""
+    """One gossip round: ``out[i] = sum_k weights[k] * m[src[k, i]]``, fp32.
+    ``m`` is the (n, D) stack of source rows and ``src`` the (K, n_out)
+    tap table (n_out = n for the stacked round; a process per worker
+    passes its K received rows and a (K, 1) table).  ``out``, if given,
+    receives the result: an (n_out, D) fp32 buffer apart from ``m``."""
     if router.resolve(m, force) == "kernel":
         return gossip_combine_cuda(m, src, weights, out)
     res = ref.gossip_combine_ref(m, src, weights)
     if out is None:
         return res
-    check_out(m, out)
+    check_out(m, src, out)
     return out.copy_(res)
 
 

@@ -24,14 +24,18 @@ def gossip_combine_ref(m: torch.Tensor, src: torch.Tensor,
                        weights) -> torch.Tensor:
     """One tap-gossip round: ``out[i] = sum_k weights[k] * m[src[k, i]]``.
 
-    m: (n, D); src: (K, n) source rows per tap; weights: K floats.  The
-    gathered rows of one tap at a time (``_roll_taps`` + the weighted sum
-    of ``repro.kernels.ref.gossip_combine_ref``), summed in fp32 in tap
-    order; one (n, D) gather is live at a time.
+    m: (n, D) source rows; src: (K, n_out) rows of m per tap; weights: K
+    floats; returns (n_out, D).  The gathered rows of one tap at a time
+    (``_roll_taps`` + the weighted sum of ``repro.kernels.ref.
+    gossip_combine_ref``), summed in fp32 in tap order from 0; one
+    (n_out, D) gather is live at a time.  A process per worker passes the
+    K rows it received and a (K, 1) table, and gets the stacked round's
+    own row bit for bit.
     """
     m = m.float()
     idx = src.long()
-    out = torch.zeros_like(m)
+    out = torch.zeros((src.shape[1], m.shape[1]), dtype=torch.float32,
+                      device=m.device)
     for k, w in enumerate(weights):
         out.add_(m[idx[k]].mul_(float(w)))
     return out

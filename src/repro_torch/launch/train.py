@@ -10,8 +10,17 @@ paper's simulated clock), the consensus strategy and the optimizer
 (``--mode``), and the prefetched data plane: per-worker shards of the
 arch's LM token stream, built on a side CUDA stream ``--prefetch``
 batches ahead.  Per-epoch metrics go to
-``--metrics`` or ``artifacts/train_<arch>_<mode>.jsonl``.  The port runs
-on one device: ``--model`` and ``--pod`` must be 1.  ``--pipeline`` runs
+``--metrics`` or ``artifacts/train_<arch>_<mode>.jsonl``.  ``--pod`` and
+``--data`` are JAX's mesh extents (``pod * data`` workers; ``--model``
+must be 1).  In one process the workers share the device; under
+``torchrun`` (``WORLD_SIZE`` > 1 in the environment) the CLI initialises
+the process group from the environment with ``--dist-backend`` (default
+NCCL on the card, gloo on the CPU; printed) and each rank runs the worker
+at its (pod, data) coordinate: the train CLI's one process per worker.
+NCCL takes one card per rank; gloo may put several ranks on one card,
+keeps the compute there and sends the gossip rows through pinned host
+buffers (the bytes are printed per rank at the end).  Only rank 0 prints
+the steps and writes the metrics.  ``--pipeline`` runs
 staleness-1 pipelined epochs, ``--async --staleness D`` the AMB-DG
 queue of D payloads.  The run flushes in-flight consensus at its end;
 ``--ckpt-dir`` then saves the session, and ``--restore DIR`` resumes a
@@ -29,10 +38,19 @@ Example (on the card; ``main(argv, device="cpu")`` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --smoke --steps 20 --data 4 --consensus gossip --async \\
       --staleness 2 --sim-clock --ckpt-dir ckpt/
+Four processes, one worker each, on a (pod 2 x data 2) torus:
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --smoke --pod 2 \\
+      --data 2 --consensus gossip --graph torus --sim-clock \\
+      --dist-backend gloo
 """
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch
+import torch.distributed as dist
 
 from ..api import (AMBSession, ClockSpec, ConsensusSpec, ControllerSpec,
                    TrainSpec)
@@ -46,8 +64,6 @@ def main(argv=None, device="cuda"):
     ClockSpec.add_cli_args(ap)
     ConsensusSpec.add_cli_args(ap)
     ControllerSpec.add_cli_args(ap)
-    ap.add_argument("--model", type=int, default=1)
-    ap.add_argument("--pod", type=int, default=1)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--prefetch", type=int, default=2,
                     help="data-plane prefetch depth (batches built ahead "
@@ -66,12 +82,51 @@ def main(argv=None, device="cuda"):
                     help="per-epoch rejoin rate for downed workers")
     ap.add_argument("--churn-seed", type=int, default=0,
                     help="fault-trajectory seed (independent of --seed)")
+    ap.add_argument("--dist-backend", default=None, choices=DIST_BACKENDS,
+                    help="process-group backend under torchrun "
+                         "(WORLD_SIZE > 1): default nccl on the card, gloo "
+                         "on the CPU; gloo may put several ranks on one "
+                         "card")
     args = ap.parse_args(argv)
-    for flag in ("model", "pod"):
-        if getattr(args, flag) != 1:
-            raise SystemExit(f"--{flag} {getattr(args, flag)}: the port "
-                             f"runs on one device, so there is no {flag} "
-                             f"axis; use --{flag} 1")
+    device, owned = _init_group(args.dist_backend, device)
+    try:
+        return _run(args, device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+DIST_BACKENDS = ("nccl", "gloo")
+
+
+def _init_group(backend, device) -> tuple:
+    """Initialise the process group from torchrun's environment when it
+    holds more than one rank; returns (this rank's device, whether the
+    group was started here)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return device, False
+    kind = torch.device(device).type
+    backend = backend or ("nccl" if kind == "cuda" else "gloo")
+    if backend == "nccl" and kind != "cuda":
+        raise SystemExit("--dist-backend nccl takes CUDA devices; use gloo "
+                         "on the CPU")
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if kind == "cuda":
+        cards = torch.cuda.device_count()
+        if backend == "nccl" and world > cards:
+            raise SystemExit(f"--dist-backend nccl: {world} ranks but "
+                             f"{cards} card(s); NCCL takes one rank per "
+                             f"card (use gloo to share a card)")
+        device = f"cuda:{local % cards}"
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend=backend, init_method="env://")
+    print(f"rank {dist.get_rank()}/{world}: backend {backend}, device "
+          f"{device}", flush=True)
+    return device, True
+
+
+def _run(args, device):
     faults = None
     if args.churn > 0.0:
         faults = PoissonChurn(leave_rate=args.churn,
@@ -94,7 +149,7 @@ def main(argv=None, device="cuda"):
                 ControllerSpec.from_args(args), device=device,
                 metrics_path=args.metrics
                 or f"artifacts/train_{train.arch}_{train.mode}.jsonl")
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
     # run draws epochs at the session's own count, so a restored run
     # continues the data order and the logged step where the saved one
@@ -102,6 +157,8 @@ def main(argv=None, device="cuda"):
     last = session.steps_done + args.steps - 1
 
     def on_step(step, m):
+        if session.rank != 0:
+            return
         if "action" in m:
             print(f"step {step:4d} controller: {m['action']['reason']}",
                   flush=True)
@@ -118,6 +175,10 @@ def main(argv=None, device="cuda"):
         if args.ckpt_dir:
             session.save(args.ckpt_dir)
             print(f"checkpoint saved to {args.ckpt_dir}", flush=True)
+        if session.group is not None:
+            g = session.group
+            print(f"rank {g.worker}: sent {g.sent_bytes} bytes, staged "
+                  f"{g.staged_bytes} bytes ({g.backend})", flush=True)
     finally:
         session.close()
     return None if m is None else m["loss"]

@@ -144,6 +144,16 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 SLICED_DRAW = 1 << 30
 
 
+class MetaGenerator:
+    """The generator :func:`repro_torch.models.init_params` takes to build
+    a parameter tree on the ``meta`` device: every leaf has its shape and
+    dtype, nothing is allocated and nothing is drawn (no
+    ``torch.Generator`` lives on ``meta``).  A CPU or CUDA generator draws
+    as before."""
+
+    device = torch.device("meta")
+
+
 def init_linear(shape, dtype: torch.dtype, generator: torch.Generator,
                 scale=None) -> torch.Tensor:
     """Truncated normal on [-2, 2] times ``scale`` (default 1/sqrt(fan_in),
@@ -151,6 +161,8 @@ def init_linear(shape, dtype: torch.dtype, generator: torch.Generator,
     stack (three or more dims) of more than ``SLICED_DRAW`` elements is
     drawn one leading slice at a time, so the fp32 draw holds one layer,
     not the stack (a 32-layer internvl2 MLP leaf would take 30 GB)."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]
     scale = scale if scale is not None else float(fan_in) ** -0.5
     if len(shape) >= 3 and math.prod(shape) > SLICED_DRAW:

@@ -342,14 +342,18 @@ def logits_fn(params: dict, cfg: ArchConfig,
 
 
 def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
-            seq_weights: Optional[torch.Tensor] = None):
+            seq_weights: Optional[torch.Tensor] = None,
+            denom: Optional[torch.Tensor] = None):
     """Next-token cross-entropy plus ``0.01 * aux`` (the MoE load-balance
     loss, 0 without experts); returns (total, {"loss", "aux", "ntok"}), as
     JAX's.
 
     Labels < 0 are masked.  ``seq_weights`` (B,) are AMB's eq.-3
     per-sequence inclusion weights: the loss is the weighted mean over the
-    included sequences, with denominator ``max(sum mask * w, 1)``.
+    included sequences, with denominator ``max(sum mask * w, 1)``.  A
+    worker that holds only its own rows of the global batch passes the
+    global ``denom`` (that maximum over every worker's rows), so its loss
+    is its share of the global one.
     """
     hidden, aux = forward_aux(params, cfg, batch)
     logits = logits_fn(params, cfg, hidden).float()
@@ -361,7 +365,8 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
     tok_nll = (logz - gold) * mask                          # (B, S)
     if seq_weights is not None:
         w = seq_weights[:, None].float()
-        denom = torch.clamp((mask * w).sum(), min=1.0)
+        if denom is None:
+            denom = torch.clamp((mask * w).sum(), min=1.0)
         loss = (tok_nll * w).sum() / denom
     else:
         denom = torch.clamp(mask.sum(), min=1.0)

@@ -42,9 +42,12 @@ TRAIN = TrainSpec(smoke=True, data=N, batch_per_worker=PER, seq_len=SEQ)
 SMOKE = ["--smoke", "--data", str(N), "--batch-per-worker", str(PER),
          "--seq-len", str(SEQ), "--sim-clock"]
 # JAX CLI flags of modules the port has not taken yet (none since coded
-# redundancy, faults and the controller); --model and --pod are the train
-# CLI's own (they must be 1)
+# redundancy, faults and the controller); --model and --pod are TrainSpec's
+# mesh extents, as in JAX (--model must be 1)
 UNPORTED_FLAGS: set = set()
+# the port's own: the process-group backend of one process per worker
+# (JAX runs its workers as one SPMD program and has no such flag)
+PORT_FLAGS = {"--dist-backend"}
 
 
 # ---------------------------------------------------------------------------
@@ -140,8 +143,7 @@ def test_cli_flags_names_defaults_and_choices_match_jax():
                  jspecs.ControllerSpec):
         spec.add_cli_args(ref)
     got, want = _options(mine), _options(ref)
-    assert set(want) - set(got) == {"--model", "--pod"}
-    assert set(got) <= set(want)
+    assert set(got) == set(want)
     for flag, action in got.items():
         other = want[flag]
         assert action.dest == other.dest, flag
@@ -186,8 +188,10 @@ def test_train_cli_flags_are_jax_less_the_unported(monkeypatch):
             fn([])
     want, got = (_options(ap) for ap in parsers)
     assert set(want) - set(got) == UNPORTED_FLAGS
-    assert set(got) <= set(want)
+    assert set(got) - set(want) == PORT_FLAGS
     for flag, action in got.items():
+        if flag in PORT_FLAGS:
+            continue
         other = want[flag]
         assert (action.dest, action.default, action.choices) == (
             other.dest, other.default, other.choices), flag
@@ -201,8 +205,8 @@ NEW_FLAGS = ["--redundancy", "2", "--controller", "--controller-interval",
 
 def test_new_train_flags_parse_to_jax_specs(monkeypatch):
     """Coded redundancy, the controller and churn: both CLIs parse the
-    same argv to specs whose ``to_dict`` is JAX's (the port's TrainSpec
-    has no mesh extents) and to the same churn model."""
+    same argv to specs whose ``to_dict`` is JAX's (the mesh extents
+    included) and to the same churn model."""
     from repro.launch.train import main as jmain
     parsers = []
 
@@ -218,7 +222,7 @@ def test_new_train_flags_parse_to_jax_specs(monkeypatch):
     want, got = (real(ap, NEW_FLAGS) for ap in parsers)
     mine = TrainSpec.from_args(got).to_dict()
     theirs = jspecs.TrainSpec.from_args(want).to_dict()
-    assert mine == {k: theirs[k] for k in mine}
+    assert mine == theirs
     assert mine["redundancy"] == 2
     assert ControllerSpec.from_args(got).to_dict() == \
         jspecs.ControllerSpec.from_args(want).to_dict() == ControllerSpec(
@@ -436,9 +440,11 @@ def test_train_cli_default_metrics_path_and_refusals(tmp_path, monkeypatch):
     assert main(SMOKE + ["--steps", "0", "--mode", "fmb"],
                 device="cpu") is None
     assert (tmp_path / "artifacts" / "train_qwen2-1.5b_fmb.jsonl").exists()
-    for flag in ("--model", "--pod"):
-        with pytest.raises(SystemExit, match="one device"):
-            main(SMOKE + [flag, "2"], device="cpu")
+    with pytest.raises(SystemExit, match="module item 4a"):
+        main(SMOKE + ["--model", "2"], device="cpu")
+    # --pod is a worker axis: pod x data workers in one process
+    assert main(SMOKE + ["--steps", "0", "--pod", "2"],
+                device="cpu") is None
     with pytest.raises(SystemExit, match="Pallas interpreter"):
         main(SMOKE + ["--kernels", "pallas_interpret"], device="cpu")
     assert router.mode() == "auto"
