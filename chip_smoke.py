@@ -177,8 +177,33 @@ Phases (any failure ends the run with a non-zero exit code):
      and of the exact ranks' own configuration on (4, 1), whose per-rank
      argument bytes must not pass the ranks' measured peak.  The
      per-rank ``gossip_combine`` round (3 received rows into one) is held
-     bit for bit against the stacked round's row in phase 3;
- 15. print the kernels' JSON line, the card line, and the final ok line.
+     bit for bit against the stacked round's row in phase 3, and so are
+     the per-rank ``stochastic_quantize`` (one (1, D) row) and
+     ``quantized_combine`` (one row, the K level rows it holds, a (K, 1)
+     table), each timed beside the stacked call at the D of phase 15;
+ 15. the drivers one process per worker: the parent runs, in one process
+     on the card, the sessions the ranks will run (qwen2-1.5b width cut
+     to DRIVER_LAYERS, 4 x 8 x 256, DRIVER_EPOCHS epochs and a flush,
+     simulated clock, deterministic algorithms: gossip_q8 and gossip_q4
+     on a ring at DRIVER_ROUNDS, pipelined, async D = 2, a controlled
+     gossip session) and writes their digests, and a smoke-size pipelined
+     session saves a checkpoint; then four gloo ranks on the card
+     (``--rank-phase drivers``): rank 0 first runs the one-process twins
+     held to a tolerance (coded exact, churn, the MoE exact step at
+     qwen3-moe-30b-a3b width cut to DRIVER_MOE_LAYERS, under SGD) while
+     the others wait; every rank's dual row bit for bit its one-process row, q8 and
+     q4 ``sent_bytes`` exactly ``wire_bytes_per_round`` a round, one
+     ``stochastic_quantize`` and one ``quantized_combine`` a round, the
+     noise statistics within DRIVER_NOISE_RTOL and the controller's
+     actions equal everywhere; churn (worker 1 out, then 2 survivors,
+     then all back) bit for bit and the fp32 primal with worker 1 out
+     within DRIVER_PRIMAL_TOL of the active mean (the all-worker mean
+     told apart); coded exact and the MoE step within MESH_PARAM_TOL, aux
+     within DRIVER_AUX_RTOL; the ranks save a checkpoint and restore the
+     parent's, and after them one process restores theirs: the next epoch
+     bit for bit both ways; each rank's peak, epoch seconds, bytes sent
+     and staged, the peaks' sum under MESH_PEAK_SUM_GIB;
+ 16. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -2513,12 +2538,12 @@ class RoutingLog:
         real = self.real = self.mod.moe.moe_forward
         torch = self.torch
 
-        def logged(p, x, cfg):
+        def logged(p, x, cfg, *rest):
             probs = torch.softmax(torch.einsum(
                 "bsd,de->bse", x.float(), p["router"]), dim=-1)
             idx = torch.topk(probs, cfg.experts_per_token, dim=-1).indices
             self.calls.append(idx.sort(-1).values.cpu())
-            return real(p, x, cfg)
+            return real(p, x, cfg, *rest)
 
         self.mod.moe.moe_forward = logged
         return self
@@ -4018,6 +4043,637 @@ def run_mesh_dryrun(rt, full, work: Path, peak_gib: float) -> dict:
         "peak_gib": peak_gib}
 
 
+# ---------------------------------------------------------------------------
+# The drivers one process per worker (phase 15): every driver and option of
+# AMBSession over four gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+DRIVER_LAYERS = 1              # qwen2-1.5b depth cut: four ranks share the
+                               # card (a q8 rank about 15 GiB at 1 layer)
+DRIVER_MOE_LAYERS = 1          # qwen3-moe-30b-a3b depth cut of the MoE step
+# the MoE step's optimizer: dual averaging's fp32 z and w0 (10 GB at 1
+# layer) put a rank at 18.3 GiB, and four such ranks past the card
+DRIVER_MOE_CASE = dict(consensus="exact", optimizer="sgd")
+DRIVER_EPOCHS = 2
+DRIVER_ROUNDS = {"exact": 1, "gossip": 1, "gossip_q8": 2, "gossip_q4": 2}
+DRIVER_MASKS = ((True, False, True, True), (True, False, True, False))
+DRIVER_CASES = {
+    "q8": dict(consensus="gossip_q8"),
+    "q4": dict(consensus="gossip_q4"),
+    "pipelined": dict(consensus="gossip", pipeline=True),
+    "async": dict(consensus="gossip", async_epochs=True, staleness=2),
+    "controller": dict(consensus="gossip", controller=True),
+}
+DRIVER_NOISE_RTOL = 1e-5       # JAX's per-leaf form vs a one-pass fp64 M2
+DRIVER_PRIMAL_TOL = 1e-6       # an all-reduce's sum order vs a tensordot
+DRIVER_AUX_RTOL = 1e-5         # the ranks' shares summed vs one aux
+MESH_TIMEOUT_S["drivers"] = 600
+
+
+def check_quantized_rank(torch, ops, ref, consensus, own_row, d_full: int):
+    """The per-rank quantized round's two kernels: ``stochastic_quantize``
+    on one (1, D) row and ``quantized_combine`` on one row, the K level
+    rows it holds and a (K, 1) table, each bit for bit its plain version
+    (in column slices at the full D) and the stacked round's row (ring,
+    n = 4, every row at small D, row 1 at the full D of the
+    DRIVER_LAYERS-layer message); timed beside the stacked call.  Returns
+    the per-rank entries of the two kernel rows."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    strat = consensus.GossipConsensus(N_WORKERS, 1, "ring")
+    src, w, k = strat.source_rows("cuda"), strat.taps.weights, strat.taps.k
+    table = own_row(k, "cuda")
+    row_grids = consensus.row_grids
+    timing = {}
+    for d in (1001, 129, d_full):
+        rows = (1,) if d == d_full else range(N_WORKERS)
+        m = torch.randn((N_WORKERS, d), generator=gen, device="cuda")
+        h = torch.randn((N_WORKERS, d), generator=gen, device="cuda") * 0.3
+        rnd = torch.rand((N_WORKERS, d), generator=gen, device="cuda")
+        lo, scale = row_grids(m, h, 255.0)
+        lvl, h_new = ops.stochastic_quantize(m, h, rnd, lo, scale, 255.0,
+                                             force="kernel")
+        for r in rows:
+            one = [x[r:r + 1] for x in (m, h, rnd, lo, scale)]
+            got_l, got_h = ops.stochastic_quantize(*one, 255.0,
+                                                   force="kernel")
+            torch.cuda.synchronize()
+            if not (torch.equal(got_l[0], lvl[r])
+                    and torch.equal(got_h[0], h_new[r])):
+                fail(f"stochastic_quantize per-rank row {r} D={d} differs "
+                     f"from the stacked round's")
+            bad = []
+
+            def compare(a, b):
+                want_l, want_h = ref.stochastic_quantize_ref(
+                    *[x[:, a:b] for x in one[:3]], one[3], one[4], 255.0)
+                if not (torch.equal(want_l, got_l[:, a:b])
+                        and torch.equal(want_h, got_h[:, a:b])):
+                    bad.append(a)
+
+            in_chunks(compare, d)
+            if bad:
+                fail(f"stochastic_quantize per-rank row {r} D={d}: kernel "
+                     f"vs plain differ in the slices from {bad}")
+        if d == d_full:
+            one = [x[1:2].clone() for x in (m, h, rnd, lo, scale)]
+            lvl1 = torch.empty_like(one[0], dtype=torch.uint8)
+            s_ms, st_ms = time_pair(
+                torch, lambda: ops.stochastic_quantize(
+                    *one, 255.0, out=(lvl1, one[1]), force="kernel"),
+                lambda: ops.stochastic_quantize(
+                    m, h, rnd, lo, scale, 255.0, out=(lvl, h),
+                    force="kernel"), 5, "stochastic_quantize per-rank "
+                "(beside: the stacked call)")
+            sp_ms = time_ms(torch, lambda: in_chunks(
+                lambda a, b: ref.stochastic_quantize_ref(
+                    *[x[:, a:b] for x in one[:3]], one[3], one[4], 255.0),
+                d), 3, "stochastic_quantize per-rank plain")
+            b_ms, b_by = bound(17 * d, 8 * d)
+            timing["stochastic_quantize"] = dict(
+                shape=f"one row (1, D), D={d}", ms=s_ms, plain_ms=sp_ms,
+                stacked_ms=st_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+            print(f"stochastic_quantize per-rank (1, D) D={d}: bit for bit "
+                  f"the stacked round's row and the plain version's; "
+                  f"ms={s_ms:.4f} plain_ms={sp_ms:.4f} stacked (n={N_WORKERS})"
+                  f" ms={st_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"[{card_line()}]", flush=True)
+            del one, lvl1
+        del h, rnd, h_new
+        release(torch)
+        hnbr = torch.randn((k - 1, N_WORKERS, d), generator=gen,
+                           device="cuda")
+        for r in rows:
+            need = [r] + [s for _, s, _ in strat.rank_plan(r)]
+            args = (m[r:r + 1].clone(), hnbr[:, r:r + 1].contiguous(),
+                    lvl[need].contiguous(), lo[need, 0].contiguous(),
+                    scale[need, 0].contiguous())
+            got_o, got_h = ops.quantized_combine(*args, table, w,
+                                                 force="kernel")
+            torch.cuda.synchronize()
+            bad = []
+
+            def compare(a, b):
+                want_o, want_h = ref.quantized_combine_ref(
+                    args[0][:, a:b], args[1][:, :, a:b], args[2][:, a:b],
+                    args[3], args[4], table, w)
+                if not (torch.equal(want_o, got_o[:, a:b])
+                        and torch.equal(want_h, got_h[:, :, a:b])):
+                    bad.append(a)
+
+            in_chunks(compare, d)
+            if bad:
+                fail(f"quantized_combine per-rank row {r} D={d}: kernel vs "
+                     f"plain differ in the slices from {bad}")
+            # the stacked round (in place at the full D, where two stacks
+            # of replicas would not fit beside the row's own)
+            dest = (m, hnbr) if d == d_full else None
+            want_o, want_h = ops.quantized_combine(
+                m, hnbr, lvl, lo, scale, src, w, out=dest, force="kernel")
+            if not (torch.equal(got_o[0], want_o[r])
+                    and torch.equal(got_h[:, 0], want_h[:, r])):
+                fail(f"quantized_combine per-rank row {r} D={d} differs "
+                     f"from the stacked round's")
+            del want_o, want_h
+            if d == d_full:
+                q_ms, qs_ms = time_pair(
+                    torch, lambda: ops.quantized_combine(
+                        *args, table, w, out=(got_o, got_h),
+                        force="kernel"),
+                    lambda: ops.quantized_combine(
+                        m, hnbr, lvl, lo, scale, src, w, out=(m, hnbr),
+                        force="kernel"), 5, "quantized_combine per-rank "
+                    "(beside: the stacked call)")
+                qp_ms = time_ms(torch, lambda: in_chunks(
+                    lambda a, b: ref.quantized_combine_ref(
+                        args[0][:, a:b], args[1][:, :, a:b],
+                        args[2][:, a:b], args[3], args[4], table, w), d), 3,
+                    "quantized_combine per-rank plain")
+                b_ms, b_by = bound(d * (4 + (k - 1) + 8 * (k - 1) + 4),
+                                   4 * k * d)
+                timing["quantized_combine"] = dict(
+                    shape=f"one row, K={k} level rows, a ({k}, 1) table, "
+                    f"D={d}", ms=q_ms, plain_ms=qp_ms, stacked_ms=qs_ms,
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            del args, got_o, got_h
+            release(torch)
+        line = (f"quantized_combine per-rank K={k} level rows -> 1 (a "
+                f"({k}, 1) table) D={d}: bit for bit the stacked round's "
+                f"row and the plain version's")
+        if d == d_full:
+            t = timing["quantized_combine"]
+            line += (f"; ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                     f"stacked (n={N_WORKERS}) ms={t['stacked_ms']:.4f} "
+                     f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
+                     f"[{card_line()}]")
+        print(line, flush=True)
+        del m, hnbr, lvl, lo, scale
+        release(torch)
+    return timing
+
+
+def driver_session(rt, cfg, case: dict, mesh):
+    """A session of phase 15: TrainSpec's defaults, the simulated clock,
+    ring gossip at DRIVER_ROUNDS; ``mesh`` None is every worker in one
+    process (False: also when a process group is initialised)."""
+    consensus = case["consensus"]
+    return rt.api.AMBSession(
+        rt.api.TrainSpec(data=N_WORKERS, batch_per_worker=PER_WORKER,
+                         seq_len=SEQ, redundancy=case.get("redundancy", 1),
+                         optimizer=case.get("optimizer", "dual_averaging")),
+        rt.api.ClockSpec(kind="simulated"),
+        rt.api.ConsensusSpec(consensus=consensus, graph="ring",
+                             gossip_rounds=DRIVER_ROUNDS[consensus],
+                             pipeline=case.get("pipeline", False),
+                             async_epochs=case.get("async_epochs", False),
+                             staleness=case.get("staleness", 1)),
+        rt.api.ControllerSpec(enabled=True, warmup=1, interval=1)
+        if case.get("controller") else None,
+        cfg=cfg, device="cuda", mesh=mesh)
+
+
+def driver_rows(torch, session) -> list:
+    """The digest of each worker's dual row the session holds (every row
+    in one process, its own over a group)."""
+    z = session.state["z"]
+    n = next(iter(z.values())).shape[0]
+    return as_json([digest(torch, {k: v[i] for k, v in z.items()})
+                    for i in range(n)])
+
+
+def driver_run(torch, rt, session, label: str, epochs: int = DRIVER_EPOCHS,
+               before=None) -> dict:
+    """``epochs`` epochs through ``run`` (no prefetcher), then a flush; per
+    epoch the loss, b(t), the host seconds, the noise statistics (a
+    controlled session) and the controller's action; the peak and the
+    launch counts of exactly these epochs and the flush.  ``before(i)``
+    runs before epoch i."""
+    noise, step = [], session.protocol.step
+    if session.controller is not None:
+        def spy(state, batch, b):
+            state, m = step(state, batch, b)
+            noise.append([float(m["grad_sq_norm"]), float(m["grad_var"])])
+            return state, m
+        session.protocol.step = spy
+    rt.kernels.router.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "batch": [], "actions": [], "epoch_s": []}
+    for i in range(epochs):
+        if before is not None:
+            before(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = session.run(1, prefetch=0)
+        torch.cuda.synchronize()
+        out["epoch_s"].append(time.perf_counter() - t0)
+        if not math.isfinite(m["loss"]):
+            fail(f"{label} epoch {i}: loss {m['loss']}")
+        out["losses"].append(m["loss"])
+        out["batch"].append(m["global_batch"])
+        out["actions"].append(m.get("action"))
+    session.flush()
+    session.protocol.step = step
+    out.update(noise=noise, launches=rt.kernels.router.launches(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return as_json(out)
+
+
+def fp32_primal(rt, session, active=True):
+    """``gossip_primal`` on the session's duals against a zero fp32 anchor,
+    one leaf at a time: ``-zbar / (2 beta)`` in fp32, where the bf16 primal
+    would round a departed worker's weight away; ``active=False`` averages
+    every worker, as the group path did before the active mask.  Yields
+    (name, leaf); every rank must walk it."""
+    import torch
+    amb = session.protocol.amb
+    if not active:
+        amb = dataclasses.replace(amb, active=None)
+    z = session.state["z"]
+    for k, zl in z.items():
+        state = {"z": {k: zl}, "t": session.state["t"],
+                 "w0": {k: torch.zeros(zl.shape[1:], dtype=torch.float32,
+                                       device=zl.device)}}
+        yield k, rt.dist.amb.gossip_primal(state, amb, session.group)[k]
+
+
+def churn_before(session):
+    """Worker 1 out for the first epoch, then a table of 2 survivors, then
+    every worker back."""
+    masks = DRIVER_MASKS + ((True,) * N_WORKERS,)
+
+    def before(i):
+        session.set_active(masks[i])
+    return before
+
+
+def driver_references(torch, rt, full, work: Path) -> dict:
+    """The parent's one-process sessions of phase 15, under deterministic
+    algorithms, before any rank starts: each DRIVER_CASES session (losses,
+    b(t), each worker's dual row's digest, noise statistics, actions) and
+    the smoke-size checkpoint (one epoch, a save the ranks restore, one
+    more epoch: each row's digest).  Written to ``drivers.json``."""
+    cfg = dataclasses.replace(full, num_layers=DRIVER_LAYERS)
+    refs = {}
+    with deterministic(torch):
+        for name, case in DRIVER_CASES.items():
+            session = driver_session(rt, cfg, case, None)
+            res = driver_run(torch, rt, session, f"drivers reference {name}")
+            res["rows"] = driver_rows(torch, session)
+            refs[name] = res
+            print(f"drivers reference {name} ({DRIVER_LAYERS} layer, one "
+                  f"process): losses {res['losses']} epoch_s "
+                  f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+                  f"{res['peak_gib']:.2f} launches {res['launches']} "
+                  f"[{card_line()}]", flush=True)
+            del session
+            release(torch)
+        smoke = rt.configs.smoke_config("qwen2-1.5b")
+        session = driver_session(rt, smoke, dict(consensus="gossip",
+                                                 pipeline=True), None)
+        session.run(1, prefetch=0)
+        session.save(work / "ckpt_one")
+        session.run(1, prefetch=0)
+        session.flush()
+        refs["ckpt"] = {"rows": driver_rows(torch, session)}
+        del session
+    release(torch)
+    (work / "drivers.json").write_text(json.dumps(refs))
+    return refs
+
+
+def driver_tensor_references(torch, rt, full) -> dict:
+    """Rank 0's one-process twins, run while the other ranks wait, whose
+    results are held to a tolerance and so are kept as host tensors:
+    coded exact (the parameters), churn (the fp32 primal with worker 1
+    out, the duals' digests) and the MoE exact step (the parameters, aux
+    each epoch)."""
+    cfg = dataclasses.replace(full, num_layers=DRIVER_LAYERS)
+    out = {}
+    session = driver_session(rt, cfg, dict(consensus="exact",
+                                            redundancy=2), False)
+    res = driver_run(torch, rt, session, "coded reference")
+    out["coded"] = {"batch": res["batch"], "losses": res["losses"],
+                    "params": {k: v.detach().cpu()
+                               for k, v in session.params.items()}}
+    del session
+    release(torch)
+    session = driver_session(rt, cfg, dict(consensus="gossip"), False)
+    before = churn_before(session)
+    primal = {}
+
+    def masked(i):
+        if i == 1:        # after the epoch with worker 1 out
+            primal.update({k: v.cpu() for k, v in fp32_primal(rt, session)})
+        before(i)
+    res = driver_run(torch, rt, session, "churn reference", 3, masked)
+    out["churn"] = {"losses": res["losses"], "primal": primal,
+                    "rows": driver_rows(torch, session)}
+    del session
+    release(torch)
+    moe = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
+                              num_layers=DRIVER_MOE_LAYERS)
+    session = driver_session(rt, moe, DRIVER_MOE_CASE, False)
+    res = driver_moe_run(torch, rt, session, "moe reference")
+    out["moe"] = {"aux": res["aux"], "losses": res["losses"],
+                  "params": {k: v.detach().cpu()
+                             for k, v in session.params.items()}}
+    del session
+    release(torch)
+    print(f"  rank 0 drivers tensor references: coded losses "
+          f"{out['coded']['losses']}, churn losses {out['churn']['losses']}, "
+          f"moe aux {out['moe']['aux']} [{card_line()}]", flush=True)
+    return out
+
+
+def driver_moe_run(torch, rt, session, label: str) -> dict:
+    """The MoE exact session's epochs, with each epoch's aux as the exact
+    step reports it."""
+    auxes, step = [], session.protocol._step
+
+    def spied(params, opt_state, batch, b):
+        out = step(params, opt_state, batch, b)
+        auxes.append(float(out[2]["aux"]))
+        return out
+    session.protocol._step = spied
+    res = driver_run(torch, rt, session, label)
+    session.protocol._step = step
+    res["aux"] = auxes
+    return res
+
+
+def within(torch, got: dict, want: dict, tol: float, what: str) -> float:
+    """The worst leaf's max |got - want| over its largest magnitude; fails
+    past ``tol``."""
+    worst, at = 0.0, None
+    for k, ref_leaf in want.items():
+        ref_leaf = ref_leaf.to("cuda")
+        scale = float(ref_leaf.float().abs().max())
+        err = max_abs_err(torch, got[k], ref_leaf) / max(scale, 1e-30)
+        if err >= worst:
+            worst, at = err, k
+    if worst > tol:
+        fail(f"{what}: {at} within {worst} of its largest value > {tol}")
+    return worst
+
+
+def same_on_every_rank(dist, x, what: str) -> None:
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, x)
+    if any(e != every[0] for e in every):
+        fail(f"drivers {what}: the ranks differ: {every}")
+
+
+def driver_report(label: str, rank: int, res: dict, group) -> None:
+    print(f"  rank {rank} drivers {label}: peak_GiB={res['peak_gib']:.2f} "
+          f"epoch_s={[round(x, 4) for x in res['epoch_s']]} sent_bytes="
+          f"{group.sent_bytes} staged_bytes={group.staged_bytes} launches="
+          f"{res['launches']} losses={res['losses']} [{card_line()}]",
+          flush=True)
+
+
+def rank_drivers(torch, rt, dist, work: Path) -> None:
+    """Phase 15 on four gloo ranks sharing the card, under deterministic
+    algorithms: rank 0's tensor references first (the others wait), then
+    every case against the parent's and rank 0's references; results to
+    ``drivers_rank<r>.json``."""
+    rank = dist.get_rank()
+    refs = json.loads((work / "drivers.json").read_text())
+    full = rt.configs.get_config("qwen2-1.5b")
+    cfg = dataclasses.replace(full, num_layers=DRIVER_LAYERS)
+    mesh = rt.launch.mesh.make_host_mesh(MESH_RANKS, 1, device="cuda")
+    out = {}
+    with deterministic(torch):
+        tref = driver_tensor_references(torch, rt, full) if rank == 0 \
+            else None
+        release(torch)
+        dist.barrier()
+        d = dense_param_count(cfg) + 1
+        for name, case in DRIVER_CASES.items():
+            session = driver_session(rt, cfg, case, mesh)
+            res = driver_run(torch, rt, session, f"drivers {name}")
+            driver_report(name, rank, res, session.group)
+            want = refs[name]
+            if driver_rows(torch, session)[0] != want["rows"][rank]:
+                fail(f"drivers {name} rank {rank}: its dual row differs "
+                     f"from the one-process session's row {rank}")
+            if res["losses"] != want["losses"] \
+                    or res["batch"] != want["batch"]:
+                fail(f"drivers {name} rank {rank}: losses {res['losses']} "
+                     f"b(t) {res['batch']} vs {want['losses']} "
+                     f"{want['batch']}")
+            strat = rt.dist.amb.strategy_from_config(session.protocol.amb,
+                                                     N_WORKERS)
+            settles = DRIVER_EPOCHS + case.get("staleness", 1) \
+                if case.get("pipeline") or case.get("async_epochs") \
+                else DRIVER_EPOCHS
+            rounds = settles * strat.rounds
+            count = {"dual_update": 15 * DRIVER_EPOCHS}
+            if name in ("q8", "q4"):
+                per_round = strat.wire_bytes_per_round(d)
+                got = session.group.sent_bytes
+                if got != rounds * per_round:
+                    fail(f"drivers {name} rank {rank}: sent {got} bytes, "
+                         f"{got / rounds} a round, wire_bytes_per_round "
+                         f"{per_round}")
+                print(f"  rank {rank} drivers {name}: {got // rounds} bytes "
+                      f"a round = wire_bytes_per_round(D={d}) (fp32 would "
+                      f"send {4 * d * 2})", flush=True)
+                count.update(stochastic_quantize=rounds,
+                             quantized_combine=rounds)
+            else:
+                count["gossip_combine"] = rounds
+            expect(f"drivers {name} rank {rank}", res["launches"], count)
+            if name == "controller":
+                for g, w in zip(res["noise"], want["noise"]):
+                    for a, b in zip(g, w):
+                        if abs(a - b) > DRIVER_NOISE_RTOL * abs(b):
+                            fail(f"drivers controller rank {rank}: noise "
+                                 f"{res['noise']} vs {want['noise']}")
+                if res["actions"] != want["actions"] \
+                        or not any(res["actions"]):
+                    fail(f"drivers controller rank {rank}: actions "
+                         f"{res['actions']} vs {want['actions']}")
+                same_on_every_rank(dist, res["actions"], "actions")
+            out[name] = {k: res[k] for k in ("launches", "peak_gib",
+                                             "epoch_s")}
+            out[name]["sent_bytes"] = session.group.sent_bytes
+            out[name]["staged_bytes"] = session.group.staged_bytes
+            out[name]["rounds"] = rounds
+            del session, strat
+            release(torch)
+        print(f"  rank {rank} drivers: q8, q4, pipelined, async D=2 and the "
+              f"controlled session bit for bit the one-process rows",
+              flush=True)
+        # churn: worker 1 out, then 2 survivors, then all back
+        session = driver_session(rt, cfg, dict(consensus="gossip"), mesh)
+        before = churn_before(session)
+        checked = {}
+
+        def masked(i):
+            if i == 1:      # after the epoch with worker 1 out
+                rep, unrep = 0.0, math.inf
+                for (k, got), (_, old) in zip(
+                        fp32_primal(rt, session),
+                        fp32_primal(rt, session, active=False)):
+                    if rank == 0:
+                        want = tref["churn"]["primal"][k].to("cuda")
+                        scale = max(float(want.abs().max()), 1e-30)
+                        rep = max(rep, max_abs_err(torch, got, want) / scale)
+                        unrep = min(unrep, max_abs_err(torch, old, want)
+                                    / scale)
+                    del got, old
+                if rank == 0:
+                    checked.update(repaired=rep, unrepaired=unrep)
+                    if rep > DRIVER_PRIMAL_TOL:
+                        fail(f"drivers churn: the primal with worker 1 out "
+                             f"is {rep} from the one-process primal")
+                    if unrep <= 100 * DRIVER_PRIMAL_TOL:
+                        fail("drivers churn: the all-worker mean is not "
+                             "told apart from the active mean")
+                release(torch)
+            before(i)
+        res = driver_run(torch, rt, session, "drivers churn", 3, masked)
+        driver_report("churn", rank, res, session.group)
+        rows = driver_rows(torch, session)[0]
+        every = [None] * MESH_RANKS
+        dist.all_gather_object(every, rows)
+        if rank == 0:
+            if every != tref["churn"]["rows"] \
+                    or res["losses"] != tref["churn"]["losses"]:
+                fail("drivers churn: the ranks' dual rows or losses differ "
+                     "from the one-process session's")
+            print(f"  drivers churn: dual rows bit for bit (3 and 2 "
+                  f"survivors, then all back); the fp32 primal with worker "
+                  f"1 out within {checked['repaired']:.3g} of the "
+                  f"one-process primal (tol {DRIVER_PRIMAL_TOL}); the "
+                  f"all-worker mean would be {checked['unrepaired']:.3g} "
+                  f"away", flush=True)
+        # 15 prox launches an epoch, and 15 for each of the two fp32
+        # primals; a round only while this worker is a survivor
+        masks = DRIVER_MASKS + ((True,) * N_WORKERS,)
+        expect(f"drivers churn rank {rank}", res["launches"],
+               {"dual_update": 75,
+                "gossip_combine": sum(m[rank] for m in masks)})
+        out["churn"] = {k: res[k] for k in ("launches", "peak_gib",
+                                            "epoch_s")}
+        del session
+        release(torch)
+        # coded exact
+        session = driver_session(rt, cfg, dict(consensus="exact",
+                                               redundancy=2), mesh)
+        res = driver_run(torch, rt, session, "drivers coded exact")
+        driver_report("coded exact", rank, res, session.group)
+        same_on_every_rank(dist, digest(torch, session.params),
+                           "coded exact parameters")
+        if rank == 0:
+            ref = tref["coded"]
+            if res["batch"] != ref["batch"]:
+                fail(f"drivers coded exact: b(t) {res['batch']} vs "
+                     f"{ref['batch']}")
+            worst = within(torch, session.params, ref["params"],
+                           MESH_PARAM_TOL, "drivers coded exact")
+            print(f"  drivers coded exact (rho 2): global_batch "
+                  f"{res['batch']} equal; parameters within {worst:.3g} of "
+                  f"the one-process session's (tol {MESH_PARAM_TOL}); all "
+                  f"ranks equal", flush=True)
+        out["coded"] = {k: res[k] for k in ("launches", "peak_gib",
+                                            "epoch_s")}
+        del session
+        release(torch)
+        # checkpoints at the smoke config: ranks save, then restore the
+        # parent's save
+        smoke = rt.configs.smoke_config("qwen2-1.5b")
+        case = dict(consensus="gossip", pipeline=True)
+        session = driver_session(rt, smoke, case, mesh)
+        session.run(1, prefetch=0)
+        session.save(work / "ckpt_ranks")
+        session.run(1, prefetch=0)
+        session.flush()
+        if driver_rows(torch, session)[0] != refs["ckpt"]["rows"][rank]:
+            fail(f"drivers checkpoint rank {rank}: the saving session's "
+                 f"next epoch differs from the one-process session's")
+        del session
+        back = rt.api.AMBSession.restore(work / "ckpt_one", device="cuda",
+                                         cfg=smoke)
+        back.run(1, prefetch=0)
+        back.flush()
+        if back.group is None or \
+                driver_rows(torch, back)[0] != refs["ckpt"]["rows"][rank]:
+            fail(f"drivers checkpoint rank {rank}: the one-process save "
+                 f"restored over the ranks does not continue bit for bit")
+        del back
+        release(torch)
+        # the MoE exact step
+        moe = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
+                                  num_layers=DRIVER_MOE_LAYERS)
+        session = driver_session(rt, moe, DRIVER_MOE_CASE, mesh)
+        res = driver_moe_run(torch, rt, session, "drivers moe")
+        driver_report("moe exact", rank, res, session.group)
+        same_on_every_rank(dist, digest(torch, session.params),
+                           "moe parameters")
+        if rank == 0:
+            ref = tref["moe"]
+            for a, b in zip(res["aux"], ref["aux"]):
+                if abs(a - b) > DRIVER_AUX_RTOL * abs(b):
+                    fail(f"drivers moe: aux {res['aux']} vs {ref['aux']}")
+            worst = within(torch, session.params, ref["params"],
+                           MESH_PARAM_TOL, "drivers moe exact")
+            print(f"  drivers moe exact ({MOE_ARCH}, {DRIVER_MOE_LAYERS} "
+                  f"layer): aux {res['aux']} vs one process {ref['aux']} "
+                  f"(rtol {DRIVER_AUX_RTOL}); parameters within {worst:.3g} "
+                  f"(tol {MESH_PARAM_TOL}); all ranks equal", flush=True)
+        out["moe"] = {k: res[k] for k in ("launches", "peak_gib", "epoch_s")}
+        del session
+    release(torch)
+    (work / f"drivers_rank{rank}.json").write_text(json.dumps(out))
+
+
+RANK_PHASES["drivers"] = rank_drivers
+
+
+def run_drivers(torch, rt, full) -> dict:
+    """Phase 15: the parent's references, then four gloo ranks running
+    every driver and option; after them one process restores the ranks'
+    checkpoint and continues bit for bit.  Returns the ranks' launch
+    counts and numbers."""
+    release(torch)
+    work = Path(tempfile.mkdtemp(prefix="drivers-", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    try:
+        refs = driver_references(torch, rt, full, work)
+        launch_ranks("drivers", work, MESH_RANKS)
+        ranks = [json.loads((work / f"drivers_rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+        with deterministic(torch):
+            smoke = rt.configs.smoke_config("qwen2-1.5b")
+            back = rt.api.AMBSession.restore(work / "ckpt_ranks",
+                                             device="cuda", cfg=smoke)
+            back.run(1, prefetch=0)
+            back.flush()
+            if driver_rows(torch, back) != refs["ckpt"]["rows"]:
+                fail("drivers checkpoint: the ranks' save restored in one "
+                     "process does not continue bit for bit")
+            del back
+        print("drivers checkpoint (smoke config, pipelined): ranks save and "
+              "one process restores, one process saves and the ranks "
+              "restore; the next epoch bit for bit both ways", flush=True)
+        for name in ranks[0]:
+            peaks = [r[name]["peak_gib"] for r in ranks]
+            print(f"drivers {name}: peaks GiB {[round(p, 2) for p in peaks]}"
+                  f", sum {sum(peaks):.2f} (limit {MESH_PEAK_SUM_GIB}) "
+                  f"[{card_line()}]", flush=True)
+            if sum(peaks) > MESH_PEAK_SUM_GIB:
+                fail(f"drivers {name}: the ranks' peaks sum to "
+                     f"{sum(peaks):.2f} GiB")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 15 (the drivers one process per worker): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {f"drivers {name} rank {r}": res[name]["launches"]
+                for r, res in enumerate(ranks) for name in res}
+    return {"launches": launches, "ranks": ranks}
+
+
 def report_kernels(build) -> None:
     """Set-up output: the ptxas report of each redesigned kernel (it must
     not spill), the tensor-core flash body's dynamic shared memory, and
@@ -4115,6 +4771,12 @@ def main() -> int:
         torch, ops, ref, GossipConsensus,
         rt.kernels.gossip_combine.own_row_table, dense_param_count(
             dataclasses.replace(full, num_layers=MESH_GOSSIP_LAYERS)) + 1)
+    qrank = check_quantized_rank(
+        torch, ops, ref, consensus, rt.kernels.gossip_combine.own_row_table,
+        dense_param_count(dataclasses.replace(
+            full, num_layers=DRIVER_LAYERS)) + 1)
+    squant["per_rank"] = qrank["stochastic_quantize"]
+    qcomb["per_rank"] = qrank["quantized_combine"]
 
     smoke = rt.configs.smoke_config("qwen2-1.5b")
     check_quantized_strategy(torch, rt, dense_param_count(smoke) + 1)
@@ -4181,11 +4843,13 @@ def main() -> int:
                                        num_layers=VLM_LAYERS),
         VLM_REQUESTS, VLM_NEW, VLM_GAP_S, 2)
     mesh = run_mesh(torch, rt, full)
+    ranks15 = run_drivers(torch, rt, full)
 
     def launches(name):
         return sum(c.get(name, 0) for group in (
             runs, served, sim["launches"], cli_launches, drivers,
-            coded_launches, zoo, mesh["launches"]) for c in group.values())
+            coded_launches, zoo, mesh["launches"], ranks15["launches"])
+            for c in group.values())
 
     def per_epoch(name):
         return {s: c[name] / EPOCHS for s, c in runs.items() if name in c}
@@ -4209,6 +4873,9 @@ def main() -> int:
                                   zoo.items()},
                     launches_mesh={a: c.get(name, 0) for a, c in
                                    mesh["launches"].items()},
+                    launches_drivers_ranks={
+                        a: c.get(name, 0)
+                        for a, c in ranks15["launches"].items()},
                     max_abs_err=err,
                     **timing)
 

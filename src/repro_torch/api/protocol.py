@@ -14,22 +14,22 @@ async steps (counterpart of ``repro.api.protocol``).
 
 Steps update the state's tensors in place and return the same dict.
 With a :class:`~repro_torch.dist.group.WorkerGroup` (one process per
-worker) the exact and gossip protocols run this process's worker; the
-pipelined and async drivers are not ported over a group yet (ROADMAP.md,
-module item 4b) and are refused.
+worker) every protocol runs this process's worker: the state's
+per-worker leaves (``row_keys``: the duals and the in-flight payloads)
+hold its row only, and the checkpoint gathers and splits them by row.
 """
 from __future__ import annotations
 
 from ..dist.amb import (AMBConfig, gossip_primal, make_gossip_train_step,
                         make_train_step)
 from ..dist.async_epochs import make_async_gossip_train_step
-from ..dist.consensus import OVER_GROUP_TODO
 from ..dist.pipeline import make_pipelined_gossip_train_step
 from ..optim import DualAveragingOpt
 
 
 class TrainProtocol:
     mode: str = "base"
+    row_keys: tuple = ()       # state keys whose leaves are (n, ...) rows
 
     def init(self, params: dict) -> dict:
         raise NotImplementedError
@@ -72,6 +72,7 @@ class GossipProtocol(TrainProtocol):
     """Decentralised consensus, per-worker duals.  State: z/w0/t."""
 
     mode = "gossip"
+    row_keys = ("z", "pending", "queue", "snaps")
 
     def __init__(self, cfg, n: int, amb: AMBConfig, draw_source=None,
                  group=None):
@@ -84,21 +85,20 @@ class GossipProtocol(TrainProtocol):
         return gossip_primal(state, self.amb, self.group)
 
 
-class PipelinedProtocol(TrainProtocol):
+class PipelinedProtocol(GossipProtocol):
     """Staleness-1 pipelined epochs.  State: z/w0/t/pending."""
 
     mode = "pipelined"
 
-    def __init__(self, cfg, n: int, amb: AMBConfig, draw_source=None):
+    def __init__(self, cfg, n: int, amb: AMBConfig, draw_source=None,
+                 group=None):
         self.amb = amb
+        self.group = group
         self.init, self.step, self.flush = make_pipelined_gossip_train_step(
-            cfg, n, amb, draw_source)
-
-    def primal(self, state):
-        return gossip_primal(state, self.amb)
+            cfg, n, amb, draw_source, group)
 
 
-class AsyncProtocol(TrainProtocol):
+class AsyncProtocol(GossipProtocol):
     """AMB-DG bounded-staleness epochs.  State: z/w0/t/queue (and snaps).
 
     ``queue`` holds ``staleness`` in-flight payloads, oldest first; each
@@ -109,14 +109,12 @@ class AsyncProtocol(TrainProtocol):
     mode = "async"
 
     def __init__(self, cfg, n: int, amb: AMBConfig, staleness: int = 1,
-                 draw_source=None):
+                 draw_source=None, group=None):
         self.amb = amb
+        self.group = group
         self.staleness = staleness
         self.init, self.step, self.flush = make_async_gossip_train_step(
-            cfg, n, amb, staleness, draw_source)
-
-    def primal(self, state):
-        return gossip_primal(state, self.amb)
+            cfg, n, amb, staleness, draw_source, group)
 
 
 def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
@@ -133,7 +131,7 @@ def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
     (default dual averaging with ``amb``'s beta).  ``async_epochs``
     generalises ``pipeline`` to ``staleness`` in-flight payloads; the two
     are mutually exclusive.  Elastic membership rides on ``amb.active``.
-    ``group`` runs the exact or gossip protocol one process per worker.
+    ``group`` runs the protocol one process per worker.
     """
     if pipeline and async_epochs:
         raise ValueError("--pipeline is the hardcoded staleness-1 driver; "
@@ -150,14 +148,10 @@ def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
         raise ValueError("gossip / pipelined / async modes run the paper's "
                          "dual-averaging protocol; use the dual_averaging "
                          "optimizer")
-    if group is not None and (pipeline or async_epochs):
-        raise NotImplementedError(
-            f"the {'async' if async_epochs else 'pipelined'} driver over a "
-            f"process group is not ported yet ({OVER_GROUP_TODO})")
     if async_epochs:
-        return AsyncProtocol(cfg, n, amb, staleness, draw_source)
+        return AsyncProtocol(cfg, n, amb, staleness, draw_source, group)
     if pipeline:
-        return PipelinedProtocol(cfg, n, amb, draw_source)
+        return PipelinedProtocol(cfg, n, amb, draw_source, group)
     if amb.consensus != "exact":
         return GossipProtocol(cfg, n, amb, draw_source, group)
     if optimizer is None:

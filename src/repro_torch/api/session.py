@@ -48,10 +48,14 @@ coordinate on its own shard of the stream, and the steps sum across the
 ranks (:mod:`repro_torch.dist.amb`).  b_i(t) is the same on every rank:
 the simulated clock draws from (seed, epoch), and the measured clock
 takes the slowest rank's step seconds.  Only rank 0 writes the metrics
-file.  Over a group the exact and gossip sequential epochs run; the
-pipelined and async drivers, quantized gossip, coded redundancy, the
-controller, ``set_active``, ``save`` and ``restore`` raise (ROADMAP.md,
-module item 4b).
+file.  Every driver and option runs over a group: each rank holds its
+worker's rows of the per-worker state, the controller sees the same
+record on every rank (the losses and noise statistics are summed across
+the ranks, the step seconds are the slowest rank's) and so takes the same
+action there, ``set_active`` drains and rebuilds on every rank, and
+``save`` / ``restore`` keep JAX's layout: rank 0 writes the archive,
+gathering each per-worker leaf a row at a time, and each rank reads back
+only its own row.
 """
 from __future__ import annotations
 
@@ -71,7 +75,7 @@ from ..control import Controller, EpochRecord
 from ..core.stragglers import amb_batch_sizes, fmb_finish_times
 from ..data import LMTokenStream, Prefetcher, StreamSource
 from ..device import resolve_device
-from ..dist.consensus import OVER_GROUP_TODO, torus_shape_for_mesh
+from ..dist.consensus import torus_shape_for_mesh
 from ..dist.group import WorkerGroup, num_workers
 from ..dist.redundancy import CodedAssignment
 from ..faults import FaultInjector
@@ -102,14 +106,17 @@ class AMBSession:
       device: where the session runs ("cuda" unless told otherwise).
       draw_source: ``(seed, epoch) -> draws(k, out)``, the quantized
         gossip's rounding draws; default a ``torch.Generator`` on the
-        device per round (:func:`repro_torch.dist.consensus.epoch_draws`).
+        device per round and worker (:func:`repro_torch.dist.consensus.
+        epoch_draws`).  Over a process group it is called ``draws(k, out,
+        rows=(worker,))`` for this worker's row.
       metrics_path: optional JSONL path; every epoch's metrics are
         appended through :class:`repro_torch.metrics.MetricsLogger` (by
         rank 0 alone over a process group).
       mesh: a mesh over the initialised process group: one process per
         worker (see the module note).  Default: none in a single process,
         ``make_host_mesh(data, model, pod=pod)`` when more than one rank
-        is initialised.
+        is initialised; ``False`` keeps every worker in this process even
+        then (a one-process twin run beside the ranks).
 
     Exact consensus runs ``train.optimizer``: dual averaging with the
     spec's beta schedule and no trust region, as the JAX session builds it
@@ -142,7 +149,7 @@ class AMBSession:
             from ..launch.mesh import make_host_mesh
             mesh = make_host_mesh(train.data, train.model, pod=train.pod,
                                   device=self.device.type)
-        self.mesh = mesh
+        self.mesh = mesh = mesh or None
         self.group = None if mesh is None \
             else WorkerGroup(mesh, self.device)
         self.n_workers = train.pod * train.data if mesh is None \
@@ -207,12 +214,6 @@ class AMBSession:
         process)."""
         return 0 if self.group is None else self.group.worker
 
-    def _refuse(self, what: str) -> None:
-        if self.group is not None:
-            raise NotImplementedError(
-                f"{what} over a process group (one process per worker) is "
-                f"not ported yet ({OVER_GROUP_TODO})")
-
     def _build_protocol(self, active: Optional[tuple] = None) -> None:
         """(Re)build the epoch driver: at init, on ``set_active`` and on a
         staleness retune.  Exact consensus ignores ``active`` (a masked
@@ -264,7 +265,6 @@ class AMBSession:
         committed, so a rejected mask leaves the session as it was, apart
         from that drain, which is always a valid state transition.
         """
-        self._refuse("elastic membership (set_active)")
         mask = np.asarray(mask, dtype=bool).reshape(-1)
         if mask.shape[0] != self.n_workers:
             raise ValueError(f"mask has {mask.shape[0]} entries for "
@@ -520,12 +520,21 @@ class AMBSession:
         (optimizer or per-worker duals, any in-flight queue, the epoch
         count), and ``session.json``, written per step and at the root
         (the latest step), the spec triple and the session's counters.
+        Over a process group every rank calls it: rank 0 writes, the
+        per-worker leaves gathered to it a row at a time.
         """
-        self._refuse("save")
         directory = Path(directory)
-        save_checkpoint(directory, self.steps_done, self.params)
+        params = self.params          # a sum across the ranks: every rank
+        if self.rank == 0:
+            save_checkpoint(directory, self.steps_done, params)
+        del params
         state_dir = save_checkpoint(directory / "session_state",
-                                    self.steps_done, self.state)
+                                    self.steps_done, self.state,
+                                    group=self.group,
+                                    row_keys=self.protocol.row_keys)
+        if self.rank != 0:
+            self.group.barrier()      # until rank 0 has written it all
+            return
         meta = {
             "step": self.steps_done,
             "sim_wall_s": self.sim_wall,
@@ -548,6 +557,8 @@ class AMBSession:
         # the mask of the state it lands
         (state_dir / "session.json").write_text(blob)
         (directory / "session.json").write_text(blob)
+        if self.group is not None:
+            self.group.barrier()
 
     @classmethod
     def restore(cls, directory, *, step: Optional[int] = None, cfg=None,
@@ -562,13 +573,11 @@ class AMBSession:
         are seeded from the step count, so they resume too.  ``step``
         picks a checkpoint (default the latest), and its own
         ``session.json`` copy; ``cfg`` is required when the saved session
-        had a custom config.
+        had a custom config.  Under an initialised process group of more
+        than one rank every rank calls it and reads only its own row of
+        each per-worker leaf; a checkpoint written by one process restores
+        into ranks and back.
         """
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                f"restore over a process group (one process per worker) is "
-                f"not ported yet ({OVER_GROUP_TODO})")
         directory = Path(directory)
         meta = json.loads((directory / "session.json").read_text())
         step_sel = meta["step"] if step is None else step
@@ -588,7 +597,9 @@ class AMBSession:
         # into the fresh state in place, leaf by leaf: the card never
         # holds the state twice
         load_checkpoint_into(directory / "session_state", step_sel,
-                             session.state)
+                             session.state, row=None if session.group is None
+                             else session.group.worker,
+                             row_keys=session.protocol.row_keys)
         session.steps_done = step_sel
         session.sim_wall = float(meta.get("sim_wall_s", 0.0))
         if meta.get("sec_per_grad") is not None \

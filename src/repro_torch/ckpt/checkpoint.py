@@ -15,12 +15,22 @@ Both directions move one leaf at a time: the save streams each leaf into
 the archive as it comes off its device, and :func:`load_checkpoint_into`
 copies each leaf into a live tree in place, so neither holds a second
 copy of the tree, on the host or on the card.
+
+One process per worker: a state's per-worker leaves (those under
+``row_keys``) hold a rank's (1, ...) row.  :func:`save_checkpoint` with a
+``group`` writes from rank 0 alone, each such leaf as the (n, ...) array
+the one-process state holds, its rows gathered to rank 0 one at a time
+and streamed into the member; :func:`load_checkpoint_into` with ``row``
+reads that rank's row of each such member by its offset in the stored
+archive, never the whole leaf.  The layout is the same either way, so a
+checkpoint carries between one process, ranks and JAX.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import struct
 import tempfile
 import zipfile
 from pathlib import Path
@@ -58,9 +68,42 @@ def _to_numpy(leaf) -> tuple:
     return arr, str(arr.dtype)
 
 
+def _is_row_leaf(key: str, row_keys) -> bool:
+    return key.split("/", 1)[0] in row_keys
+
+
+def _write_rows(f, group, leaf: torch.Tensor) -> str:
+    """Rank 0's side of a per-worker leaf: the .npy header of the (n, ...)
+    array, then every worker's row as it arrives; returns the manifest
+    dtype."""
+    dtype = {}
+
+    def sink(worker: int, row: torch.Tensor) -> None:
+        arr, dtype["name"] = _to_numpy(row)
+        if worker == 0:
+            np.lib.format.write_array_header_1_0(f, {
+                "descr": np.lib.format.dtype_to_descr(arr.dtype),
+                "fortran_order": False,
+                "shape": (group.n,) + tuple(arr.shape)})
+        f.write(memoryview(np.ascontiguousarray(arr)).cast("B"))
+
+    group.gather_to_root(leaf[0], sink)
+    return dtype["name"]
+
+
 def save_checkpoint(directory: str | os.PathLike, step: int,
-                    tree: Any) -> Path:
-    """Write ``tree`` as ``<directory>/step_<step:08d>``; returns that path."""
+                    tree: Any, group=None, row_keys=()) -> Optional[Path]:
+    """Write ``tree`` as ``<directory>/step_<step:08d>``; returns that path.
+
+    With ``group`` every rank calls it: a leaf under a key of ``row_keys``
+    is this rank's (1, ...) row of an (n, ...) leaf, gathered to rank 0,
+    which writes the archive (the other ranks return None).
+    """
+    if group is not None and group.worker != 0:
+        for key, leaf in _leaves(tree):
+            if _is_row_leaf(key, row_keys):
+                group.gather_to_root(leaf[0])
+        return None
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
@@ -71,10 +114,13 @@ def save_checkpoint(directory: str | os.PathLike, step: int,
         with zipfile.ZipFile(tmp / "arrays.npz", "w", zipfile.ZIP_STORED,
                              allowZip64=True) as zf:
             for key, leaf in _leaves(tree):
-                arr, manifest["leaves"][key] = _to_numpy(leaf)
                 with zf.open(f"{key}.npy", "w", force_zip64=True) as f:
+                    if group is not None and _is_row_leaf(key, row_keys):
+                        manifest["leaves"][key] = _write_rows(f, group, leaf)
+                        continue
+                    arr, manifest["leaves"][key] = _to_numpy(leaf)
                     np.lib.format.write_array(f, np.asanyarray(arr))
-                del arr
+                    del arr
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         final = directory / f"step_{step:08d}"
         if final.exists():
@@ -101,18 +147,55 @@ class _Reader:
     def __init__(self, directory, step: int):
         d = Path(directory) / f"step_{step:08d}"
         self.manifest = json.loads((d / "manifest.json").read_text())
-        self.data = np.load(d / "arrays.npz")
+        self.path = d / "arrays.npz"
+        self.data = np.load(self.path)
+
+    def _tensor(self, key: str, arr: np.ndarray) -> torch.Tensor:
+        if self.manifest["leaves"][key] == _BF16:
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(arr)
 
     def __call__(self, key: str, leaf) -> torch.Tensor:
         """Leaf ``key``, checked against the shape of ``leaf``."""
-        arr = self.data[key]
-        if self.manifest["leaves"][key] == _BF16:
-            got = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        else:
-            got = torch.from_numpy(arr)
+        got = self._tensor(key, self.data[key])
         shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
         if tuple(got.shape) != shape:
             raise ValueError(f"{key}: shape {tuple(got.shape)} != {shape}")
+        return got
+
+    def row(self, key: str, r: int, leaf: torch.Tensor) -> torch.Tensor:
+        """Row ``r`` of the (n, ...) leaf ``key``, read by its offset in
+        the stored member, checked against the (1, ...) ``leaf``."""
+        info = self.data.zip.getinfo(f"{key}.npy")
+        if info.compress_type != zipfile.ZIP_STORED:
+            arr = self.data[key][r]          # a compressed member: whole
+        else:
+            with open(self.path, "rb") as f:
+                f.seek(info.header_offset + 26)
+                name_len, extra_len = struct.unpack("<HH", f.read(4))
+                f.seek(info.header_offset + 30 + name_len + extra_len)
+                version = np.lib.format.read_magic(f)
+                shape, fortran, dtype = (
+                    np.lib.format.read_array_header_1_0(f) if version ==
+                    (1, 0) else np.lib.format.read_array_header_2_0(f))
+                if fortran or not 0 <= r < shape[0]:
+                    raise ValueError(f"{key}: no row {r} in a stored "
+                                     f"{shape} array (fortran {fortran})")
+                arr = np.empty(shape[1:], dtype)
+                view = memoryview(arr.reshape(-1)).cast("B")
+                f.seek(r * view.nbytes, os.SEEK_CUR)
+                got = 0
+                while got < view.nbytes:
+                    k = f.readinto(view[got:])
+                    if not k:
+                        raise ValueError(f"{key}: the archive ends inside "
+                                         f"row {r}")
+                    got += k
+        got = self._tensor(key, arr)
+        want = tuple(leaf.shape[1:])
+        if leaf.shape[0] != 1 or tuple(got.shape) != want:
+            raise ValueError(f"{key}: row shape {tuple(got.shape)} != "
+                             f"{want} (a leaf of {tuple(leaf.shape)})")
         return got
 
 
@@ -150,13 +233,16 @@ def load_checkpoint(directory: str | os.PathLike, step: int,
 
 @torch.no_grad()
 def load_checkpoint_into(directory: str | os.PathLike, step: int,
-                         tree: Any) -> Any:
+                         tree: Any, row: Optional[int] = None,
+                         row_keys=()) -> Any:
     """Read ``<directory>/step_<step:08d>`` into ``tree`` in place.
 
     One leaf at a time: a tensor leaf is overwritten (``copy_``, so it
     keeps its identity, device and dtype, and only one leaf's host copy
     is live); a number in a dict or list is replaced.  A shape mismatch
-    raises.  Returns ``tree``.
+    raises.  With ``row`` (one process per worker) a leaf under a key of
+    ``row_keys`` is a (1, ...) tensor that takes row ``row`` of the
+    stored (n, ...) leaf.  Returns ``tree``.
     """
     read = _Reader(directory, step)
 
@@ -173,7 +259,10 @@ def load_checkpoint_into(directory: str | os.PathLike, step: int,
             if isinstance(leaf, (dict, list, tuple)):
                 land(leaf, path)
             elif isinstance(leaf, torch.Tensor):
-                leaf.copy_(read(path[:-1], leaf))
+                if row is not None and _is_row_leaf(path, row_keys):
+                    leaf[0].copy_(read.row(path[:-1], row, leaf))
+                else:
+                    leaf.copy_(read(path[:-1], leaf))
             elif isinstance(leaf, (bool, int, float)):
                 node[k] = type(leaf)(read(path[:-1], leaf).item())
             else:

@@ -10,7 +10,8 @@ nothing.
   * :class:`StreamSource` — per-worker shards of a deterministic stream
     (:mod:`repro_torch.data.pipeline`): worker i draws stream node i, or
     under coded placement its group's node, rotated.  With ``rank`` it
-    builds only that worker's shard (one process per worker).
+    builds only that worker's shard (one process per worker, coded or
+    not).
   * :func:`local_rows` — a worker's rows of a global batch (the
     counterpart of JAX's ``put_batch`` onto the worker axes).
   * :class:`SyntheticSource` — uniform random tokens drawn on the device.
@@ -88,9 +89,11 @@ class StreamSource(InputSource):
     the index map of the decode weights.  A stream with ``batch_nodes``
     builds the n / rho group blocks in one go.
 
-    ``rank`` (one process per worker, uncoded) makes ``batch(epoch)`` the
-    rank's block alone, built from its node only: rows ``[rank*per,
-    (rank+1)*per)`` of the global batch, as :func:`local_rows` cuts them.
+    ``rank`` (one process per worker) makes ``batch(epoch)`` the rank's
+    block alone, built from its node only (under coded placement, its
+    rotated copy of its group's block, from the group's node): rows
+    ``[rank*per, (rank+1)*per)`` of the global batch, as
+    :func:`local_rows` cuts them.
     """
 
     def __init__(self, stream, n_workers: int, per_worker: int,
@@ -103,10 +106,6 @@ class StreamSource(InputSource):
         if assignment is not None and assignment.n != self.n_workers:
             raise ValueError(f"assignment covers {assignment.n} workers, "
                              f"source has {self.n_workers}")
-        if rank is not None and assignment is not None \
-                and assignment.rho > 1:
-            raise ValueError("a rank's own shard under coded placement is "
-                             "not ported yet (ROADMAP.md, module item 4b)")
 
     def _blocks(self, nodes, epoch: int) -> list:
         """One ``per_worker`` block per node, in node order."""
@@ -118,9 +117,13 @@ class StreamSource(InputSource):
         return [self.stream.batch(i, epoch, per) for i in nodes]
 
     def batch(self, epoch: int):
-        if self.rank is not None:
-            return self._blocks([self.rank], epoch)[0]
         a = self.assignment
+        if self.rank is not None:
+            if a is None or a.rho <= 1:
+                return self._blocks([self.rank], epoch)[0]
+            shift = int(a.shifts(self.per_worker)[self.rank])
+            block = self._blocks([int(a.data_nodes()[self.rank])], epoch)[0]
+            return _tree_map(lambda x: torch.roll(x, -shift, dims=0), block)
         if a is None or a.rho <= 1:
             nodes = range(self.n_workers)
             if hasattr(self.stream, "batch_nodes"):

@@ -33,15 +33,18 @@ place.
 
 One process per worker: given a :class:`~repro_torch.dist.group.
 WorkerGroup` (``group=``), each step runs this process's worker only, on
-its rows of the global batch (rows ``[r*per, (r+1)*per)`` of worker r).
-The exact step backpropagates the worker's share of the weighted loss,
-whose denominator is the global one (summed across the workers before
-the backward), sums the gradients across the workers in flat fp32
-buckets and runs the optimizer identically on every rank, so the
-parameters stay equal.  The gossip step holds only the worker's dual
-row (each ``z`` leaf is (1, *param)) and runs the strategy's
-:meth:`~repro_torch.dist.consensus.ConsensusStrategy.combine_rank`.
-The losses and :func:`gossip_primal` sum across the workers.
+its rows of the global batch (rows ``[r*per, (r+1)*per)`` of worker r;
+under coded placement its rotated copy of its group's block).  The exact
+step backpropagates the worker's share of the weighted loss, whose
+denominator is the global one (summed across the workers before the
+backward), sums the gradients across the workers in flat fp32 buckets
+and runs the optimizer identically on every rank, so the parameters stay
+equal; an MoE model's load-balance loss takes the routing counts summed
+across the workers (``lm_loss(group=)``).  The gossip step holds only the
+worker's dual row (each ``z`` leaf is (1, *param)) and runs the
+strategy's :meth:`~repro_torch.dist.consensus.ConsensusStrategy.
+combine_rank`.  The losses, :class:`RankNoiseStats` and
+:func:`gossip_primal` sum across the workers.
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ import torch
 from ..core.dual_averaging import BetaSchedule
 from ..kernels import ops as kops
 from ..models import lm_loss
-from .consensus import OVER_GROUP_TODO, epoch_draws, make_strategy
+from .consensus import epoch_draws, make_strategy
 from .redundancy import (CodedAssignment, epoch_weights,  # noqa: F401
                          seq_weights_from_b)
 
@@ -215,46 +218,32 @@ def unpack_duals(out: torch.Tensor, z: dict, n: int) -> dict:
 # Exact-consensus train step (eps = 0)
 # ---------------------------------------------------------------------------
 
-def _refuse_over_group(amb: AMBConfig, cfg=None) -> None:
-    """What one process per worker does not run yet."""
-    if amb.consensus in ("gossip_q8", "gossip_q4"):
-        raise NotImplementedError(
-            f"{amb.consensus} over a process group is not ported yet: its "
-            f"wire must pack the levels before a send ({OVER_GROUP_TODO})")
-    if amb.redundancy > 1:
-        raise NotImplementedError(f"coded redundancy over a process group "
-                                  f"is not ported yet ({OVER_GROUP_TODO})")
-    if amb.noise_stats:
-        raise NotImplementedError(f"the controller's noise statistics over "
-                                  f"a process group are not ported yet "
-                                  f"({OVER_GROUP_TODO})")
-    if cfg is not None and cfg.is_moe:
-        raise NotImplementedError(
-            f"the MoE exact step over a process group is not ported yet: "
-            f"its aux is taken over the global routing statistics "
-            f"({OVER_GROUP_TODO})")
-
-
-def _rank_train_step(cfg, opt, n: int, group):
+def _rank_train_step(cfg, opt, n: int, group, assignment):
     """The exact step of one process per worker (see the module note)."""
     r = group.worker
+    moe_group = group if cfg.is_moe else None
 
     def step(params, opt_state, batch, b):
         lead = first_leaf(batch)
         per = lead.shape[0]
         b = _as_b(b, lead.device)
-        sw = seq_weights_from_b(b, per * n, n)[r * per:(r + 1) * per]
-        gbatch = torch.clamp(b, max=per).sum()
+        if assignment is None:
+            sw = seq_weights_from_b(b, per * n, n)[r * per:(r + 1) * per]
+            gbatch = torch.clamp(b, max=per).sum()
+        else:
+            sw2, bw = epoch_weights(b, n, per, assignment)
+            sw, gbatch = sw2[r], bw.sum()
         mask = (batch["labels"] >= 0).float()
         denom = torch.clamp(group.sum_scalar((mask * sw[:, None]).sum()),
                             min=1.0)
         with torch.enable_grad():
-            total, m = lm_loss(params, cfg, batch, sw, denom=denom)
+            total, m = lm_loss(params, cfg, batch, sw, denom=denom,
+                               group=moe_group)
             grads = _grads(total, params)
         group.all_reduce_(grads)
         opt_state = opt.apply(dict(zip(params, grads)), opt_state, params)
         metrics = {"loss": group.sum_scalar(m["loss"]),
-                   "aux": m["aux"].detach(), "ntok": denom,
+                   "aux": group.sum_scalar(m["aux"]), "ntok": denom,
                    "global_batch": gbatch}
         return params, opt_state, metrics
 
@@ -273,10 +262,9 @@ def make_train_step(cfg, opt, n: int, amb: AMBConfig = AMBConfig(),
     redundancy (``amb.redundancy > 1``) the weights are the ``1/copies``
     decode weights and ``global_batch`` counts distinct covered samples.
     """
-    if group is not None:
-        _refuse_over_group(amb, cfg)
-        return _rank_train_step(cfg, opt, n, group)
     assignment = assignment_from_config(amb, n)
+    if group is not None:
+        return _rank_train_step(cfg, opt, n, group, assignment)
 
     def step(params, opt_state, batch, b):
         lead = first_leaf(batch)
@@ -381,6 +369,43 @@ class NoiseStats:
                 "grad_var": self.m2 + s * (1.0 - s) ** 2 * mu2}
 
 
+class RankNoiseStats:
+    """:class:`NoiseStats` of one process per worker, JAX's definition
+    one leaf at a time: ``gbar = sum_r w_r g_r`` by an all-reduce into one
+    leaf-sized fp32 buffer, ``||gbar||^2`` (equal on every rank) and this
+    worker's ``w_r ||g_r - gbar||^2`` accumulated in fp64, whose sum across
+    the workers is one more all-reduce at the end.  Every rank then holds
+    the same two numbers, so the controller takes the same action
+    everywhere."""
+
+    def __init__(self, bw: torch.Tensor, group):
+        w = bw.float() / torch.clamp(bw.float().sum(), min=1.0)
+        self.w = float(w[group.worker])
+        self.group = group
+        self.sq = torch.zeros((), dtype=torch.float64, device=bw.device)
+        self.var = torch.zeros((), dtype=torch.float64, device=bw.device)
+
+    @torch.no_grad()
+    def add(self, grads) -> None:
+        """Fold this worker's gradient leaves (every rank, in one order)."""
+        for g in grads:
+            flat = g.reshape(-1).float()
+            gbar = flat * self.w
+            self.group.all_reduce_([gbar])
+            self.sq += torch.dot(gbar, gbar).double()
+            dev = torch.sub(flat, gbar, out=gbar)
+            self.var += self.w * torch.dot(dev, dev).double()
+            del flat, gbar, dev
+
+    def result(self) -> dict:
+        """``grad_sq_norm`` and ``grad_var`` (fp64 scalars on the
+        device)."""
+        var = self.var.reshape(1).to(self.group._coll_device())
+        self.group.sum_(var)
+        return {"grad_sq_norm": self.sq,
+                "grad_var": var[0].to(self.sq.device)}
+
+
 def grad_noise_stats(grads: dict, bw: torch.Tensor) -> dict:
     """Gradient-noise signals from per-worker mean gradients (dict of (n,
     *param) leaves) and the (n,) effective sample counts, for
@@ -423,11 +448,59 @@ def init_gossip_state(params: dict, n: int) -> dict:
             "t": 0}
 
 
+def rank_losses(loss: torch.Tensor, group) -> list:
+    """Every worker's loss, in worker order (one all-reduce)."""
+    losses = torch.zeros((group.n,), dtype=torch.float32, device=loss.device)
+    losses[group.worker] = loss
+    group.all_reduce_([losses])
+    return list(losses.unbind(0))
+
+
+class RankEpoch:
+    """What an epoch of one process per worker shares across the gossip,
+    pipelined and async drivers: the epoch's weights, this worker's
+    gradient at ``prox(z)`` on its rows, the noise statistics and the
+    settle of a payload through ``combine_rank`` under its enqueue
+    epoch's draws."""
+
+    def __init__(self, cfg, n: int, amb: AMBConfig, draw_source, group):
+        self.cfg, self.n, self.amb, self.group = cfg, n, amb, group
+        self.draw_source = draw_source or epoch_draws
+        self.strategy = strategy_from_config(amb, n)
+        self.assignment = assignment_from_config(amb, n)
+
+    def weights(self, b, device, per: int) -> tuple:
+        """(this worker's (1, per) weights, the (n,) effective counts, the
+        noise statistics or None)."""
+        sw, bw = epoch_weights(_as_b(b, device), self.n, per,
+                               self.assignment)
+        r = self.group.worker
+        stats = RankNoiseStats(bw, self.group) if self.amb.noise_stats \
+            else None
+        return sw[r:r + 1], bw, stats
+
+    def grad(self, state, batch, sw, beta_t: float, per: int) -> tuple:
+        return local_grad(self.cfg, state["z"], state["w0"], batch, sw,
+                          beta_t, self.amb.radius, 0, per)
+
+    def settle(self, payload: torch.Tensor, epoch: int) -> torch.Tensor:
+        """The consensus of this worker's (1, W+1) payload row (consumed:
+        copied into the round buffer, its storage then takes the result
+        where the strategy writes one apart from the buffer): its (1, W+1)
+        row of the agreed stack."""
+        buf = self.strategy.rank_buffer(payload.shape[1], payload.device,
+                                        self.group.worker)
+        buf[0].copy_(payload[0])
+        return self.strategy.combine_rank(
+            buf, self.group, draws=self.draw_source(self.amb.seed, epoch),
+            out=payload)
+
+
 def _rank_gossip_step(cfg, n: int, amb: AMBConfig, draw_source, group):
     """(init_state, step) of one process per worker (see the module note):
     the state holds this worker's dual row."""
-    beta, radius = amb.beta, amb.radius
-    strategy = strategy_from_config(amb, n)
+    beta = amb.beta
+    ep = RankEpoch(cfg, n, amb, draw_source, group)
     r = group.worker
 
     def init_state(params: dict) -> dict:
@@ -437,22 +510,18 @@ def _rank_gossip_step(cfg, n: int, amb: AMBConfig, draw_source, group):
         lead = first_leaf(batch)
         device, per = lead.device, lead.shape[0]
         t = state["t"]
-        beta_t = beta(t + 1)
-        sw, bw = epoch_weights(_as_b(b, device), n, per)
-        z, w0 = state["z"], state["w0"]
-        g, loss = local_grad(cfg, z, w0, batch, sw[r:r + 1], beta_t, radius,
-                             0, per)
-        buf = strategy.rank_buffer(msg_width(z, 1), device)
+        sw, bw, stats = ep.weights(b, device, per)
+        z = state["z"]
+        g, loss = ep.grad(state, batch, sw, beta(t + 1), per)
+        buf = ep.strategy.rank_buffer(msg_width(z, 1), device, r)
         with torch.no_grad():
             _pack_row(buf[0], [zl[0] for zl in z.values()], g, n * bw[r])
+        if stats is not None:
+            stats.add(g)
         del g
-        losses = torch.zeros((n,), dtype=torch.float32, device=device)
-        losses[r] = loss
-        group.all_reduce_([losses])
-        metrics = epoch_metrics(bw, list(losses.unbind(0)), beta, t)
-        out = strategy.combine_rank(buf, group,
-                                    draws=(draw_source or epoch_draws)(
-                                        amb.seed, t))
+        metrics = epoch_metrics(bw, rank_losses(loss, group), beta, t, stats)
+        out = ep.strategy.combine_rank(buf, group,
+                                       draws=ep.draw_source(amb.seed, t))
         del buf
         unpack_duals(out, z, 1)
         state["t"] = t + 1
@@ -474,7 +543,6 @@ def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
     :func:`~repro_torch.dist.consensus.epoch_draws`).
     """
     if group is not None:
-        _refuse_over_group(amb)
         return _rank_gossip_step(cfg, n, amb, draw_source, group)
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
@@ -524,13 +592,17 @@ def gossip_primal(state: dict, amb: AMBConfig, group=None) -> dict:
     are averaged: a departed worker's dual is frozen at its leave-time
     value and would bias the iterate away from the active set's.  With
     ``group`` the mean is a sum across the workers (every rank must call
-    it), one leaf at a time."""
+    it), one leaf at a time: each rank's row weighs 1 if it is active and
+    0 if not, and the sum is divided by the active count."""
     beta_t = amb.beta(state["t"] + 1)
     if group is not None:
+        act = 1.0 if amb.active is None else float(amb.active[group.worker])
+        count = group.n if amb.active is None else sum(amb.active)
+
         def zbar(zl):
-            total = zl[0].clone()
+            total = zl[0] * act
             group.all_reduce_([total])
-            return total.div_(float(group.n))
+            return total.div_(float(count))
     elif amb.active is None:
         def zbar(zl):
             return zl.mean(dim=0)

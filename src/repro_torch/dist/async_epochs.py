@@ -33,6 +33,11 @@ i's gradient and then overwritten with its new payload, and the snapshot
 slot just consumed takes the fresh dual.  ``flush`` settles every slot
 oldest first, each under its own enqueue epoch's draws, zeroes the slots
 in place, and does not advance ``t``.
+
+One process per worker (``group=``): the queue's slots are this worker's
+(1, W+1) payload rows and the snapshots its (1, W) dual rows; each settle
+is :meth:`~repro_torch.dist.consensus.ConsensusStrategy.combine_rank`
+under the enqueue epoch's draws, and the agreed row becomes the new tail.
 """
 from __future__ import annotations
 
@@ -40,28 +45,110 @@ from typing import Callable, Optional
 
 import torch
 
-from .amb import (AMBConfig, NoiseStats, _as_b, _pack_row, first_leaf,
+from .amb import (AMBConfig, NoiseStats, RankEpoch, _as_b, _pack_row,
                   assignment_from_config, epoch_metrics, epoch_weights,
-                  init_gossip_state, local_grad, msg_width, settle_row,
-                  strategy_from_config)
+                  first_leaf, init_gossip_state, local_grad, msg_width,
+                  rank_losses, settle_row, strategy_from_config)
 from .consensus import epoch_draws
+
+
+def _init_queue(state: dict, rows: int, staleness: int) -> dict:
+    """The D zero payload slots (and, for D > 1, the D zero snapshots)
+    of ``rows`` rows each."""
+    w = msg_width(state["z"], rows)
+    device = next(iter(state["z"].values())).device
+
+    def zero(width):
+        return torch.zeros((rows, width), dtype=torch.float32, device=device)
+    state["queue"] = [zero(w) for _ in range(staleness)]
+    if staleness > 1:
+        state["snaps"] = [zero(w - 1) for _ in range(staleness)]
+    return state
+
+
+def _rank_async(cfg, n: int, amb: AMBConfig, staleness: int, draw_source,
+                group):
+    """(init_state, step, flush) of one process per worker (see the module
+    note)."""
+    beta = amb.beta
+    ep = RankEpoch(cfg, n, amb, draw_source, group)
+    r = group.worker
+    D = staleness
+    gamma = 1.0 if D == 1 else 1.0 / (2.0 * D)
+
+    def init_state(params: dict) -> dict:
+        return _init_queue(init_gossip_state(params, 1), 1, D)
+
+    def step(state, batch, b):
+        lead = first_leaf(batch)
+        device, per = lead.device, lead.shape[0]
+        t = state["t"]
+        sw, bw, stats = ep.weights(b, device, per)
+        z, queue = state["z"], state["queue"]
+        # (1) the due payload's consensus, under its enqueue epoch's draws
+        agreed = ep.settle(queue.pop(0), t - D)
+        snap = state["snaps"].pop(0) if D > 1 else None
+        # (2) the gradient at the last settled primal (staleness D)
+        g, loss = ep.grad(state, batch, sw, beta(t + 1), per)
+        # (3) settle the row, pack this epoch's payload over it, snapshot
+        with torch.no_grad():
+            if snap is None:
+                settle_row(agreed[0], z, 0)
+                dual = (zl[0] for zl in z.values())
+            else:
+                settle_row(agreed[0], z, 0, snap[0], gamma)
+                dual = (gamma * zl[0] for zl in z.values())
+            _pack_row(agreed[0], dual, g, n * bw[r])
+            if snap is not None:
+                torch.cat([zl[0].reshape(-1) for zl in z.values()],
+                          out=snap[0])
+        if stats is not None:
+            stats.add(g)
+        del g
+        queue.append(agreed)
+        if snap is not None:
+            state["snaps"].append(snap)
+        state["t"] = t + 1
+        return state, epoch_metrics(bw, rank_losses(loss, group), beta, t,
+                                    stats)
+
+    @torch.no_grad()
+    def flush(state):
+        z, t, queue = state["z"], state["t"], state["queue"]
+        for j in range(D):
+            # oldest first; the settled slot goes back at the tail, so the
+            # queue's order is kept and no slot is held during the rounds
+            out = ep.settle(queue.pop(0), t - D + j)
+            snap = state["snaps"][j] if D > 1 else None
+            settle_row(out[0], z, 0, None if snap is None else snap[0],
+                       gamma)
+            if snap is not None:
+                snap.zero_()
+            queue.append(out.zero_())
+        return state
+
+    return init_state, step, flush
 
 
 def make_async_gossip_train_step(cfg, n: int, amb: AMBConfig,
                                  staleness: int = 1,
-                                 draw_source: Optional[Callable] = None):
+                                 draw_source: Optional[Callable] = None,
+                                 group=None):
     """Returns (init_state, step, flush) for bounded-staleness AMB-DG.
 
     State extends the sequential gossip state with ``queue``, a list of
     ``staleness`` (n, W+1) fp32 payloads, oldest first (slot j of a state
     at epoch t was enqueued at epoch ``t - staleness + j``), and for
     ``staleness > 1`` ``snaps``, the matching (n, W) duals each payload
-    was packed on.  step(state, batch, b) -> (state, metrics);
-    flush(state) -> state.  ``draw_source`` is as in
+    was packed on (with ``group``, this worker's rows of both).
+    step(state, batch, b) -> (state, metrics); flush(state) -> state.
+    ``draw_source`` is as in
     :func:`repro_torch.dist.amb.make_gossip_train_step`.
     """
     if staleness < 1:
         raise ValueError(f"staleness must be >= 1, got {staleness}")
+    if group is not None:
+        return _rank_async(cfg, n, amb, staleness, draw_source, group)
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
     strategy = strategy_from_config(amb, n)
@@ -70,17 +157,7 @@ def make_async_gossip_train_step(cfg, n: int, amb: AMBConfig,
     gamma = 1.0 if D == 1 else 1.0 / (2.0 * D)   # delayed-mixing damping
 
     def init_state(params: dict) -> dict:
-        state = init_gossip_state(params, n)
-        w = msg_width(state["z"], n)
-        device = next(iter(state["z"].values())).device
-
-        def zero(width):
-            return torch.zeros((n, width), dtype=torch.float32,
-                               device=device)
-        state["queue"] = [zero(w) for _ in range(D)]
-        if D > 1:
-            state["snaps"] = [zero(w - 1) for _ in range(D)]
-        return state
+        return _init_queue(init_gossip_state(params, n), n, D)
 
     def _consensus(payload, enqueue_epoch):
         # exact consensus returns a broadcast view: rows are written after

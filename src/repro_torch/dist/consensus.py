@@ -21,12 +21,16 @@ other graphs, or ``relayout=False``, take the dense
 
 One process per worker (:class:`repro_torch.dist.group.WorkerGroup`):
 each rank holds only its own row.  :meth:`ConsensusStrategy.rank_buffer`
-gives the (K, D) buffer whose row 0 the step packs, and
+gives the buffer whose row 0 the step packs, and
 :meth:`ConsensusStrategy.combine_rank` runs the rounds: each round the
 rank sends its row to the ranks the taps name and receives the K - 1 rows
 it reads, in tap order, and one ``gossip_combine`` launch on a (K, 1)
-table writes its row, bit for bit the stacked round's row.  The dense
-fallback all-gathers the rows; exact consensus is an all-reduce mean.
+table writes its row, bit for bit the stacked round's row.  Quantized
+gossip sends the (nibble-packed) uint8 level plane and the (2,) fp32 grid
+instead, and one ``quantized_combine`` launch reads the K level rows a
+rank holds through a (K, 1) table.  Under a survivor relayout an inactive
+rank neither sends nor receives and keeps its row.  The dense fallback
+all-gathers the rows; exact consensus is an all-reduce mean.
 """
 from __future__ import annotations
 
@@ -37,13 +41,10 @@ import numpy as np
 import torch
 
 from ..core import consensus as cns
-from ..core.extensions import gossip_quantized
+from ..core.extensions import gossip_quantized, quantize_unbiased
 from ..kernels import ops as kops
 from ..kernels.gossip_combine import own_row_table
 from ..launch.mesh import axis_names, mesh_shape
-
-# what one process per worker does not run yet (ROADMAP.md, module item 4b)
-OVER_GROUP_TODO = "ROADMAP.md, module item 4b"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,19 +267,26 @@ def _mask_rows(out: torch.Tensor, kept: Optional[torch.Tensor],
 def epoch_draws(seed: int, epoch: int) -> Callable:
     """The default rounding draws of one epoch's quantized gossip.
 
-    Returns ``draws(k_round, out)``, which fills ``out`` with U[0, 1) fp32
-    from a ``torch.Generator`` on ``out``'s device seeded from (seed,
-    epoch, k_round): the counterpart of ``fold_in(fold_in(PRNGKey(seed),
-    epoch), k_round)`` in ``repro.dist``.  A CUDA and a CPU generator give
-    different streams from one seed.  ``epoch`` may be negative: the
-    pipelined and async drivers settle their first, zero payloads under
-    the keys of epochs before 0.
+    Returns ``draws(k_round, out, rows=None)``, which fills each row of
+    ``out`` with U[0, 1) fp32 from its own ``torch.Generator`` on
+    ``out``'s device, seeded from (seed, epoch, k_round, worker): the
+    counterpart of ``fold_in(fold_in(PRNGKey(seed), epoch), k_round)`` in
+    ``repro.dist``.  ``rows`` names the workers whose rows ``out`` holds
+    (default every worker, in order): a process per worker fills its
+    (1, D) row with exactly its row of the stacked round's (n, D) draws.
+    A CUDA and a CPU generator give different streams from one seed.
+    ``epoch`` may be negative: the pipelined and async drivers settle
+    their first, zero payloads under the keys of epochs before 0.
     """
-    def draws(k_round: int, out: torch.Tensor) -> torch.Tensor:
-        gen = torch.Generator(device=out.device)
-        gen.manual_seed(((seed * 1_000_003 + epoch) * 1_000_003 + k_round)
-                        % (1 << 63))
-        return out.uniform_(generator=gen)
+    def draws(k_round: int, out: torch.Tensor,
+              rows: Optional[Sequence[int]] = None) -> torch.Tensor:
+        for j, worker in enumerate(range(out.shape[0]) if rows is None
+                                   else rows):
+            gen = torch.Generator(device=out.device)
+            gen.manual_seed((((seed * 1_000_003 + epoch) * 1_000_003
+                              + k_round) * 1_000_003 + worker) % (1 << 63))
+            out[j].uniform_(generator=gen)
+        return out
 
     return draws
 
@@ -300,18 +308,22 @@ class ConsensusStrategy:
         """Bytes one worker sends per round for a D-element message."""
         raise NotImplementedError
 
-    def rank_buffer(self, width: int, device) -> torch.Tensor:
-        """The buffer of :meth:`combine_rank`: row 0 takes this worker's
-        message, the other rows what it receives."""
+    def rank_buffer(self, width: int, device,
+                    worker: Optional[int] = None) -> torch.Tensor:
+        """The buffer of :meth:`combine_rank` for ``worker``: row 0 takes
+        its message, the other rows what it receives."""
         return torch.empty((1, width), dtype=torch.float32, device=device)
 
     def combine_rank(self, buf: torch.Tensor, group,
-                     draws: Optional[Callable] = None) -> torch.Tensor:
+                     draws: Optional[Callable] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One process per worker: this worker's (1, D) row of
-        :meth:`combine` on the stack of every worker's row 0 of ``buf``."""
-        raise NotImplementedError(
-            f"{self.name} consensus over a process group is not ported yet "
-            f"({OVER_GROUP_TODO})")
+        :meth:`combine` on the stack of every worker's row 0 of ``buf``.
+        ``draws`` is the epoch's source (:func:`epoch_draws`), asked for
+        this worker's row only; ``out``, a (1, D) fp32 buffer apart from
+        ``buf``, may take the result where the strategy writes it apart
+        from ``buf`` (fp32 gossip)."""
+        raise NotImplementedError
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,7 +336,7 @@ class ExactConsensus(ConsensusStrategy):
     def combine(self, msg, draws=None):
         return cns.exact_average(msg.float())
 
-    def combine_rank(self, buf, group, draws=None):
+    def combine_rank(self, buf, group, draws=None, out=None):
         """The all-reduce mean of every worker's row."""
         row = buf[:1]
         group.all_reduce_([row])
@@ -404,17 +416,32 @@ class _TapGossip(ConsensusStrategy):
     def _identity(self) -> bool:
         return self.n < 2 or self.rounds < 1 or self.identity
 
-    def rank_buffer(self, width, device):
-        k = 1 if self._identity() or self.taps is None else self.taps.k
+    def rank_buffer(self, width, device, worker=None):
+        k = 1 if self.taps is None or (
+            self._identity() if worker is None else self._sits_out(worker)) \
+            else self.taps.k
         return torch.empty((k, width), dtype=torch.float32, device=device)
 
     def rank_plan(self, worker: int) -> tuple:
         """For each tap k >= 1: (tap, the worker this one reads, the
-        worker that reads this one) on the full-fleet taps."""
+        worker that reads this one).  On a survivor relayout an active
+        worker's plan names survivors only (each tap is a permutation of
+        the survivors; an inactive row names itself and is read by no
+        one)."""
         src = self.taps.source_rows()
         return tuple((k, int(src[k, worker]),
                       int(np.flatnonzero(src[k] == worker)[0]))
                      for k in range(1, self.taps.k))
+
+    def _sits_out(self, worker: int) -> bool:
+        """Whether a rank keeps its row untouched without a word on the
+        wire: one survivor (the identity), or an inactive worker of a
+        survivor relayout (no active row reads it).  Under the dense
+        fallback every rank takes part in the all-gather."""
+        if self._identity():
+            return True
+        return self.taps is not None and self.active is not None \
+            and not self.active[worker]
 
 
 class GossipConsensus(_TapGossip):
@@ -447,20 +474,17 @@ class GossipConsensus(_TapGossip):
         # final select equals the dense masked operator's identity rows
         return _mask_rows(m, kept, getattr(self.taps, "active", None))
 
-    def combine_rank(self, buf, group, draws=None):
+    def combine_rank(self, buf, group, draws=None, out=None):
         """r rounds with this worker's message in row 0 of the (K, D)
         ``buf`` (:meth:`rank_buffer`); returns its (1, D) row.  Each round
         exchanges rows with the taps' neighbours into rows 1..K-1, in tap
         order, and one :func:`~repro_torch.kernels.ops.gossip_combine`
         launch on the (K, 1) table sums them in the stacked round's order.
         The dense fallback all-gathers the rows each round and takes this
-        worker's row of P; an ``active`` mask is not ported over a group.
+        worker's row of P.  Under a survivor relayout an inactive rank
+        returns its row as it is, as the stacked combine puts it back.
         """
-        if self.active is not None:
-            raise NotImplementedError(
-                f"elastic membership over a process group is not ported "
-                f"yet ({OVER_GROUP_TODO})")
-        if self._identity():
+        if self._sits_out(group.worker):
             return buf[:1]
         if self.taps is None:        # dense fallback (non-circulant graph)
             p = torch.as_tensor(self.p[group.worker][None],
@@ -471,7 +495,8 @@ class GossipConsensus(_TapGossip):
             return row
         plan = self.rank_plan(group.worker)
         table = own_row_table(self.taps.k, buf.device)
-        out = torch.empty_like(buf[:1])
+        if out is None:
+            out = torch.empty_like(buf[:1])
         for r in range(self.rounds):
             group.exchange(buf[0], [(dst, k) for k, _, dst in plan],
                            [(src, k, buf[k]) for k, src, _ in plan])
@@ -531,8 +556,7 @@ class QuantizedGossipConsensus(_TapGossip):
         # the level plane (two 4-bit levels per byte, as _pack sends it)
         # plus the two fp32 grid scalars, to each neighbour
         k = self.taps.k if self.taps is not None else self.n
-        per_msg = (-(-d // 2) if self.bits == 4 else d) + 8
-        return per_msg * (k - 1)
+        return (self.wire_width(d) + 8) * (k - 1)
 
     def _pack(self, lvl: torch.Tensor) -> torch.Tensor:
         """4-bit wire format: two levels per byte (lossless)."""
@@ -547,6 +571,114 @@ class QuantizedGossipConsensus(_TapGossip):
             return packed
         both = torch.stack([packed & 0xF, packed >> 4], dim=-1)
         return both.reshape(both.shape[0], -1)[:, :d]
+
+    def wire_width(self, d: int) -> int:
+        """Bytes of one row's level plane on the wire."""
+        return -(-d // 2) if self.bits == 4 else d
+
+    def _pack_row(self, lvl: torch.Tensor, out: torch.Tensor) -> None:
+        """:meth:`_pack` of one (D,) level row into the (wire_width(D),)
+        ``out``, without a padded copy of the row."""
+        half = lvl.shape[0] // 2
+        out.copy_(lvl[::2])
+        out[:half].bitwise_or_(lvl[1::2] << 4)
+
+    def _unpack_row(self, packed: torch.Tensor, out: torch.Tensor) -> None:
+        """:meth:`_unpack` of one received row into the (D,) ``out``."""
+        half = out.shape[0] // 2
+        out[::2] = packed & 0xF
+        out[1::2] = packed[:half] >> 4
+
+    def rank_buffer(self, width, device, worker=None):
+        # the neighbours arrive as uint8 level planes: row 0 is all a rank
+        # holds in fp32 beside its replicas
+        return torch.empty((1, width), dtype=torch.float32, device=device)
+
+    def combine_rank(self, buf, group, draws=None, out=None):
+        """r rounds with this worker's message in the (1, D) ``buf``
+        (overwritten with the result, which is returned).  Each round: the
+        row grid of ``m - h`` (:func:`row_grids` on the one row), this
+        worker's row of the round's draws (``draws(k, out, rows=(worker,
+        ))``), one ``stochastic_quantize`` launch, then the packed level
+        plane and the (2,) fp32 grid ``(lo, scale)`` go to the ranks that
+        read this one and the K - 1 read ones arrive, in tap order, into
+        rows 1..K-1 of a (K, D) uint8 plane, and one ``quantized_combine``
+        launch on the (K, 1) table updates the row and its K - 1 neighbour
+        replicas: bit for bit the stacked round's row.  A rank holds its
+        row, ``h``, K - 1 replicas and the draws in fp32 and the (K, D)
+        plane in uint8; ``(wire_width(D) + 8) (K - 1)`` bytes leave it a
+        round (:meth:`wire_bytes_per_round`).  The dense fallback
+        all-gathers the quantized deltas (:meth:`_dense_rank`)."""
+        if draws is None:
+            raise ValueError("QuantizedGossipConsensus needs a draw source")
+        m = buf[:1]
+        if self._sits_out(group.worker):
+            return m
+        if self.taps is None or any(self.taps.offsets[0]):
+            return self._dense_rank(m, group, draws)
+        k, d, dev = self.taps.k, m.shape[1], m.device
+        me = (group.worker,)
+        plan = self.rank_plan(group.worker)
+        levels = float(2 ** self.bits - 1)
+        table = own_row_table(k, dev)
+        h = torch.zeros_like(m)
+        hnbr = torch.zeros((k - 1, 1, d), dtype=torch.float32, device=dev)
+        rnd = torch.empty_like(m)
+        lvl = torch.empty((k, d), dtype=torch.uint8, device=dev)
+        lo_all = torch.empty((k,), dtype=torch.float32, device=dev)
+        sc_all = torch.empty_like(lo_all)
+        grid = torch.empty((k, 2), dtype=torch.float32, device=dev)
+        width = self.wire_width(d)
+        wire = None if self.bits == 8 else torch.empty(
+            (k, width), dtype=torch.uint8, device=dev)
+        sends = [(dst, tap) for tap, _, dst in plan]
+        for r in range(self.rounds):
+            lo, scale = row_grids(m, h, levels)
+            draws(r, rnd, rows=me)
+            kops.stochastic_quantize(m, h, rnd, lo, scale, levels,
+                                     out=(lvl[:1], h))
+            # the grid goes as its fp32 bits, never as a host number
+            grid[0, 0], grid[0, 1] = lo[0, 0], scale[0, 0]
+            if wire is None:
+                group.exchange(lvl[0], sends,
+                               [(src, tap, lvl[tap]) for tap, src, _ in plan])
+            else:
+                self._pack_row(lvl[0], wire[0])
+                group.exchange(wire[0], sends,
+                               [(src, tap, wire[tap])
+                                for tap, src, _ in plan])
+                for tap in range(1, k):
+                    self._unpack_row(wire[tap], lvl[tap])
+            group.exchange(grid[0], sends,
+                           [(src, tap, grid[tap]) for tap, src, _ in plan])
+            lo_all.copy_(grid[:, 0])
+            sc_all.copy_(grid[:, 1])
+            kops.quantized_combine(m, hnbr, lvl, lo_all, sc_all, table,
+                                   self.taps.weights, out=(m, hnbr))
+        return m
+
+    def _dense_rank(self, m, group, draws):
+        """The dense fallback over a group (graphs that do not decompose
+        into taps): each round a rank quantizes its own delta as
+        :func:`~repro_torch.core.extensions.gossip_quantized` does its row,
+        all-gathers the quantized deltas (fp32, as the fp32 dense fallback
+        all-gathers its rows), updates every public replica, and takes its
+        row of ``diag(P) m + offdiag(P) h``.  The (n, D) replicas are held,
+        as the dense operator reads them."""
+        i, n = group.worker, self.n
+        p = torch.as_tensor(self.p, dtype=torch.float32, device=m.device)
+        diag = p[i, i]
+        off = p[i:i + 1].clone()
+        off[0, i] = 0.0
+        h = torch.zeros((n, m.shape[1]), dtype=torch.float32,
+                        device=m.device)
+        rnd = torch.empty_like(m)
+        for r in range(self.rounds):
+            draws(r, rnd, rows=(i,))
+            q = quantize_unbiased(m - h[i:i + 1], self.bits, rnd)
+            h.add_(group.all_gather(q[0]))
+            m = diag * m + off @ h
+        return m
 
     def combine(self, msg, draws=None):
         """r rounds on the stack; ``draws(k, out)`` fills round k's

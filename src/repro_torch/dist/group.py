@@ -11,16 +11,20 @@ group laid out by :func:`repro_torch.launch.mesh.make_host_mesh`, and
     step's eq.-6 gradient, through flat fp32 buckets, and its scalars;
   * the gossip round's neighbour exchange (:meth:`WorkerGroup.exchange`):
     send this rank's row to the ranks that read it, receive the rows it
-    reads, one ``batch_isend_irecv`` per round;
-  * :meth:`WorkerGroup.all_gather` for the dense fallback.
+    reads, one ``batch_isend_irecv`` per round; a row of any dtype (the
+    fp32 message, quantized gossip's uint8 level plane, its (2,) fp32
+    grid);
+  * :meth:`WorkerGroup.all_gather` for the dense fallback;
+  * :meth:`WorkerGroup.gather_to_root`: every rank's row of one leaf to
+    rank 0, one row at a time (the checkpoint streams them to disk).
 
 Backends.  NCCL takes CUDA tensors (one rank per card).  gloo takes CPU
 tensors everywhere and CUDA tensors for its collectives, but not for
 ``send``/``recv``: with gloo on the card the compute stays on the card and
-only the wire goes through pinned host buffers, ``STAGE_ELEMS`` elements
-at a time.  The group counts the bytes it sends to other ranks
-(``sent_bytes``) and the bytes it copies between card and host for the
-wire (``staged_bytes``).
+only the wire goes through pinned host buffers of the row's dtype,
+``STAGE_BYTES`` at a time.  The group counts the bytes it sends to other
+ranks (``sent_bytes``) and the bytes it copies between card and host for
+the wire (``staged_bytes``).
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch.distributed as dist
 from ..launch.mesh import axis_names, mesh_shape
 
 BUCKET_ELEMS = 1 << 26       # fp32 elements an all-reduce bucket holds
-STAGE_ELEMS = 1 << 24        # fp32 elements a pinned staging chunk holds
+STAGE_BYTES = 1 << 26        # bytes a pinned staging chunk holds
 
 
 def worker_axes(mesh) -> tuple:
@@ -134,6 +138,16 @@ class WorkerGroup:
         dist.all_reduce(out)
         return out[0]
 
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum a tensor across the workers in place, in its own dtype (an
+        fp64 accumulator keeps its precision); returns it."""
+        dist.all_reduce(t)
+        return t
+
+    def barrier(self) -> None:
+        """Wait for every worker (a one-element all-reduce)."""
+        dist.all_reduce(torch.zeros((1,), device=self._coll_device()))
+
     def max_float(self, x: float) -> float:
         """The largest of every worker's ``x`` (a host number)."""
         t = torch.tensor([float(x)], dtype=torch.float64,
@@ -147,21 +161,21 @@ class WorkerGroup:
 
     # -- the gossip wire ---------------------------------------------------
 
-    def _pin(self, key, n: int) -> torch.Tensor:
-        buf = self._pinned.get(key)
+    def _pin(self, key, n: int, dtype) -> torch.Tensor:
+        buf = self._pinned.get((key, dtype))
         if buf is None or buf.numel() < n:
-            buf = torch.empty((n,), dtype=torch.float32, pin_memory=True)
-            self._pinned[key] = buf
+            buf = torch.empty((n,), dtype=dtype, pin_memory=True)
+            self._pinned[(key, dtype)] = buf
         return buf[:n]
 
     def exchange(self, row: torch.Tensor, sends: list, recvs: list) -> None:
-        """Send ``row`` (a contiguous (D,) fp32 tensor) to each ``(rank,
-        tag)`` of ``sends`` and receive a (D,) row from each ``(rank, tag,
-        out)`` of ``recvs`` into ``out``, all in one ``batch_isend_irecv``
-        (a send pairs with the receive of the same tag).  With gloo on the
-        card the rows go through pinned host buffers, ``STAGE_ELEMS`` at a
-        time."""
-        d = row.numel()
+        """Send ``row`` (a contiguous (D,) tensor of any dtype) to each
+        ``(rank, tag)`` of ``sends`` and receive a (D,) row of its dtype
+        from each ``(rank, tag, out)`` of ``recvs`` into ``out``, all in one
+        ``batch_isend_irecv`` (a send pairs with the receive of the same
+        tag).  With gloo on the card the rows go through pinned host
+        buffers of the row's dtype, ``STAGE_BYTES`` at a time."""
+        d, size = row.numel(), row.element_size()
         if not sends and not recvs:
             return
         if not self.staged:
@@ -171,13 +185,16 @@ class WorkerGroup:
                     for peer, tag, out in recvs]
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-            self.sent_bytes += 4 * d * len(sends)
+            self.sent_bytes += size * d * len(sends)
             return
-        for a in range(0, d, STAGE_ELEMS):
-            b = min(d, a + STAGE_ELEMS)
-            host = self._pin("send", b - a)
-            host.copy_(row[a:b])
-            got = [self._pin(("recv", j), b - a) for j in range(len(recvs))]
+        step = max(1, STAGE_BYTES // size)
+        for a in range(0, d, step):
+            b = min(d, a + step)
+            host = self._pin("send", b - a, row.dtype)
+            if sends:
+                host.copy_(row[a:b])
+            got = [self._pin(("recv", j), b - a, row.dtype)
+                   for j in range(len(recvs))]
             ops = [dist.P2POp(dist.isend, host, peer, tag=tag)
                    for peer, tag in sends]
             ops += [dist.P2POp(dist.irecv, buf, peer, tag=tag)
@@ -186,8 +203,23 @@ class WorkerGroup:
                 req.wait()
             for (_, _, out), buf in zip(recvs, got):
                 out[a:b].copy_(buf)
-            self.staged_bytes += 4 * (b - a) * (1 + len(recvs))
-        self.sent_bytes += 4 * d * len(sends)
+            self.staged_bytes += size * (b - a) * (bool(sends) + len(recvs))
+        self.sent_bytes += size * d * len(sends)
+
+    def gather_to_root(self, row: torch.Tensor, sink=None) -> None:
+        """Rank 0 receives every worker's row of one leaf, in worker
+        order, and hands each to ``sink(worker, row)`` (its own first, as
+        it is); the other ranks send theirs.  One row is in flight at a
+        time, so rank 0 never holds the (n, ...) leaf."""
+        row = row.contiguous()
+        if self.worker != 0:
+            self.exchange(row.view(-1), [(0, self.worker)], [])
+            return
+        sink(0, row)
+        got = torch.empty_like(row)
+        for j in range(1, self.n):
+            self.exchange(got.view(-1), [], [(j, j, got.view(-1))])
+            sink(j, got)
 
     def all_gather(self, row: torch.Tensor) -> torch.Tensor:
         """(n, D): every worker's (D,) fp32 row, in worker order."""

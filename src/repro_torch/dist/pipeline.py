@@ -26,6 +26,12 @@ sequential step, and one between steps.
 ``flush`` settles the last pending payload without new gradients and does
 not advance ``t``: after k steps and a flush the state holds the dual
 through payload k, the sequential chain's state at t = k.
+
+One process per worker (``group=``): ``pending`` is this worker's (1,
+W+1) payload row, each settle its
+:meth:`~repro_torch.dist.consensus.ConsensusStrategy.combine_rank` under
+the enqueue epoch's draws, and the agreed row becomes the next payload,
+as on one device.
 """
 from __future__ import annotations
 
@@ -33,24 +39,74 @@ from typing import Callable, Optional
 
 import torch
 
-from .amb import (AMBConfig, NoiseStats, _as_b, _pack_row, first_leaf,
+from .amb import (AMBConfig, NoiseStats, RankEpoch, _as_b, _pack_row,
                   assignment_from_config, epoch_metrics, epoch_weights,
-                  init_gossip_state, local_grad, msg_width, settle_row,
-                  strategy_from_config, unpack_duals)
+                  first_leaf, init_gossip_state, local_grad, msg_width,
+                  rank_losses, settle_row, strategy_from_config,
+                  unpack_duals)
 from .consensus import epoch_draws
 
 
+def _rank_pipelined(cfg, n: int, amb: AMBConfig, draw_source, group):
+    """(init_state, step, flush) of one process per worker (see the module
+    note)."""
+    beta = amb.beta
+    ep = RankEpoch(cfg, n, amb, draw_source, group)
+    r = group.worker
+
+    def init_state(params: dict) -> dict:
+        state = init_gossip_state(params, 1)
+        state["pending"] = torch.zeros(
+            (1, msg_width(state["z"], 1)), dtype=torch.float32,
+            device=next(iter(state["z"].values())).device)
+        return state
+
+    def step(state, batch, b):
+        lead = first_leaf(batch)
+        device, per = lead.device, lead.shape[0]
+        t = state["t"]
+        sw, bw, stats = ep.weights(b, device, per)
+        z = state["z"]
+        # (1) the consensus of epoch t-1's payload, under its draws
+        agreed = ep.settle(state.pop("pending"), t - 1)
+        # (2) the gradient at the stale primal prox(z(t-1))
+        g, loss = ep.grad(state, batch, sw, beta(t + 1), per)
+        # (3) z takes its agreed row; the row takes the new payload
+        settle_row(agreed[0], z, 0)
+        with torch.no_grad():
+            _pack_row(agreed[0], [zl[0] for zl in z.values()], g, n * bw[r])
+        if stats is not None:
+            stats.add(g)
+        del g
+        state["pending"] = agreed
+        state["t"] = t + 1
+        return state, epoch_metrics(bw, rank_losses(loss, group), beta, t,
+                                    stats)
+
+    @torch.no_grad()
+    def flush(state):
+        out = ep.settle(state.pop("pending"), state["t"] - 1)
+        unpack_duals(out, state["z"], 1)
+        state["pending"] = out.zero_()
+        return state
+
+    return init_state, step, flush
+
+
 def make_pipelined_gossip_train_step(cfg, n: int, amb: AMBConfig,
-                                     draw_source: Optional[Callable] = None):
+                                     draw_source: Optional[Callable] = None,
+                                     group=None):
     """Returns (init_state, step, flush) for the pipelined AMB protocol.
 
     State extends the sequential gossip state with ``pending``, the (n,
     W+1) fp32 payload of the previous epoch, still in flight (zeros at
-    the start and after a flush: a zero weight column settles as a no-op).
-    step(state, batch, b) -> (state, metrics); flush(state) -> state.
-    ``draw_source`` is as in
+    the start and after a flush: a zero weight column settles as a no-op;
+    with ``group``, this worker's (1, W+1) row).  step(state, batch, b)
+    -> (state, metrics); flush(state) -> state.  ``draw_source`` is as in
     :func:`repro_torch.dist.amb.make_gossip_train_step`.
     """
+    if group is not None:
+        return _rank_pipelined(cfg, n, amb, draw_source, group)
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
     strategy = strategy_from_config(amb, n)

@@ -1,7 +1,12 @@
 // Receive half of a quantized gossip round for Hopper:
 //   hnbr_new[k-1, i, :] = (hnbr[k-1, i, :] + lo[s]) + lvl[s, :] * scale[s]
 //   out[i, :]           = w[0] * m[i, :] + sum_{k>=1} w[k] * hnbr_new[k-1, i, :]
-// with s = src[k][i], the row that tap k of worker i reads.
+// with s = src[k][i], the row of the level plane that tap k of output row
+// i reads.  m, hnbr and out have n_out rows; lvl, lo and scale n_src rows.
+// A process holding every worker passes n_out = n_src = n and the (K, n)
+// tap table; a process per worker passes its one row (n_out = 1), the K
+// level rows it holds (its own first, then the K - 1 it received, in tap
+// order) and the (K, 1) table [[0], [1], ..., [K-1]].
 //
 // Replaces the Pallas TPU kernel `quantized_combine_pallas`
 // (src/repro/kernels/gossip_combine.py) together with the tap rolls that
@@ -49,19 +54,20 @@ __global__ void __launch_bounds__(kThreads) quantized_combine_kernel(
     const float* m, const float* hnbr, float* hnbr_out,
     const uint8_t* __restrict__ lvl, const float* __restrict__ lo,
     const float* __restrict__ scale, const int32_t* __restrict__ src,
-    float* out, TapWeights tw, int n, int64_t d) {
+    float* out, TapWeights tw, int n_out, int64_t d) {
   __shared__ int64_t s_row[kMaxTaps];  // offset of source row s_k
   __shared__ float s_lo[kMaxTaps];
   __shared__ float s_sc[kMaxTaps];
   const int i = blockIdx.y;
   if (threadIdx.x < K) {
-    const int s = src[threadIdx.x * n + i];
+    const int s = src[threadIdx.x * n_out + i];
     s_row[threadIdx.x] = static_cast<int64_t>(s) * d;
     s_lo[threadIdx.x] = lo[s];
     s_sc[threadIdx.x] = scale[s];
   }
   __syncthreads();
-  const int64_t plane = static_cast<int64_t>(n) * d;  // one replica stack
+  // one replica stack
+  const int64_t plane = static_cast<int64_t>(n_out) * d;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kSpan + threadIdx.x;
   const int64_t at = static_cast<int64_t>(i) * d + c0;
   // every load first, so they are in flight together (a store to a
@@ -98,18 +104,19 @@ __global__ void __launch_bounds__(kThreads) quantized_combine_kernel(
 
 }  // namespace
 
-// m: (n, d) fp32; hnbr: (k_taps - 1, n, d) fp32; lvl: (n, d) uint8; lo,
-// scale: (n,) fp32; src: (k_taps, n) int32, all on the card; weights:
-// k_taps host floats; out: (n, d) fp32, may be m itself; hnbr_out:
-// (k_taps - 1, n, d) fp32, may be hnbr itself.
+// m: (n_out, d) fp32; hnbr: (k_taps - 1, n_out, d) fp32; lvl: (n_src, d)
+// uint8; lo, scale: (n_src,) fp32; src: (k_taps, n_out) int32 rows of lvl,
+// all on the card; weights: k_taps host floats; out: (n_out, d) fp32, may
+// be m itself; hnbr_out: (k_taps - 1, n_out, d) fp32, may be hnbr itself.
 extern "C" int quantized_combine_f32(const void* m, const void* hnbr,
                                      void* hnbr_out, const void* lvl,
                                      const void* lo,
                                      const void* scale, const void* src,
                                      const float* weights, void* out,
-                                     int k_taps, int n, int64_t d,
-                                     void* stream) {
-  if (k_taps < 1 || k_taps > kMaxTaps || n < 1 || n > 65535) {
+                                     int k_taps, int n_out, int n_src,
+                                     int64_t d, void* stream) {
+  if (k_taps < 1 || k_taps > kMaxTaps || n_out < 1 || n_out > 65535 ||
+      n_src < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (d <= 0) return 0;
@@ -117,7 +124,8 @@ extern "C" int quantized_combine_f32(const void* m, const void* hnbr,
   for (int k = 0; k < k_taps; ++k) tw.w[k] = weights[k];
   const int64_t spans = (d + kSpan - 1) / kSpan;
   if (spans > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(spans), static_cast<unsigned>(n));
+  const dim3 grid(static_cast<unsigned>(spans),
+                  static_cast<unsigned>(n_out));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m_f = static_cast<const float*>(m);
   const float* h_f = static_cast<const float*>(hnbr);
@@ -130,7 +138,7 @@ extern "C" int quantized_combine_f32(const void* m, const void* hnbr,
 #define QC_LAUNCH(K)                                                       \
   case K:                                                                  \
     quantized_combine_kernel<K><<<grid, kThreads, 0, st>>>(                \
-        m_f, h_f, ho_f, l_u, lo_f, sc_f, src_i, out_f, tw, n, d);          \
+        m_f, h_f, ho_f, l_u, lo_f, sc_f, src_i, out_f, tw, n_out, d);      \
     break;
   switch (k_taps) {
     QC_LAUNCH(1)

@@ -76,10 +76,12 @@ def quantized_combine(m: torch.Tensor, hnbr: torch.Tensor, lvl: torch.Tensor,
                       src: torch.Tensor, weights,
                       out: Optional[tuple] = None,
                       force: Optional[str] = None) -> tuple:
-    """Receive half: the (K-1, n, D) neighbour replicas take the levels
-    ``lvl`` (n, D) of the rows the (K, n) tap table ``src`` names, and
-    ``out = w0 m + sum_k w_k hnbr_new[k-1]``.  ``out = (out, hnbr_new)``,
-    if given, receives them; ``out`` may be ``m``, ``hnbr_new`` ``hnbr``."""
+    """Receive half: the (K-1, n_out, D) neighbour replicas take the
+    levels of the rows of ``lvl`` (n_src, D) that the (K, n_out) tap table
+    ``src`` names, and ``out = w0 m + sum_k w_k hnbr_new[k-1]`` (n_out =
+    n_src = n for the stacked round; a process per worker passes its row,
+    its K level rows and a (K, 1) table).  ``out = (out, hnbr_new)``, if
+    given, receives them; ``out`` may be ``m``, ``hnbr_new`` ``hnbr``."""
     if router.resolve(m, force) == "kernel":
         return quantized_combine_cuda(m, hnbr, lvl, lo, scale, src, weights,
                                       out)

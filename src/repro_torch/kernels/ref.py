@@ -66,13 +66,17 @@ def quantized_combine_ref(m: torch.Tensor, hnbr: torch.Tensor,
     """Receive half: dequantize the neighbours' deltas, update the
     neighbour replicas, combine.
 
-    m: (n, D); hnbr: (K-1, n, D) replicas; lvl: (n, D) uint8, the level
-    plane every worker sent this round; lo, scale: (n, 1); src: (K, n)
-    source rows per tap, self tap first.  Tap k >= 1 of row i reads row
-    ``s = src[k, i]``: ``hnbr_new[k-1, i] = (hnbr[k-1, i] + lo[s]) +
-    lvl[s] * scale[s]``, and ``out = w0 m + sum_k w_k hnbr_new[k-1]``,
-    summed in tap order.  Returns (out (n, D), hnbr_new (K-1, n, D)); the
-    gathers are what ``taps.take`` does in ``repro.dist.consensus``.
+    m: (n_out, D); hnbr: (K-1, n_out, D) replicas; lvl: (n_src, D)
+    uint8, the level rows sent this round; lo, scale: n_src grids; src:
+    (K, n_out) rows of lvl per tap, self tap first.  Tap k >= 1 of row i
+    reads row ``s = src[k, i]``: ``hnbr_new[k-1, i] = (hnbr[k-1, i] +
+    lo[s]) + lvl[s] * scale[s]``, and ``out = w0 m + sum_k w_k
+    hnbr_new[k-1]``, summed in tap order.  Returns (out (n_out, D),
+    hnbr_new (K-1, n_out, D)); the gathers are what ``taps.take`` does in
+    ``repro.dist.consensus``.  The stacked round passes n_out = n_src = n
+    and the (K, n) table; a process per worker its one row, the K level
+    rows it holds (its own, then those it received, in tap order) and a
+    (K, 1) table, and gets the stacked round's row bit for bit.
     """
     idx = src.long()
     w = [float(x) for x in weights]

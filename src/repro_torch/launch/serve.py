@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from ..api import AMBSession, ClockSpec, ConsensusSpec, TrainSpec
 from ..dist.consensus import CONSENSUS_CHOICES
@@ -69,6 +70,10 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="JSONL path for SLO + fine-tune metrics")
     args = ap.parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise SystemExit("serving over a mesh (torchrun, one process per "
+                         "worker) is not ported yet (ROADMAP.md, module "
+                         "item 4c)")
     if args.model != 1:
         raise SystemExit(f"--model {args.model}: the port runs on one "
                          f"device, so there is no model axis; use --model 1")

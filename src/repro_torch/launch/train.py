@@ -19,8 +19,11 @@ NCCL on the card, gloo on the CPU; printed) and each rank runs the worker
 at its (pod, data) coordinate: the train CLI's one process per worker.
 NCCL takes one card per rank; gloo may put several ranks on one card,
 keeps the compute there and sends the gossip rows through pinned host
-buffers (the bytes are printed per rank at the end).  Only rank 0 prints
-the steps and writes the metrics.  ``--pipeline`` runs
+buffers (the bytes are printed per rank at the end).  Every driver and
+option runs over the ranks (quantized gossip, ``--pipeline``, ``--async``,
+``--redundancy``, ``--controller``, ``--churn``, ``--ckpt-dir`` and
+``--restore``); ``--model`` > 1 is refused.  Only rank 0 prints the steps
+and writes the metrics and the checkpoint.  ``--pipeline`` runs
 staleness-1 pipelined epochs, ``--async --staleness D`` the AMB-DG
 queue of D payloads.  The run flushes in-flight consensus at its end;
 ``--ckpt-dir`` then saves the session, and ``--restore DIR`` resumes a
@@ -43,6 +46,13 @@ Four processes, one worker each, on a (pod 2 x data 2) torus:
       --nproc-per-node 4 -m repro_torch.launch.train --smoke --pod 2 \\
       --data 2 --consensus gossip --graph torus --sim-clock \\
       --dist-backend gloo
+and with quantized gossip, the async driver, coded placement, the
+controller and a checkpoint:
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --smoke --data 4 \\
+      --consensus gossip_q4 --async --staleness 2 --redundancy 2 \\
+      --controller --sim-clock --ckpt-dir build/ckpt --dist-backend gloo
+(add ``--device cpu`` to run the ranks on the CPU).
 """
 from __future__ import annotations
 
@@ -87,8 +97,12 @@ def main(argv=None, device="cuda"):
                          "(WORLD_SIZE > 1): default nccl on the card, gloo "
                          "on the CPU; gloo may put several ranks on one "
                          "card")
+    ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                    help="where the session runs (default: the card; "
+                         "'cpu' for a run without one, e.g. gloo ranks on "
+                         "the CPU)")
     args = ap.parse_args(argv)
-    device, owned = _init_group(args.dist_backend, device)
+    device, owned = _init_group(args.dist_backend, args.device or device)
     try:
         return _run(args, device)
     finally:
@@ -137,7 +151,8 @@ def _run(args, device):
         if args.restore:
             session = AMBSession.restore(args.restore, device=device,
                                          metrics_path=args.metrics)
-            if session.metrics is None:     # the arch-derived default
+            if session.metrics is None and session.rank == 0:
+                # the arch-derived default
                 session.metrics = MetricsLogger(
                     f"artifacts/train_{session.train.arch}_"
                     f"{session.train.mode}.jsonl")
@@ -174,7 +189,8 @@ def _run(args, device):
         session.flush()      # settle in-flight gossip (pipelined, async)
         if args.ckpt_dir:
             session.save(args.ckpt_dir)
-            print(f"checkpoint saved to {args.ckpt_dir}", flush=True)
+            if session.rank == 0:
+                print(f"checkpoint saved to {args.ckpt_dir}", flush=True)
         if session.group is not None:
             g = session.group
             print(f"rank {g.worker}: sent {g.sent_bytes} bytes, staged "

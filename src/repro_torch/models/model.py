@@ -181,12 +181,12 @@ def _nest(flat: dict) -> dict:
 
 
 def _dense_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
-                 p: dict, causal: bool = True) -> tuple:
-    """(the block's output, its load-balance loss: None without
-    experts)."""
+                 p: dict, causal: bool = True, group=None) -> tuple:
+    """(the block's output, its load-balance loss: None without experts;
+    ``group`` as in :func:`repro_torch.models.moe.moe_forward`)."""
     x = x + attn.attend_train(p["attn"], rms_norm(x, p["ln1"]), positions,
                               cfg, causal=causal)
-    h, aux = _ffn(x, p, cfg)
+    h, aux = _ffn(x, p, cfg, group)
     return x + h, aux
 
 
@@ -257,12 +257,12 @@ def _layers(params: dict, cfg: ArchConfig, prefix: str = BLOCKS):
         yield _nest({k: v[layer] for k, v in per_layer.items()})
 
 
-def _ffn(x: torch.Tensor, p: dict, cfg: ArchConfig) -> tuple:
+def _ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, group=None) -> tuple:
     """The block's feed-forward of the residual x: (h, the fp32
     load-balance loss, None without experts)."""
     xn = rms_norm(x, p["ln2"])
     if cfg.is_moe:
-        return moe.moe_forward(p["moe"], xn, cfg)
+        return moe.moe_forward(p["moe"], xn, cfg, group)
     mp = p["mlp"]
     return swiglu(xn, mp["w_gate"], mp["w_up"], mp["w_down"]), None
 
@@ -295,11 +295,13 @@ def _encoder_forward(params: dict, cfg: ArchConfig,
     return rms_norm(x, params[ENCODER + "final_norm"])
 
 
-def forward_aux(params: dict, cfg: ArchConfig, batch) -> tuple:
+def forward_aux(params: dict, cfg: ArchConfig, batch, group=None) -> tuple:
     """Training forward: a batch (``{"tokens"}``, ``{"embeds"}``, and
     ``"enc_embeds"`` for audio; a bare (B, S) token tensor is taken as
     ``{"tokens": ...}``) -> (final-normed hidden (B, S, d), the fp32
-    load-balance loss summed over the layers), as JAX's ``forward``."""
+    load-balance loss summed over the layers), as JAX's ``forward``.
+    ``group``: this process's worker of a process group, whose MoE layers
+    take the routing counts across the workers (the exact step)."""
     if isinstance(batch, torch.Tensor):
         batch = {"tokens": batch}
     x = _embed(params, cfg, batch)
@@ -313,8 +315,9 @@ def forward_aux(params: dict, cfg: ArchConfig, batch) -> tuple:
     block = {"ssm": _rwkv_block, "hybrid": _mamba_block}.get(cfg.family,
                                                              _dense_block)
     shared = _shared(params) if cfg.family == "hybrid" else None
+    extra = (True, group) if group is not None and cfg.is_moe else ()
     for layer, lp in enumerate(_layers(params, cfg)):
-        x, a = _run(block, x, positions, cfg, lp)
+        x, a = _run(block, x, positions, cfg, lp, *extra)
         if a is not None:
             aux = aux + a
         if _applies_shared(cfg, layer):
@@ -343,7 +346,7 @@ def logits_fn(params: dict, cfg: ArchConfig,
 
 def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
             seq_weights: Optional[torch.Tensor] = None,
-            denom: Optional[torch.Tensor] = None):
+            denom: Optional[torch.Tensor] = None, group=None):
     """Next-token cross-entropy plus ``0.01 * aux`` (the MoE load-balance
     loss, 0 without experts); returns (total, {"loss", "aux", "ntok"}), as
     JAX's.
@@ -353,9 +356,10 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
     included sequences, with denominator ``max(sum mask * w, 1)``.  A
     worker that holds only its own rows of the global batch passes the
     global ``denom`` (that maximum over every worker's rows), so its loss
-    is its share of the global one.
+    is its share of the global one; with ``group`` (an MoE model's
+    exact step over a process group) so is its ``aux``.
     """
-    hidden, aux = forward_aux(params, cfg, batch)
+    hidden, aux = forward_aux(params, cfg, batch, group)
     logits = logits_fn(params, cfg, hidden).float()
     labels = batch["labels"]
     mask = (labels >= 0).float()

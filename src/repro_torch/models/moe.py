@@ -141,8 +141,19 @@ def _expert_mm(a: torch.Tensor, w: torch.Tensor, f32: bool) -> torch.Tensor:
     return out.reshape(e, g, c, -1).transpose(0, 1)
 
 
-def moe_forward(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple:
-    """x: (B, S, d) -> (out (B, S, d), the fp32 load-balance loss)."""
+def moe_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                group=None) -> tuple:
+    """x: (B, S, d) -> (out (B, S, d), the fp32 load-balance loss).
+
+    With ``group`` (one process per worker, the exact step) x is this
+    worker's rows of the global batch and the loss is this worker's share
+    of the global one: the (e,) routing counts are summed across the
+    workers (they carry no gradient), and ``me`` is this worker's
+    probability sum over the global token count, so the workers' losses
+    and gradients sum to those of ``e * sum(me * ce)`` over the global
+    batch.  The dispatch groups are sequences wherever ``num_groups``
+    keeps them so (64 tokens a sequence or more), on a worker's rows as
+    on the global batch."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
 
@@ -151,10 +162,21 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple:
     gate, idx = torch.topk(probs, k, dim=-1)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
-    me = probs.mean((0, 1))
-    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add(
-        0, idx.reshape(-1), torch.ones(idx.numel(), device=x.device)) / (
-        b * s * k)
+    counts = torch.zeros((e,), dtype=torch.float32,
+                         device=x.device).index_add(
+        0, idx.reshape(-1), torch.ones(idx.numel(), device=x.device))
+    if group is None:
+        me = probs.mean((0, 1))
+        ce = counts / (b * s * k)
+    else:
+        if num_groups(b, s) != b:
+            raise ValueError(f"the MoE exact step over a process group "
+                             f"dispatches by sequence: seq_len {s} < 64 "
+                             f"would pool the global batch's sequences")
+        with torch.no_grad():
+            group.all_reduce_([counts])
+        me = probs.sum((0, 1)) / (b * s * group.n)
+        ce = counts / (b * s * k * group.n)
     aux = e * torch.sum(me * ce)
 
     groups = num_groups(b, s)

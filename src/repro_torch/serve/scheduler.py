@@ -127,6 +127,11 @@ class ServeScheduler:
                  round_budget_s: float, clock: Optional[ServeClock] = None,
                  session=None, train_epochs: int = 0,
                  metrics: Optional[ServeMetrics] = None):
+        if session is not None and getattr(session, "group", None) \
+                is not None:
+            raise NotImplementedError(
+                "serving over a mesh (a fine-tune session one process per "
+                "worker) is not ported yet (ROADMAP.md, module item 4c)")
         self.engine = engine
         self.queue = queue
         self.round_budget_s = round_budget_s

@@ -16,7 +16,8 @@ a loop on one device), also on one thread:
     ``EXACT_RTOL`` of the one-process session's (the gradient is a sum of
     four backward passes there, one backward over the batch here);
   * the train CLI (``main``) on the torus, its losses equal;
-  * what a group does not run yet raises, naming its ROADMAP item.
+  * what a group does not run yet (a model axis > 1, serving over a
+    mesh) raises, naming its ROADMAP item.
 
 Every spawn has a join deadline (``JOIN_S``), past which the ranks are
 killed and the test fails, and the process group a timeout
@@ -82,43 +83,37 @@ def _run(session) -> dict:
 
 
 def _refusals(world_mesh) -> dict:
-    """The message of each combination a group refuses."""
-    from repro_torch.api import ControllerSpec
-    base = CASES["gossip_ring"]
-    out = {}
-    tries = {
-        "pipeline": lambda: _session(base, world_mesh, pipeline=True),
-        "gossip_q8": lambda: _session(dict(base, consensus="gossip_q8"),
-                                      world_mesh),
-        "set_active": lambda: _session(base, world_mesh).set_active(
-            [True, False, True, True]),
-        "save": lambda: _session(base, world_mesh).save("unused"),
-    }
-    for name, fn in tries.items():
-        try:
-            fn()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
-    from repro_torch.api import AMBSession, ClockSpec, ConsensusSpec
+    """The message of each combination a group still refuses: a model
+    axis > 1 (module item 4a) and serving over a mesh (item 4c)."""
     from repro_torch.api import TrainSpec
-    more = {
-        "controller": lambda: AMBSession(
-            TrainSpec(smoke=True, data=N), ClockSpec(),
-            ConsensusSpec(consensus="gossip"), ControllerSpec(enabled=True),
-            device="cpu", mesh=world_mesh),
-        "redundancy": lambda: AMBSession(
-            TrainSpec(smoke=True, data=N, redundancy=2), ClockSpec(),
-            ConsensusSpec(consensus="gossip"), device="cpu",
-            mesh=world_mesh),
-        "restore": lambda: AMBSession.restore("unused", device="cpu"),
+    from repro_torch.dist.group import WorkerGroup
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import ServeScheduler
+    tries = {
+        "model_spec": lambda: TrainSpec(smoke=True, data=2, model=2),
+        "model_mesh": lambda: WorkerGroup(
+            make_host_mesh(2, 2, device="cpu"), "cpu"),
+        "serve_session": lambda: ServeScheduler(
+            None, None, round_budget_s=1.0,
+            session=_session(CASES["gossip_ring"], world_mesh)),
+        "serve_cli": lambda: serve.main(["--smoke"], device="cpu"),
     }
-    for name, fn in more.items():
-        try:
-            fn()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
+    out = {}
+    world = os.environ.get("WORLD_SIZE")
+    os.environ["WORLD_SIZE"] = str(N)      # as torchrun would set it
+    try:
+        for name, fn in tries.items():
+            try:
+                fn()
+                out[name] = None
+            except (ValueError, NotImplementedError, SystemExit) as e:
+                out[name] = str(e)
+    finally:
+        if world is None:
+            del os.environ["WORLD_SIZE"]
+        else:
+            os.environ["WORLD_SIZE"] = world
     return out
 
 
@@ -321,10 +316,16 @@ def test_train_cli_over_ranks_matches_the_one_process_cli(spawned, tmp_path):
 
 
 def test_group_refusals_name_their_roadmap_item(ranks):
+    """What a group still refuses names its item: a model axis > 1 is
+    module item 4a, serving over a mesh item 4c; every other driver and
+    option runs over ranks (``tests/test_torch_ranks_drivers.py``)."""
     for got in ranks:
+        assert sorted(got["refusals"]) == ["model_mesh", "model_spec",
+                                           "serve_cli", "serve_session"]
         for what, msg in got["refusals"].items():
             assert msg is not None, what
-            assert "ROADMAP.md, module item 4b" in msg, (what, msg)
+            item = "4a" if what.startswith("model") else "4c"
+            assert f"ROADMAP.md, module item {item}" in msg, (what, msg)
 
 
 def test_strategy_rounds_over_the_group_match_the_stacked_ones(ranks):

@@ -46,8 +46,10 @@ SMOKE = ["--smoke", "--data", str(N), "--batch-per-worker", str(PER),
 # mesh extents, as in JAX (--model must be 1)
 UNPORTED_FLAGS: set = set()
 # the port's own: the process-group backend of one process per worker
-# (JAX runs its workers as one SPMD program and has no such flag)
-PORT_FLAGS = {"--dist-backend"}
+# (JAX runs its workers as one SPMD program and has no such flag), and the
+# device a command-line run asks for (the port's entry points run on the
+# card unless told otherwise)
+PORT_FLAGS = {"--dist-backend", "--device"}
 
 
 # ---------------------------------------------------------------------------
