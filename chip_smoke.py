@@ -89,8 +89,8 @@ Phases (any failure ends the run with a non-zero exit code):
      survivors, then back: its b is 0 and its dual rows stay bit for bit,
      an all-inactive mask raises and touches nothing); and checkpoints
      (an exact session at full width cut to 2 layers, a pipelined and an
-     async D = 2 session at the smoke config, and the pipelined session
-     of this phase at 8 layers, 34 GB on disk: saved after 2 epochs,
+     async D = 2 session at the smoke config, and a pipelined session at
+     full width cut to 2 layers, 19 GB on disk: saved after 2 epochs,
      restored on the card, the state bit for bit and the next epoch bit
      for bit, the restore holding no second copy of the state on the
      card; save seconds, and the restore's seconds split into the
@@ -203,7 +203,30 @@ Phases (any failure ends the run with a non-zero exit code):
      parent's, and after them one process restores theirs: the next epoch
      bit for bit both ways; each rank's peak, epoch seconds, bytes sent
      and staged, the peaks' sum under MESH_PEAK_SUM_GIB;
- 16. print the kernels' JSON line, the card line, and the final ok line.
+ 16. a worker over a model axis: the one-process ``--data 2`` train CLI
+     at the smoke config (exact and gossip); then four gloo ranks as (data
+     2, model 2) (``--rank-phase model``): rank 0 first runs, while the
+     others wait, the one-process data=2 references at qwen2-1.5b width
+     cut to MODEL_LAYERS, 2 x 8 x 256, MESH_EPOCHS epochs (exact and ring
+     gossip r 5, simulated clock, deterministic algorithms; kept in host
+     memory), and both again with their row-parallel products (wo,
+     w_down) summed in two halves, as the model ranks sum them: how far
+     that moves each leaf sets its limit (``order_limits``); then every
+     rank runs through AMBSession exact (FSDP x TP:
+     the losses within MESH_LOSS_TOL, each gathered parameter leaf within
+     its limit of the reference, the replicated leaves equal on
+     every rank bit for bit, each rank's parameter blocks and fp32 z and
+     w0 blocks equal to the dry-run's per-rank bytes) and ring gossip
+     (TP: each worker's dual gathered over its model ranks, each leaf
+     within its limit, the replicated leaves equal on a worker's model
+     ranks), each rank's peak, epoch seconds, bytes sent and staged a
+     round, bytes gathered and reduce-scattered an epoch, ``dual_update``
+     (15 an epoch) and ``gossip_combine`` (r an epoch) launches; then the
+     train CLI ``--data 2 --model 2`` (exact and gossip) on the same ranks,
+     its losses within MESH_LOSS_TOL of the one-process CLI's; the peaks
+     beside phase 14's data=4 exact ranks'; and the prox timed at the
+     exact ranks' largest block beside the whole leaf;
+ 17. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -3648,13 +3671,13 @@ def check_gossip_combine_rank(torch, ops, ref, GossipConsensus, own_row,
 
 
 def mesh_session(rt, cfg, consensus: str, mesh, data: int = N_WORKERS,
-                 pod: int = 1):
+                 pod: int = 1, model: int = 1):
     """A session of the mesh phases: TrainSpec's defaults, the simulated
     clock, ring gossip at GOSSIP_ROUNDS, on the card; ``mesh`` None is
     every worker in one process."""
     return rt.api.AMBSession(
-        rt.api.TrainSpec(data=data, pod=pod, batch_per_worker=PER_WORKER,
-                         seq_len=SEQ),
+        rt.api.TrainSpec(data=data, pod=pod, model=model,
+                         batch_per_worker=PER_WORKER, seq_len=SEQ),
         rt.api.ClockSpec(kind="simulated"),
         rt.api.ConsensusSpec(consensus=consensus, graph="ring",
                              gossip_rounds=GOSSIP_ROUNDS),
@@ -4674,6 +4697,421 @@ def run_drivers(torch, rt, full) -> dict:
     return {"launches": launches, "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# A worker over a model axis (phase 16): FSDP x TP over four gloo ranks
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS = (2, 2)            # (data, model): two workers of two ranks
+# qwen2-1.5b width cut to 4 layers, phase 14's gossip depth: at 8 (its
+# exact depth) the command took 1,168.8 s of its 1,200 on an H100 at 700 W
+MODEL_LAYERS = MESH_GOSSIP_LAYERS
+MODEL_CLI_ARGV = ["--smoke", "--sim-clock", "--steps", str(MESH_EPOCHS),
+                  "--data", str(MODEL_AXIS[0])]
+MESH_TIMEOUT_S["model"] = 480
+# each leaf's limit, as a share of its largest value: ORDER_FACTOR times
+# how far the one-process reference moves under ``split_sums`` (a change
+# of summation order), no less than ORDER_FLOOR (one bf16 unit in the
+# last place at the leaf's largest value: the parameters and the
+# gradients the duals sum are bf16, so an order change moves them by
+# whole bf16 units) and no more than MESH_PARAM_TOL
+ORDER_FACTOR = 2.0
+ORDER_FLOOR = 2.0 ** -8
+
+
+def _half_sums(torch, x, w):
+    """``x @ w`` as two ranks of "model" sum it: two half-width products,
+    each rounded to the model's dtype, added in fp32 and rounded once."""
+    c = x.shape[-1] // 2
+    out = (x[..., :c] @ w[:c]).float() + (x[..., c:] @ w[c:]).float()
+    return out.to(x.dtype)
+
+
+@contextlib.contextmanager
+def split_sums(torch, rt):
+    """The dense block's row-parallel products (attention's wo, the MLP's
+    w_down) summed as the model ranks sum them (``_half_sums``): a change
+    of summation order only."""
+    model, attn = rt.models.model, rt.models.attention
+    plain_mlp, plain_attention = model.swiglu, attn.masked_attention
+
+    def mlp(x, w_gate, w_up, w_down):
+        h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
+        return _half_sums(torch, h, w_down)
+
+    class Heads(torch.Tensor):
+        """The attention's output, whose product with wo is split."""
+
+        def __matmul__(self, w):
+            return _half_sums(torch, self.as_subclass(torch.Tensor), w)
+
+    def attention(*args, **kwargs):
+        return plain_attention(*args, **kwargs).as_subclass(Heads)
+
+    model.swiglu, attn.masked_attention = mlp, attention
+    try:
+        yield
+    finally:
+        model.swiglu, attn.masked_attention = plain_mlp, plain_attention
+
+
+def order_limits(moves: dict) -> dict:
+    """Each leaf's limit from its move under ``split_sums``."""
+    return {k: min(MESH_PARAM_TOL, max(ORDER_FLOOR, ORDER_FACTOR * m))
+            for k, m in moves.items()}
+
+
+def check_order(label: str, moves: dict) -> dict:
+    """The limits of ``moves``, printed; fails where a move reaches
+    MESH_PARAM_TOL (no limit could then tell a fault from the order)."""
+    limits = order_limits(moves)
+    print(f"model-axis reference {label} under split row-parallel sums: "
+          f"each leaf's move over its largest value, and its limit: "
+          + ", ".join(f"{k} {m:.3g} ({limits[k]:.3g})"
+                      for k, m in moves.items()), flush=True)
+    worst = max(moves, key=moves.get)
+    if moves[worst] >= MESH_PARAM_TOL:
+        fail(f"model axis: the {label} reference's {worst} moves by "
+             f"{moves[worst]} under a change of summation order; "
+             f"MESH_PARAM_TOL {MESH_PARAM_TOL} cannot tell a fault from it")
+    return limits
+
+
+def check_leaves(label: str, errs: dict, limits: dict) -> float:
+    """Fails where a leaf's error (``errs`` by leaf, or by (worker, leaf))
+    is above its limit; returns the largest share of its limit."""
+    share = {key: e / limits[key[1] if isinstance(key, tuple) else key]
+             for key, e in errs.items()}
+    print(f"  model-axis {label}: each leaf's max |ranks - one process| "
+          f"over its largest value (its share of its limit): " + ", ".join(
+              f"{key} {e:.3g} ({share[key]:.3g})"
+              for key, e in errs.items()), flush=True)
+    bad = [key for key, x in share.items() if x > 1.0]
+    if bad:
+        fail(f"model-axis {label}: {bad} above their limits")
+    return max(share.values())
+
+
+def leaf_errs(torch, got: dict, want: dict) -> dict:
+    """Per leaf: max |got - want| over max |want|."""
+    out = {}
+    for k, w in want.items():
+        w = w.to(got[k].device)
+        scale = float(w.float().abs().max())
+        out[k] = max_abs_err(torch, got[k], w) / max(scale, 1e-30)
+    return out
+
+
+def model_references(torch, rt, cfg, lap) -> dict:
+    """Rank 0, before the model-axis sessions, while the other ranks wait:
+    the one-process data=2 sessions (exact, ring gossip r 5) on the card
+    under deterministic algorithms, kept in host memory (the parameters,
+    each worker's dual), and each again under ``split_sums``: how far
+    each leaf moves under a change of summation order sets its limit
+    (``order_limits``; a worker's dual leaf: the larger worker's move)."""
+    data = MODEL_AXIS[0]
+    refs = {}
+    session = mesh_session(rt, cfg, "exact", False, data=data)
+    res = mesh_epochs(torch, rt, session, "model-axis exact reference")
+    refs["exact"] = {"losses": res["losses"], "params": {
+        k: v.detach().cpu() for k, v in session.params.items()}}
+    print(f"model-axis reference exact ({MODEL_LAYERS} layers, one process, "
+          f"{data} workers): losses {res['losses']} epoch_s "
+          f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} [{card_line()}]", flush=True)
+    del session
+    release(torch)
+    with split_sums(torch, rt):
+        session = mesh_session(rt, cfg, "exact", False, data=data)
+        mesh_epochs(torch, rt, session, "model-axis exact, split sums")
+    moves = leaf_errs(torch, session.params, refs["exact"]["params"])
+    refs["exact"].update(moves=moves, limits=check_order("exact", moves))
+    del session
+    release(torch)
+    lap("the exact references done")
+    session = mesh_session(rt, cfg, "gossip", False, data=data)
+    res = mesh_epochs(torch, rt, session, "model-axis gossip reference")
+    z = {k: v.detach().clone() for k, v in session.state["z"].items()}
+    refs["gossip"] = {"losses": res["losses"]}
+    print(f"model-axis reference gossip ({MODEL_LAYERS} layers, one process, "
+          f"{data} workers): losses {res['losses']} epoch_s "
+          f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} [{card_line()}]", flush=True)
+    del session
+    release(torch)
+    with split_sums(torch, rt):
+        session = mesh_session(rt, cfg, "gossip", False, data=data)
+        mesh_epochs(torch, rt, session, "model-axis gossip, split sums")
+    moves = {k: max(leaf_errs(torch, {k: v[i]}, {k: z[k][i]})[k]
+                    for i in range(data))
+             for k, v in session.state["z"].items()}
+    del session
+    refs["gossip"].update(z={k: v.cpu() for k, v in z.items()},
+                          moves=moves, limits=check_order("gossip", moves))
+    del z
+    release(torch)
+    return refs
+
+
+def model_report(label: str, rank: int, res: dict, session,
+                 rounds: int) -> dict:
+    g, tp = session.group, session.tp
+    epochs = len(res["epoch_s"])
+    row = {"peak_gib": res["peak_gib"], "epoch_s": res["epoch_s"],
+           "losses": res["losses"], "launches": res["launches"],
+           "sent_bytes_per_round": g.sent_bytes // rounds if rounds else 0,
+           "staged_bytes_per_round": g.staged_bytes // rounds if rounds
+           else 0,
+           "gathered_bytes_per_epoch": tp.gathered_bytes // epochs,
+           "scattered_bytes_per_epoch": tp.scattered_bytes // epochs}
+    print(f"  rank {rank} (worker {g.worker}, model {g.m}) {label}: "
+          + " ".join(f"{k}={v}" for k, v in row.items())
+          + f" [{card_line()}]", flush=True)
+    return row
+
+
+def rank_model(torch, rt, dist, work: Path) -> None:
+    """Four gloo ranks as (data 2, model 2), each worker spread over two
+    ranks: rank 0 runs the one-process references first; then exact (FSDP
+    x TP) and ring gossip (TP) through AMBSession, MESH_EPOCHS epochs each
+    under deterministic algorithms; then the train CLI (``--model 2``,
+    exact and gossip, at the smoke config)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract
+    rank = dist.get_rank()
+    data, model = MODEL_AXIS
+    cfg = dataclasses.replace(rt.configs.get_config("qwen2-1.5b"),
+                              num_layers=MODEL_LAYERS)
+    out = {}
+    t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        if rank == 0:
+            print(f"  model-axis rank 0: {what} at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    with deterministic(torch):
+        refs = model_references(torch, rt, cfg, lap) if rank == 0 else None
+        lap("the references done")
+        got = [None if refs is None else
+               {k: refs[k]["losses"] for k in ("exact", "gossip")}]
+        dist.broadcast_object_list(got, src=0)
+        losses = got[0]
+        mesh = rt.launch.mesh.make_host_mesh(data, model, device="cuda")
+
+        session = mesh_session(rt, cfg, "exact", mesh, data, model=model)
+        lap("the exact session built")
+        res = mesh_epochs(torch, rt, session, "model-axis exact")
+        lap("the exact epochs done")
+        expect(f"model-axis exact rank {rank}", res["launches"],
+               {"dual_update": 15 * MESH_EPOCHS})
+        out["exact"] = model_report("exact", rank, res, session, 0)
+        check_losses("model-axis exact", rank, res["losses"],
+                     losses["exact"])
+        lay = dryrun._layout(cfg, rt.configs.InputShape(
+            "model_exact", SEQ, data * PER_WORKER, "train"),
+            abstract(MODEL_AXIS, ("data", "model")))
+        state = session.state
+        held = {"param_bytes_per_rank": nbytes(state["params"]),
+                "opt_state_bytes_per_rank": nbytes(state["opt"]["z"])
+                + nbytes(state["opt"]["w0"])}
+        for key, n in held.items():
+            if n != lay[key]:
+                fail(f"model-axis exact rank {rank}: {key} {n}, the "
+                     f"dry-run's {lay[key]}")
+        out["exact"].update(held)
+        print(f"  rank {rank} exact: blocks {held['param_bytes_per_rank']} "
+              f"B, fp32 z and w0 {held['opt_state_bytes_per_rank']} B: the "
+              f"dry-run's per-rank figures to the byte", flush=True)
+        same_replicated(torch, dist, session, state["params"], "exact")
+        whole = session.params
+        if rank == 0:
+            ref = refs["exact"]
+            errs = leaf_errs(torch, whole, ref["params"])
+            out["exact"].update(param_errs=errs, moves=ref["moves"],
+                                limits=ref["limits"],
+                                limit_share=check_leaves(
+                                    "exact", errs, ref["limits"]))
+        del session, state, whole
+        release(torch)
+        lap("the exact checks done")
+
+        session = mesh_session(rt, cfg, "gossip", mesh, data, model=model)
+        lap("the gossip session built")
+        res = mesh_epochs(torch, rt, session, "model-axis gossip")
+        lap("the gossip epochs done")
+        rounds = MESH_EPOCHS * GOSSIP_ROUNDS
+        expect(f"model-axis gossip rank {rank}", res["launches"],
+               {"gossip_combine": rounds, "dual_update": 15 * MESH_EPOCHS})
+        out["gossip"] = model_report("gossip", rank, res, session, rounds)
+        check_losses("model-axis gossip", rank, res["losses"],
+                     losses["gossip"])
+        z = session.state["z"]
+        same_replicated(torch, dist, session, {k: v[0] for k, v in z.items()},
+                        "gossip")
+        errs = gossip_duals(torch, dist, session,
+                            None if refs is None else refs["gossip"]["z"])
+        if rank == 0:
+            ref = refs["gossip"]
+            share = check_leaves("gossip (each worker's dual, gathered "
+                                 "over its model ranks)", errs,
+                                 ref["limits"])
+            out["gossip"].update(
+                dual_errs={f"worker {i} {k}": e
+                           for (i, k), e in errs.items()},
+                moves=ref["moves"], limits=ref["limits"],
+                limit_share=share)
+        del session, z, refs
+    release(torch)
+    lap("the gossip checks done")
+    with deterministic(torch):
+        for consensus in ("exact", "gossip"):
+            rt.launch.train.main(MODEL_CLI_ARGV + [
+                "--model", str(model), "--consensus", consensus,
+                "--dist-backend", "gloo", "--metrics",
+                str(work / f"cli_tp_{consensus}.jsonl")])
+    lap("the train CLI done")
+    (work / f"model_rank{rank}.json").write_text(json.dumps(out))
+
+
+RANK_PHASES["model"] = rank_model
+
+
+def nbytes(tree: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in tree.values())
+
+
+def check_losses(label: str, rank: int, got: list, want: list) -> None:
+    for g, w in zip(got, want):
+        if abs(g - w) > MESH_LOSS_TOL * abs(w):
+            fail(f"{label} rank {rank}: loss {g} vs the one-process {w}")
+
+
+def same_replicated(torch, dist, session, blocks: dict, label: str) -> None:
+    """The replicated leaves (norms, biases) equal bit for bit on the
+    model ranks of each worker (exact: on every rank)."""
+    specs = session.tp.specs
+    mine = digest(torch, {k: v for k, v in blocks.items()
+                          if specs[k] == ()})
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    g = session.group
+    peers = range(len(every)) if label == "exact" else range(
+        g.worker * g.model, (g.worker + 1) * g.model)
+    if any(every[r] != mine for r in peers):
+        fail(f"model-axis {label}: replicated leaves differ across ranks")
+
+
+def gossip_duals(torch, dist, session, ref_z) -> dict:
+    """Each worker's dual gathered over its model ranks, one leaf at a
+    time; the workers' model-0 ranks send theirs to rank 0, which returns
+    by (worker, leaf) max |got - ref| over max |ref| (others: {})."""
+    g, tp = session.group, session.tp
+    errs = {}
+    for k, zl in session.state["z"].items():
+        row = tp.whole({k: zl[0]})[k]
+        if g.m == 0 and g.worker > 0:
+            dist.send(row.cpu(), dst=0)
+        if dist.get_rank() != 0:
+            continue
+        for i in range(g.n):
+            if i:
+                buf = torch.empty(row.shape, dtype=row.dtype)
+                dist.recv(buf, src=g.rank_of(i) - g.m)
+                row = buf.to(zl.device)
+            errs[(i, k)] = leaf_errs(torch, {k: row},
+                                     {k: ref_z[k][i]})[k]
+        del row
+    return errs
+
+
+def time_dual_update_shard(torch, ops, full, beta: float) -> dict:
+    """The prox at an exact rank's largest block on (2, 2) (the embed's,
+    (V/2, d/2)) beside the whole leaf, fp32 z and w0 (dual averaging's
+    state), in one call."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for label, shape in (("whole", (full.vocab_size, full.d_model)),
+                         ("block", (full.vocab_size // MODEL_AXIS[1],
+                                    full.d_model // MODEL_AXIS[0]))):
+        n = math.prod(shape)
+        z = torch.randn(shape, generator=gen, device="cuda")
+        w0 = torch.randn(shape, generator=gen, device="cuda")
+        k_ms = time_ms(torch, lambda: ops.dual_update(z, w0, beta,
+                                                      force="kernel"),
+                       50, f"dual_update {label}")
+        p_ms = time_ms(torch, lambda: ops.dual_update(z, w0, beta,
+                                                      force="ref"),
+                       10, f"dual_update {label} plain")
+        b_ms, b_by = bound(12 * n, 2 * n)
+        out[label] = dict(shape=f"{shape} fp32", ms=k_ms, plain_ms=p_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        print(f"dual_update at the model-axis {label} {shape} fp32: ms="
+              f"{k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
+              f"({b_by}) [{card_line()}]", flush=True)
+        del z, w0
+    release(torch)
+    return out
+
+
+def run_model_axis(torch, rt, ops, full, beta: float,
+                   phase14: dict) -> dict:
+    """Phase 16: the one-process CLI references, four gloo ranks as (data
+    2, model 2) (``--rank-phase model``), the CLI's losses held, the
+    ranks' peaks beside phase 14's data=4 ranks' (``phase14``: by kind,
+    whole parameters), and the prox at the ranks' largest block.  Returns
+    the ranks' launch counts and numbers."""
+    release(torch)
+    work = Path(tempfile.mkdtemp(prefix="model-", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    try:
+        with deterministic(torch):
+            for consensus in ("exact", "gossip"):
+                rt.launch.train.main(MODEL_CLI_ARGV + [
+                    "--consensus", consensus, "--metrics",
+                    str(work / f"cli_one_{consensus}.jsonl")])
+        release(torch)
+        launch_ranks("model", work, MESH_RANKS)
+        ranks = [json.loads((work / f"model_rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+        cli = {}
+        for consensus in ("exact", "gossip"):
+            one, tp = ([json.loads(x)["loss"] for x in
+                        (work / f"cli_{kind}_{consensus}.jsonl")
+                        .read_text().splitlines()]
+                       for kind in ("one", "tp"))
+            print(f"model-axis train CLI (smoke, {consensus}): one process "
+                  f"--data 2 {one}, four ranks --data 2 --model 2 {tp}",
+                  flush=True)
+            if len(one) != MESH_EPOCHS or len(tp) != MESH_EPOCHS or any(
+                    abs(a - b) > MESH_LOSS_TOL * abs(b)
+                    for a, b in zip(tp, one)):
+                fail(f"model-axis train CLI {consensus}: {tp} vs {one}")
+            cli[consensus] = {"one": one, "ranks": tp}
+        for kind in ("exact", "gossip"):
+            peaks = [r[kind]["peak_gib"] for r in ranks]
+            print(f"model-axis {kind} ({MODEL_LAYERS} layers, (data 2, "
+                  f"model 2)): peaks GiB {[round(p, 2) for p in peaks]}, "
+                  f"sum {sum(peaks):.2f}; phase 14's data=4 ranks (whole "
+                  f"parameters): exact at {MESH_EXACT_LAYERS} layers "
+                  f"{[round(p, 2) for p in phase14['exact']]}, gossip at "
+                  f"{MESH_GOSSIP_LAYERS} "
+                  f"{[round(p, 2) for p in phase14['gossip']]} "
+                  f"[{card_line()}]", flush=True)
+            if sum(peaks) > MESH_PEAK_SUM_GIB:
+                fail(f"model-axis {kind}: the ranks' peaks sum to "
+                     f"{sum(peaks):.2f} GiB")
+        shard = time_dual_update_shard(torch, ops, full, beta)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 16 (a worker over a model axis): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {f"model-axis {kind} rank {r}": res[kind]["launches"]
+                for r, res in enumerate(ranks) for kind in ("exact",
+                                                            "gossip")}
+    return {"launches": launches, "ranks": ranks, "cli": cli,
+            "dual_update": shard}
+
+
 def report_kernels(build) -> None:
     """Set-up output: the ptxas report of each redesigned kernel (it must
     not spill), the tensor-core flash body's dynamic shared memory, and
@@ -4735,6 +5173,11 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    t_start = time.perf_counter()
+
+    def stamp(phase: int) -> None:
+        print(f"phase {phase} ended at {time.perf_counter() - t_start:.1f} "
+              f"s of the command", flush=True)
 
     t0 = time.perf_counter()
     names = build.sources()
@@ -4743,6 +5186,7 @@ def main() -> int:
     print(f"build: {len(names)} kernels in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(names)})", flush=True)
     report_kernels(build)
+    stamp(2)
 
     full = rt.configs.get_config("qwen2-1.5b")
     gossip_cfg = dataclasses.replace(full, num_layers=GOSSIP_LAYERS)
@@ -4777,6 +5221,7 @@ def main() -> int:
             full, num_layers=DRIVER_LAYERS)) + 1)
     squant["per_rank"] = qrank["stochastic_quantize"]
     qcomb["per_rank"] = qrank["quantized_combine"]
+    stamp(3)
 
     smoke = rt.configs.smoke_config("qwen2-1.5b")
     check_quantized_strategy(torch, rt, dense_param_count(smoke) + 1)
@@ -4786,6 +5231,7 @@ def main() -> int:
     zoo_reference_check(torch, rt)
     zamba_reference_check(torch, rt)
     encdec_reference_check(torch, rt)
+    stamp(4)
 
     runs = {"exact": run_session(torch, rt, full, "exact"),
             "gossip": run_session(torch, rt, gossip_cfg, "gossip"),
@@ -4804,12 +5250,16 @@ def main() -> int:
                 "quantized_combine": GOSSIP_ROUNDS * 32 // bits * EPOCHS}
         if runs[name] != want:
             fail(f"{name} launched {runs[name]}, expected {want}")
+    stamp(5)
     sim = run_simulator(torch, rt)
+    stamp(6)
     cli = check_train_cli(torch, rt, full)
+    stamp(7)
     drivers = {"pipelined": run_pipelined(torch, rt, gossip_cfg),
                "async": run_async(torch, rt, quant_cfg),
                "elastic": run_elastic(torch, rt, gossip_cfg)}
     check_checkpoints(torch, rt, full, smoke)
+    stamp(8)
     coded = {"coded exact": run_coded_exact(torch, rt, full),
              "churn": run_churn(torch, rt, gossip_cfg),
              "controller": run_controller_cli(torch, rt, gossip_cfg),
@@ -4818,8 +5268,10 @@ def main() -> int:
     check_restore_mid_churn(torch, rt, dataclasses.replace(
         full, num_layers=RESTORE_LAYERS))
     coded_launches = {k: r["launches"] for k, r in coded.items()}
+    stamp(9)
     served = {"qwen2-1.5b": run_serve(torch, rt, SERVE_ARGV),
               "rwkv6-3b": run_serve(torch, rt, SERVE_RWKV_ARGV)}
+    stamp(10)
     cli_launches = {k: r["launches"] for k, r in cli["runs"].items()}
     moe_cut = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
                                   num_layers=MOE_LAYERS)
@@ -4832,23 +5284,35 @@ def main() -> int:
         torch, rt, moe_cut, beta)
     du_err = max(du_err, moe_du_err)
     zoo["qwen3-8b long_500k"] = run_long_context(torch, rt)["launches"]
+    stamp(11)
     zoo[f"serve cli {ZAMBA_ARCH}"] = run_serve(torch, rt, SERVE_ZAMBA_ARGV)
     zoo[f"session {ZAMBA_ARCH}"], zamba_du_err = run_zamba_session(
         torch, rt, beta)
     du_err = max(du_err, zamba_du_err)
+    stamp(12)
     zoo[f"serve {WHISPER_ARCH}"] = run_whisper_serve(torch, rt)
     zoo[f"session {WHISPER_ARCH}"] = run_whisper_session(torch, rt)
     zoo[f"serve {VLM_ARCH} {VLM_LAYERS} layers"] = run_engine_serve(
         torch, rt, dataclasses.replace(rt.configs.get_config(VLM_ARCH),
                                        num_layers=VLM_LAYERS),
         VLM_REQUESTS, VLM_NEW, VLM_GAP_S, 2)
+    stamp(13)
     mesh = run_mesh(torch, rt, full)
+    stamp(14)
     ranks15 = run_drivers(torch, rt, full)
+    stamp(15)
+    model_axis = run_model_axis(
+        torch, rt, ops, full, beta,
+        {kind: [r[kind]["peak_gib"] for r in mesh["ranks"]]
+         for kind in ("exact", "gossip")})
+    stamp(16)
+    du[torch.float32]["model_axis"] = model_axis["dual_update"]
 
     def launches(name):
         return sum(c.get(name, 0) for group in (
             runs, served, sim["launches"], cli_launches, drivers,
-            coded_launches, zoo, mesh["launches"], ranks15["launches"])
+            coded_launches, zoo, mesh["launches"], ranks15["launches"],
+            model_axis["launches"])
             for c in group.values())
 
     def per_epoch(name):
@@ -4876,6 +5340,9 @@ def main() -> int:
                     launches_drivers_ranks={
                         a: c.get(name, 0)
                         for a, c in ranks15["launches"].items()},
+                    launches_model_axis={
+                        a: c.get(name, 0)
+                        for a, c in model_axis["launches"].items()},
                     max_abs_err=err,
                     **timing)
 

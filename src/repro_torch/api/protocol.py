@@ -51,10 +51,10 @@ class ExactProtocol(TrainProtocol):
     mode = "exact"
 
     def __init__(self, cfg, n: int, optimizer: DualAveragingOpt,
-                 amb: AMBConfig = AMBConfig(), group=None):
+                 amb: AMBConfig = AMBConfig(), group=None, tp=None):
         self.amb = amb
         self.optimizer = optimizer
-        self._step = make_train_step(cfg, optimizer, n, amb, group)
+        self._step = make_train_step(cfg, optimizer, n, amb, group, tp)
 
     def init(self, params):
         return {"params": params, "opt": self.optimizer.init(params), "t": 0}
@@ -73,16 +73,18 @@ class GossipProtocol(TrainProtocol):
 
     mode = "gossip"
     row_keys = ("z", "pending", "queue", "snaps")
+    tp = None                  # a worker spread over a model axis
 
     def __init__(self, cfg, n: int, amb: AMBConfig, draw_source=None,
-                 group=None):
+                 group=None, tp=None):
         self.amb = amb
         self.group = group
+        self.tp = tp
         self.init, self.step = make_gossip_train_step(cfg, n, amb,
-                                                      draw_source, group)
+                                                      draw_source, group, tp)
 
     def primal(self, state):
-        return gossip_primal(state, self.amb, self.group)
+        return gossip_primal(state, self.amb, self.group, self.tp)
 
 
 class PipelinedProtocol(GossipProtocol):
@@ -120,7 +122,7 @@ class AsyncProtocol(GossipProtocol):
 def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
                    pipeline: bool = False, async_epochs: bool = False,
                    staleness: int = 1, draw_source=None,
-                   group=None) -> TrainProtocol:
+                   group=None, tp=None) -> TrainProtocol:
     """The protocol for (consensus, driver, optimizer), by JAX's rules.
 
     ``pipeline``, ``async_epochs`` or a non-exact consensus selects the
@@ -131,7 +133,9 @@ def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
     (default dual averaging with ``amb``'s beta).  ``async_epochs``
     generalises ``pipeline`` to ``staleness`` in-flight payloads; the two
     are mutually exclusive.  Elastic membership rides on ``amb.active``.
-    ``group`` runs the protocol one process per worker.
+    ``group`` runs the protocol one process per worker; ``tp``
+    (:class:`~repro_torch.dist.tp.TensorParallel`) spreads each worker over
+    a model axis, for the exact and fp32 gossip protocols.
     """
     if pipeline and async_epochs:
         raise ValueError("--pipeline is the hardcoded staleness-1 driver; "
@@ -153,7 +157,7 @@ def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
     if pipeline:
         return PipelinedProtocol(cfg, n, amb, draw_source, group)
     if amb.consensus != "exact":
-        return GossipProtocol(cfg, n, amb, draw_source, group)
+        return GossipProtocol(cfg, n, amb, draw_source, group, tp)
     if optimizer is None:
         optimizer = DualAveragingOpt(beta=amb.beta, radius=amb.radius)
-    return ExactProtocol(cfg, n, optimizer, amb, group)
+    return ExactProtocol(cfg, n, optimizer, amb, group, tp)

@@ -56,6 +56,14 @@ action there, ``set_active`` drains and rebuilds on every rank, and
 ``save`` / ``restore`` keep JAX's layout: rank 0 writes the archive,
 gathering each per-worker leaf a row at a time, and each rank reads back
 only its own row.
+
+A model axis (``TrainSpec.model`` M > 1 over a process group of pod x
+data x M ranks) spreads each worker over M ranks (:mod:`repro_torch.dist.
+tp`): each rank initialises its blocks of JAX's layout one leaf at a time
+(or cuts them from the ``params`` it is given), the exact epoch runs FSDP
+x TP and the fp32 gossip epoch TP, and ``params`` gathers the whole primal
+on every rank.  The dense family's exact and fp32 gossip epochs run so;
+everything else at M > 1 raises, naming ROADMAP.md's module item 4a.
 """
 from __future__ import annotations
 
@@ -77,11 +85,14 @@ from ..data import LMTokenStream, Prefetcher, StreamSource
 from ..device import resolve_device
 from ..dist.consensus import torus_shape_for_mesh
 from ..dist.group import WorkerGroup, num_workers
+from ..dist.params import init_shards, shard_tree
 from ..dist.redundancy import CodedAssignment
+from ..dist.tp import TensorParallel, check_supported
 from ..faults import FaultInjector
 from ..kernels import router
 from ..metrics import MetricsLogger
 from ..models import DenseLM, init_params
+from ..models.common import MetaGenerator
 from ..optim import make_optimizer
 from .clock import make_clock
 from .protocol import build_protocol
@@ -192,6 +203,10 @@ class AMBSession:
         self._slow: Optional[np.ndarray] = None   # per-worker slowdowns
         self._active: Optional[tuple] = None
         self._protocols: dict = {}       # (mask, staleness) -> protocol
+        self.tp = None
+        if self.group is not None and self.group.model > 1:
+            self._check_model_axis()
+            params = self._blocks(params)
         self._build_protocol()
         if params is None:
             gen = torch.Generator(device=self.device)
@@ -204,7 +219,7 @@ class AMBSession:
         self.steps_done = 0
         self.sim_wall = 0.0
         self.metrics = MetricsLogger(metrics_path) if metrics_path \
-            and self.rank == 0 else None
+            and self.lead else None
 
     # -- construction ------------------------------------------------------
 
@@ -213,6 +228,52 @@ class AMBSession:
         """This process's worker (0 when every worker shares the
         process)."""
         return 0 if self.group is None else self.group.worker
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process writes the records (the metrics, the
+        CLI's lines): the one process, or global rank 0."""
+        return self.group is None or self.group.worker * self.group.model \
+            + self.group.m == 0
+
+    def _model_axis(self, what: str) -> ValueError:
+        return ValueError(f"{what} at model > 1 (a worker spread over "
+                          f"{self.group.model} ranks) is not ported yet "
+                          f"(ROADMAP.md, module item 4a); the exact and "
+                          f"fp32 gossip epochs of the dense family run")
+
+    def _blocks(self, params) -> dict:
+        """This rank's blocks of the parameters (``params``: a dict, a
+        :class:`DenseLM`, or None to initialise them from the seed, one
+        leaf at a time); builds ``self.tp``."""
+        if isinstance(params, DenseLM):
+            params = params.params()
+        shapes = params if params is not None \
+            else init_params(self.cfg, MetaGenerator())
+        self.tp = TensorParallel(
+            self.group, {k: v.shape for k, v in shapes.items()},
+            None if self._decentralized else "data")
+        coord = self.mesh.get_coordinate()
+        if params is not None:
+            return shard_tree(params, self.mesh, coord, self.tp.fsdp_axis)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.train.seed)
+        return init_shards(self.cfg, gen, self.mesh, coord,
+                           self.tp.fsdp_axis)
+
+    def _check_model_axis(self) -> None:
+        """Refuse what a worker spread over a model axis cannot run yet."""
+        spec, train = self.consensus_spec, self.train
+        check_supported(self.cfg, self.group.model)
+        for what, refused in (
+                (f"{spec.consensus} consensus",
+                 spec.consensus not in ("exact", "gossip")),
+                ("the pipelined driver", spec.pipeline),
+                ("the async driver", spec.async_epochs),
+                ("the controller", self.controller is not None),
+                (f"redundancy={train.redundancy}", train.redundancy > 1)):
+            if refused:
+                raise self._model_axis(what)
 
     def _build_protocol(self, active: Optional[tuple] = None) -> None:
         """(Re)build the epoch driver: at init, on ``set_active`` and on a
@@ -239,7 +300,8 @@ class AMBSession:
                 self.cfg, self.n_workers, amb,
                 optimizer=self._optimizer, pipeline=spec.pipeline,
                 async_epochs=spec.async_epochs, staleness=spec.staleness,
-                draw_source=self._draw_source, group=self.group)
+                draw_source=self._draw_source, group=self.group,
+                tp=self.tp)
         self.protocol = self._protocols[key]
 
     # -- elastic membership ------------------------------------------------
@@ -266,6 +328,8 @@ class AMBSession:
         from that drain, which is always a valid state transition.
         """
         mask = np.asarray(mask, dtype=bool).reshape(-1)
+        if self.tp is not None and not mask.all():
+            raise self._model_axis("elastic membership (a worker out)")
         if mask.shape[0] != self.n_workers:
             raise ValueError(f"mask has {mask.shape[0]} entries for "
                              f"{self.n_workers} workers")
@@ -405,6 +469,8 @@ class AMBSession:
         cover them)."""
         if steps <= 0:
             return None
+        if faults is not None and self.tp is not None:
+            raise self._model_axis("churn (a fault model)")
         if source is None:
             source = self.batch_source()
         injector = None
@@ -509,8 +575,11 @@ class AMBSession:
     def params(self) -> dict:
         """The current primal iterate (gossip: the node-averaged prox of the
         active workers' duals).  Pipelined and async sessions should
-        ``flush()`` first so the in-flight payloads are folded in."""
-        return self.protocol.primal(self.state)
+        ``flush()`` first so the in-flight payloads are folded in.  At
+        model > 1 every rank calls it and gets the whole iterate (for
+        comparisons; it is not a checkpoint)."""
+        primal = self.protocol.primal(self.state)
+        return primal if self.tp is None else self.tp.whole(primal)
 
     def save(self, directory) -> None:
         """Checkpoint the primal and the full state at the current step.
@@ -523,6 +592,8 @@ class AMBSession:
         Over a process group every rank calls it: rank 0 writes, the
         per-worker leaves gathered to it a row at a time.
         """
+        if self.tp is not None:
+            raise self._model_axis("save")
         directory = Path(directory)
         params = self.params          # a sum across the ranks: every rank
         if self.rank == 0:
@@ -592,6 +663,8 @@ class AMBSession:
                       None if ctl is None
                       else ControllerSpec.from_dict(ctl["spec"]), cfg=cfg,
                       device=device, metrics_path=metrics_path)
+        if session.tp is not None:
+            raise session._model_axis("restore")
         if meta.get("active") is not None:
             session.set_active(meta["active"])
         # into the fresh state in place, leaf by leaf: the card never

@@ -70,8 +70,9 @@ class TrainSpec(_Spec):
     The mesh extents are JAX's: ``pod * data`` workers, in one process
     (the workers a loop on one device) or one process per worker over an
     initialised ``torch.distributed`` group (:mod:`repro_torch.launch.
-    mesh`).  ``model > 1``, tensor parallelism inside a worker, is
-    refused (ROADMAP.md, module item 4a).
+    mesh`).  ``model`` ranks spread each worker over a process group
+    (FSDP x TP, :mod:`repro_torch.dist.tp`); in one process a worker lives
+    on one device, so any ``model`` computes what ``model=1`` computes.
     """
 
     arch: str = "qwen2-1.5b"
@@ -90,13 +91,6 @@ class TrainSpec(_Spec):
     redundancy: int = 1               # rho: coded data replication (groups
                                       # of rho workers hold rotated copies
                                       # of one block; 1 = uncoded)
-
-    def __post_init__(self):
-        if self.model != 1:
-            raise ValueError(
-                f"model={self.model}: tensor parallelism inside a worker "
-                f"is not ported yet (ROADMAP.md, module item 4a: live "
-                f"FSDP x TP and model > 1); use model=1")
 
     def router_mode(self) -> str:
         """``kernels`` in the port's router: ``pallas`` is the CUDA

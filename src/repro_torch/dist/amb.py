@@ -45,6 +45,17 @@ worker's dual row (each ``z`` leaf is (1, *param)) and runs the
 strategy's :meth:`~repro_torch.dist.consensus.ConsensusStrategy.
 combine_rank`.  The losses, :class:`RankNoiseStats` and
 :func:`gossip_primal` sum across the workers.
+
+A worker spread over a model axis (``tp``, a :class:`~repro_torch.dist.
+tp.TensorParallel`; the exact and fp32 gossip steps): each rank holds its
+blocks of the parameters and of the fp32 ``z`` and ``w0`` (the exact
+step: over "data" and "model"; the gossip step: over "model", whole over
+the workers), and the loss is the worker's, equal on its model ranks.  The
+exact step's backward reduce-scatters each block's gradient over "data"
+(then sums it over "pod", and the leaves not on "data" over every
+worker) and dual averaging updates the blocks; the gossip step packs this
+rank's block of ``z_i + g_i`` and gossips it with the ranks at its model
+coordinate.  The trust region's norm is the whole leaf's.
 """
 from __future__ import annotations
 
@@ -218,10 +229,15 @@ def unpack_duals(out: torch.Tensor, z: dict, n: int) -> dict:
 # Exact-consensus train step (eps = 0)
 # ---------------------------------------------------------------------------
 
-def _rank_train_step(cfg, opt, n: int, group, assignment):
-    """The exact step of one process per worker (see the module note)."""
+def _rank_train_step(cfg, opt, n: int, group, assignment, tp=None):
+    """The exact step of one process per worker, or of a worker spread
+    over a model axis (``tp``; see the module note)."""
     r = group.worker
     moe_group = group if cfg.is_moe else None
+    if tp is not None and hasattr(opt, "prox"):
+        # dual averaging on this rank's blocks: the trust region's norm
+        # is the whole leaf's
+        opt = dataclasses.replace(opt, prox=tp.prox)
 
     def step(params, opt_state, batch, b):
         lead = first_leaf(batch)
@@ -238,10 +254,13 @@ def _rank_train_step(cfg, opt, n: int, group, assignment):
                             min=1.0)
         with torch.enable_grad():
             total, m = lm_loss(params, cfg, batch, sw, denom=denom,
-                               group=moe_group)
-            grads = _grads(total, params)
-        group.all_reduce_(grads)
-        opt_state = opt.apply(dict(zip(params, grads)), opt_state, params)
+                               group=moe_group, tp=tp)
+            grads = dict(zip(params, _grads(total, params)))
+        if tp is None:
+            group.all_reduce_(list(grads.values()))
+        else:
+            tp.sum_grads(grads)
+        opt_state = opt.apply(grads, opt_state, params)
         metrics = {"loss": group.sum_scalar(m["loss"]),
                    "aux": group.sum_scalar(m["aux"]), "ntok": denom,
                    "global_batch": gbatch}
@@ -251,7 +270,7 @@ def _rank_train_step(cfg, opt, n: int, group, assignment):
 
 
 def make_train_step(cfg, opt, n: int, amb: AMBConfig = AMBConfig(),
-                    group=None):
+                    group=None, tp=None):
     """step(params, opt_state, batch, b) -> (params, opt_state, metrics).
 
     ``params`` is a dict of tensors that require grad (a
@@ -261,10 +280,12 @@ def make_train_step(cfg, opt, n: int, amb: AMBConfig = AMBConfig(),
     ``opt`` updates params and its state in place.  Under coded
     redundancy (``amb.redundancy > 1``) the weights are the ``1/copies``
     decode weights and ``global_batch`` counts distinct covered samples.
+    ``tp``: the worker spread over a model axis (``params`` and the
+    optimizer state hold this rank's blocks).
     """
     assignment = assignment_from_config(amb, n)
     if group is not None:
-        return _rank_train_step(cfg, opt, n, group, assignment)
+        return _rank_train_step(cfg, opt, n, group, assignment, tp)
 
     def step(params, opt_state, batch, b):
         lead = first_leaf(batch)
@@ -293,21 +314,27 @@ def make_train_step(cfg, opt, n: int, amb: AMBConfig = AMBConfig(),
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def _prox_leaf(z_leaf, w0_leaf, beta_t: float, radius: Optional[float]):
-    """Eq.-7 prox with h(w) = ||w - w0||^2: fp32 math, w0's dtype out."""
-    return kops.dual_update(z_leaf, w0_leaf, beta_t, radius).to(w0_leaf.dtype)
+def _prox_leaf(z_leaf, w0_leaf, beta_t: float, radius: Optional[float],
+               tp=None, name: Optional[str] = None):
+    """Eq.-7 prox with h(w) = ||w - w0||^2: fp32 math, w0's dtype out
+    (with ``tp``, of this rank's block of leaf ``name``)."""
+    w = (kops.dual_update(z_leaf, w0_leaf, beta_t, radius) if tp is None
+         else tp.prox(name, z_leaf, w0_leaf, beta_t, radius))
+    return w.to(w0_leaf.dtype)
 
 
 def local_grad(cfg, z: dict, w0: dict, batch: dict, sw: torch.Tensor,
                beta_t: float, radius: Optional[float], i: int,
-               per: int) -> tuple:
+               per: int, tp=None) -> tuple:
     """Worker i's masked gradient at its own primal ``prox(z_i)``: (the
-    gradient leaves in ``w0``'s order, the detached loss)."""
-    p_i = {k: _prox_leaf(z[k][i], w, beta_t, radius).requires_grad_()
+    gradient leaves in ``w0``'s order, the detached loss); with ``tp``,
+    this rank's blocks of them."""
+    p_i = {k: _prox_leaf(z[k][i], w, beta_t, radius, tp,
+                         k).requires_grad_()
            for k, w in w0.items()}
     batch_i = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
     with torch.enable_grad():
-        total, m = lm_loss(p_i, cfg, batch_i, sw[i])
+        total, m = lm_loss(p_i, cfg, batch_i, sw[i], tp=tp)
         g_i = _grads(total, p_i)
     return g_i, m["loss"].detach()
 
@@ -463,8 +490,10 @@ class RankEpoch:
     settle of a payload through ``combine_rank`` under its enqueue
     epoch's draws."""
 
-    def __init__(self, cfg, n: int, amb: AMBConfig, draw_source, group):
+    def __init__(self, cfg, n: int, amb: AMBConfig, draw_source, group,
+                 tp=None):
         self.cfg, self.n, self.amb, self.group = cfg, n, amb, group
+        self.tp = tp
         self.draw_source = draw_source or epoch_draws
         self.strategy = strategy_from_config(amb, n)
         self.assignment = assignment_from_config(amb, n)
@@ -481,7 +510,7 @@ class RankEpoch:
 
     def grad(self, state, batch, sw, beta_t: float, per: int) -> tuple:
         return local_grad(self.cfg, state["z"], state["w0"], batch, sw,
-                          beta_t, self.amb.radius, 0, per)
+                          beta_t, self.amb.radius, 0, per, self.tp)
 
     def settle(self, payload: torch.Tensor, epoch: int) -> torch.Tensor:
         """The consensus of this worker's (1, W+1) payload row (consumed:
@@ -496,11 +525,13 @@ class RankEpoch:
             out=payload)
 
 
-def _rank_gossip_step(cfg, n: int, amb: AMBConfig, draw_source, group):
-    """(init_state, step) of one process per worker (see the module note):
-    the state holds this worker's dual row."""
+def _rank_gossip_step(cfg, n: int, amb: AMBConfig, draw_source, group,
+                      tp=None):
+    """(init_state, step) of one process per worker, or of a worker spread
+    over a model axis (``tp``; see the module note): the state holds this
+    worker's dual row (with ``tp``, this rank's blocks of it)."""
     beta = amb.beta
-    ep = RankEpoch(cfg, n, amb, draw_source, group)
+    ep = RankEpoch(cfg, n, amb, draw_source, group, tp)
     r = group.worker
 
     def init_state(params: dict) -> dict:
@@ -532,7 +563,7 @@ def _rank_gossip_step(cfg, n: int, amb: AMBConfig, draw_source, group):
 
 def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
                            draw_source: Optional[Callable] = None,
-                           group=None):
+                           group=None, tp=None):
     """Returns (init_state, step) for the decentralised AMB protocol.
 
     State: ``z`` — per-worker duals, each leaf (n, *param) fp32 (with
@@ -540,10 +571,12 @@ def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
     parameters (prox anchor, their own dtypes); ``t`` — the epoch count.
     step(state, batch, b) -> (state, metrics).  ``draw_source(seed, t)``
     gives epoch t's quantized-gossip rounding draws (default
-    :func:`~repro_torch.dist.consensus.epoch_draws`).
+    :func:`~repro_torch.dist.consensus.epoch_draws`).  ``tp``: the worker
+    spread over a model axis (``w0`` and each ``z`` row hold this rank's
+    blocks).
     """
     if group is not None:
-        return _rank_gossip_step(cfg, n, amb, draw_source, group)
+        return _rank_gossip_step(cfg, n, amb, draw_source, group, tp)
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
     strategy = strategy_from_config(amb, n)
@@ -585,7 +618,7 @@ def make_gossip_train_step(cfg, n: int, amb: AMBConfig,
     return init_state, step
 
 
-def gossip_primal(state: dict, amb: AMBConfig, group=None) -> dict:
+def gossip_primal(state: dict, amb: AMBConfig, group=None, tp=None) -> dict:
     """Node-averaged primal: the train step's prox on the worker-mean dual.
 
     Under an elastic ``amb.active`` mask only the active workers' duals
@@ -593,7 +626,9 @@ def gossip_primal(state: dict, amb: AMBConfig, group=None) -> dict:
     value and would bias the iterate away from the active set's.  With
     ``group`` the mean is a sum across the workers (every rank must call
     it), one leaf at a time: each rank's row weighs 1 if it is active and
-    0 if not, and the sum is divided by the active count."""
+    0 if not, and the sum is divided by the active count.  With ``tp``
+    each rank averages its blocks (the prox's trust region takes the
+    whole leaf's norm)."""
     beta_t = amb.beta(state["t"] + 1)
     if group is not None:
         act = 1.0 if amb.active is None else float(amb.active[group.worker])
@@ -613,5 +648,6 @@ def gossip_primal(state: dict, amb: AMBConfig, group=None) -> dict:
         def zbar(zl):
             return torch.tensordot(torch.as_tensor(w, device=zl.device), zl,
                                    dims=([0], [0]))
-    return {k: _prox_leaf(zbar(state["z"][k]), w, beta_t, amb.radius)
+    return {k: _prox_leaf(zbar(state["z"][k]), w, beta_t, amb.radius, tp,
+                          k)
             for k, w in state["w0"].items()}

@@ -1,12 +1,17 @@
-"""One rank's side of an AMB epoch run one process per worker.
+"""One rank's side of an AMB epoch run one process per worker, or one
+worker spread over the ranks of a model axis.
 
 The JAX package runs its workers as the ``("pod", "data")`` axes of one
 SPMD program; here each worker is a process of a ``torch.distributed``
-group laid out by :func:`repro_torch.launch.mesh.make_host_mesh`, and
-:class:`WorkerGroup` is what the steps need of it:
+group laid out by :func:`repro_torch.launch.mesh.make_host_mesh` (or, with
+a ``"model"`` extent M > 1, the M ranks at one (pod, data) coordinate:
+ranks ``worker * M + m``, row-major), and :class:`WorkerGroup` is what the
+steps need of it:
 
   * the worker's index (the row-major (pod, data) coordinate of its rank)
-    and the worker count;
+    and the worker count; with M > 1 also its model coordinate ``m`` and
+    the process groups of the axes (:mod:`repro_torch.dist.tp` runs the
+    tensor-parallel and FSDP collectives on them);
   * sums across workers (:meth:`WorkerGroup.all_reduce_`): the exact
     step's eq.-6 gradient, through flat fp32 buckets, and its scalars;
   * the gossip round's neighbour exchange (:meth:`WorkerGroup.exchange`):
@@ -17,6 +22,11 @@ group laid out by :func:`repro_torch.launch.mesh.make_host_mesh`, and
   * :meth:`WorkerGroup.all_gather` for the dense fallback;
   * :meth:`WorkerGroup.gather_to_root`: every rank's row of one leaf to
     rank 0, one row at a time (the checkpoint streams them to disk).
+
+With M > 1 the sums, the gathers and the wire run among the ranks at this
+rank's model coordinate, one per worker: worker j's peer is rank ``j * M
++ m``, so the M model coordinates of every worker gossip their own
+blocks side by side and each worker is counted once.
 
 Backends.  NCCL takes CUDA tensors (one rank per card).  gloo takes CPU
 tensors everywhere and CUDA tensors for its collectives, but not for
@@ -54,38 +64,62 @@ def num_workers(mesh) -> int:
 class WorkerGroup:
     """This process's worker in a mesh over the initialised process group.
 
-    The mesh's "model" extent must be 1 (one process is one worker); its
-    worker axes then span every rank, and worker j is the rank at (pod,
-    data) coordinate j, which is rank j.
+    Worker j is the rank at (pod, data) coordinate j; with a "model"
+    extent M each worker is M ranks, ``j * M`` to ``j * M + M - 1``, and
+    this rank holds model coordinate ``m`` of it.  ``worker_pg`` spans the
+    ranks at coordinate m (every worker once; the default group when M is
+    1), ``model_pg`` the worker's M ranks, ``data_pg`` the ranks of this
+    pod at coordinate m, and ``pod_pg`` (pod > 1) the ranks at this data
+    and model coordinate.
     """
 
     def __init__(self, mesh, device):
         shape = mesh_shape(mesh)
-        if shape.get("model", 1) != 1:
-            raise ValueError("a model axis > 1 (tensor parallelism inside a "
-                             "worker) is not ported yet (ROADMAP.md, module "
-                             "item 4a)")
         self.mesh = mesh
         self.n = num_workers(mesh)
-        if self.n != dist.get_world_size():
-            raise ValueError(f"the mesh has {self.n} workers, the process "
-                             f"group {dist.get_world_size()} ranks")
+        self.model = int(shape.get("model", 1))
+        if self.n * self.model != dist.get_world_size():
+            raise ValueError(f"the mesh has {self.n} workers of "
+                             f"{self.model} ranks, the process group "
+                             f"{dist.get_world_size()} ranks")
         coord = mesh.get_coordinate()
         waxes = worker_axes(mesh)
         names = axis_names(mesh)
         self.worker = int(np.ravel_multi_index(
             tuple(coord[names.index(a)] for a in waxes),
             tuple(shape[a] for a in waxes)))
-        if self.worker != dist.get_rank():
+        self.m = int(coord[names.index("model")]) if "model" in names \
+            else 0
+        if self.worker * self.model + self.m != dist.get_rank():
             raise ValueError(f"rank {dist.get_rank()} sits at worker "
-                             f"{self.worker}: the mesh must enumerate ranks "
-                             f"row-major")
+                             f"{self.worker}, model coordinate {self.m}: "
+                             f"the mesh must enumerate ranks row-major")
+        self.worker_pg = self.model_pg = self.data_pg = self.pod_pg = None
+        if self.model > 1:
+            self.model_pg = mesh.get_group("model")
+            self.data_pg = mesh.get_group("data")
+            if "pod" in names and shape["pod"] > 1:
+                self.pod_pg = mesh.get_group("pod")
+                # (pod, data) at one model coordinate spans two mesh axes:
+                # every rank builds every coordinate's group, in order
+                for m in range(self.model):
+                    pg = dist.new_group([j * self.model + m
+                                         for j in range(self.n)])
+                    if m == self.m:
+                        self.worker_pg = pg
+            else:
+                self.worker_pg = self.data_pg
         self.device = torch.device(device)
         self.backend = str(dist.get_backend())
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         self.sent_bytes = 0
         self.staged_bytes = 0
         self._pinned: dict = {}
+
+    def rank_of(self, worker: int) -> int:
+        """The global rank of ``worker`` at this rank's model
+        coordinate."""
+        return worker * self.model + self.m
 
     # -- sums --------------------------------------------------------------
 
@@ -102,7 +136,7 @@ class WorkerGroup:
         if len(tensors) == 1 and tensors[0].dtype == torch.float32 \
                 and tensors[0].is_contiguous() \
                 and tensors[0].numel() <= BUCKET_ELEMS:
-            dist.all_reduce(tensors[0], op=op)
+            dist.all_reduce(tensors[0], op=op, group=self.worker_pg)
             return
         size = min(BUCKET_ELEMS, sum(t.numel() for t in tensors))
         bucket = torch.empty((size,), dtype=torch.float32,
@@ -112,7 +146,7 @@ class WorkerGroup:
 
         def flush():
             nonlocal used
-            dist.all_reduce(bucket[:used], op=op)
+            dist.all_reduce(bucket[:used], op=op, group=self.worker_pg)
             for flat, a, b, off in pending:
                 flat[a:b].copy_(bucket[off:off + b - a])
             pending.clear()
@@ -135,21 +169,21 @@ class WorkerGroup:
     def sum_scalar(self, x: torch.Tensor) -> torch.Tensor:
         """A 0-d tensor summed across the workers (a fresh fp32 tensor)."""
         out = x.detach().float().reshape(1).clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.worker_pg)
         return out[0]
 
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum a tensor across the workers in place, in its own dtype (an
         fp64 accumulator keeps its precision); returns it."""
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=self.worker_pg)
         return t
 
     def barrier(self) -> None:
-        """Wait for every worker (a one-element all-reduce)."""
+        """Wait for every rank (a one-element all-reduce)."""
         dist.all_reduce(torch.zeros((1,), device=self._coll_device()))
 
     def max_float(self, x: float) -> float:
-        """The largest of every worker's ``x`` (a host number)."""
+        """The largest of every rank's ``x`` (a host number)."""
         t = torch.tensor([float(x)], dtype=torch.float64,
                          device=self._coll_device())
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
@@ -173,11 +207,15 @@ class WorkerGroup:
         ``(rank, tag)`` of ``sends`` and receive a (D,) row of its dtype
         from each ``(rank, tag, out)`` of ``recvs`` into ``out``, all in one
         ``batch_isend_irecv`` (a send pairs with the receive of the same
-        tag).  With gloo on the card the rows go through pinned host
-        buffers of the row's dtype, ``STAGE_BYTES`` at a time."""
+        tag).  Peers are workers, each at this rank's model coordinate
+        (:meth:`rank_of`).  With gloo on the card the rows go through
+        pinned host buffers of the row's dtype, ``STAGE_BYTES`` at a
+        time."""
         d, size = row.numel(), row.element_size()
         if not sends and not recvs:
             return
+        sends = [(self.rank_of(j), tag) for j, tag in sends]
+        recvs = [(self.rank_of(j), tag, out) for j, tag, out in recvs]
         if not self.staged:
             ops = [dist.P2POp(dist.isend, row, peer, tag=tag)
                    for peer, tag in sends]
@@ -228,12 +266,13 @@ class WorkerGroup:
         if self.staged:
             host = row.detach().cpu()
             got = [torch.empty_like(host) for _ in range(self.n)]
-            dist.all_gather(got, host)
+            dist.all_gather(got, host, group=self.worker_pg)
             for i, g in enumerate(got):
                 out[i].copy_(g)
             self.staged_bytes += 4 * row.numel() * (1 + self.n)
         else:
-            dist.all_gather(list(out.unbind(0)), row.contiguous())
+            dist.all_gather(list(out.unbind(0)), row.contiguous(),
+                            group=self.worker_pg)
         self.sent_bytes += 4 * row.numel() * (self.n - 1)
         return out
 

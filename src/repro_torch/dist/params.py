@@ -19,10 +19,15 @@ A leading stacked-layer dim (anything under ``blocks``) is never sharded,
 and an axis the mesh lacks, or whose extent does not divide the dim (or
 exceeds it), is dropped (the whisper 51,865-vocabulary rule).  The port's
 dotted names split where JAX's ``/`` paths do.  :func:`placements` turns a
-spec into DTensor ``Shard`` / ``Replicate`` placements; the live sessions
-keep each worker's parameters whole on its process (ROADMAP.md, module
-item 4a), and the dry-run reads these specs for its per-rank bytes and
-collectives.
+spec into DTensor ``Shard`` / ``Replicate`` placements, and the dry-run
+reads these specs for its per-rank bytes and collectives.
+
+A live session with a model axis holds plain tensors, each rank its own
+block of every leaf (:func:`shard_tree`, or :func:`init_shards`, which
+draws one whole leaf at a time in ``init_params``' order and keeps its
+block, so the blocks equal slices of the one-process initialisation bit
+for bit); :func:`gather_tree` puts the blocks of every mesh coordinate
+back together.
 """
 from __future__ import annotations
 
@@ -132,3 +137,76 @@ def tree_shardings(tree, mesh, fsdp_axis: Optional[str] = "data") -> dict:
     :func:`tree_specs`."""
     return {name: placements(spec, mesh)
             for name, spec in tree_specs(tree, mesh, fsdp_axis).items()}
+
+
+def block_slices(spec: tuple, shape, mesh, coord) -> tuple:
+    """The ``(start, size)`` of each dimension of the block that the rank
+    at mesh coordinate ``coord`` (one index per axis, in the mesh's axis
+    order) holds of a leaf of ``shape`` laid out by ``spec``."""
+    names, extents = axis_names(mesh), mesh_shape(mesh)
+    out = []
+    for dim, axis in zip(shape, spec + (None,) * (len(shape) - len(spec))):
+        if axis is None:
+            out.append((0, int(dim)))
+            continue
+        size = int(dim) // extents[axis]
+        out.append((coord[names.index(axis)] * size, size))
+    return tuple(out)
+
+
+def shard_leaf(leaf: torch.Tensor, spec: tuple, mesh,
+               coord) -> torch.Tensor:
+    """This coordinate's block of one leaf: a copy of its own (the whole
+    leaf may then be freed)."""
+    block = leaf.detach()
+    for d, (start, size) in enumerate(block_slices(spec, leaf.shape, mesh,
+                                                   coord)):
+        if size != leaf.shape[d]:
+            block = block.narrow(d, start, size)
+    return block.clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree: dict, mesh, coord,
+               fsdp_axis: Optional[str] = "data") -> dict:
+    """The blocks of every leaf of a flat parameter (or dual) dict that
+    the rank at ``coord`` holds under :func:`param_spec`."""
+    return {name: shard_leaf(leaf, param_spec(name, leaf.shape, mesh,
+                                              fsdp_axis), mesh, coord)
+            for name, leaf in tree.items()}
+
+
+def gather_tree(shards: dict, mesh, shapes: dict,
+                fsdp_axis: Optional[str] = "data") -> dict:
+    """The whole tree from ``{coordinate: block dict}`` over every mesh
+    coordinate; ``shapes`` gives each leaf's whole shape (the layout's
+    divisibility rule reads it).  Each block lands in its place, so the
+    blocks of an axis a leaf is replicated over must be equal."""
+    out = {}
+    for name, shape in shapes.items():
+        spec = param_spec(name, shape, mesh, fsdp_axis)
+        leaf = None
+        for coord, tree in shards.items():
+            block = tree[name]
+            if leaf is None:
+                leaf = block.new_empty(tuple(int(s) for s in shape))
+            index = tuple(slice(a, a + n) for a, n in
+                          block_slices(spec, shape, mesh, coord))
+            leaf[index] = block
+        out[name] = leaf
+    return out
+
+
+def init_shards(cfg, generator: torch.Generator, mesh, coord,
+                fsdp_axis: Optional[str] = "data") -> dict:
+    """This coordinate's blocks of ``init_params(cfg, generator)``: each
+    leaf is drawn whole, in ``init_params``' order (so the generator
+    stream is the same), and only its block is kept, so at most one whole
+    leaf is live.  The dense family (``models.param_plan``)."""
+    from ..models.model import ordered, param_plan
+    out = {}
+    for name, make in param_plan(cfg):
+        leaf = make(generator)
+        out[name] = shard_leaf(leaf, param_spec(name, leaf.shape, mesh,
+                                                fsdp_axis), mesh, coord)
+        del leaf
+    return ordered(out)

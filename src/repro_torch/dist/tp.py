@@ -1,0 +1,342 @@
+"""A worker spread over the ranks of a ``"model"`` axis: tensor
+parallelism inside it (Megatron's scheme) and, in the exact epoch, FSDP
+over ``"data"``.
+
+JAX lays each leaf out by :func:`repro_torch.dist.params.param_spec` and
+lets GSPMD place the collectives.  Here every rank holds a plain tensor,
+its block of each leaf under the same spec, and the model code asks
+:class:`TensorParallel` for the collectives at the points Megatron puts
+them, each an ``autograd.Function`` with the matching backward:
+
+  * :meth:`TensorParallel.copy` — identity forward, all-reduce over
+    "model" backward: the input of a column-parallel product (``wq``,
+    ``wk``, ``wv``, ``w_gate``, ``w_up``, the vocab-parallel ``unembed``),
+    and the replicated leaves that each rank reads only in part (the QKV
+    biases, sliced to its heads; the qk-norm scales);
+  * :meth:`TensorParallel.reduce` — all-reduce over "model" forward,
+    identity backward: the output of a row-parallel product (``wo``,
+    ``w_down``) and the vocab-parallel embedding lookup;
+  * :meth:`TensorParallel.gather` — all-gather over "data" forward,
+    reduce-scatter backward: a leaf's d_model side, inside the
+    checkpointed block (``models.model._run``), so the recompute gathers
+    again and one layer's gathered weights are live at a time;
+  * :meth:`TensorParallel.token_nll` — the vocab-parallel cross-entropy:
+    the row max and the sum of exponentials across "model", the gold
+    logit from the rank that owns it, and a backward of ``softmax -
+    onehot`` on this rank's columns.
+
+Each rank holds ``H / M`` query heads and ``KV / M`` KV heads: JAX's GQA
+order (query head h reads KV head ``h // G``) keeps a rank's query heads
+on its own KV heads.  A leaf whose wide side the mesh does not divide
+(``param_spec`` drops the axis) runs whole on every model rank, with no
+collective: the embedding and the logits without a vocab split, the MLP
+without an ffn split.  The norms stay replicated; their gradient is
+already equal on every model rank, since the column-parallel input's
+backward all-reduces.
+
+The collectives run on CUDA tensors under NCCL and gloo alike (gloo
+copies through the host itself); a sum over "model" of a bf16 tensor is
+taken in fp32 and rounded once.  ``gathered_bytes`` and
+``scattered_bytes`` count what this rank received from the other ranks
+of "data" in the all-gathers and sent to them in the reduce-scatters.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch.autograd import Function
+
+from ..kernels import ops as kops
+from ..launch.mesh import mesh_shape
+from .params import param_spec
+
+# leaves that each rank reads in part: the gradient of its part must be
+# summed over "model" so the replicated leaf stays equal on every rank
+PARTIAL_REPLICATED = ("bq", "bk", "bv", "q_norm", "k_norm")
+
+
+class _Copy(Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.sum_model(g), None
+
+
+class _Reduce(Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.sum_model(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp.all_gather_data(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.reduce_scatter_data(g, ctx.dim), None, None
+
+
+class _VocabNLL(Function):
+    """Per-token ``logsumexp - gold`` over logits split by columns across
+    "model": (B, S, V/M) fp32 on each rank -> (B, S) equal on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0: int, valid: int, tp):
+        x = logits
+        if valid < x.shape[-1]:          # the padded vocabulary's columns
+            col = torch.arange(x.shape[-1], device=x.device)
+            x = x.masked_fill(col >= valid, float("-inf"))
+        m = x.amax(dim=-1)
+        tp.all_reduce_model(m, dist.ReduceOp.MAX)
+        s = torch.exp(x - m[..., None]).sum(dim=-1)
+        tp.all_reduce_model(s)
+        local = labels.long() - v0
+        own = (local >= 0) & (local < valid)
+        local = local.clamp(0, x.shape[-1] - 1)
+        gold = torch.where(own, torch.gather(x, -1, local[..., None])[..., 0],
+                           0.0)
+        tp.all_reduce_model(gold)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(x, lse, local, own)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, local, own = ctx.saved_tensors
+        p = torch.exp(x - lse[..., None])            # softmax - onehot
+        idx = local[..., None]
+        p.scatter_(-1, idx, p.gather(-1, idx) - own[..., None].to(p.dtype))
+        return p.mul_(g[..., None]), None, None, None, None
+
+
+class TensorParallel:
+    """This rank's place in a worker of M model ranks (``group``, a
+    :class:`~repro_torch.dist.group.WorkerGroup` with ``model`` > 1): the
+    spec of every leaf (``shapes``: each leaf's whole shape, by dotted
+    name; ``fsdp_axis`` "data" for the exact epoch's FSDP x TP, None for
+    the gossip epoch's TP only) and the collectives the model runs."""
+
+    def __init__(self, group, shapes: dict, fsdp_axis: Optional[str]):
+        self.group = group
+        self.fsdp_axis = fsdp_axis
+        mesh = group.mesh
+        self.shapes = {k: tuple(int(s) for s in v) for k, v in shapes.items()}
+        self.specs = {k: param_spec(k, v, mesh, fsdp_axis)
+                      for k, v in self.shapes.items()}
+        extents = mesh_shape(mesh)
+        self.M, self.m = group.model, group.m
+        self.D = extents["data"] if fsdp_axis == "data" else 1
+        self.d = 0
+        if self.D > 1:
+            self.d = dist.get_rank(group.data_pg)
+        self.gathered_bytes = 0
+        self.scattered_bytes = 0
+
+    # -- the layout --------------------------------------------------------
+
+    def split(self, name: str) -> bool:
+        """Whether leaf ``name``'s wide side lies on "model"."""
+        return "model" in self.specs[name]
+
+    def data_dim(self, name: str) -> Optional[int]:
+        """The dim of leaf ``name`` that lies on "data" (None if none)."""
+        spec = self.specs[name]
+        return spec.index("data") if "data" in spec else None
+
+    def vocab_rows(self) -> tuple:
+        """This rank's rows ``[v0, v1)`` of the (padded) vocabulary."""
+        v = self.shapes["embed"][0]
+        if not self.split("embed"):
+            return 0, v
+        per = v // self.M
+        return self.m * per, (self.m + 1) * per
+
+    # -- collectives -------------------------------------------------------
+
+    def all_reduce_model(self, x: torch.Tensor,
+                         op=dist.ReduceOp.SUM) -> None:
+        dist.all_reduce(x, op=op, group=self.group.model_pg)
+
+    def sum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """A fresh tensor: ``x`` summed over "model" (in fp32, rounded
+        once to ``x``'s dtype)."""
+        y = x.to(torch.float32, copy=True)
+        self.all_reduce_model(y)
+        return y.to(x.dtype)
+
+    def all_gather_data(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        parts = [torch.empty_like(x) for _ in range(self.D)]
+        dist.all_gather(parts, x.contiguous(), group=self.group.data_pg)
+        self.gathered_bytes += x.numel() * x.element_size() * (self.D - 1)
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter_data(self, g: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of ``g`` summed over "data" (in
+        fp32, rounded once to ``g``'s dtype)."""
+        parts = [c.to(torch.float32).contiguous()
+                 for c in g.chunk(self.D, dim=dim)]
+        out = torch.empty_like(parts[self.d])
+        dist.reduce_scatter(out, parts, group=self.group.data_pg)
+        self.scattered_bytes += out.numel() * 4 * (self.D - 1)
+        return out.to(g.dtype)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return _Copy.apply(x, self)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return _Reduce.apply(x, self)
+
+    def gather(self, name: str, x: torch.Tensor,
+               layered: bool = False) -> torch.Tensor:
+        """Leaf ``name``'s block gathered over "data" (``layered``: one
+        layer of a stacked leaf, its leading dim gone)."""
+        dim = self.data_dim(name)
+        if dim is None or self.D == 1:
+            return x
+        return _Gather.apply(x, self, dim - int(layered))
+
+    def block(self, p: dict, prefix: str = "blocks.") -> dict:
+        """One layer's nested block leaves, each gathered over "data"."""
+        return {k: self.block(v, f"{prefix}{k}.") if isinstance(v, dict)
+                else self.gather(prefix + k, v, layered=True)
+                for k, v in p.items()}
+
+    # -- the model's parallel regions --------------------------------------
+
+    def attention(self, p: dict, x: torch.Tensor,
+                  prefix: str = "blocks.attn.") -> tuple:
+        """(the attention leaves as this rank's heads read them, the
+        column-parallel input): the QKV biases sliced to its heads and the
+        qk-norm scales, each through :meth:`copy`."""
+        if not self.split(prefix + "wq"):
+            return p, x
+        p = dict(p)
+        for k in PARTIAL_REPLICATED:
+            if k not in p:
+                continue
+            leaf = self.copy(p[k])
+            if k.startswith("b"):            # this rank's heads' columns
+                per = leaf.shape[-1] // self.M
+                leaf = leaf.narrow(-1, self.m * per, per)
+            p[k] = leaf
+        return p, self.copy(x)
+
+    def attention_out(self, out: torch.Tensor,
+                      prefix: str = "blocks.attn.") -> torch.Tensor:
+        return self.reduce(out) if self.split(prefix + "wq") else out
+
+    def mlp(self, fn, x: torch.Tensor,
+            prefix: str = "blocks.mlp.") -> torch.Tensor:
+        """``fn(x)`` column- then row-parallel over "model"."""
+        if not self.split(prefix + "w_gate"):
+            return fn(x)
+        return self.reduce(fn(self.copy(x)))
+
+    def embed(self, weight: torch.Tensor,
+              tokens: torch.Tensor) -> torch.Tensor:
+        """The vocab-parallel lookup: ids outside this rank's rows are
+        masked, then the rows are summed over "model"."""
+        weight = self.gather("embed", weight)
+        if not self.split("embed"):
+            return torch.nn.functional.embedding(tokens, weight)
+        v0, v1 = self.vocab_rows()
+        own = (tokens >= v0) & (tokens < v1)
+        rows = torch.nn.functional.embedding(
+            torch.where(own, tokens - v0, 0), weight)
+        return self.reduce(rows * own[..., None].to(rows.dtype))
+
+    def token_nll(self, hidden: torch.Tensor, unembed: torch.Tensor,
+                  labels: torch.Tensor, vocab_size: int):
+        """(B, S) ``logsumexp - gold`` of the logits ``hidden @ unembed``
+        over the first ``vocab_size`` columns, or None when the vocabulary
+        is not split (the caller then takes the whole logits)."""
+        if not self.split("unembed"):
+            return None
+        v0, v1 = self.vocab_rows()
+        logits = (self.copy(hidden) @ self.gather("unembed",
+                                                  unembed)).float()
+        valid = max(0, min(v1, vocab_size) - v0)
+        return _VocabNLL.apply(logits, labels, v0, valid, self)
+
+    # -- what the steps need -----------------------------------------------
+
+    def sum_grads(self, grads: dict) -> None:
+        """Finish the eq.-6 sum over the workers in place: a leaf on
+        "data" is already summed over it by the reduce-scatter, and over
+        "pod" here; any other leaf over every worker."""
+        rest = []
+        for name, g in grads.items():
+            if self.data_dim(name) is None or self.D == 1:
+                rest.append(g)
+            elif self.group.pod_pg is not None:
+                y = g.to(torch.float32, copy=True)
+                dist.all_reduce(y, group=self.group.pod_pg)
+                g.copy_(y)
+        self.group.all_reduce_(rest)
+
+    def prox(self, name: str, z: torch.Tensor, w0: torch.Tensor,
+             beta: float, radius: Optional[float] = None) -> torch.Tensor:
+        """The eq.-7 prox (``ops.dual_update``) of this rank's block of leaf
+        ``name``, projected onto ``||w - w0|| <= radius`` by the whole
+        leaf's norm: the block's squared norm summed over the ranks that
+        hold the leaf's other blocks."""
+        spec = self.specs[name]
+        on_data = "data" in spec and self.D > 1
+        if radius is None or not (on_data or "model" in spec):
+            return kops.dual_update(z, w0, beta, radius)
+        w = kops.dual_update(z, w0, beta)
+        w0f = w0.float()
+        delta = w - w0f
+        flat = delta.reshape(-1)
+        sq = torch.dot(flat, flat).reshape(1)
+        if on_data:
+            dist.all_reduce(sq, group=self.group.data_pg)
+        if "model" in spec:
+            self.all_reduce_model(sq)
+        nrm = torch.sqrt(sq[0])
+        return w0f + delta * torch.clamp(radius / torch.clamp(nrm, min=1e-30),
+                                         max=1.0)
+
+    def whole(self, tree: dict) -> dict:
+        """Every leaf of a block dict gathered whole (over "data" and
+        "model"), on every rank: the session's primal for comparisons,
+        not a checkpoint."""
+        out = {}
+        for name, x in tree.items():
+            spec = self.specs[name]
+            x = x.detach()
+            for axis, pg, k in (("data", self.group.data_pg, self.D),
+                                ("model", self.group.model_pg, self.M)):
+                if axis in spec and k > 1:
+                    parts = [torch.empty_like(x) for _ in range(k)]
+                    dist.all_gather(parts, x.contiguous(), group=pg)
+                    x = torch.cat(parts, dim=spec.index(axis))
+            out[name] = x
+        return out
+
+
+def check_supported(cfg, model: int) -> None:
+    """Refuse what a model axis of ``model`` ranks cannot run yet."""
+    if cfg.family != "dense" or cfg.is_moe:
+        raise ValueError(f"the {cfg.family!r} family at model > 1 is not "
+                         f"ported yet (ROADMAP.md, module item 4a); the "
+                         f"dense family runs")
+    if cfg.num_heads % model or cfg.num_kv_heads % model:
+        raise ValueError(f"model={model} must divide the {cfg.num_heads} "
+                         f"query and {cfg.num_kv_heads} KV heads (a KV "
+                         f"head split across ranks is not ported; "
+                         f"ROADMAP.md, module item 4a)")

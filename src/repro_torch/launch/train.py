@@ -11,19 +11,23 @@ paper's simulated clock), the consensus strategy and the optimizer
 arch's LM token stream, built on a side CUDA stream ``--prefetch``
 batches ahead.  Per-epoch metrics go to
 ``--metrics`` or ``artifacts/train_<arch>_<mode>.jsonl``.  ``--pod`` and
-``--data`` are JAX's mesh extents (``pod * data`` workers; ``--model``
-must be 1).  In one process the workers share the device; under
-``torchrun`` (``WORLD_SIZE`` > 1 in the environment) the CLI initialises
-the process group from the environment with ``--dist-backend`` (default
-NCCL on the card, gloo on the CPU; printed) and each rank runs the worker
-at its (pod, data) coordinate: the train CLI's one process per worker.
+``--data`` are JAX's mesh extents (``pod * data`` workers), and
+``--model`` the ranks each worker is spread over.  In one process the
+workers share the device (and ``--model`` changes nothing); under
+``torchrun`` (``WORLD_SIZE`` = pod * data * model in the environment) the
+CLI initialises the process group from the environment with
+``--dist-backend`` (default NCCL on the card, gloo on the CPU; printed)
+and each rank runs the worker at its (pod, data) coordinate: one process
+per worker, or with ``--model M`` > 1 one worker over M ranks (FSDP x TP
+for exact consensus, TP for fp32 gossip; the dense family).
 NCCL takes one card per rank; gloo may put several ranks on one card,
 keeps the compute there and sends the gossip rows through pinned host
 buffers (the bytes are printed per rank at the end).  Every driver and
 option runs over the ranks (quantized gossip, ``--pipeline``, ``--async``,
 ``--redundancy``, ``--controller``, ``--churn``, ``--ckpt-dir`` and
-``--restore``); ``--model`` > 1 is refused.  Only rank 0 prints the steps
-and writes the metrics and the checkpoint.  ``--pipeline`` runs
+``--restore``) at ``--model 1``; at ``--model`` > 1 they are refused
+(ROADMAP.md, module item 4a).  Only rank 0 prints the steps and writes
+the metrics and the checkpoint.  ``--pipeline`` runs
 staleness-1 pipelined epochs, ``--async --staleness D`` the AMB-DG
 queue of D payloads.  The run flushes in-flight consensus at its end;
 ``--ckpt-dir`` then saves the session, and ``--restore DIR`` resumes a
@@ -52,7 +56,12 @@ controller and a checkpoint:
       --nproc-per-node 4 -m repro_torch.launch.train --smoke --data 4 \\
       --consensus gossip_q4 --async --staleness 2 --redundancy 2 \\
       --controller --sim-clock --ckpt-dir build/ckpt --dist-backend gloo
-(add ``--device cpu`` to run the ranks on the CPU).
+(add ``--device cpu`` to run the ranks on the CPU).  Two workers, each
+spread over two ranks:
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --smoke --data 2 \\
+      --model 2 --consensus gossip --sim-clock --dist-backend gloo \\
+      --device cpu
 """
 from __future__ import annotations
 
@@ -151,7 +160,7 @@ def _run(args, device):
         if args.restore:
             session = AMBSession.restore(args.restore, device=device,
                                          metrics_path=args.metrics)
-            if session.metrics is None and session.rank == 0:
+            if session.metrics is None and session.lead:
                 # the arch-derived default
                 session.metrics = MetricsLogger(
                     f"artifacts/train_{session.train.arch}_"
@@ -172,7 +181,7 @@ def _run(args, device):
     last = session.steps_done + args.steps - 1
 
     def on_step(step, m):
-        if session.rank != 0:
+        if not session.lead:
             return
         if "action" in m:
             print(f"step {step:4d} controller: {m['action']['reason']}",
@@ -193,8 +202,13 @@ def _run(args, device):
                 print(f"checkpoint saved to {args.ckpt_dir}", flush=True)
         if session.group is not None:
             g = session.group
-            print(f"rank {g.worker}: sent {g.sent_bytes} bytes, staged "
-                  f"{g.staged_bytes} bytes ({g.backend})", flush=True)
+            line = (f"rank {dist.get_rank()}: sent {g.sent_bytes} bytes, "
+                    f"staged {g.staged_bytes} bytes ({g.backend})")
+            if session.tp is not None:
+                line += (f"; worker {g.worker} model {g.m}: gathered "
+                         f"{session.tp.gathered_bytes} bytes, "
+                         f"reduce-scattered {session.tp.scattered_bytes}")
+            print(line, flush=True)
     finally:
         session.close()
     return None if m is None else m["loss"]

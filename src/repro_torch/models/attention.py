@@ -46,29 +46,42 @@ NEG_INF = -1e30
 PREFILL_ROWS = 65536
 
 
+def attention_plan(cfg: ArchConfig, layers: int, *,
+                   cross: bool = False) -> list:
+    """``(name, make(generator))`` of the stacked (layers, ...) attention
+    leaves in draw order, JAX names and layout; a cross-attention
+    (``cross``) never takes the QKV bias."""
+    d, hd = cfg.d_model, cfg.hd
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    dt = cfg.torch_dtype
+
+    def linear(shape):
+        return lambda g: init_linear(shape, dt, g)
+
+    def const(fill, shape, dtype):
+        return lambda g: torch.full(shape, fill, dtype=dtype,
+                                    device=g.device)
+
+    plan = [("wq", linear((layers, d, h * hd))),
+            ("wk", linear((layers, d, kv * hd))),
+            ("wv", linear((layers, d, kv * hd))),
+            ("wo", linear((layers, h * hd, d)))]
+    if cfg.qkv_bias and not cross:
+        plan += [("bq", const(0.0, (layers, h * hd), dt)),
+                 ("bk", const(0.0, (layers, kv * hd), dt)),
+                 ("bv", const(0.0, (layers, kv * hd), dt))]
+    if cfg.qk_norm:
+        plan += [("q_norm", const(1.0, (layers, hd), torch.float32)),
+                 ("k_norm", const(1.0, (layers, hd), torch.float32))]
+    return plan
+
+
 def attention_params(cfg: ArchConfig, generator: torch.Generator,
                      layers: int, *, cross: bool = False) -> dict:
     """Stacked (layers, ...) attention leaves, JAX names and layout; a
     cross-attention (``cross``) never takes the QKV bias."""
-    d, hd = cfg.d_model, cfg.hd
-    h, kv = cfg.num_heads, cfg.num_kv_heads
-    dt, dev = cfg.torch_dtype, generator.device
-    p = {
-        "wq": init_linear((layers, d, h * hd), dt, generator),
-        "wk": init_linear((layers, d, kv * hd), dt, generator),
-        "wv": init_linear((layers, d, kv * hd), dt, generator),
-        "wo": init_linear((layers, h * hd, d), dt, generator),
-    }
-    if cfg.qkv_bias and not cross:
-        p["bq"] = torch.zeros((layers, h * hd), dtype=dt, device=dev)
-        p["bk"] = torch.zeros((layers, kv * hd), dtype=dt, device=dev)
-        p["bv"] = torch.zeros((layers, kv * hd), dtype=dt, device=dev)
-    if cfg.qk_norm:
-        p["q_norm"] = torch.ones((layers, hd), dtype=torch.float32,
-                                 device=dev)
-        p["k_norm"] = torch.ones((layers, hd), dtype=torch.float32,
-                                 device=dev)
-    return p
+    return {k: make(generator)
+            for k, make in attention_plan(cfg, layers, cross=cross)}
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -76,17 +89,18 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
     """Returns q (B,S,KV,G,hd), k, v (B,Skv,KV,hd); k and v project
     ``kv_input`` (cross-attention) when it is given, else x."""
     b, s, _ = x.shape
-    kv, hd = cfg.num_kv_heads, cfg.hd
-    g = cfg.num_heads // kv
+    hd = cfg.hd
+    g = cfg.num_heads // cfg.num_kv_heads
     xkv = x if kv_input is None else kv_input
     skv = xkv.shape[1]
     q, k, v = x @ p["wq"], xkv @ p["wk"], xkv @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q, k = q.reshape(b, s, kv, g, hd), k.reshape(b, skv, kv, hd)
+    # -1: the KV heads these columns hold (all, or a model rank's share)
+    q, k = q.reshape(b, s, -1, g, hd), k.reshape(b, skv, -1, hd)
     if "q_norm" in p:                          # per head, before rope
         q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
-    return q, k, v.reshape(b, skv, kv, hd)
+    return q, k, v.reshape(b, skv, -1, hd)
 
 
 def qkv_rope(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -159,12 +173,16 @@ def attend_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ArchConfig, *, causal: bool = True,
                  window: Optional[int] = None,
                  kv_input: Optional[torch.Tensor] = None,
-                 rope: bool = True) -> torch.Tensor:
+                 rope: bool = True, tp=None) -> torch.Tensor:
     """Full-sequence attention (training; whisper's encoder and
     cross-attention too): rotary positions unless ``rope`` is off (the
     keys of ``kv_input`` at 0..Skv-1), masked causally unless ``causal``
-    is off and to ``window`` (default ``cfg.sliding_window``)."""
+    is off and to ``window`` (default ``cfg.sliding_window``).  With
+    ``tp`` this rank's heads, column-parallel ``wq``/``wk``/``wv`` and
+    row-parallel ``wo`` (:class:`repro_torch.dist.tp.TensorParallel`)."""
     b, s, _ = x.shape
+    if tp is not None:
+        p, x = tp.attention(p, x)
     q, k, v = _project_qkv(p, x, cfg, kv_input)
     if rope:
         kv_pos = positions if kv_input is None else torch.arange(
@@ -173,8 +191,9 @@ def attend_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
                        cfg.rope_theta).reshape(q.shape)
         k = apply_rope(k, kv_pos, cfg.rope_theta)
     window = cfg.sliding_window if window is None else window
-    return masked_attention(q, k, v, window, causal=causal).reshape(
+    out = masked_attention(q, k, v, window, causal=causal).reshape(
         b, s, -1) @ p["wo"]
+    return out if tp is None else tp.attention_out(out)
 
 
 # ---------------------------------------------------------------------------

@@ -123,24 +123,54 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     return ordered(params)
 
 
+def param_plan(cfg: ArchConfig) -> list:
+    """The dense family's leaves in :func:`init_params`' draw order, each
+    as ``(name, make(generator))``: making them one at a time draws what
+    :func:`init_params` draws, so a caller can keep a slice of each leaf
+    and drop the rest before the next is made (the sharded sessions)."""
+    if cfg.family != "dense" or cfg.is_moe:
+        raise ValueError(f"param_plan covers the dense family, got "
+                         f"{cfg.family!r}")
+    d, dt, v = cfg.d_model, cfg.torch_dtype, cfg.padded_vocab
+    return [("embed", lambda g: init_linear((v, d), dt, g, scale=1.0)),
+            ("unembed", lambda g: init_linear((d, v), dt, g)),
+            ("final_norm", lambda g: torch.ones((d,), dtype=torch.float32,
+                                                device=g.device))] + [
+        (BLOCKS + k, make) for k, make in _dense_plan(cfg, cfg.num_layers)]
+
+
+def _dense_plan(cfg: ArchConfig, layers: int) -> list:
+    """``(key below the block, make(generator))`` of a dense (not MoE)
+    block's leaves, stacked over ``layers``, in draw order."""
+    d, ff, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
+
+    def ones(g):
+        return torch.ones((layers, d), dtype=torch.float32, device=g.device)
+
+    def linear(shape):
+        return lambda g: init_linear(shape, dt, g)
+
+    return ([("ln1", ones), ("ln2", ones),
+             ("mlp.w_gate", linear((layers, d, ff))),
+             ("mlp.w_up", linear((layers, d, ff))),
+             ("mlp.w_down", linear((layers, ff, d)))]
+            + [(f"attn.{k}", make)
+               for k, make in attn.attention_plan(cfg, layers)])
+
+
 def _dense_params(cfg: ArchConfig, generator: torch.Generator,
                   layers: int) -> dict:
     """A dense (or MoE) block's leaves, stacked over ``layers``, keyed
     below the block (``"attn.wq"``)."""
-    d, ff, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
+    if not cfg.is_moe:
+        return {k: make(generator) for k, make in _dense_plan(cfg, layers)}
+    d = cfg.d_model
     p = {"ln1": torch.ones((layers, d), dtype=torch.float32,
                            device=generator.device),
          "ln2": torch.ones((layers, d), dtype=torch.float32,
                            device=generator.device)}
-    if cfg.is_moe:
-        for k, v in moe.moe_params(cfg, generator, layers).items():
-            p[f"moe.{k}"] = v
-    else:
-        p.update({
-            "mlp.w_gate": init_linear((layers, d, ff), dt, generator),
-            "mlp.w_up": init_linear((layers, d, ff), dt, generator),
-            "mlp.w_down": init_linear((layers, ff, d), dt, generator),
-        })
+    for k, v in moe.moe_params(cfg, generator, layers).items():
+        p[f"moe.{k}"] = v
     for k, v in attn.attention_params(cfg, generator, layers).items():
         p[f"attn.{k}"] = v
     return p
@@ -181,12 +211,18 @@ def _nest(flat: dict) -> dict:
 
 
 def _dense_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
-                 p: dict, causal: bool = True, group=None) -> tuple:
+                 p: dict, causal: bool = True, group=None,
+                 tp=None) -> tuple:
     """(the block's output, its load-balance loss: None without experts;
-    ``group`` as in :func:`repro_torch.models.moe.moe_forward`)."""
+    ``group`` as in :func:`repro_torch.models.moe.moe_forward`).  With
+    ``tp`` (:class:`repro_torch.dist.tp.TensorParallel`) ``p`` holds this
+    rank's blocks, gathered over "data" here, and the attention and MLP
+    run tensor-parallel over "model"."""
+    if tp is not None:
+        p = tp.block(p)
     x = x + attn.attend_train(p["attn"], rms_norm(x, p["ln1"]), positions,
-                              cfg, causal=causal)
-    h, aux = _ffn(x, p, cfg, group)
+                              cfg, causal=causal, tp=tp)
+    h, aux = _ffn(x, p, cfg, group, tp)
     return x + h, aux
 
 
@@ -257,31 +293,38 @@ def _layers(params: dict, cfg: ArchConfig, prefix: str = BLOCKS):
         yield _nest({k: v[layer] for k, v in per_layer.items()})
 
 
-def _ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, group=None) -> tuple:
+def _ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, group=None,
+         tp=None) -> tuple:
     """The block's feed-forward of the residual x: (h, the fp32
     load-balance loss, None without experts)."""
     xn = rms_norm(x, p["ln2"])
     if cfg.is_moe:
         return moe.moe_forward(p["moe"], xn, cfg, group)
     mp = p["mlp"]
+    if tp is not None:
+        return tp.mlp(lambda h: swiglu(h, mp["w_gate"], mp["w_up"],
+                                       mp["w_down"]), xn), None
     return swiglu(xn, mp["w_gate"], mp["w_up"], mp["w_down"]), None
 
 
-def _embed(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+def _embed(params: dict, cfg: ArchConfig, batch: dict,
+           tp=None) -> torch.Tensor:
     """The decoder's input: ``batch["embeds"]`` in the model's dtype (a
     copy: the prefill updates it in place), else the tokens' rows of the
-    embedding."""
+    embedding (with ``tp``, the vocab-parallel lookup)."""
     if "embeds" in batch:
         return batch["embeds"].to(cfg.torch_dtype, copy=True)
+    if tp is not None:
+        return tp.embed(params["embed"], batch["tokens"])
     return F.embedding(batch["tokens"], params["embed"])
 
 
-def _run(fn, x: torch.Tensor, *args):
-    """``fn(x, *args)``, recomputed in the backward pass
+def _run(fn, x: torch.Tensor, *args, **kwargs):
+    """``fn(x, *args, **kwargs)``, recomputed in the backward pass
     (``torch.utils.checkpoint``) when a gradient is being taken."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, x, *args, use_reentrant=False)
-    return fn(x, *args)
+        return checkpoint(fn, x, *args, use_reentrant=False, **kwargs)
+    return fn(x, *args, **kwargs)
 
 
 def _encoder_forward(params: dict, cfg: ArchConfig,
@@ -295,16 +338,20 @@ def _encoder_forward(params: dict, cfg: ArchConfig,
     return rms_norm(x, params[ENCODER + "final_norm"])
 
 
-def forward_aux(params: dict, cfg: ArchConfig, batch, group=None) -> tuple:
+def forward_aux(params: dict, cfg: ArchConfig, batch, group=None,
+                tp=None) -> tuple:
     """Training forward: a batch (``{"tokens"}``, ``{"embeds"}``, and
     ``"enc_embeds"`` for audio; a bare (B, S) token tensor is taken as
     ``{"tokens": ...}``) -> (final-normed hidden (B, S, d), the fp32
     load-balance loss summed over the layers), as JAX's ``forward``.
     ``group``: this process's worker of a process group, whose MoE layers
-    take the routing counts across the workers (the exact step)."""
+    take the routing counts across the workers (the exact step).
+    ``tp``: this rank's place in a worker spread over a model axis
+    (:class:`repro_torch.dist.tp.TensorParallel`; the dense family), whose
+    blocks ``params`` holds."""
     if isinstance(batch, torch.Tensor):
         batch = {"tokens": batch}
-    x = _embed(params, cfg, batch)
+    x = _embed(params, cfg, batch, tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "audio":
@@ -315,9 +362,10 @@ def forward_aux(params: dict, cfg: ArchConfig, batch, group=None) -> tuple:
     block = {"ssm": _rwkv_block, "hybrid": _mamba_block}.get(cfg.family,
                                                              _dense_block)
     shared = _shared(params) if cfg.family == "hybrid" else None
-    extra = (True, group) if group is not None and cfg.is_moe else ()
+    extra = {"group": group} if group is not None and cfg.is_moe else (
+        {"tp": tp} if tp is not None else {})
     for layer, lp in enumerate(_layers(params, cfg)):
-        x, a = _run(block, x, positions, cfg, lp, *extra)
+        x, a = _run(block, x, positions, cfg, lp, **extra)
         if a is not None:
             aux = aux + a
         if _applies_shared(cfg, layer):
@@ -346,7 +394,7 @@ def logits_fn(params: dict, cfg: ArchConfig,
 
 def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
             seq_weights: Optional[torch.Tensor] = None,
-            denom: Optional[torch.Tensor] = None, group=None):
+            denom: Optional[torch.Tensor] = None, group=None, tp=None):
     """Next-token cross-entropy plus ``0.01 * aux`` (the MoE load-balance
     loss, 0 without experts); returns (total, {"loss", "aux", "ntok"}), as
     JAX's.
@@ -357,16 +405,25 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
     worker that holds only its own rows of the global batch passes the
     global ``denom`` (that maximum over every worker's rows), so its loss
     is its share of the global one; with ``group`` (an MoE model's
-    exact step over a process group) so is its ``aux``.
+    exact step over a process group) so is its ``aux``.  With ``tp`` the
+    logits stay split by columns over "model" (the vocab-parallel
+    cross-entropy), and every model rank of a worker returns the same
+    numbers.
     """
-    hidden, aux = forward_aux(params, cfg, batch, group)
-    logits = logits_fn(params, cfg, hidden).float()
+    hidden, aux = forward_aux(params, cfg, batch, group, tp)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     labels = labels.clamp(min=0)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    tok_nll = (logz - gold) * mask                          # (B, S)
+    nll = None if tp is None else tp.token_nll(
+        hidden, params["unembed"], labels, cfg.vocab_size)
+    if nll is None:
+        unembed = params["unembed"] if tp is None \
+            else tp.gather("unembed", params["unembed"])
+        logits = _vocab(cfg, hidden @ unembed).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = logz - gold
+    tok_nll = nll * mask                                    # (B, S)
     if seq_weights is not None:
         w = seq_weights[:, None].float()
         if denom is None:

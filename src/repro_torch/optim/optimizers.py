@@ -16,7 +16,7 @@ and order of operations.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -45,6 +45,10 @@ def _zeros_f32(params: dict) -> dict:
 class DualAveragingOpt(Optimizer):
     beta: BetaSchedule = BetaSchedule(k=100.0, mu=1.0, scale=100.0)
     radius: Optional[float] = None    # optional L2 ball around init, per leaf
+    # the eq.-7 prox of one leaf, prox(name, z, w0, beta, radius), where
+    # the leaves are a rank's blocks of leaves split across ranks (the
+    # trust region's norm is the whole leaf's); None: ops.dual_update
+    prox: Optional[Callable] = None
 
     def init(self, params: dict) -> dict:
         """z = 0 (fp32), w0 = fp32 copy of the initial parameters, t = 0."""
@@ -66,7 +70,10 @@ class DualAveragingOpt(Optimizer):
         for k, p in params.items():
             z = state["z"][k]
             z.add_(grads[k].float())
-            p.copy_(kops.dual_update(z, state["w0"][k], beta, self.radius))
+            w0 = state["w0"][k]
+            p.copy_(kops.dual_update(z, w0, beta, self.radius)
+                    if self.prox is None
+                    else self.prox(k, z, w0, beta, self.radius))
         state["t"] = t_new
         return state
 

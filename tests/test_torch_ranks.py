@@ -16,8 +16,9 @@ a loop on one device), also on one thread:
     ``EXACT_RTOL`` of the one-process session's (the gradient is a sum of
     four backward passes there, one backward over the batch here);
   * the train CLI (``main``) on the torus, its losses equal;
-  * what a group does not run yet (a model axis > 1, serving over a
-    mesh) raises, naming its ROADMAP item.
+  * what a group does not run yet (quantized gossip and the MoE family
+    at a model axis > 1, serving over a mesh) raises, naming its ROADMAP
+    item.
 
 Every spawn has a join deadline (``JOIN_S``), past which the ranks are
 killed and the test fails, and the process group a timeout
@@ -56,14 +57,15 @@ CLI_ONE = ["--smoke", "--data", "4", "--batch-per-worker", str(PER),
            "--graph", "torus", "--steps", str(EPOCHS), "--prefetch", "0"]
 
 
-def _session(case: dict, mesh=None, **consensus):
+def _session(case: dict, mesh=None, cfg=None, **consensus):
     from repro_torch import configs
     from repro_torch.api import (AMBSession, ClockSpec, ConsensusSpec,
                                  TrainSpec)
-    cfg = dataclasses.replace(configs.smoke_config("qwen2-1.5b"),
-                              dtype="float32")
+    cfg = cfg or dataclasses.replace(configs.smoke_config("qwen2-1.5b"),
+                                     dtype="float32")
     train = TrainSpec(smoke=True, pod=case["pod"], data=case["data"],
-                      batch_per_worker=PER, seq_len=SEQ)
+                      model=case.get("model", 1), batch_per_worker=PER,
+                      seq_len=SEQ)
     spec = ConsensusSpec(consensus=case["consensus"], graph=case["graph"],
                          **consensus)
     return AMBSession(train, ClockSpec(kind="simulated"), spec, cfg=cfg,
@@ -83,17 +85,23 @@ def _run(session) -> dict:
 
 
 def _refusals(world_mesh) -> dict:
-    """The message of each combination a group still refuses: a model
-    axis > 1 (module item 4a) and serving over a mesh (item 4c)."""
-    from repro_torch.api import TrainSpec
-    from repro_torch.dist.group import WorkerGroup
+    """The message of each combination a group still refuses: what a
+    model axis > 1 does not run yet (module item 4a; e.g. quantized gossip
+    and the MoE family on a (2, 2) mesh) and serving over a mesh (item
+    4c)."""
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve import ServeScheduler
+    from repro_torch import configs
+    moe = dataclasses.replace(configs.smoke_config("qwen3-moe-30b-a3b"),
+                              dtype="float32")
     tries = {
-        "model_spec": lambda: TrainSpec(smoke=True, data=2, model=2),
-        "model_mesh": lambda: WorkerGroup(
-            make_host_mesh(2, 2, device="cpu"), "cpu"),
+        "model_q8": lambda: _session(
+            dict(CASES["gossip_ring"], consensus="gossip_q8", data=2,
+                 model=2), make_host_mesh(2, 2, device="cpu")),
+        "model_moe": lambda: _session(
+            dict(CASES["exact_ring"], data=2, model=2),
+            make_host_mesh(2, 2, device="cpu"), cfg=moe),
         "serve_session": lambda: ServeScheduler(
             None, None, round_budget_s=1.0,
             session=_session(CASES["gossip_ring"], world_mesh)),
@@ -316,11 +324,13 @@ def test_train_cli_over_ranks_matches_the_one_process_cli(spawned, tmp_path):
 
 
 def test_group_refusals_name_their_roadmap_item(ranks):
-    """What a group still refuses names its item: a model axis > 1 is
-    module item 4a, serving over a mesh item 4c; every other driver and
-    option runs over ranks (``tests/test_torch_ranks_drivers.py``)."""
+    """What a group still refuses names its item: what a model axis > 1
+    does not run yet is module item 4a (quantized gossip, the MoE family;
+    the rest in ``tests/test_torch_tp.py``), serving over a mesh item 4c;
+    every other driver and option runs over ranks
+    (``tests/test_torch_ranks_drivers.py``)."""
     for got in ranks:
-        assert sorted(got["refusals"]) == ["model_mesh", "model_spec",
+        assert sorted(got["refusals"]) == ["model_moe", "model_q8",
                                            "serve_cli", "serve_session"]
         for what, msg in got["refusals"].items():
             assert msg is not None, what
