@@ -1163,6 +1163,19 @@ def release(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def stamps(label: str, rank: int = 0):
+    """``lap(what)``: on rank 0 (the parent has rank 0), a line saying
+    when step ``what`` of a phase ended, in seconds since this call, so
+    that a phase's time reads step by step."""
+    t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        if rank == 0:
+            print(f"  {label}: {what} at {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    return lap
+
+
 @contextlib.contextmanager
 def deterministic(torch):
     """Deterministic algorithms for a bit-for-bit comparison of two runs
@@ -3594,9 +3607,13 @@ def run_whisper_session(torch, rt) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_RANKS = 4                 # gloo ranks sharing the one card
-MESH_EXACT_LAYERS = 8          # depth cuts: the four ranks' peaks must sum
-MESH_GOSSIP_LAYERS = 4         # under MESH_PEAK_SUM_GIB (the two embedding
-MESH_PEAK_SUM_GIB = 70.0       # tables, 467 M parameters, dominate)
+# depth cuts: the four ranks' peaks must sum under MESH_PEAK_SUM_GIB (the
+# two embedding tables, 467 M parameters, dominate), and the command must
+# end in 1,200 s: with phase 16's quantized gossip an H100 call at 700 W
+# read 1,326.9 s with these at 8 and 4 layers (phase 14 252.9 s)
+MESH_EXACT_LAYERS = 4
+MESH_GOSSIP_LAYERS = 2
+MESH_PEAK_SUM_GIB = 70.0
 MESH_EPOCHS = 2
 MESH_TIMEOUT_S = {"nccl1": 300, "gloo4": 480, "cli": 240}
 MESH_PG_TIMEOUT_S = 300        # a collective waiting longer fails its rank
@@ -3671,16 +3688,17 @@ def check_gossip_combine_rank(torch, ops, ref, GossipConsensus, own_row,
 
 
 def mesh_session(rt, cfg, consensus: str, mesh, data: int = N_WORKERS,
-                 pod: int = 1, model: int = 1):
+                 pod: int = 1, model: int = 1,
+                 rounds: int = GOSSIP_ROUNDS):
     """A session of the mesh phases: TrainSpec's defaults, the simulated
-    clock, ring gossip at GOSSIP_ROUNDS, on the card; ``mesh`` None is
-    every worker in one process."""
+    clock, ring gossip at ``rounds`` (GOSSIP_ROUNDS), on the card;
+    ``mesh`` None is every worker in one process."""
     return rt.api.AMBSession(
         rt.api.TrainSpec(data=data, pod=pod, model=model,
                          batch_per_worker=PER_WORKER, seq_len=SEQ),
         rt.api.ClockSpec(kind="simulated"),
         rt.api.ConsensusSpec(consensus=consensus, graph="ring",
-                             gossip_rounds=GOSSIP_ROUNDS),
+                             gossip_rounds=rounds),
         cfg=cfg, device="cuda", mesh=mesh)
 
 
@@ -3733,10 +3751,13 @@ def mesh_references(torch, rt, full, work: Path) -> dict:
     (losses, each worker's dual row's digest, each worker's batch rows'
     digests), MESH_EPOCHS epochs each, under deterministic algorithms."""
     refs = {}
+    lap = stamps("mesh references")
     with deterministic(torch):
         cfg = dataclasses.replace(full, num_layers=MESH_EXACT_LAYERS)
         session = mesh_session(rt, cfg, "exact", None)
+        lap("the exact session built")
         res = mesh_epochs(torch, rt, session, "exact reference")
+        lap("the exact epochs done")
         torch.save({k: v.detach().cpu() for k, v in session.params.items()},
                    work / "exact_params.pt")
         refs["exact"] = {"losses": res["losses"]}
@@ -3746,11 +3767,14 @@ def mesh_references(torch, rt, full, work: Path) -> dict:
               f"{res['peak_gib']:.2f} [{card_line()}]", flush=True)
         del session
         release(torch)
+        lap("the exact parameters saved")
         cfg = dataclasses.replace(full, num_layers=MESH_GOSSIP_LAYERS)
         session = mesh_session(rt, cfg, "gossip", None)
         refs["gossip_batches"] = batch_digests(torch, session, N_WORKERS,
                                                MESH_EPOCHS)
+        lap("the gossip session built, its batches digested")
         res = mesh_epochs(torch, rt, session, "gossip reference")
+        lap("the gossip epochs done")
         z = session.state["z"]
         refs["gossip"] = {"losses": res["losses"], "rows": [
             digest(torch, {k: v[r] for k, v in z.items()})
@@ -3775,6 +3799,7 @@ def launch_ranks(phase: str, work: Path, n: int, extra_env=None) -> None:
            "--rank-phase", phase, "--work", str(work)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               CHIP_SMOKE_LAUNCHED_AT=repr(time.time()),
                **(extra_env or {}))
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, env=env, cwd=str(ROOT),
@@ -3808,15 +3833,18 @@ def rank_nccl1(torch, rt, dist, work: Path) -> None:
     width through the process-group path, against the one-process data=1
     session, parameters bit for bit, under deterministic algorithms."""
     full = rt.configs.get_config("qwen2-1.5b")
+    lap = stamps("nccl1 rank 0")
     mesh = rt.launch.mesh.make_host_mesh(1, 1, device="cuda")
     out = {}
     with deterministic(torch):
         for label, m in (("mesh", mesh), ("one process", None)):
             session = mesh_session(rt, full, "exact", m, data=1)
+            lap(f"the {label} session built")
             if (session.group is None) != (m is None):
                 fail(f"nccl1 {label}: the session's group is "
                      f"{session.group}")
             res = mesh_epochs(torch, rt, session, f"nccl1 {label}")
+            lap(f"the {label} epochs done")
             res["digest"] = digest(torch, session.params)
             out[label] = res
             print(f"  rank 0 nccl1 {label} (28 layers, data=1): losses "
@@ -3845,6 +3873,7 @@ def rank_gloo4(torch, rt, dist, work: Path) -> None:
     exact losses and (rank 0) parameters within MESH_PARAM_TOL, every
     rank's parameters equal."""
     rank = dist.get_rank()
+    lap = stamps("gloo4 rank 0", rank)
     refs = json.loads((work / "reference.json").read_text())
     full = rt.configs.get_config("qwen2-1.5b")
     mesh = rt.launch.mesh.make_host_mesh(MESH_RANKS, 1, device="cuda")
@@ -3852,7 +3881,9 @@ def rank_gloo4(torch, rt, dist, work: Path) -> None:
     with deterministic(torch):
         cfg = dataclasses.replace(full, num_layers=MESH_EXACT_LAYERS)
         session = mesh_session(rt, cfg, "exact", mesh)
+        lap("the exact session built")
         res = mesh_epochs(torch, rt, session, "gloo4 exact")
+        lap("the exact epochs done")
         rank_report("exact", rank, res, session.group, 0)
         expect(f"gloo4 exact rank {rank}", res["launches"],
                {"dual_update": 15 * MESH_EPOCHS})
@@ -3887,14 +3918,17 @@ def rank_gloo4(torch, rt, dist, work: Path) -> None:
         out["exact"]["sent_bytes"] = session.group.sent_bytes
         del session
         release(torch)
+        lap("the exact checks done")
         cfg = dataclasses.replace(full, num_layers=MESH_GOSSIP_LAYERS)
         session = mesh_session(rt, cfg, "gossip", mesh)
+        lap("the gossip session built")
         batches = batch_digests(torch, session, 1, MESH_EPOCHS)
         for epoch, rows in enumerate(as_json(batches)):
             if rows[0] != refs["gossip_batches"][epoch][rank]:
                 fail(f"gloo4 rank {rank} epoch {epoch}: its shard differs "
                      f"from its rows of the one-process batch")
         res = mesh_epochs(torch, rt, session, "gloo4 gossip")
+        lap("the gossip epochs done")
         rounds = MESH_EPOCHS * GOSSIP_ROUNDS
         rank_report("gossip", rank, res, session.group, rounds)
         row = as_json(digest(torch, {k: v[0] for k, v in
@@ -3916,6 +3950,7 @@ def rank_gloo4(torch, rt, dist, work: Path) -> None:
                              rounds=rounds)
         del session
     release(torch)
+    lap("the gossip checks done")
     (work / f"gloo4_rank{rank}.json").write_text(json.dumps(out))
 
 
@@ -3959,8 +3994,11 @@ def rank_main(argv) -> int:
         datetime.timedelta(seconds=MESH_PG_TIMEOUT_S)))
     try:
         if dist.get_rank() == 0:
+            up = time.time() - float(os.environ.get(
+                "CHIP_SMOKE_LAUNCHED_AT", time.time()))
             print(f"rank phase {phase}: backend {backend}, world "
-                  f"{dist.get_world_size()} [{card_line()}]", flush=True)
+                  f"{dist.get_world_size()}, rank 0 up {up:.1f} s after the "
+                  f"launch [{card_line()}]", flush=True)
         RANK_PHASES[phase](torch, rt, dist, work)
     finally:
         dist.destroy_process_group()
@@ -3995,11 +4033,15 @@ def run_mesh(torch, rt, full) -> dict:
     release(torch)
     work = Path(tempfile.mkdtemp(prefix="mesh-", dir=ROOT / "build"))
     t0 = time.perf_counter()
+    lap = stamps("phase 14")
     try:
         mesh_references(torch, rt, full, work)
         release(torch)
+        lap("the references done")
         launch_ranks("nccl1", work, 1)
+        lap("the NCCL rank done")
         launch_ranks("gloo4", work, MESH_RANKS)
+        lap("the gloo ranks done")
         ranks = [json.loads((work / f"gloo4_rank{r}.json").read_text())
                  for r in range(MESH_RANKS)]
         nccl1 = json.loads((work / "nccl1.json").read_text())
@@ -4013,8 +4055,10 @@ def run_mesh(torch, rt, full) -> dict:
                 fail(f"gloo4 {kind}: the ranks' peaks sum to "
                      f"{sum(peaks):.2f} GiB")
         cli = run_mesh_cli(torch, rt, work)
+        lap("the train CLI done")
         dry = run_mesh_dryrun(rt, full, work, max(
             r["exact"]["peak_gib"] for r in ranks))
+        lap("the dry-run done")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 14 (one process per worker): {time.perf_counter() - t0:.1f}"
@@ -4337,12 +4381,14 @@ def driver_references(torch, rt, full, work: Path) -> dict:
     more epoch: each row's digest).  Written to ``drivers.json``."""
     cfg = dataclasses.replace(full, num_layers=DRIVER_LAYERS)
     refs = {}
+    lap = stamps("drivers references")
     with deterministic(torch):
         for name, case in DRIVER_CASES.items():
             session = driver_session(rt, cfg, case, None)
             res = driver_run(torch, rt, session, f"drivers reference {name}")
             res["rows"] = driver_rows(torch, session)
             refs[name] = res
+            lap(f"{name} done")
             print(f"drivers reference {name} ({DRIVER_LAYERS} layer, one "
                   f"process): losses {res['losses']} epoch_s "
                   f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
@@ -4360,6 +4406,7 @@ def driver_references(torch, rt, full, work: Path) -> dict:
         refs["ckpt"] = {"rows": driver_rows(torch, session)}
         del session
     release(torch)
+    lap("the checkpoint reference done")
     (work / "drivers.json").write_text(json.dumps(refs))
     return refs
 
@@ -4372,9 +4419,11 @@ def driver_tensor_references(torch, rt, full) -> dict:
     each epoch)."""
     cfg = dataclasses.replace(full, num_layers=DRIVER_LAYERS)
     out = {}
+    lap = stamps("drivers tensor references")
     session = driver_session(rt, cfg, dict(consensus="exact",
                                             redundancy=2), False)
     res = driver_run(torch, rt, session, "coded reference")
+    lap("coded exact done")
     out["coded"] = {"batch": res["batch"], "losses": res["losses"],
                     "params": {k: v.detach().cpu()
                                for k, v in session.params.items()}}
@@ -4393,6 +4442,7 @@ def driver_tensor_references(torch, rt, full) -> dict:
                     "rows": driver_rows(torch, session)}
     del session
     release(torch)
+    lap("churn done")
     moe = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
                               num_layers=DRIVER_MOE_LAYERS)
     session = driver_session(rt, moe, DRIVER_MOE_CASE, False)
@@ -4402,6 +4452,7 @@ def driver_tensor_references(torch, rt, full) -> dict:
                              for k, v in session.params.items()}}
     del session
     release(torch)
+    lap("the MoE step done")
     print(f"  rank 0 drivers tensor references: coded losses "
           f"{out['coded']['losses']}, churn losses {out['churn']['losses']}, "
           f"moe aux {out['moe']['aux']} [{card_line()}]", flush=True)
@@ -4460,6 +4511,7 @@ def rank_drivers(torch, rt, dist, work: Path) -> None:
     every case against the parent's and rank 0's references; results to
     ``drivers_rank<r>.json``."""
     rank = dist.get_rank()
+    lap = stamps("drivers rank 0", rank)
     refs = json.loads((work / "drivers.json").read_text())
     full = rt.configs.get_config("qwen2-1.5b")
     cfg = dataclasses.replace(full, num_layers=DRIVER_LAYERS)
@@ -4470,10 +4522,13 @@ def rank_drivers(torch, rt, dist, work: Path) -> None:
             else None
         release(torch)
         dist.barrier()
+        lap("the tensor references done")
         d = dense_param_count(cfg) + 1
         for name, case in DRIVER_CASES.items():
             session = driver_session(rt, cfg, case, mesh)
+            lap(f"the {name} session built")
             res = driver_run(torch, rt, session, f"drivers {name}")
+            lap(f"the {name} epochs done")
             driver_report(name, rank, res, session.group)
             want = refs[name]
             if driver_rows(torch, session)[0] != want["rows"][rank]:
@@ -4524,6 +4579,7 @@ def rank_drivers(torch, rt, dist, work: Path) -> None:
             out[name]["rounds"] = rounds
             del session, strat
             release(torch)
+            lap(f"the {name} checks done")
         print(f"  rank {rank} drivers: q8, q4, pipelined, async D=2 and the "
               f"controlled session bit for bit the one-process rows",
               flush=True)
@@ -4581,6 +4637,7 @@ def rank_drivers(torch, rt, dist, work: Path) -> None:
                                             "epoch_s")}
         del session
         release(torch)
+        lap("churn done")
         # coded exact
         session = driver_session(rt, cfg, dict(consensus="exact",
                                                redundancy=2), mesh)
@@ -4603,6 +4660,7 @@ def rank_drivers(torch, rt, dist, work: Path) -> None:
                                             "epoch_s")}
         del session
         release(torch)
+        lap("coded exact done")
         # checkpoints at the smoke config: ranks save, then restore the
         # parent's save
         smoke = rt.configs.smoke_config("qwen2-1.5b")
@@ -4626,6 +4684,7 @@ def rank_drivers(torch, rt, dist, work: Path) -> None:
                  f"restored over the ranks does not continue bit for bit")
         del back
         release(torch)
+        lap("the checkpoints done")
         # the MoE exact step
         moe = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
                                   num_layers=DRIVER_MOE_LAYERS)
@@ -4648,6 +4707,7 @@ def rank_drivers(torch, rt, dist, work: Path) -> None:
         out["moe"] = {k: res[k] for k in ("launches", "peak_gib", "epoch_s")}
         del session
     release(torch)
+    lap("the MoE step done")
     (work / f"drivers_rank{rank}.json").write_text(json.dumps(out))
 
 
@@ -4662,9 +4722,12 @@ def run_drivers(torch, rt, full) -> dict:
     release(torch)
     work = Path(tempfile.mkdtemp(prefix="drivers-", dir=ROOT / "build"))
     t0 = time.perf_counter()
+    lap = stamps("phase 15")
     try:
         refs = driver_references(torch, rt, full, work)
+        lap("the references done")
         launch_ranks("drivers", work, MESH_RANKS)
+        lap("the ranks done")
         ranks = [json.loads((work / f"drivers_rank{r}.json").read_text())
                  for r in range(MESH_RANKS)]
         with deterministic(torch):
@@ -4680,6 +4743,7 @@ def run_drivers(torch, rt, full) -> dict:
         print("drivers checkpoint (smoke config, pipelined): ranks save and "
               "one process restores, one process saves and the ranks "
               "restore; the next epoch bit for bit both ways", flush=True)
+        lap("the ranks' checkpoint restored")
         for name in ranks[0]:
             peaks = [r[name]["peak_gib"] for r in ranks]
             print(f"drivers {name}: peaks GiB {[round(p, 2) for p in peaks]}"
@@ -4702,12 +4766,37 @@ def run_drivers(torch, rt, full) -> dict:
 # ---------------------------------------------------------------------------
 
 MODEL_AXIS = (2, 2)            # (data, model): two workers of two ranks
-# qwen2-1.5b width cut to 4 layers, phase 14's gossip depth: at 8 (its
-# exact depth) the command took 1,168.8 s of its 1,200 on an H100 at 700 W
-MODEL_LAYERS = MESH_GOSSIP_LAYERS
+# qwen2-1.5b width cut to 4 layers: at 8 the command took 1,168.8 s of
+# its 1,200 on an H100 at 700 W, before the quantized gossip checks
+MODEL_LAYERS = 4
 MODEL_CLI_ARGV = ["--smoke", "--sim-clock", "--steps", str(MESH_EPOCHS),
                   "--data", str(MODEL_AXIS[0])]
-MESH_TIMEOUT_S["model"] = 480
+MODEL_CLI = ("exact", "gossip", "gossip_q8")
+MESH_TIMEOUT_S["model"] = 540
+# quantized gossip over the model axis: the consensus alone on a fixed
+# (2, W + 1) stack (row i from seed MODEL_STACK_SEED + i), under the draws
+# of epoch_draws(MODEL_STACK_SEED, 0), q8 and q4 at DRIVER_ROUNDS
+MODEL_Q = ("gossip_q8", "gossip_q4")
+MODEL_STACK_SEED = 16
+# the q8 session's dual, each worker's gathered over its model ranks,
+# against the one-process session's as one stack: ||ranks - one|| over
+# ||one|| within MODEL_Q_FACTOR times the one-process session's own move
+# under the model ranks' summation order (``tp_sums``) and never above
+# MODEL_Q_TOL (a flipped stochastic rounding moves one element by a grid
+# step; tests/test_torch_quantized.py holds the port against JAX so, at
+# 1e-2).  ``split_sums`` alone is too narrow here: on an H100 at 4 layers
+# in fp32 the reference moved 0.00204 under it and the ranks sat 0.00625
+# away, since the model ranks also sum the column-parallel products'
+# input gradients and the vocabulary's halves
+MODEL_Q_FACTOR = 2.0
+MODEL_Q_TOL = 1e-2
+# the gossip_q8 session runs in fp32: with bf16 gradients an order change
+# moves each payload element by a bf16 unit, and each of the 8 rounds an
+# epoch then flips that share of the stochastic roundings (a grid step
+# each): on the CPU rehearsal at the smoke config the bf16 reference's
+# dual stack moved 0.14 of its norm under ``split_sums``, where MODEL_Q_TOL
+# cannot tell a fault from the order; the train CLI checks gossip_q8 in bf16
+MODEL_Q_DTYPE = "float32"
 # each leaf's limit, as a share of its largest value: ORDER_FACTOR times
 # how far the one-process reference moves under ``split_sums`` (a change
 # of summation order), no less than ORDER_FLOOR (one bf16 unit in the
@@ -4752,6 +4841,144 @@ def split_sums(torch, rt):
         yield
     finally:
         model.swiglu, attn.masked_attention = plain_mlp, plain_attention
+
+
+def _halves_nll(torch):
+    """The vocab-parallel cross-entropy of ``dist.tp`` over two halves of
+    the logits in one process, its arithmetic step for step: the row max
+    and the sum of exponentials across the halves, the gold logit from
+    its owner, and a backward of ``softmax - onehot`` on each half."""
+
+    class HalvesNLL(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x0, x1, labels, valid0: int, valid1: int):
+            xs = []
+            for x, valid in ((x0, valid0), (x1, valid1)):
+                if valid < x.shape[-1]:
+                    col = torch.arange(x.shape[-1], device=x.device)
+                    x = x.masked_fill(col >= valid, float("-inf"))
+                xs.append(x)
+            c = x0.shape[-1]
+            m = torch.maximum(xs[0].amax(dim=-1), xs[1].amax(dim=-1))
+            s = torch.exp(xs[0] - m[..., None]).sum(dim=-1) \
+                + torch.exp(xs[1] - m[..., None]).sum(dim=-1)
+            gold, saved = 0.0, []
+            for r, x in enumerate(xs):
+                local = labels.long() - r * c
+                own = (local >= 0) & (local < (valid0, valid1)[r])
+                local = local.clamp(0, c - 1)
+                gold = gold + torch.where(
+                    own, torch.gather(x, -1, local[..., None])[..., 0], 0.0)
+                saved += [x, local, own]
+            lse = m + torch.log(s)
+            ctx.save_for_backward(lse, *saved)
+            return lse - gold
+
+        @staticmethod
+        def backward(ctx, g):
+            lse, *saved = ctx.saved_tensors
+            grads = []
+            for r in range(2):
+                x, local, own = saved[3 * r:3 * r + 3]
+                p = torch.exp(x - lse[..., None])
+                idx = local[..., None]
+                p.scatter_(-1, idx, p.gather(-1, idx)
+                           - own[..., None].to(p.dtype))
+                grads.append(p.mul_(g[..., None]))
+            return grads[0], grads[1], None, None, None
+
+    return HalvesNLL
+
+
+class _HalvesTP:
+    """The hooks of :class:`repro_torch.dist.tp.TensorParallel` for a
+    worker of two model ranks, in one process on whole leaves (under
+    ``tp_sums``): the block, the lookup and the MLP pass through (the
+    patched products split them), and the cross-entropy is the
+    vocab-parallel one over two halves (``_halves_nll``), each half's
+    logits from its own use of the hidden state."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.nll = _halves_nll(torch)
+
+    def block(self, p):
+        return p
+
+    def embed(self, weight, tokens):
+        return self.torch.nn.functional.embedding(tokens, weight)
+
+    def mlp(self, fn, x):
+        return fn(x)
+
+    def token_nll(self, hidden, unembed, labels, vocab_size):
+        c = unembed.shape[1] // 2
+        xs = [(hidden.view_as(hidden) @ unembed[:, r * c:(r + 1) * c])
+              .float() for r in range(2)]
+        valid = [max(0, min((r + 1) * c, vocab_size) - r * c)
+                 for r in range(2)]
+        return self.nll.apply(xs[0], xs[1], labels, *valid)
+
+
+@contextlib.contextmanager
+def tp_sums(torch, rt):
+    """A worker's two model ranks' summation order in one process: the
+    attention's query and KV heads and the MLP's ffn columns in two
+    halves, each half from its own view of the block's input (so the
+    input's gradient sums each half's parts first, then the two halves,
+    as a rank's backward and the column-parallel all-reduce over "model"
+    do), each half's row-parallel product summed in fp32 and rounded
+    once, and the vocab-parallel cross-entropy (``_HalvesTP``).  Wider
+    than ``split_sums``, which splits the forward row-parallel sums
+    only."""
+    model, attn, amb = rt.models.model, rt.models.attention, rt.dist.amb
+    plain_mlp, plain_attend, plain_loss = (model.swiglu, attn.attend_train,
+                                           amb.lm_loss)
+    halves = _HalvesTP(torch)
+
+    def mlp(x, w_gate, w_up, w_down):
+        c = w_gate.shape[-1] // 2
+        out = 0.0
+        for r in range(2):
+            cols = slice(r * c, (r + 1) * c)
+            xr = x.view_as(x)
+            h = torch.nn.functional.silu(xr @ w_gate[:, cols]) \
+                * (xr @ w_up[:, cols])
+            out = out + (h @ w_down[cols]).float()
+        return out.to(x.dtype)
+
+    def attend(p, x, positions, cfg, *, causal=True, window=None,
+               kv_input=None, rope=True, tp=None):
+        b, s, _ = x.shape
+        hq, hkv = cfg.num_heads * cfg.hd // 2, cfg.num_kv_heads * cfg.hd // 2
+        window = cfg.sliding_window if window is None else window
+        out = 0.0
+        for r in range(2):
+            ph = {k: v for k, v in p.items()}
+            for k, w in (("wq", hq), ("wk", hkv), ("wv", hkv)):
+                ph[k] = p[k][:, r * w:(r + 1) * w]
+                if "b" + k[1] in p:
+                    ph["b" + k[1]] = p["b" + k[1]][r * w:(r + 1) * w]
+            q, k_, v = attn._project_qkv(ph, x.view_as(x), cfg)
+            q = rt.models.common.apply_rope(
+                q.reshape(b, s, -1, cfg.hd), positions,
+                cfg.rope_theta).reshape(q.shape)
+            k_ = rt.models.common.apply_rope(k_, positions, cfg.rope_theta)
+            heads = attn.masked_attention(q, k_, v, window, causal=causal)
+            out = out + (heads.reshape(b, s, -1)
+                         @ p["wo"][r * hq:(r + 1) * hq]).float()
+        return out.to(x.dtype)
+
+    def loss(params, cfg, batch, *args, tp=None, **kwargs):
+        return plain_loss(params, cfg, batch, *args, tp=halves, **kwargs)
+
+    model.swiglu, attn.attend_train, amb.lm_loss = mlp, attend, loss
+    try:
+        yield
+    finally:
+        model.swiglu, attn.attend_train, amb.lm_loss = (plain_mlp,
+                                                        plain_attend,
+                                                        plain_loss)
 
 
 def order_limits(moves: dict) -> dict:
@@ -4802,11 +5029,12 @@ def leaf_errs(torch, got: dict, want: dict) -> dict:
 
 
 def model_references(torch, rt, cfg, lap) -> dict:
-    """Rank 0, before the model-axis sessions, while the other ranks wait:
-    the one-process data=2 sessions (exact, ring gossip r 5) on the card
-    under deterministic algorithms, kept in host memory (the parameters,
-    each worker's dual), and each again under ``split_sums``: how far
-    each leaf moves under a change of summation order sets its limit
+    """Rank 0, before the model-axis sessions, while the other ranks wait
+    (rank 1 runs ``model_q8_references`` meanwhile): the one-process
+    data=2 sessions (exact, ring gossip r 5) on the card under
+    deterministic algorithms, kept in host memory (the parameters, each
+    worker's dual), and each again under ``split_sums``: how far each leaf
+    moves under a change of summation order sets its limit
     (``order_limits``; a worker's dual leaf: the larger worker's move)."""
     data = MODEL_AXIS[0]
     refs = {}
@@ -4849,7 +5077,80 @@ def model_references(torch, rt, cfg, lap) -> dict:
                           moves=moves, limits=check_order("gossip", moves))
     del z
     release(torch)
+    lap("the gossip references done")
     return refs
+
+
+def model_q8_references(torch, rt, cfg, lap) -> dict:
+    """Rank 1, while rank 0 runs ``model_references``: the one-process
+    data=2 gossip_q8 session (ring, DRIVER_ROUNDS, MODEL_Q_DTYPE) on the
+    card under deterministic algorithms, then again under ``tp_sums``
+    (the model ranks' summation order); kept on the card.  Returns the
+    losses, how far the dual stack moves between the two (``stack_rel``)
+    and the limit that sets, and the digest of each rank's block of the
+    ``tp_sums`` session's duals (its worker's row cut by
+    ``dist.params.shard_leaf`` on the (2, 2) layout)."""
+    data, model = MODEL_AXIS
+    rounds = DRIVER_ROUNDS["gossip_q8"]
+    cfg = dataclasses.replace(cfg, dtype=MODEL_Q_DTYPE)
+    session = mesh_session(rt, cfg, "gossip_q8", False, data=data,
+                           rounds=rounds)
+    res = mesh_epochs(torch, rt, session, "model-axis gossip_q8 reference")
+    z = session.state["z"]
+    print(f"model-axis reference gossip_q8 ({MODEL_LAYERS} layers, "
+          f"{MODEL_Q_DTYPE}, one process, {data} workers, ring r {rounds}): "
+          f"losses {res['losses']} epoch_s "
+          f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} [{card_line()}]", flush=True)
+    del session
+    lap("the gossip_q8 reference done")
+    with tp_sums(torch, rt):
+        session = mesh_session(rt, cfg, "gossip_q8", False, data=data,
+                               rounds=rounds)
+        mesh_epochs(torch, rt, session, "model-axis gossip_q8, TP's sums")
+    z_tp = session.state["z"]
+    del session
+    move = stack_rel(torch, z_tp, z)
+    del z
+    release(torch)
+    mesh = rt.launch.mesh.abstract(MODEL_AXIS, ("data", "model"))
+    digests = []
+    for r in range(data * model):
+        coord = (r // model, r % model)
+        rows = []
+        for k in sorted(z_tp):
+            leaf = z_tp[k][coord[0]]
+            spec = rt.dist.params.param_spec(k, leaf.shape, mesh, None)
+            rows += digest(torch, {k: rt.dist.params.shard_leaf(
+                leaf, spec, mesh, coord)})
+        digests.append(as_json(rows))
+    del z_tp
+    release(torch)
+    limit = min(MODEL_Q_TOL, MODEL_Q_FACTOR * move)
+    print(f"model-axis reference gossip_q8 under the model ranks' "
+          f"summation order (tp_sums): the dual stack moves {move:.4g} of "
+          f"its norm; the ranks' limit {limit:.4g}", flush=True)
+    if move >= MODEL_Q_TOL:
+        fail(f"model axis: the gossip_q8 reference's dual moves by {move} "
+             f"under a change of summation order; MODEL_Q_TOL "
+             f"{MODEL_Q_TOL} cannot tell a fault from it")
+    lap("the gossip_q8 reference under tp_sums done")
+    return {"losses": res["losses"], "move": move, "limit": limit,
+            "digests": digests}
+
+
+def stack_rel(torch, got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every leaf of two (n, ...) dual
+    stacks on the card, in fp64, in chunks."""
+    num = den = 0.0
+    step = 1 << 27
+    for k, w in want.items():
+        a, b = got[k].reshape(-1), w.reshape(-1)
+        for i in range(0, b.numel(), step):
+            x, y = a[i:i + step].double(), b[i:i + step].double()
+            num += float(torch.sum((x - y) ** 2))
+            den += float(torch.sum(y ** 2))
+    return math.sqrt(num / max(den, 1e-300))
 
 
 def model_report(label: str, rank: int, res: dict, session,
@@ -4873,8 +5174,10 @@ def rank_model(torch, rt, dist, work: Path) -> None:
     """Four gloo ranks as (data 2, model 2), each worker spread over two
     ranks: rank 0 runs the one-process references first; then exact (FSDP
     x TP) and ring gossip (TP) through AMBSession, MESH_EPOCHS epochs each
-    under deterministic algorithms; then the train CLI (``--model 2``,
-    exact and gossip, at the smoke config)."""
+    under deterministic algorithms; then quantized gossip: the consensus
+    alone on a fixed stack (q8 and q4) and a gossip_q8 session; then the
+    train CLI (``--model 2``, exact, gossip and gossip_q8, at the smoke
+    config)."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import abstract
     rank = dist.get_rank()
@@ -4882,20 +5185,18 @@ def rank_model(torch, rt, dist, work: Path) -> None:
     cfg = dataclasses.replace(rt.configs.get_config("qwen2-1.5b"),
                               num_layers=MODEL_LAYERS)
     out = {}
-    t0 = time.perf_counter()
-
-    def lap(what: str) -> None:
-        if rank == 0:
-            print(f"  model-axis rank 0: {what} at "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lap = stamps("model-axis rank 0", rank)
 
     with deterministic(torch):
         refs = model_references(torch, rt, cfg, lap) if rank == 0 else None
-        lap("the references done")
+        q8 = [model_q8_references(torch, rt, cfg, stamps(
+            "model-axis rank 1")) if rank == 1 else None]
         got = [None if refs is None else
                {k: refs[k]["losses"] for k in ("exact", "gossip")}]
         dist.broadcast_object_list(got, src=0)
-        losses = got[0]
+        dist.broadcast_object_list(q8, src=1)
+        lap("the references done")
+        losses, q8 = dict(got[0], gossip_q8=q8[0]["losses"]), q8[0]
         mesh = rt.launch.mesh.make_host_mesh(data, model, device="cuda")
 
         session = mesh_session(rt, cfg, "exact", mesh, data, model=model)
@@ -4960,11 +5261,19 @@ def rank_model(torch, rt, dist, work: Path) -> None:
                            for (i, k), e in errs.items()},
                 moves=ref["moves"], limits=ref["limits"],
                 limit_share=share)
-        del session, z, refs
+        del session, z
+        release(torch)
+        lap("the gossip checks done")
+
+        out["consensus"] = model_consensus_rank(torch, rt, dist, mesh, cfg,
+                                                work)
+        lap("the quantized consensus checks done")
+        out["gossip_q8"] = run_model_q8(torch, rt, dist, mesh, cfg, losses,
+                                        q8, lap)
+        del refs
     release(torch)
-    lap("the gossip checks done")
     with deterministic(torch):
-        for consensus in ("exact", "gossip"):
+        for consensus in MODEL_CLI:
             rt.launch.train.main(MODEL_CLI_ARGV + [
                 "--model", str(model), "--consensus", consensus,
                 "--dist-backend", "gloo", "--metrics",
@@ -4974,6 +5283,70 @@ def rank_model(torch, rt, dist, work: Path) -> None:
 
 
 RANK_PHASES["model"] = rank_model
+
+
+def run_model_q8(torch, rt, dist, mesh, cfg, losses: dict, ref, lap) -> dict:
+    """The gossip_q8 session over (data 2, model 2), ring, DRIVER_ROUNDS,
+    MESH_EPOCHS epochs, in MODEL_Q_DTYPE: the launches, one grid reduction
+    and ``wire_bytes_per_round`` of the block a round, the losses within
+    MESH_LOSS_TOL of the one-process session's, the replicated leaves
+    equal on a worker's model ranks, each rank's dual block bit for bit
+    its block of the one-process session under ``tp_sums`` (``ref``'s
+    digests), and so the dual stack at the reference's own move from the
+    plain one-process session's, within its limit."""
+    rank = dist.get_rank()
+    data, model = MODEL_AXIS
+    session = mesh_session(rt, dataclasses.replace(cfg, dtype=MODEL_Q_DTYPE),
+                           "gossip_q8", mesh, data, model=model,
+                           rounds=DRIVER_ROUNDS["gossip_q8"])
+    lap("the gossip_q8 session built")
+    g = session.group
+    res = mesh_epochs(torch, rt, session, "model-axis gossip_q8")
+    lap("the gossip_q8 epochs done")
+    strat = rt.dist.amb.strategy_from_config(session.protocol.amb, data)
+    rounds = MESH_EPOCHS * strat.rounds
+    width = session.tp.row_block().block_width
+    wire = strat.wire_bytes_per_round(width)
+    expect(f"model-axis gossip_q8 rank {rank}", res["launches"],
+           {"stochastic_quantize": rounds, "quantized_combine": rounds,
+            "dual_update": 15 * MESH_EPOCHS})
+    row = model_report("gossip_q8", rank, res, session, rounds)
+    row.update(block_width=width, wire_bytes_per_round=wire,
+               grid_reductions=g.grid_reductions, rounds=rounds)
+    if g.sent_bytes != rounds * wire or g.grid_reductions != rounds:
+        fail(f"model-axis gossip_q8 rank {rank}: sent {g.sent_bytes} bytes "
+             f"and {g.grid_reductions} grid reductions in {rounds} rounds; "
+             f"wire_bytes_per_round({width}) {wire}")
+    print(f"  rank {rank} model-axis gossip_q8: {g.sent_bytes // rounds} "
+          f"bytes a round = wire_bytes_per_round(d_block {width}), one grid "
+          f"reduction a round (fp32 would send {4 * width})", flush=True)
+    check_losses("model-axis gossip_q8", rank, res["losses"],
+                 losses["gossip_q8"])
+    z = session.state["z"]
+    same_replicated(torch, dist, session, {k: v[0] for k, v in z.items()},
+                    "gossip_q8")
+    if as_json(digest(torch, {k: v[0] for k, v in z.items()})) \
+            != ref["digests"][rank]:
+        fail(f"model-axis gossip_q8 rank {rank}: its dual block differs from "
+             f"its block of the one-process session under tp_sums")
+    # bit for bit the tp_sums session's, so the ranks' dual stack sits at
+    # that session's distance from the plain one: the move itself
+    err = ref["move"]
+    row.update(stack_err=err, move=ref["move"], limit=ref["limit"])
+    if rank == 0:
+        print(f"  model-axis gossip_q8: every rank's dual block bit for bit "
+              f"its block of the one-process session in the model ranks' "
+              f"summation order (tp_sums); so the dual stack sits {err:.4g} "
+              f"of its norm from the plain one-process session's; limit "
+              f"{ref['limit']:.4g} ({MODEL_Q_FACTOR} x the reference's move, "
+              f"at most {MODEL_Q_TOL}) [{card_line()}]", flush=True)
+    if err > ref["limit"]:
+        fail(f"model-axis gossip_q8: the dual stack is {err} from the "
+             f"one-process session's, above its limit {ref['limit']}")
+    del session, z
+    release(torch)
+    lap("the gossip_q8 checks done")
+    return row
 
 
 def nbytes(tree: dict) -> int:
@@ -5024,6 +5397,133 @@ def gossip_duals(torch, dist, session, ref_z) -> dict:
     return errs
 
 
+def model_stack_row(torch, worker: int, width: int):
+    """Worker ``worker``'s (1, W + 1) row of the fixed message stack of
+    phase 16's consensus check: N(0, 9) fp32 from its own generator on
+    the card, so that a rank makes its worker's row alone."""
+    gen = torch.Generator(device="cuda").manual_seed(MODEL_STACK_SEED
+                                                     + worker)
+    return torch.randn((1, width), generator=gen, device="cuda").mul_(3.0)
+
+
+def model_shapes(rt, cfg) -> dict:
+    """Every leaf's whole shape at ``cfg`` (nothing is allocated)."""
+    from repro_torch.models.common import MetaGenerator
+    return {k: tuple(v.shape) for k, v in
+            rt.models.init_params(cfg, MetaGenerator()).items()}
+
+
+def model_consensus_digests(torch, rt, cfg, work: Path) -> dict:
+    """The parent, before the ranks: the stacked ``QuantizedGossipConsensus
+    .combine`` of the fixed (2, W + 1) stack on a ring of 2 workers, q8 and
+    q4 at DRIVER_ROUNDS under ``epoch_draws(MODEL_STACK_SEED, 0)`` on the
+    card, and the digest of each rank's block of the result (its block
+    of its worker's row, cut by ``dist.tp.row_block`` on the (2, 2)
+    layout).  Written to ``model_consensus.json``."""
+    data, model = MODEL_AXIS
+    mesh = rt.launch.mesh.abstract(MODEL_AXIS, ("data", "model"))
+    shapes = model_shapes(rt, cfg)
+    blocks = [rt.dist.tp.row_block(shapes, mesh, (r // model, r % model))
+              for r in range(data * model)]
+    width = blocks[0].width
+    out = {}
+    for name in MODEL_Q:
+        strat = rt.dist.consensus.make_strategy(name, data,
+                                                rounds=DRIVER_ROUNDS[name])
+        stack = torch.cat([model_stack_row(torch, i, width)
+                           for i in range(data)])
+        t0 = time.perf_counter()
+        agreed = strat.combine(stack, rt.dist.consensus.epoch_draws(
+            MODEL_STACK_SEED, 0))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rows = []
+        for r, blk in enumerate(blocks):
+            row = torch.empty((blk.block_width,), device="cuda")
+            rows.append(digest(torch, blk.take(agreed[r // model], row)))
+            del row
+        out[name] = {"digests": rows, "rounds": strat.rounds,
+                     "block_widths": [b.block_width for b in blocks]}
+        print(f"model-axis consensus reference {name}: the stacked combine "
+              f"on (2, {width}), ring, {strat.rounds} rounds, "
+              f"{secs:.3f} s; each rank's block of it digested (block "
+              f"rows {out[name]['block_widths']}) [{card_line()}]",
+              flush=True)
+        del stack, agreed
+        release(torch)
+    (work / "model_consensus.json").write_text(json.dumps(out))
+    return out
+
+
+def model_consensus_rank(torch, rt, dist, mesh, cfg, work: Path) -> dict:
+    """A rank's ``combine_rank`` of its block of the fixed stack over
+    (data 2, model 2), q8 and q4: its rows' digest equal to the parent's
+    digest of its block of the stacked combine, ``wire_bytes_per_round``
+    of the block sent a round, and per round one ``stochastic_quantize``
+    launch, one ``quantized_combine`` launch and one grid reduction."""
+    rank = dist.get_rank()
+    want = json.loads((work / "model_consensus.json").read_text())
+    group = rt.dist.group.WorkerGroup(mesh, mesh.device_type)
+    tp = rt.dist.tp.TensorParallel(group, model_shapes(rt, cfg), None)
+    block = tp.row_block()
+    whole = model_stack_row(torch, group.worker, block.width)
+    mine = torch.empty((1, block.block_width), device="cuda")
+    block.take(whole[0], mine[0])
+    del whole
+    out = {}
+    for name in MODEL_Q:
+        strat = rt.dist.consensus.make_strategy(name, MODEL_AXIS[0],
+                                                rounds=DRIVER_ROUNDS[name])
+        buf = mine.clone()
+        sent, staged = group.sent_bytes, group.staged_bytes
+        grids = group.grid_reductions
+        rt.kernels.router.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = strat.combine_rank(buf, group, draws=rt.dist.consensus.
+                                 epoch_draws(MODEL_STACK_SEED, 0),
+                                 block=block)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = rt.kernels.router.launches()
+        rounds = strat.rounds
+        row = {"seconds": secs, "rounds": rounds, "launches": launches,
+               "block_width": block.block_width,
+               "sent_bytes_per_round": (group.sent_bytes - sent) // rounds,
+               "staged_bytes_per_round":
+                   (group.staged_bytes - staged) // rounds,
+               "wire_bytes_per_round":
+                   strat.wire_bytes_per_round(block.block_width),
+               "grid_reductions": group.grid_reductions - grids,
+               "digest": as_json(digest(torch, got[0]))}
+        print(f"  rank {rank} (worker {group.worker}, model {group.m}) "
+              f"model-axis consensus {name}: " + " ".join(
+                  f"{k}={v}" for k, v in row.items())
+              + f"; the parent's digest of this block "
+              f"{want[name]['digests'][rank]} [{card_line()}]", flush=True)
+        if row["digest"] != want[name]["digests"][rank]:
+            fail(f"model-axis consensus {name} rank {rank}: its rows differ "
+                 f"from its block of the stacked combine")
+        if group.sent_bytes - sent != rounds * row["wire_bytes_per_round"]:
+            fail(f"model-axis consensus {name} rank {rank}: sent "
+                 f"{group.sent_bytes - sent} bytes in {rounds} rounds, "
+                 f"wire_bytes_per_round {row['wire_bytes_per_round']}")
+        if row["grid_reductions"] != rounds:
+            fail(f"model-axis consensus {name} rank {rank}: "
+                 f"{row['grid_reductions']} grid reductions in {rounds} "
+                 f"rounds")
+        expect(f"model-axis consensus {name} rank {rank}", launches,
+               {"stochastic_quantize": rounds, "quantized_combine": rounds})
+        out[name] = row
+        del buf, got
+        release(torch)
+    del mine
+    release(torch)
+    print(f"  rank {rank} model-axis consensus: q8 and q4 rows bit for bit "
+          f"its block of the stacked combine's", flush=True)
+    return out
+
+
 def time_dual_update_shard(torch, ops, full, beta: float) -> dict:
     """The prox at an exact rank's largest block on (2, 2) (the embed's,
     (V/2, d/2)) beside the whole leaf, fp32 z and w0 (dual averaging's
@@ -5063,18 +5563,24 @@ def run_model_axis(torch, rt, ops, full, beta: float,
     release(torch)
     work = Path(tempfile.mkdtemp(prefix="model-", dir=ROOT / "build"))
     t0 = time.perf_counter()
+    lap = stamps("phase 16")
+    cfg = dataclasses.replace(full, num_layers=MODEL_LAYERS)
     try:
         with deterministic(torch):
-            for consensus in ("exact", "gossip"):
+            for consensus in MODEL_CLI:
                 rt.launch.train.main(MODEL_CLI_ARGV + [
                     "--consensus", consensus, "--metrics",
                     str(work / f"cli_one_{consensus}.jsonl")])
+            lap("the one-process CLIs done")
+            digests = model_consensus_digests(torch, rt, cfg, work)
         release(torch)
+        lap("the consensus references done")
         launch_ranks("model", work, MESH_RANKS)
+        lap("the ranks done")
         ranks = [json.loads((work / f"model_rank{r}.json").read_text())
                  for r in range(MESH_RANKS)]
         cli = {}
-        for consensus in ("exact", "gossip"):
+        for consensus in MODEL_CLI:
             one, tp = ([json.loads(x)["loss"] for x in
                         (work / f"cli_{kind}_{consensus}.jsonl")
                         .read_text().splitlines()]
@@ -5087,7 +5593,7 @@ def run_model_axis(torch, rt, ops, full, beta: float,
                     for a, b in zip(tp, one)):
                 fail(f"model-axis train CLI {consensus}: {tp} vs {one}")
             cli[consensus] = {"one": one, "ranks": tp}
-        for kind in ("exact", "gossip"):
+        for kind in ("exact", "gossip", "gossip_q8"):
             peaks = [r[kind]["peak_gib"] for r in ranks]
             print(f"model-axis {kind} ({MODEL_LAYERS} layers, (data 2, "
                   f"model 2)): peaks GiB {[round(p, 2) for p in peaks]}, "
@@ -5101,15 +5607,103 @@ def run_model_axis(torch, rt, ops, full, beta: float,
                 fail(f"model-axis {kind}: the ranks' peaks sum to "
                      f"{sum(peaks):.2f} GiB")
         shard = time_dual_update_shard(torch, ops, full, beta)
+        block = time_quantized_block(
+            torch, rt, ops, max(digests["gossip_q8"]["block_widths"]))
+        lap("the kernels timed at the blocks")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 16 (a worker over a model axis): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     launches = {f"model-axis {kind} rank {r}": res[kind]["launches"]
-                for r, res in enumerate(ranks) for kind in ("exact",
-                                                            "gossip")}
+                for r, res in enumerate(ranks)
+                for kind in ("exact", "gossip", "gossip_q8")}
     return {"launches": launches, "ranks": ranks, "cli": cli,
-            "dual_update": shard}
+            "dual_update": shard, **block}
+
+
+def time_quantized_block(torch, rt, ops, d: int) -> dict:
+    """The quantized round's two kernels at a model-axis rank's block row
+    (D = ``d``, a ring of 2 workers: K = 2 level rows and a (2, 1)
+    table), each bit for bit its plain version (in column slices) and
+    timed beside it and its bound.  Returns their entries by kernel."""
+    ref = rt.kernels.ref
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    m = torch.randn((1, d), generator=gen, device="cuda")
+    h = torch.randn((1, d), generator=gen, device="cuda") * 0.3
+    rnd = torch.rand((1, d), generator=gen, device="cuda")
+    lo, scale = rt.dist.consensus.row_grids(m, h, 255.0)
+    lvl, h_new = ops.stochastic_quantize(m, h, rnd, lo, scale, 255.0,
+                                         force="kernel")
+    bad = []
+
+    def compare_sq(a, b):
+        want_l, want_h = ref.stochastic_quantize_ref(
+            m[:, a:b], h[:, a:b], rnd[:, a:b], lo, scale, 255.0)
+        if not (torch.equal(want_l, lvl[:, a:b])
+                and torch.equal(want_h, h_new[:, a:b])):
+            bad.append(a)
+
+    in_chunks(compare_sq, d)
+    if bad:
+        fail(f"stochastic_quantize at the model-axis block D={d}: kernel vs "
+             f"plain differ in the slices from {bad}")
+    lvl1, h1 = torch.empty_like(lvl), h.clone()
+    s_ms = time_ms(torch, lambda: ops.stochastic_quantize(
+        m, h1, rnd, lo, scale, 255.0, out=(lvl1, h1), force="kernel"), 10,
+        "stochastic_quantize model-axis block")
+    sp_ms = time_ms(torch, lambda: in_chunks(
+        lambda a, b: ref.stochastic_quantize_ref(
+            m[:, a:b], h[:, a:b], rnd[:, a:b], lo, scale, 255.0), d), 3,
+        "stochastic_quantize model-axis block plain")
+    sb_ms, sb_by = bound(17 * d, 8 * d)
+    del lvl1, h1, h_new, rnd
+    release(torch)
+    strat = rt.dist.consensus.GossipConsensus(MODEL_AXIS[0], 1, "ring")
+    k, w = strat.taps.k, strat.taps.weights
+    table = rt.kernels.gossip_combine.own_row_table(k, m.device)
+    levels = torch.cat([lvl, lvl.roll(1, dims=1)])
+    los = torch.cat([lo[:, 0], lo[:, 0] - 0.5])
+    scales = torch.cat([scale[:, 0], scale[:, 0] * 1.5])
+    hnbr = torch.randn((k - 1, 1, d), generator=gen, device="cuda")
+    got_o, got_h = ops.quantized_combine(m, hnbr, levels, los, scales,
+                                         table, w, force="kernel")
+    bad = []
+
+    def compare_qc(a, b):
+        want_o, want_h = ref.quantized_combine_ref(
+            m[:, a:b], hnbr[:, :, a:b], levels[:, a:b], los, scales, table,
+            w)
+        if not (torch.equal(want_o, got_o[:, a:b])
+                and torch.equal(want_h, got_h[:, :, a:b])):
+            bad.append(a)
+
+    in_chunks(compare_qc, d)
+    if bad:
+        fail(f"quantized_combine at the model-axis block D={d}: kernel vs "
+             f"plain differ in the slices from {bad}")
+    q_ms = time_ms(torch, lambda: ops.quantized_combine(
+        m, hnbr, levels, los, scales, table, w, out=(got_o, got_h),
+        force="kernel"), 10, "quantized_combine model-axis block")
+    qp_ms = time_ms(torch, lambda: in_chunks(
+        lambda a, b: ref.quantized_combine_ref(
+            m[:, a:b], hnbr[:, :, a:b], levels[:, a:b], los, scales, table,
+            w), d), 3, "quantized_combine model-axis block plain")
+    qb_ms, qb_by = bound(d * (4 + (k - 1) + 8 * (k - 1) + 4), 4 * k * d)
+    out = {"stochastic_quantize": dict(
+        shape=f"a model-axis rank's block row (1, D), D={d}", ms=s_ms,
+        plain_ms=sp_ms, bound_ms=sb_ms, bound_by=sb_by, library_ms=None),
+        "quantized_combine": dict(
+        shape=f"a model-axis rank's block row, K={k} level rows, a ({k}, "
+        f"1) table, D={d}", ms=q_ms, plain_ms=qp_ms, bound_ms=qb_ms,
+        bound_by=qb_by, library_ms=None)}
+    for name, t in out.items():
+        print(f"{name} at the model-axis block D={d}: bit for bit the plain "
+              f"version; ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
+              f"[{card_line()}]", flush=True)
+    del m, h, lvl, levels, hnbr, got_o, got_h
+    release(torch)
+    return out
 
 
 def report_kernels(build) -> None:
@@ -5307,6 +5901,8 @@ def main() -> int:
          for kind in ("exact", "gossip")})
     stamp(16)
     du[torch.float32]["model_axis"] = model_axis["dual_update"]
+    squant["model_axis"] = model_axis["stochastic_quantize"]
+    qcomb["model_axis"] = model_axis["quantized_combine"]
 
     def launches(name):
         return sum(c.get(name, 0) for group in (

@@ -61,9 +61,15 @@ A model axis (``TrainSpec.model`` M > 1 over a process group of pod x
 data x M ranks) spreads each worker over M ranks (:mod:`repro_torch.dist.
 tp`): each rank initialises its blocks of JAX's layout one leaf at a time
 (or cuts them from the ``params`` it is given), the exact epoch runs FSDP
-x TP and the fp32 gossip epoch TP, and ``params`` gathers the whole primal
-on every rank.  The dense family's exact and fp32 gossip epochs run so;
-everything else at M > 1 raises, naming ROADMAP.md's module item 4a.
+x TP and the gossip epochs (fp32, ``gossip_q8``, ``gossip_q4``) TP, and
+``params`` gathers the whole primal on every rank.  A quantized round
+there quantizes each rank's block of its worker's row on the whole row's
+grid (reduced over "model") with the block's positions of the whole row's
+draws.  The dense family's exact, fp32 and quantized gossip epochs of the
+sequential driver run so; everything else at M > 1 (the pipelined and
+async drivers, the controller, redundancy, elastic membership and churn,
+save and restore, the other families) raises, naming ROADMAP.md's module
+item 4a.
 """
 from __future__ import annotations
 
@@ -239,8 +245,9 @@ class AMBSession:
     def _model_axis(self, what: str) -> ValueError:
         return ValueError(f"{what} at model > 1 (a worker spread over "
                           f"{self.group.model} ranks) is not ported yet "
-                          f"(ROADMAP.md, module item 4a); the exact and "
-                          f"fp32 gossip epochs of the dense family run")
+                          f"(ROADMAP.md, module item 4a); the exact, fp32 "
+                          f"and quantized gossip epochs of the dense "
+                          f"family run")
 
     def _blocks(self, params) -> dict:
         """This rank's blocks of the parameters (``params``: a dict, a
@@ -267,7 +274,8 @@ class AMBSession:
         check_supported(self.cfg, self.group.model)
         for what, refused in (
                 (f"{spec.consensus} consensus",
-                 spec.consensus not in ("exact", "gossip")),
+                 spec.consensus not in ("exact", "gossip", "gossip_q8",
+                                        "gossip_q4")),
                 ("the pipelined driver", spec.pipeline),
                 ("the async driver", spec.async_epochs),
                 ("the controller", self.controller is not None),

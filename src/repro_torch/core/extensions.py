@@ -39,15 +39,21 @@ from .engine import (EngineConfig, History, _chunks, _eval, _history,
 from .stragglers import StragglerModel, amb_batch_sizes
 
 
-def quantize_unbiased(x: torch.Tensor, bits: int,
-                      rnd: torch.Tensor) -> torch.Tensor:
+def quantize_unbiased(x: torch.Tensor, bits: int, rnd: torch.Tensor,
+                      bounds: Optional[tuple] = None) -> torch.Tensor:
     """Stochastic uniform quantization on per-row grids, E[q(x)] = x.
 
     x: (n, D); rnd: U[0, 1) draws of x's shape; ``2^bits - 1`` levels.
+    ``bounds``: each row's (lo, hi), (n, 1) each, taken from outside (the
+    rows of a worker spread over a model axis are blocks of its row, and
+    the grid is the whole row's); default the min and max of x's rows.
     """
     levels = float(2 ** bits - 1)
-    lo = x.amin(dim=-1, keepdim=True)
-    hi = x.amax(dim=-1, keepdim=True)
+    if bounds is None:
+        lo = x.amin(dim=-1, keepdim=True)
+        hi = x.amax(dim=-1, keepdim=True)
+    else:
+        lo, hi = bounds
     # a tensor divisor: CUDA turns a division by a host scalar into a
     # product with its reciprocal, which can move the grid by an ulp
     scale = torch.clamp(hi - lo, min=1e-12) / torch.full_like(lo, levels)

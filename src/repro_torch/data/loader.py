@@ -12,8 +12,11 @@ nothing.
     under coded placement its group's node, rotated.  With ``rank`` it
     builds only that worker's shard (one process per worker, coded or
     not).
-  * :func:`local_rows` — a worker's rows of a global batch (the
-    counterpart of JAX's ``put_batch`` onto the worker axes).
+  * :func:`local_rows` — a worker's rows of a global batch;
+    :func:`put_batch` places a batch on a mesh's device, this rank's
+    worker taking its rows (JAX's one ``device_put`` onto the worker
+    axes), and :func:`batch_sharding` gives each leaf's DTensor
+    placements (JAX's per-leaf ``NamedSharding``).
   * :class:`SyntheticSource` — uniform random tokens drawn on the device.
   * :class:`CostedSource` — a source with a fixed host cost per batch.
   * :class:`Prefetcher` — a daemon thread that builds the next ``depth``
@@ -29,9 +32,11 @@ import threading
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..launch.mesh import axis_names, mesh_shape
 
 
 def _tree_map(fn, *trees):
@@ -57,6 +62,48 @@ def local_rows(batch, rank: int, n: int):
         per = x.shape[0] // n
         return x[rank * per:(rank + 1) * per]
     return _tree_map(rows, batch)
+
+
+def batch_sharding(batch, mesh, batch_axes=("data",)):
+    """Per-leaf DTensor placements: the leading dim over the worker axes
+    ``batch_axes``, every other dim whole (JAX's ``NamedSharding(mesh,
+    P(batch_axes, None, ...))``)."""
+    from ..dist.params import placements
+    axes = tuple(a for a in batch_axes if a in axis_names(mesh))
+    return _tree_map(lambda x: placements(
+        (axes,) + (None,) * (x.dim() - 1), mesh), batch)
+
+
+def _mesh_worker(mesh, batch_axes) -> tuple:
+    """(this rank's index over ``batch_axes``, their extent product): (0,
+    1) for a mesh with no coordinate (an abstract one) or one worker."""
+    axes = [a for a in batch_axes if a in axis_names(mesh)]
+    shape = mesh_shape(mesh)
+    extents = tuple(int(shape[a]) for a in axes)
+    n = int(np.prod(extents)) if extents else 1
+    coord = getattr(mesh, "get_coordinate", lambda: None)()
+    if n <= 1 or coord is None:
+        return 0, 1
+    names = axis_names(mesh)
+    return int(np.ravel_multi_index(
+        tuple(coord[names.index(a)] for a in axes), extents)), n
+
+
+def put_batch(batch, mesh, batch_axes=("data",)):
+    """Place a batch tree on ``mesh``: over a process group each rank
+    keeps its worker's rows of every leaf (:func:`local_rows` at its
+    coordinate over ``batch_axes``), and every leaf goes to the mesh's
+    device type (an abstract mesh has none: the rows stay where they
+    are).  JAX's one ``device_put`` over the tree becomes one pass over
+    its leaves; a leaf already on the device is not copied."""
+    worker, n = _mesh_worker(mesh, batch_axes)
+    if n > 1:
+        batch = local_rows(batch, worker, n)
+    device = getattr(mesh, "device_type", None)
+    if device is None:
+        return batch
+    device = resolve_device(device)
+    return _tree_map(lambda x: x.to(device, non_blocking=True), batch)
 
 
 class InputSource:

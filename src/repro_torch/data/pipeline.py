@@ -234,3 +234,10 @@ class LMTokenStream:
 def make_stream(kind: str, **kw):
     return {"linreg": LinRegStream, "logreg": LogRegStream,
             "lm": LMTokenStream}[kind](**kw)
+
+
+def shard_batch(batch, mesh, batch_axes=("data",)):
+    """JAX's deprecated alias for :func:`repro_torch.data.loader.
+    put_batch`."""
+    from .loader import put_batch
+    return put_batch(batch, mesh, batch_axes)

@@ -47,15 +47,17 @@ combine_rank`.  The losses, :class:`RankNoiseStats` and
 :func:`gossip_primal` sum across the workers.
 
 A worker spread over a model axis (``tp``, a :class:`~repro_torch.dist.
-tp.TensorParallel`; the exact and fp32 gossip steps): each rank holds its
-blocks of the parameters and of the fp32 ``z`` and ``w0`` (the exact
-step: over "data" and "model"; the gossip step: over "model", whole over
-the workers), and the loss is the worker's, equal on its model ranks.  The
-exact step's backward reduce-scatters each block's gradient over "data"
+tp.TensorParallel`; the exact, fp32 gossip and quantized gossip steps):
+each rank holds its blocks of the parameters and of the fp32 ``z`` and
+``w0`` (the exact step: over "data" and "model"; the gossip step: over
+"model", whole over the workers), and the loss is the worker's, equal on
+its model ranks.  The exact step's backward reduce-scatters each block's gradient over "data"
 (then sums it over "pod", and the leaves not on "data" over every
 worker) and dual averaging updates the blocks; the gossip step packs this
 rank's block of ``z_i + g_i`` and gossips it with the ranks at its model
-coordinate.  The trust region's norm is the whole leaf's.
+coordinate (quantized: on the whole row's grid, reduced over "model" each
+round, with the block's positions of the whole row's draws).  The trust
+region's norm is the whole leaf's.
 """
 from __future__ import annotations
 
@@ -65,10 +67,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core import consensus as cns
 from ..core.dual_averaging import BetaSchedule
 from ..kernels import ops as kops
 from ..models import lm_loss
-from .consensus import epoch_draws, make_strategy
+from .consensus import GossipConsensus, epoch_draws, make_strategy
+from .group import num_workers, worker_axes  # noqa: F401
 from .redundancy import (CodedAssignment, epoch_weights,  # noqa: F401
                          seq_weights_from_b)
 
@@ -223,6 +227,25 @@ def unpack_duals(out: torch.Tensor, z: dict, n: int) -> dict:
         flat.copy_(torch.where(keep, out[:, off:off + size] / denom, flat))
         off += size
     return z
+
+
+# ---------------------------------------------------------------------------
+# Ring gossip along the worker dim (JAX's compatibility wrappers)
+# ---------------------------------------------------------------------------
+
+def ring_p(n: int, lazy: float = 0.5) -> np.ndarray:
+    """Lazy-Metropolis ring weights (the worker-axis P; circulant)."""
+    if n < 2:
+        return np.ones((1, 1))
+    return cns.metropolis_weights(cns.ring_graph(n), lazy=lazy)
+
+
+def ring_gossip(flat: torch.Tensor, rounds: int,
+                lazy: float = 0.5) -> torch.Tensor:
+    """``rounds`` rounds of ring-Metropolis gossip over dim 0 of (n, D):
+    :class:`~repro_torch.dist.consensus.GossipConsensus` on a ring (an
+    fp32 ``flat`` may be overwritten, as its ``combine`` says)."""
+    return GossipConsensus(flat.shape[0], rounds, "ring", lazy).combine(flat)
 
 
 # ---------------------------------------------------------------------------
@@ -488,7 +511,10 @@ class RankEpoch:
     pipelined and async drivers: the epoch's weights, this worker's
     gradient at ``prox(z)`` on its rows, the noise statistics and the
     settle of a payload through ``combine_rank`` under its enqueue
-    epoch's draws."""
+    epoch's draws.  Over a model axis (``tp``) the payload is this rank's
+    block of its worker's row, and ``block`` maps it into the whole row
+    for the quantized rounds' draws (the grid's reduction over "model" is
+    the group's)."""
 
     def __init__(self, cfg, n: int, amb: AMBConfig, draw_source, group,
                  tp=None):
@@ -497,6 +523,15 @@ class RankEpoch:
         self.draw_source = draw_source or epoch_draws
         self.strategy = strategy_from_config(amb, n)
         self.assignment = assignment_from_config(amb, n)
+        self.block = None if tp is None else tp.row_block()
+
+    def combine(self, buf: torch.Tensor, epoch: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``combine_rank`` of the rank buffer ``buf`` under epoch
+        ``epoch``'s draws (and, over a model axis, this rank's block)."""
+        return self.strategy.combine_rank(
+            buf, self.group, draws=self.draw_source(self.amb.seed, epoch),
+            out=out, block=self.block)
 
     def weights(self, b, device, per: int) -> tuple:
         """(this worker's (1, per) weights, the (n,) effective counts, the
@@ -520,9 +555,7 @@ class RankEpoch:
         buf = self.strategy.rank_buffer(payload.shape[1], payload.device,
                                         self.group.worker)
         buf[0].copy_(payload[0])
-        return self.strategy.combine_rank(
-            buf, self.group, draws=self.draw_source(self.amb.seed, epoch),
-            out=payload)
+        return self.combine(buf, epoch, out=payload)
 
 
 def _rank_gossip_step(cfg, n: int, amb: AMBConfig, draw_source, group,
@@ -551,8 +584,7 @@ def _rank_gossip_step(cfg, n: int, amb: AMBConfig, draw_source, group,
             stats.add(g)
         del g
         metrics = epoch_metrics(bw, rank_losses(loss, group), beta, t, stats)
-        out = ep.strategy.combine_rank(buf, group,
-                                       draws=ep.draw_source(amb.seed, t))
+        out = ep.combine(buf, t)
         del buf
         unpack_duals(out, z, 1)
         state["t"] = t + 1

@@ -30,7 +30,11 @@ gossip sends the (nibble-packed) uint8 level plane and the (2,) fp32 grid
 instead, and one ``quantized_combine`` launch reads the K level rows a
 rank holds through a (K, 1) table.  Under a survivor relayout an inactive
 rank neither sends nor receives and keeps its row.  The dense fallback
-all-gathers the rows; exact consensus is an all-reduce mean.
+all-gathers the rows; exact consensus is an all-reduce mean.  A worker
+spread over a model axis gossips a block of its row on each of its ranks:
+quantized gossip then takes the whole row's grid (its bounds reduced over
+"model") and the whole row's draws at the block's positions
+(:func:`rank_draws`), so each block is its share of the stacked round.
 """
 from __future__ import annotations
 
@@ -291,6 +295,25 @@ def epoch_draws(seed: int, epoch: int) -> Callable:
     return draws
 
 
+def rank_draws(draws: Callable, k_round: int, out: torch.Tensor,
+               worker: int, block=None) -> torch.Tensor:
+    """Round ``k_round``'s draws of one rank's (1, D) row into ``out``:
+    its worker's row of the stacked round's draws, or, for a rank that
+    holds a block of that row (``block``, see
+    :meth:`repro_torch.dist.tp.TensorParallel.row_block`), the worker's
+    whole (1, W + 1) row drawn into a scratch row that lives for the round,
+    and the block's positions kept, so any draw source (the default
+    generators, or draws a test injects) gives the block what the whole
+    row takes there."""
+    if block is None:
+        return draws(k_round, out, rows=(worker,))
+    whole = torch.empty((1, block.width), dtype=torch.float32,
+                        device=out.device)
+    draws(k_round, whole, rows=(worker,))
+    block.take(whole[0], out[0])
+    return out
+
+
 class ConsensusStrategy:
     """Operator on the per-worker message stack: (n, D) -> (n, D).
 
@@ -316,13 +339,18 @@ class ConsensusStrategy:
 
     def combine_rank(self, buf: torch.Tensor, group,
                      draws: Optional[Callable] = None,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     out: Optional[torch.Tensor] = None,
+                     block=None) -> torch.Tensor:
         """One process per worker: this worker's (1, D) row of
         :meth:`combine` on the stack of every worker's row 0 of ``buf``.
         ``draws`` is the epoch's source (:func:`epoch_draws`), asked for
         this worker's row only; ``out``, a (1, D) fp32 buffer apart from
         ``buf``, may take the result where the strategy writes it apart
-        from ``buf`` (fp32 gossip)."""
+        from ``buf`` (fp32 gossip).  A worker spread over a model axis
+        (``group.model`` > 1): each of its ranks holds a block of the row,
+        and ``block`` (:meth:`repro_torch.dist.tp.TensorParallel.
+        row_block`) maps it into the whole row; the result is this
+        rank's block of the worker's row of :meth:`combine`."""
         raise NotImplementedError
 
 
@@ -336,7 +364,7 @@ class ExactConsensus(ConsensusStrategy):
     def combine(self, msg, draws=None):
         return cns.exact_average(msg.float())
 
-    def combine_rank(self, buf, group, draws=None, out=None):
+    def combine_rank(self, buf, group, draws=None, out=None, block=None):
         """The all-reduce mean of every worker's row."""
         row = buf[:1]
         group.all_reduce_([row])
@@ -474,7 +502,7 @@ class GossipConsensus(_TapGossip):
         # final select equals the dense masked operator's identity rows
         return _mask_rows(m, kept, getattr(self.taps, "active", None))
 
-    def combine_rank(self, buf, group, draws=None, out=None):
+    def combine_rank(self, buf, group, draws=None, out=None, block=None):
         """r rounds with this worker's message in row 0 of the (K, D)
         ``buf`` (:meth:`rank_buffer`); returns its (1, D) row.  Each round
         exchanges rows with the taps' neighbours into rows 1..K-1, in tap
@@ -506,20 +534,35 @@ class GossipConsensus(_TapGossip):
         return out
 
 
-def row_grids(cur: torch.Tensor, h: torch.Tensor, levels: float,
+def row_bounds(x: torch.Tensor, h: Optional[torch.Tensor] = None,
                chunk: int = 1 << 26) -> tuple:
-    """(lo, scale), each (n, 1): the min of each row of ``cur - h`` and
-    its range over ``levels`` (at least 1e-12).  The difference is formed
-    a chunk of one row at a time, never as an (n, D) temporary; min and
-    max are exact in any order."""
-    n, d = cur.shape
-    lo = torch.empty((n, 1), dtype=torch.float32, device=cur.device)
+    """(lo, hi), each (n, 1) fp32: the min and max of each row of ``x -
+    h`` (of ``x`` without ``h``), the difference formed a chunk of one row
+    at a time, never as an (n, D) temporary."""
+    n, d = x.shape
+    lo = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     hi = torch.empty_like(lo)
     for i in range(n):
-        parts = [torch.aminmax(cur[i, j:j + chunk] - h[i, j:j + chunk])
+        parts = [torch.aminmax(x[i, j:j + chunk] if h is None
+                               else x[i, j:j + chunk] - h[i, j:j + chunk])
                  for j in range(0, d, chunk)]
         lo[i] = torch.stack([p.min for p in parts]).min()
         hi[i] = torch.stack([p.max for p in parts]).max()
+    return lo, hi
+
+
+def row_grids(cur: torch.Tensor, h: torch.Tensor, levels: float,
+              reduce: Optional[Callable] = None,
+              chunk: int = 1 << 26) -> tuple:
+    """(lo, scale), each (n, 1): the min of each row of ``cur - h`` and
+    its range over ``levels`` (at least 1e-12).  ``reduce(lo, hi) -> (lo,
+    hi)`` combines the bounds of the blocks of a row held apart (a worker
+    over a model axis: :meth:`~repro_torch.dist.group.WorkerGroup.
+    grid_over_model`); min and max are exact in any order, so the grid is
+    the whole row's bit for bit."""
+    lo, hi = row_bounds(cur, h, chunk)
+    if reduce is not None:
+        lo, hi = reduce(lo, hi)
     # a tensor divisor: CUDA turns a division by a host scalar into a
     # product with its reciprocal, which can move the grid by an ulp
     return lo, torch.clamp(hi - lo, min=1e-12) / torch.full_like(lo, levels)
@@ -594,30 +637,42 @@ class QuantizedGossipConsensus(_TapGossip):
         # holds in fp32 beside its replicas
         return torch.empty((1, width), dtype=torch.float32, device=device)
 
-    def combine_rank(self, buf, group, draws=None, out=None):
+    def combine_rank(self, buf, group, draws=None, out=None, block=None):
         """r rounds with this worker's message in the (1, D) ``buf``
         (overwritten with the result, which is returned).  Each round: the
         row grid of ``m - h`` (:func:`row_grids` on the one row), this
-        worker's row of the round's draws (``draws(k, out, rows=(worker,
-        ))``), one ``stochastic_quantize`` launch, then the packed level
-        plane and the (2,) fp32 grid ``(lo, scale)`` go to the ranks that
-        read this one and the K - 1 read ones arrive, in tap order, into
-        rows 1..K-1 of a (K, D) uint8 plane, and one ``quantized_combine``
+        worker's row of the round's draws (:func:`rank_draws`), one
+        ``stochastic_quantize`` launch, then the packed level plane and
+        the (2,) fp32 grid ``(lo, scale)`` go to the ranks that read this
+        one and the K - 1 read ones arrive, in tap order, into rows
+        1..K-1 of a (K, D) uint8 plane, and one ``quantized_combine``
         launch on the (K, 1) table updates the row and its K - 1 neighbour
         replicas: bit for bit the stacked round's row.  A rank holds its
         row, ``h``, K - 1 replicas and the draws in fp32 and the (K, D)
         plane in uint8; ``(wire_width(D) + 8) (K - 1)`` bytes leave it a
         round (:meth:`wire_bytes_per_round`).  The dense fallback
-        all-gathers the quantized deltas (:meth:`_dense_rank`)."""
+        all-gathers the quantized deltas (:meth:`_dense_rank`).
+
+        Over a model axis the row is this rank's block (D its width) and
+        the neighbours are the ranks at its model coordinate: before the
+        exchange the grid's bounds are reduced over the worker's model
+        ranks (one :meth:`~repro_torch.dist.group.WorkerGroup.
+        grid_over_model` a round, issued in the same order on each), so
+        every block is quantized on the whole row's grid, with its
+        positions of the whole row's draws (``block``): bit for bit its
+        block of the stacked round's row."""
         if draws is None:
             raise ValueError("QuantizedGossipConsensus needs a draw source")
+        if group.model > 1 and block is None:
+            raise ValueError("a worker over a model axis quantizes a block "
+                             "of its row: combine_rank needs the row's "
+                             "block map (TensorParallel.row_block)")
         m = buf[:1]
         if self._sits_out(group.worker):
             return m
         if self.taps is None or any(self.taps.offsets[0]):
-            return self._dense_rank(m, group, draws)
+            return self._dense_rank(m, group, draws, block)
         k, d, dev = self.taps.k, m.shape[1], m.device
-        me = (group.worker,)
         plan = self.rank_plan(group.worker)
         levels = float(2 ** self.bits - 1)
         table = own_row_table(k, dev)
@@ -633,8 +688,8 @@ class QuantizedGossipConsensus(_TapGossip):
             (k, width), dtype=torch.uint8, device=dev)
         sends = [(dst, tap) for tap, _, dst in plan]
         for r in range(self.rounds):
-            lo, scale = row_grids(m, h, levels)
-            draws(r, rnd, rows=me)
+            lo, scale = row_grids(m, h, levels, group.grid_over_model)
+            rank_draws(draws, r, rnd, group.worker, block)
             kops.stochastic_quantize(m, h, rnd, lo, scale, levels,
                                      out=(lvl[:1], h))
             # the grid goes as its fp32 bits, never as a host number
@@ -657,14 +712,16 @@ class QuantizedGossipConsensus(_TapGossip):
                                    self.taps.weights, out=(m, hnbr))
         return m
 
-    def _dense_rank(self, m, group, draws):
+    def _dense_rank(self, m, group, draws, block=None):
         """The dense fallback over a group (graphs that do not decompose
         into taps): each round a rank quantizes its own delta as
         :func:`~repro_torch.core.extensions.gossip_quantized` does its row,
         all-gathers the quantized deltas (fp32, as the fp32 dense fallback
         all-gathers its rows), updates every public replica, and takes its
         row of ``diag(P) m + offdiag(P) h``.  The (n, D) replicas are held,
-        as the dense operator reads them."""
+        as the dense operator reads them.  Over a model axis the delta's
+        bounds are reduced over the worker's model ranks first, and the
+        draws are the block's (``block``), as on the taps."""
         i, n = group.worker, self.n
         p = torch.as_tensor(self.p, dtype=torch.float32, device=m.device)
         diag = p[i, i]
@@ -674,8 +731,10 @@ class QuantizedGossipConsensus(_TapGossip):
                         device=m.device)
         rnd = torch.empty_like(m)
         for r in range(self.rounds):
-            draws(r, rnd, rows=(i,))
-            q = quantize_unbiased(m - h[i:i + 1], self.bits, rnd)
+            rank_draws(draws, r, rnd, i, block)
+            delta = m - h[i:i + 1]
+            q = quantize_unbiased(delta, self.bits, rnd,
+                                  group.grid_over_model(*row_bounds(delta)))
             h.add_(group.all_gather(q[0]))
             m = diag * m + off @ h
         return m

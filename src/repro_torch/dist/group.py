@@ -20,6 +20,9 @@ steps need of it:
     fp32 message, quantized gossip's uint8 level plane, its (2,) fp32
     grid);
   * :meth:`WorkerGroup.all_gather` for the dense fallback;
+  * :meth:`WorkerGroup.grid_over_model`: quantized gossip's row grid
+    over a worker's M model ranks, each holding a block of its row (one
+    MIN all-reduce of ``(lo, -hi)`` on ``model_pg`` a round);
   * :meth:`WorkerGroup.gather_to_root`: every rank's row of one leaf to
     rank 0, one row at a time (the checkpoint streams them to disk).
 
@@ -114,6 +117,7 @@ class WorkerGroup:
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         self.sent_bytes = 0
         self.staged_bytes = 0
+        self.grid_reductions = 0
         self._pinned: dict = {}
 
     def rank_of(self, worker: int) -> int:
@@ -188,6 +192,28 @@ class WorkerGroup:
                          device=self._coll_device())
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return float(t.item())
+
+    def grid_over_model(self, lo: torch.Tensor,
+                        hi: torch.Tensor) -> tuple:
+        """``(lo, hi)``, each (n, 1) fp32, reduced to their MIN and MAX
+        over this worker's model ranks: one MIN all-reduce of ``(lo,
+        -hi)`` (negation is exact, so the MAX comes out bit for bit),
+        through a pinned host buffer under gloo on the card.  Every model
+        rank must call it in the same order; at model 1 it returns its
+        arguments."""
+        if self.model <= 1:
+            return lo, hi
+        pair = torch.cat([lo, -hi], dim=1)
+        if self.staged:
+            host = self._pin("grid", pair.numel(), pair.dtype)
+            host.copy_(pair.view(-1))
+            dist.all_reduce(host, op=dist.ReduceOp.MIN, group=self.model_pg)
+            pair.view(-1).copy_(host)
+            self.staged_bytes += 2 * 4 * pair.numel()
+        else:
+            dist.all_reduce(pair, op=dist.ReduceOp.MIN, group=self.model_pg)
+        self.grid_reductions += 1
+        return pair[:, :1], -pair[:, 1:]
 
     def _coll_device(self) -> torch.device:
         return self.device if self.backend == "nccl" \

@@ -34,6 +34,13 @@ without an ffn split.  The norms stay replicated; their gradient is
 already equal on every model rank, since the column-parallel input's
 backward all-reduces.
 
+Quantized gossip over a model axis quantizes each rank's block of its
+worker's row on the whole row's grid and draws: :meth:`TensorParallel.
+row_block` maps the block row into the whole row (each leaf's offset in
+the worker row and its block slices, as :mod:`repro_torch.dist.params`
+shards a leaf), and the grid's bounds are reduced over "model" by
+:meth:`repro_torch.dist.group.WorkerGroup.grid_over_model`.
+
 The collectives run on CUDA tensors under NCCL and gloo alike (gloo
 copies through the host itself); a sum over "model" of a bf16 tensor is
 taken in fp32 and rounded once.  ``gathered_bytes`` and
@@ -42,6 +49,7 @@ of "data" in the all-gathers and sent to them in the reduce-scatters.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -50,7 +58,7 @@ from torch.autograd import Function
 
 from ..kernels import ops as kops
 from ..launch.mesh import mesh_shape
-from .params import param_spec
+from .params import block_slices, param_spec
 
 # leaves that each rank reads in part: the gradient of its part must be
 # summed over "model" so the replicated leaf stays equal on every rank
@@ -123,6 +131,57 @@ class _VocabNLL(Function):
         return p.mul_(g[..., None]), None, None, None, None
 
 
+class RowBlock:
+    """A rank's block of its worker's (W + 1)-element message row: the
+    leaves in row order, each whole in the worker row at its offset and
+    cut to the rank's block, then the count element (the row's last,
+    which every model rank holds).  ``width`` is the whole row's W + 1,
+    ``block_width`` the block row's."""
+
+    def __init__(self, leaves: list):
+        self.leaves = leaves       # (whole shape, block slices) in row order
+        self.width = sum(math.prod(shape) for shape, _ in leaves) + 1
+        self.block_width = sum(math.prod(n for _, n in sl)
+                               for _, sl in leaves) + 1
+
+    def take(self, whole: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """Copy the block's positions of the (W + 1,) ``whole`` row into
+        the (block_width,) ``out``, leaf by leaf through the same
+        ``narrow`` that cuts a leaf's block; returns ``out``."""
+        a = b = 0
+        for shape, slices in self.leaves:
+            src = whole[a:a + math.prod(shape)].view(shape)
+            for dim, (start, size) in enumerate(slices):
+                if size != shape[dim]:
+                    src = src.narrow(dim, start, size)
+            n = src.numel()
+            out[b:b + n].view(src.shape).copy_(src)
+            a += math.prod(shape)
+            b += n
+        out[b:].copy_(whole[a:])
+        return out
+
+
+def row_block(shapes: dict, mesh, coord, fsdp_axis: Optional[str] = None,
+              names=None) -> RowBlock:
+    """The block of a worker's message row that the rank at mesh
+    coordinate ``coord`` holds: leaves ``names`` (default every leaf of
+    ``shapes``, in the JAX package's order) laid out whole in the row,
+    each cut to the rank's block of it under :func:`~repro_torch.dist.
+    params.param_spec` (a leaf replicated over "model" whole on every
+    model rank), then the count element.  ``mesh`` may be abstract: the
+    parent of a group's ranks cuts their blocks with it."""
+    if names is None:
+        from ..models.model import ordered
+        names = list(ordered(shapes))
+    leaves = []
+    for k in names:
+        shape = tuple(int(x) for x in shapes[k])
+        spec = param_spec(k, shape, mesh, fsdp_axis)
+        leaves.append((shape, block_slices(spec, shape, mesh, coord)))
+    return RowBlock(leaves)
+
+
 class TensorParallel:
     """This rank's place in a worker of M model ranks (``group``, a
     :class:`~repro_torch.dist.group.WorkerGroup` with ``model`` > 1): the
@@ -164,6 +223,14 @@ class TensorParallel:
             return 0, v
         per = v // self.M
         return self.m * per, (self.m + 1) * per
+
+    def row_block(self, names=None) -> RowBlock:
+        """This rank's :func:`row_block` of its worker's message row under
+        the session's layout (``names`` default: every leaf, in the JAX
+        package's order, as the duals are kept)."""
+        return row_block(self.shapes, self.group.mesh,
+                         self.group.mesh.get_coordinate(), self.fsdp_axis,
+                         names)
 
     # -- collectives -------------------------------------------------------
 

@@ -19,14 +19,16 @@ CLI initialises the process group from the environment with
 ``--dist-backend`` (default NCCL on the card, gloo on the CPU; printed)
 and each rank runs the worker at its (pod, data) coordinate: one process
 per worker, or with ``--model M`` > 1 one worker over M ranks (FSDP x TP
-for exact consensus, TP for fp32 gossip; the dense family).
+for exact consensus, TP for fp32 gossip and for ``gossip_q8`` /
+``gossip_q4``, whose grid is reduced over the model ranks each round; the
+dense family).
 NCCL takes one card per rank; gloo may put several ranks on one card,
 keeps the compute there and sends the gossip rows through pinned host
 buffers (the bytes are printed per rank at the end).  Every driver and
 option runs over the ranks (quantized gossip, ``--pipeline``, ``--async``,
 ``--redundancy``, ``--controller``, ``--churn``, ``--ckpt-dir`` and
-``--restore``) at ``--model 1``; at ``--model`` > 1 they are refused
-(ROADMAP.md, module item 4a).  Only rank 0 prints the steps and writes
+``--restore``) at ``--model 1``; at ``--model`` > 1 all but quantized
+gossip are refused (ROADMAP.md, module item 4a).  Only rank 0 prints the steps and writes
 the metrics and the checkpoint.  ``--pipeline`` runs
 staleness-1 pipelined epochs, ``--async --staleness D`` the AMB-DG
 queue of D payloads.  The run flushes in-flight consensus at its end;
@@ -60,8 +62,9 @@ controller and a checkpoint:
 spread over two ranks:
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.train --smoke --data 2 \\
-      --model 2 --consensus gossip --sim-clock --dist-backend gloo \\
+      --model 2 --consensus gossip_q8 --sim-clock --dist-backend gloo \\
       --device cpu
+(``--consensus exact``, ``gossip`` or ``gossip_q4`` the same).
 """
 from __future__ import annotations
 
@@ -207,7 +210,8 @@ def _run(args, device):
             if session.tp is not None:
                 line += (f"; worker {g.worker} model {g.m}: gathered "
                          f"{session.tp.gathered_bytes} bytes, "
-                         f"reduce-scattered {session.tp.scattered_bytes}")
+                         f"reduce-scattered {session.tp.scattered_bytes}, "
+                         f"{g.grid_reductions} grid reductions")
             print(line, flush=True)
     finally:
         session.close()

@@ -114,27 +114,67 @@ def qkv_rope(p: dict, x: torch.Tensor, positions: torch.Tensor,
     return q, apply_rope(k, positions, cfg.rope_theta), v
 
 
-def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     window: int = 0, *, causal: bool = True) -> torch.Tensor:
-    """q (B,Sq,KV,G,hd), k/v (B,Skv,KV,hd) -> (B,Sq,KV,G,hd) in q's dtype,
-    query i at position i and key j at j: ``causal`` masks keys past the
-    query, ``window`` > 0 keys ``window`` or more positions back."""
-    sq, skv, hd = q.shape[1], k.shape[1], q.shape[-1]
+def _softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    hidden: torch.Tensor) -> torch.Tensor:
+    """The masked softmax of q (B,Sq,KV,G,hd) over k/v (B,Skv,KV,hd) in
+    fp32, ``hidden`` (1 or B, Sq, Skv) True where a key is masked; out
+    (B,Sq,KV,G,hd) in q's dtype."""
+    hd = q.shape[-1]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     scores = torch.einsum("bqkgh,bckh->bqgkc", q.float(), k.float()) * scale
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    hidden = torch.zeros((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        hidden |= kpos > qpos                              # (q, c) future
-    if window > 0:
-        hidden |= (qpos - kpos) >= window
-    scores = scores.masked_fill(hidden[None, :, None, None, :], NEG_INF)
+    scores = scores.masked_fill(hidden[:, :, None, None, :], NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     denom = p.sum(dim=-1).clamp(min=1e-30)
     out = torch.einsum("bqgkc,bckh->bqgkh", p, v.float()) / denom[..., None]
     return out.transpose(2, 3).to(q.dtype)
+
+
+def _hidden(qpos: torch.Tensor, skv: int, causal: bool,
+            window: int) -> torch.Tensor:
+    """(Sq, Skv) True where key j is masked for the query at ``qpos``."""
+    qpos = qpos[:, None]
+    kpos = torch.arange(skv, device=qpos.device)[None, :]
+    hidden = torch.zeros((qpos.shape[0], skv), dtype=torch.bool,
+                         device=qpos.device)
+    if causal:
+        hidden |= kpos > qpos                              # (q, c) future
+    if window > 0:
+        hidden |= (qpos - kpos) >= window
+    return hidden
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int = 0, *, causal: bool = True) -> torch.Tensor:
+    """q (B,Sq,KV,G,hd), k/v (B,Skv,KV,hd) -> (B,Sq,KV,G,hd) in q's dtype,
+    query i at position i and key j at j: ``causal`` masks keys past the
+    query, ``window`` > 0 keys ``window`` or more positions back."""
+    qpos = torch.arange(q.shape[1], device=q.device)
+    return _softmax_attend(q, k, v,
+                           _hidden(qpos, k.shape[1], causal, window)[None])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int, q_offset=0,
+                    kv_valid: Optional[torch.Tensor] = None,
+                    q_chunk: int = 512, kv_chunk: int = 1024,
+                    accum_dtype=None) -> torch.Tensor:
+    """JAX's ``flash_attention`` signature and layout: q (B, Sq, KV, G,
+    hd), k and v (B, Skv, KV, hd) -> (B, Sq, KV, G, hd) in q's dtype.
+
+    ``q_offset`` (an int or a 0-d tensor) is the absolute position of
+    q[:, 0] against the keys at 0 .. Skv - 1; ``kv_valid`` (B, Skv) bool
+    masks the cache slots that hold no token.  The body is the plain
+    masked softmax of :func:`masked_attention` in fp32 (one score tensor,
+    no blocks: ``q_chunk``, ``kv_chunk`` and ``accum_dtype`` are JAX's
+    blocking and change nothing here).  Not a kernel route: the prefill
+    reaches the CUDA kernel through :func:`flash_prefill`."""
+    qpos = torch.as_tensor(q_offset, device=q.device) \
+        + torch.arange(q.shape[1], device=q.device)
+    hidden = _hidden(qpos, k.shape[1], causal, window)[None]
+    if kv_valid is not None:
+        hidden = hidden | ~kv_valid.to(torch.bool)[:, None, :]
+    return _softmax_attend(q, k, v, hidden)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -24,7 +24,8 @@ batches, ``EPOCHS`` epochs at the minibatch sizes ``BS``:
     the norm is the whole leaf's;
   * the train CLI with ``--model 2``, exact and gossip, against the
     one-process ``--data 2`` CLI;
-  * each combination still refused at model > 1 raising with its item.
+  * each combination still refused at model > 1 raising with its item
+    (quantized gossip runs: ``tests/test_torch_tp_quantized.py``).
 
 The spawn has a join deadline (``JOIN_S``) and the process group a
 timeout (``PG_TIMEOUT_S``).
@@ -64,8 +65,8 @@ CASES = {"exact": ("exact", None, False), "gossip": ("gossip", None, False),
          "gossip_radius": ("gossip", RADIUS, False),
          "odd_exact": ("exact", None, True)}
 ODD = dict(vocab_size=511, d_ff=255)
-REFUSED = ("gossip_q8", "pipeline", "async", "controller", "redundancy",
-           "moe", "heads", "churn", "faults", "save", "restore")
+REFUSED = ("pipeline", "async", "controller", "redundancy", "moe", "heads",
+           "churn", "faults", "save", "restore")
 
 
 def _cfg(arch="qwen2-1.5b", **kw):
@@ -148,7 +149,6 @@ def _refusals(params, mesh, mesh14, outdir) -> dict:
     from repro_torch.api import AMBSession, ControllerSpec, TrainSpec
     from repro_torch.faults import PoissonChurn
     tries = {
-        "gossip_q8": lambda: _session("gossip_q8", params, mesh),
         "pipeline": lambda: _session("gossip", params, mesh, pipeline=True),
         "async": lambda: _session("gossip", params, mesh, async_epochs=True),
         "controller": lambda: AMBSession(
