@@ -160,7 +160,8 @@ Phases (any failure ends the run with a non-zero exit code):
      the built libraries.  First the one-process references (exact at 8
      layers, ring gossip r 5 at 4, qwen2-1.5b width, 4 x 8 x 256, 2
      epochs, simulated clock, deterministic algorithms); then one NCCL
-     rank: ``make_host_mesh(1, 1)`` and an exact session at 28 layers
+     rank, in this process through a file store (``run_nccl1``):
+     ``make_host_mesh(1, 1)`` and an exact session at 28 layers
      through the process-group path, parameters and losses bit for bit
      the one-process ``data=1`` session's; then four gloo ranks sharing
      the card (compute on the card, the gossip rows through pinned host
@@ -170,9 +171,9 @@ Phases (any failure ends the run with a non-zero exit code):
      its row of the one-process session), each rank's peak, epoch
      seconds, bytes sent and staged a round, ``gossip_combine`` (r an
      epoch) and ``dual_update`` (15 an epoch) launches, the peaks' sum
-     under MESH_PEAK_SUM_GIB; then the train CLI under torchrun, gloo,
-     ``--pod 2 --data 2 --graph torus`` at the smoke config, its losses
-     equal to the one-process ``--data 4`` CLI's; then the dry-run
+     under MESH_PEAK_SUM_GIB; then, on the same ranks, the train CLI,
+     gloo, ``--pod 2 --data 2 --graph torus`` at the smoke config, its
+     losses equal to the one-process ``--data 4`` CLI's; then the dry-run
      (``repro_torch.launch.dryrun``) of qwen2-1.5b train_4k on (16, 16)
      and of the exact ranks' own configuration on (4, 1), whose per-rank
      argument bytes must not pass the ranks' measured peak.  The
@@ -187,8 +188,10 @@ Phases (any failure ends the run with a non-zero exit code):
      simulated clock, deterministic algorithms: gossip_q8 and gossip_q4
      on a ring at DRIVER_ROUNDS, pipelined, async D = 2, a controlled
      gossip session) and writes their digests, and a smoke-size pipelined
-     session saves a checkpoint; then four gloo ranks on the card
-     (``--rank-phase drivers``): rank 0 first runs the one-process twins
+     session saves a checkpoint; then four gloo ranks on the card (the
+     same ranks as phase 14's: phases 14, 15 and 16 take turns in one
+     launch, ``--rank-phase gloo``, every parent step before the ranks
+     first): rank 0 first runs the one-process twins
      held to a tolerance (coded exact, churn, the MoE exact step at
      qwen3-moe-30b-a3b width cut to DRIVER_MOE_LAYERS, under SGD) while
      the others wait; every rank's dual row bit for bit its one-process row, q8 and
@@ -204,9 +207,10 @@ Phases (any failure ends the run with a non-zero exit code):
      bit for bit both ways; each rank's peak, epoch seconds, bytes sent
      and staged, the peaks' sum under MESH_PEAK_SUM_GIB;
  16. a worker over a model axis: the one-process ``--data 2`` train CLI
-     at the smoke config (exact and gossip); then four gloo ranks as (data
-     2, model 2) (``--rank-phase model``): rank 0 first runs, while the
-     others wait, the one-process data=2 references at qwen2-1.5b width
+     at the smoke config (exact, gossip and gossip_q8); then four gloo
+     ranks as (data 2, model 2) (the launch's third turn): rank 0 first
+     runs, while the others wait, the one-process data=2 references at
+     qwen2-1.5b width
      cut to MODEL_LAYERS, 2 x 8 x 256, MESH_EPOCHS epochs (exact and ring
      gossip r 5, simulated clock, deterministic algorithms; kept in host
      memory), and both again with their row-parallel products (wo,
@@ -221,11 +225,21 @@ Phases (any failure ends the run with a non-zero exit code):
      within its limit, the replicated leaves equal on a worker's model
      ranks), each rank's peak, epoch seconds, bytes sent and staged a
      round, bytes gathered and reduce-scattered an epoch, ``dual_update``
-     (15 an epoch) and ``gossip_combine`` (r an epoch) launches; then the
-     train CLI ``--data 2 --model 2`` (exact and gossip) on the same ranks,
-     its losses within MESH_LOSS_TOL of the one-process CLI's; the peaks
-     beside phase 14's data=4 exact ranks'; and the prox timed at the
-     exact ranks' largest block beside the whole leaf;
+     (15 an epoch) and ``gossip_combine`` (r an epoch) launches; then
+     quantized gossip (the consensus alone on a fixed stack, q8 and q4,
+     and a gossip_q8 session, each rank's blocks bit for bit rank 1's
+     one-process twin under ``tp_sums``); then every other driver and
+     option at DRIVER_LAYERS in fp32 (``run_model_drivers``: pipelined
+     gossip, async gossip_q8 at D = 2 with the controller, churn through
+     a fault model, each rank's dual blocks bit for bit rank 1's
+     one-process twin under ``tp_sums``, the wire exactly 4 d_block or
+     ``wire_bytes_per_round(d_block)`` a round, the out worker's blocks
+     unchanged, the noise statistics and actions equal on every rank;
+     coded exact within its leaves' ``order_limits``); then the train CLI
+     ``--data 2 --model 2`` (exact, gossip and gossip_q8) on the same
+     ranks, its losses within MESH_LOSS_TOL of the one-process CLI's; the
+     peaks beside phase 14's data=4 exact ranks'; and the prox and the
+     quantized kernels timed at the ranks' blocks;
  17. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
@@ -3615,7 +3629,9 @@ MESH_EXACT_LAYERS = 4
 MESH_GOSSIP_LAYERS = 2
 MESH_PEAK_SUM_GIB = 70.0
 MESH_EPOCHS = 2
-MESH_TIMEOUT_S = {"nccl1": 300, "gloo4": 480, "cli": 240}
+# phases 14 to 16's gloo ranks run in one launch (``rank_gloo``); the NCCL
+# rank runs in the parent (``run_nccl1``)
+MESH_TIMEOUT_S = {"gloo": 900}
 MESH_PG_TIMEOUT_S = 300        # a collective waiting longer fails its rank
 # exact over four ranks: each rank's bf16 gradient is rounded before the
 # fp32 sum across ranks and rounded again after it (five roundings of
@@ -3789,32 +3805,64 @@ def mesh_references(torch, rt, full, work: Path) -> dict:
     return refs
 
 
-def launch_ranks(phase: str, work: Path, n: int, extra_env=None) -> None:
-    """``python -m torch.distributed.run --standalone --nproc-per-node n
-    chip_smoke.py --rank-phase phase --work work`` in its own process
-    group, killed whole past MESH_TIMEOUT_S[phase]; a rank that fails or
-    runs out of time fails the run."""
+def start_ranks(phase: str, work: Path, n: int):
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc-per-node n chip_smoke.py --rank-phase phase --work work`` in
+    its own process group; returns (the process, its start time).  The
+    ranks wait for ``work/parent_ready`` (``parent_ready``) before their
+    first step, so the parent's steps before them run while they come
+    up."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"),
            "--rank-phase", phase, "--work", str(work)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
-               CHIP_SMOKE_LAUNCHED_AT=repr(time.time()),
-               **(extra_env or {}))
+               CHIP_SMOKE_LAUNCHED_AT=repr(time.time()))
+    return subprocess.Popen(cmd, env=env, cwd=str(ROOT),
+                            start_new_session=True), time.perf_counter()
+
+
+def parent_ready(work: Path) -> None:
+    """Tell the started ranks that the parent's steps before them (the
+    references they read) are done."""
+    (work / "parent_ready").write_text("1")
+
+
+def wait_parent(work: Path, rank: int) -> None:
+    """A rank: wait for ``parent_ready`` (at most MESH_TIMEOUT_S["gloo"]);
+    rank 0 prints how long it waited."""
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, env=env, cwd=str(ROOT),
-                            start_new_session=True)
+    while not (work / "parent_ready").exists():
+        if time.perf_counter() - t0 > MESH_TIMEOUT_S["gloo"]:
+            fail("the parent's steps before the ranks never ended")
+        time.sleep(0.1)
+    if rank == 0:
+        print(f"rank 0 waited {time.perf_counter() - t0:.1f} s for the "
+              f"parent's steps before the ranks", flush=True)
+
+
+def stop_ranks(phase: str, proc) -> None:
+    """Kill a started launch's whole process group (a parent step before
+    its ranks failed)."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        print(f"rank phase {phase}: killed", flush=True)
+
+
+def wait_ranks(phase: str, proc, t0: float, n: int) -> None:
+    """Wait for a started launch, killed whole past MESH_TIMEOUT_S[phase];
+    a rank that fails or runs out of time fails the run."""
     try:
         code = proc.wait(timeout=MESH_TIMEOUT_S[phase])
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, 9)
-        proc.wait()
+        stop_ranks(phase, proc)
         fail(f"rank phase {phase}: still running after "
              f"{MESH_TIMEOUT_S[phase]} s; killed")
     if code:
         fail(f"rank phase {phase}: exit code {code}")
     print(f"rank phase {phase}: {n} ranks done in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s of the launch", flush=True)
 
 
 def rank_report(label: str, rank: int, res: dict, group, rounds: int):
@@ -3871,7 +3919,8 @@ def rank_gloo4(torch, rt, dist, work: Path) -> None:
     deterministic algorithms, held against the parent's one-process
     references: gossip dual rows and batch rows by digest, bit for bit;
     exact losses and (rank 0) parameters within MESH_PARAM_TOL, every
-    rank's parameters equal."""
+    rank's parameters equal; then the train CLI's ``main`` (``--pod 2
+    --data 2``), which the parent holds against its one-process CLI."""
     rank = dist.get_rank()
     lap = stamps("gloo4 rank 0", rank)
     refs = json.loads((work / "reference.json").read_text())
@@ -3951,23 +4000,37 @@ def rank_gloo4(torch, rt, dist, work: Path) -> None:
         del session
     release(torch)
     lap("the gossip checks done")
-    (work / f"gloo4_rank{rank}.json").write_text(json.dumps(out))
-
-
-def rank_cli(torch, rt, dist, work: Path) -> None:
-    """The train CLI's ``main`` under torchrun (it initialises nothing:
-    torchrun's group is up), under deterministic algorithms."""
+    # the train CLI's main inside the same launch (it initialises nothing:
+    # the ranks' group is up), as phase 16 runs its CLIs
     with deterministic(torch):
         rt.launch.train.main(MESH_CLI_ARGV + [
             "--pod", "2", "--data", "2", "--dist-backend", "gloo",
             "--metrics", str(work / "cli_ranks.jsonl")])
+    release(torch)
+    lap("the train CLI done")
+    (work / f"gloo4_rank{rank}.json").write_text(json.dumps(out))
 
 
-RANK_PHASES = {"nccl1": rank_nccl1, "gloo4": rank_gloo4, "cli": rank_cli}
+def run_nccl1(torch, rt, work: Path) -> None:
+    """``rank_nccl1`` in this process, no launch: a one-rank NCCL group
+    through a file store in ``work`` (a torchrun launch spends 15 to 20 s
+    before its rank is up), destroyed after it."""
+    import datetime
+
+    import torch.distributed as dist
+    dist.init_process_group(
+        "nccl", init_method=f"file://{work / 'nccl1_store'}", rank=0,
+        world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_PG_TIMEOUT_S))
+    try:
+        rank_nccl1(torch, rt, dist, work)
+    finally:
+        dist.destroy_process_group()
+    release(torch)
 
 
 def rank_main(argv) -> int:
-    """A rank of a mesh phase, started by ``launch_ranks`` under torchrun:
+    """A rank of a mesh phase, started by ``start_ranks`` under torchrun:
     ``--rank-phase NAME --work DIR``.  Loads the kernels the parent built;
     builds none."""
     phase, work = argv[argv.index("--rank-phase") + 1], \
@@ -3986,17 +4049,13 @@ def rank_main(argv) -> int:
     import repro_torch.launch.mesh
     import repro_torch.launch.train
     torch.cuda.set_device(0)
-    if phase == "cli":
-        RANK_PHASES[phase](torch, rt, dist, work)
-        return 0
-    backend = "nccl" if phase == "nccl1" else "gloo"
-    dist.init_process_group(backend, init_method="env://", timeout=(
+    dist.init_process_group("gloo", init_method="env://", timeout=(
         datetime.timedelta(seconds=MESH_PG_TIMEOUT_S)))
     try:
         if dist.get_rank() == 0:
             up = time.time() - float(os.environ.get(
                 "CHIP_SMOKE_LAUNCHED_AT", time.time()))
-            print(f"rank phase {phase}: backend {backend}, world "
+            print(f"rank phase {phase}: backend gloo, world "
                   f"{dist.get_world_size()}, rank 0 up {up:.1f} s after the "
                   f"launch [{card_line()}]", flush=True)
         RANK_PHASES[phase](torch, rt, dist, work)
@@ -4005,16 +4064,19 @@ def rank_main(argv) -> int:
     return 0
 
 
-def run_mesh_cli(torch, rt, work: Path) -> dict:
-    """The train CLI under torchrun, gloo, four ranks (``--pod 2 --data
-    2``, a (2, 2) torus) against the one-process CLI (``--data 4``: the
-    most-square torus, (2, 2)), both under deterministic algorithms:
-    losses equal."""
+def mesh_cli_reference(torch, rt, work: Path) -> None:
+    """The one-process train CLI (``--data 4``: the most-square torus, (2,
+    2)) under deterministic algorithms, before the gloo ranks run theirs
+    (``--pod 2 --data 2``, a (2, 2) torus) in their launch."""
     with deterministic(torch):
         rt.launch.train.main(MESH_CLI_ARGV + [
             "--data", "4", "--metrics", str(work / "cli_one.jsonl")])
     release(torch)
-    launch_ranks("cli", work, MESH_RANKS)
+
+
+def check_mesh_cli(work: Path) -> dict:
+    """The gloo ranks' train CLI against the one-process CLI: losses
+    equal."""
     one, ranks = ([json.loads(x)["loss"] for x in
                    (work / name).read_text().splitlines()]
                   for name in ("cli_one.jsonl", "cli_ranks.jsonl"))
@@ -4026,43 +4088,36 @@ def run_mesh_cli(torch, rt, work: Path) -> dict:
     return {"one": one, "ranks": ranks}
 
 
-def run_mesh(torch, rt, full) -> dict:
-    """Phase 14: the references, then the NCCL rank, the four gloo ranks,
-    the CLI under torchrun and the dry-run; returns the ranks' launch
-    counts and numbers."""
-    release(torch)
-    work = Path(tempfile.mkdtemp(prefix="mesh-", dir=ROOT / "build"))
-    t0 = time.perf_counter()
+def mesh_before(torch, rt, full, work: Path) -> None:
+    """Phase 14 before the gloo ranks: the references (the one-process
+    CLI's too), then the NCCL rank."""
     lap = stamps("phase 14")
-    try:
-        mesh_references(torch, rt, full, work)
-        release(torch)
-        lap("the references done")
-        launch_ranks("nccl1", work, 1)
-        lap("the NCCL rank done")
-        launch_ranks("gloo4", work, MESH_RANKS)
-        lap("the gloo ranks done")
-        ranks = [json.loads((work / f"gloo4_rank{r}.json").read_text())
-                 for r in range(MESH_RANKS)]
-        nccl1 = json.loads((work / "nccl1.json").read_text())
-        for kind, layers in (("exact", MESH_EXACT_LAYERS),
-                             ("gossip", MESH_GOSSIP_LAYERS)):
-            peaks = [r[kind]["peak_gib"] for r in ranks]
-            print(f"gloo4 {kind} ({layers} layers): peaks GiB {peaks}, sum "
-                  f"{sum(peaks):.2f} (limit {MESH_PEAK_SUM_GIB}) "
-                  f"[{card_line()}]", flush=True)
-            if sum(peaks) > MESH_PEAK_SUM_GIB:
-                fail(f"gloo4 {kind}: the ranks' peaks sum to "
-                     f"{sum(peaks):.2f} GiB")
-        cli = run_mesh_cli(torch, rt, work)
-        lap("the train CLI done")
-        dry = run_mesh_dryrun(rt, full, work, max(
-            r["exact"]["peak_gib"] for r in ranks))
-        lap("the dry-run done")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    print(f"phase 14 (one process per worker): {time.perf_counter() - t0:.1f}"
-          f" s", flush=True)
+    mesh_references(torch, rt, full, work)
+    mesh_cli_reference(torch, rt, work)
+    release(torch)
+    lap("the references done")
+    run_nccl1(torch, rt, work)
+    lap("the NCCL rank done")
+
+
+def mesh_after(rt, full, work: Path) -> dict:
+    """Phase 14 after the gloo ranks: their peaks, the CLI's losses and
+    the dry-run; returns the ranks' launch counts and numbers."""
+    ranks = [json.loads((work / f"gloo4_rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    nccl1 = json.loads((work / "nccl1.json").read_text())
+    for kind, layers in (("exact", MESH_EXACT_LAYERS),
+                         ("gossip", MESH_GOSSIP_LAYERS)):
+        peaks = [r[kind]["peak_gib"] for r in ranks]
+        print(f"gloo4 {kind} ({layers} layers): peaks GiB {peaks}, sum "
+              f"{sum(peaks):.2f} (limit {MESH_PEAK_SUM_GIB}) "
+              f"[{card_line()}]", flush=True)
+        if sum(peaks) > MESH_PEAK_SUM_GIB:
+            fail(f"gloo4 {kind}: the ranks' peaks sum to "
+                 f"{sum(peaks):.2f} GiB")
+    cli = check_mesh_cli(work)
+    dry = run_mesh_dryrun(rt, full, work, max(
+        r["exact"]["peak_gib"] for r in ranks))
     launches = {"nccl1 mesh": nccl1["mesh"]["launches"],
                 "nccl1 one process": nccl1["one process"]["launches"]}
     for r, res in enumerate(ranks):
@@ -4134,7 +4189,6 @@ DRIVER_CASES = {
 DRIVER_NOISE_RTOL = 1e-5       # JAX's per-leaf form vs a one-pass fp64 M2
 DRIVER_PRIMAL_TOL = 1e-6       # an all-reduce's sum order vs a tensordot
 DRIVER_AUX_RTOL = 1e-5         # the ranks' shares summed vs one aux
-MESH_TIMEOUT_S["drivers"] = 600
 
 
 def check_quantized_rank(torch, ops, ref, consensus, own_row, d_full: int):
@@ -4279,13 +4333,15 @@ def check_quantized_rank(torch, ops, ref, consensus, own_row, d_full: int):
     return timing
 
 
-def driver_session(rt, cfg, case: dict, mesh):
-    """A session of phase 15: TrainSpec's defaults, the simulated clock,
-    ring gossip at DRIVER_ROUNDS; ``mesh`` None is every worker in one
-    process (False: also when a process group is initialised)."""
+def driver_session(rt, cfg, case: dict, mesh, data: int = N_WORKERS,
+                   model: int = 1):
+    """A session of phase 15 (and of phase 16's drivers at ``data`` x
+    ``model``): TrainSpec's defaults, the simulated clock, ring gossip at
+    DRIVER_ROUNDS; ``mesh`` None is every worker in one process (False:
+    also when a process group is initialised)."""
     consensus = case["consensus"]
     return rt.api.AMBSession(
-        rt.api.TrainSpec(data=N_WORKERS, batch_per_worker=PER_WORKER,
+        rt.api.TrainSpec(data=data, model=model, batch_per_worker=PER_WORKER,
                          seq_len=SEQ, redundancy=case.get("redundancy", 1),
                          optimizer=case.get("optimizer", "dual_averaging")),
         rt.api.ClockSpec(kind="simulated"),
@@ -4294,7 +4350,8 @@ def driver_session(rt, cfg, case: dict, mesh):
                              pipeline=case.get("pipeline", False),
                              async_epochs=case.get("async_epochs", False),
                              staleness=case.get("staleness", 1)),
-        rt.api.ControllerSpec(enabled=True, warmup=1, interval=1)
+        rt.api.ControllerSpec(enabled=True, warmup=case.get("warmup", 1),
+                              interval=1)
         if case.get("controller") else None,
         cfg=cfg, device="cuda", mesh=mesh)
 
@@ -4309,12 +4366,13 @@ def driver_rows(torch, session) -> list:
 
 
 def driver_run(torch, rt, session, label: str, epochs: int = DRIVER_EPOCHS,
-               before=None) -> dict:
-    """``epochs`` epochs through ``run`` (no prefetcher), then a flush; per
-    epoch the loss, b(t), the host seconds, the noise statistics (a
-    controlled session) and the controller's action; the peak and the
-    launch counts of exactly these epochs and the flush.  ``before(i)``
-    runs before epoch i."""
+               before=None, faults=None) -> dict:
+    """``epochs`` epochs through ``run`` (no prefetcher; ``faults``, a
+    fault injector, applied before each), then a flush; per epoch the
+    loss, b(t), the host seconds, the noise statistics (a controlled
+    session) and the controller's action; the peak and the launch counts
+    of exactly these epochs and the flush.  ``before(i)`` runs before
+    epoch i."""
     noise, step = [], session.protocol.step
     if session.controller is not None:
         def spy(state, batch, b):
@@ -4330,7 +4388,7 @@ def driver_run(torch, rt, session, label: str, epochs: int = DRIVER_EPOCHS,
             before(i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = session.run(1, prefetch=0)
+        m = session.run(1, prefetch=0, faults=faults)
         torch.cuda.synchronize()
         out["epoch_s"].append(time.perf_counter() - t0)
         if not math.isfinite(m["loss"]):
@@ -4711,51 +4769,33 @@ def rank_drivers(torch, rt, dist, work: Path) -> None:
     (work / f"drivers_rank{rank}.json").write_text(json.dumps(out))
 
 
-RANK_PHASES["drivers"] = rank_drivers
-
-
-def run_drivers(torch, rt, full) -> dict:
-    """Phase 15: the parent's references, then four gloo ranks running
-    every driver and option; after them one process restores the ranks'
-    checkpoint and continues bit for bit.  Returns the ranks' launch
-    counts and numbers."""
-    release(torch)
-    work = Path(tempfile.mkdtemp(prefix="drivers-", dir=ROOT / "build"))
-    t0 = time.perf_counter()
-    lap = stamps("phase 15")
-    try:
-        refs = driver_references(torch, rt, full, work)
-        lap("the references done")
-        launch_ranks("drivers", work, MESH_RANKS)
-        lap("the ranks done")
-        ranks = [json.loads((work / f"drivers_rank{r}.json").read_text())
-                 for r in range(MESH_RANKS)]
-        with deterministic(torch):
-            smoke = rt.configs.smoke_config("qwen2-1.5b")
-            back = rt.api.AMBSession.restore(work / "ckpt_ranks",
-                                             device="cuda", cfg=smoke)
-            back.run(1, prefetch=0)
-            back.flush()
-            if driver_rows(torch, back) != refs["ckpt"]["rows"]:
-                fail("drivers checkpoint: the ranks' save restored in one "
-                     "process does not continue bit for bit")
-            del back
-        print("drivers checkpoint (smoke config, pipelined): ranks save and "
-              "one process restores, one process saves and the ranks "
-              "restore; the next epoch bit for bit both ways", flush=True)
-        lap("the ranks' checkpoint restored")
-        for name in ranks[0]:
-            peaks = [r[name]["peak_gib"] for r in ranks]
-            print(f"drivers {name}: peaks GiB {[round(p, 2) for p in peaks]}"
-                  f", sum {sum(peaks):.2f} (limit {MESH_PEAK_SUM_GIB}) "
-                  f"[{card_line()}]", flush=True)
-            if sum(peaks) > MESH_PEAK_SUM_GIB:
-                fail(f"drivers {name}: the ranks' peaks sum to "
-                     f"{sum(peaks):.2f} GiB")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    print(f"phase 15 (the drivers one process per worker): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+def drivers_after(torch, rt, work: Path, refs: dict) -> dict:
+    """Phase 15 after the gloo ranks: one process restores the ranks'
+    checkpoint and continues bit for bit; the ranks' peaks.  Returns the
+    ranks' launch counts and numbers."""
+    ranks = [json.loads((work / f"drivers_rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    with deterministic(torch):
+        smoke = rt.configs.smoke_config("qwen2-1.5b")
+        back = rt.api.AMBSession.restore(work / "ckpt_ranks",
+                                         device="cuda", cfg=smoke)
+        back.run(1, prefetch=0)
+        back.flush()
+        if driver_rows(torch, back) != refs["ckpt"]["rows"]:
+            fail("drivers checkpoint: the ranks' save restored in one "
+                 "process does not continue bit for bit")
+        del back
+    print("drivers checkpoint (smoke config, pipelined): ranks save and "
+          "one process restores, one process saves and the ranks "
+          "restore; the next epoch bit for bit both ways", flush=True)
+    for name in ranks[0]:
+        peaks = [r[name]["peak_gib"] for r in ranks]
+        print(f"drivers {name}: peaks GiB {[round(p, 2) for p in peaks]}"
+              f", sum {sum(peaks):.2f} (limit {MESH_PEAK_SUM_GIB}) "
+              f"[{card_line()}]", flush=True)
+        if sum(peaks) > MESH_PEAK_SUM_GIB:
+            fail(f"drivers {name}: the ranks' peaks sum to "
+                 f"{sum(peaks):.2f} GiB")
     launches = {f"drivers {name} rank {r}": res[name]["launches"]
                 for r, res in enumerate(ranks) for name in res}
     return {"launches": launches, "ranks": ranks}
@@ -4772,7 +4812,6 @@ MODEL_LAYERS = 4
 MODEL_CLI_ARGV = ["--smoke", "--sim-clock", "--steps", str(MESH_EPOCHS),
                   "--data", str(MODEL_AXIS[0])]
 MODEL_CLI = ("exact", "gossip", "gossip_q8")
-MESH_TIMEOUT_S["model"] = 540
 # quantized gossip over the model axis: the consensus alone on a fixed
 # (2, W + 1) stack (row i from seed MODEL_STACK_SEED + i), under the draws
 # of epoch_draws(MODEL_STACK_SEED, 0), q8 and q4 at DRIVER_ROUNDS
@@ -4805,6 +4844,32 @@ MODEL_Q_DTYPE = "float32"
 # whole bf16 units) and no more than MESH_PARAM_TOL
 ORDER_FACTOR = 2.0
 ORDER_FLOOR = 2.0 ** -8
+# every driver and option over the model axis: phase 15's cases as twins
+# at (data 2, model 2), DRIVER_LAYERS, in MODEL_Q_DTYPE, DRIVER_EPOCHS, each
+# held against rank 1's one-process data=2 twin under ``tp_sums``, dual
+# blocks bit for bit (coded exact: its plain twin within order_limits).
+# The async session runs gossip_q8 with the controller on, so one session
+# holds the queue, the noise statistics and the quantized kernels on a
+# block row. It runs MODEL_ASYNC_EPOCHS epochs and the controller waits
+# as many (``warmup``), so D = 2 holds while epochs 0 and 1's payloads
+# settle from the queue (with their snapshots) at steps 2 and 3; then it
+# lowers D to 1 (T_c is 0), and the retune drains the rest. Churn takes
+# worker 1 out for one epoch through a fault model: with two workers the
+# survivor is alone, so that epoch's consensus is the identity (a ring of
+# survivors over blocks runs in tests/test_torch_tp_drivers.py only)
+MODEL_ASYNC_EPOCHS = 4
+MODEL_DRIVERS = {
+    "pipelined": dict(consensus="gossip", pipeline=True),
+    "async_controller": dict(consensus="gossip_q8", async_epochs=True,
+                             staleness=2, controller=True,
+                             epochs=MODEL_ASYNC_EPOCHS,
+                             warmup=MODEL_ASYNC_EPOCHS),
+    "churn": dict(consensus="gossip"),
+}
+MODEL_CHURN = dict(workers=(1,), at=1, until=2)      # a FailStop
+MODEL_CHURN_EPOCHS = DRIVER_EPOCHS + 1
+MODEL_CODED = dict(consensus="exact", redundancy=2)
+MODEL_KINDS = ("exact", "gossip", "gossip_q8", *MODEL_DRIVERS, "coded")
 
 
 def _half_sums(torch, x, w):
@@ -5090,7 +5155,7 @@ def model_q8_references(torch, rt, cfg, lap) -> dict:
     and the limit that sets, and the digest of each rank's block of the
     ``tp_sums`` session's duals (its worker's row cut by
     ``dist.params.shard_leaf`` on the (2, 2) layout)."""
-    data, model = MODEL_AXIS
+    data = MODEL_AXIS[0]
     rounds = DRIVER_ROUNDS["gossip_q8"]
     cfg = dataclasses.replace(cfg, dtype=MODEL_Q_DTYPE)
     session = mesh_session(rt, cfg, "gossip_q8", False, data=data,
@@ -5113,17 +5178,7 @@ def model_q8_references(torch, rt, cfg, lap) -> dict:
     move = stack_rel(torch, z_tp, z)
     del z
     release(torch)
-    mesh = rt.launch.mesh.abstract(MODEL_AXIS, ("data", "model"))
-    digests = []
-    for r in range(data * model):
-        coord = (r // model, r % model)
-        rows = []
-        for k in sorted(z_tp):
-            leaf = z_tp[k][coord[0]]
-            spec = rt.dist.params.param_spec(k, leaf.shape, mesh, None)
-            rows += digest(torch, {k: rt.dist.params.shard_leaf(
-                leaf, spec, mesh, coord)})
-        digests.append(as_json(rows))
+    digests = block_digests(torch, rt, z_tp)
     del z_tp
     release(torch)
     limit = min(MODEL_Q_TOL, MODEL_Q_FACTOR * move)
@@ -5137,6 +5192,26 @@ def model_q8_references(torch, rt, cfg, lap) -> dict:
     lap("the gossip_q8 reference under tp_sums done")
     return {"losses": res["losses"], "move": move, "limit": limit,
             "digests": digests}
+
+
+def block_digests(torch, rt, z: dict) -> list:
+    """Per rank of the (data 2, model 2) layout, the digest of its block
+    of its worker's row of the one-process duals ``z`` (each leaf cut by
+    ``dist.params.shard_leaf``, in sorted leaf order): what the rank's
+    ``digest`` of its own (1, ...) blocks must read."""
+    data, model = MODEL_AXIS
+    mesh = rt.launch.mesh.abstract(MODEL_AXIS, ("data", "model"))
+    out = []
+    for r in range(data * model):
+        coord = (r // model, r % model)
+        rows = []
+        for k in sorted(z):
+            leaf = z[k][coord[0]]
+            spec = rt.dist.params.param_spec(k, leaf.shape, mesh, None)
+            rows += digest(torch, {k: rt.dist.params.shard_leaf(
+                leaf, spec, mesh, coord)})
+        out.append(as_json(rows))
+    return out
 
 
 def stack_rel(torch, got: dict, want: dict) -> float:
@@ -5172,11 +5247,12 @@ def model_report(label: str, rank: int, res: dict, session,
 
 def rank_model(torch, rt, dist, work: Path) -> None:
     """Four gloo ranks as (data 2, model 2), each worker spread over two
-    ranks: rank 0 runs the one-process references first; then exact (FSDP
-    x TP) and ring gossip (TP) through AMBSession, MESH_EPOCHS epochs each
-    under deterministic algorithms; then quantized gossip: the consensus
-    alone on a fixed stack (q8 and q4) and a gossip_q8 session; then the
-    train CLI (``--model 2``, exact, gossip and gossip_q8, at the smoke
+    ranks: ranks 0 and 1 run the one-process references first; then exact
+    (FSDP x TP) and ring gossip (TP) through AMBSession, MESH_EPOCHS epochs
+    each under deterministic algorithms; then quantized gossip: the
+    consensus alone on a fixed stack (q8 and q4) and a gossip_q8 session;
+    then every driver and option (``run_model_drivers``); then the train
+    CLI (``--model 2``, exact, gossip and gossip_q8, at the smoke
     config)."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import abstract
@@ -5189,8 +5265,12 @@ def rank_model(torch, rt, dist, work: Path) -> None:
 
     with deterministic(torch):
         refs = model_references(torch, rt, cfg, lap) if rank == 0 else None
-        q8 = [model_q8_references(torch, rt, cfg, stamps(
-            "model-axis rank 1")) if rank == 1 else None]
+        q8, coded = [None], None
+        if rank == 1:
+            lap1 = stamps("model-axis rank 1")
+            q8[0] = model_q8_references(torch, rt, cfg, lap1)
+            q8[0]["drivers"], coded = model_driver_references(torch, rt,
+                                                              cfg, lap1)
         got = [None if refs is None else
                {k: refs[k]["losses"] for k in ("exact", "gossip")}]
         dist.broadcast_object_list(got, src=0)
@@ -5270,7 +5350,9 @@ def rank_model(torch, rt, dist, work: Path) -> None:
         lap("the quantized consensus checks done")
         out["gossip_q8"] = run_model_q8(torch, rt, dist, mesh, cfg, losses,
                                         q8, lap)
-        del refs
+        out.update(run_model_drivers(torch, rt, dist, mesh, cfg,
+                                     q8["drivers"], coded, lap))
+        del refs, coded
     release(torch)
     with deterministic(torch):
         for consensus in MODEL_CLI:
@@ -5280,9 +5362,6 @@ def rank_model(torch, rt, dist, work: Path) -> None:
                 str(work / f"cli_tp_{consensus}.jsonl")])
     lap("the train CLI done")
     (work / f"model_rank{rank}.json").write_text(json.dumps(out))
-
-
-RANK_PHASES["model"] = rank_model
 
 
 def run_model_q8(torch, rt, dist, mesh, cfg, losses: dict, ref, lap) -> dict:
@@ -5347,6 +5426,199 @@ def run_model_q8(torch, rt, dist, mesh, cfg, losses: dict, ref, lap) -> dict:
     release(torch)
     lap("the gossip_q8 checks done")
     return row
+
+
+def model_driver_run(torch, rt, session, name: str, label: str) -> tuple:
+    """One of MODEL_DRIVERS through ``driver_run``; for churn under the
+    FailStop MODEL_CHURN, with the digest of this process's duals before
+    the out epoch and after it.  Returns (the run, those digests)."""
+    held, before, faults = {}, None, None
+    epochs = MODEL_DRIVERS[name].get("epochs", DRIVER_EPOCHS)
+    if name == "churn":
+        epochs = MODEL_CHURN_EPOCHS
+        faults = rt.faults.FaultInjector(rt.faults.FailStop(**MODEL_CHURN))
+
+        def before(i):
+            if i in (MODEL_CHURN["at"], MODEL_CHURN["until"]):
+                held[i] = as_json(digest(torch, session.state["z"]))
+    res = driver_run(torch, rt, session, label, epochs, before, faults)
+    return res, held
+
+
+def model_driver_references(torch, rt, cfg, lap) -> tuple:
+    """Rank 1, after ``model_q8_references``, while rank 0 runs
+    ``model_references``: the one-process data=2 twins of the model-axis
+    drivers at DRIVER_LAYERS in MODEL_Q_DTYPE, under deterministic
+    algorithms and ``tp_sums`` (the model ranks' summation order): each
+    one's losses, b(t), launches, noise statistics and actions, and the
+    digest of each rank's block of its duals; then coded exact, plain and
+    under ``split_sums``: each leaf's limit (``order_limits``).  Returns
+    (what the ranks read, coded exact's whole parameters in host memory,
+    kept on rank 1)."""
+    data = MODEL_AXIS[0]
+    cfg = dataclasses.replace(cfg, num_layers=DRIVER_LAYERS,
+                              dtype=MODEL_Q_DTYPE)
+    refs = {}
+    for name, case in MODEL_DRIVERS.items():
+        with tp_sums(torch, rt):
+            session = driver_session(rt, cfg, case, False, data=data)
+            res, _ = model_driver_run(torch, rt, session, name,
+                                      f"model-axis {name} reference")
+        res["digests"] = block_digests(torch, rt, session.state["z"])
+        refs[name] = res
+        print(f"model-axis reference {name} ({DRIVER_LAYERS} layer, "
+              f"{MODEL_Q_DTYPE}, one process, {data} workers, tp_sums): "
+              f"losses {res['losses']} b(t) {res['batch']} epoch_s "
+              f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+              f"{res['peak_gib']:.2f} launches {res['launches']} noise "
+              f"{res['noise']} actions {res['actions']} [{card_line()}]",
+              flush=True)
+        del session
+        release(torch)
+        lap(f"the {name} reference done")
+    session = driver_session(rt, cfg, MODEL_CODED, False, data=data)
+    res = driver_run(torch, rt, session, "model-axis coded reference")
+    coded = {"batch": res["batch"], "losses": res["losses"], "params": {
+        k: v.detach().cpu() for k, v in session.params.items()}}
+    del session
+    release(torch)
+    with split_sums(torch, rt):
+        session = driver_session(rt, cfg, MODEL_CODED, False, data=data)
+        driver_run(torch, rt, session, "model-axis coded, split sums")
+    moves = leaf_errs(torch, session.params, coded["params"])
+    coded["limits"] = check_order("coded exact", moves)
+    del session
+    release(torch)
+    lap("the coded exact references done")
+    refs["coded"] = {"batch": coded["batch"], "losses": coded["losses"]}
+    return refs, coded
+
+
+def model_driver_checks(torch, rt, dist, name, session, res, held,
+                        want) -> dict:
+    """A model-axis driver session's checks against its reference: the
+    dual blocks bit for bit, b(t) equal and the losses within
+    MESH_LOSS_TOL, the launches, the bytes a round (fp32: 4 d_block;
+    gossip_q8: ``wire_bytes_per_round(d_block)`` and one grid reduction),
+    churn's out worker's blocks unchanged, the controller's noise
+    statistics and actions alike on every rank and the reference's.
+    Returns the rank's row."""
+    rank, g = dist.get_rank(), session.group
+    label = f"model-axis {name} rank {rank}"
+    width = session.tp.row_block().block_width
+    strat = rt.dist.amb.strategy_from_config(
+        dataclasses.replace(session.protocol.amb, active=None),
+        MODEL_AXIS[0])
+    count = {"dual_update": 15 * len(res["losses"])}
+    if MODEL_DRIVERS[name]["consensus"] == "gossip_q8":
+        rounds = want["launches"].get("stochastic_quantize", 0)
+        count.update(stochastic_quantize=rounds, quantized_combine=rounds)
+    else:
+        rounds = res["launches"].get("gossip_combine", 0)
+        settles = len(res["losses"]) + 1 if name == "pipelined" \
+            else len(res["losses"]) - (name == "churn")
+        count["gossip_combine"] = settles * strat.rounds
+    expect(label, res["launches"], count)
+    if not rounds:
+        fail(f"{label}: no consensus round")
+    wire = strat.wire_bytes_per_round(width)
+    row = model_report(name, rank, res, session, rounds)
+    row.update(block_width=width, wire_bytes_per_round=wire, rounds=rounds,
+               grid_reductions=g.grid_reductions)
+    if g.sent_bytes != rounds * wire:
+        fail(f"{label}: sent {g.sent_bytes} bytes in {rounds} rounds; "
+             f"wire_bytes_per_round({width}) {wire}")
+    if "q8" not in MODEL_DRIVERS[name]["consensus"] and wire != 4 * width:
+        fail(f"{label}: fp32 gossip's wire {wire} is not 4 x d_block")
+    if g.grid_reductions != (rounds if "q8" in MODEL_DRIVERS[name][
+            "consensus"] else 0):
+        fail(f"{label}: {g.grid_reductions} grid reductions in {rounds} "
+             f"rounds")
+    if res["batch"] != want["batch"]:
+        fail(f"{label}: b(t) {res['batch']} vs {want['batch']}")
+    check_losses(f"model-axis {name}", rank, res["losses"], want["losses"])
+    z = {k: v[0] for k, v in session.state["z"].items()}
+    same_replicated(torch, dist, session, z, name)
+    if as_json(digest(torch, z)) != want["digests"][rank]:
+        fail(f"{label}: its dual block differs from its block of the "
+             f"one-process session under tp_sums")
+    if name == "churn":
+        kept = held[MODEL_CHURN["at"]] == held[MODEL_CHURN["until"]]
+        if kept != (g.worker in MODEL_CHURN["workers"]):
+            fail(f"{label}: worker {g.worker}'s blocks "
+                 f"{'stayed' if kept else 'moved'} in the epoch worker "
+                 f"{MODEL_CHURN['workers']} was out")
+        row["out_worker_blocks_unchanged"] = kept
+    if MODEL_DRIVERS[name].get("controller"):
+        same_on_every_rank(dist, res["noise"], f"{name} noise")
+        same_on_every_rank(dist, res["actions"], f"{name} actions")
+        for got, ref in zip(res["noise"], want["noise"]):
+            for a, b in zip(got, ref):
+                if abs(a - b) > DRIVER_NOISE_RTOL * abs(b):
+                    fail(f"{label}: noise {res['noise']} vs the one-process "
+                         f"{want['noise']}")
+        if res["actions"] != want["actions"] or not any(res["actions"]):
+            fail(f"{label}: actions {res['actions']} vs {want['actions']}")
+        if any(res["actions"][:-1]) \
+                or (res["actions"][-1] or {}).get("staleness") != 1:
+            fail(f"{label}: actions {res['actions']}: D = 2 must hold "
+                 f"through the last epoch, then fall to 1")
+        row.update(noise=res["noise"], actions=res["actions"])
+    print(f"  {label}: dual blocks bit for bit its blocks of the "
+          f"one-process session under tp_sums; "
+          f"{g.sent_bytes // rounds} bytes a round = wire_bytes_per_round("
+          f"d_block {width})" + (f"; worker {g.worker}'s blocks kept in the "
+                                 f"out epoch: {row['out_worker_blocks_unchanged']}"
+                                 if name == "churn" else ""), flush=True)
+    return row
+
+
+def run_model_drivers(torch, rt, dist, mesh, cfg, refs, coded, lap) -> dict:
+    """Every driver and option over (data 2, model 2) at DRIVER_LAYERS in
+    MODEL_Q_DTYPE: the pipelined driver, the async driver at D = 2 on
+    gossip_q8 with the controller, churn through a fault model (each
+    against rank 1's twin under ``tp_sums``, ``model_driver_checks``),
+    and coded exact (rank 1 holds the ranks' whole parameters against its
+    plain twin within ``order_limits``; every rank's equal)."""
+    rank = dist.get_rank()
+    data, model = MODEL_AXIS
+    cfg = dataclasses.replace(cfg, num_layers=DRIVER_LAYERS,
+                              dtype=MODEL_Q_DTYPE)
+    out = {}
+    for name, case in MODEL_DRIVERS.items():
+        session = driver_session(rt, cfg, case, mesh, data, model)
+        lap(f"the {name} session built")
+        res, held = model_driver_run(torch, rt, session, name,
+                                     f"model-axis {name}")
+        lap(f"the {name} epochs done")
+        out[name] = model_driver_checks(torch, rt, dist, name, session, res,
+                                        held, refs[name])
+        del session
+        release(torch)
+        lap(f"the {name} checks done")
+    session = driver_session(rt, cfg, MODEL_CODED, mesh, data, model)
+    res = driver_run(torch, rt, session, "model-axis coded exact")
+    lap("the coded exact epochs done")
+    expect(f"model-axis coded exact rank {rank}", res["launches"],
+           {"dual_update": 15 * DRIVER_EPOCHS})
+    out["coded"] = model_report("coded exact", rank, res, session, 0)
+    if res["batch"] != refs["coded"]["batch"]:
+        fail(f"model-axis coded exact rank {rank}: b(t) {res['batch']} vs "
+             f"{refs['coded']['batch']}")
+    check_losses("model-axis coded exact", rank, res["losses"],
+                 refs["coded"]["losses"])
+    same_replicated(torch, dist, session, session.state["params"], "exact")
+    whole = session.params
+    same_on_every_rank(dist, digest(torch, whole), "coded exact parameters")
+    if rank == 1:
+        errs = leaf_errs(torch, whole, coded["params"])
+        share = check_leaves("coded exact (rho 2)", errs, coded["limits"])
+        out["coded"].update(param_errs=errs, limits=coded["limits"],
+                            limit_share=share)
+    del session, whole
+    release(torch)
+    lap("the coded exact checks done")
+    return out
 
 
 def nbytes(tree: dict) -> int:
@@ -5553,72 +5825,136 @@ def time_dual_update_shard(torch, ops, full, beta: float) -> dict:
     return out
 
 
-def run_model_axis(torch, rt, ops, full, beta: float,
-                   phase14: dict) -> dict:
-    """Phase 16: the one-process CLI references, four gloo ranks as (data
-    2, model 2) (``--rank-phase model``), the CLI's losses held, the
-    ranks' peaks beside phase 14's data=4 ranks' (``phase14``: by kind,
-    whole parameters), and the prox at the ranks' largest block.  Returns
-    the ranks' launch counts and numbers."""
-    release(torch)
-    work = Path(tempfile.mkdtemp(prefix="model-", dir=ROOT / "build"))
-    t0 = time.perf_counter()
+def model_before(torch, rt, full, work: Path) -> dict:
+    """Phase 16 before the gloo ranks: the one-process CLIs and the
+    consensus references (``model_consensus_digests``)."""
     lap = stamps("phase 16")
     cfg = dataclasses.replace(full, num_layers=MODEL_LAYERS)
-    try:
-        with deterministic(torch):
-            for consensus in MODEL_CLI:
-                rt.launch.train.main(MODEL_CLI_ARGV + [
-                    "--consensus", consensus, "--metrics",
-                    str(work / f"cli_one_{consensus}.jsonl")])
-            lap("the one-process CLIs done")
-            digests = model_consensus_digests(torch, rt, cfg, work)
-        release(torch)
-        lap("the consensus references done")
-        launch_ranks("model", work, MESH_RANKS)
-        lap("the ranks done")
-        ranks = [json.loads((work / f"model_rank{r}.json").read_text())
-                 for r in range(MESH_RANKS)]
-        cli = {}
+    with deterministic(torch):
         for consensus in MODEL_CLI:
-            one, tp = ([json.loads(x)["loss"] for x in
-                        (work / f"cli_{kind}_{consensus}.jsonl")
-                        .read_text().splitlines()]
-                       for kind in ("one", "tp"))
-            print(f"model-axis train CLI (smoke, {consensus}): one process "
-                  f"--data 2 {one}, four ranks --data 2 --model 2 {tp}",
-                  flush=True)
-            if len(one) != MESH_EPOCHS or len(tp) != MESH_EPOCHS or any(
-                    abs(a - b) > MESH_LOSS_TOL * abs(b)
-                    for a, b in zip(tp, one)):
-                fail(f"model-axis train CLI {consensus}: {tp} vs {one}")
-            cli[consensus] = {"one": one, "ranks": tp}
-        for kind in ("exact", "gossip", "gossip_q8"):
-            peaks = [r[kind]["peak_gib"] for r in ranks]
-            print(f"model-axis {kind} ({MODEL_LAYERS} layers, (data 2, "
-                  f"model 2)): peaks GiB {[round(p, 2) for p in peaks]}, "
-                  f"sum {sum(peaks):.2f}; phase 14's data=4 ranks (whole "
-                  f"parameters): exact at {MESH_EXACT_LAYERS} layers "
-                  f"{[round(p, 2) for p in phase14['exact']]}, gossip at "
-                  f"{MESH_GOSSIP_LAYERS} "
-                  f"{[round(p, 2) for p in phase14['gossip']]} "
-                  f"[{card_line()}]", flush=True)
-            if sum(peaks) > MESH_PEAK_SUM_GIB:
-                fail(f"model-axis {kind}: the ranks' peaks sum to "
-                     f"{sum(peaks):.2f} GiB")
-        shard = time_dual_update_shard(torch, ops, full, beta)
-        block = time_quantized_block(
-            torch, rt, ops, max(digests["gossip_q8"]["block_widths"]))
-        lap("the kernels timed at the blocks")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    print(f"phase 16 (a worker over a model axis): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+            rt.launch.train.main(MODEL_CLI_ARGV + [
+                "--consensus", consensus, "--metrics",
+                str(work / f"cli_one_{consensus}.jsonl")])
+        lap("the one-process CLIs done")
+        digests = model_consensus_digests(torch, rt, cfg, work)
+    release(torch)
+    lap("the consensus references done")
+    return digests
+
+
+def model_after(torch, rt, ops, full, beta: float, work: Path,
+                digests: dict, phase14: dict) -> dict:
+    """Phase 16 after the gloo ranks (``rank_model``, as (data 2, model
+    2)): the CLI's losses held, the ranks' peaks beside phase 14's data=4
+    ranks' (``phase14``: by kind, whole parameters), and the prox and the
+    quantized kernels at the ranks' blocks.  Returns the ranks' launch
+    counts and numbers."""
+    lap = stamps("phase 16")
+    ranks = [json.loads((work / f"model_rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    cli = {}
+    for consensus in MODEL_CLI:
+        one, tp = ([json.loads(x)["loss"] for x in
+                    (work / f"cli_{kind}_{consensus}.jsonl")
+                    .read_text().splitlines()]
+                   for kind in ("one", "tp"))
+        print(f"model-axis train CLI (smoke, {consensus}): one process "
+              f"--data 2 {one}, four ranks --data 2 --model 2 {tp}",
+              flush=True)
+        if len(one) != MESH_EPOCHS or len(tp) != MESH_EPOCHS or any(
+                abs(a - b) > MESH_LOSS_TOL * abs(b)
+                for a, b in zip(tp, one)):
+            fail(f"model-axis train CLI {consensus}: {tp} vs {one}")
+        cli[consensus] = {"one": one, "ranks": tp}
+    for kind in MODEL_KINDS:
+        peaks = [r[kind]["peak_gib"] for r in ranks]
+        layers = MODEL_LAYERS if kind in ("exact", "gossip", "gossip_q8") \
+            else DRIVER_LAYERS
+        print(f"model-axis {kind} ({layers} layers, (data 2, "
+              f"model 2)): peaks GiB {[round(p, 2) for p in peaks]}, "
+              f"sum {sum(peaks):.2f}; phase 14's data=4 ranks (whole "
+              f"parameters): exact at {MESH_EXACT_LAYERS} layers "
+              f"{[round(p, 2) for p in phase14['exact']]}, gossip at "
+              f"{MESH_GOSSIP_LAYERS} "
+              f"{[round(p, 2) for p in phase14['gossip']]} "
+              f"[{card_line()}]", flush=True)
+        if sum(peaks) > MESH_PEAK_SUM_GIB:
+            fail(f"model-axis {kind}: the ranks' peaks sum to "
+                 f"{sum(peaks):.2f} GiB")
+    shard = time_dual_update_shard(torch, ops, full, beta)
+    block = time_quantized_block(
+        torch, rt, ops, max(digests["gossip_q8"]["block_widths"]))
+    lap("the kernels timed at the blocks")
     launches = {f"model-axis {kind} rank {r}": res[kind]["launches"]
-                for r, res in enumerate(ranks)
-                for kind in ("exact", "gossip", "gossip_q8")}
+                for r, res in enumerate(ranks) for kind in MODEL_KINDS}
     return {"launches": launches, "ranks": ranks, "cli": cli,
             "dual_update": shard, **block}
+
+
+def rank_gloo(torch, rt, dist, work: Path) -> None:
+    """The four gloo ranks of phases 14, 15 and 16 in one launch, each
+    phase's sessions building their meshes over the one group: once the
+    parent's steps before them are done (``wait_parent``),
+    ``rank_gloo4``, ``rank_drivers`` and ``rank_model`` in turn, a barrier
+    after each; rank 0 prints when each ended."""
+    wait_parent(work, dist.get_rank())
+    t0 = time.perf_counter()
+    for phase, fn in ((14, rank_gloo4), (15, rank_drivers),
+                      (16, rank_model)):
+        fn(torch, rt, dist, work)
+        release(torch)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            print(f"rank phase gloo: phase {phase}'s ranks done at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+RANK_PHASES = {"gloo": rank_gloo}
+
+
+def run_rank_phases(torch, rt, ops, full, beta: float, stamp) -> tuple:
+    """Phases 14 to 16 around one launch of four gloo ranks
+    (``rank_gloo``), started first: each phase's parent steps before the
+    ranks (the references, the NCCL rank) run while the ranks come up,
+    then the ranks, then each phase's parent steps after them,
+    ``stamp(phase)`` as each ends.  Returns (phase 14's, 15's and 16's
+    results)."""
+    release(torch)
+    work = Path(tempfile.mkdtemp(prefix="ranks-", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    proc, t_launch = start_ranks("gloo", work, MESH_RANKS)
+    try:
+        try:
+            mesh_before(torch, rt, full, work)
+            t14 = time.perf_counter()
+            refs15 = driver_references(torch, rt, full, work)
+            t15 = time.perf_counter()
+            digests = model_before(torch, rt, full, work)
+            t16 = time.perf_counter()
+            parent_ready(work)
+        except BaseException:
+            stop_ranks("gloo", proc)
+            raise
+        wait_ranks("gloo", proc, t_launch, MESH_RANKS)
+        t_ranks = time.perf_counter()
+        mesh = mesh_after(rt, full, work)
+        stamp(14)
+        ranks15 = drivers_after(torch, rt, work, refs15)
+        stamp(15)
+        model_axis = model_after(
+            torch, rt, ops, full, beta, work, digests,
+            {kind: [r[kind]["peak_gib"] for r in mesh["ranks"]]
+             for kind in ("exact", "gossip")})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t_end = time.perf_counter()
+    print(f"phases 14 to 16 (one process per worker, the drivers, a model "
+          f"axis): {t_end - t0:.1f} s; the parent before the gloo ranks "
+          f"{t14 - t0:.1f} s (phase 14, the NCCL rank included), "
+          f"{t15 - t14:.1f} (15), {t16 - t15:.1f} (16), the ranks coming "
+          f"up meanwhile; the ranks after it {t_ranks - t16:.1f}; the "
+          f"parent after them {t_end - t_ranks:.1f}", flush=True)
+    return mesh, ranks15, model_axis
 
 
 def time_quantized_block(torch, rt, ops, d: int) -> dict:
@@ -5891,14 +6227,8 @@ def main() -> int:
                                        num_layers=VLM_LAYERS),
         VLM_REQUESTS, VLM_NEW, VLM_GAP_S, 2)
     stamp(13)
-    mesh = run_mesh(torch, rt, full)
-    stamp(14)
-    ranks15 = run_drivers(torch, rt, full)
-    stamp(15)
-    model_axis = run_model_axis(
-        torch, rt, ops, full, beta,
-        {kind: [r[kind]["peak_gib"] for r in mesh["ranks"]]
-         for kind in ("exact", "gossip")})
+    mesh, ranks15, model_axis = run_rank_phases(torch, rt, ops, full, beta,
+                                                stamp)
     stamp(16)
     du[torch.float32]["model_axis"] = model_axis["dual_update"]
     squant["model_axis"] = model_axis["stochastic_quantize"]

@@ -17,6 +17,8 @@ With a :class:`~repro_torch.dist.group.WorkerGroup` (one process per
 worker) every protocol runs this process's worker: the state's
 per-worker leaves (``row_keys``: the duals and the in-flight payloads)
 hold its row only, and the checkpoint gathers and splits them by row.
+With a :class:`~repro_torch.dist.tp.TensorParallel` (``tp``: a worker
+spread over a model axis) they hold this rank's blocks of the row.
 """
 from __future__ import annotations
 
@@ -73,7 +75,6 @@ class GossipProtocol(TrainProtocol):
 
     mode = "gossip"
     row_keys = ("z", "pending", "queue", "snaps")
-    tp = None                  # a worker spread over a model axis
 
     def __init__(self, cfg, n: int, amb: AMBConfig, draw_source=None,
                  group=None, tp=None):
@@ -93,11 +94,12 @@ class PipelinedProtocol(GossipProtocol):
     mode = "pipelined"
 
     def __init__(self, cfg, n: int, amb: AMBConfig, draw_source=None,
-                 group=None):
+                 group=None, tp=None):
         self.amb = amb
         self.group = group
+        self.tp = tp
         self.init, self.step, self.flush = make_pipelined_gossip_train_step(
-            cfg, n, amb, draw_source, group)
+            cfg, n, amb, draw_source, group, tp)
 
 
 class AsyncProtocol(GossipProtocol):
@@ -111,12 +113,13 @@ class AsyncProtocol(GossipProtocol):
     mode = "async"
 
     def __init__(self, cfg, n: int, amb: AMBConfig, staleness: int = 1,
-                 draw_source=None, group=None):
+                 draw_source=None, group=None, tp=None):
         self.amb = amb
         self.group = group
+        self.tp = tp
         self.staleness = staleness
         self.init, self.step, self.flush = make_async_gossip_train_step(
-            cfg, n, amb, staleness, draw_source, group)
+            cfg, n, amb, staleness, draw_source, group, tp)
 
 
 def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
@@ -135,7 +138,9 @@ def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
     are mutually exclusive.  Elastic membership rides on ``amb.active``.
     ``group`` runs the protocol one process per worker; ``tp``
     (:class:`~repro_torch.dist.tp.TensorParallel`) spreads each worker over
-    a model axis, for the exact and fp32 gossip protocols.
+    a model axis, for every protocol: each steps, settles and takes its
+    primal on this rank's blocks (the prox's trust region on the whole
+    leaf's norm).
     """
     if pipeline and async_epochs:
         raise ValueError("--pipeline is the hardcoded staleness-1 driver; "
@@ -153,9 +158,9 @@ def build_protocol(cfg, n: int, amb: AMBConfig, *, optimizer=None,
                          "dual-averaging protocol; use the dual_averaging "
                          "optimizer")
     if async_epochs:
-        return AsyncProtocol(cfg, n, amb, staleness, draw_source, group)
+        return AsyncProtocol(cfg, n, amb, staleness, draw_source, group, tp)
     if pipeline:
-        return PipelinedProtocol(cfg, n, amb, draw_source, group)
+        return PipelinedProtocol(cfg, n, amb, draw_source, group, tp)
     if amb.consensus != "exact":
         return GossipProtocol(cfg, n, amb, draw_source, group, tp)
     if optimizer is None:

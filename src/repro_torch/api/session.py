@@ -65,11 +65,14 @@ x TP and the gossip epochs (fp32, ``gossip_q8``, ``gossip_q4``) TP, and
 ``params`` gathers the whole primal on every rank.  A quantized round
 there quantizes each rank's block of its worker's row on the whole row's
 grid (reduced over "model") with the block's positions of the whole row's
-draws.  The dense family's exact, fp32 and quantized gossip epochs of the
-sequential driver run so; everything else at M > 1 (the pipelined and
-async drivers, the controller, redundancy, elastic membership and churn,
-save and restore, the other families) raises, naming ROADMAP.md's module
-item 4a.
+draws.  Every driver and option runs so for the dense family: the
+pipelined and async drivers (their in-flight payloads and snapshots are
+this rank's blocks), the staleness retune, the controller (the noise
+statistics are the whole leaves'), coded redundancy (a worker's M ranks
+read the same shard) and elastic membership and churn (the survivor
+relayout gossips the blocks; an out worker's blocks stay as they were).
+``save`` and ``restore``, the other families and a model extent that does
+not divide the heads raise, naming ROADMAP.md's module item 4a.
 """
 from __future__ import annotations
 
@@ -104,6 +107,15 @@ from .clock import make_clock
 from .protocol import build_protocol
 from .specs import (MODES, ClockSpec, ConsensusSpec, ControllerSpec,
                     TrainSpec)
+
+
+def not_ported(what: str, model: int) -> ValueError:
+    """The refusal of what a worker spread over ``model`` ranks does not
+    run yet."""
+    return ValueError(f"{what} at model > 1 (a worker spread over {model} "
+                      f"ranks) is not ported yet (ROADMAP.md, module item "
+                      f"4a); every driver and option of the dense family "
+                      f"runs")
 
 
 class AMBSession:
@@ -242,13 +254,6 @@ class AMBSession:
         return self.group is None or self.group.worker * self.group.model \
             + self.group.m == 0
 
-    def _model_axis(self, what: str) -> ValueError:
-        return ValueError(f"{what} at model > 1 (a worker spread over "
-                          f"{self.group.model} ranks) is not ported yet "
-                          f"(ROADMAP.md, module item 4a); the exact, fp32 "
-                          f"and quantized gossip epochs of the dense "
-                          f"family run")
-
     def _blocks(self, params) -> dict:
         """This rank's blocks of the parameters (``params``: a dict, a
         :class:`DenseLM`, or None to initialise them from the seed, one
@@ -270,18 +275,11 @@ class AMBSession:
 
     def _check_model_axis(self) -> None:
         """Refuse what a worker spread over a model axis cannot run yet."""
-        spec, train = self.consensus_spec, self.train
+        spec = self.consensus_spec
         check_supported(self.cfg, self.group.model)
-        for what, refused in (
-                (f"{spec.consensus} consensus",
-                 spec.consensus not in ("exact", "gossip", "gossip_q8",
-                                        "gossip_q4")),
-                ("the pipelined driver", spec.pipeline),
-                ("the async driver", spec.async_epochs),
-                ("the controller", self.controller is not None),
-                (f"redundancy={train.redundancy}", train.redundancy > 1)):
-            if refused:
-                raise self._model_axis(what)
+        if spec.consensus not in ("exact", "gossip", "gossip_q8",
+                                  "gossip_q4"):
+            raise not_ported(f"{spec.consensus} consensus", self.group.model)
 
     def _build_protocol(self, active: Optional[tuple] = None) -> None:
         """(Re)build the epoch driver: at init, on ``set_active`` and on a
@@ -336,8 +334,6 @@ class AMBSession:
         from that drain, which is always a valid state transition.
         """
         mask = np.asarray(mask, dtype=bool).reshape(-1)
-        if self.tp is not None and not mask.all():
-            raise self._model_axis("elastic membership (a worker out)")
         if mask.shape[0] != self.n_workers:
             raise ValueError(f"mask has {mask.shape[0]} entries for "
                              f"{self.n_workers} workers")
@@ -477,8 +473,6 @@ class AMBSession:
         cover them)."""
         if steps <= 0:
             return None
-        if faults is not None and self.tp is not None:
-            raise self._model_axis("churn (a fault model)")
         if source is None:
             source = self.batch_source()
         injector = None
@@ -601,7 +595,7 @@ class AMBSession:
         per-worker leaves gathered to it a row at a time.
         """
         if self.tp is not None:
-            raise self._model_axis("save")
+            raise not_ported("save (item 4a.4)", self.group.model)
         directory = Path(directory)
         params = self.params          # a sum across the ranks: every rank
         if self.rank == 0:
@@ -672,7 +666,7 @@ class AMBSession:
                       else ControllerSpec.from_dict(ctl["spec"]), cfg=cfg,
                       device=device, metrics_path=metrics_path)
         if session.tp is not None:
-            raise session._model_axis("restore")
+            raise not_ported("restore (item 4a.4)", session.group.model)
         if meta.get("active") is not None:
             session.set_active(meta["active"])
         # into the fresh state in place, leaf by leaf: the card never

@@ -47,7 +47,7 @@ combine_rank`.  The losses, :class:`RankNoiseStats` and
 :func:`gossip_primal` sum across the workers.
 
 A worker spread over a model axis (``tp``, a :class:`~repro_torch.dist.
-tp.TensorParallel`; the exact, fp32 gossip and quantized gossip steps):
+tp.TensorParallel`; every step, and the pipelined and async drivers):
 each rank holds its blocks of the parameters and of the fp32 ``z`` and
 ``w0`` (the exact step: over "data" and "model"; the gossip step: over
 "model", whole over the workers), and the loss is the worker's, equal on
@@ -66,6 +66,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import consensus as cns
 from ..core.dual_averaging import BetaSchedule
@@ -426,34 +427,50 @@ class RankNoiseStats:
     worker's ``w_r ||g_r - gbar||^2`` accumulated in fp64, whose sum across
     the workers is one more all-reduce at the end.  Every rank then holds
     the same two numbers, so the controller takes the same action
-    everywhere."""
+    everywhere.
 
-    def __init__(self, bw: torch.Tensor, group):
+    A worker spread over a model axis (``tp``): a leaf split over "model"
+    adds its block's two sums into a second pair, summed over the worker's
+    model ranks at the end, and a leaf replicated over "model" (equal on
+    its model ranks) counts once, as :meth:`~repro_torch.dist.tp.
+    TensorParallel.prox` takes its norm: the whole leaves' numbers."""
+
+    def __init__(self, bw: torch.Tensor, group, tp=None):
         w = bw.float() / torch.clamp(bw.float().sum(), min=1.0)
         self.w = float(w[group.worker])
-        self.group = group
-        self.sq = torch.zeros((), dtype=torch.float64, device=bw.device)
-        self.var = torch.zeros((), dtype=torch.float64, device=bw.device)
+        self.group, self.tp = group, tp
+        # (||gbar||^2, w ||g - gbar||^2): of the leaves held whole, and of
+        # this rank's blocks of the leaves split over "model"
+        self.whole = torch.zeros((2,), dtype=torch.float64, device=bw.device)
+        self.split = torch.zeros_like(self.whole)
 
     @torch.no_grad()
-    def add(self, grads) -> None:
-        """Fold this worker's gradient leaves (every rank, in one order)."""
-        for g in grads:
+    def add(self, grads: dict) -> None:
+        """Fold this worker's gradient leaves, by name (every rank, in one
+        order)."""
+        for name, g in grads.items():
+            acc = self.split if self.tp is not None and self.tp.split(name) \
+                else self.whole
             flat = g.reshape(-1).float()
             gbar = flat * self.w
             self.group.all_reduce_([gbar])
-            self.sq += torch.dot(gbar, gbar).double()
+            acc[0] += torch.dot(gbar, gbar).double()
             dev = torch.sub(flat, gbar, out=gbar)
-            self.var += self.w * torch.dot(dev, dev).double()
+            acc[1] += self.w * torch.dot(dev, dev).double()
             del flat, gbar, dev
 
     def result(self) -> dict:
         """``grad_sq_norm`` and ``grad_var`` (fp64 scalars on the
         device)."""
-        var = self.var.reshape(1).to(self.group._coll_device())
-        self.group.sum_(var)
-        return {"grad_sq_norm": self.sq,
-                "grad_var": var[0].to(self.sq.device)}
+        g = self.group
+        sums = self.whole
+        if self.tp is not None:
+            split = self.split.to(g._coll_device())
+            dist.all_reduce(split, group=g.model_pg)
+            sums = sums + split.to(sums.device)
+        var = sums[1:].to(g._coll_device())
+        g.sum_(var)
+        return {"grad_sq_norm": sums[0], "grad_var": var[0].to(sums.device)}
 
 
 def grad_noise_stats(grads: dict, bw: torch.Tensor) -> dict:
@@ -539,13 +556,19 @@ class RankEpoch:
         sw, bw = epoch_weights(_as_b(b, device), self.n, per,
                                self.assignment)
         r = self.group.worker
-        stats = RankNoiseStats(bw, self.group) if self.amb.noise_stats \
-            else None
+        stats = RankNoiseStats(bw, self.group, self.tp) \
+            if self.amb.noise_stats else None
         return sw[r:r + 1], bw, stats
 
-    def grad(self, state, batch, sw, beta_t: float, per: int) -> tuple:
-        return local_grad(self.cfg, state["z"], state["w0"], batch, sw,
-                          beta_t, self.amb.radius, 0, per, self.tp)
+    def grad(self, state, batch, sw, beta_t: float, per: int,
+             stats: Optional[RankNoiseStats] = None) -> tuple:
+        """(this worker's gradient leaves at its primal, in ``w0``'s
+        order, its loss); folded into ``stats`` when given."""
+        g, loss = local_grad(self.cfg, state["z"], state["w0"], batch, sw,
+                             beta_t, self.amb.radius, 0, per, self.tp)
+        if stats is not None:
+            stats.add(dict(zip(state["w0"], g)))
+        return g, loss
 
     def settle(self, payload: torch.Tensor, epoch: int) -> torch.Tensor:
         """The consensus of this worker's (1, W+1) payload row (consumed:
@@ -576,12 +599,10 @@ def _rank_gossip_step(cfg, n: int, amb: AMBConfig, draw_source, group,
         t = state["t"]
         sw, bw, stats = ep.weights(b, device, per)
         z = state["z"]
-        g, loss = ep.grad(state, batch, sw, beta(t + 1), per)
+        g, loss = ep.grad(state, batch, sw, beta(t + 1), per, stats)
         buf = ep.strategy.rank_buffer(msg_width(z, 1), device, r)
         with torch.no_grad():
             _pack_row(buf[0], [zl[0] for zl in z.values()], g, n * bw[r])
-        if stats is not None:
-            stats.add(g)
         del g
         metrics = epoch_metrics(bw, rank_losses(loss, group), beta, t, stats)
         out = ep.combine(buf, t)

@@ -38,6 +38,8 @@ One process per worker (``group=``): the queue's slots are this worker's
 (1, W+1) payload rows and the snapshots its (1, W) dual rows; each settle
 is :meth:`~repro_torch.dist.consensus.ConsensusStrategy.combine_rank`
 under the enqueue epoch's draws, and the agreed row becomes the new tail.
+Over a model axis (``tp``) the slots and snapshots hold this rank's
+blocks of its worker's rows.
 """
 from __future__ import annotations
 
@@ -67,11 +69,11 @@ def _init_queue(state: dict, rows: int, staleness: int) -> dict:
 
 
 def _rank_async(cfg, n: int, amb: AMBConfig, staleness: int, draw_source,
-                group):
-    """(init_state, step, flush) of one process per worker (see the module
-    note)."""
+                group, tp=None):
+    """(init_state, step, flush) of one process per worker, or of a worker
+    spread over a model axis (``tp``; see the module note)."""
     beta = amb.beta
-    ep = RankEpoch(cfg, n, amb, draw_source, group)
+    ep = RankEpoch(cfg, n, amb, draw_source, group, tp)
     r = group.worker
     D = staleness
     gamma = 1.0 if D == 1 else 1.0 / (2.0 * D)
@@ -89,7 +91,7 @@ def _rank_async(cfg, n: int, amb: AMBConfig, staleness: int, draw_source,
         agreed = ep.settle(queue.pop(0), t - D)
         snap = state["snaps"].pop(0) if D > 1 else None
         # (2) the gradient at the last settled primal (staleness D)
-        g, loss = ep.grad(state, batch, sw, beta(t + 1), per)
+        g, loss = ep.grad(state, batch, sw, beta(t + 1), per, stats)
         # (3) settle the row, pack this epoch's payload over it, snapshot
         with torch.no_grad():
             if snap is None:
@@ -102,8 +104,6 @@ def _rank_async(cfg, n: int, amb: AMBConfig, staleness: int, draw_source,
             if snap is not None:
                 torch.cat([zl[0].reshape(-1) for zl in z.values()],
                           out=snap[0])
-        if stats is not None:
-            stats.add(g)
         del g
         queue.append(agreed)
         if snap is not None:
@@ -133,7 +133,7 @@ def _rank_async(cfg, n: int, amb: AMBConfig, staleness: int, draw_source,
 def make_async_gossip_train_step(cfg, n: int, amb: AMBConfig,
                                  staleness: int = 1,
                                  draw_source: Optional[Callable] = None,
-                                 group=None):
+                                 group=None, tp=None):
     """Returns (init_state, step, flush) for bounded-staleness AMB-DG.
 
     State extends the sequential gossip state with ``queue``, a list of
@@ -143,12 +143,14 @@ def make_async_gossip_train_step(cfg, n: int, amb: AMBConfig,
     was packed on (with ``group``, this worker's rows of both).
     step(state, batch, b) -> (state, metrics); flush(state) -> state.
     ``draw_source`` is as in
-    :func:`repro_torch.dist.amb.make_gossip_train_step`.
+    :func:`repro_torch.dist.amb.make_gossip_train_step`; ``tp`` spreads
+    each worker over a model axis (``w0``, the ``z`` row, the queue's
+    slots and the snapshots hold this rank's blocks).
     """
     if staleness < 1:
         raise ValueError(f"staleness must be >= 1, got {staleness}")
     if group is not None:
-        return _rank_async(cfg, n, amb, staleness, draw_source, group)
+        return _rank_async(cfg, n, amb, staleness, draw_source, group, tp)
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
     strategy = strategy_from_config(amb, n)

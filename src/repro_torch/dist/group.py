@@ -35,9 +35,11 @@ Backends.  NCCL takes CUDA tensors (one rank per card).  gloo takes CPU
 tensors everywhere and CUDA tensors for its collectives, but not for
 ``send``/``recv``: with gloo on the card the compute stays on the card and
 only the wire goes through pinned host buffers of the row's dtype,
-``STAGE_BYTES`` at a time.  The group counts the bytes it sends to other
-ranks (``sent_bytes``) and the bytes it copies between card and host for
-the wire (``staged_bytes``).
+``STAGE_BYTES`` at a time, each chunk split across ``WIRE_LANES`` gloo
+groups over every rank (``wire_lanes``), whose transfers run side by
+side: one gloo group moves a chunk through one connection a peer.  The
+group counts the bytes it sends to other ranks (``sent_bytes``) and the
+bytes it copies between card and host for the wire (``staged_bytes``).
 """
 from __future__ import annotations
 
@@ -51,11 +53,26 @@ from ..launch.mesh import axis_names, mesh_shape
 
 BUCKET_ELEMS = 1 << 26       # fp32 elements an all-reduce bucket holds
 STAGE_BYTES = 1 << 26        # bytes a pinned staging chunk holds
+WIRE_LANES = 4               # gloo groups a staged chunk is split across
+_LANES: dict = {}            # the default group -> its wire lanes
 
 
 def worker_axes(mesh) -> tuple:
     """Mesh axes that enumerate AMB workers (everything but "model")."""
     return tuple(a for a in axis_names(mesh) if a != "model")
+
+
+def wire_lanes() -> list:
+    """WIRE_LANES gloo groups over every rank of the default group, made
+    once a process, on its first call after the group is initialised;
+    every rank calls it at one point (building its first staged
+    :class:`WorkerGroup`), as ``new_group`` requires."""
+    world = dist.group.WORLD
+    if world not in _LANES:
+        _LANES.clear()
+        _LANES[world] = [dist.new_group(backend="gloo")
+                         for _ in range(WIRE_LANES)]
+    return _LANES[world]
 
 
 def num_workers(mesh) -> int:
@@ -115,6 +132,7 @@ class WorkerGroup:
         self.device = torch.device(device)
         self.backend = str(dist.get_backend())
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        self._lanes = wire_lanes() if self.staged else None
         self.sent_bytes = 0
         self.staged_bytes = 0
         self.grid_reductions = 0
@@ -259,16 +277,33 @@ class WorkerGroup:
                 host.copy_(row[a:b])
             got = [self._pin(("recv", j), b - a, row.dtype)
                    for j in range(len(recvs))]
-            ops = [dist.P2POp(dist.isend, host, peer, tag=tag)
-                   for peer, tag in sends]
-            ops += [dist.P2POp(dist.irecv, buf, peer, tag=tag)
-                    for (peer, tag, _), buf in zip(recvs, got)]
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+            self._lanes_p2p(host, sends, [(peer, tag, buf) for
+                                          (peer, tag, _), buf in
+                                          zip(recvs, got)])
             for (_, _, out), buf in zip(recvs, got):
                 out[a:b].copy_(buf)
             self.staged_bytes += size * (b - a) * (bool(sends) + len(recvs))
         self.sent_bytes += size * d * len(sends)
+
+    def _lanes_p2p(self, host: torch.Tensor, sends: list,
+                   recvs: list) -> None:
+        """One staged chunk: ``host`` to each ``(rank, tag)`` of ``sends``
+        and a chunk of its length into each ``(rank, tag, out)`` of
+        ``recvs``, split evenly across the wire lanes (both ends cut a
+        chunk alike, since their rows have one length and dtype), every
+        lane's transfers in flight together."""
+        n = host.numel()
+        k = min(len(self._lanes), n)
+        reqs = []
+        for i, lane in enumerate(self._lanes[:k]):
+            a, b = n * i // k, n * (i + 1) // k
+            ops = [dist.P2POp(dist.isend, host[a:b], peer, group=lane,
+                              tag=tag) for peer, tag in sends]
+            ops += [dist.P2POp(dist.irecv, out[a:b], peer, group=lane,
+                               tag=tag) for peer, tag, out in recvs]
+            reqs += dist.batch_isend_irecv(ops)
+        for req in reqs:
+            req.wait()
 
     def gather_to_root(self, row: torch.Tensor, sink=None) -> None:
         """Rank 0 receives every worker's row of one leaf, in worker

@@ -31,7 +31,10 @@ One process per worker (``group=``): ``pending`` is this worker's (1,
 W+1) payload row, each settle its
 :meth:`~repro_torch.dist.consensus.ConsensusStrategy.combine_rank` under
 the enqueue epoch's draws, and the agreed row becomes the next payload,
-as on one device.
+as on one device.  A worker spread over a model axis (``tp``, a
+:class:`~repro_torch.dist.tp.TensorParallel`): ``pending`` is this rank's
+(1, d_block) block of its worker's payload row, gossiped with the ranks
+at its model coordinate, as the sequential step gossips its block.
 """
 from __future__ import annotations
 
@@ -47,11 +50,12 @@ from .amb import (AMBConfig, NoiseStats, RankEpoch, _as_b, _pack_row,
 from .consensus import epoch_draws
 
 
-def _rank_pipelined(cfg, n: int, amb: AMBConfig, draw_source, group):
-    """(init_state, step, flush) of one process per worker (see the module
-    note)."""
+def _rank_pipelined(cfg, n: int, amb: AMBConfig, draw_source, group,
+                    tp=None):
+    """(init_state, step, flush) of one process per worker, or of a worker
+    spread over a model axis (``tp``; see the module note)."""
     beta = amb.beta
-    ep = RankEpoch(cfg, n, amb, draw_source, group)
+    ep = RankEpoch(cfg, n, amb, draw_source, group, tp)
     r = group.worker
 
     def init_state(params: dict) -> dict:
@@ -70,13 +74,11 @@ def _rank_pipelined(cfg, n: int, amb: AMBConfig, draw_source, group):
         # (1) the consensus of epoch t-1's payload, under its draws
         agreed = ep.settle(state.pop("pending"), t - 1)
         # (2) the gradient at the stale primal prox(z(t-1))
-        g, loss = ep.grad(state, batch, sw, beta(t + 1), per)
+        g, loss = ep.grad(state, batch, sw, beta(t + 1), per, stats)
         # (3) z takes its agreed row; the row takes the new payload
         settle_row(agreed[0], z, 0)
         with torch.no_grad():
             _pack_row(agreed[0], [zl[0] for zl in z.values()], g, n * bw[r])
-        if stats is not None:
-            stats.add(g)
         del g
         state["pending"] = agreed
         state["t"] = t + 1
@@ -95,7 +97,7 @@ def _rank_pipelined(cfg, n: int, amb: AMBConfig, draw_source, group):
 
 def make_pipelined_gossip_train_step(cfg, n: int, amb: AMBConfig,
                                      draw_source: Optional[Callable] = None,
-                                     group=None):
+                                     group=None, tp=None):
     """Returns (init_state, step, flush) for the pipelined AMB protocol.
 
     State extends the sequential gossip state with ``pending``, the (n,
@@ -103,10 +105,12 @@ def make_pipelined_gossip_train_step(cfg, n: int, amb: AMBConfig,
     the start and after a flush: a zero weight column settles as a no-op;
     with ``group``, this worker's (1, W+1) row).  step(state, batch, b)
     -> (state, metrics); flush(state) -> state.  ``draw_source`` is as in
-    :func:`repro_torch.dist.amb.make_gossip_train_step`.
+    :func:`repro_torch.dist.amb.make_gossip_train_step`; ``tp`` spreads
+    each worker over a model axis (``w0``, the ``z`` row and ``pending``
+    hold this rank's blocks).
     """
     if group is not None:
-        return _rank_pipelined(cfg, n, amb, draw_source, group)
+        return _rank_pipelined(cfg, n, amb, draw_source, group, tp)
     beta, radius = amb.beta, amb.radius
     draw_source = draw_source or epoch_draws
     strategy = strategy_from_config(amb, n)

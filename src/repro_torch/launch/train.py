@@ -27,8 +27,9 @@ keeps the compute there and sends the gossip rows through pinned host
 buffers (the bytes are printed per rank at the end).  Every driver and
 option runs over the ranks (quantized gossip, ``--pipeline``, ``--async``,
 ``--redundancy``, ``--controller``, ``--churn``, ``--ckpt-dir`` and
-``--restore``) at ``--model 1``; at ``--model`` > 1 all but quantized
-gossip are refused (ROADMAP.md, module item 4a).  Only rank 0 prints the steps and writes
+``--restore``) at ``--model 1``; at ``--model`` > 1 all of them run but
+``--ckpt-dir`` and ``--restore``, which are refused before any step
+(ROADMAP.md, module item 4a).  Only rank 0 prints the steps and writes
 the metrics and the checkpoint.  ``--pipeline`` runs
 staleness-1 pipelined epochs, ``--async --staleness D`` the AMB-DG
 queue of D payloads.  The run flushes in-flight consensus at its end;
@@ -64,7 +65,9 @@ spread over two ranks:
       --nproc-per-node 4 -m repro_torch.launch.train --smoke --data 2 \\
       --model 2 --consensus gossip_q8 --sim-clock --dist-backend gloo \\
       --device cpu
-(``--consensus exact``, ``gossip`` or ``gossip_q4`` the same).
+(``--consensus exact``, ``gossip`` or ``gossip_q4`` the same; add
+``--pipeline``, ``--async --staleness 2``, ``--redundancy 2``,
+``--controller`` or ``--churn 0.5`` for the other drivers and options).
 """
 from __future__ import annotations
 
@@ -76,6 +79,7 @@ import torch.distributed as dist
 
 from ..api import (AMBSession, ClockSpec, ConsensusSpec, ControllerSpec,
                    TrainSpec)
+from ..api.session import not_ported
 from ..faults import PoissonChurn
 from ..metrics import MetricsLogger
 
@@ -178,6 +182,10 @@ def _run(args, device):
                 or f"artifacts/train_{train.arch}_{train.mode}.jsonl")
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
+    if args.ckpt_dir and session.tp is not None:
+        session.close()
+        raise SystemExit(str(not_ported("--ckpt-dir (item 4a.4)",
+                                        session.group.model)))
     # run draws epochs at the session's own count, so a restored run
     # continues the data order and the logged step where the saved one
     # stopped

@@ -86,9 +86,9 @@ def _run(session) -> dict:
 
 def _refusals(world_mesh) -> dict:
     """The message of each combination a group still refuses: what a
-    model axis > 1 does not run yet (module item 4a; e.g. quantized gossip
-    under the async driver and the MoE family on a (2, 2) mesh) and
-    serving over a mesh (item 4c)."""
+    model axis > 1 does not run yet (module item 4a; e.g. a checkpoint of
+    quantized gossip under the async driver, which builds, and the MoE
+    family on a (2, 2) mesh) and serving over a mesh (item 4c)."""
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve import ServeScheduler
@@ -96,10 +96,10 @@ def _refusals(world_mesh) -> dict:
     moe = dataclasses.replace(configs.smoke_config("qwen3-moe-30b-a3b"),
                               dtype="float32")
     tries = {
-        "model_q8_async": lambda: _session(
+        "model_q8_async_save": lambda: _session(
             dict(CASES["gossip_ring"], consensus="gossip_q8", data=2,
                  model=2), make_host_mesh(2, 2, device="cpu"),
-            async_epochs=True),
+            async_epochs=True).save(Path("never_written")),
         "model_moe": lambda: _session(
             dict(CASES["exact_ring"], data=2, model=2),
             make_host_mesh(2, 2, device="cpu"), cfg=moe),
@@ -326,13 +326,15 @@ def test_train_cli_over_ranks_matches_the_one_process_cli(spawned, tmp_path):
 
 def test_group_refusals_name_their_roadmap_item(ranks):
     """What a group still refuses names its item: what a model axis > 1
-    does not run yet is module item 4a (quantized gossip's async driver,
-    the MoE family; the rest in ``tests/test_torch_tp.py``; quantized
-    gossip itself runs, ``tests/test_torch_tp_quantized.py``), serving
-    over a mesh item 4c; every other driver and option runs over ranks
+    does not run yet is module item 4a (a checkpoint, the MoE family; the
+    rest in ``tests/test_torch_tp.py``; quantized gossip and every driver
+    run, ``tests/test_torch_tp_quantized.py`` and
+    ``tests/test_torch_tp_drivers.py``), serving over a mesh item 4c;
+    every driver and option runs over ranks at model 1
     (``tests/test_torch_ranks_drivers.py``)."""
     for got in ranks:
-        assert sorted(got["refusals"]) == ["model_moe", "model_q8_async",
+        assert sorted(got["refusals"]) == ["model_moe",
+                                           "model_q8_async_save",
                                            "serve_cli", "serve_session"]
         for what, msg in got["refusals"].items():
             assert msg is not None, what

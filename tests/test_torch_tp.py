@@ -24,8 +24,10 @@ batches, ``EPOCHS`` epochs at the minibatch sizes ``BS``:
     the norm is the whole leaf's;
   * the train CLI with ``--model 2``, exact and gossip, against the
     one-process ``--data 2`` CLI;
-  * each combination still refused at model > 1 raising with its item
-    (quantized gossip runs: ``tests/test_torch_tp_quantized.py``).
+  * what is still refused at model > 1 (save, restore, the other
+    families, indivisible heads) raising with its item (quantized gossip
+    runs: ``tests/test_torch_tp_quantized.py``; every other driver and
+    option: ``tests/test_torch_tp_drivers.py``).
 
 The spawn has a join deadline (``JOIN_S``) and the process group a
 timeout (``PG_TIMEOUT_S``).
@@ -65,8 +67,7 @@ CASES = {"exact": ("exact", None, False), "gossip": ("gossip", None, False),
          "gossip_radius": ("gossip", RADIUS, False),
          "odd_exact": ("exact", None, True)}
 ODD = dict(vocab_size=511, d_ff=255)
-REFUSED = ("pipeline", "async", "controller", "redundancy", "moe", "heads",
-           "churn", "faults", "save", "restore")
+REFUSED = ("moe", "heads", "save", "restore")
 
 
 def _cfg(arch="qwen2-1.5b", **kw):
@@ -146,25 +147,12 @@ def _record(session, losses) -> dict:
 
 
 def _refusals(params, mesh, mesh14, outdir) -> dict:
-    from repro_torch.api import AMBSession, ControllerSpec, TrainSpec
-    from repro_torch.faults import PoissonChurn
+    from repro_torch.api import AMBSession, TrainSpec
     tries = {
-        "pipeline": lambda: _session("gossip", params, mesh, pipeline=True),
-        "async": lambda: _session("gossip", params, mesh, async_epochs=True),
-        "controller": lambda: AMBSession(
-            TrainSpec(smoke=True, data=N, model=M), consensus=None,
-            controller=ControllerSpec(enabled=True), cfg=_cfg(),
-            device="cpu", mesh=mesh),
-        "redundancy": lambda: _session("exact", params, mesh, train=TrainSpec(
-            smoke=True, data=N, model=M, redundancy=2)),
         "moe": lambda: _session("exact", None, mesh,
                                 cfg=_cfg("qwen3-moe-30b-a3b")),
         "heads": lambda: _session("exact", params, mesh14, train=TrainSpec(
             smoke=True, data=1, model=4)),
-        "churn": lambda: _session("gossip", params, mesh).set_active(
-            [True, False]),
-        "faults": lambda: _session("gossip", params, mesh).run(
-            1, faults=PoissonChurn(leave_rate=0.5, rejoin_rate=0.5)),
         "save": lambda: _session("exact", params, mesh).save(
             outdir / f"save{os.getpid()}"),
         "restore": lambda: AMBSession.restore(outdir / "ckpt", cfg=_cfg(),
