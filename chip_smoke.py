@@ -125,7 +125,7 @@ Phases (any failure ends the run with a non-zero exit code):
      serve CLI on it cut to 4 layers with 2 fine-tune epochs; an exact
      AMBSession on it at 4 layers, 4 x 8 x 256, 3 epochs (loss and aux
      each epoch, 15 prox launches an epoch, the peak); qwen3-8b at
-     long_500k (window 4096, 36 layers): a 32,768-token prefill, 64 ring
+     long_500k (window 4096, 18 of 36 layers): a 32,768-token prefill, 64 ring
      decode steps held against a linear cache masked to the window (and
      each layer's attention in fp32 on the same keys), then the
      524,288-token prefill and 16 decode steps past it (seconds,
@@ -240,7 +240,30 @@ Phases (any failure ends the run with a non-zero exit code):
      ranks, its losses within MESH_LOSS_TOL of the one-process CLI's; the
      peaks beside phase 14's data=4 exact ranks'; and the prox and the
      quantized kernels timed at the ranks' blocks;
- 17. print the kernels' JSON line, the card line, and the final ok line.
+ 17. serving over a (data, model) group and checkpoints at model > 1:
+     while the gloo ranks run phases 14 to 16 the parent writes the
+     references (``serve_references``: at qwen2-1.5b's full width, 28
+     layers, bf16, 8 requests of 2048 +- 512 tokens and 32 new ones into
+     8 slots, the plain one-process engine's greedy tokens and
+     first-token logits, the prefills again under ``split_sums`` for each
+     request's limit, and the ranks' one-process twin under
+     ``serve_tp_sums``, a 4-slot engine per worker; then the smoke-size
+     one-process checkpoints, exact and async gossip at D 2); then, the
+     launch's fourth turn (``rank_serve``): the slot engine alone over
+     (data 2, model 2) through the scheduler (greedy tokens equal to the
+     twin's, first-token logits within their limits, 28 tensor-core flash
+     launches a request on its worker's ranks, per rank the prefill
+     seconds, the decode round's ms and bytes all-reduced, TTFT, TPOT and
+     the peak), the serve CLI with ``--finetune 2`` under exact and
+     gossip (after each absorbed epoch the engine's blocks bit for bit
+     the session's; the launches on the blocks), and the checkpoints (the
+     one-process archive restored into the ranks, saved, read back bit for
+     bit, one epoch on); after the launch (``serve_after``) the ranks'
+     saves equal the one-process archives leaf for leaf, and one process
+     restores them and holds the ranks' next epoch (async bit for bit
+     under ``tp_sums``, exact within ``order_limits``).  The flash kernel
+     at a model rank's prefill shape (H 6, KV 1) runs in phase 3;
+ 18. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -342,13 +365,17 @@ COMM_TIME = 0.5                        # ClockSpec's default T_c
 # the pipelined, async, elastic and checkpoint phases: worker 1 leaves
 # the ring (3 survivors re-laid onto a ring), async keeps D = 2 payloads
 # in flight (at QUANT_LAYERS: one queued payload and two dual snapshots
-# stay live through the backward), the exact checkpoint is cut to 2 layers
-# and the full-width pipelined one runs at GOSSIP_LAYERS: a chip call may
-# write 45 GiB to its disk, deletions included, and the async session's
-# checkpoint at QUANT_LAYERS is 57 GB
+# stay live through the backward), the exact checkpoint and the
+# full-width pipelined one are cut to CKPT_LAYERS and CKPT_FULL_LAYERS: a
+# chip call may write 45 GiB to its disk, deletions included, and the
+# async session's checkpoint at QUANT_LAYERS is 57 GB.  They ran at 2 and
+# 8 layers (the pipelined one 30.3 GB, about 100 s of save and restore)
+# until phase 17 needed the time: H100 calls at 700 W read 1,195.4 and
+# 1,203.7 s of the 1,200
 MASK = (True, False, True, True)
 STALENESS = 2
-CKPT_LAYERS = 2
+CKPT_LAYERS = 1
+CKPT_FULL_LAYERS = 1
 # coded placement, faults and the controller (qwen2-1.5b width, 4 x 8 x
 # 256, ring r 5): the coded exact step at the exact session's depth under
 # rho = 2 from one initial state with b that each cover every distinct
@@ -367,7 +394,7 @@ CODED_TOL = 2.0 ** -5
 # epoch 3); the gossip cut, and the restore mid-churn at RESTORE_LAYERS
 CHURN = dict(leave_rate=0.25, rejoin_rate=0.5, seed=1)
 CHURN_MASKS = ("1111", "1110", "1011", "1001", "1111", "1101")
-RESTORE_LAYERS = 2
+RESTORE_LAYERS = 1          # 2 until phase 17 needed the time
 # the controller through the train CLI (as scripts/controller_smoke.py
 # drives JAX's), at GOSSIP_LAYERS: a 16x mistuned budget, r = 2
 CONTROLLER_ARGV = ["--sim-clock", "--compute-time", "40.0", "--comm-time",
@@ -1474,7 +1501,7 @@ def check_checkpoints(torch, rt, full, smoke) -> dict:
     """Save after 2 epochs, restore on the card, then one more epoch on
     both: an exact session at full width cut to CKPT_LAYERS, a pipelined
     and an async (D = STALENESS) session at the smoke config, and the
-    pipelined session at full width cut to GOSSIP_LAYERS.  That one has
+    pipelined session at full width cut to CKPT_FULL_LAYERS.  That one has
     the card to itself: the uninterrupted session takes its next epoch and
     goes before the restore, the two are held to each other by
     ``digest`` (the others also tensor by tensor), and the restore's peak
@@ -1494,7 +1521,7 @@ def check_checkpoints(torch, rt, full, smoke) -> dict:
              ("async", smoke, dict(consensus="gossip", async_epochs=True,
                                    staleness=STALENESS), False),
              ("pipelined full width",
-              dataclasses.replace(full, num_layers=GOSSIP_LAYERS),
+              dataclasses.replace(full, num_layers=CKPT_FULL_LAYERS),
               dict(consensus="gossip", pipeline=True), True))
     session_mod = sys.modules["repro_torch.api.session"]
     out = {}
@@ -2417,6 +2444,9 @@ LONG_SEQ = 524288       # repro_torch.configs.SHAPES["long_500k"].seq_len
 LONG_PREFIX = 32768     # eight windows
 LONG_DECODE = 64        # ring decode steps held against a linear cache
 LONG_TAIL = 16          # decode steps after the long_500k prompt
+# qwen3-8b cut to 18 of its 36 layers for time since PR 28 (the command
+# read 1,203.7 s of its 1,200 on a slow H100 call at 700 W)
+LONG_LAYERS = 18
 # ring vs linear decode, bf16, 36 layers: max |a - b| / max |a| of a step.
 # The two sum the softmax over 4096 and over 32,832 rows, and a bf16
 # rounding flip grows through the layers: two linear caches that differ
@@ -2997,7 +3027,7 @@ def ring_layers_fp32(torch, rt, params, cfg, ring) -> float:
 
 def run_long_context(torch, rt) -> dict:
     """qwen3-8b at ``get_config(shape="long_500k")`` (window 4096), full
-    width, all 36 layers, bf16, batch 1: a LONG_PREFIX-token prefill
+    width cut to LONG_LAYERS, bf16, batch 1: a LONG_PREFIX-token prefill
     through the kernel (ring caches of 4096 rows), LONG_DECODE greedy
     decode steps on the ring held step by step against the same steps on
     a linear cache masked to the window (within LONG_NOISE x the gap
@@ -3007,7 +3037,9 @@ def run_long_context(torch, rt) -> dict:
     at the shape's own length (524,288 tokens: query chunks of
     ``PREFILL_ROWS`` rows) and LONG_TAIL decode steps past it.  Returns
     the launch counts of the two prefills and their decodes."""
-    cfg = rt.configs.get_config(LONG_ARCH, shape="long_500k")
+    cfg = dataclasses.replace(
+        rt.configs.get_config(LONG_ARCH, shape="long_500k"),
+        num_layers=LONG_LAYERS)
     seq = rt.configs.SHAPES["long_500k"].seq_len
     if (cfg.sliding_window, seq) != (LONG_WINDOW, LONG_SEQ):
         fail(f"{LONG_ARCH} long_500k: window {cfg.sliding_window}, "
@@ -3624,9 +3656,10 @@ MESH_RANKS = 4                 # gloo ranks sharing the one card
 # depth cuts: the four ranks' peaks must sum under MESH_PEAK_SUM_GIB (the
 # two embedding tables, 467 M parameters, dominate), and the command must
 # end in 1,200 s: with phase 16's quantized gossip an H100 call at 700 W
-# read 1,326.9 s with these at 8 and 4 layers (phase 14 252.9 s)
-MESH_EXACT_LAYERS = 4
-MESH_GOSSIP_LAYERS = 2
+# read 1,326.9 s with these at 8 and 4 layers (phase 14 252.9 s); with
+# phase 17, 1,203.7 s at 4 and 2
+MESH_EXACT_LAYERS = 2
+MESH_GOSSIP_LAYERS = 1
 MESH_PEAK_SUM_GIB = 70.0
 MESH_EPOCHS = 2
 # phases 14 to 16's gloo ranks run in one launch (``rank_gloo``); the NCCL
@@ -3809,9 +3842,10 @@ def start_ranks(phase: str, work: Path, n: int):
     """Start ``python -m torch.distributed.run --standalone
     --nproc-per-node n chip_smoke.py --rank-phase phase --work work`` in
     its own process group; returns (the process, its start time).  The
-    ranks wait for ``work/parent_ready`` (``parent_ready``) before their
-    first step, so the parent's steps before them run while they come
-    up."""
+    ranks wait for ``work/ready<phase>`` (``parent_ready``) before each
+    phase, so the parent's steps before them run while they come up, and
+    the parent's references of a later phase while they run an earlier
+    one."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"),
            "--rank-phase", phase, "--work", str(work)]
@@ -3822,23 +3856,23 @@ def start_ranks(phase: str, work: Path, n: int):
                             start_new_session=True), time.perf_counter()
 
 
-def parent_ready(work: Path) -> None:
-    """Tell the started ranks that the parent's steps before them (the
-    references they read) are done."""
-    (work / "parent_ready").write_text("1")
+def parent_ready(work: Path, phase: int) -> None:
+    """Tell the started ranks that the parent's steps before their
+    ``phase`` (the references they read) are done."""
+    (work / f"ready{phase}").write_text("1")
 
 
-def wait_parent(work: Path, rank: int) -> None:
-    """A rank: wait for ``parent_ready`` (at most MESH_TIMEOUT_S["gloo"]);
-    rank 0 prints how long it waited."""
+def wait_parent(work: Path, rank: int, phase: int) -> None:
+    """A rank: wait for the parent's ``parent_ready(work, phase)`` (at
+    most MESH_TIMEOUT_S["gloo"]); rank 0 prints how long it waited."""
     t0 = time.perf_counter()
-    while not (work / "parent_ready").exists():
+    while not (work / f"ready{phase}").exists():
         if time.perf_counter() - t0 > MESH_TIMEOUT_S["gloo"]:
-            fail("the parent's steps before the ranks never ended")
+            fail(f"the parent's steps before phase {phase} never ended")
         time.sleep(0.1)
     if rank == 0:
         print(f"rank 0 waited {time.perf_counter() - t0:.1f} s for the "
-              f"parent's steps before the ranks", flush=True)
+              f"parent's steps before phase {phase}", flush=True)
 
 
 def stop_ranks(phase: str, proc) -> None:
@@ -4047,7 +4081,9 @@ def rank_main(argv) -> int:
     import repro_torch as rt
     import repro_torch.api
     import repro_torch.launch.mesh
+    import repro_torch.launch.serve
     import repro_torch.launch.train
+    import repro_torch.serve
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method="env://", timeout=(
         datetime.timedelta(seconds=MESH_PG_TIMEOUT_S)))
@@ -4806,9 +4842,10 @@ def drivers_after(torch, rt, work: Path, refs: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 MODEL_AXIS = (2, 2)            # (data, model): two workers of two ranks
-# qwen2-1.5b width cut to 4 layers: at 8 the command took 1,168.8 s of
-# its 1,200 on an H100 at 700 W, before the quantized gossip checks
-MODEL_LAYERS = 4
+# qwen2-1.5b width cut to 2 layers: at 8 the command took 1,168.8 s of
+# its 1,200 on an H100 at 700 W, before the quantized gossip checks; at 4
+# (PRs 25 to 27) 1,195.4 s with phase 17
+MODEL_LAYERS = 2
 MODEL_CLI_ARGV = ["--smoke", "--sim-clock", "--steps", str(MESH_EPOCHS),
                   "--data", str(MODEL_AXIS[0])]
 MODEL_CLI = ("exact", "gossip", "gossip_q8")
@@ -5891,16 +5928,632 @@ def model_after(torch, rt, ops, full, beta: float, work: Path,
             "dual_update": shard, **block}
 
 
+# ---------------------------------------------------------------------------
+# Serving over a (data, model) group, checkpoints at model > 1 (phase 17)
+# ---------------------------------------------------------------------------
+
+# the slot engine over (data 2, model 2) at qwen2-1.5b's full width and
+# depth (28 layers, bf16), serve only and greedy: 8 requests of 2048 +-
+# 512 prompt tokens and 32 new ones, all arriving at once, into 8 slots,
+# so each worker prefills 4 (a request's 28 flash calls on its ranks at
+# B 1, H 6, KV 1, hd 128) and decodes its 4 rows
+SERVE17 = dict(requests=8, new=32, slots=8, prompt=2048, jitter=512,
+               seed=17, budget=0.25)
+SERVE17_CACHE = SERVE17["prompt"] + SERVE17["jitter"] + SERVE17["new"]
+FLASH_RANK = dict(b=1, h=6, kv=1, hd=128)      # a model rank's prefill heads
+FLASH_RANK_SEQS = (2048, 2560)
+# the serve CLI under the launch, with a fine-tune session over the same
+# ranks: qwen2-1.5b width cut to SERVE17_CLI_LAYERS (the CLI has no depth
+# flag: its session gets the cut config), two requests 2 s apart, so that
+# the idle time after the first absorbs a fine-tune epoch (an epoch took
+# 3.2 to 8.1 s on an H100, past the second arrival, so one is absorbed
+# where three requests 4 s apart absorbed two, 15 s more of the command
+# for both runs), and a round budget that holds two
+SERVE17_CLI_LAYERS = 1
+SERVE17_CLI_ARGV = ["--arch", "qwen2-1.5b", "--data", "2", "--model", "2",
+                    "--batch", "4", "--requests", "2", "--prompt-len", "512",
+                    "--new-tokens", "8", "--arrival-gap", "2.0",
+                    "--round-budget", "30", "--finetune", "2",
+                    "--dist-backend", "gloo"]
+SERVE17_CLI = ("exact", "gossip")
+# checkpoints at model 2, at the smoke config in MODEL_Q_DTYPE (the next
+# epoch is held bit for bit under tp_sums, as phase 16's drivers are):
+# exact (FSDP x TP blocks of the parameters, z and w0) and async gossip at
+# D 2 (dual rows, the queue's in-flight payloads and their snapshots)
+SERVE17_CKPT = {"exact": dict(consensus="exact"),
+                "async": dict(consensus="gossip", async_epochs=True,
+                              staleness=2)}
+
+
+def check_flash_rank(torch, ops, flash) -> list:
+    """The flash kernel at a model rank's prefill shape over (data 2, model
+    2): qwen2-1.5b's 12 query and 2 KV heads split in two, so one KV head
+    (GQA group 6, hd 128; causal; S 2048 and 2560), on the tensor-core
+    body; library: SDPA with ``is_causal`` and ``enable_gqa``."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, kv, hd = (FLASH_RANK[x] for x in ("b", "h", "kv", "hd"))
+    entries = []
+    for s in FLASH_RANK_SEQS:
+        q, k, v = model_layout(torch, gen, b, s, s, h, kv, hd,
+                               torch.bfloat16)
+        if flash.body(q, k, v) != "tensor_core":
+            fail(f"flash_attention a model rank's S={s}: not the tensor "
+                 f"cores")
+        entries.append(flash_entry(
+            torch, ops, q, k, v, 0,
+            f"B={b} H={h} KV={kv} hd={hd} S={s} bf16 causal (a model rank "
+            f"of qwen2-1.5b over (data 2, model 2))",
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+            reps=200))
+        del q, k, v
+    release(torch)
+    return entries
+
+
+def serve17_requests(rt, cfg) -> list:
+    return rt.serve.synthetic_requests(
+        SERVE17["requests"], vocab_size=cfg.vocab_size,
+        prompt_len=SERVE17["prompt"], prompt_jitter=SERVE17["jitter"],
+        max_new_tokens=SERVE17["new"], seed=SERVE17["seed"])
+
+
+def _serve_half_sums(torch, x, w):
+    """``x @ w`` as a worker's two model ranks sum it: each rank's half of
+    x's columns (contiguous, as a rank holds it) times its rows of w,
+    rounded to the dtype, summed in fp32 and rounded once."""
+    c = x.shape[-1] // 2
+    out = 0.0
+    for r in range(2):
+        out = out + (x[..., r * c:(r + 1) * c].contiguous()
+                     @ w[r * c:(r + 1) * c]).float()
+    return out.to(x.dtype)
+
+
+@contextlib.contextmanager
+def serve_tp_sums(torch, rt):
+    """The serving counterpart of ``tp_sums``: the prefill and the decode
+    step in one process as a worker's two model ranks compute them.  Each
+    rank's half of the query and KV heads projected from its own
+    (contiguous) columns of wq, wk and wv, its flash call (prefill) and
+    its cache read (decode) on its heads alone, the row-parallel wo and
+    MLP products summed in fp32 and rounded once (``_serve_half_sums``),
+    and each rank's columns of the logits from its contiguous half of the
+    unembedding."""
+    model, attn = rt.models.model, rt.models.attention
+    plain = (attn.qkv_rope, attn.flash_prefill, attn._softmax_read,
+             model.swiglu, model.logits_fn)
+    qkv_rope, flash_prefill, softmax_read = plain[:3]
+
+    class Heads(torch.Tensor):
+        """The heads' output, whose product with wo is split by rank."""
+
+        def __matmul__(self, w):
+            return _serve_half_sums(torch, self.as_subclass(torch.Tensor),
+                                    w)
+
+    def cols(w, r):
+        c = w.shape[-1] // 2
+        return w[..., r * c:(r + 1) * c]
+
+    def half(p, r):
+        out = dict(p)
+        for k in ("wq", "wk", "wv"):
+            out[k] = cols(p[k], r).contiguous()
+            if "b" + k[1] in p:
+                out["b" + k[1]] = cols(p["b" + k[1]], r)
+        return out
+
+    def kv_half(t, r):
+        n = t.shape[2] // 2
+        return t[:, :, r * n:(r + 1) * n].contiguous()
+
+    def qkv(p, x, positions, cfg):
+        parts = [qkv_rope(half(p, r), x, positions, cfg) for r in range(2)]
+        return tuple(torch.cat([t[i] for t in parts], dim=2)
+                     for i in range(3))
+
+    def flash(q, k, v, window, *, causal=True):
+        return torch.cat([flash_prefill(kv_half(q, r), kv_half(k, r),
+                                        kv_half(v, r), window, causal=causal)
+                          for r in range(2)], dim=-1).as_subclass(Heads)
+
+    def read(q, k, v, valid):
+        return torch.cat([softmax_read(kv_half(q, r), kv_half(k, r),
+                                       kv_half(v, r), valid)
+                          for r in range(2)], dim=-1).as_subclass(Heads)
+
+    def mlp(x, w_gate, w_up, w_down):
+        c = w_gate.shape[-1] // 2
+        out = 0.0
+        for r in range(2):
+            h = torch.nn.functional.silu(x @ cols(w_gate, r).contiguous()) \
+                * (x @ cols(w_up, r).contiguous())
+            out = out + (h @ w_down[r * c:(r + 1) * c]).float()
+        return out.to(x.dtype)
+
+    def logits(params, cfg, hidden, tp=None):
+        u = params["unembed"]
+        return model._vocab(cfg, torch.cat(
+            [hidden @ cols(u, r).contiguous() for r in range(2)], dim=-1))
+
+    (attn.qkv_rope, attn.flash_prefill, attn._softmax_read, model.swiglu,
+     model.logits_fn) = (qkv, flash, read, mlp, logits)
+    try:
+        yield
+    finally:
+        (attn.qkv_rope, attn.flash_prefill, attn._softmax_read,
+         model.swiglu, model.logits_fn) = plain
+
+
+def first_logits(torch, rt, params, cfg, reqs) -> list:
+    """Each request's first-token logits: its bucketed batch-1 prefill, as
+    the slot engine runs it (host fp32)."""
+    out = []
+    for r in reqs:
+        bucket = rt.serve.bucket_len(r.prompt_len, SERVE17_CACHE,
+                                     exact=False)
+        toks = torch.tensor([r.prompt + [0] * (bucket - r.prompt_len)],
+                            dtype=torch.long, device="cuda")
+        logits, _ = rt.models.prefill(params, cfg, {"tokens": toks},
+                                      extra_capacity=SERVE17_CACHE - bucket,
+                                      last_pos=r.prompt_len - 1)
+        out.append(logits.float().cpu())
+        del logits
+    return out
+
+
+def serve_references(torch, rt, full, work: Path) -> dict:
+    """Phase 17's references, in the parent while the gloo ranks run
+    phases 14 to 16: at qwen2-1.5b's full width from SERVE17's seed, the
+    plain one-process slot engine (8 slots: the greedy tokens, each
+    request's first-token logits), the prefills again under
+    ``split_sums`` (each request's move sets its limit,
+    ``order_limits``), and the one-process twin of the ranks under
+    ``serve_tp_sums``, one 4-slot engine per worker on its requests (the
+    tokens the ranks must give); then the one-process checkpoints the
+    ranks restore (SERVE17_CKPT, one epoch each, saved).  Writes them
+    for the ranks."""
+    lap = stamps("phase 17 references")
+    data = MODEL_AXIS[0]
+    gen = torch.Generator(device="cuda").manual_seed(SERVE17["seed"])
+    params = rt.models.init_params(full, gen)
+    reqs = serve17_requests(rt, full)
+    engine = rt.serve.SlotEngine(params, full, slots=SERVE17["slots"],
+                                 cache_len=SERVE17_CACHE)
+    drain(engine, reqs)
+    plain_tokens = [r.out_tokens for r in reqs]
+    del engine
+    release(torch)
+    plain = first_logits(torch, rt, params, full, reqs)
+    with split_sums(torch, rt):
+        split = first_logits(torch, rt, params, full, reqs)
+    moves = {r.rid: leaf_errs(torch, {"x": s}, {"x": p})["x"]
+             for r, s, p in zip(reqs, split, plain)}
+    limits = order_limits(moves)
+    print("phase 17 reference: each request's first-token logits under "
+          "split row-parallel sums, their move over max |logits| (its "
+          "limit): " + ", ".join(f"{k} {m:.3g} ({limits[k]:.3g})"
+                                 for k, m in moves.items()), flush=True)
+    lap("the plain engine and the split prefills done")
+    twin = serve17_requests(rt, full)
+    per = SERVE17["slots"] // data
+    with serve_tp_sums(torch, rt):
+        for w in range(data):
+            engine = rt.serve.SlotEngine(params, full, slots=per,
+                                         cache_len=SERVE17_CACHE)
+            drain(engine, twin[w * per:(w + 1) * per])
+            del engine
+    twin_tokens = [r.out_tokens for r in twin]
+    differ = sum(a != b for x, y in zip(twin_tokens, plain_tokens)
+                 for a, b in zip(x, y))
+    print(f"phase 17 reference: the ranks' one-process twin (serve_tp_sums, "
+          f"a 4-slot engine per worker) differs from the plain engine in "
+          f"{differ} of {sum(map(len, plain_tokens))} greedy tokens",
+          flush=True)
+    del params
+    release(torch)
+    lap("the twin done")
+    cfg = dataclasses.replace(rt.configs.smoke_config("qwen2-1.5b"),
+                              dtype=MODEL_Q_DTYPE)
+    with deterministic(torch):
+        for kind, case in SERVE17_CKPT.items():
+            session = driver_session(rt, cfg, case, False, data=data,
+                                     model=MODEL_AXIS[1])
+            session.run(1, prefetch=0)
+            session.save(work / f"ck_one_{kind}")
+            del session
+    release(torch)
+    lap("the one-process checkpoints saved")
+    refs = {"plain_tokens": plain_tokens, "plain_first": plain,
+            "moves": moves, "limits": limits, "twin_tokens": twin_tokens}
+    torch.save(refs, work / "serve_refs.pt")
+    return refs
+
+
+def rank_serve_only(torch, rt, dist, full, refs, lap) -> dict:
+    """The slot engine alone over (data 2, model 2) at full width (through
+    the scheduler on rank 0's wall clock, no session): each rank's blocks
+    from SERVE17's seed (``init_shards``, the serving layout), the greedy
+    tokens equal to the twin's, each first-token logits within its
+    limit of the plain engine's, 28 tensor-core flash launches a request
+    on its worker's ranks and none elsewhere; per rank the prefill
+    seconds, the decode round's ms and bytes all-reduced, the peak."""
+    rank = dist.get_rank()
+    router = rt.kernels.router
+    mesh = rt.launch.mesh.make_host_mesh(*MODEL_AXIS, device="cuda")
+    group = rt.dist.group.WorkerGroup(mesh, "cuda")
+    shapes = {k: v.shape for k, v in rt.models.init_params(
+        full, rt.models.common.MetaGenerator()).items()}
+    tp = rt.dist.tp.TensorParallel(group, shapes, None)
+    gen = torch.Generator(device="cuda").manual_seed(SERVE17["seed"])
+    params = rt.dist.params.init_shards(full, gen, mesh,
+                                        mesh.get_coordinate(), None)
+    lap("the serving blocks drawn")
+    torch.cuda.reset_peak_memory_stats()
+    engine = rt.serve.SlotEngine(params, full, slots=SERVE17["slots"],
+                                 cache_len=SERVE17_CACHE, group=group, tp=tp)
+    firsts, prefill_s, flashes, round_ms, reduced = {}, [], {}, [], []
+    insert, decode, sample = (engine.insert, engine.decode_round,
+                              engine._sample)
+    current = [None]
+
+    def spy(logits):
+        if current[0] is not None:
+            firsts[current[0]] = logits.float().cpu()
+        return sample(logits)
+
+    def timed_insert(req):
+        current[0] = req.rid
+        before = router.launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = insert(req)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = router.launches()
+        flashes[req.rid] = {k: after.get(k, 0) - before.get(k, 0)
+                            for k in ("flash_attention.tensor_core",
+                                      "flash_attention.cuda_core")}
+        if engine._mine(req.slot):
+            prefill_s.append(dt)
+        current[0] = None
+        return out
+
+    def timed_round():
+        r0 = tp.reduced_bytes
+        t0 = time.perf_counter()
+        out = decode()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        reduced.append(tp.reduced_bytes - r0)
+        return out
+
+    engine._sample, engine.insert, engine.decode_round = (spy, timed_insert,
+                                                          timed_round)
+    kops, shapes = rt.models.attention.kops, set()
+    flash = kops.flash_attention
+
+    def seen(q, k, v, **kw):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[3]))
+        return flash(q, k, v, **kw)
+
+    kops.flash_attention = seen
+    reqs = serve17_requests(rt, full)
+    queue = rt.serve.RequestQueue(rt.serve.AdmissionPolicy(
+        cache_len=SERVE17_CACHE))
+    for r in reqs:
+        queue.push(r)
+    router.reset_launches()
+    try:
+        report = rt.serve.ServeScheduler(
+            engine, queue, round_budget_s=SERVE17["budget"]).run()
+    finally:
+        kops.flash_attention = flash
+    launches = router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lap("the requests served")
+    label = f"phase 17 serve rank {rank}"
+    tokens = [r.out_tokens for r in reqs]
+    if tokens != refs["twin_tokens"]:
+        fail(f"{label}: greedy tokens differ from the one-process twin's "
+             f"(serve_tp_sums): {tokens} vs {refs['twin_tokens']}")
+    if any(len(t) != SERVE17["new"] for t in tokens):
+        fail(f"{label}: {[len(t) for t in tokens]} tokens a request")
+    errs = {r.rid: leaf_errs(torch, {"x": firsts[r.rid]},
+                             {"x": refs["plain_first"][r.rid]})["x"]
+            for r in reqs}
+    share = check_leaves(f"serve rank {rank}, each request's first-token "
+                         f"logits", errs, refs["limits"])
+    differ = sum(a != b for x, y in zip(tokens, refs["plain_tokens"])
+                 for a, b in zip(x, y))
+    per_req = full.num_layers
+    for r in reqs:
+        want = per_req if engine._mine(r.slot) else 0
+        if flashes[r.rid] != {"flash_attention.tensor_core": want,
+                              "flash_attention.cuda_core": 0}:
+            fail(f"{label}: request {r.rid} (slot {r.slot}) launched "
+                 f"{flashes[r.rid]}, expected {want} on the tensor cores")
+    owned = sum(engine._mine(r.slot) for r in reqs)
+    expect(label, launches, {"flash_attention": per_req * owned,
+                             "flash_attention.tensor_core": per_req * owned})
+    rank_shape = tuple(FLASH_RANK[x] for x in ("b", "h", "kv", "hd"))
+    if shapes != {rank_shape}:
+        fail(f"{label}: flash called at (B, H, KV, hd) {shapes}, expected "
+             f"{rank_shape}")
+    ms = sorted(round_ms)
+    pct = sys.modules["repro_torch.serve.metrics"]._pct
+    s = report.summary
+    row = {"owned": owned, "flash_per_request": per_req,
+           "prefill_s": prefill_s, "decode_rounds": len(ms),
+           "round_ms_p50": pct(ms, 50), "round_ms_p99": pct(ms, 99),
+           "reduced_bytes_per_round": sorted(reduced)[len(reduced) // 2],
+           "peak_gib": peak, "ttft_p50_s": s["ttft_p50_s"],
+           "ttft_p99_s": s["ttft_p99_s"], "tpot_p50_s": s["tpot_p50_s"],
+           "tpot_p99_s": s["tpot_p99_s"], "tokens_per_s": s["tokens_per_s"],
+           "tokens_differing_from_plain": differ, "limit_share": share,
+           "launches": launches}
+    print(f"  {label} (worker {group.worker}, model {group.m}): greedy "
+          f"tokens equal to the twin's; {differ} of "
+          f"{sum(map(len, tokens))} differ from the plain engine's; "
+          f"flash {per_req} a request on the tensor cores at (B, H, KV, "
+          f"hd) {rank_shape} x {owned} requests; prefill_s "
+          f"{[round(x, 4) for x in prefill_s]}; decode "
+          f"rounds {len(ms)}, ms p50 {row['round_ms_p50']:.2f} p99 "
+          f"{row['round_ms_p99']:.2f}; {row['reduced_bytes_per_round']} "
+          f"bytes all-reduced a round; TTFT p50 {s['ttft_p50_s']:.4f} p99 "
+          f"{s['ttft_p99_s']:.4f} s, TPOT p50 {s['tpot_p50_s']:.4f} p99 "
+          f"{s['tpot_p99_s']:.4f} s; peak_GiB {peak:.2f} [{card_line()}]",
+          flush=True)
+    del engine, params
+    return row
+
+
+def rank_serve_cli(torch, rt, dist, consensus: str, lap) -> dict:
+    """The serve CLI under the launch with ``--finetune 2``
+    (SERVE17_CLI_ARGV, its session at qwen2-1.5b width cut to
+    SERVE17_CLI_LAYERS): after each absorbed epoch the engine's
+    parameters bit for bit this rank's blocks of ``session.params``;
+    every idle stretch absorbs an epoch; the launches on this rank's
+    blocks (exact: ``dual_update`` 15 an epoch; gossip: 15 for the
+    engine's first primal and 45 an epoch, the step's, the engine's
+    primal and the check's; ``gossip_combine`` r an epoch on a (2, 1)
+    table; flash, the cut depth a request its worker owns)."""
+    from repro_torch.launch import serve as serve_cli
+    rank = dist.get_rank()
+    router = rt.kernels.router
+    sched_mod = sys.modules["repro_torch.serve.scheduler"]
+    session_mod = sys.modules["repro_torch.api.session"]
+    cut = dataclasses.replace(rt.configs.get_config("qwen2-1.5b"),
+                              num_layers=SERVE17_CLI_LAYERS)
+    real_config, train = session_mod.get_config, \
+        sched_mod.ServeScheduler._train_once
+    held, epoch_s = [], []
+
+    def checked(self, deadline):
+        t0 = time.perf_counter()
+        ran = train(self, deadline)
+        if ran:
+            epoch_s.append(time.perf_counter() - t0)
+            mesh = self.session.mesh
+            want = rt.dist.params.shard_tree(
+                self.session.params, mesh, mesh.get_coordinate(), None)
+            held.append(all(torch.equal(self.engine.params[k], v)
+                            for k, v in want.items()))
+        return ran
+
+    session_mod.get_config = lambda name: cut
+    sched_mod.ServeScheduler._train_once = checked
+    router.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        report = serve_cli.main(SERVE17_CLI_ARGV
+                                + ["--consensus", consensus])
+    finally:
+        session_mod.get_config = real_config
+        sched_mod.ServeScheduler._train_once = train
+    wall = time.perf_counter() - t0
+    launches = router.launches()
+    label = f"phase 17 serve CLI {consensus} rank {rank}"
+    epochs = report.train_epochs
+    gaps = [g for g in idle_gaps(report.requests) if g > IDLE_MIN_S]
+    if gaps and epochs < 1:
+        fail(f"{label}: {len(gaps)} idle stretches absorbed no epoch")
+    if held != [True] * epochs:
+        fail(f"{label}: after the absorbed epochs the engine's parameters "
+             f"were its blocks of session.params: {held}")
+    per = int(SERVE17_CLI_ARGV[SERVE17_CLI_ARGV.index("--batch") + 1]) \
+        // MODEL_AXIS[0]
+    worker = rank // MODEL_AXIS[1]
+    owned = sum(r.slot // per == worker for r in report.requests)
+    want = {"flash_attention.tensor_core": SERVE17_CLI_LAYERS * owned,
+            "flash_attention.cuda_core": 0}
+    if consensus == "exact":
+        want["dual_update"] = 15 * epochs
+    else:
+        want["dual_update"] = 15 * (1 + 3 * epochs)
+        want["gossip_combine"] = GOSSIP_ROUNDS * epochs
+    expect(label, launches, want)
+    if any(len(r.out_tokens) != 8 for r in report.requests):
+        fail(f"{label}: {[len(r.out_tokens) for r in report.requests]} "
+             f"tokens a request")
+    row = {"epochs": epochs, "held": held, "epoch_s": epoch_s,
+           "wall_s": wall, "idle_stretches": len(gaps),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches}
+    print(f"  {label}: fine-tune epochs absorbed {epochs} (engine blocks bit "
+          f"for bit the session's after each: {held}), epoch_s "
+          f"{[round(x, 3) for x in epoch_s]}, idle stretches {len(gaps)}, "
+          f"wall_s {wall:.1f}, launches {launches}, peak_GiB "
+          f"{row['peak_gib']:.2f} [{card_line()}]", flush=True)
+    lap(f"the serve CLI ({consensus}) done")
+    return row
+
+
+def rank_serve_ckpt(torch, rt, dist, work: Path, lap) -> dict:
+    """Checkpoints at model 2 (SERVE17_CKPT, the smoke config): each rank
+    restores the parent's one-process archive, saves it (``ck_back``),
+    restores its own save (the state read back bit for bit, block for
+    block), then takes one epoch and a flush under deterministic
+    algorithms; the parent holds that epoch (``serve_after``).  Save and
+    restore GB/s of the archive."""
+    rank = dist.get_rank()
+    cfg = dataclasses.replace(rt.configs.smoke_config("qwen2-1.5b"),
+                              dtype=MODEL_Q_DTYPE)
+    out = {}
+    for kind in SERVE17_CKPT:
+        label = f"phase 17 checkpoint {kind} rank {rank}"
+        session = rt.api.AMBSession.restore(work / f"ck_one_{kind}", cfg=cfg,
+                                            device="cuda")
+        before = as_json(digest(torch, session.state))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.save(work / f"ck_back_{kind}")
+        save_s = time.perf_counter() - t0
+        del session
+        release(torch)
+        t0 = time.perf_counter()
+        back = rt.api.AMBSession.restore(work / f"ck_back_{kind}", cfg=cfg,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if as_json(digest(torch, back.state)) != before:
+            fail(f"{label}: the state read back is not the state saved")
+        nbytes = dir_bytes(work / f"ck_back_{kind}")
+        with deterministic(torch):
+            m = back.run(1, prefetch=0)
+            back.flush()
+        row = {"loss": m["loss"], "bytes": nbytes, "save_s": save_s,
+               "restore_s": restore_s, "steps": back.steps_done}
+        if kind == "exact":
+            whole = back.params
+            if rank == 0:
+                torch.save({k: v.detach().cpu() for k, v in whole.items()},
+                           work / "ck_exact_params.pt")
+            del whole
+        else:
+            row["digest"] = as_json(digest(torch, {
+                k: v[0] for k, v in back.state["z"].items()}))
+        print(f"  {label}: the state read back bit for bit, block for "
+              f"block; {nbytes} B, save {save_s:.3f} s "
+              f"({nbytes / save_s / 1e9:.3f} GB/s), restore "
+              f"{restore_s:.3f} s ({nbytes / restore_s / 1e9:.3f} GB/s), "
+              f"the next epoch's loss {m['loss']:.6f}", flush=True)
+        out[kind] = row
+        del back
+        release(torch)
+    lap("the checkpoints done")
+    return out
+
+
+def rank_serve(torch, rt, dist, work: Path) -> None:
+    """Phase 17's turn of the gloo launch, as (data 2, model 2), once the
+    parent's references are written: the slot engine alone at full width,
+    the serve CLI with a fine-tune session (exact and gossip), and the
+    checkpoints at model 2; each rank's results to
+    ``serve17_rank<r>.json``."""
+    rank = dist.get_rank()
+    lap = stamps("phase 17 rank 0", rank)
+    full = rt.configs.get_config("qwen2-1.5b")
+    refs = torch.load(work / "serve_refs.pt")
+    out = {"serve": rank_serve_only(torch, rt, dist, full, refs, lap)}
+    release(torch)
+    for consensus in SERVE17_CLI:
+        out[f"cli {consensus}"] = rank_serve_cli(torch, rt, dist, consensus,
+                                                 lap)
+        release(torch)
+    out["ckpt"] = rank_serve_ckpt(torch, rt, dist, work, lap)
+    (work / f"serve17_rank{rank}.json").write_text(json.dumps(out))
+
+
+def serve_after(torch, rt, work: Path) -> dict:
+    """Phase 17 after the gloo ranks: the ranks' saves of the parent's
+    archives leaf for leaf the archives; each restored in one process
+    (ranks -> one process) and taken one epoch on: async gossip under
+    ``tp_sums`` (each rank's dual block bit for bit its block of it),
+    exact plain and under ``split_sums`` (each gathered leaf within its
+    ``order_limits``).  Returns the ranks' launch counts and rows."""
+    lap = stamps("phase 17")
+    ranks = [json.loads((work / f"serve17_rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    ckpt = rt.ckpt.checkpoint
+    cfg = dataclasses.replace(rt.configs.smoke_config("qwen2-1.5b"),
+                              dtype=MODEL_Q_DTYPE)
+    for kind in SERVE17_CKPT:
+        for sub in ("", "session_state"):
+            a = ckpt._Reader(work / f"ck_one_{kind}" / sub, 1)
+            b = ckpt._Reader(work / f"ck_back_{kind}" / sub, 1)
+            if a.manifest != b.manifest or any(
+                    not (a.data[k].dtype == b.data[k].dtype
+                         and (a.data[k] == b.data[k]).all())
+                    for k in a.data.files):
+                fail(f"phase 17 checkpoint {kind}: the ranks' save of the "
+                     f"restored archive is not the one-process archive "
+                     f"({sub or 'primal'})")
+        losses = [r["ckpt"][kind]["loss"] for r in ranks]
+        with deterministic(torch):
+            if kind == "exact":
+                runs = {}
+                for how in ("plain", "split"):
+                    with (split_sums(torch, rt) if how == "split"
+                          else contextlib.nullcontext()):
+                        one = rt.api.AMBSession.restore(
+                            work / f"ck_back_{kind}", cfg=cfg,
+                            device="cuda")
+                        m = one.run(1, prefetch=0)
+                    runs[how] = {k: v.detach().cpu()
+                                 for k, v in one.params.items()}
+                    if how == "plain":
+                        loss = m["loss"]
+                    del one
+                moves = leaf_errs(torch, runs["split"], runs["plain"])
+                limits = check_order("phase 17 checkpoint exact", moves)
+                got = torch.load(work / "ck_exact_params.pt")
+                check_leaves("phase 17 checkpoint exact (the ranks' next "
+                             "epoch after the restore)",
+                             leaf_errs(torch, got, runs["plain"]), limits)
+            else:
+                with tp_sums(torch, rt):
+                    one = rt.api.AMBSession.restore(
+                        work / f"ck_back_{kind}", cfg=cfg, device="cuda")
+                    m = one.run(1, prefetch=0)
+                    one.flush()
+                loss = m["loss"]
+                want = block_digests(torch, rt, one.state["z"])
+                del one
+                for r, res in enumerate(ranks):
+                    if res["ckpt"][kind]["digest"] != want[r]:
+                        fail(f"phase 17 checkpoint {kind} rank {r}: its "
+                             f"dual block after the restored epoch differs "
+                             f"from its block of the one-process session "
+                             f"under tp_sums")
+        check_losses(f"phase 17 checkpoint {kind}", 0, losses,
+                     [loss] * len(losses))
+        held = ("each leaf within its limit" if kind == "exact"
+                else "bit for bit under tp_sums")
+        print(f"phase 17 checkpoint {kind}: the ranks' save is the "
+              f"one-process archive leaf for leaf; their next epoch "
+              f"after the restore held ({held}); "
+              f"losses {losses} vs the one-process {loss} "
+              f"[{card_line()}]", flush=True)
+        release(torch)
+    lap("the checkpoints held")
+    launches = {f"serve group {run} rank {r}": res[run]["launches"]
+                for r, res in enumerate(ranks)
+                for run in ("serve", *(f"cli {c}" for c in SERVE17_CLI))}
+    return {"launches": launches, "ranks": ranks}
+
+
 def rank_gloo(torch, rt, dist, work: Path) -> None:
-    """The four gloo ranks of phases 14, 15 and 16 in one launch, each
-    phase's sessions building their meshes over the one group: once the
-    parent's steps before them are done (``wait_parent``),
-    ``rank_gloo4``, ``rank_drivers`` and ``rank_model`` in turn, a barrier
+    """The four gloo ranks of phases 14 to 17 in one launch, each phase's
+    sessions building their meshes over the one group: ``rank_gloo4``,
+    ``rank_drivers``, ``rank_model`` and ``rank_serve`` in turn, each once
+    the parent's steps before it are done (``wait_parent``), a barrier
     after each; rank 0 prints when each ended."""
-    wait_parent(work, dist.get_rank())
     t0 = time.perf_counter()
     for phase, fn in ((14, rank_gloo4), (15, rank_drivers),
-                      (16, rank_model)):
+                      (16, rank_model), (17, rank_serve)):
+        wait_parent(work, dist.get_rank(), phase)
         fn(torch, rt, dist, work)
         release(torch)
         dist.barrier()
@@ -5913,12 +6566,13 @@ RANK_PHASES = {"gloo": rank_gloo}
 
 
 def run_rank_phases(torch, rt, ops, full, beta: float, stamp) -> tuple:
-    """Phases 14 to 16 around one launch of four gloo ranks
-    (``rank_gloo``), started first: each phase's parent steps before the
-    ranks (the references, the NCCL rank) run while the ranks come up,
-    then the ranks, then each phase's parent steps after them,
-    ``stamp(phase)`` as each ends.  Returns (phase 14's, 15's and 16's
-    results)."""
+    """Phases 14 to 17 around one launch of four gloo ranks
+    (``rank_gloo``), started first: phases 14 to 16's parent steps before
+    the ranks (the references, the NCCL rank) run while the ranks come
+    up, phase 17's while the ranks run phases 14 to 16 (each phase's
+    ranks start once ``parent_ready`` says its steps are done); then each
+    phase's parent steps after them, ``stamp(phase)`` as each ends.
+    Returns (phase 14's, 15's, 16's and 17's results)."""
     release(torch)
     work = Path(tempfile.mkdtemp(prefix="ranks-", dir=ROOT / "build"))
     t0 = time.perf_counter()
@@ -5931,7 +6585,15 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp) -> tuple:
             t15 = time.perf_counter()
             digests = model_before(torch, rt, full, work)
             t16 = time.perf_counter()
-            parent_ready(work)
+            # phase 15's references peak near 50 GiB: they cannot share
+            # the card with phase 14's ranks, so phases 14 to 16 start
+            # together; phase 17's references (about 5 GiB) run beside
+            # the ranks
+            for phase in (14, 15, 16):
+                parent_ready(work, phase)
+            serve_references(torch, rt, full, work)
+            parent_ready(work, 17)
+            t17 = time.perf_counter()
         except BaseException:
             stop_ranks("gloo", proc)
             raise
@@ -5945,16 +6607,20 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp) -> tuple:
             torch, rt, ops, full, beta, work, digests,
             {kind: [r[kind]["peak_gib"] for r in mesh["ranks"]]
              for kind in ("exact", "gossip")})
+        stamp(16)
+        served = serve_after(torch, rt, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t_end = time.perf_counter()
-    print(f"phases 14 to 16 (one process per worker, the drivers, a model "
-          f"axis): {t_end - t0:.1f} s; the parent before the gloo ranks "
-          f"{t14 - t0:.1f} s (phase 14, the NCCL rank included), "
-          f"{t15 - t14:.1f} (15), {t16 - t15:.1f} (16), the ranks coming "
-          f"up meanwhile; the ranks after it {t_ranks - t16:.1f}; the "
-          f"parent after them {t_end - t_ranks:.1f}", flush=True)
-    return mesh, ranks15, model_axis
+    print(f"phases 14 to 17 (one process per worker, the drivers, a model "
+          f"axis, serving over it): {t_end - t0:.1f} s; the parent before "
+          f"the gloo ranks {t14 - t0:.1f} s (phase 14, the NCCL rank "
+          f"included), {t15 - t14:.1f} (15), {t16 - t15:.1f} (16), the "
+          f"ranks coming up meanwhile; phase 17's references "
+          f"{t17 - t16:.1f} while the ranks ran; the ranks after the "
+          f"parent's steps {t_ranks - t16:.1f}; the parent after them "
+          f"{t_end - t_ranks:.1f}", flush=True)
+    return mesh, ranks15, model_axis, served
 
 
 def time_quantized_block(torch, rt, ops, d: int) -> dict:
@@ -6141,6 +6807,7 @@ def main() -> int:
                                 rt.models.attention)
     flash_zoo += check_flash_zamba(torch, ops, rt.kernels.flash_attention)
     flash_zoo += check_flash_whisper(torch, ops, rt.kernels.flash_attention)
+    flash_zoo += check_flash_rank(torch, ops, rt.kernels.flash_attention)
     gcomb["per_rank"] = check_gossip_combine_rank(
         torch, ops, ref, GossipConsensus,
         rt.kernels.gossip_combine.own_row_table, dense_param_count(
@@ -6227,9 +6894,9 @@ def main() -> int:
                                        num_layers=VLM_LAYERS),
         VLM_REQUESTS, VLM_NEW, VLM_GAP_S, 2)
     stamp(13)
-    mesh, ranks15, model_axis = run_rank_phases(torch, rt, ops, full, beta,
-                                                stamp)
-    stamp(16)
+    mesh, ranks15, model_axis, served17 = run_rank_phases(
+        torch, rt, ops, full, beta, stamp)
+    stamp(17)
     du[torch.float32]["model_axis"] = model_axis["dual_update"]
     squant["model_axis"] = model_axis["stochastic_quantize"]
     qcomb["model_axis"] = model_axis["quantized_combine"]
@@ -6238,7 +6905,7 @@ def main() -> int:
         return sum(c.get(name, 0) for group in (
             runs, served, sim["launches"], cli_launches, drivers,
             coded_launches, zoo, mesh["launches"], ranks15["launches"],
-            model_axis["launches"])
+            model_axis["launches"], served17["launches"])
             for c in group.values())
 
     def per_epoch(name):
@@ -6269,6 +6936,9 @@ def main() -> int:
                     launches_model_axis={
                         a: c.get(name, 0)
                         for a, c in model_axis["launches"].items()},
+                    launches_serve_group={
+                        a: c.get(name, 0)
+                        for a, c in served17["launches"].items()},
                     max_abs_err=err,
                     **timing)
 

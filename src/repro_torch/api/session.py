@@ -71,8 +71,14 @@ this rank's blocks), the staleness retune, the controller (the noise
 statistics are the whole leaves'), coded redundancy (a worker's M ranks
 read the same shard) and elastic membership and churn (the survivor
 relayout gossips the blocks; an out worker's blocks stay as they were).
-``save`` and ``restore``, the other families and a model extent that does
-not divide the heads raise, naming ROADMAP.md's module item 4a.
+``save`` and ``restore`` keep JAX's archive of whole leaves there too:
+rank 0 writes each leaf gathered whole over "data" and "model" (one leaf
+at a time), and each rank cuts its blocks from what it reads back
+(:class:`repro_torch.dist.tp.CheckpointBlocks`), so a checkpoint carries
+between one process and ranks at any (data, model).  Serving reads the
+primal as ``serving_params()`` under ``serving_tp``, the TP-only layout
+(``fsdp_axis=None``).  The other families and a model extent that does
+not divide the heads raise, naming ROADMAP.md's module item 4a.5.
 """
 from __future__ import annotations
 
@@ -114,7 +120,7 @@ def not_ported(what: str, model: int) -> ValueError:
     run yet."""
     return ValueError(f"{what} at model > 1 (a worker spread over {model} "
                       f"ranks) is not ported yet (ROADMAP.md, module item "
-                      f"4a); every driver and option of the dense family "
+                      f"4a.5); every driver and option of the dense family "
                       f"runs")
 
 
@@ -222,6 +228,7 @@ class AMBSession:
         self._active: Optional[tuple] = None
         self._protocols: dict = {}       # (mask, staleness) -> protocol
         self.tp = None
+        self._serving_tp = None
         if self.group is not None and self.group.model > 1:
             self._check_model_axis()
             params = self._blocks(params)
@@ -583,6 +590,29 @@ class AMBSession:
         primal = self.protocol.primal(self.state)
         return primal if self.tp is None else self.tp.whole(primal)
 
+    @property
+    def serving_tp(self) -> Optional[TensorParallel]:
+        """The serving layout over this session's ranks at model > 1: a
+        :class:`TensorParallel` with ``fsdp_axis=None`` (the gossip
+        epochs' own; an exact session's is built once); None at model
+        1."""
+        if self.tp is None or self.tp.fsdp_axis is None:
+            return self.tp
+        if self._serving_tp is None:
+            self._serving_tp = TensorParallel(self.group, self.tp.shapes,
+                                              None)
+        return self._serving_tp
+
+    def serving_params(self) -> dict:
+        """The current primal as the slot engine reads it: :attr:`params`
+        at model 1; at model > 1 this rank's blocks under
+        :attr:`serving_tp` (a gossip session's primal blocks as they are,
+        an exact session's FSDP x TP blocks all-gathered over "data").
+        Every rank calls it."""
+        if self.tp is None:
+            return self.params
+        return self.tp.unshard_data(self.protocol.primal(self.state))
+
     def save(self, directory) -> None:
         """Checkpoint the primal and the full state at the current step.
 
@@ -592,20 +622,27 @@ class AMBSession:
         count), and ``session.json``, written per step and at the root
         (the latest step), the spec triple and the session's counters.
         Over a process group every rank calls it: rank 0 writes, the
-        per-worker leaves gathered to it a row at a time.
+        per-worker leaves gathered to it a row at a time; at model > 1
+        each leaf (and row) is first gathered whole from the ranks'
+        blocks, one at a time.
         """
-        if self.tp is not None:
-            raise not_ported("save (item 4a.4)", self.group.model)
         directory = Path(directory)
-        params = self.params          # a sum across the ranks: every rank
-        if self.rank == 0:
-            save_checkpoint(directory, self.steps_done, params)
-        del params
+        blocks = None if self.tp is None else self.tp.checkpoint_blocks()
+        if blocks is None:
+            params = self.params      # a sum across the ranks: every rank
+            if self.lead:
+                save_checkpoint(directory, self.steps_done, params)
+            del params
+        else:
+            save_checkpoint(directory, self.steps_done,
+                            self.protocol.primal(self.state),
+                            group=self.group, blocks=blocks)
         state_dir = save_checkpoint(directory / "session_state",
                                     self.steps_done, self.state,
                                     group=self.group,
-                                    row_keys=self.protocol.row_keys)
-        if self.rank != 0:
+                                    row_keys=self.protocol.row_keys,
+                                    blocks=blocks)
+        if not self.lead:
             self.group.barrier()      # until rank 0 has written it all
             return
         meta = {
@@ -648,8 +685,9 @@ class AMBSession:
         ``session.json`` copy; ``cfg`` is required when the saved session
         had a custom config.  Under an initialised process group of more
         than one rank every rank calls it and reads only its own row of
-        each per-worker leaf; a checkpoint written by one process restores
-        into ranks and back.
+        each per-worker leaf (at model > 1, and only its block of each
+        leaf and row); a checkpoint written by one process restores into
+        ranks and back.
         """
         directory = Path(directory)
         meta = json.loads((directory / "session.json").read_text())
@@ -665,8 +703,6 @@ class AMBSession:
                       None if ctl is None
                       else ControllerSpec.from_dict(ctl["spec"]), cfg=cfg,
                       device=device, metrics_path=metrics_path)
-        if session.tp is not None:
-            raise not_ported("restore (item 4a.4)", session.group.model)
         if meta.get("active") is not None:
             session.set_active(meta["active"])
         # into the fresh state in place, leaf by leaf: the card never
@@ -674,7 +710,9 @@ class AMBSession:
         load_checkpoint_into(directory / "session_state", step_sel,
                              session.state, row=None if session.group is None
                              else session.group.worker,
-                             row_keys=session.protocol.row_keys)
+                             row_keys=session.protocol.row_keys,
+                             blocks=None if session.tp is None
+                             else session.tp.checkpoint_blocks())
         session.steps_done = step_sel
         session.sim_wall = float(meta.get("sim_wall_s", 0.0))
         if meta.get("sec_per_grad") is not None \

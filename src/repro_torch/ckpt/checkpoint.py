@@ -24,6 +24,17 @@ and streamed into the member; :func:`load_checkpoint_into` with ``row``
 reads that rank's row of each such member by its offset in the stored
 archive, never the whole leaf.  The layout is the same either way, so a
 checkpoint carries between one process, ranks and JAX.
+
+A worker spread over a model axis (``blocks``, a
+:class:`repro_torch.dist.tp.CheckpointBlocks`): every rank holds its
+block of each leaf, and of each per-worker row.  The save still writes
+whole leaves from global rank 0: each leaf is gathered whole over "data"
+and "model" one at a time, a per-worker row whole over its worker's model
+ranks, and then, as at model 1, rank 0 takes every worker's row from the
+workers' first model ranks one at a time.  On restore each rank reads the
+whole leaf (a per-worker leaf: its worker's row) and keeps its block.  So
+no rank holds more than one whole leaf at a time, and a checkpoint
+carries between one process and ranks at any (data, model).
 """
 from __future__ import annotations
 
@@ -72,10 +83,10 @@ def _is_row_leaf(key: str, row_keys) -> bool:
     return key.split("/", 1)[0] in row_keys
 
 
-def _write_rows(f, group, leaf: torch.Tensor) -> str:
-    """Rank 0's side of a per-worker leaf: the .npy header of the (n, ...)
-    array, then every worker's row as it arrives; returns the manifest
-    dtype."""
+def _write_rows(f, group, row: torch.Tensor) -> str:
+    """Rank 0's side of a per-worker leaf (``row``: its own worker's row):
+    the .npy header of the (n, ...) array, then every worker's row as it
+    arrives; returns the manifest dtype."""
     dtype = {}
 
     def sink(worker: int, row: torch.Tensor) -> None:
@@ -87,22 +98,37 @@ def _write_rows(f, group, leaf: torch.Tensor) -> str:
                 "shape": (group.n,) + tuple(arr.shape)})
         f.write(memoryview(np.ascontiguousarray(arr)).cast("B"))
 
-    group.gather_to_root(leaf[0], sink)
+    group.gather_to_root(row, sink)
     return dtype["name"]
 
 
+def _whole(key: str, leaf, group, row_keys, blocks):
+    """(whether ``key`` is a per-worker leaf, this worker's whole row of
+    it or the whole leaf): the collectives over "data" and "model" that
+    ``blocks`` runs (none without it)."""
+    if group is not None and _is_row_leaf(key, row_keys):
+        row = leaf[0]
+        return True, row if blocks is None else blocks.whole_row(key, row)
+    return False, leaf if blocks is None else blocks.whole(key, leaf)
+
+
 def save_checkpoint(directory: str | os.PathLike, step: int,
-                    tree: Any, group=None, row_keys=()) -> Optional[Path]:
+                    tree: Any, group=None, row_keys=(),
+                    blocks=None) -> Optional[Path]:
     """Write ``tree`` as ``<directory>/step_<step:08d>``; returns that path.
 
     With ``group`` every rank calls it: a leaf under a key of ``row_keys``
     is this rank's (1, ...) row of an (n, ...) leaf, gathered to rank 0,
-    which writes the archive (the other ranks return None).
+    which writes the archive (the other ranks return None).  With
+    ``blocks`` (a worker over a model axis) each leaf, and each row, is
+    this rank's block of it, gathered whole first (see the module note).
     """
-    if group is not None and group.worker != 0:
+    if group is not None and (group.worker != 0 or group.m != 0):
         for key, leaf in _leaves(tree):
-            if _is_row_leaf(key, row_keys):
-                group.gather_to_root(leaf[0])
+            is_row, whole = _whole(key, leaf, group, row_keys, blocks)
+            if is_row and group.m == 0:
+                group.gather_to_root(whole)
+            del whole
         return None
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
@@ -114,13 +140,16 @@ def save_checkpoint(directory: str | os.PathLike, step: int,
         with zipfile.ZipFile(tmp / "arrays.npz", "w", zipfile.ZIP_STORED,
                              allowZip64=True) as zf:
             for key, leaf in _leaves(tree):
+                is_row, whole = _whole(key, leaf, group, row_keys, blocks)
                 with zf.open(f"{key}.npy", "w", force_zip64=True) as f:
-                    if group is not None and _is_row_leaf(key, row_keys):
-                        manifest["leaves"][key] = _write_rows(f, group, leaf)
+                    if is_row:
+                        manifest["leaves"][key] = _write_rows(f, group,
+                                                              whole)
                         continue
-                    arr, manifest["leaves"][key] = _to_numpy(leaf)
+                    arr, manifest["leaves"][key] = _to_numpy(whole)
                     np.lib.format.write_array(f, np.asanyarray(arr))
                     del arr
+                del whole
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         final = directory / f"step_{step:08d}"
         if final.exists():
@@ -155,17 +184,22 @@ class _Reader:
             return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         return torch.from_numpy(arr)
 
-    def __call__(self, key: str, leaf) -> torch.Tensor:
-        """Leaf ``key``, checked against the shape of ``leaf``."""
+    def __call__(self, key: str, leaf, cut=None) -> torch.Tensor:
+        """Leaf ``key`` (``cut`` of it), checked against the shape of
+        ``leaf``."""
         got = self._tensor(key, self.data[key])
+        if cut is not None:
+            got = cut(key, got)
         shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
         if tuple(got.shape) != shape:
             raise ValueError(f"{key}: shape {tuple(got.shape)} != {shape}")
         return got
 
-    def row(self, key: str, r: int, leaf: torch.Tensor) -> torch.Tensor:
-        """Row ``r`` of the (n, ...) leaf ``key``, read by its offset in
-        the stored member, checked against the (1, ...) ``leaf``."""
+    def row(self, key: str, r: int, leaf: torch.Tensor,
+            cut=None) -> torch.Tensor:
+        """Row ``r`` of the (n, ...) leaf ``key`` (``cut`` of it), read by
+        its offset in the stored member, checked against the (1, ...)
+        ``leaf``."""
         info = self.data.zip.getinfo(f"{key}.npy")
         if info.compress_type != zipfile.ZIP_STORED:
             arr = self.data[key][r]          # a compressed member: whole
@@ -192,6 +226,8 @@ class _Reader:
                                          f"row {r}")
                     got += k
         got = self._tensor(key, arr)
+        if cut is not None:
+            got = cut(key, got)
         want = tuple(leaf.shape[1:])
         if leaf.shape[0] != 1 or tuple(got.shape) != want:
             raise ValueError(f"{key}: row shape {tuple(got.shape)} != "
@@ -234,7 +270,7 @@ def load_checkpoint(directory: str | os.PathLike, step: int,
 @torch.no_grad()
 def load_checkpoint_into(directory: str | os.PathLike, step: int,
                          tree: Any, row: Optional[int] = None,
-                         row_keys=()) -> Any:
+                         row_keys=(), blocks=None) -> Any:
     """Read ``<directory>/step_<step:08d>`` into ``tree`` in place.
 
     One leaf at a time: a tensor leaf is overwritten (``copy_``, so it
@@ -242,9 +278,13 @@ def load_checkpoint_into(directory: str | os.PathLike, step: int,
     is live); a number in a dict or list is replaced.  A shape mismatch
     raises.  With ``row`` (one process per worker) a leaf under a key of
     ``row_keys`` is a (1, ...) tensor that takes row ``row`` of the
-    stored (n, ...) leaf.  Returns ``tree``.
+    stored (n, ...) leaf.  With ``blocks`` (a worker over a model axis)
+    a tensor leaf takes this rank's block of the stored leaf, or of the
+    stored row.  Returns ``tree``.
     """
     read = _Reader(directory, step)
+    cut = None if blocks is None else blocks.cut
+    cut_row = None if blocks is None else blocks.cut_row
 
     def land(node, prefix: str) -> None:
         if isinstance(node, dict):
@@ -260,9 +300,9 @@ def load_checkpoint_into(directory: str | os.PathLike, step: int,
                 land(leaf, path)
             elif isinstance(leaf, torch.Tensor):
                 if row is not None and _is_row_leaf(path, row_keys):
-                    leaf[0].copy_(read.row(path[:-1], row, leaf))
+                    leaf[0].copy_(read.row(path[:-1], row, leaf, cut_row))
                 else:
-                    leaf.copy_(read(path[:-1], leaf))
+                    leaf.copy_(read(path[:-1], leaf, cut))
             elif isinstance(leaf, (bool, int, float)):
                 node[k] = type(leaf)(read(path[:-1], leaf).item())
             else:

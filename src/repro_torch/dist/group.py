@@ -24,7 +24,11 @@ steps need of it:
     over a worker's M model ranks, each holding a block of its row (one
     MIN all-reduce of ``(lo, -hi)`` on ``model_pg`` a round);
   * :meth:`WorkerGroup.gather_to_root`: every rank's row of one leaf to
-    rank 0, one row at a time (the checkpoint streams them to disk).
+    rank 0, one row at a time (the checkpoint streams them to disk);
+  * serving over the group: :meth:`WorkerGroup.gather_ranks`, every
+    rank's block of a decode round's logits (its worker's slot rows, its
+    model coordinate's columns), and :meth:`WorkerGroup.lead_float`, rank
+    0's clock reading on every rank.
 
 With M > 1 the sums, the gathers and the wire run among the ranks at this
 rank's model coordinate, one per worker: worker j's peer is rank ``j * M
@@ -204,6 +208,14 @@ class WorkerGroup:
         """Wait for every rank (a one-element all-reduce)."""
         dist.all_reduce(torch.zeros((1,), device=self._coll_device()))
 
+    def lead_float(self, x: float) -> float:
+        """Global rank 0's ``x`` (a host number) on every rank: one
+        broadcast, so that decisions taken on a clock agree."""
+        t = torch.tensor([float(x)], dtype=torch.float64,
+                         device=self._coll_device())
+        dist.broadcast(t, src=0)
+        return float(t.item())
+
     def max_float(self, x: float) -> float:
         """The largest of every rank's ``x`` (a host number)."""
         t = torch.tensor([float(x)], dtype=torch.float64,
@@ -319,6 +331,15 @@ class WorkerGroup:
         for j in range(1, self.n):
             self.exchange(got.view(-1), [], [(j, j, got.view(-1))])
             sink(j, got)
+
+    def gather_ranks(self, block: torch.Tensor) -> list:
+        """Every rank's ``block`` (one shape and dtype on every rank), in
+        global rank order: one ``all_gather`` over the default group (on
+        the card under gloo as under NCCL)."""
+        parts = [torch.empty_like(block)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, block.contiguous())
+        return parts
 
     def all_gather(self, row: torch.Tensor) -> torch.Tensor:
         """(n, D): every worker's (D,) fp32 row, in worker order."""

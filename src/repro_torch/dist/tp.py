@@ -25,6 +25,23 @@ them, each an ``autograd.Function`` with the matching backward:
     logit from the rank that owns it, and a backward of ``softmax -
     onehot`` on this rank's columns.
 
+Serving reads the same blocks under ``fsdp_axis=None`` (JAX's serving
+layout, ``param_spec(..., fsdp_axis=None)``: the d_model side
+replicated): the prefill and the decode step take :meth:`heads`,
+:meth:`attention_out`, :meth:`mlp` and :meth:`embed` as the training
+forward does, and give this rank's columns of the logits
+(:meth:`all_gather_model` puts a prefill's back together).
+:meth:`TensorParallel.unshard_data` turns an FSDP x TP tree into those
+blocks (an exact session's primal, once per absorbed fine-tune epoch).
+
+A checkpoint stays JAX's archive of whole leaves at model > 1:
+:class:`CheckpointBlocks` (``TensorParallel.checkpoint_blocks``) gives
+the checkpoint module each leaf whole (gathered over "data" where it
+lies on it and over "model"), a per-worker row whole (a dual row's
+blocks gathered over "model"; a message row, an in-flight payload or
+snapshot, put together from every model rank's :class:`RowBlock`), and
+cuts this rank's block back out of a whole leaf or row on restore.
+
 Each rank holds ``H / M`` query heads and ``KV / M`` KV heads: JAX's GQA
 order (query head h reads KV head ``h // G``) keeps a rank's query heads
 on its own KV heads.  A leaf whose wide side the mesh does not divide
@@ -57,8 +74,8 @@ import torch.distributed as dist
 from torch.autograd import Function
 
 from ..kernels import ops as kops
-from ..launch.mesh import mesh_shape
-from .params import block_slices, param_spec
+from ..launch.mesh import axis_names, mesh_shape
+from .params import block_slices, param_spec, shard_leaf
 
 # leaves that each rank reads in part: the gradient of its part must be
 # summed over "model" so the replicated leaf stays equal on every rank
@@ -161,6 +178,23 @@ class RowBlock:
         out[b:].copy_(whole[a:])
         return out
 
+    def put(self, block: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`take`: write the block row's positions
+        into the whole row ``whole`` (the count element too, which every
+        model rank holds alike); returns ``whole``."""
+        a = b = 0
+        for shape, slices in self.leaves:
+            dst = whole[a:a + math.prod(shape)].view(shape)
+            for dim, (start, size) in enumerate(slices):
+                if size != shape[dim]:
+                    dst = dst.narrow(dim, start, size)
+            n = dst.numel()
+            dst.copy_(block[b:b + n].view(dst.shape))
+            a += math.prod(shape)
+            b += n
+        whole[a:].copy_(block[b:])
+        return whole
+
 
 def row_block(shapes: dict, mesh, coord, fsdp_axis: Optional[str] = None,
               names=None) -> RowBlock:
@@ -204,6 +238,7 @@ class TensorParallel:
             self.d = dist.get_rank(group.data_pg)
         self.gathered_bytes = 0
         self.scattered_bytes = 0
+        self.reduced_bytes = 0
 
     # -- the layout --------------------------------------------------------
 
@@ -240,10 +275,19 @@ class TensorParallel:
 
     def sum_model(self, x: torch.Tensor) -> torch.Tensor:
         """A fresh tensor: ``x`` summed over "model" (in fp32, rounded
-        once to ``x``'s dtype)."""
+        once to ``x``'s dtype); ``reduced_bytes`` counts the fp32 bytes."""
         y = x.to(torch.float32, copy=True)
         self.all_reduce_model(y)
+        self.reduced_bytes += y.numel() * 4
         return y.to(x.dtype)
+
+    def all_gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every model rank's ``x`` (one shape on each), concatenated along
+        ``dim`` in model order: a prefill's logits, each rank's columns
+        of the vocabulary."""
+        parts = [torch.empty_like(x) for _ in range(self.M)]
+        dist.all_gather(parts, x.contiguous(), group=self.group.model_pg)
+        return torch.cat(parts, dim=dim)
 
     def all_gather_data(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         parts = [torch.empty_like(x) for _ in range(self.D)]
@@ -287,10 +331,24 @@ class TensorParallel:
     def attention(self, p: dict, x: torch.Tensor,
                   prefix: str = "blocks.attn.") -> tuple:
         """(the attention leaves as this rank's heads read them, the
-        column-parallel input): the QKV biases sliced to its heads and the
-        qk-norm scales, each through :meth:`copy`."""
+        column-parallel input): :meth:`heads`, and ``x`` through
+        :meth:`copy`."""
         if not self.split(prefix + "wq"):
             return p, x
+        return self.heads(p, prefix), self.copy(x)
+
+    def kv_heads(self, cfg) -> int:
+        """The KV heads this rank holds."""
+        kv = cfg.num_kv_heads
+        return kv // self.M if self.split("blocks.attn.wq") else kv
+
+    def heads(self, p: dict, prefix: str = "blocks.attn.") -> dict:
+        """The attention leaves as this rank's heads read them: the QKV
+        biases sliced to its heads and the qk-norm scales, each through
+        :meth:`copy` (the blocks of ``wq``/``wk``/``wv``/``wo`` are its
+        heads already)."""
+        if not self.split(prefix + "wq"):
+            return p
         p = dict(p)
         for k in PARTIAL_REPLICATED:
             if k not in p:
@@ -300,7 +358,7 @@ class TensorParallel:
                 per = leaf.shape[-1] // self.M
                 leaf = leaf.narrow(-1, self.m * per, per)
             p[k] = leaf
-        return p, self.copy(x)
+        return p
 
     def attention_out(self, out: torch.Tensor,
                       prefix: str = "blocks.attn.") -> torch.Tensor:
@@ -378,6 +436,25 @@ class TensorParallel:
         return w0f + delta * torch.clamp(radius / torch.clamp(nrm, min=1e-30),
                                          max=1.0)
 
+    def unshard_data(self, tree: dict) -> dict:
+        """Each leaf of a block dict gathered over "data" where its spec
+        puts it there (an FSDP x TP tree -> the serving layout's blocks,
+        ``fsdp_axis=None``); the other leaves as they are (detached)."""
+        out = {}
+        for name, x in tree.items():
+            x, dim = x.detach(), self.data_dim(name)
+            if dim is not None and self.D > 1:
+                parts = [torch.empty_like(x) for _ in range(self.D)]
+                dist.all_gather(parts, x.contiguous(),
+                                group=self.group.data_pg)
+                x = torch.cat(parts, dim=dim)
+            out[name] = x
+        return out
+
+    def checkpoint_blocks(self) -> "CheckpointBlocks":
+        """This rank's :class:`CheckpointBlocks` under the layout."""
+        return CheckpointBlocks(self)
+
     def whole(self, tree: dict) -> dict:
         """Every leaf of a block dict gathered whole (over "data" and
         "model"), on every rank: the session's primal for comparisons,
@@ -396,14 +473,92 @@ class TensorParallel:
         return out
 
 
+class CheckpointBlocks:
+    """The whole leaves of a checkpoint and this rank's blocks of them,
+    for a worker spread over a model axis (``tp``).
+
+    A state leaf is named by its path (``opt/z/blocks/attn/wq``): the
+    longest tail that names a parameter (``blocks.attn.wq``) gives its
+    spec, which holds for the parameter, its duals, its optimizer moments
+    and a dual row alike; a per-worker row that names none is a message
+    row (a pipelined payload, an async queue slot: W + 1 elements; a
+    snapshot: W), laid out by the model ranks' :class:`RowBlock`; any
+    other leaf (the epoch counts) is the same on every rank.  Every rank
+    calls :meth:`whole` and :meth:`whole_row` on the same leaves in the
+    same order (they are collectives over "data" and "model")."""
+
+    def __init__(self, tp: TensorParallel):
+        self.tp = tp
+        mesh = tp.group.mesh
+        coord = list(mesh.get_coordinate())
+        at = axis_names(mesh).index("model")
+        self.rows = []                  # each model coordinate's RowBlock
+        for m in range(tp.M):
+            coord[at] = m
+            self.rows.append(row_block(tp.shapes, mesh, tuple(coord),
+                                       tp.fsdp_axis))
+
+    def name(self, key: str) -> Optional[str]:
+        """The parameter a leaf's path names, or None."""
+        parts = key.split("/")
+        for i in range(len(parts)):
+            name = ".".join(parts[i:])
+            if name in self.tp.specs:
+                return name
+        return None
+
+    def whole(self, key: str, leaf):
+        """Leaf ``key`` whole (a parameter-named tensor gathered over
+        "data" and "model" where it lies on them; else as it is)."""
+        name = self.name(key)
+        if name is None or not isinstance(leaf, torch.Tensor):
+            return leaf
+        return self.tp.whole({name: leaf})[name]
+
+    def whole_row(self, key: str, row: torch.Tensor) -> torch.Tensor:
+        """This worker's row of per-worker leaf ``key`` whole, from this
+        rank's block of it (``row``, its leading row dim gone), on every
+        model rank of the worker."""
+        name = self.name(key)
+        if name is not None:
+            return self.tp.whole({name: row})[name]
+        parts = [torch.empty_like(row) for _ in range(self.tp.M)]
+        dist.all_gather(parts, row.contiguous(),
+                        group=self.tp.group.model_pg)
+        count = row.numel() == self.rows[0].block_width   # W + 1, or W
+        out = row.new_empty(self.rows[0].width - (not count))
+        for rb, part in zip(self.rows, parts):
+            rb.put(part, out)
+        return out
+
+    def cut(self, key: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole leaf (or of a whole parameter
+        row) ``key``."""
+        name = self.name(key)
+        if name is None:
+            return whole
+        mesh = self.tp.group.mesh
+        return shard_leaf(whole, self.tp.specs[name], mesh,
+                          mesh.get_coordinate())
+
+    def cut_row(self, key: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of its worker's whole row of per-worker leaf
+        ``key``."""
+        if self.name(key) is not None:
+            return self.cut(key, whole)
+        rb = self.rows[self.tp.m]
+        count = whole.numel() == rb.width
+        return rb.take(whole, whole.new_empty(rb.block_width - (not count)))
+
+
 def check_supported(cfg, model: int) -> None:
     """Refuse what a model axis of ``model`` ranks cannot run yet."""
     if cfg.family != "dense" or cfg.is_moe:
         raise ValueError(f"the {cfg.family!r} family at model > 1 is not "
-                         f"ported yet (ROADMAP.md, module item 4a); the "
+                         f"ported yet (ROADMAP.md, module item 4a.5); the "
                          f"dense family runs")
     if cfg.num_heads % model or cfg.num_kv_heads % model:
         raise ValueError(f"model={model} must divide the {cfg.num_heads} "
                          f"query and {cfg.num_kv_heads} KV heads (a KV "
                          f"head split across ranks is not ported; "
-                         f"ROADMAP.md, module item 4a)")
+                         f"ROADMAP.md, module item 4a.5)")

@@ -12,27 +12,42 @@ seconds between arrivals, prompt lengths jittered around
 ``--prompt-len``); ``--batch`` sets the slot count; ``--finetune N``
 caps the background AMB epochs the scheduler may absorb.  The session
 owns the parameters, clock and consensus as in training;
-``session.params`` hands the primal to the slot engine.  SLO metrics
-(TTFT / TPOT / latency p50-p99, tokens/s) and per-epoch train loss
-stream to ``--metrics`` as JSONL.  The port runs on one device:
-``--model`` must be 1.
+``session.serving_params()`` hands the primal to the slot engine.  SLO
+metrics (TTFT / TPOT / latency p50-p99, tokens/s) and per-epoch train
+loss stream to ``--metrics`` as JSONL.
+
+In one process ``--data`` and ``--model`` are mesh extents that change
+nothing.  Under ``torchrun`` (``WORLD_SIZE`` = data x model) the CLI
+initialises the process group as the train CLI does
+(``--dist-backend``, ``--device``), the session spreads each worker over
+``--model`` ranks, and the slot engine runs over the same ranks: each
+worker owns ``--batch / --data`` slot rows, each of its model ranks its
+heads of them (the TP-only layout); every rank reads rank 0's clock, and
+only rank 0 prints the report.
 
 Example (on the card; ``main(argv, device="cpu")`` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --smoke --batch 4 --requests 12 --prompt-len 64 --new-tokens 32 \\
       --finetune 8 --round-budget 0.25
+Four ranks on one card, two workers of two model ranks each:
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen2-1.5b \\
+      --data 2 --model 2 --batch 8 --requests 8 --prompt-len 2048 \\
+      --new-tokens 32 --finetune 2 --dist-backend gloo
 """
 from __future__ import annotations
 
 import argparse
 import json
-import os
+
+import torch.distributed as dist
 
 from ..api import AMBSession, ClockSpec, ConsensusSpec, TrainSpec
 from ..dist.consensus import CONSENSUS_CHOICES
 from ..serve import (AdmissionPolicy, RequestQueue, SamplingSpec,
                      ServeMetrics, ServeScheduler, SlotEngine,
                      synthetic_requests)
+from .train import DIST_BACKENDS, init_group
 
 
 def main(argv=None, device="cuda"):
@@ -69,24 +84,32 @@ def main(argv=None, device="cuda"):
                     help="consensus strategy for --finetune")
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="JSONL path for SLO + fine-tune metrics")
+    ap.add_argument("--dist-backend", default=None, choices=DIST_BACKENDS,
+                    help="process-group backend under torchrun "
+                         "(WORLD_SIZE > 1): default nccl on the card, gloo "
+                         "on the CPU; gloo may put several ranks on one "
+                         "card")
+    ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                    help="where the ranks run (default: the card)")
     args = ap.parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("serving over a mesh (torchrun, one process per "
-                         "worker) is not ported yet (ROADMAP.md, module "
-                         "item 4c)")
-    if args.model != 1:
-        raise SystemExit(f"--model {args.model}: the port runs on one "
-                         f"device, so there is no model axis; use --model 1")
+    device, owned = init_group(args.dist_backend, args.device or device)
+    try:
+        return _serve(args, device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
+
+def _serve(args, device):
     train = TrainSpec(arch=args.arch, smoke=args.smoke,
                       seq_len=args.finetune_seq_len,
                       batch_per_worker=args.finetune_batch_per_worker,
-                      data=args.data, seed=args.seed)
+                      data=args.data, model=args.model, seed=args.seed)
     try:
         session = AMBSession(train, ClockSpec(),
                              ConsensusSpec(consensus=args.consensus),
                              device=device, metrics_path=args.metrics)
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
     cfg = session.cfg
 
@@ -105,8 +128,9 @@ def main(argv=None, device="cuda"):
         queue.push(r)
 
     try:
-        engine = SlotEngine(session.params, cfg, slots=args.batch,
-                            cache_len=cache_len, sampling=sampling)
+        engine = SlotEngine(session.serving_params(), cfg, slots=args.batch,
+                            cache_len=cache_len, sampling=sampling,
+                            group=session.group, tp=session.serving_tp)
         sched = ServeScheduler(engine, queue,
                                round_budget_s=args.round_budget,
                                session=session if args.finetune else None,
@@ -114,6 +138,8 @@ def main(argv=None, device="cuda"):
                                metrics=ServeMetrics(session.metrics))
         report = sched.run()
         session.flush()
+        if not session.lead:
+            return report
         print(json.dumps(report.summary, indent=2, sort_keys=True))
         if report.requests:
             r0 = min(report.requests, key=lambda r: r.rid)

@@ -27,12 +27,13 @@ keeps the compute there and sends the gossip rows through pinned host
 buffers (the bytes are printed per rank at the end).  Every driver and
 option runs over the ranks (quantized gossip, ``--pipeline``, ``--async``,
 ``--redundancy``, ``--controller``, ``--churn``, ``--ckpt-dir`` and
-``--restore``) at ``--model 1``; at ``--model`` > 1 all of them run but
-``--ckpt-dir`` and ``--restore``, which are refused before any step
-(ROADMAP.md, module item 4a).  Only rank 0 prints the steps and writes
-the metrics and the checkpoint.  ``--pipeline`` runs
-staleness-1 pipelined epochs, ``--async --staleness D`` the AMB-DG
-queue of D payloads.  The run flushes in-flight consensus at its end;
+``--restore``), at ``--model 1`` and, for the dense family, at
+``--model`` > 1 (the checkpoint is JAX's archive of whole leaves either
+way, so it restores at another (data, model) or in one process).  Only
+rank 0 prints the steps and writes the metrics and the checkpoint.
+``--pipeline`` runs staleness-1 pipelined epochs, ``--async --staleness
+D`` the AMB-DG queue of D payloads.  The run flushes in-flight consensus
+at its end;
 ``--ckpt-dir`` then saves the session, and ``--restore DIR`` resumes a
 saved one (its specs override the spec flags), continuing the data order
 and the logged step.  ``--controller`` runs the online controller over
@@ -79,7 +80,6 @@ import torch.distributed as dist
 
 from ..api import (AMBSession, ClockSpec, ConsensusSpec, ControllerSpec,
                    TrainSpec)
-from ..api.session import not_ported
 from ..faults import PoissonChurn
 from ..metrics import MetricsLogger
 
@@ -118,7 +118,7 @@ def main(argv=None, device="cuda"):
                          "'cpu' for a run without one, e.g. gloo ranks on "
                          "the CPU)")
     args = ap.parse_args(argv)
-    device, owned = _init_group(args.dist_backend, args.device or device)
+    device, owned = init_group(args.dist_backend, args.device or device)
     try:
         return _run(args, device)
     finally:
@@ -129,7 +129,7 @@ def main(argv=None, device="cuda"):
 DIST_BACKENDS = ("nccl", "gloo")
 
 
-def _init_group(backend, device) -> tuple:
+def init_group(backend, device) -> tuple:
     """Initialise the process group from torchrun's environment when it
     holds more than one rank; returns (this rank's device, whether the
     group was started here)."""
@@ -182,10 +182,6 @@ def _run(args, device):
                 or f"artifacts/train_{train.arch}_{train.mode}.jsonl")
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
-    if args.ckpt_dir and session.tp is not None:
-        session.close()
-        raise SystemExit(str(not_ported("--ckpt-dir (item 4a.4)",
-                                        session.group.model)))
     # run draws epochs at the session's own count, so a restored run
     # continues the data order and the logged step where the saved one
     # stopped
@@ -209,7 +205,7 @@ def _run(args, device):
         session.flush()      # settle in-flight gossip (pipelined, async)
         if args.ckpt_dir:
             session.save(args.ckpt_dir)
-            if session.rank == 0:
+            if session.lead:
                 print(f"checkpoint saved to {args.ckpt_dir}", flush=True)
         if session.group is not None:
             g = session.group

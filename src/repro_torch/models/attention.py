@@ -106,7 +106,8 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
 def qkv_rope(p: dict, x: torch.Tensor, positions: torch.Tensor,
              cfg: ArchConfig) -> tuple:
     """q (B,S,KV,G,hd), k, v (B,S,KV,hd), q and k rotated to
-    ``positions``."""
+    ``positions``; KV is the heads the leaves of ``p`` hold (all, or a
+    model rank's share: its blocks of ``wq``/``wk``/``wv``)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q.reshape(b, s, -1, cfg.hd), positions,
@@ -276,7 +277,9 @@ def _softmax_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attend(p: dict, x: torch.Tensor, pos, cache: KVCache,
                   cfg: ArchConfig, *, window: int = 0,
                   cross_kv: Optional[tuple] = None) -> tuple:
-    """One-token decode.  x: (B, 1, d); pos: the current position.
+    """One-token decode.  x: (B, 1, d); pos: the current position.  The
+    heads are those the leaves of ``p`` and the cache hold (all, or a
+    model rank's share).
 
     ``pos`` is a scalar (every row at one position) or a (B,) vector of
     per-row positions (the slot engine: each row writes its own cache row
@@ -291,8 +294,8 @@ def decode_attend(p: dict, x: torch.Tensor, pos, cache: KVCache,
     if s != 1:
         raise ValueError(f"decode takes one token per row, got {s}")
     if cross_kv is not None:
-        kvh = cfg.num_kv_heads
-        q = (x @ p["wq"]).reshape(b, 1, kvh, cfg.num_heads // kvh, cfg.hd)
+        g = cfg.num_heads // cfg.num_kv_heads
+        q = (x @ p["wq"]).reshape(b, 1, -1, g, cfg.hd)
         if "q_norm" in p:
             q = rms_norm(q, p["q_norm"])
         out = _softmax_read(q, *cross_kv, None).to(x.dtype)

@@ -49,6 +49,17 @@ dense MLP) ``attn.PREFILL_ROWS`` tokens at a time, so a 524,288-token
 prompt holds no (S, d_ff) tensor; the MoE feed-forward takes the whole
 prompt (its groups and capacities are per sequence); whisper's blocks
 take a prompt (at most 448 tokens) and the 1500 frames whole.
+
+Serving over a model axis (the dense family): :func:`prefill`,
+:func:`decode_step` and :func:`init_decode_state` take ``tp`` (a
+:class:`repro_torch.dist.tp.TensorParallel` under the serving layout,
+``fsdp_axis=None``) as :func:`forward_aux` does, and ``params`` then
+holds this rank's blocks: each rank computes its ``H / M`` query and
+``KV / M`` KV heads (the flash call takes only those), holds only its KV
+heads' caches, sums the row-parallel ``wo`` and MLP products over
+"model", looks tokens up in its rows of the vocabulary, and returns its
+``padded_vocab / M`` columns of the logits, unsliced (the caller gathers
+them, then slices to ``vocab_size``).
 """
 from __future__ import annotations
 
@@ -386,10 +397,15 @@ def _vocab(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def logits_fn(params: dict, cfg: ArchConfig,
-              hidden: torch.Tensor) -> torch.Tensor:
-    """(..., d) hidden -> (..., vocab_size) logits."""
-    return _vocab(cfg, hidden @ params["unembed"])
+def logits_fn(params: dict, cfg: ArchConfig, hidden: torch.Tensor,
+              tp=None) -> torch.Tensor:
+    """(..., d) hidden -> (..., vocab_size) logits.  With ``tp`` splitting
+    the vocabulary over "model": this rank's ``padded_vocab / M`` columns,
+    not sliced (slice the gathered columns)."""
+    logits = hidden @ params["unembed"]
+    if tp is not None and tp.split("unembed"):
+        return logits
+    return _vocab(cfg, logits)
 
 
 def lm_loss(params: dict, cfg: ArchConfig, batch: dict,
@@ -526,20 +542,22 @@ def _ring_from_linear(k: torch.Tensor, cap: int) -> torch.Tensor:
 
 def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
                          caches: Optional[attn.KVCache], row: int, *,
-                         causal: bool = True) -> None:
+                         causal: bool = True, tp=None) -> None:
     """One dense or MoE block ``p`` over a prompt, in place on ``x``: its
     token-wise work ``attn.PREFILL_ROWS`` tokens at a time, its attention
     through the flash kernel (with no causal mask unless ``causal``: the
     whisper encoder), its k and v written into cache row ``row`` (linear:
     rows 0..S-1; ring: packed as it comes; ``caches`` None: kept
-    nowhere)."""
+    nowhere).  With ``tp`` this rank's heads, the row-parallel products
+    summed over "model"."""
     b, s, _ = x.shape
-    kvh, hd = cfg.num_kv_heads, cfg.hd
+    hd = cfg.hd
+    kvh = cfg.num_kv_heads if tp is None else tp.kv_heads(cfg)
     positions = torch.arange(s, device=x.device)[None, :]
     chunks = [slice(c, min(c + attn.PREFILL_ROWS, s))
               for c in range(0, s, attn.PREFILL_ROWS)]
-    ap = p["attn"]
-    q = x.new_empty((b, s, kvh, cfg.num_heads // kvh, hd))
+    ap = p["attn"] if tp is None else tp.heads(p["attn"])
+    q = x.new_empty((b, s, kvh, cfg.num_heads // cfg.num_kv_heads, hd))
     if caches is None or caches.ring:
         k, v = x.new_empty((b, s, kvh, hd)), x.new_empty((b, s, kvh, hd))
     else:
@@ -555,9 +573,10 @@ def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
         caches.v[row] = _ring_from_linear(v, cap)
     del k, v
     for c in chunks:
-        x[:, c].add_(out[:, c] @ ap["wo"])
+        h = out[:, c] @ ap["wo"]
+        x[:, c].add_(h if tp is None else tp.attention_out(h))
         if not cfg.is_moe:
-            x[:, c].add_(_ffn(x[:, c], p, cfg)[0])
+            x[:, c].add_(_ffn(x[:, c], p, cfg, tp=tp)[0])
     del out
     if cfg.is_moe:
         x.add_(_ffn(x, p, cfg)[0])
@@ -617,9 +636,11 @@ def _enc_kv(cfg: ArchConfig, batch: int, frames: int, device) -> tuple:
 
 
 def _kv_caches(cfg: ArchConfig, rows: int, batch: int, cap: int, dtype,
-               device) -> attn.KVCache:
-    """Zero KV caches (rows, B, cap, KV, hd), ring under a window."""
-    shape = (rows, batch, cap, cfg.num_kv_heads, cfg.hd)
+               device, tp=None) -> attn.KVCache:
+    """Zero KV caches (rows, B, cap, KV, hd), ring under a window (with
+    ``tp``, this rank's KV heads)."""
+    kv = cfg.num_kv_heads if tp is None else tp.kv_heads(cfg)
+    shape = (rows, batch, cap, kv, cfg.hd)
     return attn.KVCache(torch.zeros(shape, dtype=dtype, device=device),
                         torch.zeros(shape, dtype=dtype, device=device),
                         cfg.sliding_window > 0)
@@ -657,9 +678,16 @@ def _prefill_hybrid(params: dict, cfg: ArchConfig, x: torch.Tensor,
     return x, caches
 
 
+def _check_tp(cfg: ArchConfig, tp) -> None:
+    if tp is not None and (cfg.family != "dense" or cfg.is_moe):
+        raise ValueError(f"serving the {cfg.family!r} family over a model "
+                         f"axis is not ported yet (ROADMAP.md, module item "
+                         f"4a.5); the dense family runs")
+
+
 @torch.no_grad()
 def prefill(params: dict, cfg: ArchConfig, batch: dict,
-            extra_capacity: int = 0, last_pos=None) -> tuple:
+            extra_capacity: int = 0, last_pos=None, tp=None) -> tuple:
     """Process a full prompt; returns (last-token logits (B, V) in the
     parameters' dtype, DecodeState ready for :func:`decode_step`).
 
@@ -678,10 +706,12 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     shared block, sized as the dense family's.  Audio: the decoder's KV
     caches, sized as the dense family's, and ``enc_kv``.  The batch is
     ``{"tokens"}`` or ``{"embeds"}`` (vlm), with ``"enc_embeds"`` for
-    audio; the logits have ``vocab_size`` columns.
+    audio; the logits have ``vocab_size`` columns.  ``tp``: this rank's
+    blocks over a model axis (the dense family; see the module note).
     """
     _check_servable(cfg)
-    x = _embed(params, cfg, batch)
+    _check_tp(cfg, tp)
+    x = _embed(params, cfg, batch, tp)
     b, s, _ = x.shape
     window = cfg.sliding_window
     cap = min(window, s) if window > 0 else s + extra_capacity
@@ -694,24 +724,27 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
         caches, enc_kv = _prefill_audio(params, cfg, x, batch["enc_embeds"],
                                         cap)
     else:
-        caches = _kv_caches(cfg, cfg.num_layers, b, cap, x.dtype, x.device)
+        caches = _kv_caches(cfg, cfg.num_layers, b, cap, x.dtype, x.device,
+                            tp)
         for layer, lp in enumerate(_layers(params, cfg)):
-            _prefill_dense_block(lp, cfg, x, caches, layer)
+            _prefill_dense_block(lp, cfg, x, caches, layer, tp=tp)
     hidden, pos = _last_hidden(params, x, last_pos)
-    return (logits_fn(params, cfg, hidden)[:, 0],
+    return (logits_fn(params, cfg, hidden, tp)[:, 0],
             DecodeState(caches, pos, enc_kv))
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
-                      per_slot_pos: bool = False,
-                      device="cuda") -> DecodeState:
+                      per_slot_pos: bool = False, device="cuda",
+                      tp=None) -> DecodeState:
     """Zero caches for ``cache_len`` tokens per row (ring caches of
     ``min(window, cache_len)`` rows under a sliding window; ssm: zero
     states, of a size independent of ``cache_len``; audio: also a zero
     ``enc_kv`` of ``encoder_seq`` frames, 1500 if it is unset, as in JAX);
     ``per_slot_pos`` gives a (batch,) position vector (the slot array,
-    rows decode at their own depths) instead of a shared scalar."""
+    rows decode at their own depths) instead of a shared scalar.  ``tp``:
+    this rank's KV heads' caches (the dense family over a model axis)."""
     _check_servable(cfg)
+    _check_tp(cfg, tp)
     device = resolve_device(device)
     ring = cfg.sliding_window > 0
     cap = min(cfg.sliding_window, cache_len) if ring else cache_len
@@ -724,7 +757,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
         caches = _hybrid_caches(cfg, batch, cap, device)
     else:
         caches = _kv_caches(cfg, cfg.num_layers, batch, cap,
-                            cfg.torch_dtype, device)
+                            cfg.torch_dtype, device, tp)
     pos = torch.zeros((batch,) if per_slot_pos else (), dtype=torch.long,
                       device=device)
     return DecodeState(caches, pos, enc_kv)
@@ -758,32 +791,44 @@ def evict_decode_state(state: DecodeState, slot: int) -> DecodeState:
 
 @torch.no_grad()
 def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
-                token: torch.Tensor) -> tuple:
+                token: torch.Tensor, tp=None) -> tuple:
     """One-token decode.  token: (B,) -> (logits (B, vocab_size),
-    DecodeState at ``pos + 1`` over the same, updated, caches)."""
+    DecodeState at ``pos + 1`` over the same, updated, caches).  ``tp``:
+    this rank's blocks over a model axis (the dense family): the
+    vocab-parallel lookup, its heads, and its columns of the logits (see
+    :func:`logits_fn`)."""
     _check_servable(cfg)
-    x = F.embedding(token.long(), params["embed"])[:, None, :]
+    _check_tp(cfg, tp)
+    if tp is None:
+        x = F.embedding(token.long(), params["embed"])[:, None, :]
+    else:
+        x = tp.embed(params["embed"], token.long())[:, None, :]
     if cfg.family == "audio":
         x = _decode_audio(params, cfg, state, x)
+    elif tp is not None:
+        x = _decode_dense(params, cfg, state.caches, state.pos, x, tp)
     else:
         decode = {"ssm": _decode_ssm, "hybrid": _decode_hybrid}.get(
             cfg.family, _decode_dense)
         x = decode(params, cfg, state.caches, state.pos, x)
     hidden = rms_norm(x, params["final_norm"])
-    logits = logits_fn(params, cfg, hidden)[:, 0]
+    logits = logits_fn(params, cfg, hidden, tp)[:, 0]
     return logits, DecodeState(state.caches, state.pos + 1, state.enc_kv)
 
 
 def _decode_dense(params: dict, cfg: ArchConfig, caches: attn.KVCache,
-                  pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+                  pos: torch.Tensor, x: torch.Tensor,
+                  tp=None) -> torch.Tensor:
     """One token through the dense or MoE stack (the window masks a linear
-    cache too); the KV rows are written in place."""
+    cache too); the KV rows are written in place.  With ``tp`` this
+    rank's heads, the row-parallel products summed over "model"."""
     for layer, lp in enumerate(_layers(params, cfg)):
         cache = attn.KVCache(caches.k[layer], caches.v[layer], caches.ring)
-        h, _ = attn.decode_attend(lp["attn"], rms_norm(x, lp["ln1"]), pos,
-                                  cache, cfg, window=cfg.sliding_window)
-        x = x + h
-        x = x + _ffn(x, lp, cfg)[0]
+        ap = lp["attn"] if tp is None else tp.heads(lp["attn"])
+        h, _ = attn.decode_attend(ap, rms_norm(x, lp["ln1"]), pos, cache,
+                                  cfg, window=cfg.sliding_window)
+        x = x + (h if tp is None else tp.attention_out(h))
+        x = x + _ffn(x, lp, cfg, tp=tp)[0]
     return x
 
 

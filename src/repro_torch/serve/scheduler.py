@@ -14,6 +14,14 @@ arithmetic is the policy.
 Timekeeping is pluggable: :class:`WallClock` for real serving,
 :class:`SyntheticClock` (deterministic per-op costs) so tests can assert
 budget accounting and SLO values exactly.
+
+Over a process group (an engine with a ``group``, and a fine-tune session
+over the same ranks) every rank runs the same loop: a clock other than
+the synthetic one is read through :class:`RankClock` (rank 0's reading on
+every rank), so every admission, round budget and fine-tune decision is
+the same on every rank, and after each absorbed epoch the engine takes
+the session's primal blocks in the serving layout
+(``AMBSession.serving_params``).
 """
 from __future__ import annotations
 
@@ -68,6 +76,24 @@ class WallClock(ServeClock):
             time.sleep(dt)
 
 
+class RankClock(ServeClock):
+    """``clock`` read on global rank 0 and broadcast to every rank of
+    ``group`` at each ``now()`` (``WorkerGroup.lead_float``); ``charge``
+    and ``wait_until`` act on each rank's own clock."""
+
+    def __init__(self, clock: ServeClock, group):
+        self.clock, self.group = clock, group
+
+    def now(self) -> float:
+        return self.group.lead_float(self.clock.now())
+
+    def charge(self, kind: str, n: int = 1) -> None:
+        self.clock.charge(kind, n)
+
+    def wait_until(self, t: float) -> None:
+        self.clock.wait_until(t)
+
+
 class SyntheticClock(ServeClock):
     """Deterministic clock: ops cost exactly what the test configures.
 
@@ -120,22 +146,22 @@ class ServeScheduler:
 
     Serving decodes against the *live* fine-tuned primal: after every
     absorbed epoch the engine's params are re-fetched from the session
-    (the gossip protocols form a new primal each epoch).
+    (the gossip protocols form a new primal each epoch).  Over a process
+    group every rank runs the loop on rank 0's clock (see the module
+    note).
     """
 
     def __init__(self, engine: SlotEngine, queue: RequestQueue, *,
                  round_budget_s: float, clock: Optional[ServeClock] = None,
                  session=None, train_epochs: int = 0,
                  metrics: Optional[ServeMetrics] = None):
-        if session is not None and getattr(session, "group", None) \
-                is not None:
-            raise NotImplementedError(
-                "serving over a mesh (a fine-tune session one process per "
-                "worker) is not ported yet (ROADMAP.md, module item 4c)")
         self.engine = engine
         self.queue = queue
         self.round_budget_s = round_budget_s
         self.clock = clock if clock is not None else WallClock()
+        group = getattr(engine, "group", None)
+        if group is not None and not isinstance(self.clock, SyntheticClock):
+            self.clock = RankClock(self.clock, group)
         self.session = session
         self.train_epochs = train_epochs if session is not None else 0
         self.metrics = metrics if metrics is not None else ServeMetrics()
@@ -177,8 +203,12 @@ class ServeScheduler:
             return False
         m = self.session.step(
             self._train_source.batch(self.session.steps_done))
-        # decode against the primal this epoch produced
-        self.engine.params = self.session.params
+        # decode against the primal this epoch produced: the serving
+        # layout's blocks where the session has them (an AMBSession),
+        # else the session's whole ``params`` (the scheduler's contract)
+        serving = getattr(self.session, "serving_params", None)
+        self.engine.params = serving() if serving is not None \
+            else self.session.params
         self.clock.charge("train")
         dt = self.clock.now() - now
         self._train_cost = dt if self._train_cost is None \

@@ -18,12 +18,28 @@ expert capacity) and ssm prompts (a recurrent state absorbs pads) prefill
 at their exact length.  Linear caches only: the engine refuses a sliding
 window (ring caches are sized by prompt length at prefill) and the audio
 family, with JAX's messages.
+
+Over a process group (``group``, a :class:`repro_torch.dist.group.
+WorkerGroup`; ``tp``, its :class:`repro_torch.dist.tp.TensorParallel`
+under the serving layout when each worker spans M > 1 model ranks) the
+slot rows lie on the workers as JAX's ``decode_state_specs`` puts the
+batch on the worker axes: when the n workers divide the slots, worker j
+owns rows ``j * slots / n`` to ``(j + 1) * slots / n`` and holds their
+caches (each of its model ranks its KV heads'), else every worker holds
+every row.  A request is prefilled by the worker that owns its slot
+(its model ranks together); its first token's logits go to every rank
+from the owner.  A decode round runs every worker on its rows, then one
+all-gather over the group puts the whole (slots, vocab) logits on every
+rank, so every rank samples the same tokens (``_Sampler`` as in one
+process) and keeps the same ``active`` and ``free_slots``.  Evicting a
+slot zeroes its row on the owning worker only.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models import (decode_step, evict_decode_state, init_decode_state,
                       insert_decode_state, prefill)
@@ -83,12 +99,14 @@ class SlotEngine:
     garbage that is ignored and overwritten on insert) and returns the
     requests that retired this round.  ``params`` is the parameter dict
     the engine decodes with; the scheduler re-points it at the fine-tuned
-    primal after every absorbed epoch.
+    primal after every absorbed epoch.  Over a process group ``params``
+    is this rank's blocks under the serving layout (``group``, ``tp``;
+    see the module note).
     """
 
     def __init__(self, params: dict, cfg: ArchConfig, *, slots: int,
                  cache_len: int, sampling: Optional[SamplingSpec] = None,
-                 eos_id: Optional[int] = None):
+                 eos_id: Optional[int] = None, group=None, tp=None):
         if cfg.family == "audio":
             raise NotImplementedError(
                 "serve: audio (encoder-decoder) requests need per-request "
@@ -104,9 +122,21 @@ class SlotEngine:
         self.cache_len = cache_len
         self.sampling = sampling or SamplingSpec()
         self.eos_id = eos_id
+        if tp is not None and tp.fsdp_axis is not None:
+            raise ValueError("the slot engine reads the serving layout: a "
+                             "TensorParallel with fsdp_axis=None")
+        self.group, self.tp = group, tp
         self.device = next(iter(params.values())).device
-        self.state = init_decode_state(cfg, slots, cache_len,
-                                       per_slot_pos=True, device=self.device)
+        # this worker's slot rows [r0, r1); every row when the workers do
+        # not divide the slots
+        n = 1 if group is None else group.n
+        self._split = slots % n == 0 and n > 1
+        per = slots // n if self._split else slots
+        self.r0 = group.worker * per if self._split else 0
+        self.r1 = self.r0 + per
+        self.state = init_decode_state(cfg, per, cache_len,
+                                       per_slot_pos=True, device=self.device,
+                                       tp=tp)
         self.last_tok = torch.zeros((slots,), dtype=torch.long,
                                     device=self.device)
         self.active: list[Optional[Request]] = [None] * slots
@@ -125,6 +155,53 @@ class SlotEngine:
     @property
     def active_count(self) -> int:
         return self.slots - len(self.free_slots)
+
+    # -- over a process group ----------------------------------------------
+
+    def _mine(self, slot: int) -> bool:
+        """Whether this worker holds slot row ``slot``."""
+        return self.r0 <= slot < self.r1
+
+    def _vocab_split(self) -> bool:
+        return self.tp is not None and self.tp.split("unembed")
+
+    def _columns(self, parts: list) -> torch.Tensor:
+        """A worker's model ranks' columns of the logits, in model order,
+        cut to the ``vocab_size`` columns after the gather (the split
+        vocabulary is the padded one; unsplit, each rank's are whole)."""
+        if not self._vocab_split():
+            return parts[0]
+        return torch.cat(parts, dim=-1)[..., :self.cfg.vocab_size]
+
+    def _prefill_logits(self, logits, slot: int) -> torch.Tensor:
+        """The whole (1, vocab_size) prefill logits on every rank: the
+        owner's model ranks gather their columns, its first rank
+        broadcasts them."""
+        if self.group is None:
+            return logits
+        if self._mine(slot):
+            if self._vocab_split():
+                logits = self.tp.all_gather_model(logits, -1)[
+                    :, :self.cfg.vocab_size].contiguous()
+        else:
+            logits = torch.empty((1, self.cfg.vocab_size),
+                                 dtype=self.params["unembed"].dtype,
+                                 device=self.device)
+        if self._split:
+            owner = slot // (self.r1 - self.r0)
+            dist.broadcast(logits, src=owner * self.group.model)
+        return logits
+
+    def _round_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole (slots, vocab_size) logits of a decode round on every
+        rank, from every rank's (rows, columns) block."""
+        if self.group is None:
+            return logits
+        parts = self.group.gather_ranks(logits)
+        m = self.group.model
+        workers = self.group.n if self._split else 1
+        return torch.cat([self._columns(parts[j * m:(j + 1) * m])
+                          for j in range(workers)], dim=0)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -149,12 +226,15 @@ class SlotEngine:
         self.buckets.add(bucket)
         toks = torch.tensor([req.prompt + [0] * (bucket - req.prompt_len)],
                             dtype=torch.long, device=self.device)
-        logits, one = prefill(self.params, self.cfg,
-                              prompt_batch(self.params, self.cfg, toks),
-                              extra_capacity=self.cache_len - bucket,
-                              last_pos=req.prompt_len - 1)
-        tok = self._sample(logits)
-        insert_decode_state(self.state, one, slot)
+        logits = None
+        if self._mine(slot):
+            logits, one = prefill(self.params, self.cfg,
+                                  prompt_batch(self.params, self.cfg, toks),
+                                  extra_capacity=self.cache_len - bucket,
+                                  last_pos=req.prompt_len - 1, tp=self.tp)
+            insert_decode_state(self.state, one, slot - self.r0)
+            del one
+        tok = self._sample(self._prefill_logits(logits, slot))
         self.last_tok[slot] = tok[0]
         first = int(tok[0])
         req.slot = slot
@@ -165,7 +245,8 @@ class SlotEngine:
 
     def _retire(self, req: Request) -> None:
         slot = req.slot
-        evict_decode_state(self.state, slot)
+        if self._mine(slot):
+            evict_decode_state(self.state, slot - self.r0)
         self.active[slot] = None
         self.free_slots.append(slot)
 
@@ -174,8 +255,9 @@ class SlotEngine:
         if self.active_count == 0:
             return []
         logits, self.state = decode_step(self.params, self.cfg, self.state,
-                                         self.last_tok)
-        self.last_tok = self._sample(logits)
+                                         self.last_tok[self.r0:self.r1],
+                                         tp=self.tp)
+        self.last_tok = self._sample(self._round_logits(logits))
         toks = self.last_tok.tolist()
         finished = []
         for slot, req in enumerate(self.active):

@@ -16,9 +16,8 @@ a loop on one device), also on one thread:
     ``EXACT_RTOL`` of the one-process session's (the gradient is a sum of
     four backward passes there, one backward over the batch here);
   * the train CLI (``main``) on the torus, its losses equal;
-  * what a group does not run yet (quantized gossip and the MoE family
-    at a model axis > 1, serving over a mesh) raises, naming its ROADMAP
-    item.
+  * what a group does not run yet (the MoE family at a model axis > 1)
+    raises, naming its ROADMAP item.
 
 Every spawn has a join deadline (``JOIN_S``), past which the ranks are
 killed and the test fails, and the process group a timeout
@@ -84,45 +83,26 @@ def _run(session) -> dict:
     return _record(session, losses)
 
 
-def _refusals(world_mesh) -> dict:
+def _refusals() -> dict:
     """The message of each combination a group still refuses: what a
-    model axis > 1 does not run yet (module item 4a; e.g. a checkpoint of
-    quantized gossip under the async driver, which builds, and the MoE
-    family on a (2, 2) mesh) and serving over a mesh (item 4c)."""
-    from repro_torch.launch import serve
+    model axis > 1 does not run yet (module item 4a.5: the MoE family on
+    a (2, 2) mesh)."""
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.serve import ServeScheduler
     from repro_torch import configs
     moe = dataclasses.replace(configs.smoke_config("qwen3-moe-30b-a3b"),
                               dtype="float32")
     tries = {
-        "model_q8_async_save": lambda: _session(
-            dict(CASES["gossip_ring"], consensus="gossip_q8", data=2,
-                 model=2), make_host_mesh(2, 2, device="cpu"),
-            async_epochs=True).save(Path("never_written")),
         "model_moe": lambda: _session(
             dict(CASES["exact_ring"], data=2, model=2),
             make_host_mesh(2, 2, device="cpu"), cfg=moe),
-        "serve_session": lambda: ServeScheduler(
-            None, None, round_budget_s=1.0,
-            session=_session(CASES["gossip_ring"], world_mesh)),
-        "serve_cli": lambda: serve.main(["--smoke"], device="cpu"),
     }
     out = {}
-    world = os.environ.get("WORLD_SIZE")
-    os.environ["WORLD_SIZE"] = str(N)      # as torchrun would set it
-    try:
-        for name, fn in tries.items():
-            try:
-                fn()
-                out[name] = None
-            except (ValueError, NotImplementedError, SystemExit) as e:
-                out[name] = str(e)
-    finally:
-        if world is None:
-            del os.environ["WORLD_SIZE"]
-        else:
-            os.environ["WORLD_SIZE"] = world
+    for name, fn in tries.items():
+        try:
+            fn()
+            out[name] = None
+        except (ValueError, NotImplementedError, SystemExit) as e:
+            out[name] = str(e)
     return out
 
 
@@ -193,7 +173,7 @@ def rank_main(store: str, rank: int, world: int, outdir: str) -> None:
         out["cli"] = train.main(CLI_ARGV + ["--metrics", str(metrics)],
                                 device="cpu")
         world_mesh = make_host_mesh(N, 1, device="cpu")
-        out["refusals"] = _refusals(world_mesh)
+        out["refusals"] = _refusals()
         out["constrain"] = _constrain(world_mesh)
         from repro_torch.dist.group import WorkerGroup
         out["strategies"] = _strategies(WorkerGroup(world_mesh, "cpu"))
@@ -326,20 +306,17 @@ def test_train_cli_over_ranks_matches_the_one_process_cli(spawned, tmp_path):
 
 def test_group_refusals_name_their_roadmap_item(ranks):
     """What a group still refuses names its item: what a model axis > 1
-    does not run yet is module item 4a (a checkpoint, the MoE family; the
-    rest in ``tests/test_torch_tp.py``; quantized gossip and every driver
-    run, ``tests/test_torch_tp_quantized.py`` and
-    ``tests/test_torch_tp_drivers.py``), serving over a mesh item 4c;
-    every driver and option runs over ranks at model 1
-    (``tests/test_torch_ranks_drivers.py``)."""
+    does not run yet is module item 4a.5 (the MoE family; the rest in
+    ``tests/test_torch_tp.py``; quantized gossip and every driver run,
+    ``tests/test_torch_tp_quantized.py`` and
+    ``tests/test_torch_tp_drivers.py``, and checkpoints and serving over
+    the ranks, ``tests/test_torch_tp_serve.py``); every driver and option
+    runs over ranks at model 1 (``tests/test_torch_ranks_drivers.py``)."""
     for got in ranks:
-        assert sorted(got["refusals"]) == ["model_moe",
-                                           "model_q8_async_save",
-                                           "serve_cli", "serve_session"]
+        assert sorted(got["refusals"]) == ["model_moe"]
         for what, msg in got["refusals"].items():
             assert msg is not None, what
-            item = "4a" if what.startswith("model") else "4c"
-            assert f"ROADMAP.md, module item {item}" in msg, (what, msg)
+            assert "ROADMAP.md, module item 4a.5" in msg, (what, msg)
 
 
 def test_strategy_rounds_over_the_group_match_the_stacked_ones(ranks):

@@ -472,5 +472,10 @@ def test_serve_cli_runs_on_cpu(tmp_path, capsys):
                for r in report.requests)
     kinds = [ln["kind"] for ln in read_metrics(path) if "kind" in ln]
     assert kinds.count("request") == 3
-    with pytest.raises(SystemExit, match="one device"):
-        serve_main(["--smoke", "--model", "2"], device="cpu")
+    # in one process --model is a mesh extent that changes nothing (over
+    # ranks it spreads each worker: tests/test_torch_tp_serve.py)
+    again = serve_main(["--arch", "qwen2-1.5b", "--smoke", "--batch", "2",
+                        "--requests", "3", "--prompt-len", "8",
+                        "--new-tokens", "3", "--model", "2"], device="cpu")
+    assert [r.out_tokens for r in again.requests] \
+        == [r.out_tokens for r in report.requests]

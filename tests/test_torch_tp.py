@@ -24,10 +24,11 @@ batches, ``EPOCHS`` epochs at the minibatch sizes ``BS``:
     the norm is the whole leaf's;
   * the train CLI with ``--model 2``, exact and gossip, against the
     one-process ``--data 2`` CLI;
-  * what is still refused at model > 1 (save, restore, the other
-    families, indivisible heads) raising with its item (quantized gossip
-    runs: ``tests/test_torch_tp_quantized.py``; every other driver and
-    option: ``tests/test_torch_tp_drivers.py``).
+  * what is still refused at model > 1 (the other families, indivisible
+    heads) raising with its item, 4a.5 (quantized gossip runs:
+    ``tests/test_torch_tp_quantized.py``; every other driver and option:
+    ``tests/test_torch_tp_drivers.py``; checkpoints and serving:
+    ``tests/test_torch_tp_serve.py``).
 
 The spawn has a join deadline (``JOIN_S``) and the process group a
 timeout (``PG_TIMEOUT_S``).
@@ -67,7 +68,7 @@ CASES = {"exact": ("exact", None, False), "gossip": ("gossip", None, False),
          "gossip_radius": ("gossip", RADIUS, False),
          "odd_exact": ("exact", None, True)}
 ODD = dict(vocab_size=511, d_ff=255)
-REFUSED = ("moe", "heads", "save", "restore")
+REFUSED = ("moe", "heads")
 
 
 def _cfg(arch="qwen2-1.5b", **kw):
@@ -146,17 +147,13 @@ def _record(session, losses) -> dict:
     return out
 
 
-def _refusals(params, mesh, mesh14, outdir) -> dict:
-    from repro_torch.api import AMBSession, TrainSpec
+def _refusals(params, mesh, mesh14) -> dict:
+    from repro_torch.api import TrainSpec
     tries = {
         "moe": lambda: _session("exact", None, mesh,
                                 cfg=_cfg("qwen3-moe-30b-a3b")),
         "heads": lambda: _session("exact", params, mesh14, train=TrainSpec(
             smoke=True, data=1, model=4)),
-        "save": lambda: _session("exact", params, mesh).save(
-            outdir / f"save{os.getpid()}"),
-        "restore": lambda: AMBSession.restore(outdir / "ckpt", cfg=_cfg(),
-                                              device="cpu"),
     }
     out = {}
     for name, fn in tries.items():
@@ -207,8 +204,7 @@ def rank_main(store: str, rank: int, world: int, outdir: str) -> None:
                             str(outdir / f"cli_{consensus}.jsonl")],
                 device="cpu")
         out["refusals"] = _refusals(params, mesh,
-                                    make_host_mesh(1, 4, device="cpu"),
-                                    outdir)
+                                    make_host_mesh(1, 4, device="cpu"))
         torch.save(out, outdir / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -290,16 +286,10 @@ def inputs():
 
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory, inputs):
-    from repro_torch.api import TrainSpec
     outdir = tmp_path_factory.mktemp("ranks_tp")
     _, _, params, _, batches = inputs
     torch.save(params, outdir / "params.pt")
     torch.save(batches, outdir / "batches.pt")
-    # a one-process checkpoint whose spec has model=2, for the restore
-    # refusal (one process computes what model=1 computes)
-    session = _session("exact", params, train=TrainSpec(
-        smoke=True, data=N, model=M, batch_per_worker=PER, seq_len=SEQ))
-    session.save(outdir / "ckpt")
     return spawn(outdir), outdir
 
 
@@ -604,11 +594,13 @@ def test_train_cli_with_a_model_axis_matches_the_one_process_cli(
 
 
 def test_what_model_gt_1_still_refuses_names_item_4a(ranks):
+    """The other families and indivisible heads name item 4a.5 (save and
+    restore run since: tests/test_torch_tp_serve.py)."""
     for got in ranks:
         assert sorted(got["refusals"]) == sorted(REFUSED)
         for what, msg in got["refusals"].items():
             assert msg is not None, what
-            assert "ROADMAP.md, module item 4a" in msg, (what, msg)
+            assert "ROADMAP.md, module item 4a.5" in msg, (what, msg)
 
 
 if __name__ == "__main__":
