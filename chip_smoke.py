@@ -116,13 +116,16 @@ Phases (any failure ends the run with a non-zero exit code):
      tokens over 8 slots, with background exact fine-tune epochs, every
      prefill's attention on the tensor-core body; the same serve run for
      rwkv6-3b at full width, all 32 layers, bf16; launch counts are reset
-     just before each run and read just after;
+     just before each run and read just after.  The qwen2-1.5b run goes
+     beside phases 17 and 18's gloo ranks (after phase 18's references),
+     where the card has room and the parent would wait, so its serving
+     numbers share the host with them;
  11. the rest of the zoo's dense branch at full width, bf16: qwen3-moe-30b-a3b
-     served through the slot engine and scheduler with no session (48
-     layers, 8 slots, 16 requests of 2048 +- 512 tokens at exact length,
-     32 new tokens, arrivals 2.0 s apart: TTFT, TPOT, the decode round's
-     median, the peak; 48 tensor-core flash launches a request); the
-     serve CLI on it cut to 4 layers with 2 fine-tune epochs; an exact
+     served through the slot engine and scheduler with no session (24
+     of 48 layers, 8 slots, 16 requests of 2048 +- 512 tokens at exact
+     length, 32 new tokens, arrivals 2.0 s apart: TTFT, TPOT, the decode
+     round's median, the peak; 24 tensor-core flash launches a request);
+     the serve CLI on it cut to 4 layers with 2 fine-tune epochs; an exact
      AMBSession on it at 4 layers, 4 x 8 x 256, 3 epochs (loss and aux
      each epoch, 15 prox launches an epoch, the peak); qwen3-8b at
      long_500k (window 4096, 18 of 36 layers): a 32,768-token prefill, 64 ring
@@ -138,7 +141,9 @@ Phases (any failure ends the run with a non-zero exit code):
      epoch; TTFT, TPOT, tokens/s, the peak), then an exact AMBSession,
      4 x 8 x 256, 3 epochs (every gradient and dual finite after each, 60
      prox launches, step ms and the peak; the prox held at the Mamba2
-     w_in leaf); launch counts reset before each and read after;
+     w_in leaf); launch counts reset before each and read after.  The
+     serve CLI goes beside phases 17 and 18's gloo ranks, after
+     qwen2-1.5b's, so its numbers share the host with them;
  13. the encoder-decoder and the embeddings-in path, bf16: whisper-base at
      full width (6 + 6 layers) served through the model-level functions
      (the slot engine refuses audio, as JAX's does): 16 requests, each
@@ -152,7 +157,9 @@ Phases (any failure ends the run with a non-zero exit code):
      through the slot engine and scheduler with no session (8 requests of
      2048 +- 512 tokens as embeddings, 1.0 s apart, 16 new tokens; 32
      tensor-core flash launches a request; TTFT, TPOT, the peak); launch
-     counts reset before each and read after;
+     counts reset before each and read after.  Whisper goes beside phase
+     14's gloo ranks (after phase 17's references), so its numbers share
+     the host and the card with them;
  14. one process per worker (``torch.distributed``), ranks started by
      ``python -m torch.distributed.run --standalone`` on this script
      (``--rank-phase``), each under a time limit, after the parent has
@@ -247,14 +254,14 @@ Phases (any failure ends the run with a non-zero exit code):
      8 slots, the plain one-process engine's greedy tokens and
      first-token logits, the prefills again under ``split_sums`` for each
      request's limit, and the ranks' one-process twin under
-     ``serve_tp_sums``, a 4-slot engine per worker; then the smoke-size
+     ``rank_twin`` (each worker's rows a round alone); then the smoke-size
      one-process checkpoints, exact and async gossip at D 2); then, the
      launch's fourth turn (``rank_serve``): the slot engine alone over
      (data 2, model 2) through the scheduler (greedy tokens equal to the
      twin's, first-token logits within their limits, 28 tensor-core flash
      launches a request on its worker's ranks, per rank the prefill
-     seconds, the decode round's ms and bytes all-reduced, TTFT, TPOT and
-     the peak), the serve CLI with ``--finetune 2`` under exact and
+     seconds, the decode round's ms and bytes summed over "model", TTFT,
+     TPOT and the peak), the serve CLI with ``--finetune 2`` under exact and
      gossip (after each absorbed epoch the engine's blocks bit for bit
      the session's; the launches on the blocks), and the checkpoints (the
      one-process archive restored into the ranks, saved, read back bit for
@@ -263,7 +270,35 @@ Phases (any failure ends the run with a non-zero exit code):
      restores them and holds the ranks' next epoch (async bit for bit
      under ``tp_sums``, exact within ``order_limits``).  The flash kernel
      at a model rank's prefill shape (H 6, KV 1) runs in phase 3;
- 18. print the kernels' JSON line, the card line, and the final ok line.
+ 18. the MoE family over a model axis and more model ranks than KV heads:
+     once the ranks have ended phase 16, the parent writes the references
+     (``axis18_references``: qwen3-moe-30b-a3b at DRIVER_MOE_LAYERS, one
+     exact epoch of the one-process data=2 session and its twin in the
+     model ranks' summation order, ``tp_sums`` with ``moe_twin``, whose
+     move sets each leaf's limit; the plain 8-slot engine at MOE18_LAYERS
+     and its twin over (data 2, model 2), ``rank_twin``; qwen2-1.5b's
+     8-slot engine at full depth, its twin over (data 1, model 4) and
+     each KV head's caches' digest after the first decode round; one
+     exact epoch of qwen2-1.5b at MODEL_LAYERS, plain and under
+     ``tp_sums`` over its four model ranks, the KV heads' columns put
+     together as the ranks gather them); then the launch's fifth turn
+     (``rank_axis18``):
+     qwen3-moe exact over (data 2, model 2) at full width (64 experts a
+     rank, the bytes gathered and reduce-scattered over "data" and the
+     blocks the dry-run's to the byte, 15 ``dual_update`` launches, the
+     loss and aux against the twin's, each leaf within its limit), its
+     engine (4 requests of 2048 +- 512 tokens into 8 slots, 16 new
+     tokens, greedy: the tokens equal to the twin's, the differing count
+     against the plain engine, 2 tensor-core flash launches a request at
+     (B 1, H 16, KV 2, hd 128), the decode round's ms and bytes); then,
+     over a second mesh on the same ranks, qwen2-1.5b at (data 1, model
+     4), two ranks to a KV head: its engine at 28 layers on phase 17's 8
+     requests (the twin's tokens, each rank's caches its head's of the
+     twin by digest, 28 flash launches a request at (H 3, KV 1)) and one
+     exact epoch at MODEL_LAYERS (the KV gather's backward; the loss
+     and each leaf against the twin's, within its ``order_limits``).
+     The flash kernel at both rank shapes runs in phase 3;
+ 19. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -2437,6 +2472,8 @@ FLASH_LONG_SEQS = (8192, 32768)    # 8192: the plain version and the
 FLASH_ROWS = 512        # query rows held against the plain version where
                         # its whole scores do not fit (137 GB at 32,768)
 MOE_LAYERS = 4          # depth cut of the MoE session and serve CLI (memory)
+MOE_ENGINE_LAYERS = 24  # depth cut of the MoE slot engine run, 24 of 48
+                        # (time: the command must end within 1,200 s)
 MOE_SERVE_ARGV = ["--arch", MOE_ARCH] + SERVE_ARGV[2:]
 MOE_SERVE_ARGV[MOE_SERVE_ARGV.index("--arrival-gap") + 1] = "1.0"
 LONG_WINDOW = 4096      # repro_torch.configs.SWA_WINDOW, long_500k's
@@ -3662,8 +3699,8 @@ MESH_EXACT_LAYERS = 2
 MESH_GOSSIP_LAYERS = 1
 MESH_PEAK_SUM_GIB = 70.0
 MESH_EPOCHS = 2
-# phases 14 to 16's gloo ranks run in one launch (``rank_gloo``); the NCCL
-# rank runs in the parent (``run_nccl1``)
+# phases 14 to 18's gloo ranks run in one launch (``rank_gloo``, about 410
+# s on an H100 call); the NCCL rank runs in the parent (``run_nccl1``)
 MESH_TIMEOUT_S = {"gloo": 900}
 MESH_PG_TIMEOUT_S = 300        # a collective waiting longer fails its rank
 # exact over four ranks: each rank's bf16 gradient is rounded before the
@@ -3772,14 +3809,15 @@ def batch_digests(torch, session, n: int, epochs: int) -> list:
     return out
 
 
-def mesh_epochs(torch, rt, session, label: str) -> dict:
-    """MESH_EPOCHS epochs through ``run`` (the session's own source, no
+def mesh_epochs(torch, rt, session, label: str,
+                epochs: int = MESH_EPOCHS) -> dict:
+    """``epochs`` epochs through ``run`` (the session's own source, no
     prefetcher); per epoch the loss, b, the host seconds from a sync to a
     sync, the peak; the launch counts of exactly these epochs."""
     rt.kernels.router.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     losses, secs = [], []
-    for epoch in range(MESH_EPOCHS):
+    for epoch in range(epochs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = session.run(1, prefetch=0)
@@ -3862,17 +3900,22 @@ def parent_ready(work: Path, phase: int) -> None:
     (work / f"ready{phase}").write_text("1")
 
 
-def wait_parent(work: Path, rank: int, phase: int) -> None:
+def wait_parent(work: Path, rank: int, phase) -> None:
     """A rank: wait for the parent's ``parent_ready(work, phase)`` (at
-    most MESH_TIMEOUT_S["gloo"]); rank 0 prints how long it waited."""
+    most MESH_TIMEOUT_S["gloo"]); rank 0 prints how long it waited.  The
+    parent waits so for the ranks' ``done<phase>`` file (``phase`` its
+    name)."""
     t0 = time.perf_counter()
-    while not (work / f"ready{phase}").exists():
+    what = (f"the ranks' {phase}" if isinstance(phase, str)
+            else f"the parent's steps before phase {phase}")
+    name = phase if isinstance(phase, str) else f"ready{phase}"
+    while not (work / name).exists():
         if time.perf_counter() - t0 > MESH_TIMEOUT_S["gloo"]:
-            fail(f"the parent's steps before phase {phase} never ended")
+            fail(f"{what}: never ended")
         time.sleep(0.1)
     if rank == 0:
-        print(f"rank 0 waited {time.perf_counter() - t0:.1f} s for the "
-              f"parent's steps before phase {phase}", flush=True)
+        print(f"waited {time.perf_counter() - t0:.1f} s for {what}",
+              flush=True)
 
 
 def stop_ranks(phase: str, proc) -> None:
@@ -4945,34 +4988,58 @@ def split_sums(torch, rt):
         model.swiglu, attn.masked_attention = plain_mlp, plain_attention
 
 
-def _halves_nll(torch):
-    """The vocab-parallel cross-entropy of ``dist.tp`` over two halves of
-    the logits in one process, its arithmetic step for step: the row max
-    and the sum of exponentials across the halves, the gold logit from
-    its owner, and a backward of ``softmax - onehot`` on each half."""
+def _fan(torch, m: int):
+    """``x`` -> m views of it, one for each model rank's use; the
+    backward sums their gradients in fp32 in rank order and rounds once,
+    as ``dist.tp.ordered_sum`` sums a column-parallel input's gradient
+    over the ranks."""
 
-    class HalvesNLL(torch.autograd.Function):
+    class Fan(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, x0, x1, labels, valid0: int, valid1: int):
-            xs = []
-            for x, valid in ((x0, valid0), (x1, valid1)):
-                if valid < x.shape[-1]:
+        def forward(ctx, x):
+            return tuple(x.view_as(x) for _ in range(m))
+
+        @staticmethod
+        def backward(ctx, *grads):
+            out = grads[0].float()
+            for g in grads[1:]:
+                out = out + g.float()
+            return out.to(grads[0].dtype)
+
+    return Fan.apply
+
+
+def _parts_nll(torch, m: int):
+    """The vocab-parallel cross-entropy of ``dist.tp`` over m column
+    blocks of the logits in one process, its arithmetic step for step:
+    the row max and the sum of exponentials across the blocks (the sum
+    in rank order), the gold logit from its owner, and a backward of
+    ``softmax - onehot`` on each block."""
+
+    class PartsNLL(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, labels, valid, *xs):
+            xs = list(xs)
+            for r, x in enumerate(xs):
+                if valid[r] < x.shape[-1]:
                     col = torch.arange(x.shape[-1], device=x.device)
-                    x = x.masked_fill(col >= valid, float("-inf"))
-                xs.append(x)
-            c = x0.shape[-1]
-            m = torch.maximum(xs[0].amax(dim=-1), xs[1].amax(dim=-1))
-            s = torch.exp(xs[0] - m[..., None]).sum(dim=-1) \
-                + torch.exp(xs[1] - m[..., None]).sum(dim=-1)
+                    xs[r] = x.masked_fill(col >= valid[r], float("-inf"))
+            c = xs[0].shape[-1]
+            mx = xs[0].amax(dim=-1)
+            for x in xs[1:]:
+                mx = torch.maximum(mx, x.amax(dim=-1))
+            s = torch.exp(xs[0] - mx[..., None]).sum(dim=-1)
+            for x in xs[1:]:
+                s = s + torch.exp(x - mx[..., None]).sum(dim=-1)
             gold, saved = 0.0, []
             for r, x in enumerate(xs):
                 local = labels.long() - r * c
-                own = (local >= 0) & (local < (valid0, valid1)[r])
+                own = (local >= 0) & (local < valid[r])
                 local = local.clamp(0, c - 1)
                 gold = gold + torch.where(
                     own, torch.gather(x, -1, local[..., None])[..., 0], 0.0)
                 saved += [x, local, own]
-            lse = m + torch.log(s)
+            lse = mx + torch.log(s)
             ctx.save_for_backward(lse, *saved)
             return lse - gold
 
@@ -4980,29 +5047,29 @@ def _halves_nll(torch):
         def backward(ctx, g):
             lse, *saved = ctx.saved_tensors
             grads = []
-            for r in range(2):
+            for r in range(m):
                 x, local, own = saved[3 * r:3 * r + 3]
                 p = torch.exp(x - lse[..., None])
                 idx = local[..., None]
                 p.scatter_(-1, idx, p.gather(-1, idx)
                            - own[..., None].to(p.dtype))
                 grads.append(p.mul_(g[..., None]))
-            return grads[0], grads[1], None, None, None
+            return (None, None, *grads)
 
-    return HalvesNLL
+    return PartsNLL
 
 
-class _HalvesTP:
+class _PartsTP:
     """The hooks of :class:`repro_torch.dist.tp.TensorParallel` for a
-    worker of two model ranks, in one process on whole leaves (under
+    worker of m model ranks, in one process on whole leaves (under
     ``tp_sums``): the block, the lookup and the MLP pass through (the
     patched products split them), and the cross-entropy is the
-    vocab-parallel one over two halves (``_halves_nll``), each half's
-    logits from its own use of the hidden state."""
+    vocab-parallel one over m column blocks (``_parts_nll``), each
+    block's logits from its own view of the hidden state."""
 
-    def __init__(self, torch):
-        self.torch = torch
-        self.nll = _halves_nll(torch)
+    def __init__(self, torch, m: int):
+        self.torch, self.m = torch, m
+        self.nll, self.fan = _parts_nll(torch, m), _fan(torch, m)
 
     def block(self, p):
         return p
@@ -5014,36 +5081,39 @@ class _HalvesTP:
         return fn(x)
 
     def token_nll(self, hidden, unembed, labels, vocab_size):
-        c = unembed.shape[1] // 2
-        xs = [(hidden.view_as(hidden) @ unembed[:, r * c:(r + 1) * c])
-              .float() for r in range(2)]
+        c = unembed.shape[1] // self.m
+        xs = [(h @ unembed[:, r * c:(r + 1) * c]).float()
+              for r, h in enumerate(self.fan(hidden))]
         valid = [max(0, min((r + 1) * c, vocab_size) - r * c)
-                 for r in range(2)]
-        return self.nll.apply(xs[0], xs[1], labels, *valid)
+                 for r in range(self.m)]
+        return self.nll.apply(labels, valid, *xs)
 
 
 @contextlib.contextmanager
-def tp_sums(torch, rt):
-    """A worker's two model ranks' summation order in one process: the
-    attention's query and KV heads and the MLP's ffn columns in two
-    halves, each half from its own view of the block's input (so the
-    input's gradient sums each half's parts first, then the two halves,
-    as a rank's backward and the column-parallel all-reduce over "model"
-    do), each half's row-parallel product summed in fp32 and rounded
-    once, and the vocab-parallel cross-entropy (``_HalvesTP``).  Wider
+def tp_sums(torch, rt, m: int = 2):
+    """A worker's m model ranks' summation order in one process: the
+    attention's query heads, its KV heads (or, with more ranks than KV
+    heads, each head's columns: the ranks that share a head project
+    their columns and put them together, as ``TensorParallel.gather_kv``
+    gathers them) and the MLP's ffn columns in m blocks, each from its
+    own view of the block's input (``_fan``: the input's gradient sums
+    each rank's parts first, then the ranks' in fp32 in rank order, as a
+    rank's backward and the column-parallel sum over "model" do), each
+    block's row-parallel product summed in fp32 in rank order and rounded
+    once, and the vocab-parallel cross-entropy (``_PartsTP``).  Wider
     than ``split_sums``, which splits the forward row-parallel sums
     only."""
     model, attn, amb = rt.models.model, rt.models.attention, rt.dist.amb
     plain_mlp, plain_attend, plain_loss = (model.swiglu, attn.attend_train,
                                            amb.lm_loss)
-    halves = _HalvesTP(torch)
+    parts = _PartsTP(torch, m)
+    fan = parts.fan
 
     def mlp(x, w_gate, w_up, w_down):
-        c = w_gate.shape[-1] // 2
+        c = w_gate.shape[-1] // m
         out = 0.0
-        for r in range(2):
+        for r, xr in enumerate(fan(x)):
             cols = slice(r * c, (r + 1) * c)
-            xr = x.view_as(x)
             h = torch.nn.functional.silu(xr @ w_gate[:, cols]) \
                 * (xr @ w_up[:, cols])
             out = out + (h @ w_down[cols]).float()
@@ -5052,18 +5122,34 @@ def tp_sums(torch, rt):
     def attend(p, x, positions, cfg, *, causal=True, window=None,
                kv_input=None, rope=True, tp=None):
         b, s, _ = x.shape
-        hq, hkv = cfg.num_heads * cfg.hd // 2, cfg.num_kv_heads * cfg.hd // 2
+        hd = cfg.hd
+        hq, w = cfg.num_heads * hd // m, cfg.num_kv_heads * hd // m
+        share = max(1, m // cfg.num_kv_heads)
         window = cfg.sliding_window if window is None else window
+        norms = {k: fan(p[k]) for k in ("q_norm", "k_norm") if k in p}
+        proj = []
+        for r, xr in enumerate(fan(x)):     # each rank's q, k, v columns
+            q, k_, v = (xr @ p["wq"][:, r * hq:(r + 1) * hq],
+                        xr @ p["wk"][:, r * w:(r + 1) * w],
+                        xr @ p["wv"][:, r * w:(r + 1) * w])
+            if "bq" in p:
+                q, k_, v = (q + p["bq"][r * hq:(r + 1) * hq],
+                            k_ + p["bk"][r * w:(r + 1) * w],
+                            v + p["bv"][r * w:(r + 1) * w])
+            proj.append((q, k_, v))
         out = 0.0
-        for r in range(2):
-            ph = {k: v for k, v in p.items()}
-            for k, w in (("wq", hq), ("wk", hkv), ("wv", hkv)):
-                ph[k] = p[k][:, r * w:(r + 1) * w]
-                if "b" + k[1] in p:
-                    ph["b" + k[1]] = p["b" + k[1]][r * w:(r + 1) * w]
-            q, k_, v = attn._project_qkv(ph, x.view_as(x), cfg)
+        for r, (q, _, _) in enumerate(proj):
+            group = proj[r // share * share:(r // share + 1) * share]
+            k_ = torch.cat([g[1] for g in group], dim=-1)
+            v = torch.cat([g[2] for g in group], dim=-1)
+            kvh = k_.shape[-1] // hd
+            q, k_ = q.reshape(b, s, kvh, -1, hd), k_.reshape(b, s, kvh, hd)
+            if norms:
+                q = rt.models.common.rms_norm(q, norms["q_norm"][r])
+                k_ = rt.models.common.rms_norm(k_, norms["k_norm"][r])
+            v = v.reshape(b, s, kvh, hd)
             q = rt.models.common.apply_rope(
-                q.reshape(b, s, -1, cfg.hd), positions,
+                q.reshape(b, s, -1, hd), positions,
                 cfg.rope_theta).reshape(q.shape)
             k_ = rt.models.common.apply_rope(k_, positions, cfg.rope_theta)
             heads = attn.masked_attention(q, k_, v, window, causal=causal)
@@ -5072,7 +5158,7 @@ def tp_sums(torch, rt):
         return out.to(x.dtype)
 
     def loss(params, cfg, batch, *args, tp=None, **kwargs):
-        return plain_loss(params, cfg, batch, *args, tp=halves, **kwargs)
+        return plain_loss(params, cfg, batch, *args, tp=parts, **kwargs)
 
     model.swiglu, attn.attend_train, amb.lm_loss = mlp, attend, loss
     try:
@@ -5773,7 +5859,7 @@ def model_consensus_rank(torch, rt, dist, mesh, cfg, work: Path) -> dict:
     rank = dist.get_rank()
     want = json.loads((work / "model_consensus.json").read_text())
     group = rt.dist.group.WorkerGroup(mesh, mesh.device_type)
-    tp = rt.dist.tp.TensorParallel(group, model_shapes(rt, cfg), None)
+    tp = rt.dist.tp.TensorParallel(group, model_shapes(rt, cfg), None, cfg)
     block = tp.row_block()
     whole = model_stack_row(torch, group.worker, block.width)
     mine = torch.empty((1, block.block_width), device="cuda")
@@ -5965,16 +6051,19 @@ SERVE17_CKPT = {"exact": dict(consensus="exact"),
                               staleness=2)}
 
 
-def check_flash_rank(torch, ops, flash) -> list:
-    """The flash kernel at a model rank's prefill shape over (data 2, model
-    2): qwen2-1.5b's 12 query and 2 KV heads split in two, so one KV head
-    (GQA group 6, hd 128; causal; S 2048 and 2560), on the tensor-core
-    body; library: SDPA with ``is_causal`` and ``enable_gqa``."""
+def check_flash_rank(torch, ops, flash, shape=FLASH_RANK,
+                     seqs=FLASH_RANK_SEQS,
+                     what="qwen2-1.5b over (data 2, model 2)") -> list:
+    """The flash kernel at a model rank's prefill shape (default over
+    (data 2, model 2): qwen2-1.5b's 12 query and 2 KV heads split in two,
+    so one KV head, GQA group 6, hd 128; causal; S 2048 and 2560), on the
+    tensor-core body; library: SDPA with ``is_causal`` and
+    ``enable_gqa``."""
     gen = torch.Generator(device="cuda").manual_seed(18)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    b, h, kv, hd = (FLASH_RANK[x] for x in ("b", "h", "kv", "hd"))
+    b, h, kv, hd = (shape[x] for x in ("b", "h", "kv", "hd"))
     entries = []
-    for s in FLASH_RANK_SEQS:
+    for s in seqs:
         q, k, v = model_layout(torch, gen, b, s, s, h, kv, hd,
                                torch.bfloat16)
         if flash.body(q, k, v) != "tensor_core":
@@ -5983,7 +6072,7 @@ def check_flash_rank(torch, ops, flash) -> list:
         entries.append(flash_entry(
             torch, ops, q, k, v, 0,
             f"B={b} H={h} KV={kv} hd={hd} S={s} bf16 causal (a model rank "
-            f"of qwen2-1.5b over (data 2, model 2))",
+            f"of {what})",
             lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
             reps=200))
         del q, k, v
@@ -5996,94 +6085,6 @@ def serve17_requests(rt, cfg) -> list:
         SERVE17["requests"], vocab_size=cfg.vocab_size,
         prompt_len=SERVE17["prompt"], prompt_jitter=SERVE17["jitter"],
         max_new_tokens=SERVE17["new"], seed=SERVE17["seed"])
-
-
-def _serve_half_sums(torch, x, w):
-    """``x @ w`` as a worker's two model ranks sum it: each rank's half of
-    x's columns (contiguous, as a rank holds it) times its rows of w,
-    rounded to the dtype, summed in fp32 and rounded once."""
-    c = x.shape[-1] // 2
-    out = 0.0
-    for r in range(2):
-        out = out + (x[..., r * c:(r + 1) * c].contiguous()
-                     @ w[r * c:(r + 1) * c]).float()
-    return out.to(x.dtype)
-
-
-@contextlib.contextmanager
-def serve_tp_sums(torch, rt):
-    """The serving counterpart of ``tp_sums``: the prefill and the decode
-    step in one process as a worker's two model ranks compute them.  Each
-    rank's half of the query and KV heads projected from its own
-    (contiguous) columns of wq, wk and wv, its flash call (prefill) and
-    its cache read (decode) on its heads alone, the row-parallel wo and
-    MLP products summed in fp32 and rounded once (``_serve_half_sums``),
-    and each rank's columns of the logits from its contiguous half of the
-    unembedding."""
-    model, attn = rt.models.model, rt.models.attention
-    plain = (attn.qkv_rope, attn.flash_prefill, attn._softmax_read,
-             model.swiglu, model.logits_fn)
-    qkv_rope, flash_prefill, softmax_read = plain[:3]
-
-    class Heads(torch.Tensor):
-        """The heads' output, whose product with wo is split by rank."""
-
-        def __matmul__(self, w):
-            return _serve_half_sums(torch, self.as_subclass(torch.Tensor),
-                                    w)
-
-    def cols(w, r):
-        c = w.shape[-1] // 2
-        return w[..., r * c:(r + 1) * c]
-
-    def half(p, r):
-        out = dict(p)
-        for k in ("wq", "wk", "wv"):
-            out[k] = cols(p[k], r).contiguous()
-            if "b" + k[1] in p:
-                out["b" + k[1]] = cols(p["b" + k[1]], r)
-        return out
-
-    def kv_half(t, r):
-        n = t.shape[2] // 2
-        return t[:, :, r * n:(r + 1) * n].contiguous()
-
-    def qkv(p, x, positions, cfg):
-        parts = [qkv_rope(half(p, r), x, positions, cfg) for r in range(2)]
-        return tuple(torch.cat([t[i] for t in parts], dim=2)
-                     for i in range(3))
-
-    def flash(q, k, v, window, *, causal=True):
-        return torch.cat([flash_prefill(kv_half(q, r), kv_half(k, r),
-                                        kv_half(v, r), window, causal=causal)
-                          for r in range(2)], dim=-1).as_subclass(Heads)
-
-    def read(q, k, v, valid):
-        return torch.cat([softmax_read(kv_half(q, r), kv_half(k, r),
-                                       kv_half(v, r), valid)
-                          for r in range(2)], dim=-1).as_subclass(Heads)
-
-    def mlp(x, w_gate, w_up, w_down):
-        c = w_gate.shape[-1] // 2
-        out = 0.0
-        for r in range(2):
-            h = torch.nn.functional.silu(x @ cols(w_gate, r).contiguous()) \
-                * (x @ cols(w_up, r).contiguous())
-            out = out + (h @ w_down[r * c:(r + 1) * c]).float()
-        return out.to(x.dtype)
-
-    def logits(params, cfg, hidden, tp=None):
-        u = params["unembed"]
-        return model._vocab(cfg, torch.cat(
-            [hidden @ cols(u, r).contiguous() for r in range(2)], dim=-1))
-
-    (attn.qkv_rope, attn.flash_prefill, attn._softmax_read, model.swiglu,
-     model.logits_fn) = (qkv, flash, read, mlp, logits)
-    try:
-        yield
-    finally:
-        (attn.qkv_rope, attn.flash_prefill, attn._softmax_read,
-         model.swiglu, model.logits_fn) = plain
 
 
 def first_logits(torch, rt, params, cfg, reqs) -> list:
@@ -6110,10 +6111,9 @@ def serve_references(torch, rt, full, work: Path) -> dict:
     request's first-token logits), the prefills again under
     ``split_sums`` (each request's move sets its limit,
     ``order_limits``), and the one-process twin of the ranks under
-    ``serve_tp_sums``, one 4-slot engine per worker on its requests (the
-    tokens the ranks must give); then the one-process checkpoints the
-    ranks restore (SERVE17_CKPT, one epoch each, saved).  Writes them
-    for the ranks."""
+    ``rank_twin`` (the tokens the ranks must give); then the one-process
+    checkpoints the ranks restore (SERVE17_CKPT, one epoch each, saved).
+    Writes them for the ranks."""
     lap = stamps("phase 17 references")
     data = MODEL_AXIS[0]
     gen = torch.Generator(device="cuda").manual_seed(SERVE17["seed"])
@@ -6137,18 +6137,16 @@ def serve_references(torch, rt, full, work: Path) -> dict:
                                  for k, m in moves.items()), flush=True)
     lap("the plain engine and the split prefills done")
     twin = serve17_requests(rt, full)
-    per = SERVE17["slots"] // data
-    with serve_tp_sums(torch, rt):
-        for w in range(data):
-            engine = rt.serve.SlotEngine(params, full, slots=per,
-                                         cache_len=SERVE17_CACHE)
-            drain(engine, twin[w * per:(w + 1) * per])
-            del engine
+    with rank_twin(torch, rt, full, MODEL_AXIS[1], data):
+        engine = rt.serve.SlotEngine(params, full, slots=SERVE17["slots"],
+                                     cache_len=SERVE17_CACHE)
+        drain(engine, twin)
+        del engine
     twin_tokens = [r.out_tokens for r in twin]
     differ = sum(a != b for x, y in zip(twin_tokens, plain_tokens)
                  for a, b in zip(x, y))
-    print(f"phase 17 reference: the ranks' one-process twin (serve_tp_sums, "
-          f"a 4-slot engine per worker) differs from the plain engine in "
+    print(f"phase 17 reference: the ranks' one-process twin (rank_twin, "
+          f"each worker's rows a round alone) differs from the plain engine in "
           f"{differ} of {sum(map(len, plain_tokens))} greedy tokens",
           flush=True)
     del params
@@ -6171,6 +6169,96 @@ def serve_references(torch, rt, full, work: Path) -> dict:
     return refs
 
 
+class EngineProbe:
+    """Instruments a slot engine over a group (phases 17 and 18): per
+    request the flash launches by body and, on its owner, the prefill
+    seconds (``current`` is the request being inserted); per decode round
+    its ms and the growth of each of ``counters()``'s byte counters;
+    while ``watch()`` is open, the (B, H, KV, hd) of every flash call and
+    the launch counts from zero."""
+
+    def __init__(self, torch, rt, engine, counters):
+        self.router, self.kops = rt.kernels.router, rt.models.attention.kops
+        self.engine, self.counters = engine, counters
+        self.current, self.prefill_s, self.flashes = None, [], {}
+        self.round_ms, self.moved, self.shapes = [], [], set()
+        insert, decode = engine.insert, engine.decode_round
+
+        def timed_insert(req):
+            self.current = req.rid
+            before = self.router.launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = insert(req)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = self.router.launches()
+            self.flashes[req.rid] = {k: after.get(k, 0) - before.get(k, 0)
+                                     for k in ("flash_attention.tensor_core",
+                                               "flash_attention.cuda_core")}
+            if engine._mine(req.slot):
+                self.prefill_s.append(dt)
+            self.current = None
+            return out
+
+        def timed_round():
+            c0 = counters()
+            t0 = time.perf_counter()
+            out = decode()
+            self.round_ms.append((time.perf_counter() - t0) * 1e3)
+            self.moved.append([b - a for a, b in zip(c0, counters())])
+            return out
+
+        engine.insert, engine.decode_round = timed_insert, timed_round
+
+    @contextlib.contextmanager
+    def watch(self):
+        flash = self.kops.flash_attention
+
+        def seen(q, k, v, **kw):
+            self.shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[3]))
+            return flash(q, k, v, **kw)
+
+        self.kops.flash_attention = seen
+        self.router.reset_launches()
+        try:
+            yield
+        finally:
+            self.kops.flash_attention = flash
+
+    def check_flash(self, label: str, reqs, per_req: int, shape: dict,
+                    launches: dict) -> int:
+        """Each request's ``per_req`` tensor-core flash launches on its
+        owner's ranks (none elsewhere), all at the rank's ``shape``;
+        returns the requests this rank's worker owns."""
+        mine = self.engine._mine
+        for r in reqs:
+            want = per_req if mine(r.slot) else 0
+            if self.flashes[r.rid] != {"flash_attention.tensor_core": want,
+                                       "flash_attention.cuda_core": 0}:
+                fail(f"{label}: request {r.rid} (slot {r.slot}) launched "
+                     f"{self.flashes[r.rid]}, expected {want} on the "
+                     f"tensor cores")
+        owned = sum(mine(r.slot) for r in reqs)
+        expect(label, launches, {"flash_attention": per_req * owned,
+                                 "flash_attention.tensor_core":
+                                 per_req * owned})
+        rank_shape = tuple(shape[x] for x in ("b", "h", "kv", "hd"))
+        if owned and self.shapes != {rank_shape}:
+            fail(f"{label}: flash called at (B, H, KV, hd) {self.shapes}, "
+                 f"expected {rank_shape}")
+        return owned
+
+    def rounds(self) -> dict:
+        """The decode round's ms (p50, p99) and each counter's median
+        growth a round."""
+        ms = sorted(self.round_ms)
+        pct = sys.modules["repro_torch.serve.metrics"]._pct
+        mid = [sorted(c)[len(c) // 2] for c in zip(*self.moved)]
+        return {"decode_rounds": len(ms), "round_ms_p50": pct(ms, 50),
+                "round_ms_p99": pct(ms, 99), "bytes_per_round": mid}
+
+
 def rank_serve_only(torch, rt, dist, full, refs, lap) -> dict:
     """The slot engine alone over (data 2, model 2) at full width (through
     the scheduler on rank 0's wall clock, no session): each rank's blocks
@@ -6178,14 +6266,15 @@ def rank_serve_only(torch, rt, dist, full, refs, lap) -> dict:
     tokens equal to the twin's, each first-token logits within its
     limit of the plain engine's, 28 tensor-core flash launches a request
     on its worker's ranks and none elsewhere; per rank the prefill
-    seconds, the decode round's ms and bytes all-reduced, the peak."""
+    seconds, the decode round's ms and bytes summed over "model", the
+    peak."""
     rank = dist.get_rank()
     router = rt.kernels.router
     mesh = rt.launch.mesh.make_host_mesh(*MODEL_AXIS, device="cuda")
     group = rt.dist.group.WorkerGroup(mesh, "cuda")
     shapes = {k: v.shape for k, v in rt.models.init_params(
         full, rt.models.common.MetaGenerator()).items()}
-    tp = rt.dist.tp.TensorParallel(group, shapes, None)
+    tp = rt.dist.tp.TensorParallel(group, shapes, None, full)
     gen = torch.Generator(device="cuda").manual_seed(SERVE17["seed"])
     params = rt.dist.params.init_shards(full, gen, mesh,
                                         mesh.get_coordinate(), None)
@@ -6193,62 +6282,23 @@ def rank_serve_only(torch, rt, dist, full, refs, lap) -> dict:
     torch.cuda.reset_peak_memory_stats()
     engine = rt.serve.SlotEngine(params, full, slots=SERVE17["slots"],
                                  cache_len=SERVE17_CACHE, group=group, tp=tp)
-    firsts, prefill_s, flashes, round_ms, reduced = {}, [], {}, [], []
-    insert, decode, sample = (engine.insert, engine.decode_round,
-                              engine._sample)
-    current = [None]
+    probe = EngineProbe(torch, rt, engine, lambda: (tp.reduced_bytes,))
+    firsts, sample = {}, engine._sample
 
     def spy(logits):
-        if current[0] is not None:
-            firsts[current[0]] = logits.float().cpu()
+        if probe.current is not None:
+            firsts[probe.current] = logits.float().cpu()
         return sample(logits)
 
-    def timed_insert(req):
-        current[0] = req.rid
-        before = router.launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = insert(req)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        after = router.launches()
-        flashes[req.rid] = {k: after.get(k, 0) - before.get(k, 0)
-                            for k in ("flash_attention.tensor_core",
-                                      "flash_attention.cuda_core")}
-        if engine._mine(req.slot):
-            prefill_s.append(dt)
-        current[0] = None
-        return out
-
-    def timed_round():
-        r0 = tp.reduced_bytes
-        t0 = time.perf_counter()
-        out = decode()
-        round_ms.append((time.perf_counter() - t0) * 1e3)
-        reduced.append(tp.reduced_bytes - r0)
-        return out
-
-    engine._sample, engine.insert, engine.decode_round = (spy, timed_insert,
-                                                          timed_round)
-    kops, shapes = rt.models.attention.kops, set()
-    flash = kops.flash_attention
-
-    def seen(q, k, v, **kw):
-        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[3]))
-        return flash(q, k, v, **kw)
-
-    kops.flash_attention = seen
+    engine._sample = spy
     reqs = serve17_requests(rt, full)
     queue = rt.serve.RequestQueue(rt.serve.AdmissionPolicy(
         cache_len=SERVE17_CACHE))
     for r in reqs:
         queue.push(r)
-    router.reset_launches()
-    try:
+    with probe.watch():
         report = rt.serve.ServeScheduler(
             engine, queue, round_budget_s=SERVE17["budget"]).run()
-    finally:
-        kops.flash_attention = flash
     launches = router.launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     lap("the requests served")
@@ -6256,7 +6306,7 @@ def rank_serve_only(torch, rt, dist, full, refs, lap) -> dict:
     tokens = [r.out_tokens for r in reqs]
     if tokens != refs["twin_tokens"]:
         fail(f"{label}: greedy tokens differ from the one-process twin's "
-             f"(serve_tp_sums): {tokens} vs {refs['twin_tokens']}")
+             f"(rank_twin): {tokens} vs {refs['twin_tokens']}")
     if any(len(t) != SERVE17["new"] for t in tokens):
         fail(f"{label}: {[len(t) for t in tokens]} tokens a request")
     errs = {r.rid: leaf_errs(torch, {"x": firsts[r.rid]},
@@ -6267,26 +6317,16 @@ def rank_serve_only(torch, rt, dist, full, refs, lap) -> dict:
     differ = sum(a != b for x, y in zip(tokens, refs["plain_tokens"])
                  for a, b in zip(x, y))
     per_req = full.num_layers
-    for r in reqs:
-        want = per_req if engine._mine(r.slot) else 0
-        if flashes[r.rid] != {"flash_attention.tensor_core": want,
-                              "flash_attention.cuda_core": 0}:
-            fail(f"{label}: request {r.rid} (slot {r.slot}) launched "
-                 f"{flashes[r.rid]}, expected {want} on the tensor cores")
-    owned = sum(engine._mine(r.slot) for r in reqs)
-    expect(label, launches, {"flash_attention": per_req * owned,
-                             "flash_attention.tensor_core": per_req * owned})
+    owned = probe.check_flash(label, reqs, per_req, FLASH_RANK, launches)
     rank_shape = tuple(FLASH_RANK[x] for x in ("b", "h", "kv", "hd"))
-    if shapes != {rank_shape}:
-        fail(f"{label}: flash called at (B, H, KV, hd) {shapes}, expected "
-             f"{rank_shape}")
-    ms = sorted(round_ms)
-    pct = sys.modules["repro_torch.serve.metrics"]._pct
+    rounds = probe.rounds()
     s = report.summary
     row = {"owned": owned, "flash_per_request": per_req,
-           "prefill_s": prefill_s, "decode_rounds": len(ms),
-           "round_ms_p50": pct(ms, 50), "round_ms_p99": pct(ms, 99),
-           "reduced_bytes_per_round": sorted(reduced)[len(reduced) // 2],
+           "prefill_s": probe.prefill_s,
+           "decode_rounds": rounds["decode_rounds"],
+           "round_ms_p50": rounds["round_ms_p50"],
+           "round_ms_p99": rounds["round_ms_p99"],
+           "reduced_bytes_per_round": rounds["bytes_per_round"][0],
            "peak_gib": peak, "ttft_p50_s": s["ttft_p50_s"],
            "ttft_p99_s": s["ttft_p99_s"], "tpot_p50_s": s["tpot_p50_s"],
            "tpot_p99_s": s["tpot_p99_s"], "tokens_per_s": s["tokens_per_s"],
@@ -6297,10 +6337,11 @@ def rank_serve_only(torch, rt, dist, full, refs, lap) -> dict:
           f"{sum(map(len, tokens))} differ from the plain engine's; "
           f"flash {per_req} a request on the tensor cores at (B, H, KV, "
           f"hd) {rank_shape} x {owned} requests; prefill_s "
-          f"{[round(x, 4) for x in prefill_s]}; decode "
-          f"rounds {len(ms)}, ms p50 {row['round_ms_p50']:.2f} p99 "
+          f"{[round(x, 4) for x in probe.prefill_s]}; decode "
+          f"rounds {row['decode_rounds']}, ms p50 {row['round_ms_p50']:.2f} p99 "
           f"{row['round_ms_p99']:.2f}; {row['reduced_bytes_per_round']} "
-          f"bytes all-reduced a round; TTFT p50 {s['ttft_p50_s']:.4f} p99 "
+          f"bytes summed over \"model\" a round; TTFT p50 "
+          f"{s['ttft_p50_s']:.4f} p99 "
           f"{s['ttft_p99_s']:.4f} s, TPOT p50 {s['tpot_p50_s']:.4f} p99 "
           f"{s['tpot_p99_s']:.4f} s; peak_GiB {peak:.2f} [{card_line()}]",
           flush=True)
@@ -6544,20 +6585,647 @@ def serve_after(torch, rt, work: Path) -> dict:
     return {"launches": launches, "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the MoE family over a model axis, and more model ranks than KV
+# heads
+# ---------------------------------------------------------------------------
+
+MOE_AXIS = (2, 2)              # (data, model): qwen3-moe's experts on "model"
+KV_AXIS = (1, 4)               # qwen2-1.5b: 2 KV heads, two ranks to each
+# qwen3-moe-30b-a3b at full width over (data 2, model 2): the exact epoch
+# at DRIVER_MOE_LAYERS (phase 15's cut), the engine at MOE18_LAYERS, 4
+# requests into 8 slots (the first four, worker 0's rows; worker 1's rows
+# decode garbage, as JAX's inactive rows do, and take part in every
+# round's dispatch)
+MOE18_LAYERS = 2
+MOE18_SERVE = dict(requests=4, new=16, slots=8, prompt=2048, jitter=512,
+                   seed=29)
+MOE18_CACHE = MOE18_SERVE["prompt"] + MOE18_SERVE["jitter"] \
+    + MOE18_SERVE["new"]
+# the exact ranks' aux against the twin's: both sum the routing counts and
+# probabilities of the same bf16 forward, the ranks over the workers'
+# rows, the twin over the global batch
+MOE18_AUX_RTOL = 1e-3
+FLASH_MOE_RANK = dict(b=1, h=16, kv=2, hd=128)  # qwen3-moe, a rank of model 2
+FLASH_KV_RANK = dict(b=1, h=3, kv=1, hd=128)    # qwen2-1.5b, a rank of model 4
+FLASH18_SEQS = (2048,)
+
+
+class _RankMoE:
+    """What ``moe_forward`` asks of a TensorParallel, for model rank ``r``
+    of ``m`` in one process (``moe_twin``): its experts, the router's
+    logits whole (its own columns, and each other rank's from that rank's
+    contiguous router columns), and no sums (the twin adds the passes)."""
+
+    def __init__(self, torch, r: int, m: int, x, router):
+        self.torch, self.r, self.m, self.x, self.router = (torch, r, m, x,
+                                                           router)
+
+    def experts_split(self) -> bool:
+        return True
+
+    def expert_range(self, cfg) -> tuple:
+        per = cfg.num_experts // self.m
+        return self.r * per, (self.r + 1) * per
+
+    def copy(self, x):
+        return x.view_as(x)
+
+    def router_logits(self, local):
+        c = self.router.shape[-1] // self.m
+        return self.torch.cat([
+            local if j == self.r else self.torch.einsum(
+                "bsd,de->bse", self.x.float(),
+                self.router[:, j * c:(j + 1) * c].contiguous())
+            for j in range(self.m)], dim=-1)
+
+    def reduce(self, y):
+        return y
+
+
+@contextlib.contextmanager
+def moe_twin(torch, rt, m: int):
+    """The MoE layer as ``m`` model ranks compute it, in one process: pass
+    r runs ``moe_forward`` on rank r's router columns and experts
+    (contiguous, as a rank holds them) from its own view of the input,
+    the routing over all E from every rank's logit columns, and the
+    passes' partial outputs are added in fp32 in rank order and rounded
+    once (``dist.tp.ordered_sum``), their aux shares added."""
+    mod = rt.models.moe
+    plain = mod.moe_forward
+
+    def twin(p, x, cfg, group=None, tp=None):
+        per = cfg.num_experts // m
+        c = p["router"].shape[-1] // m
+        out = aux = 0.0
+        for r in range(m):
+            pr = {"router": p["router"][:, r * c:(r + 1) * c].contiguous()}
+            pr.update({k: p[k][r * per:(r + 1) * per]
+                       for k in ("w_gate", "w_up", "w_down")})
+            xr = x.view_as(x)
+            o, a = plain(pr, xr, cfg, group,
+                         _RankMoE(torch, r, m, xr, p["router"]))
+            out, aux = out + o.float(), aux + a
+        return out.to(x.dtype), aux
+
+    mod.moe_forward = twin
+    try:
+        yield
+    finally:
+        mod.moe_forward = plain
+
+
+@contextlib.contextmanager
+def rank_twin(torch, rt, cfg, m: int, workers: int):
+    """A one-process slot engine as ``workers`` workers of ``m`` model
+    ranks serve (phases 17 and 18; any m, more model ranks than KV heads,
+    the MoE family): the serving counterpart of ``tp_sums``.  Each rank's
+    query, key and value columns are projected from its contiguous
+    columns of wq, wk and wv (its qk-norm and rope on its own heads; the
+    ranks that share a KV head put its columns together first), its
+    flash call (prefill) and cache read
+    (decode) take its own heads, the row-parallel wo and MLP products and
+    the experts (``moe_twin``) are summed in fp32 in rank order and
+    rounded once, and each rank's logit columns come from its contiguous
+    columns of the unembedding.  A decode round runs each worker's rows
+    alone (the embedding, the attention, the final norm and the logits at
+    the worker's batch, which sets cuBLAS's and the reductions' choices),
+    and the MoE layer over every slot, as the ranks gather them."""
+    model, attn, common = rt.models.model, rt.models.attention, \
+        rt.models.common
+    slots_mod = sys.modules["repro_torch.serve.slots"]
+    plain = (attn.qkv_rope, attn.flash_prefill, attn._softmax_read,
+             model.swiglu, model.logits_fn, slots_mod.decode_step)
+    flash_prefill, softmax_read = plain[1:3]
+    hd, kvh = cfg.hd, cfg.num_kv_heads
+    share = m // kvh if m > kvh else 1
+    kv_r = 1 if share > 1 else kvh // m          # a rank's KV heads
+
+    class Heads(torch.Tensor):
+        """The heads' output, whose product with wo is split by rank."""
+
+        def __matmul__(self, w):
+            x = self.as_subclass(torch.Tensor)
+            c = x.shape[-1] // m
+            out = 0.0
+            for r in range(m):
+                out = out + (x[..., r * c:(r + 1) * c].contiguous()
+                             @ w[r * c:(r + 1) * c]).float()
+            return out.to(x.dtype)
+
+    def cols(w, r):
+        c = w.shape[-1] // m
+        return w[..., r * c:(r + 1) * c]
+
+    def proj(p, x, k, r):
+        y = x @ cols(p["w" + k], r).contiguous()
+        return y + cols(p["b" + k], r) if "b" + k in p else y
+
+    def rope(t, positions):
+        return common.apply_rope(t, positions, cfg.rope_theta)
+
+    def qkv(p, x, positions, cfg_, tp=None):
+        b, s, _ = x.shape
+        qs = []
+        for r in range(m):
+            q = proj(p, x, "q", r).reshape(b, s, kv_r, -1, hd)
+            if "q_norm" in p:
+                q = common.rms_norm(q, p["q_norm"])
+            qs.append(rope(q.reshape(b, s, -1, hd), positions)
+                      .reshape(q.shape))
+        ks = [proj(p, x, "k", r) for r in range(m)]
+        vs = [proj(p, x, "v", r) for r in range(m)]
+        if share > 1:                    # a head's columns put together
+            ks = [torch.cat(ks[h * share:(h + 1) * share], dim=-1)
+                  for h in range(kvh)]
+            vs = [torch.cat(vs[h * share:(h + 1) * share], dim=-1)
+                  for h in range(kvh)]
+            qs = [torch.cat(qs[h * share:(h + 1) * share], dim=3)
+                  for h in range(kvh)]
+        ks = [k.reshape(b, s, -1, hd) for k in ks]
+        if "k_norm" in p:
+            ks = [common.rms_norm(k, p["k_norm"]) for k in ks]
+        ks = [rope(k, positions) for k in ks]
+        return (torch.cat(qs, dim=2), torch.cat(ks, dim=2),
+                torch.cat([v.reshape(b, s, -1, hd) for v in vs], dim=2))
+
+    def own(q, k, v, r):
+        """Rank r's query heads and its KV head(s), contiguous."""
+        if share > 1:
+            h, j = divmod(r, share)
+            g = q.shape[3] // share
+            return (q[:, :, h:h + 1, j * g:(j + 1) * g].contiguous(),
+                    k[:, :, h:h + 1].contiguous(),
+                    v[:, :, h:h + 1].contiguous())
+        a = slice(r * kv_r, (r + 1) * kv_r)
+        return (q[:, :, a].contiguous(), k[:, :, a].contiguous(),
+                v[:, :, a].contiguous())
+
+    def flash(q, k, v, window, *, causal=True):
+        return torch.cat([flash_prefill(*own(q, k, v, r), window,
+                                        causal=causal)
+                          for r in range(m)], dim=-1).as_subclass(Heads)
+
+    def read(q, k, v, valid):
+        return torch.cat([softmax_read(*own(q, k, v, r), valid)
+                          for r in range(m)], dim=-1).as_subclass(Heads)
+
+    def mlp(x, w_gate, w_up, w_down):
+        c = w_gate.shape[-1] // m
+        out = 0.0
+        for r in range(m):
+            h = torch.nn.functional.silu(x @ cols(w_gate, r).contiguous()) \
+                * (x @ cols(w_up, r).contiguous())
+            out = out + (h @ w_down[r * c:(r + 1) * c]).float()
+        return out.to(x.dtype)
+
+    def logits(params, cfg_, hidden, tp=None):
+        u = params["unembed"]
+        return model._vocab(cfg, torch.cat(
+            [hidden @ cols(u, r).contiguous() for r in range(m)], dim=-1))
+
+    def decode(params, cfg_, state, token, tp=None, group=None):
+        rows = token.shape[0] // workers
+        parts = [slice(w * rows, (w + 1) * rows) for w in range(workers)]
+        caches, pos = state.caches, state.pos
+        x = torch.nn.functional.embedding(token.long(),
+                                          params["embed"])[:, None, :]
+        for layer, lp in enumerate(model._layers(params, cfg)):
+            hs = []
+            for a in parts:
+                cache = attn.KVCache(caches.k[layer][a], caches.v[layer][a],
+                                     caches.ring)
+                hs.append(attn.decode_attend(
+                    lp["attn"], common.rms_norm(x[a], lp["ln1"]), pos[a],
+                    cache, cfg, window=cfg.sliding_window)[0])
+            x = x + torch.cat(hs)
+            if cfg.is_moe:                  # every slot, one dispatch
+                x = x + model._ffn(x, lp, cfg)[0]
+            else:
+                x = x + torch.cat([model._ffn(x[a], lp, cfg)[0]
+                                   for a in parts])
+        out = torch.cat([logits(params, cfg, common.rms_norm(
+            x[a], params["final_norm"])) for a in parts])[:, 0]
+        return out, model.DecodeState(caches, pos + 1, state.enc_kv)
+
+    (attn.qkv_rope, attn.flash_prefill, attn._softmax_read, model.swiglu,
+     model.logits_fn, slots_mod.decode_step) = (qkv, flash, read, mlp,
+                                                logits, decode)
+    try:
+        with (moe_twin(torch, rt, m) if cfg.is_moe
+              else contextlib.nullcontext()):
+            yield
+    finally:
+        (attn.qkv_rope, attn.flash_prefill, attn._softmax_read,
+         model.swiglu, model.logits_fn, slots_mod.decode_step) = plain
+
+
+def aux_epochs(torch, rt, session, label: str, epochs: int = 1) -> dict:
+    """``mesh_epochs``, with each epoch's aux (the whole model's load-
+    balance loss, from the protocol's metrics)."""
+    seen, step = [], session.protocol.step
+
+    def spy(state, batch, b):
+        state, m = step(state, batch, b)
+        seen.append(float(m["aux"]))
+        return state, m
+
+    session.protocol.step = spy
+    try:
+        res = mesh_epochs(torch, rt, session, label, epochs)
+    finally:
+        session.protocol.step = step
+    res["aux"] = seen
+    return res
+
+
+def serve18(rt, cfg, which: str) -> tuple:
+    """Phase 18's requests, slots and cache length: ``moe`` (MOE18_SERVE)
+    or ``kv`` (phase 17's SERVE17)."""
+    spec, cache = (MOE18_SERVE, MOE18_CACHE) if which == "moe" \
+        else (SERVE17, SERVE17_CACHE)
+    reqs = rt.serve.synthetic_requests(
+        spec["requests"], vocab_size=cfg.vocab_size,
+        prompt_len=spec["prompt"], prompt_jitter=spec["jitter"],
+        max_new_tokens=spec["new"], seed=spec["seed"])
+    return reqs, spec["slots"], cache, spec["seed"]
+
+
+def drain18(torch, engine, reqs, heads=None) -> list:
+    """``drain``, and after the first decode round the digests of the
+    engine's caches (``heads``: of each KV head's; else whole)."""
+    pending, digests = list(reqs), None
+    while pending or engine.active_count:
+        while pending and engine.has_free:
+            engine.insert(pending.pop(0))
+        engine.decode_round()
+        if digests is None:
+            k, v = engine.state.caches.k, engine.state.caches.v
+            digests = [digest(torch, {"k": k[..., h:h + 1, :],
+                                      "v": v[..., h:h + 1, :]})
+                       for h in range(heads or 1)] if heads else \
+                digest(torch, {"k": k, "v": v})
+    return digests
+
+
+def axis18_references(torch, rt, full, work: Path) -> None:
+    """Phase 18's references, in the parent while the gloo ranks run phase
+    17 (they start once the ranks have ended phase 16: phase 15's and
+    16's ranks leave no room on the card), written for the ranks:
+      * qwen3-moe-30b-a3b at DRIVER_MOE_LAYERS, bf16, one exact epoch of
+        the one-process data=2 session, then its twin (``tp_sums`` and
+        ``moe_twin``): each leaf's move sets its limit, the twin's
+        parameters, losses and aux are what the ranks are held to;
+      * qwen3-moe-30b-a3b at MOE18_LAYERS through the plain 8-slot engine
+        and its twin over (data 2, model 2) (``rank_twin``): the greedy
+        tokens;
+      * qwen2-1.5b through the 8-slot engine's twin over (data 1, model 4)
+        at full depth: the tokens, and each KV head's caches' digest
+        after the first decode round;
+      * qwen2-1.5b at MODEL_LAYERS, one exact epoch at data 1, plain and
+        under ``tp_sums`` over the four model ranks (two to a KV head):
+        each leaf's move sets its limit, the twin's parameters and losses
+        are what the ranks are held to."""
+    lap = stamps("phase 18 references")
+    refs = {}
+    moe = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
+                              num_layers=DRIVER_MOE_LAYERS)
+    with deterministic(torch):
+        session = mesh_session(rt, moe, "exact", False, data=MOE_AXIS[0])
+        res = aux_epochs(torch, rt, session, "phase 18 moe exact reference")
+        plain = {k: v.detach() for k, v in session.params.items()}
+        del session
+        release(torch)
+        with tp_sums(torch, rt), moe_twin(torch, rt, MOE_AXIS[1]):
+            session = mesh_session(rt, moe, "exact", False,
+                                   data=MOE_AXIS[0])
+            twin = aux_epochs(torch, rt, session,
+                              "phase 18 moe exact twin")
+        moves = leaf_errs(torch, session.params, plain)
+        refs["moe_exact"] = {"losses": twin["losses"], "aux": twin["aux"],
+                             "plain_losses": res["losses"],
+                             "plain_aux": res["aux"], "moves": moves,
+                             "limits": check_order("phase 18 moe exact",
+                                                   moves)}
+        torch.save({k: v.detach().cpu() for k, v in session.params.items()},
+                   work / "moe18_twin.pt")
+        print(f"phase 18 reference moe exact ({DRIVER_MOE_LAYERS} layer, "
+              f"one process, {MOE_AXIS[0]} workers): losses "
+              f"{res['losses']} aux {res['aux']}; the twin's "
+              f"{twin['losses']} aux {twin['aux']}; peak_GiB "
+              f"{twin['peak_gib']:.2f} [{card_line()}]", flush=True)
+        del session, plain
+        release(torch)
+    lap("the MoE exact references done")
+    cut = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
+                              num_layers=MOE18_LAYERS)
+    for which, cfg, axis in (("moe", cut, MOE_AXIS), ("kv", full, KV_AXIS)):
+        reqs, slots, cache, seed = serve18(rt, cfg, which)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = rt.models.init_params(cfg, gen)
+        out = {}
+        if which == "moe":
+            engine = rt.serve.SlotEngine(params, cfg, slots=slots,
+                                         cache_len=cache)
+            drain(engine, reqs)
+            out["plain_tokens"] = [r.out_tokens for r in reqs]
+            del engine
+            reqs = serve18(rt, cfg, which)[0]
+        with rank_twin(torch, rt, cfg, axis[1], axis[0]):
+            engine = rt.serve.SlotEngine(params, cfg, slots=slots,
+                                         cache_len=cache)
+            out["cache_digests"] = drain18(
+                torch, engine, reqs,
+                cfg.num_kv_heads if which == "kv" else None)
+        out["twin_tokens"] = [r.out_tokens for r in reqs]
+        refs[f"{which}_serve"] = out
+        del engine, params
+        release(torch)
+        lap(f"the {which} serve twin done")
+    kv = dataclasses.replace(full, num_layers=MODEL_LAYERS)
+    with deterministic(torch):
+        session = mesh_session(rt, kv, "exact", False, data=KV_AXIS[0])
+        res = mesh_epochs(torch, rt, session, "phase 18 kv exact reference",
+                          1)
+        plain = {k: v.detach() for k, v in session.params.items()}
+        del session
+        release(torch)
+        with tp_sums(torch, rt, KV_AXIS[1]):
+            session = mesh_session(rt, kv, "exact", False, data=KV_AXIS[0])
+            twin = mesh_epochs(torch, rt, session, "phase 18 kv exact twin",
+                               1)
+        moves = leaf_errs(torch, session.params, plain)
+        torch.save({k: v.detach().cpu() for k, v in session.params.items()},
+                   work / "kv18_twin.pt")
+        del session, plain
+        release(torch)
+    refs["kv_exact"] = {"losses": twin["losses"],
+                        "plain_losses": res["losses"], "moves": moves,
+                        "limits": check_order("phase 18 kv exact", moves)}
+    print(f"phase 18 reference kv exact ({MODEL_LAYERS} layers, one "
+          f"process): losses {res['losses']}; the twin's over "
+          f"{KV_AXIS[1]} model ranks {twin['losses']} [{card_line()}]",
+          flush=True)
+    torch.save(refs, work / "axis18_refs.pt")
+    lap("the kv exact references done")
+
+
+def rank_moe_exact(torch, rt, dist, refs: dict, work: Path, lap) -> dict:
+    """qwen3-moe-30b-a3b at DRIVER_MOE_LAYERS over (data 2, model 2), one
+    exact epoch (FSDP x TP, the experts on "model") under deterministic
+    algorithms: 64 experts a rank; the bytes gathered and reduce-scattered
+    over "data" and the parameter and z / w0 blocks the dry-run's to the
+    byte; 15 ``dual_update`` launches on the blocks; the loss within
+    MESH_LOSS_TOL and aux within MOE18_AUX_RTOL of the twin's; each
+    gathered leaf within its limit of the twin's (rank 0)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract
+    rank = dist.get_rank()
+    label = f"phase 18 moe exact rank {rank}"
+    cfg = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
+                              num_layers=DRIVER_MOE_LAYERS)
+    mesh = rt.launch.mesh.make_host_mesh(*MOE_AXIS, device="cuda")
+    ref = refs["moe_exact"]
+    with deterministic(torch):
+        session = mesh_session(rt, cfg, "exact", mesh, MOE_AXIS[0],
+                               model=MOE_AXIS[1])
+        lap("the MoE exact session built")
+        res = aux_epochs(torch, rt, session, label)
+    lap("the MoE exact epoch done")
+    tp, g = session.tp, session.group
+    expect(label, res["launches"], {"dual_update": 15})
+    e0, e1 = tp.expert_range(cfg)
+    if e1 - e0 != cfg.num_experts // MOE_AXIS[1]:
+        fail(f"{label}: holds experts [{e0}, {e1})")
+    check_losses("phase 18 moe exact", rank, res["losses"], ref["losses"])
+    if abs(res["aux"][0] - ref["aux"][0]) > MOE18_AUX_RTOL * ref["aux"][0]:
+        fail(f"{label}: aux {res['aux']} vs the twin's {ref['aux']}")
+    amesh = abstract(MOE_AXIS, ("data", "model"))
+    moved = dryrun.rank_fsdp_bytes(cfg, amesh)
+    lay = dryrun._layout(cfg, rt.configs.InputShape(
+        "moe18", SEQ, MOE_AXIS[0] * PER_WORKER, "train"), amesh)
+    state = session.state
+    held = {"gathered_bytes": tp.gathered_bytes,
+            "scattered_bytes": tp.scattered_bytes,
+            "param_bytes_per_rank": nbytes(state["params"]),
+            "opt_state_bytes_per_rank": nbytes(state["opt"]["z"])
+            + nbytes(state["opt"]["w0"])}
+    want = dict(moved, **{k: lay[k] for k in ("param_bytes_per_rank",
+                                              "opt_state_bytes_per_rank")})
+    if held != want:
+        fail(f"{label}: {held}, the dry-run's {want}")
+    row = {"experts": [e0, e1], "epoch_s": res["epoch_s"],
+           "peak_gib": res["peak_gib"], "losses": res["losses"],
+           "aux": res["aux"], "launches": res["launches"],
+           "model_gathered_bytes": tp.model_gathered_bytes,
+           "reduced_bytes": tp.reduced_bytes, **held}
+    print(f"  {label} (worker {g.worker}, model {g.m}): experts [{e0}, "
+          f"{e1}); gathered {held['gathered_bytes']} B and "
+          f"reduce-scattered {held['scattered_bytes']} B over \"data\" (the "
+          f"dry-run's), blocks {held['param_bytes_per_rank']} B and fp32 z "
+          f"and w0 {held['opt_state_bytes_per_rank']} B (the dry-run's); "
+          f"router logits gathered {tp.model_gathered_bytes} B; epoch_s "
+          f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} losses {res['losses']} aux {res['aux']} "
+          f"(the twin's {ref['losses']}, {ref['aux']}); dual_update "
+          f"{res['launches'].get('dual_update', 0)} [{card_line()}]",
+          flush=True)
+    whole = session.params
+    if rank == 0:
+        twin = torch.load(work / "moe18_twin.pt")
+        row["limit_share"] = check_leaves(
+            "phase 18 moe exact (the ranks against the twin)",
+            leaf_errs(torch, whole, twin), ref["limits"])
+        del twin
+    del session, state, whole
+    release(torch)
+    lap("the MoE exact checks done")
+    return row
+
+
+def rank_serve18(torch, rt, dist, refs: dict, which: str, lap) -> dict:
+    """The slot engine alone over a group, clock-free (``drain``): ``moe``
+    is qwen3-moe-30b-a3b at MOE18_LAYERS over (data 2, model 2), ``kv``
+    qwen2-1.5b at full depth over (data 1, model 4).  Each rank's blocks
+    from the seed (``init_shards``, the serving layout); the greedy tokens
+    equal to the twin's (``rank_twin``); ``kv``: each rank's caches after
+    the first decode round equal, by digest, its KV head's of the twin
+    (so the two ranks of a head hold equal caches); the flash launches a
+    request on its worker's ranks, all on the tensor cores at the rank's
+    shape; per rank the prefill seconds, the decode round's ms (p50,
+    p99) and the bytes it summed over "model" and gathered (the
+    router's logits and the slot rows over "data"; a KV head's columns)."""
+    rank = dist.get_rank()
+    router = rt.kernels.router
+    label = f"phase 18 {which} serve rank {rank}"
+    if which == "moe":
+        cfg = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
+                                  num_layers=MOE18_LAYERS)
+        axis, shape = MOE_AXIS, FLASH_MOE_RANK
+    else:
+        cfg, axis, shape = rt.configs.get_config("qwen2-1.5b"), KV_AXIS, \
+            FLASH_KV_RANK
+    ref = refs[f"{which}_serve"]
+    reqs, slots, cache, seed = serve18(rt, cfg, which)
+    mesh = rt.launch.mesh.make_host_mesh(*axis, device="cuda")
+    group = rt.dist.group.WorkerGroup(mesh, "cuda")
+    shapes = {k: v.shape for k, v in rt.models.init_params(
+        cfg, rt.models.common.MetaGenerator()).items()}
+    tp = rt.dist.tp.TensorParallel(group, shapes, None, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = rt.dist.params.init_shards(cfg, gen, mesh,
+                                        mesh.get_coordinate(), None)
+    lap(f"the {which} serving blocks drawn")
+    torch.cuda.reset_peak_memory_stats()
+    engine = rt.serve.SlotEngine(params, cfg, slots=slots, cache_len=cache,
+                                 group=group, tp=tp)
+    probe = EngineProbe(torch, rt, engine, lambda: (
+        tp.reduced_bytes, tp.model_gathered_bytes
+        + group.rows_gathered_bytes))
+    with probe.watch():
+        digests = drain18(torch, engine, reqs,
+                          1 if which == "kv" else None)
+    launches = router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lap(f"the {which} requests served")
+    tokens = [r.out_tokens for r in reqs]
+    if tokens != ref["twin_tokens"]:
+        fail(f"{label}: greedy tokens differ from the one-process twin's "
+             f"(rank_twin): {tokens} vs {ref['twin_tokens']}")
+    if which == "kv":
+        h = group.m // tp.kv_share
+        if as_json(digests[0]) != as_json(ref["cache_digests"][h]):
+            fail(f"{label}: its caches after the first round differ from "
+                 f"KV head {h}'s of the twin")
+    differ = None
+    if "plain_tokens" in ref:
+        differ = sum(a != b for x, y in zip(tokens, ref["plain_tokens"])
+                     for a, b in zip(x, y))
+    per_req = cfg.num_layers
+    owned = probe.check_flash(label, reqs, per_req, shape, launches)
+    rank_shape = tuple(shape[x] for x in ("b", "h", "kv", "hd"))
+    rounds = probe.rounds()
+    row = {"owned": owned, "flash_per_request": per_req,
+           "prefill_s": probe.prefill_s,
+           "decode_rounds": rounds["decode_rounds"],
+           "round_ms_p50": rounds["round_ms_p50"],
+           "round_ms_p99": rounds["round_ms_p99"],
+           "reduced_bytes_per_round": rounds["bytes_per_round"][0],
+           "gathered_bytes_per_round": rounds["bytes_per_round"][1],
+           "peak_gib": peak, "tokens_differing_from_plain": differ,
+           "launches": launches}
+    print(f"  {label} (worker {group.worker}, model {group.m}): greedy "
+          f"tokens equal to the twin's"
+          + (f"; {differ} of {sum(map(len, tokens))} differ from the plain "
+             f"engine's" if differ is not None else
+             f"; caches equal to KV head {group.m // tp.kv_share}'s of the "
+             f"twin")
+          + f"; flash {per_req} a request on the tensor cores at (B, H, KV, "
+          f"hd) {rank_shape} x {owned} requests; prefill_s "
+          f"{[round(x, 4) for x in probe.prefill_s]}; decode rounds "
+          f"{row['decode_rounds']}, "
+          f"ms p50 {row['round_ms_p50']:.2f} p99 {row['round_ms_p99']:.2f}; "
+          f"{row['reduced_bytes_per_round']} B summed over \"model\" and "
+          f"{row['gathered_bytes_per_round']} B gathered a round; peak_GiB "
+          f"{peak:.2f} [{card_line()}]", flush=True)
+    del engine, params
+    release(torch)
+    return row
+
+
+def rank_kv_exact(torch, rt, dist, refs: dict, work: Path, lap) -> dict:
+    """qwen2-1.5b at MODEL_LAYERS over (data 1, model 4), one exact epoch
+    under deterministic algorithms (the KV gather's backward: the two
+    ranks of a head sum their gradients of its columns): 15
+    ``dual_update`` launches on the blocks, the loss within
+    MESH_LOSS_TOL of the twin's (``tp_sums`` over four model ranks) and
+    each gathered leaf within its ``order_limits`` of the twin's (rank
+    0)."""
+    rank = dist.get_rank()
+    label = f"phase 18 kv exact rank {rank}"
+    cfg = dataclasses.replace(rt.configs.get_config("qwen2-1.5b"),
+                              num_layers=MODEL_LAYERS)
+    mesh = rt.launch.mesh.make_host_mesh(*KV_AXIS, device="cuda")
+    ref = refs["kv_exact"]
+    with deterministic(torch):
+        session = mesh_session(rt, cfg, "exact", mesh, KV_AXIS[0],
+                               model=KV_AXIS[1])
+        res = mesh_epochs(torch, rt, session, label, 1)
+    lap("the kv exact epoch done")
+    tp = session.tp
+    expect(label, res["launches"], {"dual_update": 15})
+    check_losses("phase 18 kv exact", rank, res["losses"], ref["losses"])
+    row = {"epoch_s": res["epoch_s"], "peak_gib": res["peak_gib"],
+           "losses": res["losses"], "launches": res["launches"],
+           "kv_share": tp.kv_share,
+           "model_gathered_bytes": tp.model_gathered_bytes,
+           "reduced_bytes": tp.reduced_bytes}
+    print(f"  {label} (model {session.group.m}, KV head "
+          f"{session.group.m // tp.kv_share} of {tp.kv_share} ranks): "
+          f"epoch_s {[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} losses {res['losses']} (the twin's "
+          f"{ref['losses']}); KV columns gathered {tp.model_gathered_bytes} "
+          f"B, {tp.reduced_bytes} B summed over \"model\"; dual_update "
+          f"{res['launches'].get('dual_update', 0)} [{card_line()}]",
+          flush=True)
+    whole = session.params
+    if rank == 0:
+        twin = torch.load(work / "kv18_twin.pt")
+        row["limit_share"] = check_leaves(
+            "phase 18 kv exact (the ranks against the twin)",
+            leaf_errs(torch, whole, twin), ref["limits"])
+        del twin
+    del session, whole
+    release(torch)
+    return row
+
+
+def rank_axis18(torch, rt, dist, work: Path) -> None:
+    """Phase 18's turn of the gloo launch, once the parent's references
+    are written: the MoE exact epoch and the MoE engine over (data 2,
+    model 2), then over a second mesh on the same ranks, (data 1, model
+    4), qwen2-1.5b's engine at full depth and an exact epoch; each rank's
+    results to ``axis18_rank<r>.json``."""
+    rank = dist.get_rank()
+    lap = stamps("phase 18 rank 0", rank)
+    refs = torch.load(work / "axis18_refs.pt")
+    out = {"moe exact": rank_moe_exact(torch, rt, dist, refs, work, lap)}
+    for which in ("moe", "kv"):
+        out[f"{which} serve"] = rank_serve18(torch, rt, dist, refs, which,
+                                             lap)
+    out["kv exact"] = rank_kv_exact(torch, rt, dist, refs, work, lap)
+    (work / f"axis18_rank{rank}.json").write_text(json.dumps(out))
+
+
+def axis18_after(work: Path) -> dict:
+    """Phase 18 after the gloo ranks: their rows and launch counts."""
+    ranks = [json.loads((work / f"axis18_rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    launches = {f"{run} rank {r}": res[run]["launches"]
+                for r, res in enumerate(ranks) for run in res}
+    print(f"phase 18: every rank's checks held; launches "
+          f"{json.dumps(launches)} [{card_line()}]", flush=True)
+    return {"launches": launches, "ranks": ranks}
+
+
 def rank_gloo(torch, rt, dist, work: Path) -> None:
-    """The four gloo ranks of phases 14 to 17 in one launch, each phase's
+    """The four gloo ranks of phases 14 to 18 in one launch, each phase's
     sessions building their meshes over the one group: ``rank_gloo4``,
-    ``rank_drivers``, ``rank_model`` and ``rank_serve`` in turn, each once
-    the parent's steps before it are done (``wait_parent``), a barrier
-    after each; rank 0 prints when each ended."""
+    ``rank_drivers``, ``rank_model``, ``rank_serve`` and ``rank_axis18``
+    in turn, each once the parent's steps before it are done
+    (``wait_parent``), a barrier after each; rank 0 prints when each
+    ended and writes ``done<phase>`` (the parent's phase-18 references
+    wait for phase 16's)."""
     t0 = time.perf_counter()
     for phase, fn in ((14, rank_gloo4), (15, rank_drivers),
-                      (16, rank_model), (17, rank_serve)):
+                      (16, rank_model), (17, rank_serve),
+                      (18, rank_axis18)):
         wait_parent(work, dist.get_rank(), phase)
         fn(torch, rt, dist, work)
         release(torch)
         dist.barrier()
         if dist.get_rank() == 0:
+            (work / f"done{phase}").write_text("1")
             print(f"rank phase gloo: phase {phase}'s ranks done at "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -6565,14 +7233,19 @@ def rank_gloo(torch, rt, dist, work: Path) -> None:
 RANK_PHASES = {"gloo": rank_gloo}
 
 
-def run_rank_phases(torch, rt, ops, full, beta: float, stamp) -> tuple:
-    """Phases 14 to 17 around one launch of four gloo ranks
+def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
+                    beside14, beside17) -> tuple:
+    """Phases 14 to 18 around one launch of four gloo ranks
     (``rank_gloo``), started first: phases 14 to 16's parent steps before
     the ranks (the references, the NCCL rank) run while the ranks come
-    up, phase 17's while the ranks run phases 14 to 16 (each phase's
-    ranks start once ``parent_ready`` says its steps are done); then each
-    phase's parent steps after them, ``stamp(phase)`` as each ends.
-    Returns (phase 14's, 15's, 16's and 17's results)."""
+    up; phase 17's references and ``beside14()`` (a part of an earlier
+    phase that fits beside phase 14's ranks on the card) while the ranks
+    run phase 14; phase 18's references once the ranks have ended phase
+    16, then ``beside17()`` (other parts) while they run phases 17 and
+    18 (each phase's ranks start once ``parent_ready`` says its steps are
+    done); then each phase's parent steps after them, ``stamp(phase)`` as
+    each ends.  Returns (phase 14's, 15's, 16's, 17's and 18's
+    results)."""
     release(torch)
     work = Path(tempfile.mkdtemp(prefix="ranks-", dir=ROOT / "build"))
     t0 = time.perf_counter()
@@ -6585,15 +7258,30 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp) -> tuple:
             t15 = time.perf_counter()
             digests = model_before(torch, rt, full, work)
             t16 = time.perf_counter()
-            # phase 15's references peak near 50 GiB: they cannot share
-            # the card with phase 14's ranks, so phases 14 to 16 start
-            # together; phase 17's references (about 5 GiB) run beside
-            # the ranks
-            for phase in (14, 15, 16):
-                parent_ready(work, phase)
+            # phase 14's ranks hold near 58 GiB together: phase 17's
+            # references (about 5 GiB) and ``beside14`` (under 12 GiB) run
+            # beside them; phase 15's ranks (peaks near 70 GiB) start
+            # after those, and phase 15's references (near 50 GiB) ran
+            # before
+            parent_ready(work, 14)
             serve_references(torch, rt, full, work)
             parent_ready(work, 17)
             t17 = time.perf_counter()
+            beside14()
+            release(torch)
+            for phase in (15, 16):
+                parent_ready(work, phase)
+            t17b = time.perf_counter()
+            wait_parent(work, 0, "done16")
+            t17c = time.perf_counter()
+            axis18_references(torch, rt, full, work)
+            parent_ready(work, 18)
+            t18 = time.perf_counter()
+            # phases 17 and 18's ranks peak under 30 GiB together
+            # (``beside17``: under 25 GiB)
+            beside17()
+            release(torch)
+            t18b = time.perf_counter()
         except BaseException:
             stop_ranks("gloo", proc)
             raise
@@ -6609,18 +7297,25 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp) -> tuple:
              for kind in ("exact", "gossip")})
         stamp(16)
         served = serve_after(torch, rt, work)
+        stamp(17)
+        axis18 = axis18_after(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t_end = time.perf_counter()
-    print(f"phases 14 to 17 (one process per worker, the drivers, a model "
-          f"axis, serving over it): {t_end - t0:.1f} s; the parent before "
+    print(f"phases 14 to 18 (one process per worker, the drivers, a model "
+          f"axis, serving over it, the MoE family and more model ranks "
+          f"than KV heads): {t_end - t0:.1f} s; the parent before "
           f"the gloo ranks {t14 - t0:.1f} s (phase 14, the NCCL rank "
           f"included), {t15 - t14:.1f} (15), {t16 - t15:.1f} (16), the "
-          f"ranks coming up meanwhile; phase 17's references "
-          f"{t17 - t16:.1f} while the ranks ran; the ranks after the "
-          f"parent's steps {t_ranks - t16:.1f}; the parent after them "
+          f"ranks coming up meanwhile; while the ranks ran, phase 17's "
+          f"references {t17 - t16:.1f} and the phase beside phase 14's "
+          f"ranks {t17b - t17:.1f}, then phase 18's references "
+          f"{t18 - t17c:.1f} (after waiting {t17c - t17b:.1f} for phase "
+          f"16's ranks) and the phase beside phases 17 and 18's ranks "
+          f"{t18b - t18:.1f}; the ranks after the parent's steps "
+          f"{t_ranks - t18b:.1f}; the parent after them "
           f"{t_end - t_ranks:.1f}", flush=True)
-    return mesh, ranks15, model_axis, served
+    return mesh, ranks15, model_axis, served, axis18
 
 
 def time_quantized_block(torch, rt, ops, d: int) -> dict:
@@ -6771,9 +7466,10 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     t_start = time.perf_counter()
 
-    def stamp(phase: int) -> None:
-        print(f"phase {phase} ended at {time.perf_counter() - t_start:.1f} "
-              f"s of the command", flush=True)
+    def stamp(phase: int, what: str = "") -> None:
+        print(f"phase {phase}{what} ended at "
+              f"{time.perf_counter() - t_start:.1f} s of the command",
+              flush=True)
 
     t0 = time.perf_counter()
     names = build.sources()
@@ -6808,6 +7504,12 @@ def main() -> int:
     flash_zoo += check_flash_zamba(torch, ops, rt.kernels.flash_attention)
     flash_zoo += check_flash_whisper(torch, ops, rt.kernels.flash_attention)
     flash_zoo += check_flash_rank(torch, ops, rt.kernels.flash_attention)
+    flash_zoo += check_flash_rank(torch, ops, rt.kernels.flash_attention,
+                                  FLASH_MOE_RANK, FLASH18_SEQS,
+                                  "qwen3-moe-30b-a3b over (data 2, model 2)")
+    flash_zoo += check_flash_rank(torch, ops, rt.kernels.flash_attention,
+                                  FLASH_KV_RANK, FLASH18_SEQS,
+                                  "qwen2-1.5b over (data 1, model 4)")
     gcomb["per_rank"] = check_gossip_combine_rank(
         torch, ops, ref, GossipConsensus,
         rt.kernels.gossip_combine.own_row_table, dense_param_count(
@@ -6866,15 +7568,24 @@ def main() -> int:
         full, num_layers=RESTORE_LAYERS))
     coded_launches = {k: r["launches"] for k, r in coded.items()}
     stamp(9)
-    served = {"qwen2-1.5b": run_serve(torch, rt, SERVE_ARGV),
-              "rwkv6-3b": run_serve(torch, rt, SERVE_RWKV_ARGV)}
+    # whisper (phase 13), qwen2-1.5b's serve CLI (phase 10) and zamba2's
+    # (phase 12) run beside the gloo ranks (``run_rank_phases``), where
+    # the card has room and the parent would wait: whisper (11 GiB) beside
+    # phase 14's ranks (near 58 GiB in use, and busy on the card: a serve
+    # CLI there left no idle time to absorb a fine-tune epoch in), the two
+    # serve CLIs (22 and 13 GiB) beside phases 17 and 18's (under 40 GiB,
+    # bound by gloo's host round trips); the rest of those phases
+    # (rwkv6-3b's 37 GiB serve CLI, zamba2's session and its prox timing,
+    # internvl2's 59 GiB engine) in turn here
+    served = {"rwkv6-3b": run_serve(torch, rt, SERVE_RWKV_ARGV)}
     stamp(10)
     cli_launches = {k: r["launches"] for k, r in cli["runs"].items()}
     moe_cut = dataclasses.replace(rt.configs.get_config(MOE_ARCH),
                                   num_layers=MOE_LAYERS)
     zoo = {"serve qwen3-moe": run_engine_serve(
-        torch, rt, rt.configs.get_config(MOE_ARCH), SERVE_REQUESTS,
-        SERVE_NEW, 2.0, 1),
+        torch, rt, dataclasses.replace(rt.configs.get_config(MOE_ARCH),
+                                       num_layers=MOE_ENGINE_LAYERS),
+        SERVE_REQUESTS, SERVE_NEW, 2.0, 1),
            "serve cli qwen3-moe": run_serve(torch, rt, MOE_SERVE_ARGV,
                                             cfg=moe_cut)}
     zoo["session qwen3-moe"], moe_du_err = run_moe_session(
@@ -6882,21 +7593,33 @@ def main() -> int:
     du_err = max(du_err, moe_du_err)
     zoo["qwen3-8b long_500k"] = run_long_context(torch, rt)["launches"]
     stamp(11)
-    zoo[f"serve cli {ZAMBA_ARCH}"] = run_serve(torch, rt, SERVE_ZAMBA_ARGV)
     zoo[f"session {ZAMBA_ARCH}"], zamba_du_err = run_zamba_session(
         torch, rt, beta)
     du_err = max(du_err, zamba_du_err)
     stamp(12)
-    zoo[f"serve {WHISPER_ARCH}"] = run_whisper_serve(torch, rt)
-    zoo[f"session {WHISPER_ARCH}"] = run_whisper_session(torch, rt)
     zoo[f"serve {VLM_ARCH} {VLM_LAYERS} layers"] = run_engine_serve(
         torch, rt, dataclasses.replace(rt.configs.get_config(VLM_ARCH),
                                        num_layers=VLM_LAYERS),
         VLM_REQUESTS, VLM_NEW, VLM_GAP_S, 2)
     stamp(13)
-    mesh, ranks15, model_axis, served17 = run_rank_phases(
-        torch, rt, ops, full, beta, stamp)
-    stamp(17)
+
+    def beside14() -> None:
+        zoo[f"serve {WHISPER_ARCH}"] = run_whisper_serve(torch, rt)
+        zoo[f"session {WHISPER_ARCH}"] = run_whisper_session(torch, rt)
+        stamp(13, ": whisper beside phase 14's ranks")
+
+    def beside17() -> None:
+        served["qwen2-1.5b"] = run_serve(torch, rt, SERVE_ARGV)
+        stamp(10, ": qwen2-1.5b's serve CLI beside phases 17 and 18's "
+                  "ranks")
+        release(torch)
+        zoo[f"serve cli {ZAMBA_ARCH}"] = run_serve(torch, rt,
+                                                   SERVE_ZAMBA_ARGV)
+        stamp(12, ": zamba2's serve CLI beside phases 17 and 18's ranks")
+
+    mesh, ranks15, model_axis, served17, axis18 = run_rank_phases(
+        torch, rt, ops, full, beta, stamp, beside14, beside17)
+    stamp(18)
     du[torch.float32]["model_axis"] = model_axis["dual_update"]
     squant["model_axis"] = model_axis["stochastic_quantize"]
     qcomb["model_axis"] = model_axis["quantized_combine"]
@@ -6905,7 +7628,8 @@ def main() -> int:
         return sum(c.get(name, 0) for group in (
             runs, served, sim["launches"], cli_launches, drivers,
             coded_launches, zoo, mesh["launches"], ranks15["launches"],
-            model_axis["launches"], served17["launches"])
+            model_axis["launches"], served17["launches"],
+            axis18["launches"])
             for c in group.values())
 
     def per_epoch(name):
@@ -6939,6 +7663,9 @@ def main() -> int:
                     launches_serve_group={
                         a: c.get(name, 0)
                         for a, c in served17["launches"].items()},
+                    launches_moe_kv_axis={
+                        a: c.get(name, 0)
+                        for a, c in axis18["launches"].items()},
                     max_abs_err=err,
                     **timing)
 

@@ -77,8 +77,13 @@ at a time), and each rank cuts its blocks from what it reads back
 (:class:`repro_torch.dist.tp.CheckpointBlocks`), so a checkpoint carries
 between one process and ranks at any (data, model).  Serving reads the
 primal as ``serving_params()`` under ``serving_tp``, the TP-only layout
-(``fsdp_axis=None``).  The other families and a model extent that does
-not divide the heads raise, naming ROADMAP.md's module item 4a.5.
+(``fsdp_axis=None``).  The MoE family runs the exact and gossip epochs,
+serving and checkpoints so, its experts on "model"
+(:func:`repro_torch.models.moe.moe_forward`).  More model ranks than KV
+heads run too: the ranks that share a head hold its columns and gather
+them (:meth:`repro_torch.dist.tp.TensorParallel.gather_kv`).  The other
+families and a model extent that does not divide the query heads raise,
+naming ROADMAP.md's module item 4a.5.
 """
 from __future__ import annotations
 
@@ -271,7 +276,7 @@ class AMBSession:
             else init_params(self.cfg, MetaGenerator())
         self.tp = TensorParallel(
             self.group, {k: v.shape for k, v in shapes.items()},
-            None if self._decentralized else "data")
+            None if self._decentralized else "data", self.cfg)
         coord = self.mesh.get_coordinate()
         if params is not None:
             return shard_tree(params, self.mesh, coord, self.tp.fsdp_axis)
@@ -600,7 +605,7 @@ class AMBSession:
             return self.tp
         if self._serving_tp is None:
             self._serving_tp = TensorParallel(self.group, self.tp.shapes,
-                                              None)
+                                              None, self.cfg)
         return self._serving_tp
 
     def serving_params(self) -> dict:

@@ -39,6 +39,7 @@ carries between one process and ranks at any (data, model).
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import struct
@@ -67,30 +68,61 @@ def _leaves(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
-def _to_numpy(leaf) -> tuple:
+class _Stage:
+    """One host buffer that a save copies each device leaf into, kept
+    and grown to the largest leaf, so that no leaf faults fresh pages
+    in."""
+
+    def __init__(self):
+        self.buf = torch.empty(0, dtype=torch.uint8)
+
+    def host(self, leaf: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``leaf`` (as is, if it is on the host), a view
+        of the buffer valid until the next call."""
+        if leaf.device.type == "cpu":
+            return leaf
+        n = leaf.numel() * leaf.element_size()
+        if self.buf.numel() < n:
+            self.buf = torch.empty(0, dtype=torch.uint8)
+            self.buf = torch.empty(n, dtype=torch.uint8)
+        return self.buf[:n].view(leaf.dtype).view(leaf.shape).copy_(leaf)
+
+
+def _to_numpy(leaf, stage: _Stage) -> tuple:
     """(array, manifest dtype) of one leaf; bf16 as its uint16 bits."""
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach()
+        leaf = stage.host(leaf.detach())
         if leaf.dtype == torch.bfloat16:
-            return leaf.view(torch.int16).cpu().numpy().view(np.uint16), _BF16
-        arr = leaf.cpu().numpy()
+            return leaf.view(torch.int16).numpy().view(np.uint16), _BF16
+        arr = leaf.numpy()
     else:
         arr = np.asarray(leaf)
     return arr, str(arr.dtype)
+
+
+def _write_array(f, arr: np.ndarray) -> None:
+    """``arr`` as a .npy member: its header, then its bytes in one
+    write."""
+    arr = np.asarray(arr)
+    if not arr.flags.c_contiguous:
+        arr = arr.copy(order="C")
+    np.lib.format.write_array_header_1_0(
+        f, np.lib.format.header_data_from_array_1_0(arr))
+    f.write(memoryview(arr.reshape(-1)).cast("B"))
 
 
 def _is_row_leaf(key: str, row_keys) -> bool:
     return key.split("/", 1)[0] in row_keys
 
 
-def _write_rows(f, group, row: torch.Tensor) -> str:
+def _write_rows(f, group, row: torch.Tensor, stage: _Stage) -> str:
     """Rank 0's side of a per-worker leaf (``row``: its own worker's row):
     the .npy header of the (n, ...) array, then every worker's row as it
     arrives; returns the manifest dtype."""
     dtype = {}
 
     def sink(worker: int, row: torch.Tensor) -> None:
-        arr, dtype["name"] = _to_numpy(row)
+        arr, dtype["name"] = _to_numpy(row, stage)
         if worker == 0:
             np.lib.format.write_array_header_1_0(f, {
                 "descr": np.lib.format.dtype_to_descr(arr.dtype),
@@ -137,6 +169,7 @@ def save_checkpoint(directory: str | os.PathLike, step: int,
     try:
         # np.savez's archive (stored, zip64 members ``<key>.npy``), written
         # leaf by leaf
+        stage = _Stage()
         with zipfile.ZipFile(tmp / "arrays.npz", "w", zipfile.ZIP_STORED,
                              allowZip64=True) as zf:
             for key, leaf in _leaves(tree):
@@ -144,12 +177,13 @@ def save_checkpoint(directory: str | os.PathLike, step: int,
                 with zf.open(f"{key}.npy", "w", force_zip64=True) as f:
                     if is_row:
                         manifest["leaves"][key] = _write_rows(f, group,
-                                                              whole)
+                                                              whole, stage)
                         continue
-                    arr, manifest["leaves"][key] = _to_numpy(whole)
-                    np.lib.format.write_array(f, np.asanyarray(arr))
+                    arr, manifest["leaves"][key] = _to_numpy(whole, stage)
+                    _write_array(f, arr)
                     del arr
                 del whole
+        del stage
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         final = directory / f"step_{step:08d}"
         if final.exists():
@@ -171,23 +205,68 @@ def latest_step(directory: str | os.PathLike) -> Optional[int]:
 
 
 class _Reader:
-    """The leaves of ``<directory>/step_<step:08d>`` as host tensors."""
+    """The leaves of ``<directory>/step_<step:08d>`` as host tensors.
+
+    A stored member (every member the port writes) is read by its offset
+    in the archive straight into one host buffer that the reader keeps
+    and reuses (grown to the largest leaf read), so a restore faults no
+    fresh pages in and runs no CRC pass leaf by leaf; what a read returns
+    is a view of that buffer, valid until the next read.  A compressed
+    member goes through numpy, whole."""
 
     def __init__(self, directory, step: int):
         d = Path(directory) / f"step_{step:08d}"
         self.manifest = json.loads((d / "manifest.json").read_text())
         self.path = d / "arrays.npz"
         self.data = np.load(self.path)
+        self._stage = np.empty(0, np.uint8)
 
     def _tensor(self, key: str, arr: np.ndarray) -> torch.Tensor:
         if self.manifest["leaves"][key] == _BF16:
             return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         return torch.from_numpy(arr)
 
+    def _array(self, key: str, r: Optional[int] = None) -> np.ndarray:
+        """Member ``key`` (its row ``r`` of the (n, ...) array), read into
+        the reused buffer when the member is stored."""
+        info = self.data.zip.getinfo(f"{key}.npy")
+        if info.compress_type != zipfile.ZIP_STORED:
+            arr = self.data[key]
+            return arr if r is None else arr[r]
+        with open(self.path, "rb") as f:
+            f.seek(info.header_offset + 26)
+            name_len, extra_len = struct.unpack("<HH", f.read(4))
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            shape, fortran, dtype = (
+                np.lib.format.read_array_header_1_0(f) if version ==
+                (1, 0) else np.lib.format.read_array_header_2_0(f))
+            if fortran and r is None:
+                return self.data[key]
+            if r is not None:
+                if fortran or not 0 <= r < shape[0]:
+                    raise ValueError(f"{key}: no row {r} in a stored "
+                                     f"{shape} array (fortran {fortran})")
+                shape = shape[1:]
+                f.seek(r * math.prod(shape) * dtype.itemsize, os.SEEK_CUR)
+            nbytes = math.prod(shape) * dtype.itemsize
+            if self._stage.size < nbytes:
+                self._stage = np.empty(0, np.uint8)
+                self._stage = np.empty(nbytes, np.uint8)
+            view = memoryview(self._stage[:nbytes])
+            got = 0
+            while got < nbytes:
+                k = f.readinto(view[got:])
+                if not k:
+                    raise ValueError(f"{key}: the archive ends inside the "
+                                     f"member")
+                got += k
+        return self._stage[:nbytes].view(dtype).reshape(shape)
+
     def __call__(self, key: str, leaf, cut=None) -> torch.Tensor:
         """Leaf ``key`` (``cut`` of it), checked against the shape of
         ``leaf``."""
-        got = self._tensor(key, self.data[key])
+        got = self._tensor(key, self._array(key))
         if cut is not None:
             got = cut(key, got)
         shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
@@ -200,32 +279,7 @@ class _Reader:
         """Row ``r`` of the (n, ...) leaf ``key`` (``cut`` of it), read by
         its offset in the stored member, checked against the (1, ...)
         ``leaf``."""
-        info = self.data.zip.getinfo(f"{key}.npy")
-        if info.compress_type != zipfile.ZIP_STORED:
-            arr = self.data[key][r]          # a compressed member: whole
-        else:
-            with open(self.path, "rb") as f:
-                f.seek(info.header_offset + 26)
-                name_len, extra_len = struct.unpack("<HH", f.read(4))
-                f.seek(info.header_offset + 30 + name_len + extra_len)
-                version = np.lib.format.read_magic(f)
-                shape, fortran, dtype = (
-                    np.lib.format.read_array_header_1_0(f) if version ==
-                    (1, 0) else np.lib.format.read_array_header_2_0(f))
-                if fortran or not 0 <= r < shape[0]:
-                    raise ValueError(f"{key}: no row {r} in a stored "
-                                     f"{shape} array (fortran {fortran})")
-                arr = np.empty(shape[1:], dtype)
-                view = memoryview(arr.reshape(-1)).cast("B")
-                f.seek(r * view.nbytes, os.SEEK_CUR)
-                got = 0
-                while got < view.nbytes:
-                    k = f.readinto(view[got:])
-                    if not k:
-                        raise ValueError(f"{key}: the archive ends inside "
-                                         f"row {r}")
-                    got += k
-        got = self._tensor(key, arr)
+        got = self._tensor(key, self._array(key, r))
         if cut is not None:
             got = cut(key, got)
         want = tuple(leaf.shape[1:])
@@ -246,12 +300,12 @@ def load_checkpoint(directory: str | os.PathLike, step: int,
     read = _Reader(directory, step)
 
     def leaf_of(key, leaf):
-        got = read(key, leaf)
+        got = read(key, leaf)             # a view of the reader's buffer
         if isinstance(leaf, torch.Tensor):
-            return got.to(device=leaf.device, dtype=leaf.dtype)
+            return got.to(device=leaf.device, dtype=leaf.dtype, copy=True)
         if isinstance(leaf, (bool, int, float)):
             return type(leaf)(got.item())
-        return got.numpy()
+        return got.numpy().copy()
 
     def rebuild(tree, prefix: str = ""):
         if tree is None:

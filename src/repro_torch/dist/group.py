@@ -27,8 +27,11 @@ steps need of it:
     rank 0, one row at a time (the checkpoint streams them to disk);
   * serving over the group: :meth:`WorkerGroup.gather_ranks`, every
     rank's block of a decode round's logits (its worker's slot rows, its
-    model coordinate's columns), and :meth:`WorkerGroup.lead_float`, rank
-    0's clock reading on every rank.
+    model coordinate's columns), :meth:`WorkerGroup.gather_rows`, every
+    worker's slot rows of a decode round's MoE input, and
+    :meth:`WorkerGroup.lead_float`, rank 0's clock reading on every rank;
+  * :meth:`WorkerGroup.head_groups`: the subgroups of a worker's model
+    ranks that share one KV head (more model ranks than KV heads).
 
 With M > 1 the sums, the gathers and the wire run among the ranks at this
 rank's model coordinate, one per worker: worker j's peer is rank ``j * M
@@ -141,6 +144,8 @@ class WorkerGroup:
         self.staged_bytes = 0
         self.grid_reductions = 0
         self._pinned: dict = {}
+        self._subgroups: dict = {}
+        self.rows_gathered_bytes = 0
 
     def rank_of(self, worker: int) -> int:
         """The global rank of ``worker`` at this rank's model
@@ -331,6 +336,36 @@ class WorkerGroup:
         for j in range(1, self.n):
             self.exchange(got.view(-1), [], [(j, j, got.view(-1))])
             sink(j, got)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every worker's rows of ``x`` (one shape on each), concatenated
+        along dim 0 in worker order, over the ranks at this model
+        coordinate: a decode round's MoE input, which JAX dispatches as
+        one group over every slot."""
+        parts = [torch.empty_like(x) for _ in range(self.n)]
+        dist.all_gather(parts, x.contiguous(), group=self.worker_pg)
+        self.rows_gathered_bytes += x.numel() * x.element_size() \
+            * (self.n - 1)
+        return torch.cat(parts, dim=0)
+
+    def head_groups(self, share: int):
+        """The process group of the ``share`` model ranks of this worker
+        that hold one KV head between them (model coordinates ``h share``
+        to ``h share + share - 1``).  Made once per ``share``: every rank
+        builds every worker's groups, in order, on its first call, which
+        every rank makes at one point (building a tensor-parallel
+        layout)."""
+        key = ("heads", share)
+        if key not in self._subgroups:
+            mine = None
+            for j in range(self.n):
+                for h in range(self.model // share):
+                    pg = dist.new_group([j * self.model + h * share + i
+                                         for i in range(share)])
+                    if j == self.worker and h == self.m // share:
+                        mine = pg
+            self._subgroups[key] = mine
+        return self._subgroups[key]
 
     def gather_ranks(self, block: torch.Tensor) -> list:
         """Every rank's ``block`` (one shape and dtype on every rank), in

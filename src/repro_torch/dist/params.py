@@ -201,10 +201,26 @@ def init_shards(cfg, generator: torch.Generator, mesh, coord,
     """This coordinate's blocks of ``init_params(cfg, generator)``: each
     leaf is drawn whole, in ``init_params``' order (so the generator
     stream is the same), and only its block is kept, so at most one whole
-    leaf is live.  The dense family (``models.param_plan``)."""
+    leaf is live; an expert leaf (``models.moe.Layered``) is drawn a
+    layer at a time, and only the layer's block is kept, so its stack is
+    never whole.  The dense and MoE families (``models.param_plan``)."""
     from ..models.model import ordered, param_plan
+    from ..models.moe import Layered
     out = {}
     for name, make in param_plan(cfg):
+        if isinstance(make, Layered):
+            shape = (make.layers,) + make.shape
+            spec = param_spec(name, shape, mesh, fsdp_axis)
+            sl = block_slices(spec, shape, mesh, coord)
+            block = torch.empty(tuple(n for _, n in sl), dtype=make.dtype,
+                                device=generator.device)
+            for layer in range(make.layers):
+                one = make.layer(generator)
+                block[layer] = one[tuple(slice(a, a + n)
+                                         for a, n in sl[1:])]
+                del one
+            out[name] = block
+            continue
         leaf = make(generator)
         out[name] = shard_leaf(leaf, param_spec(name, leaf.shape, mesh,
                                                 fsdp_axis), mesh, coord)

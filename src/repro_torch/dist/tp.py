@@ -8,13 +8,13 @@ its block of each leaf under the same spec, and the model code asks
 :class:`TensorParallel` for the collectives at the points Megatron puts
 them, each an ``autograd.Function`` with the matching backward:
 
-  * :meth:`TensorParallel.copy` — identity forward, all-reduce over
-    "model" backward: the input of a column-parallel product (``wq``,
+  * :meth:`TensorParallel.copy` — identity forward, sum over "model"
+    backward: the input of a column-parallel product (``wq``,
     ``wk``, ``wv``, ``w_gate``, ``w_up``, the vocab-parallel ``unembed``),
     and the replicated leaves that each rank reads only in part (the QKV
     biases, sliced to its heads; the qk-norm scales);
-  * :meth:`TensorParallel.reduce` — all-reduce over "model" forward,
-    identity backward: the output of a row-parallel product (``wo``,
+  * :meth:`TensorParallel.reduce` — sum over "model" forward, identity
+    backward: the output of a row-parallel product (``wo``,
     ``w_down``) and the vocab-parallel embedding lookup;
   * :meth:`TensorParallel.gather` — all-gather over "data" forward,
     reduce-scatter backward: a leaf's d_model side, inside the
@@ -42,14 +42,15 @@ blocks gathered over "model"; a message row, an in-flight payload or
 snapshot, put together from every model rank's :class:`RowBlock`), and
 cuts this rank's block back out of a whole leaf or row on restore.
 
-Each rank holds ``H / M`` query heads and ``KV / M`` KV heads: JAX's GQA
-order (query head h reads KV head ``h // G``) keeps a rank's query heads
-on its own KV heads.  A leaf whose wide side the mesh does not divide
-(``param_spec`` drops the axis) runs whole on every model rank, with no
+Each rank holds ``H / M`` query heads and ``KV / M`` KV heads (one,
+shared, where M > KV): JAX's GQA order (query head h reads KV head
+``h // G``) keeps a rank's query heads on its own KV heads.  A leaf
+whose wide side the mesh does not divide (``param_spec`` drops the
+axis) runs whole on every model rank, with no
 collective: the embedding and the logits without a vocab split, the MLP
 without an ffn split.  The norms stay replicated; their gradient is
 already equal on every model rank, since the column-parallel input's
-backward all-reduces.
+backward sums over "model".
 
 Quantized gossip over a model axis quantizes each rank's block of its
 worker's row on the whole row's grid and draws: :meth:`TensorParallel.
@@ -59,10 +60,28 @@ shards a leaf), and the grid's bounds are reduced over "model" by
 :meth:`repro_torch.dist.group.WorkerGroup.grid_over_model`.
 
 The collectives run on CUDA tensors under NCCL and gloo alike (gloo
-copies through the host itself); a sum over "model" of a bf16 tensor is
-taken in fp32 and rounded once.  ``gathered_bytes`` and
-``scattered_bytes`` count what this rank received from the other ranks
-of "data" in the all-gathers and sent to them in the reduce-scatters.
+copies through the host itself).  A sum over "model" is an all-gather of
+the ranks' partials in their own dtype, then their sum in fp32 in model
+order, rounded once (:func:`ordered_sum`): every rank, and a one-process
+twin, sums alike whatever the backend's reduction algorithm, at the cost
+of gathering M partials where an all-reduce would move about two.
+
+The MoE family puts its experts on "model" (E / M a rank, where the
+layout splits E): :meth:`TensorParallel.router_logits` gathers the
+router's logit columns, each rank runs its experts on the assignments
+routed over all E, and the partial outputs are summed like a
+row-parallel product (:func:`repro_torch.models.moe.moe_forward`).  With
+more model ranks than KV heads the ``M / KV`` ranks that share a head
+each hold ``hd / (M / KV)`` of its columns of ``wk`` and ``wv`` and
+gather the head (:meth:`TensorParallel.gather_kv`, over a subgroup of
+:meth:`repro_torch.dist.group.WorkerGroup.head_groups`); rank m's query
+heads read KV head ``m // (M / KV)``.
+
+``gathered_bytes`` and ``scattered_bytes`` count what this rank received
+from the other ranks of "data" in the all-gathers and sent to them in the
+reduce-scatters, ``model_gathered_bytes`` what it received in the
+"model" all-gathers of the router's logits and of a shared KV head, and
+``reduced_bytes`` the fp32 bytes of its sums over "model".
 """
 from __future__ import annotations
 
@@ -114,6 +133,41 @@ class _Gather(Function):
         return ctx.tp.reduce_scatter_data(g, ctx.dim), None, None
 
 
+def ordered_sum(x: torch.Tensor, pg, n: int) -> torch.Tensor:
+    """A fresh fp32 tensor: ``x`` summed over the ``n`` ranks of ``pg`` on
+    every rank, in fp32 and in rank order: an all-gather of ``x`` in its
+    own dtype, then ``((x_0 + x_1) + x_2) + ...`` in fp32, so that every
+    rank, and a one-process twin, sums alike whatever the backend's
+    reduction algorithm (at two ranks this is the fp32 all-reduce's
+    value)."""
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=pg)
+    out = parts[0].to(torch.float32, copy=True)
+    for part in parts[1:]:
+        out.add_(part.float())
+    return out
+
+
+class _GatherParts(Function):
+    """Every rank's ``x`` of a process group ``pg`` of ``n`` ranks (this
+    one at ``i``), stacked on a new leading dim in rank order; backward:
+    the gradient summed over the group (in fp32, rounded once), this
+    rank's part kept."""
+
+    @staticmethod
+    def forward(ctx, x, tp, pg, n: int, i: int):
+        ctx.tp, ctx.pg, ctx.i = tp, pg, i
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=pg)
+        return torch.stack(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        y = ordered_sum(g, ctx.pg, g.shape[0])
+        ctx.tp.reduced_bytes += y.numel() * 4
+        return y[ctx.i].to(g.dtype), None, None, None, None
+
+
 class _VocabNLL(Function):
     """Per-token ``logsumexp - gold`` over logits split by columns across
     "model": (B, S, V/M) fp32 on each rank -> (B, S) equal on every
@@ -127,8 +181,8 @@ class _VocabNLL(Function):
             x = x.masked_fill(col >= valid, float("-inf"))
         m = x.amax(dim=-1)
         tp.all_reduce_model(m, dist.ReduceOp.MAX)
-        s = torch.exp(x - m[..., None]).sum(dim=-1)
-        tp.all_reduce_model(s)
+        s = ordered_sum(torch.exp(x - m[..., None]).sum(dim=-1),
+                        tp.group.model_pg, tp.M)
         local = labels.long() - v0
         own = (local >= 0) & (local < valid)
         local = local.clamp(0, x.shape[-1] - 1)
@@ -221,9 +275,11 @@ class TensorParallel:
     :class:`~repro_torch.dist.group.WorkerGroup` with ``model`` > 1): the
     spec of every leaf (``shapes``: each leaf's whole shape, by dotted
     name; ``fsdp_axis`` "data" for the exact epoch's FSDP x TP, None for
-    the gossip epoch's TP only) and the collectives the model runs."""
+    the gossip epoch's TP only; ``cfg`` the model's config, whose heads
+    set the KV layout) and the collectives the model runs."""
 
-    def __init__(self, group, shapes: dict, fsdp_axis: Optional[str]):
+    def __init__(self, group, shapes: dict, fsdp_axis: Optional[str],
+                 cfg):
         self.group = group
         self.fsdp_axis = fsdp_axis
         mesh = group.mesh
@@ -236,9 +292,18 @@ class TensorParallel:
         self.d = 0
         if self.D > 1:
             self.d = dist.get_rank(group.data_pg)
+        # the model ranks that share this rank's KV head (M > KV): their
+        # group, their count and this rank's place among them
+        self.kv_share, self.kv_pg, self.kv_i = 1, None, 0
+        if self.split("blocks.attn.wq") and self.M > cfg.num_kv_heads:
+            check_heads(cfg, self.M)
+            self.kv_share = self.M // cfg.num_kv_heads
+            self.kv_pg = group.head_groups(self.kv_share)
+            self.kv_i = self.m % self.kv_share
         self.gathered_bytes = 0
         self.scattered_bytes = 0
         self.reduced_bytes = 0
+        self.model_gathered_bytes = 0
 
     # -- the layout --------------------------------------------------------
 
@@ -274,10 +339,10 @@ class TensorParallel:
         dist.all_reduce(x, op=op, group=self.group.model_pg)
 
     def sum_model(self, x: torch.Tensor) -> torch.Tensor:
-        """A fresh tensor: ``x`` summed over "model" (in fp32, rounded
-        once to ``x``'s dtype); ``reduced_bytes`` counts the fp32 bytes."""
-        y = x.to(torch.float32, copy=True)
-        self.all_reduce_model(y)
+        """A fresh tensor: ``x`` summed over "model" in model order
+        (:func:`ordered_sum`; in fp32, rounded once to ``x``'s dtype);
+        ``reduced_bytes`` counts the fp32 bytes."""
+        y = ordered_sum(x, self.group.model_pg, self.M)
         self.reduced_bytes += y.numel() * 4
         return y.to(x.dtype)
 
@@ -338,9 +403,65 @@ class TensorParallel:
         return self.heads(p, prefix), self.copy(x)
 
     def kv_heads(self, cfg) -> int:
-        """The KV heads this rank holds."""
+        """The KV heads this rank holds (whole: with M > KV its ranks
+        gather the head, :meth:`gather_kv`)."""
         kv = cfg.num_kv_heads
-        return kv // self.M if self.split("blocks.attn.wq") else kv
+        if not self.split("blocks.attn.wq"):
+            return kv
+        return max(1, kv // self.M)
+
+    def q_heads(self, cfg) -> int:
+        """The query heads this rank computes."""
+        h = cfg.num_heads
+        return h // self.M if self.split("blocks.attn.wq") else h
+
+    def gather_kv(self, k: torch.Tensor, v: torch.Tensor) -> tuple:
+        """k and v (..., c) of this rank's columns of its KV head (M > KV:
+        ``kv_share`` ranks hold one head, ``c = hd / kv_share`` columns
+        each) -> the head's (..., hd) on each of them, all-gathered over
+        those ranks in one collective; the backward sums the gradient
+        over them and keeps this rank's columns.  Otherwise (k, v) as
+        they are."""
+        if self.kv_share == 1:
+            return k, v
+        c = k.shape[-1]
+        parts = _GatherParts.apply(torch.cat([k, v], dim=-1), self,
+                                   self.kv_pg, self.kv_share, self.kv_i)
+        self.model_gathered_bytes += (parts[0].numel() * parts.element_size()
+                                      * (self.kv_share - 1))
+        lead = parts.shape[1:-1]
+
+        def whole(x):           # (n, ..., c) -> (..., n c)
+            return x.movedim(0, -2).reshape(*lead, self.kv_share * c)
+        return whole(parts[..., :c]), whole(parts[..., c:])
+
+    # -- the experts ---------------------------------------------------------
+
+    def experts_split(self) -> bool:
+        """Whether the experts lie on "model" (E / M each; else every
+        model rank runs them all, with no collective)."""
+        return self.split("blocks.moe.w_gate")
+
+    def expert_range(self, cfg) -> tuple:
+        """This rank's experts ``[e0, e1)``."""
+        e = cfg.num_experts
+        if not self.experts_split():
+            return 0, e
+        per = e // self.M
+        return self.m * per, (self.m + 1) * per
+
+    def router_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """(..., E / M) logits of this rank's router columns -> (..., E),
+        all-gathered over "model" in model order.  The routing after it
+        is replicated, but a rank's gate gradients reach only its own
+        experts' outputs (and its share of the load-balance loss): the
+        backward sums the gradient over "model" and keeps this rank's
+        columns, so each path counts once."""
+        parts = _GatherParts.apply(logits, self, self.group.model_pg,
+                                   self.M, self.m)
+        self.model_gathered_bytes += (logits.numel() * logits.element_size()
+                                      * (self.M - 1))
+        return parts.movedim(0, -2).reshape(*logits.shape[:-1], -1)
 
     def heads(self, p: dict, prefix: str = "blocks.attn.") -> dict:
         """The attention leaves as this rank's heads read them: the QKV
@@ -551,14 +672,23 @@ class CheckpointBlocks:
         return rb.take(whole, whole.new_empty(rb.block_width - (not count)))
 
 
+def check_heads(cfg, model: int) -> None:
+    """Refuse a head layout a model axis of ``model`` ranks cannot split:
+    M must divide the query heads, and divide the KV heads or be a
+    multiple of them (then M / KV ranks share a head, each holding
+    ``hd / (M / KV)`` of its columns)."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if h % model or (kv % model and model % kv) \
+            or (model > kv and cfg.hd % (model // kv)):
+        raise ValueError(f"model={model} must divide the {h} query heads "
+                         f"and divide the {kv} KV heads or be a multiple "
+                         f"of them (ROADMAP.md, module item 4a.5)")
+
+
 def check_supported(cfg, model: int) -> None:
     """Refuse what a model axis of ``model`` ranks cannot run yet."""
-    if cfg.family != "dense" or cfg.is_moe:
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"the {cfg.family!r} family at model > 1 is not "
                          f"ported yet (ROADMAP.md, module item 4a.5); the "
-                         f"dense family runs")
-    if cfg.num_heads % model or cfg.num_kv_heads % model:
-        raise ValueError(f"model={model} must divide the {cfg.num_heads} "
-                         f"query and {cfg.num_kv_heads} KV heads (a KV "
-                         f"head split across ranks is not ported; "
-                         f"ROADMAP.md, module item 4a.5)")
+                         f"dense and moe families run")
+    check_heads(cfg, model)

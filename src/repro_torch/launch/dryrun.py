@@ -304,6 +304,22 @@ def _layout(cfg, shape: InputShape, mesh) -> dict:
         passes = 4 if train else 2
         layers = cfg.num_layers + (cfg.encoder_layers or 0)
         add("all-reduce", tokens * cfg.d_model * 2, passes * layers)
+        # the forward's gathers (training: again in the checkpointed
+        # block's recompute) and their backward's fp32 all-reduce
+        fwd = 2 if train else 1
+        if cfg.is_moe and "model" in param_spec(
+                "blocks.moe.w_gate", params["blocks.moe.w_gate"].shape,
+                mesh, fsdp):
+            # the router's logits over "model" (the experts' output is
+            # the MLP's all-reduce above)
+            add("all-gather", tokens * cfg.num_experts * 4, fwd * layers)
+            if train:
+                add("all-reduce", tokens * cfg.num_experts * 4, layers)
+        if m > cfg.num_kv_heads:
+            # a KV head's k and v columns over the ranks that share it
+            add("all-gather", tokens * 2 * cfg.hd * 2, fwd * layers)
+            if train:
+                add("all-reduce", tokens * 2 * cfg.hd * 4, layers)
     if shape.kind == "train":
         batch = sum(_nbytes(v.value) * rows // v.value.shape[0]
                     for v in S.train_input_specs(cfg, shape, mesh).values())
@@ -330,6 +346,26 @@ def _layout(cfg, shape: InputShape, mesh) -> dict:
             "param_bytes_per_rank": int(param_bytes),
             "opt_state_bytes_per_rank": int(state_bytes),
             "collectives": coll}
+
+
+def rank_fsdp_bytes(cfg, mesh) -> dict:
+    """What one rank of the port's exact step (FSDP x TP) moves over
+    "data": ``gathered_bytes`` received in the all-gathers (each leaf on
+    "data" once in the forward, a block leaf again in its checkpointed
+    block's recompute) and ``scattered_bytes`` sent in the fp32
+    reduce-scatters of the gradients (once each); (D - 1) blocks each
+    time, as :class:`repro_torch.dist.tp.TensorParallel` counts them."""
+    d = mesh_shape(mesh).get("data", 1)
+    gathered = scattered = 0
+    for name, leaf in S.abstract_params(cfg).items():
+        spec = param_spec(name, leaf.shape, mesh, "data")
+        if "data" not in spec or d == 1:
+            continue
+        block = leaf.numel() // shard_extent(spec, mesh)
+        times = 2 if name.startswith("blocks.") else 1
+        gathered += block * leaf.element_size() * (d - 1) * times
+        scattered += block * 4 * (d - 1)
+    return {"gathered_bytes": gathered, "scattered_bytes": scattered}
 
 
 def _state_bytes(cfg, local: InputShape, mesh, rows: int) -> float:

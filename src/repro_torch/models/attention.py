@@ -85,31 +85,36 @@ def attention_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                 kv_input: Optional[torch.Tensor] = None):
+                 kv_input: Optional[torch.Tensor] = None, tp=None):
     """Returns q (B,S,KV,G,hd), k, v (B,Skv,KV,hd); k and v project
-    ``kv_input`` (cross-attention) when it is given, else x."""
+    ``kv_input`` (cross-attention) when it is given, else x.  KV and G
+    are the heads the leaves of ``p`` hold: all, or a model rank's share
+    (with ``tp``, whose ranks that share a KV head gather its columns
+    here, before the reshape, the qk-norm and the rope)."""
     b, s, _ = x.shape
     hd = cfg.hd
-    g = cfg.num_heads // cfg.num_kv_heads
     xkv = x if kv_input is None else kv_input
     skv = xkv.shape[1]
     q, k, v = x @ p["wq"], xkv @ p["wk"], xkv @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    # -1: the KV heads these columns hold (all, or a model rank's share)
-    q, k = q.reshape(b, s, -1, g, hd), k.reshape(b, skv, -1, hd)
+    if tp is not None:
+        k, v = tp.gather_kv(k, v)
+    kvh = k.shape[-1] // hd
+    q, k = q.reshape(b, s, kvh, -1, hd), k.reshape(b, skv, kvh, hd)
     if "q_norm" in p:                          # per head, before rope
         q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
-    return q, k, v.reshape(b, skv, -1, hd)
+    return q, k, v.reshape(b, skv, kvh, hd)
 
 
 def qkv_rope(p: dict, x: torch.Tensor, positions: torch.Tensor,
-             cfg: ArchConfig) -> tuple:
+             cfg: ArchConfig, tp=None) -> tuple:
     """q (B,S,KV,G,hd), k, v (B,S,KV,hd), q and k rotated to
     ``positions``; KV is the heads the leaves of ``p`` hold (all, or a
-    model rank's share: its blocks of ``wq``/``wk``/``wv``)."""
+    model rank's share: its blocks of ``wq``/``wk``/``wv``, its KV head
+    gathered through ``tp``)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
+    q, k, v = _project_qkv(p, x, cfg, tp=tp)
     q = apply_rope(q.reshape(b, s, -1, cfg.hd), positions,
                    cfg.rope_theta).reshape(q.shape)
     return q, apply_rope(k, positions, cfg.rope_theta), v
@@ -224,7 +229,7 @@ def attend_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
     b, s, _ = x.shape
     if tp is not None:
         p, x = tp.attention(p, x)
-    q, k, v = _project_qkv(p, x, cfg, kv_input)
+    q, k, v = _project_qkv(p, x, cfg, kv_input, tp)
     if rope:
         kv_pos = positions if kv_input is None else torch.arange(
             k.shape[1], device=x.device)
@@ -276,10 +281,10 @@ def _softmax_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attend(p: dict, x: torch.Tensor, pos, cache: KVCache,
                   cfg: ArchConfig, *, window: int = 0,
-                  cross_kv: Optional[tuple] = None) -> tuple:
+                  cross_kv: Optional[tuple] = None, tp=None) -> tuple:
     """One-token decode.  x: (B, 1, d); pos: the current position.  The
     heads are those the leaves of ``p`` and the cache hold (all, or a
-    model rank's share).
+    model rank's share; ``tp`` gathers a KV head its ranks share).
 
     ``pos`` is a scalar (every row at one position) or a (B,) vector of
     per-row positions (the slot engine: each row writes its own cache row
@@ -302,7 +307,7 @@ def decode_attend(p: dict, x: torch.Tensor, pos, cache: KVCache,
         return out @ p["wo"], cache
     pos = torch.as_tensor(pos, device=x.device)
     posq = pos.reshape(-1, 1)              # (B, 1) per row or (1, 1) shared
-    q, k, v = qkv_rope(p, x, posq, cfg)
+    q, k, v = qkv_rope(p, x, posq, cfg, tp)
 
     cap = cache.k.shape[1]
     row = pos % cap if cache.ring else pos.clamp(0, cap - 1)

@@ -50,16 +50,20 @@ prompt holds no (S, d_ff) tensor; the MoE feed-forward takes the whole
 prompt (its groups and capacities are per sequence); whisper's blocks
 take a prompt (at most 448 tokens) and the 1500 frames whole.
 
-Serving over a model axis (the dense family): :func:`prefill`,
+Serving over a model axis (the dense and MoE families): :func:`prefill`,
 :func:`decode_step` and :func:`init_decode_state` take ``tp`` (a
 :class:`repro_torch.dist.tp.TensorParallel` under the serving layout,
 ``fsdp_axis=None``) as :func:`forward_aux` does, and ``params`` then
 holds this rank's blocks: each rank computes its ``H / M`` query and
-``KV / M`` KV heads (the flash call takes only those), holds only its KV
-heads' caches, sums the row-parallel ``wo`` and MLP products over
-"model", looks tokens up in its rows of the vocabulary, and returns its
-``padded_vocab / M`` columns of the logits, unsliced (the caller gathers
-them, then slices to ``vocab_size``).
+``KV / M`` KV heads (the flash call takes only those; with more model
+ranks than KV heads the ``M / KV`` ranks that share a head each hold
+``hd / (M / KV)`` of its columns, gather the head before the qk-norm and
+the rope, and hold equal caches of it), its experts (the MoE layer,
+:func:`repro_torch.models.moe.moe_forward`), sums the row-parallel
+``wo``, MLP and expert products over "model", looks tokens up in its
+rows of the vocabulary, and returns its ``padded_vocab / M`` columns of
+the logits, unsliced (the caller gathers them, then slices to
+``vocab_size``).
 """
 from __future__ import annotations
 
@@ -135,13 +139,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
 
 
 def param_plan(cfg: ArchConfig) -> list:
-    """The dense family's leaves in :func:`init_params`' draw order, each
-    as ``(name, make(generator))``: making them one at a time draws what
-    :func:`init_params` draws, so a caller can keep a slice of each leaf
-    and drop the rest before the next is made (the sharded sessions)."""
-    if cfg.family != "dense" or cfg.is_moe:
-        raise ValueError(f"param_plan covers the dense family, got "
-                         f"{cfg.family!r}")
+    """The dense and MoE families' leaves in :func:`init_params`' draw
+    order, each as ``(name, make(generator))``: making them one at a time
+    draws what :func:`init_params` draws, so a caller can keep a slice of
+    each leaf and drop the rest before the next is made (the sharded
+    sessions; an expert leaf's ``make`` is a
+    :class:`repro_torch.models.moe.Layered`)."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"param_plan covers the dense and moe families, "
+                         f"got {cfg.family!r}")
     d, dt, v = cfg.d_model, cfg.torch_dtype, cfg.padded_vocab
     return [("embed", lambda g: init_linear((v, d), dt, g, scale=1.0)),
             ("unembed", lambda g: init_linear((d, v), dt, g)),
@@ -151,8 +157,10 @@ def param_plan(cfg: ArchConfig) -> list:
 
 
 def _dense_plan(cfg: ArchConfig, layers: int) -> list:
-    """``(key below the block, make(generator))`` of a dense (not MoE)
-    block's leaves, stacked over ``layers``, in draw order."""
+    """``(key below the block, make(generator))`` of a dense or MoE
+    block's leaves, stacked over ``layers``, in draw order: the norms,
+    the MLP (MoE: :func:`repro_torch.models.moe.moe_plan`), the
+    attention."""
     d, ff, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
 
     def ones(g):
@@ -161,10 +169,13 @@ def _dense_plan(cfg: ArchConfig, layers: int) -> list:
     def linear(shape):
         return lambda g: init_linear(shape, dt, g)
 
-    return ([("ln1", ones), ("ln2", ones),
-             ("mlp.w_gate", linear((layers, d, ff))),
-             ("mlp.w_up", linear((layers, d, ff))),
-             ("mlp.w_down", linear((layers, ff, d)))]
+    if cfg.is_moe:
+        ffn = [(f"moe.{k}", make) for k, make in moe.moe_plan(cfg, layers)]
+    else:
+        ffn = [("mlp.w_gate", linear((layers, d, ff))),
+               ("mlp.w_up", linear((layers, d, ff))),
+               ("mlp.w_down", linear((layers, ff, d)))]
+    return ([("ln1", ones), ("ln2", ones)] + ffn
             + [(f"attn.{k}", make)
                for k, make in attn.attention_plan(cfg, layers)])
 
@@ -173,18 +184,7 @@ def _dense_params(cfg: ArchConfig, generator: torch.Generator,
                   layers: int) -> dict:
     """A dense (or MoE) block's leaves, stacked over ``layers``, keyed
     below the block (``"attn.wq"``)."""
-    if not cfg.is_moe:
-        return {k: make(generator) for k, make in _dense_plan(cfg, layers)}
-    d = cfg.d_model
-    p = {"ln1": torch.ones((layers, d), dtype=torch.float32,
-                           device=generator.device),
-         "ln2": torch.ones((layers, d), dtype=torch.float32,
-                           device=generator.device)}
-    for k, v in moe.moe_params(cfg, generator, layers).items():
-        p[f"moe.{k}"] = v
-    for k, v in attn.attention_params(cfg, generator, layers).items():
-        p[f"attn.{k}"] = v
-    return p
+    return {k: make(generator) for k, make in _dense_plan(cfg, layers)}
 
 
 def _encdec_params(cfg: ArchConfig, generator: torch.Generator,
@@ -310,7 +310,7 @@ def _ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, group=None,
     load-balance loss, None without experts)."""
     xn = rms_norm(x, p["ln2"])
     if cfg.is_moe:
-        return moe.moe_forward(p["moe"], xn, cfg, group)
+        return moe.moe_forward(p["moe"], xn, cfg, group, tp)
     mp = p["mlp"]
     if tp is not None:
         return tp.mlp(lambda h: swiglu(h, mp["w_gate"], mp["w_up"],
@@ -358,8 +358,8 @@ def forward_aux(params: dict, cfg: ArchConfig, batch, group=None,
     ``group``: this process's worker of a process group, whose MoE layers
     take the routing counts across the workers (the exact step).
     ``tp``: this rank's place in a worker spread over a model axis
-    (:class:`repro_torch.dist.tp.TensorParallel`; the dense family), whose
-    blocks ``params`` holds."""
+    (:class:`repro_torch.dist.tp.TensorParallel`; the dense and MoE
+    families), whose blocks ``params`` holds."""
     if isinstance(batch, torch.Tensor):
         batch = {"tokens": batch}
     x = _embed(params, cfg, batch, tp)
@@ -373,8 +373,9 @@ def forward_aux(params: dict, cfg: ArchConfig, batch, group=None,
     block = {"ssm": _rwkv_block, "hybrid": _mamba_block}.get(cfg.family,
                                                              _dense_block)
     shared = _shared(params) if cfg.family == "hybrid" else None
-    extra = {"group": group} if group is not None and cfg.is_moe else (
-        {"tp": tp} if tp is not None else {})
+    extra = {"group": group} if group is not None and cfg.is_moe else {}
+    if tp is not None:
+        extra["tp"] = tp
     for layer, lp in enumerate(_layers(params, cfg)):
         x, a = _run(block, x, positions, cfg, lp, **extra)
         if a is not None:
@@ -553,18 +554,19 @@ def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     b, s, _ = x.shape
     hd = cfg.hd
     kvh = cfg.num_kv_heads if tp is None else tp.kv_heads(cfg)
+    qh = cfg.num_heads if tp is None else tp.q_heads(cfg)
     positions = torch.arange(s, device=x.device)[None, :]
     chunks = [slice(c, min(c + attn.PREFILL_ROWS, s))
               for c in range(0, s, attn.PREFILL_ROWS)]
     ap = p["attn"] if tp is None else tp.heads(p["attn"])
-    q = x.new_empty((b, s, kvh, cfg.num_heads // cfg.num_kv_heads, hd))
+    q = x.new_empty((b, s, kvh, qh // kvh, hd))
     if caches is None or caches.ring:
         k, v = x.new_empty((b, s, kvh, hd)), x.new_empty((b, s, kvh, hd))
     else:
         k, v = caches.k[row, :, :s], caches.v[row, :, :s]
     for c in chunks:
         q[:, c], k[:, c], v[:, c] = attn.qkv_rope(
-            ap, rms_norm(x[:, c], p["ln1"]), positions[:, c], cfg)
+            ap, rms_norm(x[:, c], p["ln1"]), positions[:, c], cfg, tp)
     out = attn.flash_prefill(q, k, v, cfg.sliding_window, causal=causal)
     del q
     if caches is not None and caches.ring:
@@ -579,7 +581,7 @@ def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
             x[:, c].add_(_ffn(x[:, c], p, cfg, tp=tp)[0])
     del out
     if cfg.is_moe:
-        x.add_(_ffn(x, p, cfg)[0])
+        x.add_(_ffn(x, p, cfg, tp=tp)[0])
 
 
 def _prefill_encdec_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -679,10 +681,10 @@ def _prefill_hybrid(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _check_tp(cfg: ArchConfig, tp) -> None:
-    if tp is not None and (cfg.family != "dense" or cfg.is_moe):
+    if tp is not None and cfg.family not in ("dense", "moe"):
         raise ValueError(f"serving the {cfg.family!r} family over a model "
                          f"axis is not ported yet (ROADMAP.md, module item "
-                         f"4a.5); the dense family runs")
+                         f"4a.5); the dense and moe families run")
 
 
 @torch.no_grad()
@@ -707,7 +709,8 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     caches, sized as the dense family's, and ``enc_kv``.  The batch is
     ``{"tokens"}`` or ``{"embeds"}`` (vlm), with ``"enc_embeds"`` for
     audio; the logits have ``vocab_size`` columns.  ``tp``: this rank's
-    blocks over a model axis (the dense family; see the module note).
+    blocks over a model axis (the dense and MoE families; see the module
+    note).
     """
     _check_servable(cfg)
     _check_tp(cfg, tp)
@@ -742,7 +745,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     ``enc_kv`` of ``encoder_seq`` frames, 1500 if it is unset, as in JAX);
     ``per_slot_pos`` gives a (batch,) position vector (the slot array,
     rows decode at their own depths) instead of a shared scalar.  ``tp``:
-    this rank's KV heads' caches (the dense family over a model axis)."""
+    this rank's KV heads' caches (the dense and MoE families over a model
+    axis)."""
     _check_servable(cfg)
     _check_tp(cfg, tp)
     device = resolve_device(device)
@@ -791,12 +795,16 @@ def evict_decode_state(state: DecodeState, slot: int) -> DecodeState:
 
 @torch.no_grad()
 def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
-                token: torch.Tensor, tp=None) -> tuple:
+                token: torch.Tensor, tp=None, group=None) -> tuple:
     """One-token decode.  token: (B,) -> (logits (B, vocab_size),
     DecodeState at ``pos + 1`` over the same, updated, caches).  ``tp``:
-    this rank's blocks over a model axis (the dense family): the
-    vocab-parallel lookup, its heads, and its columns of the logits (see
-    :func:`logits_fn`)."""
+    this rank's blocks over a model axis (the dense and MoE families):
+    the vocab-parallel lookup, its heads, and its columns of the logits
+    (see :func:`logits_fn`).  ``group``: the
+    :class:`repro_torch.dist.group.WorkerGroup` whose workers each hold
+    B of the slot rows (the slot engine over a group): an MoE layer
+    gathers every worker's rows and dispatches them as one group, as JAX
+    dispatches a decode batch."""
     _check_servable(cfg)
     _check_tp(cfg, tp)
     if tp is None:
@@ -805,8 +813,9 @@ def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
         x = tp.embed(params["embed"], token.long())[:, None, :]
     if cfg.family == "audio":
         x = _decode_audio(params, cfg, state, x)
-    elif tp is not None:
-        x = _decode_dense(params, cfg, state.caches, state.pos, x, tp)
+    elif tp is not None or (group is not None and cfg.is_moe):
+        x = _decode_dense(params, cfg, state.caches, state.pos, x, tp,
+                          group)
     else:
         decode = {"ssm": _decode_ssm, "hybrid": _decode_hybrid}.get(
             cfg.family, _decode_dense)
@@ -817,18 +826,25 @@ def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
 
 
 def _decode_dense(params: dict, cfg: ArchConfig, caches: attn.KVCache,
-                  pos: torch.Tensor, x: torch.Tensor,
-                  tp=None) -> torch.Tensor:
+                  pos: torch.Tensor, x: torch.Tensor, tp=None,
+                  group=None) -> torch.Tensor:
     """One token through the dense or MoE stack (the window masks a linear
     cache too); the KV rows are written in place.  With ``tp`` this
-    rank's heads, the row-parallel products summed over "model"."""
+    rank's heads, the row-parallel products summed over "model"; with
+    ``group`` an MoE layer's input gathered over the workers (see
+    :func:`decode_step`)."""
     for layer, lp in enumerate(_layers(params, cfg)):
         cache = attn.KVCache(caches.k[layer], caches.v[layer], caches.ring)
         ap = lp["attn"] if tp is None else tp.heads(lp["attn"])
         h, _ = attn.decode_attend(ap, rms_norm(x, lp["ln1"]), pos, cache,
-                                  cfg, window=cfg.sliding_window)
+                                  cfg, window=cfg.sliding_window, tp=tp)
         x = x + (h if tp is None else tp.attention_out(h))
-        x = x + _ffn(x, lp, cfg, tp=tp)[0]
+        if cfg.is_moe and group is not None:
+            rows = x.shape[0]
+            h = _ffn(group.gather_rows(x), lp, cfg, tp=tp)[0]
+            x = x + h[group.worker * rows:(group.worker + 1) * rows]
+        else:
+            x = x + _ffn(x, lp, cfg, tp=tp)[0]
     return x
 
 

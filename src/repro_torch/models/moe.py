@@ -26,6 +26,12 @@ exact in fp32, so both forms accumulate the same terms in fp32.
 
 The router runs in fp32 and its load-balance loss, ``e * sum(me * ce)``
 over the whole batch (Switch), joins the main loss as ``0.01 * aux``.
+
+Over a model axis (``moe_forward``'s ``tp``) each rank holds E / M
+experts and their router columns, as JAX's layout splits them: the
+routing is over all E (the logits gathered), each rank dispatches and
+runs only its own experts, and their outputs and load-balance shares are
+summed over "model".
 """
 from __future__ import annotations
 
@@ -35,22 +41,44 @@ import torch.nn.functional as F
 from .common import ArchConfig, init_linear
 
 
+class Layered:
+    """A stacked leaf drawn a layer at a time (an expert leaf: its fp32
+    draw at full width would be 39 GB for 48 layers).  Calling it draws
+    the (layers, ...) leaf whole; :meth:`layer` draws the next layer's
+    slice, so a caller can keep a block of each layer and never hold the
+    stack (``repro_torch.dist.params.init_shards``)."""
+
+    def __init__(self, layers: int, shape: tuple, dtype):
+        self.layers, self.shape, self.dtype = layers, shape, dtype
+
+    def layer(self, generator: torch.Generator) -> torch.Tensor:
+        return init_linear(self.shape, self.dtype, generator)
+
+    def __call__(self, generator: torch.Generator) -> torch.Tensor:
+        w = torch.empty((self.layers,) + self.shape, dtype=self.dtype,
+                        device=generator.device)
+        for layer in range(self.layers):
+            w[layer] = self.layer(generator)
+        return w
+
+
+def moe_plan(cfg: ArchConfig, layers: int) -> list:
+    """``(name, make(generator))`` of the stacked (layers, ...) MoE leaves
+    in draw order, JAX names and layout: the fp32 router (d, E), then the
+    experts' (E, d, ff), (E, d, ff), (E, ff, d), each a :class:`Layered`."""
+    d, ff, e, dt = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.torch_dtype
+    return [("router", lambda g: init_linear((layers, d, e), torch.float32,
+                                             g)),
+            ("w_gate", Layered(layers, (e, d, ff), dt)),
+            ("w_up", Layered(layers, (e, d, ff), dt)),
+            ("w_down", Layered(layers, (e, ff, d), dt))]
+
+
 def moe_params(cfg: ArchConfig, generator: torch.Generator,
                layers: int) -> dict:
-    """Stacked (layers, ...) MoE leaves, JAX names and layout: the fp32
-    router (d, E) and the experts' (E, d, ff), (E, d, ff), (E, ff, d).
-    The expert leaves are drawn a layer at a time (their fp32 draw at full
-    width would be 39 GB for 48 layers)."""
-    d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
-    dt, dev = cfg.torch_dtype, generator.device
-    p = {"router": init_linear((layers, d, e), torch.float32, generator)}
-    for name, shape in (("w_gate", (e, d, ff)), ("w_up", (e, d, ff)),
-                        ("w_down", (e, ff, d))):
-        w = torch.empty((layers,) + shape, dtype=dt, device=dev)
-        for layer in range(layers):
-            w[layer] = init_linear(shape, dt, generator)
-        p[name] = w
-    return p
+    """Stacked (layers, ...) MoE leaves, JAX names and layout
+    (:func:`moe_plan`)."""
+    return {k: make(generator) for k, make in moe_plan(cfg, layers)}
 
 
 def num_groups(b: int, s: int) -> int:
@@ -70,17 +98,21 @@ def capacity(cfg: ArchConfig, group_tokens: int) -> int:
 
 
 def _dispatch_group(xg: torch.Tensor, idx: torch.Tensor, e: int,
-                    cap: int) -> tuple:
-    """xg (G, S, d), idx (G, S, k) -> buf (G, e, cap, d) in xg's dtype and
-    the metadata of the combine.
+                    cap: int, experts: tuple = None) -> tuple:
+    """xg (G, S, d), idx (G, S, k) -> buf (G, e1 - e0, cap, d) in xg's
+    dtype and the metadata of the combine: the assignments to experts
+    ``[e0, e1)`` (``experts``; default all ``e``), ranked among every
+    assignment of the group.
 
     A kept assignment owns its (expert, rank) slot, so the scatter needs
     no accumulation; a dropped one goes to a spare slot ``cap`` of its
-    expert that is cut off (JAX adds its zeros at rank 0: the same buffer).
+    expert that is cut off (JAX adds its zeros at rank 0: the same
+    buffer), one to another expert to a spare expert row cut off too.
     """
     g, s, k = idx.shape
     d = xg.shape[-1]
     dev = idx.device
+    e0, e1 = experts or (0, e)
     flat_e = idx.reshape(g, s * k)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     sorted_e = torch.gather(flat_e, 1, order)
@@ -90,13 +122,19 @@ def _dispatch_group(xg: torch.Tensor, idx: torch.Tensor, e: int,
         1, sorted_e, arange, reduce="amin")
     rank = arange - torch.gather(seg_start, 1, sorted_e)
     keep = rank < cap
+    local = sorted_e - e0
+    if (e0, e1) != (0, e):
+        keep = keep & (sorted_e >= e0) & (sorted_e < e1)
+        local = torch.where((sorted_e >= e0) & (sorted_e < e1), local,
+                            e1 - e0)
     token_of = torch.div(order, k, rounding_mode="floor")
     rows = torch.gather(xg, 1, token_of[..., None].expand(-1, -1, d))
-    slot = sorted_e * (cap + 1) + torch.where(keep, rank, cap)
-    buf = xg.new_zeros((g, e * (cap + 1), d)).scatter(
+    slot = local * (cap + 1) + torch.where(keep, rank, cap)
+    n = e1 - e0 + int((e0, e1) != (0, e))
+    buf = xg.new_zeros((g, n * (cap + 1), d)).scatter(
         1, slot[..., None].expand(-1, -1, d), rows)
-    return (buf.view(g, e, cap + 1, d)[:, :, :cap],
-            (order, sorted_e, rank, keep, token_of))
+    return (buf.view(g, n, cap + 1, d)[:, :e1 - e0, :cap],
+            (order, local, rank, keep, token_of))
 
 
 def _combine_group(y: torch.Tensor, gate: torch.Tensor, meta,
@@ -105,11 +143,13 @@ def _combine_group(y: torch.Tensor, gate: torch.Tensor, meta,
 
     Each token's k gate-weighted outputs are added one at a time in y's
     dtype, in ascending expert id: the order in which JAX's scatter-add
-    meets them (the assignments are sorted by expert)."""
+    meets them (the assignments are sorted by expert).  An assignment
+    that is not kept (dropped, or to an expert ``y`` does not hold) adds
+    zeros."""
     order, sorted_e, rank, keep, token_of = meta
     g, e, cap, d = y.shape
     k = gate.shape[-1]
-    src = sorted_e * cap + torch.where(keep, rank, 0)
+    src = torch.where(keep, sorted_e * cap + rank, 0)
     gathered = torch.gather(y.reshape(g, e * cap, d), 1,
                             src[..., None].expand(-1, -1, d))
     gathered = torch.where(keep[..., None], gathered, 0)
@@ -142,7 +182,7 @@ def _expert_mm(a: torch.Tensor, w: torch.Tensor, f32: bool) -> torch.Tensor:
 
 
 def moe_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                group=None) -> tuple:
+                group=None, tp=None) -> tuple:
     """x: (B, S, d) -> (out (B, S, d), the fp32 load-balance loss).
 
     With ``group`` (one process per worker, the exact step) x is this
@@ -153,11 +193,29 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
     and gradients sum to those of ``e * sum(me * ce)`` over the global
     batch.  The dispatch groups are sequences wherever ``num_groups``
     keeps them so (64 tokens a sequence or more), on a worker's rows as
-    on the global batch."""
+    on the global batch.
+
+    With ``tp`` (a :class:`repro_torch.dist.tp.TensorParallel` whose
+    layout puts the experts on "model") ``p`` holds this rank's router
+    columns and experts ``[e0, e1)``: the logits are all-gathered over
+    "model" and the routing (top-k, the stable sort, the ranks within an
+    expert, the capacity) is over all E, as in one process, so the kept
+    and dropped assignments are the same; this rank dispatches and runs
+    only its experts, and the combined partial outputs are summed over
+    "model" (in fp32, rounded once).  The loss is the sum over "model" of
+    each rank's share ``e * sum_{its experts} me * ce``.  Experts the
+    layout does not split run whole on every model rank, with no
+    collective."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
+    split = tp is not None and tp.experts_split()
+    e0, e1 = tp.expert_range(cfg) if split else (0, e)
+    if split:
+        x = tp.copy(x)
 
     logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    if split:
+        logits = tp.router_logits(logits)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, k, dim=-1)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -177,16 +235,20 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
             group.all_reduce_([counts])
         me = probs.sum((0, 1)) / (b * s * group.n)
         ce = counts / (b * s * k * group.n)
-    aux = e * torch.sum(me * ce)
+    aux = e * torch.sum(me[e0:e1] * ce[e0:e1])
+    if split:
+        aux = tp.reduce(aux)
 
     groups = num_groups(b, s)
     tg = b * s // groups
     cap = capacity(cfg, tg)
     buf, meta = _dispatch_group(x.reshape(groups, tg, d),
-                                idx.reshape(groups, tg, k), e, cap)
+                                idx.reshape(groups, tg, k), e, cap,
+                                (e0, e1))
     f32 = cfg.mxu_f32_accum
     g = F.silu(_expert_mm(buf, p["w_gate"], f32))
     u = _expert_mm(buf, p["w_up"], f32)
     y = _expert_mm((g * u).to(buf.dtype), p["w_down"], f32).to(x.dtype)
-    out = _combine_group(y, gate.reshape(groups, tg, k), meta, tg)
-    return out.reshape(b, s, d), aux
+    out = _combine_group(y, gate.reshape(groups, tg, k), meta,
+                         tg).reshape(b, s, d)
+    return (tp.reduce(out) if split else out), aux

@@ -31,8 +31,12 @@ every row.  A request is prefilled by the worker that owns its slot
 from the owner.  A decode round runs every worker on its rows, then one
 all-gather over the group puts the whole (slots, vocab) logits on every
 rank, so every rank samples the same tokens (``_Sampler`` as in one
-process) and keeps the same ``active`` and ``free_slots``.  Evicting a
-slot zeroes its row on the owning worker only.
+process) and keeps the same ``active`` and ``free_slots``.  An MoE
+layer of the round gathers every worker's rows of its input and
+dispatches the whole slot array as one group, as JAX's decode does, so
+which assignment an expert at capacity drops is decided over every slot
+(``models.decode_step``'s ``group``).  Evicting a slot zeroes its row on
+the owning worker only.
 """
 from __future__ import annotations
 
@@ -254,9 +258,10 @@ class SlotEngine:
         """Advance every slot one token; returns requests retired now."""
         if self.active_count == 0:
             return []
-        logits, self.state = decode_step(self.params, self.cfg, self.state,
-                                         self.last_tok[self.r0:self.r1],
-                                         tp=self.tp)
+        logits, self.state = decode_step(
+            self.params, self.cfg, self.state,
+            self.last_tok[self.r0:self.r1], tp=self.tp,
+            group=self.group if self._split else None)
         self.last_tok = self._sample(self._round_logits(logits))
         toks = self.last_tok.tolist()
         finished = []

@@ -85,16 +85,16 @@ def _run(session) -> dict:
 
 def _refusals() -> dict:
     """The message of each combination a group still refuses: what a
-    model axis > 1 does not run yet (module item 4a.5: the MoE family on
+    model axis > 1 does not run yet (module item 4a.5: the RWKV6 family on
     a (2, 2) mesh)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch import configs
-    moe = dataclasses.replace(configs.smoke_config("qwen3-moe-30b-a3b"),
+    ssm = dataclasses.replace(configs.smoke_config("rwkv6-3b"),
                               dtype="float32")
     tries = {
-        "model_moe": lambda: _session(
+        "model_ssm": lambda: _session(
             dict(CASES["exact_ring"], data=2, model=2),
-            make_host_mesh(2, 2, device="cpu"), cfg=moe),
+            make_host_mesh(2, 2, device="cpu"), cfg=ssm),
     }
     out = {}
     for name, fn in tries.items():
@@ -306,14 +306,15 @@ def test_train_cli_over_ranks_matches_the_one_process_cli(spawned, tmp_path):
 
 def test_group_refusals_name_their_roadmap_item(ranks):
     """What a group still refuses names its item: what a model axis > 1
-    does not run yet is module item 4a.5 (the MoE family; the rest in
-    ``tests/test_torch_tp.py``; quantized gossip and every driver run,
+    does not run yet is module item 4a.5 (the ssm family; the rest in
+    ``tests/test_torch_tp.py``; the MoE family runs,
+    ``tests/test_torch_tp_moe.py``; quantized gossip and every driver run,
     ``tests/test_torch_tp_quantized.py`` and
     ``tests/test_torch_tp_drivers.py``, and checkpoints and serving over
     the ranks, ``tests/test_torch_tp_serve.py``); every driver and option
     runs over ranks at model 1 (``tests/test_torch_ranks_drivers.py``)."""
     for got in ranks:
-        assert sorted(got["refusals"]) == ["model_moe"]
+        assert sorted(got["refusals"]) == ["model_ssm"]
         for what, msg in got["refusals"].items():
             assert msg is not None, what
             assert "ROADMAP.md, module item 4a.5" in msg, (what, msg)

@@ -24,8 +24,10 @@ batches, ``EPOCHS`` epochs at the minibatch sizes ``BS``:
     the norm is the whole leaf's;
   * the train CLI with ``--model 2``, exact and gossip, against the
     one-process ``--data 2`` CLI;
-  * what is still refused at model > 1 (the other families, indivisible
-    heads) raising with its item, 4a.5 (quantized gossip runs:
+  * what is still refused at model > 1 (the families but dense and moe,
+    a model extent that does not divide the query heads) raising with its
+    item, 4a.5 (the MoE family and more model ranks than KV heads:
+    ``tests/test_torch_tp_moe.py``; quantized gossip runs:
     ``tests/test_torch_tp_quantized.py``; every other driver and option:
     ``tests/test_torch_tp_drivers.py``; checkpoints and serving:
     ``tests/test_torch_tp_serve.py``).
@@ -68,7 +70,13 @@ CASES = {"exact": ("exact", None, False), "gossip": ("gossip", None, False),
          "gossip_radius": ("gossip", RADIUS, False),
          "odd_exact": ("exact", None, True)}
 ODD = dict(vocab_size=511, d_ff=255)
-REFUSED = ("moe", "heads")
+REFUSED = ("ssm", "heads")
+# layout: (arch, (data, model), seq_len) of an exact session initialised
+# from the seed on the ranks, one epoch, beside the qwen2-1.5b "exact"
+# case: the MoE family's experts on "model" (its exact step dispatches by
+# sequence, 64 tokens or more) and more model ranks than KV heads
+LAYOUTS = {"moe": ("qwen3-moe-30b-a3b", (N, M), 64),
+           "kv_split": ("qwen2-1.5b", (1, 4), SEQ)}
 
 
 def _cfg(arch="qwen2-1.5b", **kw):
@@ -150,10 +158,13 @@ def _record(session, losses) -> dict:
 def _refusals(params, mesh, mesh14) -> dict:
     from repro_torch.api import TrainSpec
     tries = {
-        "moe": lambda: _session("exact", None, mesh,
-                                cfg=_cfg("qwen3-moe-30b-a3b")),
-        "heads": lambda: _session("exact", params, mesh14, train=TrainSpec(
-            smoke=True, data=1, model=4)),
+        "ssm": lambda: _session("exact", None, mesh,
+                                cfg=_cfg("rwkv6-3b")),
+        # model 4 does not divide 6 query heads
+        "heads": lambda: _session("exact", None, mesh14,
+                                  cfg=_cfg(num_heads=6, head_dim=32),
+                                  train=TrainSpec(smoke=True, data=1,
+                                                  model=4)),
     }
     out = {}
     for name, fn in tries.items():
@@ -162,6 +173,34 @@ def _refusals(params, mesh, mesh14) -> dict:
             out[name] = None
         except ValueError as e:
             out[name] = str(e)
+    return out
+
+
+def _layouts() -> dict:
+    """Each LAYOUTS session's blocks and fp32 z / w0 bytes and the bytes
+    its one epoch moved over "data"."""
+    from repro_torch.api import TrainSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {}
+    for name, (arch, shape, seq) in LAYOUTS.items():
+        session = _session("exact", None, make_host_mesh(*shape,
+                                                         device="cpu"),
+                           cfg=_cfg(arch), train=TrainSpec(
+                               smoke=True, data=shape[0], model=shape[1],
+                               batch_per_worker=PER, seq_len=seq))
+        gen = torch.Generator().manual_seed(9)
+        toks = torch.randint(0, session.cfg.vocab_size, (PER, seq),
+                             generator=gen)
+        session.step({"tokens": toks, "labels": toks.roll(-1, 1)},
+                     [PER] * shape[0])
+        state = session.state
+        out[name] = {"param_bytes": sum(v.numel() * v.element_size()
+                                        for v in state["params"].values()),
+                     "opt_bytes": sum(v.numel() * v.element_size()
+                                      for key in ("z", "w0")
+                                      for v in state["opt"][key].values()),
+                     "tp_bytes": (session.tp.gathered_bytes,
+                                  session.tp.scattered_bytes)}
     return out
 
 
@@ -205,6 +244,7 @@ def rank_main(store: str, rank: int, world: int, outdir: str) -> None:
                 device="cpu")
         out["refusals"] = _refusals(params, mesh,
                                     make_host_mesh(1, 4, device="cpu"))
+        out["layouts"] = _layouts()
         torch.save(out, outdir / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -482,21 +522,36 @@ def test_rank_blocks_gather_to_the_session_params(ranks):
                    for k, v in whole.items())
 
 
-def test_exact_rank_bytes_equal_the_dry_run_layout(ranks):
+@pytest.mark.parametrize("layout", ["dense", *LAYOUTS])
+def test_exact_rank_bytes_equal_the_dry_run_layout(ranks, layout):
     """Each exact rank's parameter blocks and fp32 z / w0 blocks are the
-    dry-run's per-rank bytes for this configuration on (2, 2), to the
-    byte; the all-gathers and reduce-scatters moved data."""
+    dry-run's per-rank bytes for its configuration and mesh, to the byte,
+    and so are the bytes an epoch's all-gathers and reduce-scatters
+    moved over "data" (``dryrun.rank_fsdp_bytes``): qwen2-1.5b on (2, 2),
+    the MoE family with its experts on "model", and qwen2-1.5b on (1, 4),
+    two ranks to a KV head."""
     from repro_torch.configs import InputShape
     from repro_torch.launch import dryrun
-    lay = dryrun._layout(_cfg(), InputShape("tp", SEQ, N * PER, "train"),
-                         _mesh((N, M)))
+    arch, shape, seq = LAYOUTS.get(layout, ("qwen2-1.5b", (N, M), SEQ))
+    mesh = _mesh(shape)
+    lay = dryrun._layout(_cfg(arch), InputShape("tp", seq, shape[0] * PER,
+                                                "train"), mesh)
+    moved = dryrun.rank_fsdp_bytes(_cfg(arch), mesh)
+    moved = (moved["gathered_bytes"], moved["scattered_bytes"])
     for got in ranks:
-        params = sum(v.numel() * v.element_size()
-                     for v in got["exact"]["blocks"].values())
+        if layout == "dense":
+            res = got["exact"]
+            params = sum(v.numel() * v.element_size()
+                         for v in res["blocks"].values())
+            tp_bytes = tuple(b // EPOCHS for b in res["tp_bytes"])
+            assert got["gossip"]["tp_bytes"] == (0, 0)  # TP only, no FSDP
+        else:
+            res = got["layouts"][layout]
+            params, tp_bytes = res["param_bytes"], res["tp_bytes"]
         assert params == lay["param_bytes_per_rank"]
-        assert got["exact"]["opt_bytes"] == lay["opt_state_bytes_per_rank"]
-        assert min(got["exact"]["tp_bytes"]) > 0
-        assert got["gossip"]["tp_bytes"] == (0, 0)     # TP only, no FSDP
+        assert res["opt_bytes"] == lay["opt_state_bytes_per_rank"]
+        assert tp_bytes == moved
+        assert min(moved) > 0 or shape[0] == 1
 
 
 @pytest.mark.parametrize("name", ["exact", "gossip"])
@@ -594,8 +649,9 @@ def test_train_cli_with_a_model_axis_matches_the_one_process_cli(
 
 
 def test_what_model_gt_1_still_refuses_names_item_4a(ranks):
-    """The other families and indivisible heads name item 4a.5 (save and
-    restore run since: tests/test_torch_tp_serve.py)."""
+    """The families but dense and moe, and a model extent that does not
+    divide the query heads, name item 4a.5 (the MoE family and more model
+    ranks than KV heads run since: tests/test_torch_tp_moe.py)."""
     for got in ranks:
         assert sorted(got["refusals"]) == sorted(REFUSED)
         for what, msg in got["refusals"].items():

@@ -131,7 +131,7 @@ def _consensus_rank(name, group, stack, draws) -> dict:
     from repro_torch.dist.consensus import QuantizedGossipConsensus
     from repro_torch.dist.tp import TensorParallel
     bits, shapes = CONSENSUS[name]
-    tp = TensorParallel(group, shapes, None)
+    tp = TensorParallel(group, shapes, None, _cfg())
     block = tp.row_block(list(shapes))
     buf = torch.empty((1, block.block_width))
     block.take(stack[group.worker], buf[0])
@@ -177,7 +177,8 @@ def rank_main(store: str, rank: int, world: int, outdir: str) -> None:
             out[name] = _consensus_rank(name, group, stacks[name],
                                         source("c", name))
         shapes = CONSENSUS["q4_odd"][1]
-        block = TensorParallel(group, shapes, None).row_block(list(shapes))
+        block = TensorParallel(group, shapes, None,
+                               _cfg()).row_block(list(shapes))
         out["draws"] = rank_draws(epoch_draws(5, 1), 2,
                                   torch.empty((1, block.block_width)),
                                   group.worker, block)

@@ -186,7 +186,7 @@ def rank_main(store: str, rank: int, world: int, outdir: str) -> None:
         # the slot engine alone
         group = WorkerGroup(mesh, "cpu")
         tp = TensorParallel(group, {k: v.shape for k, v in params.items()},
-                            None)
+                            None, cfg)
         engine = SlotEngine(shard_tree(params, mesh, coord, None), cfg,
                             slots=SLOTS, cache_len=CACHE, group=group, tp=tp)
         seen = _recording(engine)
