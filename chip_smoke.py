@@ -298,7 +298,33 @@ Phases (any failure ends the run with a non-zero exit code):
      exact epoch at MODEL_LAYERS (the KV gather's backward; the loss
      and each leaf against the twin's, within its ``order_limits``).
      The flash kernel at both rank shapes runs in phase 3;
- 19. print the kernels' JSON line, the card line, and the final ok line.
+ 19. the vlm and ssm families over a model axis: after the serve CLIs
+     beside phases 17 and 18's ranks, the parent writes the references
+     (``axis19_references``: rwkv6-3b at full width, the RWKV6 constants
+     drawn (``ssm19_redraw``), through the plain 8-slot engine and its
+     twin over (data 2, model 2), ``ssm_twin``: the tokens, each
+     request's first token that differs, the twin's prefill and first
+     round logits within SSM19_LOGIT_TOL of the plain engine's, and each
+     rank's share of the states' digests; its exact
+     epoch at SSM19_EXACT_LAYERS from ``ssm19_params``, plain and under
+     ``tp_sums``, whose move sets each leaf's limit; its fp32 gossip
+     epoch at SSM19_GOSSIP_LAYERS under ``tp_sums``: each rank's block's
+     digest; internvl2-76b at VLM19_LAYERS through the 8-slot engine's
+     twin on embeddings prompts); then the launch's sixth turn
+     (``rank_axis19``): rwkv6-3b's engine over (data 2, model 2) at all
+     32 layers (8 requests of 2048 +- 512 tokens into 8 slots, 32 new;
+     the twin's tokens, the count that differ from the plain engine's,
+     each rank's states its share of the twin's by digest, 32
+     ``rwkv6_scan`` launches a request on its worker's ranks at (B 1, H
+     20, hd 64), the decode round's ms, bytes and collectives), its exact
+     epoch (20 heads a rank; the bytes over "data" and "model" exactly
+     the dry-run's ``rank_fsdp_bytes`` and ``rank_model_bytes``, each
+     leaf within its limit of the twin's), its fp32 gossip epoch (each
+     rank's dual block bit for bit the twin's, ``wire_bytes_per_round
+     (d_block)`` a round), and internvl2-76b's engine (the twin's tokens,
+     VLM19_LAYERS flash launches a request at (H 32, KV 4)).  The scan at
+     a rank's (H 20) and flash at internvl2's rank shape run in phase 3;
+ 20. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -309,6 +335,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -885,8 +912,20 @@ def check_rwkv6_scan(torch, ops, ssm, scan):
         if not err <= RWKV_TOL:
             fail(f"rwkv6_scan clip regime error {err} > {RWKV_TOL}")
         worst = max(worst, err)
-    main = None
-    b, h, hd = (RWKV_MAIN[x] for x in ("b", "h", "hd"))
+    err, entries = time_rwkv6(torch, ops, scan, RWKV_MAIN, "rwkv6-3b")
+    entries[0].pop("max_abs_err")
+    return max(worst, err), entries[0]
+
+
+def time_rwkv6(torch, ops, scan, shape: dict, what: str) -> tuple:
+    """The scan kernel at a prefill ``shape`` (B, H, hd) of ``what``, S in
+    RWKV_SEQS, through the model's strided layout (r, k, v bf16, the decay
+    fp32): y and the final state against the plain version, the segment
+    plan, the kernel's, the plain version's and the bound's ms.  Returns
+    (the worst error, an entry per S)."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    worst, entries = 0.0, []
+    b, h, hd = (shape[x] for x in ("b", "h", "hd"))
     for s in RWKV_SEQS:
         ins = rwkv_inputs(torch, gen, b, s, h, hd, torch.bfloat16, "model")
         got = ops.rwkv6_scan(*ins, force="kernel")
@@ -894,8 +933,8 @@ def check_rwkv6_scan(torch, ops, ssm, scan):
         want = ops.rwkv6_scan(*ins, force="ref")
         err = max(rel_err(torch, g, w) for g, w in zip(got, want))
         plan = scan.launch_plan(b, h, s, hd)
-        line = (f"rwkv6_scan B={b} H={h} hd={hd} S={s} r/k/v bf16 decay "
-                f"fp32, model layout, L={plan['seg_chunks']} "
+        line = (f"rwkv6_scan B={b} H={h} hd={hd} S={s} ({what}) r/k/v bf16 "
+                f"decay fp32, model layout, L={plan['seg_chunks']} "
                 f"segments={plan['segments']} blocks="
                 f"{plan['segments'] * h * b} scratch_bytes="
                 f"{plan['scratch_floats'] * 4}: error {err:.3g} of "
@@ -919,14 +958,13 @@ def check_rwkv6_scan(torch, ops, ssm, scan):
         print(f"{line} ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms=none "
               f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.3f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB)", flush=True)
-        if main is None:
-            main = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
-                        bound_ms=b_ms, bound_by=b_by,
-                        shape=f"B={b} H={h} hd={hd} S={s}, r/k/v bf16, "
-                              f"decay fp32, model layout")
+        entries.append(dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                            shape=f"B={b} H={h} hd={hd} S={s} ({what}), "
+                                  f"r/k/v bf16, decay fp32, model layout"))
         worst = max(worst, err)
         del ins, got, want
-    return worst, main
+    return worst, entries
 
 
 def in_chunks(fn, d: int) -> None:
@@ -3775,17 +3813,18 @@ def check_gossip_combine_rank(torch, ops, ref, GossipConsensus, own_row,
 
 def mesh_session(rt, cfg, consensus: str, mesh, data: int = N_WORKERS,
                  pod: int = 1, model: int = 1,
-                 rounds: int = GOSSIP_ROUNDS):
+                 rounds: int = GOSSIP_ROUNDS, params=None):
     """A session of the mesh phases: TrainSpec's defaults, the simulated
     clock, ring gossip at ``rounds`` (GOSSIP_ROUNDS), on the card;
-    ``mesh`` None is every worker in one process."""
+    ``mesh`` None is every worker in one process; ``params`` (whole
+    leaves) or the seed's."""
     return rt.api.AMBSession(
         rt.api.TrainSpec(data=data, pod=pod, model=model,
                          batch_per_worker=PER_WORKER, seq_len=SEQ),
         rt.api.ClockSpec(kind="simulated"),
         rt.api.ConsensusSpec(consensus=consensus, graph="ring",
                              gossip_rounds=rounds),
-        cfg=cfg, device="cuda", mesh=mesh)
+        cfg=cfg, device="cuda", mesh=mesh, params=params)
 
 
 def as_json(x):
@@ -3919,11 +3958,18 @@ def wait_parent(work: Path, rank: int, phase) -> None:
 
 
 def stop_ranks(phase: str, proc) -> None:
-    """Kill a started launch's whole process group (a parent step before
-    its ranks failed)."""
+    """Stop a started launch (a parent step before its ranks failed):
+    SIGTERM to the launcher's process group, on which the launcher stops
+    its ranks (each runs in a session of its own, which a signal to the
+    launcher's group does not reach), then SIGKILL to what is left of the
+    group."""
     if proc.poll() is None:
-        os.killpg(proc.pid, 9)
-        proc.wait()
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
         print(f"rank phase {phase}: killed", flush=True)
 
 
@@ -5100,12 +5146,12 @@ def tp_sums(torch, rt, m: int = 2):
     each rank's parts first, then the ranks' in fp32 in rank order, as a
     rank's backward and the column-parallel sum over "model" do), each
     block's row-parallel product summed in fp32 in rank order and rounded
-    once, and the vocab-parallel cross-entropy (``_PartsTP``).  Wider
-    than ``split_sums``, which splits the forward row-parallel sums
-    only."""
+    once, and the vocab-parallel cross-entropy (``_PartsTP``); an RWKV6
+    block as ``_twin_rwkv_block``.  Wider than ``split_sums``, which
+    splits the forward row-parallel sums only."""
     model, attn, amb = rt.models.model, rt.models.attention, rt.dist.amb
-    plain_mlp, plain_attend, plain_loss = (model.swiglu, attn.attend_train,
-                                           amb.lm_loss)
+    plain_mlp, plain_attend, plain_loss, plain_rwkv = (
+        model.swiglu, attn.attend_train, amb.lm_loss, model._rwkv_block)
     parts = _PartsTP(torch, m)
     fan = parts.fan
 
@@ -5160,13 +5206,14 @@ def tp_sums(torch, rt, m: int = 2):
     def loss(params, cfg, batch, *args, tp=None, **kwargs):
         return plain_loss(params, cfg, batch, *args, tp=parts, **kwargs)
 
-    model.swiglu, attn.attend_train, amb.lm_loss = mlp, attend, loss
+    model.swiglu, attn.attend_train, amb.lm_loss, model._rwkv_block = (
+        mlp, attend, loss, _twin_rwkv_block(torch, rt, m))
     try:
         yield
     finally:
-        model.swiglu, attn.attend_train, amb.lm_loss = (plain_mlp,
-                                                        plain_attend,
-                                                        plain_loss)
+        (model.swiglu, attn.attend_train, amb.lm_loss,
+         model._rwkv_block) = (plain_mlp, plain_attend, plain_loss,
+                               plain_rwkv)
 
 
 def order_limits(moves: dict) -> dict:
@@ -6600,8 +6647,6 @@ KV_AXIS = (1, 4)               # qwen2-1.5b: 2 KV heads, two ranks to each
 MOE18_LAYERS = 2
 MOE18_SERVE = dict(requests=4, new=16, slots=8, prompt=2048, jitter=512,
                    seed=29)
-MOE18_CACHE = MOE18_SERVE["prompt"] + MOE18_SERVE["jitter"] \
-    + MOE18_SERVE["new"]
 # the exact ranks' aux against the twin's: both sum the routing counts and
 # probabilities of the same bf16 forward, the ranks over the workers'
 # rows, the twin over the global batch
@@ -6690,7 +6735,12 @@ def rank_twin(torch, rt, cfg, m: int, workers: int):
     columns of the unembedding.  A decode round runs each worker's rows
     alone (the embedding, the attention, the final norm and the logits at
     the worker's batch, which sets cuBLAS's and the reductions' choices),
-    and the MoE layer over every slot, as the ranks gather them."""
+    and the MoE layer over every slot, as the ranks gather them.  The
+    RWKV6 family's is ``ssm_twin``."""
+    if cfg.family == "ssm":
+        with ssm_twin(torch, rt, cfg, m, workers):
+            yield
+        return
     model, attn, common = rt.models.model, rt.models.attention, \
         rt.models.common
     slots_mod = sys.modules["repro_torch.serve.slots"]
@@ -6839,33 +6889,48 @@ def aux_epochs(torch, rt, session, label: str, epochs: int = 1) -> dict:
     return res
 
 
-def serve18(rt, cfg, which: str) -> tuple:
-    """Phase 18's requests, slots and cache length: ``moe`` (MOE18_SERVE)
-    or ``kv`` (phase 17's SERVE17)."""
-    spec, cache = (MOE18_SERVE, MOE18_CACHE) if which == "moe" \
-        else (SERVE17, SERVE17_CACHE)
+def serve_spec(rt, cfg, spec: dict) -> tuple:
+    """A serving spec's (SERVE17, MOE18_SERVE, phase 19's) requests, its
+    slots, its cache length (the longest prompt and its new tokens) and
+    its seed."""
     reqs = rt.serve.synthetic_requests(
         spec["requests"], vocab_size=cfg.vocab_size,
         prompt_len=spec["prompt"], prompt_jitter=spec["jitter"],
         max_new_tokens=spec["new"], seed=spec["seed"])
-    return reqs, spec["slots"], cache, spec["seed"]
+    return reqs, spec["slots"], spec["prompt"] + spec["jitter"] \
+        + spec["new"], spec["seed"]
 
 
-def drain18(torch, engine, reqs, heads=None) -> list:
-    """``drain``, and after the first decode round the digests of the
-    engine's caches (``heads``: of each KV head's; else whole)."""
-    pending, digests = list(reqs), None
+def serve18(rt, cfg, which: str) -> tuple:
+    """Phase 18's ``serve_spec``: ``moe`` (MOE18_SERVE) or ``kv`` (phase
+    17's SERVE17)."""
+    return serve_spec(rt, cfg, MOE18_SERVE if which == "moe" else SERVE17)
+
+
+def drain_first(engine, reqs, take):
+    """``drain``, and ``take(engine.state.caches)`` after the first decode
+    round (what it returns)."""
+    pending, taken = list(reqs), None
     while pending or engine.active_count:
         while pending and engine.has_free:
             engine.insert(pending.pop(0))
         engine.decode_round()
-        if digests is None:
-            k, v = engine.state.caches.k, engine.state.caches.v
-            digests = [digest(torch, {"k": k[..., h:h + 1, :],
-                                      "v": v[..., h:h + 1, :]})
-                       for h in range(heads or 1)] if heads else \
-                digest(torch, {"k": k, "v": v})
-    return digests
+        if taken is None:
+            taken = take(engine.state.caches)
+    return taken
+
+
+def kv_digests(torch, heads=None):
+    """A ``drain_first`` take: the digest of each KV head's caches
+    (``heads``), else of the whole caches."""
+    def take(caches):
+        k, v = caches.k, caches.v
+        if not heads:
+            return digest(torch, {"k": k, "v": v})
+        return [digest(torch, {"k": k[..., h:h + 1, :],
+                               "v": v[..., h:h + 1, :]})
+                for h in range(heads)]
+    return take
 
 
 def axis18_references(torch, rt, full, work: Path) -> None:
@@ -6934,9 +6999,8 @@ def axis18_references(torch, rt, full, work: Path) -> None:
         with rank_twin(torch, rt, cfg, axis[1], axis[0]):
             engine = rt.serve.SlotEngine(params, cfg, slots=slots,
                                          cache_len=cache)
-            out["cache_digests"] = drain18(
-                torch, engine, reqs,
-                cfg.num_kv_heads if which == "kv" else None)
+            out["cache_digests"] = drain_first(engine, reqs, kv_digests(
+                torch, cfg.num_kv_heads if which == "kv" else None))
         out["twin_tokens"] = [r.out_tokens for r in reqs]
         refs[f"{which}_serve"] = out
         del engine, params
@@ -7083,8 +7147,8 @@ def rank_serve18(torch, rt, dist, refs: dict, which: str, lap) -> dict:
         tp.reduced_bytes, tp.model_gathered_bytes
         + group.rows_gathered_bytes))
     with probe.watch():
-        digests = drain18(torch, engine, reqs,
-                          1 if which == "kv" else None)
+        digests = drain_first(engine, reqs, kv_digests(
+            torch, 1 if which == "kv" else None))
     launches = router.launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     lap(f"the {which} requests served")
@@ -7208,18 +7272,820 @@ def axis18_after(work: Path) -> dict:
     return {"launches": launches, "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the vlm and ssm families over a model axis
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "rwkv6-3b"
+SSM_AXIS = (2, 2)              # (data, model): 20 of rwkv6-3b's 40 heads a rank
+# rwkv6-3b at full width over (data 2, model 2): the engine at all 32
+# layers (8 requests of 2048 +- 512 tokens into 8 slots, 32 new tokens:
+# each worker owns 4 slots and prefills its 4 requests), an exact epoch at
+# SSM19_EXACT_LAYERS (bf16) and an fp32 gossip epoch at
+# SSM19_GOSSIP_LAYERS with SSM19_ROUNDS rounds
+SSM19_SERVE = dict(requests=8, new=32, slots=8, prompt=2048, jitter=512,
+                   seed=30)
+SSM19_EXACT_LAYERS = 2
+SSM19_GOSSIP_LAYERS = 1
+SSM19_ROUNDS = 2
+# internvl2-76b over (data 2, model 2): the engine at VLM19_LAYERS of 80 on
+# embeddings prompts (its exact and gossip epochs are the dense blocks',
+# held on the CPU in tests/test_torch_tp_ssm.py: one layer of FSDP x TP
+# needs about 12 to 14 GB a rank of fp32 z, w0 and vocab-parallel logits)
+VLM19_LAYERS = 4
+VLM19_SERVE = dict(requests=8, new=16, slots=8, prompt=2048, jitter=512,
+                   seed=31)
+# the exact epoch starts from the seed's parameters with the RWKV6 leaves
+# that init makes constant (the token-shift mixes 0.5, the bonus 0, the
+# decay bias -6, ln_x 1) drawn from SSM19_REDRAW_SEED, as real checkpoints
+# hold them: at u = 0 every layer's first token has y = 0 in the per-head
+# norm's eps regime, and the bonus's first update is so rounding-bound
+# that the one-process epoch moved it 0.417 of its largest value under the
+# ranks' summation order alone (an H100 at 700 W; 0.09 on the CPU at the
+# same shapes), past any limit that could tell a fault from the order;
+# drawn, a misplaced block of any of these leaves shows at its full size
+SSM19_REDRAW_SEED = 19
+SSM19_REDRAWN = (("blocks.tmix.mu", 0.0, 1.0), ("blocks.cmix.mu", 0.0, 1.0),
+                 ("blocks.tmix.u_bonus", -0.5, 0.5),
+                 ("blocks.tmix.decay_bias", -7.0, -4.0),
+                 ("blocks.tmix.ln_x", 0.5, 1.5))
+# the engine's twin against the plain engine (the same parameters, the
+# same prompts): each prefill's logits, and the first round's on the rows
+# whose first token agrees, within SSM19_LOGIT_TOL of the plain logits'
+# largest magnitude.  The twin differs from the plain engine by summation
+# order only (the row-parallel w_out in two bf16 partials, the channel
+# mix's products by column blocks, a decode round by worker rows): about
+# one bf16 unit (2 ** -8) of the residual a layer, at most 32 of them
+# over rwkv6-3b's layers; a misplaced head, channel or leaf block moves
+# random-weight logits by about their own size
+SSM19_LOGIT_TOL = 32 * 2.0 ** -8
+# and the same comparison in fp32 at SSM19_FP32_LAYERS (full width, two
+# requests, two new tokens each), where summation order moves the logits
+# by fp32 rounding only: within SSM19_FP32_TOL, so a fault that the bf16
+# limit could hide shows there
+SSM19_FP32_LAYERS = 4
+SSM19_FP32_TOL = 1e-4
+FLASH_VLM_RANK = dict(b=1, h=32, kv=4, hd=128)  # internvl2, a rank of model 2
+FLASH19_SEQS = (2048,)
+RWKV_RANK = dict(b=1, h=20, hd=64)   # rwkv6-3b, a rank of model 2
+
+
+def ssm19_redraw(torch, params: dict, shapes=None) -> dict:
+    """The RWKV6 leaves that init makes constant (SSM19_REDRAWN), whole
+    on the card, drawn from SSM19_REDRAW_SEED (see there) in the dtypes
+    of ``params``' leaves of the same names (``shapes``: their whole
+    shapes, where ``params`` holds a rank's blocks): the same on every
+    rank."""
+    gen = torch.Generator(device="cuda").manual_seed(SSM19_REDRAW_SEED)
+    out = {}
+    for name, lo, hi in SSM19_REDRAWN:
+        shape = shapes[name] if shapes else params[name].shape
+        draw = torch.rand(shape, generator=gen, device="cuda")
+        out[name] = (lo + (hi - lo) * draw).to(params[name].dtype)
+    return out
+
+
+def ssm19_params(torch, rt, cfg, seed: int = 0) -> dict:
+    """rwkv6-3b's whole parameters at ``cfg`` on the card from ``seed``
+    (``init_params``), the constant RWKV6 leaves drawn
+    (``ssm19_redraw``)."""
+    params = rt.models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed))
+    params.update(ssm19_redraw(torch, params))
+    return params
+
+
+class _SsmRank:
+    """What the RWKV6 blocks ask of a TensorParallel, for model rank ``r``
+    of ``m`` in one process on whole leaves (``ssm_twin``, ``tp_sums``):
+    ``ssm_leaves`` gives a layer's leaves as rank r reads them (its
+    contiguous columns of the projections, its rows of ``w_out``; the
+    small leaves whole and cut by the same views as the rank's; in
+    training each of those from ``views``, its own view of the leaf
+    through ``_fan``), and no collectives (the twin sums the passes)."""
+
+    def __init__(self, r: int, m: int, views=None):
+        self.r, self.m, self.views = r, m, views or {}
+
+    def ssm_leaves(self, p: dict, prefix: str) -> dict:
+        r, m = self.r, self.m
+        out = {}
+        for k, v in p.items():
+            if k in self.views:
+                v = self.views[k][r]
+            if k in ("mu", "decay_a"):
+                out[k] = v
+            elif k == "u_bonus":
+                h = v.shape[0] // m
+                out[k] = v.narrow(0, r * h, h)
+            elif k in ("decay_b", "decay_bias", "ln_x"):
+                c = v.shape[-1] // m
+                out[k] = v.narrow(-1, r * c, c)
+            elif k == "w_out":
+                c = v.shape[0] // m
+                out[k] = v[r * c:(r + 1) * c]
+            else:
+                c = v.shape[-1] // m
+                out[k] = v[:, r * c:(r + 1) * c].contiguous()
+        return out
+
+    def copy(self, x):
+        return x.view_as(x)
+
+    def reduce(self, x):
+        return x
+
+
+def _rank_sum(torch, parts: list, dtype):
+    """Partials added in fp32 in rank order and rounded once (``dist.tp.
+    ordered_sum``)."""
+    out = parts[0].float()
+    for p in parts[1:]:
+        out = out + p.float()
+    return out.to(dtype)
+
+
+def _twin_cmix(torch, m: int, x, xns: list, xps: list, cm: dict, fan=None):
+    """The channel mix as ``m`` model ranks run it (``models.model._cmix``
+    with ``tp``), in one process: rank r's squared-ReLU key columns from
+    its own view of the input (``xns[r]``, ``xps[r]``), the keys put
+    together, each rank's output channels from its columns of w_r and
+    w_v, the channels put together.  ``fan`` (training): the mixes and
+    the gathered key through ``_fan``, each rank's use its own view."""
+    mus = fan(cm["mu"]) if fan else [cm["mu"]] * m
+
+    def cols(w, r):
+        c = w.shape[-1] // m
+        return w[:, r * c:(r + 1) * c].contiguous()
+
+    k_ins = [xns[r] * mus[r][0] + xps[r] * (1 - mus[r][0]) for r in range(m)]
+    r_ins = [xns[r] * mus[r][1] + xps[r] * (1 - mus[r][1]) for r in range(m)]
+    act = torch.cat([torch.square(torch.relu(k_ins[r] @ cols(cm["w_k"], r)))
+                     for r in range(m)], dim=-1)
+    acts = fan(act) if fan else [act] * m
+    return x + torch.cat([torch.sigmoid(r_ins[r] @ cols(cm["w_r"], r))
+                          * (acts[r] @ cols(cm["w_v"], r))
+                          for r in range(m)], dim=-1)
+
+
+def _twin_rwkv_block(torch, rt, m: int):
+    """``models.model._rwkv_block`` as a worker's ``m`` model ranks run it
+    under autograd (``tp_sums``): the time mix once per rank on its heads
+    from its own view of the normed input and of each small leaf
+    (``_fan``: their gradients summed in fp32 in rank order, as the
+    ranks' ``tp.copy`` and the leaves' gathers sum them), the partial
+    outputs summed in rank order; the channel mix by ``_twin_cmix``."""
+    ssm, common = rt.models.ssm, rt.models.common
+    fan = _fan(torch, m)
+    small = ("mu", "decay_a", "decay_b", "u_bonus", "decay_bias", "ln_x")
+
+    def block(x, positions, cfg, p, tp=None):
+        tm = p["tmix"]
+        views = {k: fan(tm[k]) for k in small}
+        xn = common.rms_norm(x, p["ln1"])
+        hs = [ssm.rwkv6_forward(tm, xr, cfg, tp=_SsmRank(r, m, views))
+              for r, xr in enumerate(fan(xn))]
+        x = x + _rank_sum(torch, hs, x.dtype)
+        xns = fan(common.rms_norm(x, p["ln2"]))
+        xps = [torch.nn.functional.pad(v, (0, 0, 1, 0))[:, :-1] for v in xns]
+        return _twin_cmix(torch, m, x, list(xns), xps, p["cmix"], fan), None
+
+    return block
+
+
+@contextlib.contextmanager
+def ssm_twin(torch, rt, cfg, m: int, workers: int):
+    """``rank_twin`` for the RWKV6 family: a one-process slot engine as
+    ``workers`` workers of ``m`` model ranks serve.  Each rank's time mix
+    runs on its heads (the scan kernel at H / m) from its contiguous
+    columns and rows (``_SsmRank``), the partial outputs summed in fp32
+    in rank order and rounded once; the channel mix is ``_twin_cmix``;
+    each rank's logit columns come from its contiguous unembedding
+    columns.  The states keep the native heads (rank r's are heads r H /
+    m to (r + 1) H / m), and a decode round runs each worker's rows
+    alone."""
+    model, ssm, common = rt.models.model, rt.models.ssm, rt.models.common
+    slots_mod = sys.modules["repro_torch.serve.slots"]
+    plain = (model._prefill_ssm, slots_mod.decode_step, model.logits_fn,
+             ssm.rwkv6_state_heads)
+    heads = cfg.d_model // ssm.RWKV_HD
+    per = heads // m
+
+    def own(r):
+        return slice(r * per, (r + 1) * per)
+
+    def logits(params, cfg_, hidden, tp=None):
+        u = params["unembed"]
+        c = u.shape[-1] // m
+        return model._vocab(cfg, torch.cat(
+            [hidden @ u[:, r * c:(r + 1) * c].contiguous()
+             for r in range(m)], dim=-1))
+
+    def prefill_ssm(params, cfg_, x, tp=None):
+        caches = model._ssm_caches(cfg, x.shape[0], x.device)
+        tmix = caches["tmix"]
+        for layer, lp in enumerate(model._layers(params, cfg)):
+            xn = common.rms_norm(x, lp["ln1"])
+            hs = []
+            for r in range(m):
+                h, st = ssm.rwkv6_forward(lp["tmix"], xn, cfg,
+                                          return_state=True,
+                                          tp=_SsmRank(r, m))
+                tmix.s[layer][:, own(r)] = st.s
+                hs.append(h)
+            tmix.x_prev[layer] = st.x_prev
+            x = x + _rank_sum(torch, hs, x.dtype)
+            xn = common.rms_norm(x, lp["ln2"])
+            xp = torch.nn.functional.pad(xn, (0, 0, 1, 0))[:, :-1]
+            x = _twin_cmix(torch, m, x, [xn] * m, [xp] * m, lp["cmix"])
+            caches["cmix_prev"][layer] = xn[:, -1]
+        return x, caches
+
+    def decode(params, cfg_, state, token, tp=None, group=None):
+        rows = token.shape[0] // workers
+        caches = state.caches
+        tmix = caches["tmix"]
+        out = []
+        for w in range(workers):
+            a = slice(w * rows, (w + 1) * rows)
+            x = torch.nn.functional.embedding(token[a].long(),
+                                              params["embed"])[:, None, :]
+            for layer, lp in enumerate(model._layers(params, cfg)):
+                xn = common.rms_norm(x, lp["ln1"])
+                hs = []
+                for r in range(m):
+                    st = ssm.RWKVState(tmix.s[layer][a, own(r)],
+                                       tmix.x_prev[layer][a])
+                    h, new = ssm.rwkv6_decode(lp["tmix"], xn, st, cfg,
+                                              _SsmRank(r, m))
+                    tmix.s[layer][a, own(r)] = new.s
+                    hs.append(h)
+                tmix.x_prev[layer][a] = new.x_prev
+                x = x + _rank_sum(torch, hs, x.dtype)
+                xn = common.rms_norm(x, lp["ln2"])
+                xp = caches["cmix_prev"][layer][a][:, None]
+                x = _twin_cmix(torch, m, x, [xn] * m, [xp] * m, lp["cmix"])
+                caches["cmix_prev"][layer][a] = xn[:, 0]
+            out.append(logits(params, cfg, common.rms_norm(
+                x, params["final_norm"])))
+        return (torch.cat(out)[:, 0],
+                model.DecodeState(caches, state.pos + 1, state.enc_kv))
+
+    (model._prefill_ssm, slots_mod.decode_step, model.logits_fn,
+     ssm.rwkv6_state_heads) = (prefill_ssm, decode, logits,
+                               lambda cfg_: heads)
+    try:
+        yield
+    finally:
+        (model._prefill_ssm, slots_mod.decode_step, model.logits_fn,
+         ssm.rwkv6_state_heads) = plain
+
+
+def sampled_logits(engine, count: int) -> list:
+    """The first ``count`` logits tensors ``engine``'s sampler draws from
+    (host fp32), filled as it serves: with every slot filled before the
+    first round, each request's prefill in insertion order, then the
+    first round's (slots, vocab)."""
+    seen, sample = [], engine._sample
+
+    def spy(logits):
+        if len(seen) < count:
+            seen.append(logits.float().cpu())
+        return sample(logits)
+
+    engine._sample = spy
+    return seen
+
+
+def check_ssm19_twin(torch, plain: list, twin: list, plain_tokens: list,
+                     twin_tokens: list, tol: float, what: str) -> None:
+    """The rwkv6 engine's twin against the plain engine: each request's
+    first greedy token that differs (None: none), and each prefill's
+    logits and the first round's rows whose first token agrees (request
+    i in slot i) within ``tol`` of the plain logits' largest magnitude;
+    fails past it."""
+    n = len(plain_tokens)
+
+    def err(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    prefill = [err(t, p) for t, p in zip(twin[:n], plain[:n])]
+    rows = [i for i in range(n) if twin_tokens[i][0] == plain_tokens[i][0]]
+    first_round = err(twin[n][rows], plain[n][rows]) if rows else None
+    diverge = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                    None) for x, y in zip(twin_tokens, plain_tokens)]
+    differ = sum(a != b for x, y in zip(twin_tokens, plain_tokens)
+                 for a, b in zip(x, y))
+    print(f"phase 19 reference: the rwkv6 twin against the plain engine "
+          f"({what}): {differ} of {sum(map(len, plain_tokens))} greedy tokens differ; "
+          f"each request's first that differs {diverge}; max |twin - "
+          f"plain| over max |plain| of each prefill's logits "
+          f"{[float(f'{e:.4g}') for e in prefill]}, of the first round's on "
+          f"the {len(rows)} rows whose first token agrees "
+          f"{first_round if first_round is None else f'{first_round:.4g}'} "
+          f"(limit {tol:.4g}) [{card_line()}]", flush=True)
+    worst = max(prefill + ([first_round] if rows else []))
+    if not worst <= tol:
+        fail(f"phase 19 reference: the rwkv6 twin's {what} logits are "
+             f"{worst:.4g} of the plain engine's largest from them, past "
+             f"{tol}: more than summation order")
+
+
+def ssm19_fp32_twin(torch, rt, full) -> None:
+    """``check_ssm19_twin`` in fp32 at SSM19_FP32_LAYERS, full width:
+    the first two of phase 19's requests, two new tokens each, through
+    the plain 2-slot engine and its twin over SSM_AXIS, within
+    SSM19_FP32_TOL."""
+    data, m = SSM_AXIS
+    cfg = dataclasses.replace(full, num_layers=SSM19_FP32_LAYERS,
+                              dtype="float32")
+    reqs, _, cache, seed = serve_spec(rt, cfg, SSM19_SERVE)
+    params = ssm19_params(torch, rt, cfg, seed)
+    seen, tokens = [], []
+    for twin in (False, True):
+        reqs = serve_spec(rt, cfg, SSM19_SERVE)[0][:data]
+        for r in reqs:
+            r.max_new_tokens = 2
+        with (ssm_twin(torch, rt, cfg, m, data) if twin
+              else contextlib.nullcontext()):
+            engine = rt.serve.SlotEngine(params, cfg, slots=data,
+                                         cache_len=cache)
+            seen.append(sampled_logits(engine, data + 1))
+            drain(engine, reqs)
+        tokens.append([r.out_tokens for r in reqs])
+        del engine
+    del params
+    release(torch)
+    check_ssm19_twin(torch, seen[0], seen[1], tokens[0], tokens[1],
+                     SSM19_FP32_TOL, f"fp32, {SSM19_FP32_LAYERS} layers")
+
+
+def ssm_state_digests(torch, caches, rows: slice, heads: slice) -> list:
+    """The digest of slot rows ``rows`` of RWKV6 decode caches: the wkv
+    states of ``heads``, the two mixes' token shifts."""
+    tmix = caches["tmix"]
+    return as_json(digest(torch, {"s": tmix.s[:, rows, heads],
+                                  "x_prev": tmix.x_prev[:, rows],
+                                  "cmix_prev": caches["cmix_prev"][:, rows]}))
+
+
+def axis19_references(torch, rt, work: Path) -> None:
+    """Phase 19's references, in the parent while the gloo ranks run
+    phases 17 and 18, written for the ranks:
+      * rwkv6-3b at full width, the RWKV6 constants drawn
+        (``ssm19_params``), through the plain 8-slot engine and its twin
+        over (data 2, model 2) (``ssm_twin``): the greedy tokens, the
+        twin held to the plain engine (``check_ssm19_twin``), and after
+        the first decode round the digest of each rank's share of the
+        twin's states (its worker's rows, its 20 heads);
+      * rwkv6-3b at SSM19_EXACT_LAYERS from ``ssm19_params``, one exact
+        epoch of the one-process data=2 session, plain and under
+        ``tp_sums`` (its RWKV6 twin block):
+        each leaf's move sets its limit; the twin's parameters and losses
+        are what the ranks are held to;
+      * rwkv6-3b at SSM19_GOSSIP_LAYERS in fp32, one gossip epoch of the
+        one-process data=2 session under ``tp_sums``: the digest of each
+        rank's block of its worker's dual (``block_digests``);
+      * internvl2-76b at VLM19_LAYERS through the 8-slot engine's twin
+        over (data 2, model 2) on embeddings prompts (``rank_twin``): the
+        greedy tokens."""
+    lap = stamps("phase 19 references")
+    refs = {}
+    data, m = SSM_AXIS
+    full = rt.configs.get_config(SSM_ARCH)
+    reqs, slots, cache, seed = serve_spec(rt, full, SSM19_SERVE)
+    params = ssm19_params(torch, rt, full, seed)
+    engine = rt.serve.SlotEngine(params, full, slots=slots, cache_len=cache)
+    plain_seen = sampled_logits(engine, len(reqs) + 1)
+    drain(engine, reqs)
+    plain_tokens = [r.out_tokens for r in reqs]
+    del engine
+    release(torch)
+    reqs = serve_spec(rt, full, SSM19_SERVE)[0]
+    per, heads = slots // data, full.d_model // 64 // m
+    cuts = [(slice(w * per, (w + 1) * per), slice(r * heads, (r + 1) * heads))
+            for w in range(data) for r in range(m)]
+    with ssm_twin(torch, rt, full, m, data):
+        engine = rt.serve.SlotEngine(params, full, slots=slots,
+                                     cache_len=cache)
+        twin_seen = sampled_logits(engine, len(reqs) + 1)
+        digests = drain_first(engine, reqs, lambda c: [
+            ssm_state_digests(torch, c, *cut) for cut in cuts])
+    twin_tokens = [r.out_tokens for r in reqs]
+    refs["ssm_serve"] = {"plain_tokens": plain_tokens,
+                         "twin_tokens": twin_tokens,
+                         "state_digests": digests}
+    del engine, params
+    release(torch)
+    check_ssm19_twin(torch, plain_seen, twin_seen, plain_tokens, twin_tokens,
+                     SSM19_LOGIT_TOL, "bf16")
+    ssm19_fp32_twin(torch, rt, full)
+    lap("the rwkv6 serve twin done")
+    cfg = dataclasses.replace(full, num_layers=SSM19_EXACT_LAYERS)
+    with deterministic(torch):
+        session = mesh_session(rt, cfg, "exact", False, data=data,
+                               params=ssm19_params(torch, rt, cfg))
+        res = mesh_epochs(torch, rt, session, "phase 19 ssm exact reference",
+                          1)
+        plain = {k: v.detach() for k, v in session.params.items()}
+        del session
+        release(torch)
+        with tp_sums(torch, rt, m):
+            session = mesh_session(rt, cfg, "exact", False, data=data,
+                                   params=ssm19_params(torch, rt, cfg))
+            twin = mesh_epochs(torch, rt, session, "phase 19 ssm exact twin",
+                               1)
+        moves = leaf_errs(torch, session.params, plain)
+        torch.save({k: v.detach().cpu() for k, v in session.params.items()},
+                   work / "ssm19_twin.pt")
+        del session, plain
+        release(torch)
+    refs["ssm_exact"] = {"losses": twin["losses"],
+                         "plain_losses": res["losses"], "moves": moves,
+                         "limits": check_order("phase 19 ssm exact", moves)}
+    print(f"phase 19 reference ssm exact ({SSM19_EXACT_LAYERS} layers, one "
+          f"process, {data} workers): losses {res['losses']}; the twin's "
+          f"over {m} model ranks {twin['losses']} [{card_line()}]",
+          flush=True)
+    lap("the rwkv6 exact references done")
+    cfg = dataclasses.replace(full, num_layers=SSM19_GOSSIP_LAYERS,
+                              dtype="float32")
+    with deterministic(torch), tp_sums(torch, rt, m):
+        session = mesh_session(rt, cfg, "gossip", False, data=data,
+                               rounds=SSM19_ROUNDS)
+        res = mesh_epochs(torch, rt, session, "phase 19 ssm gossip twin", 1)
+        refs["ssm_gossip"] = {"losses": res["losses"],
+                              "digests": block_digests(torch, rt,
+                                                       session.state["z"])}
+        del session
+        release(torch)
+    print(f"phase 19 reference ssm gossip ({SSM19_GOSSIP_LAYERS} layer, "
+          f"fp32, one process, {data} workers, tp_sums): losses "
+          f"{res['losses']} [{card_line()}]", flush=True)
+    lap("the rwkv6 gossip twin done")
+    vlm = dataclasses.replace(rt.configs.get_config(VLM_ARCH),
+                              num_layers=VLM19_LAYERS)
+    reqs, slots, cache, seed = serve_spec(rt, vlm, VLM19_SERVE)
+    params = rt.models.init_params(
+        vlm, torch.Generator(device="cuda").manual_seed(seed))
+    with rank_twin(torch, rt, vlm, m, data):
+        engine = rt.serve.SlotEngine(params, vlm, slots=slots,
+                                     cache_len=cache)
+        drain(engine, reqs)
+    refs["vlm_serve"] = {"twin_tokens": [r.out_tokens for r in reqs]}
+    del engine, params
+    release(torch)
+    lap("the internvl2 serve twin done")
+    torch.save(refs, work / "axis19_refs.pt")
+
+
+@contextlib.contextmanager
+def count_collectives(dist):
+    """Count this process's calls of the collectives the port's model and
+    engine make (``counts``: by name) while open."""
+    names = ("all_gather", "all_gather_into_tensor", "all_reduce",
+             "broadcast")
+    plain = {n: getattr(dist, n) for n in names}
+    counts = {n: 0 for n in names}
+
+    def counted(n):
+        def call(*args, **kwargs):
+            counts[n] += 1
+            return plain[n](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n in names:
+            setattr(dist, n, plain[n])
+
+
+def rank_engine(torch, rt, cfg, seed: int, slots: int, cache: int,
+                drawn, redraw: bool = False) -> tuple:
+    """A slot engine over (data 2, model 2) (SSM_AXIS) on this rank's
+    serving blocks of ``cfg`` from ``seed`` (``init_shards``; ``redraw``:
+    its blocks of ``ssm19_redraw``'s leaves in their place); calls
+    ``drawn()`` once they are, then resets the peak.  Returns (the
+    engine, its group, its TensorParallel)."""
+    mesh = rt.launch.mesh.make_host_mesh(*SSM_AXIS, device="cuda")
+    group = rt.dist.group.WorkerGroup(mesh, "cuda")
+    shapes = {k: v.shape for k, v in rt.models.init_params(
+        cfg, rt.models.common.MetaGenerator()).items()}
+    tp = rt.dist.tp.TensorParallel(group, shapes, None, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = rt.dist.params.init_shards(cfg, gen, mesh,
+                                        mesh.get_coordinate(), None)
+    if redraw:
+        params.update(rt.dist.params.shard_tree(
+            ssm19_redraw(torch, params, shapes), mesh, mesh.get_coordinate(),
+            None))
+    drawn()
+    torch.cuda.reset_peak_memory_stats()
+    return (rt.serve.SlotEngine(params, cfg, slots=slots, cache_len=cache,
+                                group=group, tp=tp), group, tp)
+
+
+def rank_ssm_serve(torch, rt, dist, refs: dict, lap) -> dict:
+    """rwkv6-3b at full width, bf16, through the slot engine over (data 2,
+    model 2), clock-free (``drain_first``): each rank's blocks from the seed
+    (``init_shards``, the serving layout; the RWKV6 constants drawn,
+    ``ssm19_redraw``); the greedy tokens equal to the
+    twin's (``ssm_twin``) and the count that differ from the plain
+    engine's; each rank's states after the first decode round its share
+    of the twin's by digest; 32 ``rwkv6_scan`` launches a request on its
+    worker's ranks at (B 1, H 20, hd 64), no flash; per rank the prefill
+    seconds, the decode round's ms (p50, p99), the bytes summed and
+    gathered over "model" and the collectives a round."""
+    rank = dist.get_rank()
+    router = rt.kernels.router
+    label = f"phase 19 ssm serve rank {rank}"
+    cfg = rt.configs.get_config(SSM_ARCH)
+    ref = refs["ssm_serve"]
+    reqs, slots, cache, seed = serve_spec(rt, cfg, SSM19_SERVE)
+    engine, group, tp = rank_engine(torch, rt, cfg, seed, slots, cache,
+                                    lambda: lap("the rwkv6 serving blocks "
+                                                "drawn"), redraw=True)
+    scans, shapes_seen = {}, set()
+    kops = rt.models.ssm.kops
+    scan, insert = kops.rwkv6_scan, engine.insert
+
+    def seen(r, *args, **kw):
+        shapes_seen.add(tuple(r.shape[:2]) + (r.shape[3],))
+        return scan(r, *args, **kw)
+
+    def counted_insert(req):
+        before = router.launches().get("rwkv6_scan", 0)
+        out = insert(req)
+        scans[req.rid] = router.launches().get("rwkv6_scan", 0) - before
+        return out
+
+    engine.insert = counted_insert
+    kops.rwkv6_scan = seen
+    try:
+        with count_collectives(dist) as calls:
+            probe = EngineProbe(torch, rt, engine, lambda: (
+                tp.reduced_bytes, tp.model_gathered_bytes,
+                sum(calls.values())))
+            with probe.watch():
+                digest_all = drain_first(engine, reqs, lambda c: (
+                    ssm_state_digests(torch, c, slice(None), slice(None))))
+    finally:
+        kops.rwkv6_scan = scan
+    rounds = probe.rounds()
+    per_round = rounds["bytes_per_round"][2]
+    launches = router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lap("the rwkv6 requests served")
+    tokens = [r.out_tokens for r in reqs]
+    if tokens != ref["twin_tokens"]:
+        fail(f"{label}: greedy tokens differ from the one-process twin's "
+             f"(ssm_twin): {tokens} vs {ref['twin_tokens']}")
+    if digest_all != ref["state_digests"][rank]:
+        fail(f"{label}: its states after the first round differ from its "
+             f"share of the twin's (worker {group.worker}'s rows, heads "
+             f"of model rank {group.m})")
+    differ = sum(a != b for x, y in zip(tokens, ref["plain_tokens"])
+                 for a, b in zip(x, y))
+    owned = sum(engine._mine(r.slot) for r in reqs)
+    for r in reqs:
+        want = cfg.num_layers if engine._mine(r.slot) else 0
+        if scans[r.rid] != want:
+            fail(f"{label}: request {r.rid} launched rwkv6_scan "
+                 f"{scans[r.rid]} times, expected {want}")
+    expect(label, launches, {"rwkv6_scan": cfg.num_layers * owned,
+                             "flash_attention": 0})
+    rank_shape = tuple(RWKV_RANK[x] for x in ("b", "h", "hd"))
+    if shapes_seen != {rank_shape}:
+        fail(f"{label}: the scan ran at (B, H, hd) {shapes_seen}, expected "
+             f"{rank_shape}")
+    row = {"owned": owned, "scan_per_request": cfg.num_layers,
+           "prefill_s": probe.prefill_s,
+           "decode_rounds": rounds["decode_rounds"],
+           "round_ms_p50": rounds["round_ms_p50"],
+           "round_ms_p99": rounds["round_ms_p99"],
+           "reduced_bytes_per_round": rounds["bytes_per_round"][0],
+           "gathered_bytes_per_round": rounds["bytes_per_round"][1],
+           "collectives_per_round": per_round, "peak_gib": peak,
+           "tokens_differing_from_plain": differ, "launches": launches}
+    print(f"  {label} (worker {group.worker}, model {group.m}): greedy "
+          f"tokens equal to the twin's; {differ} of "
+          f"{sum(map(len, tokens))} differ from the plain engine's; states "
+          f"equal to its share of the twin's; rwkv6_scan {cfg.num_layers} "
+          f"a request at (B, H, hd) {rank_shape} x {owned} requests; "
+          f"prefill_s {[round(x, 4) for x in probe.prefill_s]}; decode "
+          f"rounds {row['decode_rounds']}, ms p50 "
+          f"{row['round_ms_p50']:.2f} p99 {row['round_ms_p99']:.2f}; "
+          f"{row['reduced_bytes_per_round']} B summed over \"model\" and "
+          f"{row['gathered_bytes_per_round']} B gathered a round; "
+          f"{per_round} collectives a round (one token a slot); peak_GiB "
+          f"{peak:.2f} [{card_line()}]", flush=True)
+    del engine
+    release(torch)
+    return row
+
+
+def rank_ssm_exact(torch, rt, dist, refs: dict, work: Path, lap) -> dict:
+    """rwkv6-3b at SSM19_EXACT_LAYERS over (data 2, model 2), one exact
+    epoch (FSDP x TP, 20 heads a rank) under deterministic algorithms: 20
+    ``dual_update`` launches on the blocks; the bytes over "data" the
+    dry-run's ``rank_fsdp_bytes`` and over "model" its
+    ``rank_model_bytes``, to the byte; the loss within MESH_LOSS_TOL of
+    the twin's (``tp_sums``) and each gathered leaf within its
+    ``order_limits`` of the twin's (rank 0)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract
+    rank = dist.get_rank()
+    label = f"phase 19 ssm exact rank {rank}"
+    cfg = dataclasses.replace(rt.configs.get_config(SSM_ARCH),
+                              num_layers=SSM19_EXACT_LAYERS)
+    mesh = rt.launch.mesh.make_host_mesh(*SSM_AXIS, device="cuda")
+    ref = refs["ssm_exact"]
+    with deterministic(torch):
+        session = mesh_session(rt, cfg, "exact", mesh, SSM_AXIS[0],
+                               model=SSM_AXIS[1],
+                               params=ssm19_params(torch, rt, cfg))
+        release(torch)
+        res = mesh_epochs(torch, rt, session, label, 1)
+    lap("the rwkv6 exact epoch done")
+    tp = session.tp
+    expect(label, res["launches"], {"dual_update": 20})
+    check_losses("phase 19 ssm exact", rank, res["losses"], ref["losses"])
+    amesh = abstract(SSM_AXIS, ("data", "model"))
+    held = {k: getattr(tp, k) for k in ("gathered_bytes", "scattered_bytes",
+                                        "model_gathered_bytes",
+                                        "reduced_bytes")}
+    want = dict(dryrun.rank_fsdp_bytes(cfg, amesh),
+                **dryrun.rank_model_bytes(cfg, amesh, PER_WORKER * SEQ))
+    if held != want:
+        fail(f"{label}: {held}, the dry-run's {want}")
+    row = {"epoch_s": res["epoch_s"], "peak_gib": res["peak_gib"],
+           "losses": res["losses"], "launches": res["launches"],
+           "heads": tp.ssm_heads(cfg), **held}
+    print(f"  {label} (worker {session.group.worker}, model "
+          f"{session.group.m}): {tp.ssm_heads(cfg)} heads; over \"data\" "
+          f"gathered {held['gathered_bytes']} B, reduce-scattered "
+          f"{held['scattered_bytes']} B; over \"model\" gathered "
+          f"{held['model_gathered_bytes']} B, summed "
+          f"{held['reduced_bytes']} B (all the dry-run's); epoch_s "
+          f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} losses {res['losses']} (the twin's "
+          f"{ref['losses']}); dual_update "
+          f"{res['launches'].get('dual_update', 0)} [{card_line()}]",
+          flush=True)
+    whole = session.params
+    if rank == 0:
+        twin = torch.load(work / "ssm19_twin.pt")
+        row["limit_share"] = check_leaves(
+            "phase 19 ssm exact (the ranks against the twin)",
+            leaf_errs(torch, whole, twin), ref["limits"])
+        del twin
+    del session, whole
+    release(torch)
+    return row
+
+
+def rank_ssm_gossip(torch, rt, dist, refs: dict, lap) -> dict:
+    """rwkv6-3b at SSM19_GOSSIP_LAYERS in fp32 over (data 2, model 2), one
+    ring gossip epoch (TP) of SSM19_ROUNDS rounds under deterministic
+    algorithms: each rank's dual block bit for bit its block of the
+    one-process twin's (``tp_sums``), the wire exactly
+    ``wire_bytes_per_round(d_block)`` a round, 20 ``dual_update`` and
+    SSM19_ROUNDS ``gossip_combine`` launches."""
+    rank = dist.get_rank()
+    label = f"phase 19 ssm gossip rank {rank}"
+    cfg = dataclasses.replace(rt.configs.get_config(SSM_ARCH),
+                              num_layers=SSM19_GOSSIP_LAYERS,
+                              dtype="float32")
+    mesh = rt.launch.mesh.make_host_mesh(*SSM_AXIS, device="cuda")
+    ref = refs["ssm_gossip"]
+    with deterministic(torch):
+        session = mesh_session(rt, cfg, "gossip", mesh, SSM_AXIS[0],
+                               model=SSM_AXIS[1], rounds=SSM19_ROUNDS)
+        res = mesh_epochs(torch, rt, session, label, 1)
+    lap("the rwkv6 gossip epoch done")
+    g = session.group
+    expect(label, res["launches"], {"dual_update": 20,
+                                    "gossip_combine": SSM19_ROUNDS})
+    check_losses("phase 19 ssm gossip", rank, res["losses"], ref["losses"])
+    width = session.tp.row_block().block_width
+    strat = rt.dist.amb.strategy_from_config(
+        dataclasses.replace(session.protocol.amb, active=None), SSM_AXIS[0])
+    wire = strat.wire_bytes_per_round(width)
+    if g.sent_bytes != SSM19_ROUNDS * wire:
+        fail(f"{label}: sent {g.sent_bytes} bytes in {SSM19_ROUNDS} rounds; "
+             f"wire_bytes_per_round({width}) {wire}")
+    z = {k: v[0] for k, v in session.state["z"].items()}
+    if as_json(digest(torch, z)) != ref["digests"][rank]:
+        fail(f"{label}: its dual block differs from its block of the "
+             f"one-process session under tp_sums")
+    row = {"epoch_s": res["epoch_s"], "peak_gib": res["peak_gib"],
+           "losses": res["losses"], "launches": res["launches"],
+           "block_width": width, "wire_bytes_per_round": wire}
+    print(f"  {label} (worker {g.worker}, model {g.m}): dual block bit for "
+          f"bit its block of the one-process session under tp_sums; "
+          f"{g.sent_bytes // SSM19_ROUNDS} bytes a round = "
+          f"wire_bytes_per_round(d_block {width}); epoch_s "
+          f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} losses {res['losses']} [{card_line()}]",
+          flush=True)
+    del session, z
+    release(torch)
+    return row
+
+
+def rank_vlm_serve(torch, rt, dist, refs: dict, lap) -> dict:
+    """internvl2-76b at VLM19_LAYERS over (data 2, model 2) through the
+    slot engine on embeddings prompts (each rank's rows of the vocabulary:
+    the vocab-parallel lookup), clock-free: the greedy tokens equal to the
+    twin's (``rank_twin``); VLM19_LAYERS tensor-core flash launches a
+    request on its worker's ranks at (B 1, H 32, KV 4, hd 128); per rank
+    the prefill seconds, the decode round's ms and bytes."""
+    rank = dist.get_rank()
+    router = rt.kernels.router
+    label = f"phase 19 vlm serve rank {rank}"
+    cfg = dataclasses.replace(rt.configs.get_config(VLM_ARCH),
+                              num_layers=VLM19_LAYERS)
+    ref = refs["vlm_serve"]
+    reqs, slots, cache, seed = serve_spec(rt, cfg, VLM19_SERVE)
+    engine, group, tp = rank_engine(torch, rt, cfg, seed, slots, cache,
+                                    lambda: lap("the internvl2 serving "
+                                                "blocks drawn"))
+    probe = EngineProbe(torch, rt, engine, lambda: (
+        tp.reduced_bytes, tp.model_gathered_bytes))
+    with probe.watch():
+        drain(engine, reqs)
+    launches = router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lap("the internvl2 requests served")
+    tokens = [r.out_tokens for r in reqs]
+    if tokens != ref["twin_tokens"]:
+        fail(f"{label}: greedy tokens differ from the one-process twin's "
+             f"(rank_twin): {tokens} vs {ref['twin_tokens']}")
+    owned = probe.check_flash(label, reqs, cfg.num_layers, FLASH_VLM_RANK,
+                              launches)
+    rank_shape = tuple(FLASH_VLM_RANK[x] for x in ("b", "h", "kv", "hd"))
+    rounds = probe.rounds()
+    row = {"owned": owned, "flash_per_request": cfg.num_layers,
+           "prefill_s": probe.prefill_s,
+           "decode_rounds": rounds["decode_rounds"],
+           "round_ms_p50": rounds["round_ms_p50"],
+           "round_ms_p99": rounds["round_ms_p99"],
+           "reduced_bytes_per_round": rounds["bytes_per_round"][0],
+           "peak_gib": peak, "launches": launches}
+    print(f"  {label} (worker {group.worker}, model {group.m}): greedy "
+          f"tokens equal to the twin's; flash {cfg.num_layers} a request "
+          f"on the tensor cores at (B, H, KV, hd) {rank_shape} x {owned} "
+          f"requests; prefill_s {[round(x, 4) for x in probe.prefill_s]}; "
+          f"decode rounds {row['decode_rounds']}, ms p50 "
+          f"{row['round_ms_p50']:.2f} p99 {row['round_ms_p99']:.2f}; "
+          f"{row['reduced_bytes_per_round']} B summed over \"model\" a "
+          f"round; peak_GiB {peak:.2f} [{card_line()}]", flush=True)
+    del engine
+    release(torch)
+    return row
+
+
+def rank_axis19(torch, rt, dist, work: Path) -> None:
+    """Phase 19's turn of the gloo launch, once the parent's references
+    are written: rwkv6-3b's engine at full width, its exact epoch and its
+    fp32 gossip epoch over (data 2, model 2), then internvl2-76b's engine
+    on the same mesh; each rank's results to ``axis19_rank<r>.json``."""
+    rank = dist.get_rank()
+    lap = stamps("phase 19 rank 0", rank)
+    refs = torch.load(work / "axis19_refs.pt")
+    out = {"ssm serve": rank_ssm_serve(torch, rt, dist, refs, lap),
+           "ssm exact": rank_ssm_exact(torch, rt, dist, refs, work, lap),
+           "ssm gossip": rank_ssm_gossip(torch, rt, dist, refs, lap),
+           "vlm serve": rank_vlm_serve(torch, rt, dist, refs, lap)}
+    (work / f"axis19_rank{rank}.json").write_text(json.dumps(out))
+
+
+def axis19_after(work: Path) -> dict:
+    """Phase 19 after the gloo ranks: their rows and launch counts."""
+    ranks = [json.loads((work / f"axis19_rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    launches = {f"{run} rank {r}": res[run]["launches"]
+                for r, res in enumerate(ranks) for run in res}
+    print(f"phase 19: every rank's checks held; launches "
+          f"{json.dumps(launches)} [{card_line()}]", flush=True)
+    return {"launches": launches, "ranks": ranks}
+
+
 def rank_gloo(torch, rt, dist, work: Path) -> None:
-    """The four gloo ranks of phases 14 to 18 in one launch, each phase's
+    """The four gloo ranks of phases 14 to 19 in one launch, each phase's
     sessions building their meshes over the one group: ``rank_gloo4``,
-    ``rank_drivers``, ``rank_model``, ``rank_serve`` and ``rank_axis18``
-    in turn, each once the parent's steps before it are done
+    ``rank_drivers``, ``rank_model``, ``rank_serve``, ``rank_axis18`` and
+    ``rank_axis19`` in turn, each once the parent's steps before it are done
     (``wait_parent``), a barrier after each; rank 0 prints when each
     ended and writes ``done<phase>`` (the parent's phase-18 references
     wait for phase 16's)."""
     t0 = time.perf_counter()
     for phase, fn in ((14, rank_gloo4), (15, rank_drivers),
                       (16, rank_model), (17, rank_serve),
-                      (18, rank_axis18)):
+                      (18, rank_axis18), (19, rank_axis19)):
         wait_parent(work, dist.get_rank(), phase)
         fn(torch, rt, dist, work)
         release(torch)
@@ -7235,7 +8101,7 @@ RANK_PHASES = {"gloo": rank_gloo}
 
 def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
                     beside14, beside17) -> tuple:
-    """Phases 14 to 18 around one launch of four gloo ranks
+    """Phases 14 to 19 around one launch of four gloo ranks
     (``rank_gloo``), started first: phases 14 to 16's parent steps before
     the ranks (the references, the NCCL rank) run while the ranks come
     up; phase 17's references and ``beside14()`` (a part of an earlier
@@ -7243,9 +8109,9 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
     run phase 14; phase 18's references once the ranks have ended phase
     16, then ``beside17()`` (other parts) while they run phases 17 and
     18 (each phase's ranks start once ``parent_ready`` says its steps are
-    done); then each phase's parent steps after them, ``stamp(phase)`` as
-    each ends.  Returns (phase 14's, 15's, 16's, 17's and 18's
-    results)."""
+    done), and after it phase 19's references; then each phase's parent
+    steps after them, ``stamp(phase)`` as each ends.  Returns (phase
+    14's, 15's, 16's, 17's, 18's and 19's results)."""
     release(torch)
     work = Path(tempfile.mkdtemp(prefix="ranks-", dir=ROOT / "build"))
     t0 = time.perf_counter()
@@ -7278,10 +8144,15 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
             parent_ready(work, 18)
             t18 = time.perf_counter()
             # phases 17 and 18's ranks peak under 30 GiB together
-            # (``beside17``: under 25 GiB)
+            # (``beside17``: under 25 GiB; phase 19's references, under 15
+            # GiB, after it)
             beside17()
             release(torch)
             t18b = time.perf_counter()
+            axis19_references(torch, rt, work)
+            parent_ready(work, 19)
+            release(torch)
+            t19 = time.perf_counter()
         except BaseException:
             stop_ranks("gloo", proc)
             raise
@@ -7299,12 +8170,14 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
         served = serve_after(torch, rt, work)
         stamp(17)
         axis18 = axis18_after(work)
+        stamp(18)
+        axis19 = axis19_after(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t_end = time.perf_counter()
-    print(f"phases 14 to 18 (one process per worker, the drivers, a model "
+    print(f"phases 14 to 19 (one process per worker, the drivers, a model "
           f"axis, serving over it, the MoE family and more model ranks "
-          f"than KV heads): {t_end - t0:.1f} s; the parent before "
+          f"than KV heads, the vlm and ssm families): {t_end - t0:.1f} s; the parent before "
           f"the gloo ranks {t14 - t0:.1f} s (phase 14, the NCCL rank "
           f"included), {t15 - t14:.1f} (15), {t16 - t15:.1f} (16), the "
           f"ranks coming up meanwhile; while the ranks ran, phase 17's "
@@ -7312,10 +8185,10 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
           f"ranks {t17b - t17:.1f}, then phase 18's references "
           f"{t18 - t17c:.1f} (after waiting {t17c - t17b:.1f} for phase "
           f"16's ranks) and the phase beside phases 17 and 18's ranks "
-          f"{t18b - t18:.1f}; the ranks after the parent's steps "
-          f"{t_ranks - t18b:.1f}; the parent after them "
-          f"{t_end - t_ranks:.1f}", flush=True)
-    return mesh, ranks15, model_axis, served, axis18
+          f"{t18b - t18:.1f}, then phase 19's references {t19 - t18b:.1f}; "
+          f"the ranks after the parent's steps {t_ranks - t19:.1f}; the "
+          f"parent after them {t_end - t_ranks:.1f}", flush=True)
+    return mesh, ranks15, model_axis, served, axis18, axis19
 
 
 def time_quantized_block(torch, rt, ops, d: int) -> dict:
@@ -7510,6 +8383,13 @@ def main() -> int:
     flash_zoo += check_flash_rank(torch, ops, rt.kernels.flash_attention,
                                   FLASH_KV_RANK, FLASH18_SEQS,
                                   "qwen2-1.5b over (data 1, model 4)")
+    flash_zoo += check_flash_rank(torch, ops, rt.kernels.flash_attention,
+                                  FLASH_VLM_RANK, FLASH19_SEQS,
+                                  "internvl2-76b over (data 2, model 2)")
+    rank_err, rwkv["rank_shapes"] = time_rwkv6(
+        torch, ops, rt.kernels.rwkv6_scan, RWKV_RANK,
+        "a rank of rwkv6-3b over (data 2, model 2)")
+    rwkv_err = max(rwkv_err, rank_err)
     gcomb["per_rank"] = check_gossip_combine_rank(
         torch, ops, ref, GossipConsensus,
         rt.kernels.gossip_combine.own_row_table, dense_param_count(
@@ -7617,9 +8497,9 @@ def main() -> int:
                                                    SERVE_ZAMBA_ARGV)
         stamp(12, ": zamba2's serve CLI beside phases 17 and 18's ranks")
 
-    mesh, ranks15, model_axis, served17, axis18 = run_rank_phases(
+    mesh, ranks15, model_axis, served17, axis18, axis19 = run_rank_phases(
         torch, rt, ops, full, beta, stamp, beside14, beside17)
-    stamp(18)
+    stamp(19)
     du[torch.float32]["model_axis"] = model_axis["dual_update"]
     squant["model_axis"] = model_axis["stochastic_quantize"]
     qcomb["model_axis"] = model_axis["quantized_combine"]
@@ -7629,7 +8509,7 @@ def main() -> int:
             runs, served, sim["launches"], cli_launches, drivers,
             coded_launches, zoo, mesh["launches"], ranks15["launches"],
             model_axis["launches"], served17["launches"],
-            axis18["launches"])
+            axis18["launches"], axis19["launches"])
             for c in group.values())
 
     def per_epoch(name):
@@ -7666,6 +8546,9 @@ def main() -> int:
                     launches_moe_kv_axis={
                         a: c.get(name, 0)
                         for a, c in axis18["launches"].items()},
+                    launches_vlm_ssm_axis={
+                        a: c.get(name, 0)
+                        for a, c in axis19["launches"].items()},
                     max_abs_err=err,
                     **timing)
 

@@ -65,7 +65,8 @@ x TP and the gossip epochs (fp32, ``gossip_q8``, ``gossip_q4``) TP, and
 ``params`` gathers the whole primal on every rank.  A quantized round
 there quantizes each rank's block of its worker's row on the whole row's
 grid (reduced over "model") with the block's positions of the whole row's
-draws.  Every driver and option runs so for the dense family: the
+draws.  Every driver and option runs so for the dense family (and the
+vlm, MoE and ssm families, whose blocks the drivers treat alike): the
 pipelined and async drivers (their in-flight payloads and snapshots are
 this rank's blocks), the staleness retune, the controller (the noise
 statistics are the whole leaves'), coded redundancy (a worker's M ranks
@@ -79,11 +80,14 @@ between one process and ranks at any (data, model).  Serving reads the
 primal as ``serving_params()`` under ``serving_tp``, the TP-only layout
 (``fsdp_axis=None``).  The MoE family runs the exact and gossip epochs,
 serving and checkpoints so, its experts on "model"
-(:func:`repro_torch.models.moe.moe_forward`).  More model ranks than KV
-heads run too: the ranks that share a head hold its columns and gather
-them (:meth:`repro_torch.dist.tp.TensorParallel.gather_kv`).  The other
-families and a model extent that does not divide the query heads raise,
-naming ROADMAP.md's module item 4a.5.
+(:func:`repro_torch.models.moe.moe_forward`), and so do the vlm family
+(the dense blocks behind an embeddings input) and the RWKV6 ssm family,
+each rank on its ``d_model / 64 / M`` heads
+(:meth:`repro_torch.dist.tp.TensorParallel.ssm_leaves`).  More model
+ranks than KV heads run too: the ranks that share a head hold its
+columns and gather them (:meth:`repro_torch.dist.tp.TensorParallel.
+gather_kv`).  The audio and hybrid families and a model extent that does
+not divide the heads raise, naming ROADMAP.md's module item 4a.5.
 """
 from __future__ import annotations
 
@@ -125,8 +129,8 @@ def not_ported(what: str, model: int) -> ValueError:
     run yet."""
     return ValueError(f"{what} at model > 1 (a worker spread over {model} "
                       f"ranks) is not ported yet (ROADMAP.md, module item "
-                      f"4a.5); every driver and option of the dense family "
-                      f"runs")
+                      f"4a.5); every driver and option of the dense, vlm, "
+                      f"moe and ssm families runs")
 
 
 class AMBSession:

@@ -77,14 +77,34 @@ gather the head (:meth:`TensorParallel.gather_kv`, over a subgroup of
 :meth:`repro_torch.dist.group.WorkerGroup.head_groups`); rank m's query
 heads read KV head ``m // (M / KV)``.
 
+The vlm family is the dense blocks behind an embeddings input.  RWKV6
+(the ssm family) keeps JAX's ``param_spec`` blocks, which are Megatron's
+only in part: each rank computes its ``d_model / 64 / M`` heads from its
+columns of ``w_r``, ``w_k``, ``w_v``, ``w_g`` and sums its rows of
+``w_out`` over "model", as attention does; the token-shift mixes (their
+d_model side on "model"), the decay's LoRA (its rank on "model") and the
+bonus (its head dim on "model") are gathered whole, a few hundred
+thousand parameters a layer against a per-token sum (:meth:`ssm_leaves`;
+serving gathers them once, :meth:`serving_leaves`); the channel mix's
+``w_v`` is split by its d_model columns, so each rank gathers the
+squared-ReLU key's ``d_ff / M`` columns and makes its output channels,
+which are gathered into the residual (:meth:`gather_model`).  Its input
+enters through :meth:`copy`, so each gathered leaf's gradient is this
+rank's share and the gather's backward sums it over "model"; the output
+channels feed the replicated residual, whose gradient is whole on every
+rank, so that gather's backward only cuts.
+
 ``gathered_bytes`` and ``scattered_bytes`` count what this rank received
 from the other ranks of "data" in the all-gathers and sent to them in the
 reduce-scatters, ``model_gathered_bytes`` what it received in the
-"model" all-gathers of the router's logits and of a shared KV head, and
-``reduced_bytes`` the fp32 bytes of its sums over "model".
+"model" all-gathers (the router's logits, a shared KV head, RWKV6's
+leaves, key and output channels), and ``reduced_bytes`` the fp32 bytes
+of its sums over "model" (``launch.dryrun.rank_model_bytes`` counts an
+RWKV6 step's).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -94,11 +114,17 @@ from torch.autograd import Function
 
 from ..kernels import ops as kops
 from ..launch.mesh import axis_names, mesh_shape
+from ..models.model import PLANNED, ordered
+from ..models.ssm import LORA, RWKV_HD
 from .params import block_slices, param_spec, shard_leaf
 
 # leaves that each rank reads in part: the gradient of its part must be
 # summed over "model" so the replicated leaf stays equal on every rank
 PARTIAL_REPLICATED = ("bq", "bk", "bv", "q_norm", "k_norm")
+# RWKV6: the small leaves each rank gathers whole over "model", and the
+# replicated ones it reads its channels of (``TensorParallel.ssm_leaves``)
+SSM_WHOLE = ("mu", "decay_a", "decay_b", "u_bonus")
+SSM_PARTIAL = ("decay_bias", "ln_x")
 
 
 class _Copy(Function):
@@ -152,20 +178,26 @@ class _GatherParts(Function):
     """Every rank's ``x`` of a process group ``pg`` of ``n`` ranks (this
     one at ``i``), stacked on a new leading dim in rank order; backward:
     the gradient summed over the group (in fp32, rounded once), this
-    rank's part kept."""
+    rank's part kept.  With ``summed`` False the backward keeps this
+    rank's part of its own gradient: where every rank's use of the
+    gathered tensor is the same replicated computation, so that its
+    gradient is already whole and equal on every rank."""
 
     @staticmethod
-    def forward(ctx, x, tp, pg, n: int, i: int):
-        ctx.tp, ctx.pg, ctx.i = tp, pg, i
+    def forward(ctx, x, tp, pg, n: int, i: int, summed: bool = True):
+        ctx.tp, ctx.pg, ctx.i, ctx.summed = tp, pg, i, summed
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x.contiguous(), group=pg)
+        tp.model_gathered_bytes += x.numel() * x.element_size() * (n - 1)
         return torch.stack(parts)
 
     @staticmethod
     def backward(ctx, g):
+        if not ctx.summed:
+            return g[ctx.i], None, None, None, None, None
         y = ordered_sum(g, ctx.pg, g.shape[0])
         ctx.tp.reduced_bytes += y.numel() * 4
-        return y[ctx.i].to(g.dtype), None, None, None, None
+        return y[ctx.i].to(g.dtype), None, None, None, None, None
 
 
 class _VocabNLL(Function):
@@ -260,7 +292,6 @@ def row_block(shapes: dict, mesh, coord, fsdp_axis: Optional[str] = None,
     model rank), then the count element.  ``mesh`` may be abstract: the
     parent of a group's ranks cuts their blocks with it."""
     if names is None:
-        from ..models.model import ordered
         names = list(ordered(shapes))
     leaves = []
     for k in names:
@@ -304,12 +335,15 @@ class TensorParallel:
         self.scattered_bytes = 0
         self.reduced_bytes = 0
         self.model_gathered_bytes = 0
+        # the leaves ssm_leaves takes as whole (:meth:`holding_whole`)
+        self.held_whole: frozenset = frozenset()
 
     # -- the layout --------------------------------------------------------
 
     def split(self, name: str) -> bool:
-        """Whether leaf ``name``'s wide side lies on "model"."""
-        return "model" in self.specs[name]
+        """Whether leaf ``name`` (of the model's) has a side on
+        "model"."""
+        return "model" in self.specs.get(name, ())
 
     def data_dim(self, name: str) -> Optional[int]:
         """The dim of leaf ``name`` that lies on "data" (None if none)."""
@@ -427,8 +461,6 @@ class TensorParallel:
         c = k.shape[-1]
         parts = _GatherParts.apply(torch.cat([k, v], dim=-1), self,
                                    self.kv_pg, self.kv_share, self.kv_i)
-        self.model_gathered_bytes += (parts[0].numel() * parts.element_size()
-                                      * (self.kv_share - 1))
         lead = parts.shape[1:-1]
 
         def whole(x):           # (n, ..., c) -> (..., n c)
@@ -459,8 +491,6 @@ class TensorParallel:
         columns, so each path counts once."""
         parts = _GatherParts.apply(logits, self, self.group.model_pg,
                                    self.M, self.m)
-        self.model_gathered_bytes += (logits.numel() * logits.element_size()
-                                      * (self.M - 1))
         return parts.movedim(0, -2).reshape(*logits.shape[:-1], -1)
 
     def heads(self, p: dict, prefix: str = "blocks.attn.") -> dict:
@@ -517,6 +547,88 @@ class TensorParallel:
                                                   unembed)).float()
         valid = max(0, min(v1, vocab_size) - v0)
         return _VocabNLL.apply(logits, labels, v0, valid, self)
+
+    # -- the RWKV6 blocks ---------------------------------------------------
+
+    def gather_model(self, x: torch.Tensor, dim: int,
+                     summed: bool) -> torch.Tensor:
+        """Every model rank's ``x`` concatenated along ``dim`` in model
+        order.  ``summed``: each rank's use of the result is its own, so
+        the backward sums the gradient over "model" and keeps this rank's
+        part; else its use is replicated and the backward keeps this
+        rank's part of its own gradient (see :class:`_GatherParts`)."""
+        parts = _GatherParts.apply(x, self, self.group.model_pg, self.M,
+                                   self.m, summed)
+        dim = dim % x.dim()
+        return parts.movedim(0, dim).reshape(
+            *x.shape[:dim], -1, *x.shape[dim + 1:])
+
+    def ssm_heads(self, cfg) -> int:
+        """The RWKV6 heads this rank holds: ``d_model / 64 / M``."""
+        return cfg.d_model // RWKV_HD // self.M
+
+    def _whole_leaf(self, name: str, x: torch.Tensor,
+                    stacked: bool) -> torch.Tensor:
+        """Leaf ``name``'s block ``x`` (``stacked``: over the layers; else
+        one layer's, its leading dim gone) gathered whole over "model"
+        (the backward summed: a rank reads the whole leaf for its own
+        channels), unless it is held whole (:meth:`holding_whole`) or
+        has no side on "model"."""
+        if name in self.held_whole or not self.split(name):
+            return x
+        lead = 0 if stacked else 1
+        return self.gather_model(x, self.specs[name].index("model") - lead,
+                                 summed=True)
+
+    def ssm_leaves(self, p: dict, prefix: str) -> dict:
+        """One layer's time-mix (``prefix`` "blocks.tmix.") or channel-mix
+        ("blocks.cmix.") leaves as this rank's heads read them: the
+        token-shift mixes (their d_model side lies on "model"), the
+        decay's LoRA (its rank on "model") and the bonus (its head dim on
+        "model") gathered whole; the bonus then cut to this rank's heads,
+        the LoRA's up-projection, the decay bias and ``ln_x`` (replicated)
+        to its channels, the last two through :meth:`copy`.  The
+        projections' blocks are its channels already."""
+        p = dict(p)
+        for k in SSM_WHOLE:
+            if k in p:
+                p[k] = self._whole_leaf(prefix + k, p[k], stacked=False)
+        if "u_bonus" in p:                              # the time mix
+            h = p["u_bonus"].shape[0] // self.M
+            c = p["decay_b"].shape[-1] // self.M
+            p["u_bonus"] = p["u_bonus"].narrow(0, self.m * h, h)
+            p["decay_b"] = p["decay_b"].narrow(-1, self.m * c, c)
+            for k in SSM_PARTIAL:
+                p[k] = self.copy(p[k]).narrow(-1, self.m * c, c)
+        return p
+
+    @torch.no_grad()
+    def serving_leaves(self, params: dict) -> tuple:
+        """(``params``, this rank's serving blocks, with the RWKV6 leaves
+        that :meth:`ssm_leaves` reads whole gathered whole, stacked over
+        the layers; their names).  A prefill or decode step under
+        :meth:`holding_whole` of those names gathers none of them; any
+        other family's leaves stay as they are.  Every rank calls it
+        together (it runs the gathers)."""
+        out, names = dict(params), []
+        for prefix in ("blocks.tmix.", "blocks.cmix."):
+            for k in SSM_WHOLE:
+                name = prefix + k
+                if name in out and self.split(name):
+                    out[name] = self._whole_leaf(name, out[name], stacked=True)
+                    names.append(name)
+        return out, frozenset(names)
+
+    @contextlib.contextmanager
+    def holding_whole(self, names: frozenset):
+        """While open, :meth:`ssm_leaves` takes the leaves ``names`` as
+        whole (:meth:`serving_leaves`' result) and gathers only the
+        others."""
+        before, self.held_whole = self.held_whole, frozenset(names)
+        try:
+            yield
+        finally:
+            self.held_whole = before
 
     # -- what the steps need -----------------------------------------------
 
@@ -676,7 +788,19 @@ def check_heads(cfg, model: int) -> None:
     """Refuse a head layout a model axis of ``model`` ranks cannot split:
     M must divide the query heads, and divide the KV heads or be a
     multiple of them (then M / KV ranks share a head, each holding
-    ``hd / (M / KV)`` of its columns)."""
+    ``hd / (M / KV)`` of its columns); RWKV6 (the ssm family): M must
+    divide its ``d_model / 64`` heads, the head dim, the decay's LoRA rank
+    and the ffn width, so that each rank holds whole heads and its block
+    of every leaf."""
+    if cfg.family == "ssm":
+        if any(n % model for n in (cfg.d_model // RWKV_HD, RWKV_HD, LORA,
+                                   cfg.d_ff)):
+            raise ValueError(f"model={model} must divide the "
+                             f"{cfg.d_model // RWKV_HD} RWKV6 heads, the "
+                             f"head dim 64, the decay's LoRA rank 64 and "
+                             f"d_ff {cfg.d_ff} (ROADMAP.md, module item "
+                             f"4a.5)")
+        return
     h, kv = cfg.num_heads, cfg.num_kv_heads
     if h % model or (kv % model and model % kv) \
             or (model > kv and cfg.hd % (model // kv)):
@@ -687,8 +811,8 @@ def check_heads(cfg, model: int) -> None:
 
 def check_supported(cfg, model: int) -> None:
     """Refuse what a model axis of ``model`` ranks cannot run yet."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in PLANNED:
         raise ValueError(f"the {cfg.family!r} family at model > 1 is not "
                          f"ported yet (ROADMAP.md, module item 4a.5); the "
-                         f"dense and moe families run")
+                         f"{', '.join(PLANNED)} families run")
     check_heads(cfg, model)

@@ -70,6 +70,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..configs import ARCH_NAMES, SHAPES, InputShape, get_config
 from ..dist.amb import make_train_step
 from ..dist.params import param_spec, shard_extent
+from ..dist.tp import SSM_PARTIAL, SSM_WHOLE
 from ..kernels import ops as kops
 from ..models import decode_step, prefill
 from ..optim import DualAveragingOpt
@@ -300,7 +301,11 @@ def _layout(cfg, shape: InputShape, mesh) -> dict:
             add("all-reduce", 4 * full / model_part)
     rows = _local_rows(shape.global_batch, mesh)
     tokens = rows * (shape.seq_len if shape.kind != "decode" else 1)
-    if m > 1:
+    if m > 1 and cfg.family == "ssm":
+        for op, nbytes, calls, _ in ssm_model_collectives(cfg, mesh, tokens,
+                                                          train):
+            add(op, nbytes, calls)
+    elif m > 1:
         passes = 4 if train else 2
         layers = cfg.num_layers + (cfg.encoder_layers or 0)
         add("all-reduce", tokens * cfg.d_model * 2, passes * layers)
@@ -366,6 +371,75 @@ def rank_fsdp_bytes(cfg, mesh) -> dict:
         gathered += block * leaf.element_size() * (d - 1) * times
         scattered += block * 4 * (d - 1)
     return {"gathered_bytes": gathered, "scattered_bytes": scattered}
+
+
+def ssm_model_collectives(cfg, mesh, tokens: int, train: bool) -> list:
+    """RWKV6's collectives over "model" in one worker's step of ``tokens``
+    tokens, as the port runs them (:meth:`repro_torch.dist.tp.
+    TensorParallel.ssm_leaves` and the model's RWKV6 blocks), each as
+    ``(op, one call's result bytes, calls, the bytes the rank's
+    TensorParallel counts for it)``: an all-gather counts the (M - 1)
+    blocks it receives (``model_gathered_bytes``), a sum its fp32 result
+    (``reduced_bytes``).  A layer's forward (training: twice, the
+    checkpointed block's recompute, which ends before the last gather)
+    gathers the small leaves it reads whole (serving gathers them once,
+    when the engine is built), the channel mix's squared-ReLU key and its
+    output channels, and sums the time mix's row-parallel ``w_out``; a training backward sums the two
+    mixes' inputs, the decay bias and ``ln_x`` (read in part), the small
+    leaves' and the key's gradients.  The vocab-parallel lookup sums its
+    rows once, and the cross-entropy's copy of the hidden state its
+    gradient."""
+    m = mesh_shape(mesh)["model"]
+    layers, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
+    e = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    params = S.abstract_params(cfg)
+    fwd = 2 if train else 1
+    out = []
+
+    def gather(nbytes, calls, summed_numel=None):
+        out.append(("all-gather", nbytes, calls, nbytes * (m - 1) // m))
+        if train and summed_numel is not None:
+            out.append(("all-reduce", 4 * summed_numel, layers,
+                        4 * summed_numel))
+
+    def reduce(numel, nbytes, calls):
+        out.append(("all-reduce", nbytes, calls, 4 * numel))
+
+    if train:
+        for prefix in ("blocks.tmix.", "blocks.cmix."):
+            for k in SSM_WHOLE:
+                leaf = params.get(prefix + k)
+                if leaf is not None:
+                    numel = leaf.numel() // layers
+                    gather(numel * leaf.element_size(), fwd * layers, numel)
+        for k in SSM_PARTIAL:
+            numel = params["blocks.tmix." + k].numel() // layers
+            reduce(numel, 4 * numel, layers)
+        reduce(tokens * d, tokens * d * e, 2 * layers)   # the mixes' inputs
+    gather(tokens * ff * e, fwd * layers, tokens * ff)     # the key
+    # cmix's output: the block's last op saves nothing for its backward,
+    # so the checkpointed recompute stops before it
+    gather(tokens * d * e, layers)
+    reduce(tokens * d, tokens * d * e, fwd * layers)       # w_out
+    if "model" in param_spec("embed", params["embed"].shape, mesh, None):
+        reduce(tokens * d, tokens * d * e, 1)              # the lookup
+        if train:
+            reduce(tokens * d, tokens * d * e, 1)          # the logits' input
+    return out
+
+
+def rank_model_bytes(cfg, mesh, tokens: int, train: bool = True) -> dict:
+    """What one rank of an RWKV6 worker's step of ``tokens`` tokens moves
+    over "model", as :class:`repro_torch.dist.tp.TensorParallel` counts
+    it: ``model_gathered_bytes`` received in the all-gathers and
+    ``reduced_bytes`` summed (:func:`ssm_model_collectives`)."""
+    got = {"model_gathered_bytes": 0, "reduced_bytes": 0}
+    for op, _, calls, counted in ssm_model_collectives(cfg, mesh, tokens,
+                                                       train):
+        key = "model_gathered_bytes" if op == "all-gather" \
+            else "reduced_bytes"
+        got[key] += calls * counted
+    return got
 
 
 def _state_bytes(cfg, local: InputShape, mesh, rows: int) -> float:

@@ -50,7 +50,8 @@ prompt holds no (S, d_ff) tensor; the MoE feed-forward takes the whole
 prompt (its groups and capacities are per sequence); whisper's blocks
 take a prompt (at most 448 tokens) and the 1500 frames whole.
 
-Serving over a model axis (the dense and MoE families): :func:`prefill`,
+Serving over a model axis (the dense, vlm, MoE and ssm families):
+:func:`prefill`,
 :func:`decode_step` and :func:`init_decode_state` take ``tp`` (a
 :class:`repro_torch.dist.tp.TensorParallel` under the serving layout,
 ``fsdp_axis=None``) as :func:`forward_aux` does, and ``params`` then
@@ -59,7 +60,9 @@ holds this rank's blocks: each rank computes its ``H / M`` query and
 ranks than KV heads the ``M / KV`` ranks that share a head each hold
 ``hd / (M / KV)`` of its columns, gather the head before the qk-norm and
 the rope, and hold equal caches of it), its experts (the MoE layer,
-:func:`repro_torch.models.moe.moe_forward`), sums the row-parallel
+:func:`repro_torch.models.moe.moe_forward`), its RWKV6 heads and their
+states (not padded; :func:`repro_torch.models.ssm.rwkv6_forward` and
+:func:`_cmix`), sums the row-parallel
 ``wo``, MLP and expert products over "model", looks tokens up in its
 rows of the vocabulary, and returns its ``padded_vocab / M`` columns of
 the logits, unsliced (the caller gathers them, then slices to
@@ -85,6 +88,9 @@ BLOCKS = "blocks."
 SHARED = "shared_attn."
 ENCODER = "encoder."
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the families :func:`param_plan` draws leaf by leaf, and that run over a
+# model axis
+PLANNED = ("dense", "vlm", "moe", "ssm")
 
 
 def _leaf_key(name: str) -> tuple:
@@ -96,7 +102,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     if cfg.family not in FAMILIES:
         raise ValueError(f"only the {', '.join(FAMILIES)} families are "
                          f"ported, got {cfg.family!r}")
-    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
+    if cfg.family in PLANNED:
+        return ordered({k: make(generator) for k, make in param_plan(cfg)})
+    L, d = cfg.num_layers, cfg.d_model
     dt, dev = cfg.torch_dtype, generator.device
     ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=dev)
     params = {
@@ -112,48 +120,61 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
             cfg, generator, cfg.encoder_layers).items()})
         params[ENCODER + "final_norm"] = ones(d)
         return ordered(params)
-    if cfg.family == "hybrid":
-        params["blocks.ln1"] = ones(L, d)
-        for k, v in ssm.mamba2_params(cfg, generator, L).items():
-            params[f"blocks.mamba.{k}"] = v
-        if cfg.attn_every:
-            params.update({SHARED + k: v[0] for k, v in _dense_params(
-                cfg, generator, 1).items()})
-        return ordered(params)
-    if cfg.family == "ssm":
-        for k, v in ssm.rwkv6_params(cfg, generator, L).items():
-            params[f"blocks.tmix.{k}"] = v
-        params.update({
-            "blocks.ln1": ones(L, d),
-            "blocks.ln2": ones(L, d),
-            "blocks.cmix.mu": torch.full((L, 2, d), 0.5, dtype=dt,
-                                         device=dev),
-            "blocks.cmix.w_k": init_linear((L, d, ff), dt, generator),
-            "blocks.cmix.w_v": init_linear((L, ff, d), dt, generator),
-            "blocks.cmix.w_r": init_linear((L, d, d), dt, generator),
-        })
-        return ordered(params)
-    params.update({BLOCKS + k: v for k, v in _dense_params(
-        cfg, generator, L).items()})
+    params["blocks.ln1"] = ones(L, d)                    # the hybrid
+    for k, v in ssm.mamba2_params(cfg, generator, L).items():
+        params[f"blocks.mamba.{k}"] = v
+    if cfg.attn_every:
+        params.update({SHARED + k: v[0] for k, v in _dense_params(
+            cfg, generator, 1).items()})
     return ordered(params)
 
 
 def param_plan(cfg: ArchConfig) -> list:
-    """The dense and MoE families' leaves in :func:`init_params`' draw
-    order, each as ``(name, make(generator))``: making them one at a time
-    draws what :func:`init_params` draws, so a caller can keep a slice of
-    each leaf and drop the rest before the next is made (the sharded
-    sessions; an expert leaf's ``make`` is a
+    """The dense, vlm, MoE and ssm families' leaves in :func:`init_params`'
+    draw order, each as ``(name, make(generator))``: making them one at a
+    time draws what :func:`init_params` draws, so a caller can keep a
+    slice of each leaf and drop the rest before the next is made (the
+    sharded sessions; an expert leaf's ``make`` is a
     :class:`repro_torch.models.moe.Layered`)."""
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"param_plan covers the dense and moe families, "
-                         f"got {cfg.family!r}")
+    if cfg.family not in PLANNED:
+        raise ValueError(f"param_plan covers the {', '.join(PLANNED)} "
+                         f"families, got {cfg.family!r}")
     d, dt, v = cfg.d_model, cfg.torch_dtype, cfg.padded_vocab
-    return [("embed", lambda g: init_linear((v, d), dt, g, scale=1.0)),
+    head = [("embed", lambda g: init_linear((v, d), dt, g, scale=1.0)),
             ("unembed", lambda g: init_linear((d, v), dt, g)),
             ("final_norm", lambda g: torch.ones((d,), dtype=torch.float32,
-                                                device=g.device))] + [
-        (BLOCKS + k, make) for k, make in _dense_plan(cfg, cfg.num_layers)]
+                                                device=g.device))]
+    plan = _ssm_plan(cfg, cfg.num_layers) if cfg.family == "ssm" \
+        else _dense_plan(cfg, cfg.num_layers)
+    return head + [(BLOCKS + k, make) for k, make in plan]
+
+
+def _makers(cfg: ArchConfig, layers: int) -> tuple:
+    """(a layer-stacked fp32 norm of ones, ``linear(shape)``: an
+    ``init_linear`` in the model's dtype), each as ``make(generator)``."""
+    def ones(g):
+        return torch.ones((layers, cfg.d_model), dtype=torch.float32,
+                          device=g.device)
+
+    def linear(shape):
+        return lambda g: init_linear(shape, cfg.torch_dtype, g)
+    return ones, linear
+
+
+def _ssm_plan(cfg: ArchConfig, layers: int) -> list:
+    """``(key below the block, make(generator))`` of an RWKV6 block's
+    leaves, stacked over ``layers``, in draw order: the time mix, the
+    norms, the channel mix."""
+    d, ff = cfg.d_model, cfg.d_ff
+    ones, linear = _makers(cfg, layers)
+    return ([(f"tmix.{k}", make) for k, make in ssm.rwkv6_plan(cfg, layers)]
+            + [("ln1", ones), ("ln2", ones),
+               ("cmix.mu", lambda g: torch.full((layers, 2, d), 0.5,
+                                                dtype=cfg.torch_dtype,
+                                                device=g.device)),
+               ("cmix.w_k", linear((layers, d, ff))),
+               ("cmix.w_v", linear((layers, ff, d))),
+               ("cmix.w_r", linear((layers, d, d)))])
 
 
 def _dense_plan(cfg: ArchConfig, layers: int) -> list:
@@ -161,14 +182,8 @@ def _dense_plan(cfg: ArchConfig, layers: int) -> list:
     block's leaves, stacked over ``layers``, in draw order: the norms,
     the MLP (MoE: :func:`repro_torch.models.moe.moe_plan`), the
     attention."""
-    d, ff, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
-
-    def ones(g):
-        return torch.ones((layers, d), dtype=torch.float32, device=g.device)
-
-    def linear(shape):
-        return lambda g: init_linear(shape, dt, g)
-
+    d, ff = cfg.d_model, cfg.d_ff
+    ones, linear = _makers(cfg, layers)
     if cfg.is_moe:
         ffn = [(f"moe.{k}", make) for k, make in moe.moe_plan(cfg, layers)]
     else:
@@ -257,21 +272,39 @@ def _encdec_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
 
 
 def _cmix(x: torch.Tensor, xn: torch.Tensor, xp: torch.Tensor,
-          cm: dict) -> torch.Tensor:
+          cm: dict, tp=None) -> torch.Tensor:
     """The RWKV6 channel mix on the residual x: xn normed, xp its token
-    shift."""
+    shift.  With ``tp`` (xn and xp through ``tp.copy``) ``cm`` holds this
+    rank's blocks: its ``d_ff / M`` columns of the squared-ReLU key are
+    gathered over "model" (``w_v`` is split by its d_model columns, not
+    its ffn rows), and its ``d / M`` output channels are gathered into the
+    residual."""
+    if tp is not None:
+        cm = tp.ssm_leaves(cm, "blocks.cmix.")
     k_in = xn * cm["mu"][0] + xp * (1 - cm["mu"][0])
     r_in = xn * cm["mu"][1] + xp * (1 - cm["mu"][1])
-    v = torch.square(torch.relu(k_in @ cm["w_k"])) @ cm["w_v"]
-    return x + torch.sigmoid(r_in @ cm["w_r"]) * v
+    k = torch.square(torch.relu(k_in @ cm["w_k"]))
+    if tp is not None:
+        k = tp.gather_model(k, -1, summed=True)
+    out = torch.sigmoid(r_in @ cm["w_r"]) * (k @ cm["w_v"])
+    if tp is not None:
+        out = tp.gather_model(out, -1, summed=False)
+    return x + out
 
 
 def _rwkv_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
-                p: dict) -> tuple:
-    """(the block's output, None: no load-balance loss)."""
-    x = x + ssm.rwkv6_forward(p["tmix"], rms_norm(x, p["ln1"]), cfg)
+                p: dict, tp=None) -> tuple:
+    """(the block's output, None: no load-balance loss).  With ``tp`` ``p``
+    holds this rank's blocks, gathered over "data" here, and the time and
+    channel mixes run over "model" (:func:`repro_torch.models.ssm.
+    rwkv6_forward`, :func:`_cmix`)."""
+    if tp is not None:
+        p = tp.block(p)
+    x = x + ssm.rwkv6_forward(p["tmix"], rms_norm(x, p["ln1"]), cfg, tp=tp)
     xn = rms_norm(x, p["ln2"])
-    return _cmix(x, xn, F.pad(xn, (0, 0, 1, 0))[:, :-1], p["cmix"]), None
+    if tp is not None:
+        xn = tp.copy(xn)
+    return _cmix(x, xn, F.pad(xn, (0, 0, 1, 0))[:, :-1], p["cmix"], tp), None
 
 
 def _mamba_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
@@ -358,8 +391,8 @@ def forward_aux(params: dict, cfg: ArchConfig, batch, group=None,
     ``group``: this process's worker of a process group, whose MoE layers
     take the routing counts across the workers (the exact step).
     ``tp``: this rank's place in a worker spread over a model axis
-    (:class:`repro_torch.dist.tp.TensorParallel`; the dense and MoE
-    families), whose blocks ``params`` holds."""
+    (:class:`repro_torch.dist.tp.TensorParallel`; the families of
+    :data:`PLANNED`), whose blocks ``params`` holds."""
     if isinstance(batch, torch.Tensor):
         batch = {"tokens": batch}
     x = _embed(params, cfg, batch, tp)
@@ -487,9 +520,11 @@ def _cache_tensors(tree) -> list:
     return [t for sub in tree for t in _cache_tensors(sub)]
 
 
-def _ssm_caches(cfg: ArchConfig, batch: int, device) -> dict:
-    """Zero ssm decode states stacked over the layers."""
-    one = ssm.rwkv6_init_state(cfg, batch, device)
+def _ssm_caches(cfg: ArchConfig, batch: int, device, tp=None) -> dict:
+    """Zero ssm decode states stacked over the layers (with ``tp``, this
+    rank's heads, not padded)."""
+    one = ssm.rwkv6_init_state(cfg, batch, device,
+                               0 if tp is None else tp.ssm_heads(cfg))
     L = cfg.num_layers
     return {"tmix": ssm.RWKVState(one.s.new_zeros((L,) + one.s.shape),
                                   one.x_prev.new_zeros(
@@ -512,18 +547,20 @@ def _last_hidden(params: dict, x: torch.Tensor, last_pos) -> tuple:
     return hidden, sel + 1
 
 
-def _prefill_ssm(params: dict, cfg: ArchConfig, x: torch.Tensor) -> tuple:
+def _prefill_ssm(params: dict, cfg: ArchConfig, x: torch.Tensor,
+                 tp=None) -> tuple:
     """The RWKV6 stack over a prompt: (the last layer's output, the
-    stacked decode states after its last token)."""
-    caches = _ssm_caches(cfg, x.shape[0], x.device)
+    stacked decode states after its last token; with ``tp`` this rank's
+    heads)."""
+    caches = _ssm_caches(cfg, x.shape[0], x.device, tp)
     for layer, lp in enumerate(_layers(params, cfg)):
         h, st = ssm.rwkv6_forward(lp["tmix"], rms_norm(x, lp["ln1"]), cfg,
-                                  return_state=True)
+                                  return_state=True, tp=tp)
         caches["tmix"].s[layer] = st.s
         caches["tmix"].x_prev[layer] = st.x_prev
         x = x + h
         xn = rms_norm(x, lp["ln2"])
-        x = _cmix(x, xn, F.pad(xn, (0, 0, 1, 0))[:, :-1], lp["cmix"])
+        x = _cmix(x, xn, F.pad(xn, (0, 0, 1, 0))[:, :-1], lp["cmix"], tp)
         caches["cmix_prev"][layer] = xn[:, -1]
     return x, caches
 
@@ -681,10 +718,10 @@ def _prefill_hybrid(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _check_tp(cfg: ArchConfig, tp) -> None:
-    if tp is not None and cfg.family not in ("dense", "moe"):
+    if tp is not None and cfg.family not in PLANNED:
         raise ValueError(f"serving the {cfg.family!r} family over a model "
                          f"axis is not ported yet (ROADMAP.md, module item "
-                         f"4a.5); the dense and moe families run")
+                         f"4a.5); the {', '.join(PLANNED)} families run")
 
 
 @torch.no_grad()
@@ -709,8 +746,8 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     caches, sized as the dense family's, and ``enc_kv``.  The batch is
     ``{"tokens"}`` or ``{"embeds"}`` (vlm), with ``"enc_embeds"`` for
     audio; the logits have ``vocab_size`` columns.  ``tp``: this rank's
-    blocks over a model axis (the dense and MoE families; see the module
-    note).
+    blocks over a model axis (the families of :data:`PLANNED`; see the
+    module note).
     """
     _check_servable(cfg)
     _check_tp(cfg, tp)
@@ -720,7 +757,7 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     cap = min(window, s) if window > 0 else s + extra_capacity
     enc_kv = None
     if cfg.family == "ssm":
-        x, caches = _prefill_ssm(params, cfg, x)
+        x, caches = _prefill_ssm(params, cfg, x, tp)
     elif cfg.family == "hybrid":
         x, caches = _prefill_hybrid(params, cfg, x, cap)
     elif cfg.family == "audio":
@@ -745,8 +782,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     ``enc_kv`` of ``encoder_seq`` frames, 1500 if it is unset, as in JAX);
     ``per_slot_pos`` gives a (batch,) position vector (the slot array,
     rows decode at their own depths) instead of a shared scalar.  ``tp``:
-    this rank's KV heads' caches (the dense and MoE families over a model
-    axis)."""
+    this rank's KV heads' caches, or its RWKV6 heads' states (the
+    families of :data:`PLANNED` over a model axis)."""
     _check_servable(cfg)
     _check_tp(cfg, tp)
     device = resolve_device(device)
@@ -756,7 +793,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     if cfg.family == "audio":
         enc_kv = _enc_kv(cfg, batch, cfg.encoder_seq or 1500, device)
     if cfg.family == "ssm":
-        caches = _ssm_caches(cfg, batch, device)
+        caches = _ssm_caches(cfg, batch, device, tp)
     elif cfg.family == "hybrid":
         caches = _hybrid_caches(cfg, batch, cap, device)
     else:
@@ -798,7 +835,8 @@ def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
                 token: torch.Tensor, tp=None, group=None) -> tuple:
     """One-token decode.  token: (B,) -> (logits (B, vocab_size),
     DecodeState at ``pos + 1`` over the same, updated, caches).  ``tp``:
-    this rank's blocks over a model axis (the dense and MoE families):
+    this rank's blocks over a model axis (the families of
+    :data:`PLANNED`):
     the vocab-parallel lookup, its heads, and its columns of the logits
     (see :func:`logits_fn`).  ``group``: the
     :class:`repro_torch.dist.group.WorkerGroup` whose workers each hold
@@ -813,13 +851,13 @@ def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
         x = tp.embed(params["embed"], token.long())[:, None, :]
     if cfg.family == "audio":
         x = _decode_audio(params, cfg, state, x)
-    elif tp is not None or (group is not None and cfg.is_moe):
-        x = _decode_dense(params, cfg, state.caches, state.pos, x, tp,
-                          group)
+    elif cfg.family == "ssm":
+        x = _decode_ssm(params, cfg, state.caches, x, tp)
+    elif cfg.family == "hybrid":
+        x = _decode_hybrid(params, cfg, state.caches, state.pos, x)
     else:
-        decode = {"ssm": _decode_ssm, "hybrid": _decode_hybrid}.get(
-            cfg.family, _decode_dense)
-        x = decode(params, cfg, state.caches, state.pos, x)
+        x = _decode_dense(params, cfg, state.caches, state.pos, x, tp,
+                          group if cfg.is_moe else None)
     hidden = rms_norm(x, params["final_norm"])
     logits = logits_fn(params, cfg, hidden, tp)[:, 0]
     return logits, DecodeState(state.caches, state.pos + 1, state.enc_kv)
@@ -868,19 +906,21 @@ def _decode_audio(params: dict, cfg: ArchConfig, state: DecodeState,
 
 
 def _decode_ssm(params: dict, cfg: ArchConfig, caches: dict,
-                pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """One token through the RWKV6 stack (``pos`` is not read: the state is
-    the context); the states are updated in place."""
+                x: torch.Tensor, tp=None) -> torch.Tensor:
+    """One token through the RWKV6 stack (the state is the context: no
+    position); the states are updated in place (with ``tp``, this rank's
+    heads')."""
     tmix = caches["tmix"]
     for layer, lp in enumerate(_layers(params, cfg)):
         st = ssm.RWKVState(tmix.s[layer], tmix.x_prev[layer])
         h, new = ssm.rwkv6_decode(lp["tmix"], rms_norm(x, lp["ln1"]), st,
-                                  cfg)
+                                  cfg, tp)
         tmix.s[layer] = new.s
         tmix.x_prev[layer] = new.x_prev
         x = x + h
         xn = rms_norm(x, lp["ln2"])
-        x = _cmix(x, xn, caches["cmix_prev"][layer][:, None], lp["cmix"])
+        x = _cmix(x, xn, caches["cmix_prev"][layer][:, None], lp["cmix"],
+                  tp)
         caches["cmix_prev"][layer] = xn[:, 0]
     return x
 

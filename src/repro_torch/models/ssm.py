@@ -244,43 +244,47 @@ def rwkv6_state_heads(cfg: ArchConfig) -> int:
     return heads
 
 
-def _pad_heads(t: torch.Tensor, cfg: ArchConfig,
+def _pad_heads(t: torch.Tensor, heads: int,
                value: float = 0.0) -> torch.Tensor:
-    """Pad the trailing flat channel dim from heads hd to padded heads hd."""
+    """Pad the trailing flat channel dim with ``value`` to ``heads`` heads
+    of ``RWKV_HD``."""
+    pad = heads * RWKV_HD - t.shape[-1]
+    return F.pad(t, (0, pad), value=value) if pad else t
+
+
+def rwkv6_plan(cfg: ArchConfig, layers: int) -> list:
+    """``(name, make(generator))`` of the time-mix leaves, stacked over
+    ``layers``, in draw order, with JAX's names, dtypes and init:
+    token-shift mixes 0.5, decay bias -6 and bonus 0 (fp32), linears
+    truncated normal over sqrt(fan_in)."""
+    d, L = cfg.d_model, layers
     heads, hd = rwkv6_dims(cfg)
-    ph = rwkv6_state_heads(cfg)
-    if ph == heads:
-        return t
-    return F.pad(t, (0, (ph - heads) * hd), value=value)
+    dt = cfg.torch_dtype
+
+    def lin(*shape):
+        return lambda g: init_linear((L,) + shape, dt, g)
+
+    def full(shape, fill, dtype):
+        return lambda g: torch.full((L,) + shape, fill, dtype=dtype,
+                                    device=g.device)
+
+    return [("mu", full((4, d), 0.5, dt)),
+            ("w_r", lin(d, d)),
+            ("w_k", lin(d, d)),
+            ("w_v", lin(d, d)),
+            ("w_g", lin(d, d)),
+            ("decay_a", lin(d, LORA)),
+            ("decay_b", lin(LORA, d)),
+            ("decay_bias", full((d,), -6.0, torch.float32)),
+            ("u_bonus", full((heads, hd), 0.0, torch.float32)),
+            ("w_out", lin(d, d)),
+            ("ln_x", full((d,), 1.0, torch.float32))]
 
 
 def rwkv6_params(cfg: ArchConfig, generator: torch.Generator,
                  layers: int) -> dict:
-    """The time-mix leaves, stacked over ``layers``, with JAX's names,
-    dtypes and init: token-shift mixes 0.5, decay bias -6 and bonus 0 (fp32),
-    linears truncated normal over sqrt(fan_in)."""
-    d, L = cfg.d_model, layers
-    heads, hd = rwkv6_dims(cfg)
-    dt, dev = cfg.torch_dtype, generator.device
-
-    def lin(*shape):
-        return init_linear((L,) + shape, dt, generator)
-
-    return {
-        "mu": torch.full((L, 4, d), 0.5, dtype=dt, device=dev),
-        "w_r": lin(d, d),
-        "w_k": lin(d, d),
-        "w_v": lin(d, d),
-        "w_g": lin(d, d),
-        "decay_a": lin(d, LORA),
-        "decay_b": lin(LORA, d),
-        "decay_bias": torch.full((L, d), -6.0, dtype=torch.float32,
-                                 device=dev),
-        "u_bonus": torch.zeros((L, heads, hd), dtype=torch.float32,
-                               device=dev),
-        "w_out": lin(d, d),
-        "ln_x": torch.ones((L, d), dtype=torch.float32, device=dev),
-    }
+    """The time-mix leaves of :func:`rwkv6_plan`, drawn."""
+    return {k: make(generator) for k, make in rwkv6_plan(cfg, layers)}
 
 
 def _rwkv_proj(p: dict, x: torch.Tensor, x_prev: torch.Tensor) -> tuple:
@@ -353,28 +357,40 @@ class RWKVState(NamedTuple):
 
 def _norm_gate_out(p: dict, y: torch.Tensor, g: torch.Tensor,
                    x: torch.Tensor) -> torch.Tensor:
-    """Per-head norm of y (..., heads, hd), ln_x over the first d channels,
-    the gate, and the output projection in x's dtype."""
-    d = x.shape[-1]
+    """Per-head norm of y (..., heads, hd), ln_x over the gate's channels
+    (the heads a state pads past them are dropped), the gate, and the
+    output projection in x's dtype."""
+    c = g.shape[-1]
     y = y * torch.rsqrt((y * y).mean(dim=-1, keepdim=True) + 1e-6)
-    y = y.reshape(*y.shape[:-2], -1)[..., :d] * p["ln_x"]
+    y = y.reshape(*y.shape[:-2], -1)[..., :c] * p["ln_x"]
     return (y * g.float()).to(x.dtype) @ p["w_out"]
 
 
 def rwkv6_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, chunk: int = 0,
-                  return_state: bool = False):
+                  return_state: bool = False, tp=None):
     """Time-mix over a sequence.  x: (B, S, d), normed.
 
     Under autograd the wkv scan is the plain chunked one at ``chunk`` (or
     ``cfg.ssm_chunk``); otherwise :func:`repro_torch.kernels.ops.
     rwkv6_scan` (the kernel on the card).  ``return_state`` also returns
     the :class:`RWKVState` for decode, its heads padded to
-    :func:`rwkv6_state_heads`.
+    :func:`rwkv6_state_heads` where the call holds every head.
+
+    The heads are those of ``p``'s projections: with ``tp`` (a
+    :class:`repro_torch.dist.tp.TensorParallel`) ``p`` holds this rank's
+    blocks, ``tp.ssm_leaves`` gives the leaves as its ``H / M`` heads read
+    them, x enters through ``tp.copy`` and the row-parallel ``w_out``
+    product is summed over "model"; the state is the rank's heads, not
+    padded.
     """
+    if tp is not None:
+        p = tp.ssm_leaves(p, "blocks.tmix.")
+        x = tp.copy(x)
     b, s, d = x.shape
-    heads, hd = rwkv6_dims(cfg)
+    hd = RWKV_HD
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
     r, k, v, decay, g = _rwkv_proj(p, x, x_prev)
+    heads = r.shape[-1] // hd
     shape = (b, s, heads, hd)
     if torch.is_grad_enabled():
         y, state = rwkv6_chunked_scan(
@@ -386,40 +402,51 @@ def rwkv6_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, chunk: int = 0,
             p["u_bonus"])
         y = y.transpose(1, 2)
     out = _norm_gate_out(p, y, g, x)
+    if tp is not None:
+        out = tp.reduce(out)
     if not return_state:
         return out
     ph = rwkv6_state_heads(cfg)
-    if ph != heads:
+    if heads == rwkv6_dims(cfg)[0] and ph != heads:
         state = F.pad(state, (0, 0, 0, 0, 0, ph - heads))
     return out, RWKVState(state, x[:, -1])
 
 
-def rwkv6_init_state(cfg: ArchConfig, batch: int, device) -> RWKVState:
-    _, hd = rwkv6_dims(cfg)
-    ph = rwkv6_state_heads(cfg)
+def rwkv6_init_state(cfg: ArchConfig, batch: int, device,
+                     heads: int = 0) -> RWKVState:
+    """Zero states of ``heads`` heads (default
+    :func:`rwkv6_state_heads`)."""
+    hd = RWKV_HD
     return RWKVState(
-        torch.zeros((batch, ph, hd, hd), dtype=torch.float32, device=device),
+        torch.zeros((batch, heads or rwkv6_state_heads(cfg), hd, hd),
+                    dtype=torch.float32, device=device),
         torch.zeros((batch, cfg.d_model), dtype=cfg.torch_dtype,
                     device=device))
 
 
 def rwkv6_decode(p: dict, x: torch.Tensor, state: RWKVState,
-                 cfg: ArchConfig) -> tuple:
+                 cfg: ArchConfig, tp=None) -> tuple:
     """One-token step.  x: (B, 1, d), normed.  Returns (out (B, 1, d), the
     new :class:`RWKVState`); r, k, v and the decay are padded to the
-    state's heads."""
+    state's heads.  ``tp`` as in :func:`rwkv6_forward`: the state holds
+    this rank's heads."""
+    if tp is not None:
+        p = tp.ssm_leaves(p, "blocks.tmix.")
     b = x.shape[0]
-    _, hd = rwkv6_dims(cfg)
-    ph = rwkv6_state_heads(cfg)
+    hd = RWKV_HD
+    ph = state.s.shape[1]
     r, k, v, decay, g = _rwkv_proj(p, x, state.x_prev[:, None, :])
-    r, k, v = (_pad_heads(t, cfg) for t in (r, k, v))
-    decay = _pad_heads(decay, cfg, value=1.0)
+    r, k, v = (_pad_heads(t, ph) for t in (r, k, v))
+    decay = _pad_heads(decay, ph, value=1.0)
 
     def heads(t):
         return t[:, 0].reshape(b, ph, hd).float()
     r, k, v, dc = heads(r), heads(k), heads(v), heads(decay)
-    u = _pad_heads(p["u_bonus"].reshape(-1), cfg).reshape(ph, hd)
+    u = _pad_heads(p["u_bonus"].reshape(-1), ph).reshape(ph, hd)
     kv = torch.einsum("bhd,bhe->bhde", k, v)
     y = torch.einsum("bhd,bhde->bhe", r, state.s + u[..., None] * kv)
     s_new = dc[..., None] * state.s + kv
-    return _norm_gate_out(p, y[:, None], g, x), RWKVState(s_new, x[:, 0])
+    out = _norm_gate_out(p, y[:, None], g, x)
+    if tp is not None:
+        out = tp.reduce(out)
+    return out, RWKVState(s_new, x[:, 0])

@@ -207,8 +207,8 @@ class ServeScheduler:
         # layout's blocks where the session has them (an AMBSession),
         # else the session's whole ``params`` (the scheduler's contract)
         serving = getattr(self.session, "serving_params", None)
-        self.engine.params = serving() if serving is not None \
-            else self.session.params
+        self.engine.load_params(serving() if serving is not None
+                                else self.session.params)
         self.clock.charge("train")
         dt = self.clock.now() - now
         self._train_cost = dt if self._train_cost is None \

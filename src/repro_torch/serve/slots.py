@@ -6,7 +6,8 @@ The decode batch is a fixed array of ``slots`` rows sharing one
 (:func:`repro_torch.models.init_decode_state` with ``per_slot_pos=True``).
 Requests are prefilled one at a time (batch 1), through the flash kernel
 (dense) or the wkv scan kernel (ssm) on the card (vlm prompts go in as
-their embedding rows, ``prompt_batch``), and written into a free
+their embedding rows, ``prompt_batch``; over a model axis the
+vocab-parallel lookup), and written into a free
 row by :func:`repro_torch.models.insert_decode_state`; retirement (EOS or
 token budget) frees the row and zeroes it
 (:func:`repro_torch.models.evict_decode_state`).  Bucketing is
@@ -25,8 +26,8 @@ under the serving layout when each worker spans M > 1 model ranks) the
 slot rows lie on the workers as JAX's ``decode_state_specs`` puts the
 batch on the worker axes: when the n workers divide the slots, worker j
 owns rows ``j * slots / n`` to ``(j + 1) * slots / n`` and holds their
-caches (each of its model ranks its KV heads'), else every worker holds
-every row.  A request is prefilled by the worker that owns its slot
+caches (each of its model ranks its KV heads', or its RWKV6 heads'
+states), else every worker holds every row.  A request is prefilled by the worker that owns its slot
 (its model ranks together); its first token's logits go to every rank
 from the owner.  A decode round runs every worker on its rows, then one
 all-gather over the group puts the whole (slots, vocab) logits on every
@@ -40,6 +41,7 @@ the owning worker only.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -62,13 +64,18 @@ def bucket_len(plen: int, cache_len: int, *, exact: bool) -> int:
     return min(b, cache_len)
 
 
-def prompt_batch(params: dict, cfg: ArchConfig, toks: torch.Tensor) -> dict:
+def prompt_batch(params: dict, cfg: ArchConfig, toks: torch.Tensor,
+                 tp=None) -> dict:
     """The prefill's batch for prompt tokens: ``{"tokens"}``, or under
     ``input_mode == "embeds"`` (vlm) their embedding rows as
-    ``{"embeds"}``, as JAX's engine feeds a stubbed front end."""
-    if cfg.input_mode == "embeds":
-        return {"embeds": params["embed"][toks]}
-    return {"tokens": toks}
+    ``{"embeds"}``, as JAX's engine feeds a stubbed front end (with ``tp``
+    the vocab-parallel lookup, ``params`` this rank's rows: every model
+    rank gets the whole rows)."""
+    if cfg.input_mode != "embeds":
+        return {"tokens": toks}
+    if tp is not None:
+        return {"embeds": tp.embed(params["embed"], toks)}
+    return {"embeds": params["embed"][toks]}
 
 
 class _Sampler:
@@ -102,8 +109,8 @@ class SlotEngine:
     ``decode_round`` advances every row one token (inactive rows compute
     garbage that is ignored and overwritten on insert) and returns the
     requests that retired this round.  ``params`` is the parameter dict
-    the engine decodes with; the scheduler re-points it at the fine-tuned
-    primal after every absorbed epoch.  Over a process group ``params``
+    the engine decodes with; the scheduler loads the fine-tuned primal
+    (:meth:`load_params`) after every absorbed epoch.  Over a process group ``params``
     is this rank's blocks under the serving layout (``group``, ``tp``;
     see the module note).
     """
@@ -120,7 +127,6 @@ class SlotEngine:
                 "serve: sliding-window ring caches are sized by prompt "
                 "length at prefill and cannot be slot-inserted; serve "
                 "with linear caches")
-        self.params = params
         self.cfg = cfg
         self.slots = slots
         self.cache_len = cache_len
@@ -130,6 +136,7 @@ class SlotEngine:
             raise ValueError("the slot engine reads the serving layout: a "
                              "TensorParallel with fsdp_axis=None")
         self.group, self.tp = group, tp
+        self.load_params(params)
         self.device = next(iter(params.values())).device
         # this worker's slot rows [r0, r1); every row when the workers do
         # not divide the slots
@@ -149,6 +156,20 @@ class SlotEngine:
         # exact-length prefill where right-padding is unsound
         self._exact_len = cfg.family not in ("dense", "vlm")
         self._sample = _Sampler(self.sampling, self.device)
+
+    def load_params(self, params: dict) -> None:
+        """Decode with ``params`` from now on (``self.params``); over a
+        model axis the RWKV6 leaves a rank reads whole are gathered once
+        here (``tp.serving_leaves``), not at every prefill and decode
+        step, so every rank loads together."""
+        self.params, self._whole = (params, frozenset()) if self.tp is None \
+            else self.tp.serving_leaves(params)
+
+    def _holding(self):
+        """The model calls' context: ``tp`` takes the leaves that
+        :meth:`load_params` gathered as whole."""
+        return contextlib.nullcontext() if self.tp is None \
+            else self.tp.holding_whole(self._whole)
 
     # -- capacity ----------------------------------------------------------
 
@@ -232,10 +253,12 @@ class SlotEngine:
                             dtype=torch.long, device=self.device)
         logits = None
         if self._mine(slot):
-            logits, one = prefill(self.params, self.cfg,
-                                  prompt_batch(self.params, self.cfg, toks),
-                                  extra_capacity=self.cache_len - bucket,
-                                  last_pos=req.prompt_len - 1, tp=self.tp)
+            with self._holding():
+                logits, one = prefill(
+                    self.params, self.cfg,
+                    prompt_batch(self.params, self.cfg, toks, self.tp),
+                    extra_capacity=self.cache_len - bucket,
+                    last_pos=req.prompt_len - 1, tp=self.tp)
             insert_decode_state(self.state, one, slot - self.r0)
             del one
         tok = self._sample(self._prefill_logits(logits, slot))
@@ -258,10 +281,11 @@ class SlotEngine:
         """Advance every slot one token; returns requests retired now."""
         if self.active_count == 0:
             return []
-        logits, self.state = decode_step(
-            self.params, self.cfg, self.state,
-            self.last_tok[self.r0:self.r1], tp=self.tp,
-            group=self.group if self._split else None)
+        with self._holding():
+            logits, self.state = decode_step(
+                self.params, self.cfg, self.state,
+                self.last_tok[self.r0:self.r1], tp=self.tp,
+                group=self.group if self._split else None)
         self.last_tok = self._sample(self._round_logits(logits))
         toks = self.last_tok.tolist()
         finished = []

@@ -85,17 +85,18 @@ def _run(session) -> dict:
 
 def _refusals() -> dict:
     """The message of each combination a group still refuses: what a
-    model axis > 1 does not run yet (module item 4a.5: the RWKV6 family on
-    a (2, 2) mesh)."""
+    model axis > 1 does not run yet (module item 4a.5: the audio and the
+    hybrid families on a (2, 2) mesh)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch import configs
-    ssm = dataclasses.replace(configs.smoke_config("rwkv6-3b"),
-                              dtype="float32")
-    tries = {
-        "model_ssm": lambda: _session(
-            dict(CASES["exact_ring"], data=2, model=2),
-            make_host_mesh(2, 2, device="cpu"), cfg=ssm),
-    }
+
+    def refused(arch):
+        cfg = dataclasses.replace(configs.smoke_config(arch),
+                                  dtype="float32")
+        return lambda: _session(dict(CASES["exact_ring"], data=2, model=2),
+                                make_host_mesh(2, 2, device="cpu"), cfg=cfg)
+    tries = {"model_audio": refused("whisper-base"),
+             "model_hybrid": refused("zamba2-1.2b")}
     out = {}
     for name, fn in tries.items():
         try:
@@ -306,15 +307,16 @@ def test_train_cli_over_ranks_matches_the_one_process_cli(spawned, tmp_path):
 
 def test_group_refusals_name_their_roadmap_item(ranks):
     """What a group still refuses names its item: what a model axis > 1
-    does not run yet is module item 4a.5 (the ssm family; the rest in
-    ``tests/test_torch_tp.py``; the MoE family runs,
-    ``tests/test_torch_tp_moe.py``; quantized gossip and every driver run,
+    does not run yet is module item 4a.5 (the audio and hybrid families;
+    the rest in ``tests/test_torch_tp.py``; the MoE family runs,
+    ``tests/test_torch_tp_moe.py``, and the vlm and ssm families,
+    ``tests/test_torch_tp_ssm.py``; quantized gossip and every driver run,
     ``tests/test_torch_tp_quantized.py`` and
     ``tests/test_torch_tp_drivers.py``, and checkpoints and serving over
     the ranks, ``tests/test_torch_tp_serve.py``); every driver and option
     runs over ranks at model 1 (``tests/test_torch_ranks_drivers.py``)."""
     for got in ranks:
-        assert sorted(got["refusals"]) == ["model_ssm"]
+        assert sorted(got["refusals"]) == ["model_audio", "model_hybrid"]
         for what, msg in got["refusals"].items():
             assert msg is not None, what
             assert "ROADMAP.md, module item 4a.5" in msg, (what, msg)

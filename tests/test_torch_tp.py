@@ -70,7 +70,7 @@ CASES = {"exact": ("exact", None, False), "gossip": ("gossip", None, False),
          "gossip_radius": ("gossip", RADIUS, False),
          "odd_exact": ("exact", None, True)}
 ODD = dict(vocab_size=511, d_ff=255)
-REFUSED = ("ssm", "heads")
+REFUSED = ("audio", "hybrid", "heads")
 # layout: (arch, (data, model), seq_len) of an exact session initialised
 # from the seed on the ranks, one epoch, beside the qwen2-1.5b "exact"
 # case: the MoE family's experts on "model" (its exact step dispatches by
@@ -158,8 +158,10 @@ def _record(session, losses) -> dict:
 def _refusals(params, mesh, mesh14) -> dict:
     from repro_torch.api import TrainSpec
     tries = {
-        "ssm": lambda: _session("exact", None, mesh,
-                                cfg=_cfg("rwkv6-3b")),
+        "audio": lambda: _session("exact", None, mesh,
+                                  cfg=_cfg("whisper-base")),
+        "hybrid": lambda: _session("exact", None, mesh,
+                                   cfg=_cfg("zamba2-1.2b")),
         # model 4 does not divide 6 query heads
         "heads": lambda: _session("exact", None, mesh14,
                                   cfg=_cfg(num_heads=6, head_dim=32),
@@ -649,9 +651,10 @@ def test_train_cli_with_a_model_axis_matches_the_one_process_cli(
 
 
 def test_what_model_gt_1_still_refuses_names_item_4a(ranks):
-    """The families but dense and moe, and a model extent that does not
+    """The audio and hybrid families, and a model extent that does not
     divide the query heads, name item 4a.5 (the MoE family and more model
-    ranks than KV heads run since: tests/test_torch_tp_moe.py)."""
+    ranks than KV heads run since: tests/test_torch_tp_moe.py; the vlm and
+    ssm families: tests/test_torch_tp_ssm.py)."""
     for got in ranks:
         assert sorted(got["refusals"]) == sorted(REFUSED)
         for what, msg in got["refusals"].items():
