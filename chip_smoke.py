@@ -324,7 +324,33 @@ Phases (any failure ends the run with a non-zero exit code):
      (d_block)`` a round), and internvl2-76b's engine (the twin's tokens,
      VLM19_LAYERS flash launches a request at (H 32, KV 4)).  The scan at
      a rank's (H 20) and flash at internvl2's rank shape run in phase 3;
- 20. print the kernels' JSON line, the card line, and the final ok line.
+ 20. the audio family over a model axis: after phase 19's references the
+     parent writes phase 20's (``axis20_references``: whisper-base at
+     full width, bf16, through the model-level serving functions, each
+     worker's 4 requests alone, plain and as its model ranks compute it,
+     ``audio_twin``: the twin's tokens, each rank's heads of ``enc_kv``
+     and the caches by digest, the twin's logits within
+     AUDIO20_LOGIT_TOL of the plain model's; one exact epoch at full
+     depth, plain and under ``tp_sums``, whose move sets each leaf's
+     limit, the plain session saved for the ranks to restore; one fp32
+     gossip epoch at full depth under ``tp_sums``: each rank's block's
+     digest); then the launch's seventh turn (``rank_axis20``): whisper
+     over (data 2, model 2), 4 heads a rank: 8 requests of 4 to 224
+     tokens and their 1500 frames, 4 a worker in 4 slot rows, 32 greedy
+     tokens each through ``prefill(tp=)``, ``insert_decode_state``,
+     ``decode_step(tp=)`` and ``evict_decode_state`` (the twin's tokens,
+     the count that differ from the plain model's, ``enc_kv`` and the
+     caches its heads of the twin's by digest, 18 tensor-core flash
+     launches a request at (B 1, H 4, KV 4, hd 64), the decode round's
+     ms, bytes and collectives), its exact epoch (the bytes over "data"
+     and "model" exactly the dry-run's, the loss and each leaf against
+     the twin's, the replicated leaves equal), its fp32 gossip epoch
+     (each rank's dual block bit for bit the twin's,
+     ``wire_bytes_per_round(d_block)`` a round) and a checkpoint at
+     model 2 (the one-process archive restored, saved and read back bit
+     for bit; after the launch the ranks' save is that archive, leaf for
+     leaf).  Flash at whisper's rank shapes runs in phase 3;
+ 21. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -3428,17 +3454,19 @@ VLM_LAYERS = 32
 VLM_REQUESTS, VLM_NEW, VLM_GAP_S = 8, 16, 1.0
 
 
-def check_flash_whisper(torch, ops, flash) -> list:
+def check_flash_whisper(torch, ops, flash, shape=FLASH_WHISPER,
+                        where: str = "") -> list:
     """The flash kernel at the new models' prefill shapes, each on the
     tensor-core body against its plain version: whisper's encoder (MHA,
     hd 64, 1500 x 1500 frames, no causal mask) and its cross-attention
     (224 prompt rows against the 1500 frames, no mask), library SDPA with
     ``is_causal=False``; internvl2's prefill (GQA group 8, hd 128, causal,
     S 2048 and 2560), library SDPA with ``is_causal`` and
-    ``enable_gqa``."""
+    ``enable_gqa``.  With ``shape`` (a model rank's heads, ``where``
+    saying whose): whisper's two at that shape only."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    b, h, kv, hd = (FLASH_WHISPER[x] for x in ("b", "h", "kv", "hd"))
+    b, h, kv, hd = (shape[x] for x in ("b", "h", "kv", "hd"))
     entries = []
     for sq, what in ((WHISPER_FRAMES, "encoder"),
                      (WHISPER_PROMPT[1], "cross-attention")):
@@ -3450,9 +3478,12 @@ def check_flash_whisper(torch, ops, flash) -> list:
         entries.append(flash_entry(
             torch, ops, q, k, v, 0,
             f"B={b} H={h} KV={kv} hd={hd} Sq={sq} Skv={WHISPER_FRAMES} bf16 "
-            f"non-causal ({WHISPER_ARCH} {what})",
+            f"non-causal ({WHISPER_ARCH} {what}{where})",
             lambda: sdpa(q, k, v, is_causal=False), reps=200, causal=False))
         del q, k, v
+    if shape is not FLASH_WHISPER:
+        release(torch)
+        return entries
     b, h, kv, hd = (FLASH_VLM[x] for x in ("b", "h", "kv", "hd"))
     for s in FLASH_VLM_SEQS:
         q, k, v = model_layout(torch, gen, b, s, s, h, kv, hd,
@@ -5117,13 +5148,13 @@ class _PartsTP:
         self.torch, self.m = torch, m
         self.nll, self.fan = _parts_nll(torch, m), _fan(torch, m)
 
-    def block(self, p):
+    def block(self, p, prefix=None):
         return p
 
     def embed(self, weight, tokens):
         return self.torch.nn.functional.embedding(tokens, weight)
 
-    def mlp(self, fn, x):
+    def mlp(self, fn, x, prefix=None):
         return fn(x)
 
     def token_nll(self, hidden, unembed, labels, vocab_size):
@@ -5147,8 +5178,11 @@ def tp_sums(torch, rt, m: int = 2):
     rank's backward and the column-parallel sum over "model" do), each
     block's row-parallel product summed in fp32 in rank order and rounded
     once, and the vocab-parallel cross-entropy (``_PartsTP``); an RWKV6
-    block as ``_twin_rwkv_block``.  Wider than ``split_sums``, which
-    splits the forward row-parallel sums only."""
+    block as ``_twin_rwkv_block``.  Whisper's cross-attention projects
+    each rank's k and v columns from its own view of the encoder's output
+    (``kv_input``, fanned per layer as the ranks copy it per layer), with
+    no rope.  Wider than ``split_sums``, which splits the forward
+    row-parallel sums only."""
     model, attn, amb = rt.models.model, rt.models.attention, rt.dist.amb
     plain_mlp, plain_attend, plain_loss, plain_rwkv = (
         model.swiglu, attn.attend_train, amb.lm_loss, model._rwkv_block)
@@ -5166,18 +5200,24 @@ def tp_sums(torch, rt, m: int = 2):
         return out.to(x.dtype)
 
     def attend(p, x, positions, cfg, *, causal=True, window=None,
-               kv_input=None, rope=True, tp=None):
+               kv_input=None, rope=True, return_kv=False, tp=None,
+               prefix=None):
+        if return_kv:
+            raise ValueError("tp_sums: the twin's attention returns no k, v")
         b, s, _ = x.shape
         hd = cfg.hd
         hq, w = cfg.num_heads * hd // m, cfg.num_kv_heads * hd // m
         share = max(1, m // cfg.num_kv_heads)
         window = cfg.sliding_window if window is None else window
         norms = {k: fan(p[k]) for k in ("q_norm", "k_norm") if k in p}
+        xs = fan(x)
+        kvs = xs if kv_input is None else fan(kv_input)
+        skv = kvs[0].shape[1]
         proj = []
-        for r, xr in enumerate(fan(x)):     # each rank's q, k, v columns
-            q, k_, v = (xr @ p["wq"][:, r * hq:(r + 1) * hq],
-                        xr @ p["wk"][:, r * w:(r + 1) * w],
-                        xr @ p["wv"][:, r * w:(r + 1) * w])
+        for r, (xr, kr) in enumerate(zip(xs, kvs)):   # each rank's
+            q, k_, v = (xr @ p["wq"][:, r * hq:(r + 1) * hq],  # columns
+                        kr @ p["wk"][:, r * w:(r + 1) * w],
+                        kr @ p["wv"][:, r * w:(r + 1) * w])
             if "bq" in p:
                 q, k_, v = (q + p["bq"][r * hq:(r + 1) * hq],
                             k_ + p["bk"][r * w:(r + 1) * w],
@@ -5189,15 +5229,18 @@ def tp_sums(torch, rt, m: int = 2):
             k_ = torch.cat([g[1] for g in group], dim=-1)
             v = torch.cat([g[2] for g in group], dim=-1)
             kvh = k_.shape[-1] // hd
-            q, k_ = q.reshape(b, s, kvh, -1, hd), k_.reshape(b, s, kvh, hd)
+            q, k_ = q.reshape(b, s, kvh, -1, hd), k_.reshape(b, skv, kvh, hd)
             if norms:
                 q = rt.models.common.rms_norm(q, norms["q_norm"][r])
                 k_ = rt.models.common.rms_norm(k_, norms["k_norm"][r])
-            v = v.reshape(b, s, kvh, hd)
-            q = rt.models.common.apply_rope(
-                q.reshape(b, s, -1, hd), positions,
-                cfg.rope_theta).reshape(q.shape)
-            k_ = rt.models.common.apply_rope(k_, positions, cfg.rope_theta)
+            v = v.reshape(b, skv, kvh, hd)
+            if rope:
+                kv_pos = positions if kv_input is None else torch.arange(
+                    skv, device=x.device)
+                q = rt.models.common.apply_rope(
+                    q.reshape(b, s, -1, hd), positions,
+                    cfg.rope_theta).reshape(q.shape)
+                k_ = rt.models.common.apply_rope(k_, kv_pos, cfg.rope_theta)
             heads = attn.masked_attention(q, k_, v, window, causal=causal)
             out = out + (heads.reshape(b, s, -1)
                          @ p["wo"][r * hq:(r + 1) * hq]).float()
@@ -7558,12 +7601,14 @@ def sampled_logits(engine, count: int) -> list:
 
 
 def check_ssm19_twin(torch, plain: list, twin: list, plain_tokens: list,
-                     twin_tokens: list, tol: float, what: str) -> None:
-    """The rwkv6 engine's twin against the plain engine: each request's
-    first greedy token that differs (None: none), and each prefill's
-    logits and the first round's rows whose first token agrees (request
-    i in slot i) within ``tol`` of the plain logits' largest magnitude;
-    fails past it."""
+                     twin_tokens: list, tol: float, what: str,
+                     label: str = "phase 19 reference: the rwkv6") -> None:
+    """The rwkv6 engine's twin against the plain engine (``label``: phase
+    20's whisper twin against the plain model the same way): each
+    request's first greedy token that differs (None: none), and each
+    prefill's logits and the first round's rows whose first token agrees
+    (request i in slot i) within ``tol`` of the plain logits' largest
+    magnitude; fails past it."""
     n = len(plain_tokens)
 
     def err(a, b):
@@ -7576,7 +7621,7 @@ def check_ssm19_twin(torch, plain: list, twin: list, plain_tokens: list,
                     None) for x, y in zip(twin_tokens, plain_tokens)]
     differ = sum(a != b for x, y in zip(twin_tokens, plain_tokens)
                  for a, b in zip(x, y))
-    print(f"phase 19 reference: the rwkv6 twin against the plain engine "
+    print(f"{label} twin against the plain engine "
           f"({what}): {differ} of {sum(map(len, plain_tokens))} greedy tokens differ; "
           f"each request's first that differs {diverge}; max |twin - "
           f"plain| over max |plain| of each prefill's logits "
@@ -7586,7 +7631,7 @@ def check_ssm19_twin(torch, plain: list, twin: list, plain_tokens: list,
           f"(limit {tol:.4g}) [{card_line()}]", flush=True)
     worst = max(prefill + ([first_round] if rows else []))
     if not worst <= tol:
-        fail(f"phase 19 reference: the rwkv6 twin's {what} logits are "
+        fail(f"{label} twin's {what} logits are "
              f"{worst:.4g} of the plain engine's largest from them, past "
              f"{tol}: more than summation order")
 
@@ -8074,18 +8119,629 @@ def axis19_after(work: Path) -> dict:
     return {"launches": launches, "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the audio family over a model axis
+# ---------------------------------------------------------------------------
+
+AUDIO_AXIS = (2, 2)            # (data, model): 4 of whisper's 8 heads a rank
+# whisper-base at full width and depth (6 + 6 layers) over (data 2, model
+# 2), bf16: 8 requests, each its own seeded 1500 frames and a prompt of
+# WHISPER_PROMPT tokens (the range's two ends among them), each worker its
+# 4 in 4 slot rows, AUDIO20_SERVE["new"] greedy tokens a request (the
+# prefill's, then a decode round each), served through the model-level
+# functions (the slot engine refuses audio, as JAX's does); an exact epoch
+# and an fp32 gossip epoch of AUDIO20_ROUNDS rounds at full depth, 2
+# workers x PER_WORKER x SEQ tokens with their frames
+AUDIO20_SERVE = dict(requests=8, new=32, seed=40)
+AUDIO20_BATCH_SEED = 41
+AUDIO20_ROUNDS = 2
+# the twin against the plain model (the same parameters, the same
+# requests, each worker's rows alone): each prefill's logits, and the
+# first round's on the rows whose first token agrees, within
+# AUDIO20_LOGIT_TOL of the plain logits' largest magnitude.  The twin
+# differs from the plain model by summation order only: about one bf16
+# unit (2 ** -8) of the residual for each row-parallel sum on a request's
+# path, 30 of them (two in each of 6 encoder layers, three in each of 6
+# decoder layers), rounded up to 32; a misplaced head or block moves
+# random-weight logits by about their own size
+AUDIO20_LOGIT_TOL = 32 * 2.0 ** -8
+FLASH_WHISPER_RANK = dict(b=1, h=4, kv=4, hd=64)  # whisper, a rank of model 2
+
+
+def audio20_requests(torch, cfg) -> list:
+    """Phase 20's requests, on the card: (prompt ids (1, S), frames (1,
+    frames, d) in the model's dtype), from AUDIO20_SERVE's seed; the
+    prompt lengths drawn from WHISPER_PROMPT's range, the first and the
+    last its two ends."""
+    n, seed = AUDIO20_SERVE["requests"], AUDIO20_SERVE["seed"]
+    lens = torch.randint(WHISPER_PROMPT[0], WHISPER_PROMPT[1] + 1, (n,),
+                         generator=torch.Generator().manual_seed(seed)
+                         ).tolist()
+    lens[0], lens[-1] = WHISPER_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                           device="cuda"),
+             torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device="cuda", dtype=cfg.torch_dtype))
+            for s in lens]
+
+
+def audio20_batch(torch, cfg) -> dict:
+    """Phase 20's training batch, on the card: 2 workers x PER_WORKER
+    sequences of SEQ tokens from AUDIO20_BATCH_SEED, their next-token
+    labels (-1 after the last), and each sequence's frames."""
+    gen = torch.Generator(device="cuda").manual_seed(AUDIO20_BATCH_SEED)
+    rows = AUDIO_AXIS[0] * PER_WORKER
+    tokens = torch.randint(0, cfg.vocab_size, (rows, SEQ), generator=gen,
+                           device="cuda")
+    labels = torch.cat([tokens[:, 1:], torch.full((rows, 1), -1,
+                                                  device="cuda")], 1)
+    return {"tokens": tokens, "labels": labels,
+            "enc_embeds": torch.randn((rows, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen, device="cuda",
+                                      dtype=cfg.torch_dtype)}
+
+
+def audio20_serve(torch, rt, params, cfg, reqs, tp=None, heads=None,
+                  counters=None) -> dict:
+    """``reqs`` through the model-level functions, one slot row each: a
+    batch-1 prefill inserted into its row (``prefill``,
+    ``insert_decode_state``), then greedy decode rounds of every row at
+    its own position (``decode_step``), then every row evicted (its
+    caches, ``enc_kv`` and position zero, checked).  With ``tp`` this
+    rank's blocks, its heads, and the logits gathered over "model" and
+    cut to the vocabulary (``TensorParallel.vocab_logits``).  Returns
+    the tokens, the logits of each prefill and of the first round (host
+    fp32), the digest of ``enc_kv`` and the self-attention caches after
+    the prefills for each of ``heads`` (KV head slices; default all),
+    each prefill's seconds and flash launches by body, each round's ms
+    and the growth of ``counters()`` in it."""
+    models, router = rt.models, rt.kernels.router
+    cache = WHISPER_PROMPT[1] + AUDIO20_SERVE["new"]   # the longest prompt's
+    state = models.init_decode_state(cfg, len(reqs), cache,
+                                     per_slot_pos=True, device="cuda",
+                                     tp=tp)
+
+    def whole(logits):
+        return logits if tp is None else tp.vocab_logits(logits,
+                                                         cfg.vocab_size)
+
+    def flashes():
+        got = router.launches()
+        return [got.get(f"flash_attention.{b}", 0)
+                for b in ("tensor_core", "cuda_core")]
+
+    seen, first, prefill_s, per_flash = [], [], [], []
+    bad = torch.zeros((), dtype=torch.long, device="cuda")
+    for slot, (ids, frames) in enumerate(reqs):
+        f0 = flashes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, one = models.prefill(
+            params, cfg, {"tokens": ids, "enc_embeds": frames},
+            extra_capacity=cache - ids.shape[1], tp=tp)
+        models.insert_decode_state(state, one, slot)
+        logits = whole(logits)
+        first.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        per_flash.append([b - a for a, b in zip(f0, flashes())])
+        bad += (~torch.isfinite(logits)).sum()
+        seen.append(logits.float().cpu())
+        del one, logits
+    ek, ev = state.enc_kv
+    digests = [as_json(digest(torch, {
+        "enc_k": ek[..., h, :], "enc_v": ev[..., h, :],
+        "k": state.caches.k[..., h, :], "v": state.caches.v[..., h, :]}))
+        for h in (heads or [slice(None)])]
+    tok = torch.cat(first)
+    toks, round_ms, moved = [tok], [], []
+    for i in range(AUDIO20_SERVE["new"] - 1):
+        c0 = counters() if counters else ()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = models.decode_step(params, cfg, state, tok, tp=tp)
+        logits = whole(logits)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        moved.append([b - a for a, b in zip(c0, counters() if counters
+                                            else ())])
+        bad += (~torch.isfinite(logits)).sum()
+        if i == 0:
+            seen.append(logits.float().cpu())
+        toks.append(tok)
+        del logits
+    tokens = torch.stack(toks, 1).tolist()
+    for slot in range(len(reqs)):
+        models.evict_decode_state(state, slot)
+    if any(t.any() for t in models.model._cache_tensors(
+            (state.caches, state.enc_kv))) or state.pos.any():
+        fail(f"phase 20 {WHISPER_ARCH}: the evicted slot rows are not zero")
+    if int(bad):
+        fail(f"phase 20 {WHISPER_ARCH}: {int(bad)} non-finite logits")
+    if max(max(t) for t in tokens) >= cfg.vocab_size:
+        fail(f"phase 20 {WHISPER_ARCH}: a token id at or past the "
+             f"vocabulary's {cfg.vocab_size} (a padded row)")
+    del state
+    return {"tokens": tokens, "seen": seen, "digests": digests,
+            "prefill_s": prefill_s, "flashes": per_flash,
+            "round_ms": round_ms, "moved": moved}
+
+
+@contextlib.contextmanager
+def audio_twin(torch, rt, cfg, m: int):
+    """Whisper's serving as ``m`` model ranks compute it, in one process
+    (phase 20; ``rank_twin`` for its self-attention, flash calls, cache
+    reads, MLP and logits): the cross-attention's q, k and v besides,
+    each rank's from its contiguous columns of ``wq``, ``wk`` and ``wv``
+    (k and v of the encoder's output), at a prefill (``_project_qkv``) and
+    at a decode step (``decode_attend`` with ``cross_kv``: each rank's q
+    against its heads of ``enc_kv``), their ``wo`` products summed by
+    rank.  A worker's rows are served alone (call it once a worker)."""
+    attn = rt.models.attention
+    hd, kv_r = cfg.hd, cfg.num_kv_heads // m
+    plain_project, plain_decode = attn._project_qkv, attn.decode_attend
+
+    def cols(w, r):
+        c = w.shape[-1] // m
+        return w[..., r * c:(r + 1) * c].contiguous()
+
+    def project(p, x, cfg_, kv_input=None, tp=None):
+        if "bq" in p or "q_norm" in p:
+            raise ValueError("audio_twin: the cross-attention has no QKV "
+                             "bias and no qk-norm")
+        b, s, _ = x.shape
+        xkv = x if kv_input is None else kv_input
+        skv = xkv.shape[1]
+        return (torch.cat([(x @ cols(p["wq"], r)).reshape(b, s, kv_r, -1, hd)
+                           for r in range(m)], dim=2),
+                torch.cat([(xkv @ cols(p["wk"], r)).reshape(b, skv, kv_r, hd)
+                           for r in range(m)], dim=2),
+                torch.cat([(xkv @ cols(p["wv"], r)).reshape(b, skv, kv_r, hd)
+                           for r in range(m)], dim=2))
+
+    def decode(p, x, pos, cache, cfg_, *, window=0, cross_kv=None,
+               cross_len=0, tp=None):
+        if cross_kv is None:
+            return plain_decode(p, x, pos, cache, cfg_, window=window, tp=tp)
+        b = x.shape[0]
+        q = torch.cat([(x @ cols(p["wq"], r)).reshape(b, 1, kv_r, -1, hd)
+                       for r in range(m)], dim=2)
+        out = attn._softmax_read(q, *cross_kv, None).to(x.dtype)
+        return out @ p["wo"], cache
+
+    with rank_twin(torch, rt, cfg, m, 1):
+        attn._project_qkv, attn.decode_attend = project, decode
+        try:
+            yield
+        finally:
+            attn._project_qkv, attn.decode_attend = plain_project, \
+                plain_decode
+
+
+def audio_epoch(torch, rt, session, batch: dict, label: str) -> dict:
+    """One epoch of ``session`` on ``batch`` (over a group, its worker's
+    rows), b from the session's clock, as ``mesh_epochs`` reports one."""
+    if session.group is not None:
+        w = session.group.worker
+        batch = {k: v[w * PER_WORKER:(w + 1) * PER_WORKER]
+                 for k, v in batch.items()}
+    rt.kernels.router.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = session.step(batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not math.isfinite(m["loss"]):
+        fail(f"{label}: loss {m['loss']}")
+    return {"losses": [m["loss"]], "epoch_s": [secs],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": rt.kernels.router.launches()}
+
+
+def axis20_references(torch, rt, work: Path) -> None:
+    """Phase 20's references, in the parent after phase 19's, written for
+    the ranks:
+      * whisper-base at full width, bf16, from AUDIO20_SERVE's seed,
+        through the model-level serving functions, each worker's 4
+        requests alone: plain, and as its 2 model ranks compute it
+        (``audio_twin``): the twin's tokens, each rank's heads of its
+        ``enc_kv`` and caches after the prefills by digest, and the twin
+        held to the plain model (``check_ssm19_twin``);
+      * one exact epoch at full depth of the one-process data=2 session
+        on ``audio20_batch``, plain and under ``tp_sums``: each leaf's
+        move sets its limit; the twin's parameters and loss are what the
+        ranks are held to; the plain session saved (``ck20_one``, model
+        2 in its TrainSpec), the archive the ranks restore;
+      * one fp32 gossip epoch at full depth, AUDIO20_ROUNDS rounds, under
+        ``tp_sums``: the digest of each rank's block of its worker's dual
+        (``block_digests``)."""
+    lap = stamps("phase 20 references")
+    refs = {}
+    data, m = AUDIO_AXIS
+    full = rt.configs.get_config(WHISPER_ARCH)
+    params = rt.models.init_params(
+        full, torch.Generator(device="cuda").manual_seed(
+            AUDIO20_SERVE["seed"]))
+    reqs = audio20_requests(torch, full)
+    per, h = len(reqs) // data, full.num_kv_heads // m
+    parts = [reqs[w * per:(w + 1) * per] for w in range(data)]
+    plain = [audio20_serve(torch, rt, params, full, part) for part in parts]
+    with audio_twin(torch, rt, full, m):
+        twin = [audio20_serve(torch, rt, params, full, part, heads=[
+            slice(r * h, (r + 1) * h) for r in range(m)]) for part in parts]
+
+    def seen(runs):
+        return ([x for run in runs for x in run["seen"][:per]]
+                + [torch.cat([run["seen"][per] for run in runs])])
+
+    plain_tokens = [t for run in plain for t in run["tokens"]]
+    twin_tokens = [t for run in twin for t in run["tokens"]]
+    check_ssm19_twin(torch, seen(plain), seen(twin), plain_tokens,
+                     twin_tokens, AUDIO20_LOGIT_TOL, "bf16",
+                     "phase 20 reference: the whisper")
+    refs["serve"] = {"plain_tokens": plain_tokens,
+                     "twin_tokens": [run["tokens"] for run in twin],
+                     "digests": [d for run in twin for d in run["digests"]]}
+    del params, plain, twin
+    release(torch)
+    lap("the whisper serve twin done")
+    batch = audio20_batch(torch, full)
+    with deterministic(torch):
+        session = mesh_session(rt, full, "exact", False, data=data, model=m)
+        res = audio_epoch(torch, rt, session, batch,
+                          "phase 20 audio exact reference")
+        plain = {k: v.detach() for k, v in session.params.items()}
+        session.save(work / "ck20_one")
+        del session
+        release(torch)
+        with tp_sums(torch, rt, m):
+            session = mesh_session(rt, full, "exact", False, data=data,
+                                   model=m)
+            twin = audio_epoch(torch, rt, session, batch,
+                               "phase 20 audio exact twin")
+        moves = leaf_errs(torch, session.params, plain)
+        torch.save({k: v.detach().cpu() for k, v in session.params.items()},
+                   work / "audio20_twin.pt")
+        del session, plain
+        release(torch)
+    refs["exact"] = {"losses": twin["losses"],
+                     "plain_losses": res["losses"], "moves": moves,
+                     "limits": check_order("phase 20 audio exact", moves)}
+    print(f"phase 20 reference audio exact ({full.num_layers} + "
+          f"{full.encoder_layers} layers, one process, {data} workers): "
+          f"losses {res['losses']} epoch_s {res['epoch_s']} peak_GiB "
+          f"{res['peak_gib']:.2f}; the twin's over {m} model ranks "
+          f"{twin['losses']} [{card_line()}]", flush=True)
+    lap("the whisper exact references done")
+    cfg = dataclasses.replace(full, dtype="float32")
+    with deterministic(torch), tp_sums(torch, rt, m):
+        session = mesh_session(rt, cfg, "gossip", False, data=data,
+                               rounds=AUDIO20_ROUNDS)
+        res = audio_epoch(torch, rt, session, batch,
+                          "phase 20 audio gossip twin")
+        refs["gossip"] = {"losses": res["losses"],
+                          "digests": block_digests(torch, rt,
+                                                   session.state["z"])}
+        del session
+        release(torch)
+    print(f"phase 20 reference audio gossip (fp32, one process, {data} "
+          f"workers, r {AUDIO20_ROUNDS}, tp_sums): losses {res['losses']} "
+          f"epoch_s {res['epoch_s']} peak_GiB {res['peak_gib']:.2f} "
+          f"[{card_line()}]", flush=True)
+    lap("the whisper gossip twin done")
+    torch.save(refs, work / "axis20_refs.pt")
+
+
+def rank_audio_serve(torch, rt, dist, refs: dict, lap) -> dict:
+    """whisper-base at full width, bf16, over (data 2, model 2) through
+    the model-level functions (``audio20_serve``): each rank's serving
+    blocks from the seed (``init_shards``, the serving layout), its
+    worker's 4 requests in 4 slot rows: the greedy tokens equal to the
+    twin's (``audio_twin``) and the count that differ from the plain
+    model's; its ``enc_kv`` and caches after the prefills its heads of
+    the twin's by digest; 18 tensor-core flash launches a request (6
+    encoder, 6 self, 6 cross) at (B 1, H 4, KV 4, hd 64); per rank the
+    prefill seconds, the decode round's ms (p50, p99), the bytes summed
+    over "model" and the collectives a round, the peak."""
+    rank = dist.get_rank()
+    router = rt.kernels.router
+    label = f"phase 20 audio serve rank {rank}"
+    cfg = rt.configs.get_config(WHISPER_ARCH)
+    mesh = rt.launch.mesh.make_host_mesh(*AUDIO_AXIS, device="cuda")
+    group = rt.dist.group.WorkerGroup(mesh, "cuda")
+    tp = rt.dist.tp.TensorParallel(group, model_shapes(rt, cfg), None, cfg)
+    params = rt.dist.params.init_shards(
+        cfg, torch.Generator(device="cuda").manual_seed(
+            AUDIO20_SERVE["seed"]), mesh, mesh.get_coordinate(), None)
+    reqs = audio20_requests(torch, cfg)
+    per = len(reqs) // AUDIO_AXIS[0]
+    mine = reqs[group.worker * per:(group.worker + 1) * per]
+    lap("the whisper serving blocks drawn")
+    kops = rt.models.attention.kops
+    flash, shapes = kops.flash_attention, set()
+
+    def seen(q, k, v, **kw):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[3]))
+        return flash(q, k, v, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    router.reset_launches()
+    kops.flash_attention = seen
+    try:
+        with count_collectives(dist) as calls:
+            res = audio20_serve(torch, rt, params, cfg, mine, tp,
+                                counters=lambda: (tp.reduced_bytes,
+                                                  sum(calls.values())))
+    finally:
+        kops.flash_attention = flash
+    launches = router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lap("the whisper requests served")
+    ref = refs["serve"]
+    if res["tokens"] != ref["twin_tokens"][group.worker]:
+        fail(f"{label}: greedy tokens differ from the one-process twin's "
+             f"(audio_twin): {res['tokens']} vs "
+             f"{ref['twin_tokens'][group.worker]}")
+    if res["digests"][0] != ref["digests"][rank]:
+        fail(f"{label}: its enc_kv and caches after the prefills differ "
+             f"from its heads of the twin's (worker {group.worker}'s rows, "
+             f"model rank {group.m})")
+    per_req = cfg.encoder_layers + 2 * cfg.num_layers
+    for i, got in enumerate(res["flashes"]):
+        if got != [per_req, 0]:
+            fail(f"{label}: request {i} launched flash {got} (tensor "
+                 f"cores, CUDA cores), expected [{per_req}, 0]")
+    expect(label, launches, {"flash_attention": per_req * per,
+                             "flash_attention.tensor_core": per_req * per,
+                             "dual_update": 0})
+    rank_shape = tuple(FLASH_WHISPER_RANK[x] for x in ("b", "h", "kv", "hd"))
+    if shapes != {rank_shape}:
+        fail(f"{label}: flash called at (B, H, KV, hd) {shapes}, expected "
+             f"{rank_shape}")
+    lo = group.worker * per
+    differ = sum(a != b for x, y in zip(res["tokens"],
+                                        ref["plain_tokens"][lo:lo + per])
+                 for a, b in zip(x, y))
+    ms = sorted(res["round_ms"])
+    pct = sys.modules["repro_torch.serve.metrics"]._pct
+    moved = [sorted(c)[len(c) // 2] for c in zip(*res["moved"])]
+    row = {"owned": per, "flash_per_request": per_req,
+           "prefill_s": res["prefill_s"], "decode_rounds": len(ms),
+           "round_ms_p50": pct(ms, 50), "round_ms_p99": pct(ms, 99),
+           "reduced_bytes_per_round": moved[0],
+           "collectives_per_round": moved[1], "peak_gib": peak,
+           "tokens_differing_from_plain": differ, "launches": launches}
+    print(f"  {label} (worker {group.worker}, model {group.m}): greedy "
+          f"tokens equal to the twin's; {differ} of "
+          f"{sum(map(len, res['tokens']))} differ from the plain model's; "
+          f"enc_kv and caches its heads of the twin's; flash {per_req} a "
+          f"request on the tensor cores at (B, H, KV, hd) {rank_shape} x "
+          f"{per} requests; prefill_s "
+          f"{[round(x, 4) for x in res['prefill_s']]}; decode rounds "
+          f"{len(ms)}, ms p50 {row['round_ms_p50']:.2f} p99 "
+          f"{row['round_ms_p99']:.2f}; {moved[0]} B summed over \"model\" "
+          f"and {moved[1]} collectives a round; peak_GiB {peak:.2f} "
+          f"[{card_line()}]", flush=True)
+    del params
+    release(torch)
+    return row
+
+
+def rank_audio_exact(torch, rt, dist, refs: dict, work: Path, lap) -> dict:
+    """whisper-base at full depth over (data 2, model 2), one exact epoch
+    (FSDP x TP, 4 heads a rank) on ``audio20_batch`` under deterministic
+    algorithms: 27 ``dual_update`` launches on the blocks; the bytes over
+    "data" the dry-run's ``rank_fsdp_bytes`` and over "model" its
+    ``rank_model_bytes``, to the byte; the loss within MESH_LOSS_TOL of
+    the twin's (``tp_sums``), the replicated leaves equal on every rank,
+    and each gathered leaf within its ``order_limits`` of the twin's
+    (rank 0)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract
+    rank = dist.get_rank()
+    label = f"phase 20 audio exact rank {rank}"
+    cfg = rt.configs.get_config(WHISPER_ARCH)
+    mesh = rt.launch.mesh.make_host_mesh(*AUDIO_AXIS, device="cuda")
+    ref = refs["exact"]
+    with deterministic(torch):
+        session = mesh_session(rt, cfg, "exact", mesh, AUDIO_AXIS[0],
+                               model=AUDIO_AXIS[1])
+        res = audio_epoch(torch, rt, session, audio20_batch(torch, cfg),
+                          label)
+    lap("the whisper exact epoch done")
+    tp = session.tp
+    leaves = len(session.state["params"])
+    expect(label, res["launches"], {"dual_update": leaves})
+    check_losses("phase 20 audio exact", rank, res["losses"], ref["losses"])
+    same_replicated(torch, dist, session, session.state["params"], "exact")
+    amesh = abstract(AUDIO_AXIS, ("data", "model"))
+    held = {k: getattr(tp, k) for k in ("gathered_bytes", "scattered_bytes",
+                                        "model_gathered_bytes",
+                                        "reduced_bytes")}
+    want = dict(dryrun.rank_fsdp_bytes(cfg, amesh),
+                **dryrun.rank_model_bytes(cfg, amesh, PER_WORKER * SEQ,
+                                          frames=PER_WORKER
+                                          * cfg.encoder_seq))
+    if held != want:
+        fail(f"{label}: {held}, the dry-run's {want}")
+    row = {"epoch_s": res["epoch_s"], "peak_gib": res["peak_gib"],
+           "losses": res["losses"], "launches": res["launches"],
+           "heads": tp.q_heads(cfg), **held}
+    print(f"  {label} (worker {session.group.worker}, model "
+          f"{session.group.m}): {tp.q_heads(cfg)} heads; over \"data\" "
+          f"gathered {held['gathered_bytes']} B, reduce-scattered "
+          f"{held['scattered_bytes']} B; over \"model\" summed "
+          f"{held['reduced_bytes']} B (all the dry-run's); the replicated "
+          f"leaves equal on every rank; epoch_s "
+          f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} losses {res['losses']} (the twin's "
+          f"{ref['losses']}); dual_update "
+          f"{res['launches'].get('dual_update', 0)} [{card_line()}]",
+          flush=True)
+    whole = session.params
+    if rank == 0:
+        twin = torch.load(work / "audio20_twin.pt")
+        row["limit_share"] = check_leaves(
+            "phase 20 audio exact (the ranks against the twin)",
+            leaf_errs(torch, whole, twin), ref["limits"])
+        del twin
+    del session, whole
+    release(torch)
+    return row
+
+
+def rank_audio_gossip(torch, rt, dist, refs: dict, lap) -> dict:
+    """whisper-base at full depth in fp32 over (data 2, model 2), one ring
+    gossip epoch (TP) of AUDIO20_ROUNDS rounds on ``audio20_batch`` under
+    deterministic algorithms: each rank's dual block bit for bit its
+    block of the one-process twin's (``tp_sums``), the wire exactly
+    ``wire_bytes_per_round(d_block)`` a round, 27 ``dual_update`` and
+    AUDIO20_ROUNDS ``gossip_combine`` launches."""
+    rank = dist.get_rank()
+    label = f"phase 20 audio gossip rank {rank}"
+    full = rt.configs.get_config(WHISPER_ARCH)
+    cfg = dataclasses.replace(full, dtype="float32")
+    mesh = rt.launch.mesh.make_host_mesh(*AUDIO_AXIS, device="cuda")
+    ref = refs["gossip"]
+    with deterministic(torch):
+        session = mesh_session(rt, cfg, "gossip", mesh, AUDIO_AXIS[0],
+                               model=AUDIO_AXIS[1], rounds=AUDIO20_ROUNDS)
+        # the bf16 batch the references take (the model casts the frames)
+        res = audio_epoch(torch, rt, session, audio20_batch(torch, full),
+                          label)
+    lap("the whisper gossip epoch done")
+    g = session.group
+    leaves = len(session.state["z"])
+    expect(label, res["launches"], {"dual_update": leaves,
+                                    "gossip_combine": AUDIO20_ROUNDS})
+    check_losses("phase 20 audio gossip", rank, res["losses"], ref["losses"])
+    width = session.tp.row_block().block_width
+    strat = rt.dist.amb.strategy_from_config(
+        dataclasses.replace(session.protocol.amb, active=None),
+        AUDIO_AXIS[0])
+    wire = strat.wire_bytes_per_round(width)
+    if g.sent_bytes != AUDIO20_ROUNDS * wire:
+        fail(f"{label}: sent {g.sent_bytes} bytes in {AUDIO20_ROUNDS} "
+             f"rounds; wire_bytes_per_round({width}) {wire}")
+    z = {k: v[0] for k, v in session.state["z"].items()}
+    if as_json(digest(torch, z)) != ref["digests"][rank]:
+        fail(f"{label}: its dual block differs from its block of the "
+             f"one-process session under tp_sums")
+    row = {"epoch_s": res["epoch_s"], "peak_gib": res["peak_gib"],
+           "losses": res["losses"], "launches": res["launches"],
+           "block_width": width, "wire_bytes_per_round": wire}
+    print(f"  {label} (worker {g.worker}, model {g.m}): dual block bit for "
+          f"bit its block of the one-process session under tp_sums; "
+          f"{g.sent_bytes // AUDIO20_ROUNDS} bytes a round = "
+          f"wire_bytes_per_round(d_block {width}); epoch_s "
+          f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} losses {res['losses']} [{card_line()}]",
+          flush=True)
+    del session, z
+    release(torch)
+    return row
+
+
+def rank_audio_ckpt(torch, rt, dist, work: Path, lap) -> dict:
+    """A whisper checkpoint at model 2: each rank restores the parent's
+    one-process exact archive (``ck20_one``), saves it (``ck20_back``),
+    and restores its own save: the state read back bit for bit, block
+    for block; the archive's bytes, save and restore seconds."""
+    rank = dist.get_rank()
+    label = f"phase 20 audio checkpoint rank {rank}"
+    cfg = rt.configs.get_config(WHISPER_ARCH)
+    session = rt.api.AMBSession.restore(work / "ck20_one", cfg=cfg,
+                                        device="cuda")
+    if session.tp is None or session.group.model != AUDIO_AXIS[1]:
+        fail(f"{label}: the restore is not over (data 2, model 2)")
+    before = as_json(digest(torch, session.state))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session.save(work / "ck20_back")
+    save_s = time.perf_counter() - t0
+    del session
+    release(torch)
+    t0 = time.perf_counter()
+    back = rt.api.AMBSession.restore(work / "ck20_back", cfg=cfg,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if as_json(digest(torch, back.state)) != before:
+        fail(f"{label}: the state read back is not the state saved")
+    nbytes = dir_bytes(work / "ck20_back")
+    print(f"  {label}: the state read back bit for bit, block for block; "
+          f"{nbytes} B, save {save_s:.3f} s "
+          f"({nbytes / save_s / 1e9:.3f} GB/s), restore {restore_s:.3f} s "
+          f"({nbytes / restore_s / 1e9:.3f} GB/s)", flush=True)
+    del back
+    release(torch)
+    lap("the whisper checkpoint done")
+    return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s}
+
+
+def rank_axis20(torch, rt, dist, work: Path) -> None:
+    """Phase 20's turn of the gloo launch, once the parent's references
+    are written: whisper-base's serving, its exact and fp32 gossip epochs
+    and a checkpoint over (data 2, model 2); each rank's results to
+    ``axis20_rank<r>.json``."""
+    rank = dist.get_rank()
+    lap = stamps("phase 20 rank 0", rank)
+    refs = torch.load(work / "axis20_refs.pt")
+    out = {"audio serve": rank_audio_serve(torch, rt, dist, refs, lap),
+           "audio exact": rank_audio_exact(torch, rt, dist, refs, work, lap),
+           "audio gossip": rank_audio_gossip(torch, rt, dist, refs, lap),
+           "audio ckpt": rank_audio_ckpt(torch, rt, dist, work, lap)}
+    (work / f"axis20_rank{rank}.json").write_text(json.dumps(out))
+
+
+def axis20_after(torch, rt, work: Path) -> dict:
+    """Phase 20 after the gloo ranks: the ranks' save of the one-process
+    archive leaf for leaf that archive (the encoder's and the
+    cross-attention's leaves among them); their rows and launch
+    counts."""
+    ranks = [json.loads((work / f"axis20_rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    ckpt = rt.ckpt.checkpoint
+    for sub in ("", "session_state"):
+        a = ckpt._Reader(work / "ck20_one" / sub, 1)
+        b = ckpt._Reader(work / "ck20_back" / sub, 1)
+        if not any("encoder/blocks" in k for k in a.data.files) or not any(
+                "xattn" in k for k in a.data.files):
+            fail(f"phase 20 checkpoint: the archive lacks the encoder's or "
+                 f"the cross-attention's leaves ({sub or 'primal'})")
+        if a.manifest != b.manifest or any(
+                not (a.data[k].dtype == b.data[k].dtype
+                     and (a.data[k] == b.data[k]).all())
+                for k in a.data.files):
+            fail(f"phase 20 checkpoint: the ranks' save of the restored "
+                 f"archive is not the one-process archive "
+                 f"({sub or 'primal'})")
+    launches = {f"{run} rank {r}": res[run]["launches"]
+                for r, res in enumerate(ranks) for run in res
+                if "launches" in res[run]}
+    print(f"phase 20: every rank's checks held; the ranks' save of the "
+          f"one-process whisper archive is that archive, leaf for leaf; "
+          f"launches {json.dumps(launches)} [{card_line()}]", flush=True)
+    return {"launches": launches, "ranks": ranks}
+
+
 def rank_gloo(torch, rt, dist, work: Path) -> None:
-    """The four gloo ranks of phases 14 to 19 in one launch, each phase's
+    """The four gloo ranks of phases 14 to 20 in one launch, each phase's
     sessions building their meshes over the one group: ``rank_gloo4``,
-    ``rank_drivers``, ``rank_model``, ``rank_serve``, ``rank_axis18`` and
-    ``rank_axis19`` in turn, each once the parent's steps before it are done
+    ``rank_drivers``, ``rank_model``, ``rank_serve``, ``rank_axis18``,
+    ``rank_axis19`` and ``rank_axis20`` in turn, each once the parent's
+    steps before it are done
     (``wait_parent``), a barrier after each; rank 0 prints when each
     ended and writes ``done<phase>`` (the parent's phase-18 references
     wait for phase 16's)."""
     t0 = time.perf_counter()
     for phase, fn in ((14, rank_gloo4), (15, rank_drivers),
                       (16, rank_model), (17, rank_serve),
-                      (18, rank_axis18), (19, rank_axis19)):
+                      (18, rank_axis18), (19, rank_axis19),
+                      (20, rank_axis20)):
         wait_parent(work, dist.get_rank(), phase)
         fn(torch, rt, dist, work)
         release(torch)
@@ -8101,7 +8757,7 @@ RANK_PHASES = {"gloo": rank_gloo}
 
 def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
                     beside14, beside17) -> tuple:
-    """Phases 14 to 19 around one launch of four gloo ranks
+    """Phases 14 to 20 around one launch of four gloo ranks
     (``rank_gloo``), started first: phases 14 to 16's parent steps before
     the ranks (the references, the NCCL rank) run while the ranks come
     up; phase 17's references and ``beside14()`` (a part of an earlier
@@ -8109,9 +8765,10 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
     run phase 14; phase 18's references once the ranks have ended phase
     16, then ``beside17()`` (other parts) while they run phases 17 and
     18 (each phase's ranks start once ``parent_ready`` says its steps are
-    done), and after it phase 19's references; then each phase's parent
-    steps after them, ``stamp(phase)`` as each ends.  Returns (phase
-    14's, 15's, 16's, 17's, 18's and 19's results)."""
+    done), and after it phase 19's and phase 20's references; then each
+    phase's parent steps after them, ``stamp(phase)`` as each ends.
+    Returns (phase 14's, 15's, 16's, 17's, 18's, 19's and 20's
+    results)."""
     release(torch)
     work = Path(tempfile.mkdtemp(prefix="ranks-", dir=ROOT / "build"))
     t0 = time.perf_counter()
@@ -8153,6 +8810,12 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
             parent_ready(work, 19)
             release(torch)
             t19 = time.perf_counter()
+            # phase 20's references (near 11 GiB) beside phase 19's ranks
+            # (under 6 GiB each)
+            axis20_references(torch, rt, work)
+            parent_ready(work, 20)
+            release(torch)
+            t20 = time.perf_counter()
         except BaseException:
             stop_ranks("gloo", proc)
             raise
@@ -8172,12 +8835,15 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
         axis18 = axis18_after(work)
         stamp(18)
         axis19 = axis19_after(work)
+        stamp(19)
+        axis20 = axis20_after(torch, rt, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t_end = time.perf_counter()
-    print(f"phases 14 to 19 (one process per worker, the drivers, a model "
+    print(f"phases 14 to 20 (one process per worker, the drivers, a model "
           f"axis, serving over it, the MoE family and more model ranks "
-          f"than KV heads, the vlm and ssm families): {t_end - t0:.1f} s; the parent before "
+          f"than KV heads, the vlm, ssm and audio families): "
+          f"{t_end - t0:.1f} s; the parent before "
           f"the gloo ranks {t14 - t0:.1f} s (phase 14, the NCCL rank "
           f"included), {t15 - t14:.1f} (15), {t16 - t15:.1f} (16), the "
           f"ranks coming up meanwhile; while the ranks ran, phase 17's "
@@ -8185,10 +8851,11 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
           f"ranks {t17b - t17:.1f}, then phase 18's references "
           f"{t18 - t17c:.1f} (after waiting {t17c - t17b:.1f} for phase "
           f"16's ranks) and the phase beside phases 17 and 18's ranks "
-          f"{t18b - t18:.1f}, then phase 19's references {t19 - t18b:.1f}; "
-          f"the ranks after the parent's steps {t_ranks - t19:.1f}; the "
-          f"parent after them {t_end - t_ranks:.1f}", flush=True)
-    return mesh, ranks15, model_axis, served, axis18, axis19
+          f"{t18b - t18:.1f}, then phase 19's references {t19 - t18b:.1f} "
+          f"and phase 20's {t20 - t19:.1f}; the ranks after the parent's "
+          f"steps {t_ranks - t20:.1f}; the parent after them "
+          f"{t_end - t_ranks:.1f}", flush=True)
+    return mesh, ranks15, model_axis, served, axis18, axis19, axis20
 
 
 def time_quantized_block(torch, rt, ops, d: int) -> dict:
@@ -8386,6 +9053,9 @@ def main() -> int:
     flash_zoo += check_flash_rank(torch, ops, rt.kernels.flash_attention,
                                   FLASH_VLM_RANK, FLASH19_SEQS,
                                   "internvl2-76b over (data 2, model 2)")
+    flash_zoo += check_flash_whisper(
+        torch, ops, rt.kernels.flash_attention, FLASH_WHISPER_RANK,
+        ", a model rank over (data 2, model 2)")
     rank_err, rwkv["rank_shapes"] = time_rwkv6(
         torch, ops, rt.kernels.rwkv6_scan, RWKV_RANK,
         "a rank of rwkv6-3b over (data 2, model 2)")
@@ -8497,9 +9167,10 @@ def main() -> int:
                                                    SERVE_ZAMBA_ARGV)
         stamp(12, ": zamba2's serve CLI beside phases 17 and 18's ranks")
 
-    mesh, ranks15, model_axis, served17, axis18, axis19 = run_rank_phases(
-        torch, rt, ops, full, beta, stamp, beside14, beside17)
-    stamp(19)
+    (mesh, ranks15, model_axis, served17, axis18, axis19,
+     axis20) = run_rank_phases(torch, rt, ops, full, beta, stamp, beside14,
+                               beside17)
+    stamp(20)
     du[torch.float32]["model_axis"] = model_axis["dual_update"]
     squant["model_axis"] = model_axis["stochastic_quantize"]
     qcomb["model_axis"] = model_axis["quantized_combine"]
@@ -8509,7 +9180,7 @@ def main() -> int:
             runs, served, sim["launches"], cli_launches, drivers,
             coded_launches, zoo, mesh["launches"], ranks15["launches"],
             model_axis["launches"], served17["launches"],
-            axis18["launches"], axis19["launches"])
+            axis18["launches"], axis19["launches"], axis20["launches"])
             for c in group.values())
 
     def per_epoch(name):
@@ -8549,6 +9220,9 @@ def main() -> int:
                     launches_vlm_ssm_axis={
                         a: c.get(name, 0)
                         for a, c in axis19["launches"].items()},
+                    launches_audio_axis={
+                        a: c.get(name, 0)
+                        for a, c in axis20["launches"].items()},
                     max_abs_err=err,
                     **timing)
 

@@ -75,12 +75,16 @@ class MeasuredClock(Clock):
         """Lemma-6 T in measured seconds: (1 + n/b) * mu_measured."""
         return (1.0 + self.n / (self.n * self.bpw)) * self._unit() * self.bpw
 
-    def epoch(self, generator):
+    def times(self, generator) -> torch.Tensor:
+        """(n, b_max) per-gradient times in *measured* seconds."""
         rel = self.model.per_gradient_times(generator, self.n, self.bpw) \
-            / self.model_unit
+            / self.model_unit                       # mean-1 heterogeneity
+        return rel * self._unit()
+
+    def epoch(self, generator):
         budget = self.budget() if self.compute_time is None \
             else self.compute_time
-        return rel * self._unit(), budget
+        return self.times(generator), budget
 
     def set_budget(self, budget):
         # pinning ends the clock's own Lemma-6 re-derivation

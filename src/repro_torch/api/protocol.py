@@ -28,6 +28,8 @@ from ..dist.async_epochs import make_async_gossip_train_step
 from ..dist.pipeline import make_pipelined_gossip_train_step
 from ..optim import DualAveragingOpt
 
+TrainState = dict      # the mode's state; always carries "t"
+
 
 class TrainProtocol:
     mode: str = "base"

@@ -83,11 +83,15 @@ serving and checkpoints so, its experts on "model"
 (:func:`repro_torch.models.moe.moe_forward`), and so do the vlm family
 (the dense blocks behind an embeddings input) and the RWKV6 ssm family,
 each rank on its ``d_model / 64 / M`` heads
-(:meth:`repro_torch.dist.tp.TensorParallel.ssm_leaves`).  More model
-ranks than KV heads run too: the ranks that share a head hold its
-columns and gather them (:meth:`repro_torch.dist.tp.TensorParallel.
-gather_kv`).  The audio and hybrid families and a model extent that does
-not divide the heads raise, naming ROADMAP.md's module item 4a.5.
+(:meth:`repro_torch.dist.tp.TensorParallel.ssm_leaves`), and the audio
+family (whisper: the encoder's blocks and the decoder's self- and
+cross-attention on each rank's heads; a worker's rows of
+``batch["enc_embeds"]`` go with its rows of tokens, as every key of a
+batch is cut by its first dim).  More model ranks than KV heads run too:
+the ranks that share a head hold its columns and gather them
+(:meth:`repro_torch.dist.tp.TensorParallel.gather_kv`).  The hybrid
+family and a model extent that does not divide the heads raise, naming
+ROADMAP.md's module item 4a.5.
 """
 from __future__ import annotations
 
@@ -130,7 +134,7 @@ def not_ported(what: str, model: int) -> ValueError:
     return ValueError(f"{what} at model > 1 (a worker spread over {model} "
                       f"ranks) is not ported yet (ROADMAP.md, module item "
                       f"4a.5); every driver and option of the dense, vlm, "
-                      f"moe and ssm families runs")
+                      f"moe, ssm and audio families runs")
 
 
 class AMBSession:

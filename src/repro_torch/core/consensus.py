@@ -103,6 +103,14 @@ def default_torus(n: int) -> tuple:
     return rows, n // rows
 
 
+GRAPHS = {
+    "ring": ring_graph,
+    "complete": complete_graph,
+    "star": star_graph,
+    "paper": lambda n=10: paper_graph(),
+}
+
+
 def build_graph(name: str, n: int, **kw) -> np.ndarray:
     """By name: ``ring``, ``torus`` (``rows=``), ``complete``, ``star``,
     ``paper`` (n = 10) or ``erdos_renyi`` (``p=`` 0.4, ``seed=`` 0)."""
@@ -181,12 +189,26 @@ class ConsensusSpec:
             raise ValueError("P must be non-negative")
 
 
-def gossip(messages: torch.Tensor, p, rounds: int) -> torch.Tensor:
-    """``rounds`` synchronous rounds of ``m <- P m`` over dim 0 of (n, ...)."""
+def gossip(messages: torch.Tensor, p, rounds,
+           max_rounds: int | None = None) -> torch.Tensor:
+    """Synchronous rounds of ``m <- P m`` over dim 0 of (n, ...).
+
+    ``rounds`` is an int, or an (n,) count r_i(t) a node: within a fixed
+    communication time T_c nodes complete different numbers of rounds,
+    and a node past its r_i keeps its value.  ``max_rounds`` bounds the
+    loop (default: the largest count).
+    """
     p = torch.as_tensor(p, dtype=messages.dtype, device=messages.device)
     flat = messages.reshape(messages.shape[0], -1)
-    for _ in range(rounds):
-        flat = p @ flat
+    if isinstance(rounds, int) and max_rounds is None:
+        for _ in range(rounds):
+            flat = p @ flat
+        return flat.reshape(messages.shape)
+    rounds = torch.as_tensor(rounds, device=messages.device)
+    r_max = int(max_rounds if max_rounds is not None else rounds.max())
+    per_node = torch.broadcast_to(rounds, (messages.shape[0],))
+    for k in range(r_max):
+        flat = torch.where((per_node > k)[:, None], p @ flat, flat)
     return flat.reshape(messages.shape)
 
 

@@ -174,6 +174,21 @@ class SurvivorTaps:
                 src[i, rows] = (rows + delta) % self.n
         return src
 
+    def take(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Tap i's neighbour view on the physical axis: row p holds ``x[p
+        + delta_p]`` for an active row, 0 for an inactive one (the hop
+        masks are disjoint, so the masked rolls sum)."""
+        if i == 0:
+            return x
+        out = torch.zeros_like(x)
+        for delta, mask in self.hops[i]:
+            m = torch.as_tensor(mask, device=x.device).reshape(
+                (self.n,) + (1,) * (x.ndim - 1))
+            rolled = torch.roll(x, -delta, 0) if delta else x
+            out = out + torch.where(m, rolled, torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+        return out
+
     def dense(self) -> np.ndarray:
         """The (n, n) operator this realises: the relayout P on the
         survivor block, identity rows elsewhere."""

@@ -77,7 +77,21 @@ gather the head (:meth:`TensorParallel.gather_kv`, over a subgroup of
 :meth:`repro_torch.dist.group.WorkerGroup.head_groups`); rank m's query
 heads read KV head ``m // (M / KV)``.
 
-The vlm family is the dense blocks behind an embeddings input.  RWKV6
+The vlm family is the dense blocks behind an embeddings input.  The
+audio family (whisper) is dense blocks twice over, under the same rules:
+the encoder's (``encoder.blocks.*``, no causal mask, over the frames)
+and the decoder's, whose cross-attention (``blocks.xattn.*``) takes this
+rank's heads of q from the decoder and of k and v from the encoder's
+output, which every model rank holds whole (the encoder's final norm is
+replicated) and which enters each layer's cross-attention through
+:meth:`copy`, as a column-parallel input; a decoder layer sums three
+row-parallel products (both ``wo`` and ``w_down``).  Each method that
+reads a leaf's spec takes the leaf's full path (``prefix``), and
+:class:`CheckpointBlocks` names a leaf by its longest tail, so an
+encoder leaf and its decoder namesake (one shape, one spec) are never
+confused.  Whisper's vocabulary is padded (51,865 to 51,968 rows): the
+last model rank's block of ``embed`` and ``unembed`` holds the padding,
+which :meth:`token_nll` masks and :meth:`vocab_logits` cuts.  RWKV6
 (the ssm family) keeps JAX's ``param_spec`` blocks, which are Megatron's
 only in part: each rank computes its ``d_model / 64 / M`` heads from its
 columns of ``w_r``, ``w_k``, ``w_v``, ``w_g`` and sums its rows of
@@ -534,6 +548,16 @@ class TensorParallel:
         rows = torch.nn.functional.embedding(
             torch.where(own, tokens - v0, 0), weight)
         return self.reduce(rows * own[..., None].to(rows.dtype))
+
+    def vocab_logits(self, logits: torch.Tensor,
+                     vocab_size: int) -> torch.Tensor:
+        """This rank's columns of the logits (``models.logits_fn``) ->
+        the whole ``vocab_size`` columns on every model rank: gathered over
+        "model" in model order where the vocabulary is split, then cut
+        before the padded rows, so no pick can take a padded column."""
+        if self.split("unembed"):
+            logits = self.all_gather_model(logits, -1)
+        return logits[..., :vocab_size]
 
     def token_nll(self, hidden: torch.Tensor, unembed: torch.Tensor,
                   labels: torch.Tensor, vocab_size: int):

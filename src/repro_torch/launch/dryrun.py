@@ -305,9 +305,14 @@ def _layout(cfg, shape: InputShape, mesh) -> dict:
         for op, nbytes, calls, _ in ssm_model_collectives(cfg, mesh, tokens,
                                                           train):
             add(op, nbytes, calls)
+    elif m > 1 and cfg.family == "audio":
+        for op, nbytes, calls, _ in audio_model_collectives(
+                cfg, mesh, tokens, rows * (cfg.encoder_seq or 1500), train,
+                shape.kind != "decode"):
+            add(op, nbytes, calls)
     elif m > 1:
         passes = 4 if train else 2
-        layers = cfg.num_layers + (cfg.encoder_layers or 0)
+        layers = cfg.num_layers
         add("all-reduce", tokens * cfg.d_model * 2, passes * layers)
         # the forward's gathers (training: again in the checkpointed
         # block's recompute) and their backward's fp32 all-reduce
@@ -367,7 +372,8 @@ def rank_fsdp_bytes(cfg, mesh) -> dict:
         if "data" not in spec or d == 1:
             continue
         block = leaf.numel() // shard_extent(spec, mesh)
-        times = 2 if name.startswith("blocks.") else 1
+        # a block leaf (whisper's encoder too) again in the recompute
+        times = 2 if name.startswith(("blocks.", "encoder.blocks.")) else 1
         gathered += block * leaf.element_size() * (d - 1) * times
         scattered += block * 4 * (d - 1)
     return {"gathered_bytes": gathered, "scattered_bytes": scattered}
@@ -428,14 +434,62 @@ def ssm_model_collectives(cfg, mesh, tokens: int, train: bool) -> list:
     return out
 
 
-def rank_model_bytes(cfg, mesh, tokens: int, train: bool = True) -> dict:
-    """What one rank of an RWKV6 worker's step of ``tokens`` tokens moves
-    over "model", as :class:`repro_torch.dist.tp.TensorParallel` counts
-    it: ``model_gathered_bytes`` received in the all-gathers and
-    ``reduced_bytes`` summed (:func:`ssm_model_collectives`)."""
+def audio_model_collectives(cfg, mesh, tokens: int, frames: int,
+                            train: bool, encoder: bool = True) -> list:
+    """Whisper's sums over "model" in one worker's step of ``tokens``
+    decoder tokens and ``frames`` encoder frames (a decode step runs no
+    encoder: ``encoder`` False), as the port runs them (the audio branch
+    of :mod:`repro_torch.models.model`), each as :func:`ssm_model_collectives`
+    gives them.  The forward sums the row-parallel products: a decoder
+    layer's three (self-attention's and cross-attention's ``wo``, the
+    MLP's ``w_down``), an encoder layer's two.  A training step recomputes
+    each checkpointed block's forward, which stops before the MLP's sum
+    (the block's last op saves nothing for its backward), and its backward
+    sums the column-parallel inputs' gradients (a decoder layer's three
+    and the encoder output's as its cross-attention reads it, an encoder
+    layer's two).  The vocab-parallel lookup sums its
+    rows once, and the cross-entropy's copy of the hidden state its
+    gradient."""
+    e = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    params = S.abstract_params(cfg)
+
+    def split(name: str) -> bool:
+        return "model" in param_spec(name, params[name].shape, mesh, None)
+    attn, mlp = int(split("blocks.attn.wq")), int(split("blocks.mlp.w_gate"))
+    out = []
+
+    def reduce(numel, calls):
+        if calls:
+            out.append(("all-reduce", numel * e, calls, 4 * numel))
+
+    d = cfg.d_model
+    reduce(tokens * d, cfg.num_layers * (
+        2 * attn + mlp + train * (2 * attn + 2 * attn + mlp)))
+    if encoder:
+        reduce(frames * d, cfg.encoder_layers * (
+            attn + mlp + train * (attn + attn + mlp)))
+        # the encoder's output, as each decoder layer reads it
+        reduce(frames * d, train * attn * cfg.num_layers)
+    if split("embed"):
+        reduce(tokens * d, 1)                      # the lookup
+        reduce(tokens * d, train)                  # the logits' input
+    return out
+
+
+def rank_model_bytes(cfg, mesh, tokens: int, train: bool = True,
+                     frames: int = 0) -> dict:
+    """What one rank of an RWKV6 or whisper worker's step of ``tokens``
+    tokens (whisper: and ``frames`` encoder frames) moves over "model", as
+    :class:`repro_torch.dist.tp.TensorParallel` counts it:
+    ``model_gathered_bytes`` received in the all-gathers and
+    ``reduced_bytes`` summed (:func:`ssm_model_collectives`,
+    :func:`audio_model_collectives`)."""
     got = {"model_gathered_bytes": 0, "reduced_bytes": 0}
-    for op, _, calls, counted in ssm_model_collectives(cfg, mesh, tokens,
-                                                       train):
+    if cfg.family == "audio":
+        entries = audio_model_collectives(cfg, mesh, tokens, frames, train)
+    else:
+        entries = ssm_model_collectives(cfg, mesh, tokens, train)
+    for op, _, calls, counted in entries:
         key = "model_gathered_bytes" if op == "all-gather" \
             else "reduced_bytes"
         got[key] += calls * counted

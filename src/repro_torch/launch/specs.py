@@ -84,7 +84,7 @@ def state_leaves(state) -> list:
     return _cache_tensors((state.caches, state.pos, state.enc_kv))
 
 
-def decode_state_specs(state, mesh, global_batch: int) -> list:
+def decode_state_specs(state_sds, mesh, global_batch: int) -> list:
     """(leaf, spec) for every tensor of the decode state, in
     :func:`state_leaves` order: batch on the worker axes, one large inner
     dim (cache seq / heads / state) on "model" when divisible."""
@@ -106,7 +106,7 @@ def decode_state_specs(state, mesh, global_batch: int) -> list:
         return tuple(axes)
 
     return [(leaf, leaf_spec(tuple(leaf.shape)))
-            for leaf in state_leaves(state)]
+            for leaf in state_leaves(state_sds)]
 
 
 def decode_token_spec(shape: InputShape, mesh) -> ShapeSpec:

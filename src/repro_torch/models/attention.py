@@ -219,16 +219,24 @@ def attend_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ArchConfig, *, causal: bool = True,
                  window: Optional[int] = None,
                  kv_input: Optional[torch.Tensor] = None,
-                 rope: bool = True, tp=None) -> torch.Tensor:
+                 rope: bool = True, return_kv: bool = False, tp=None,
+                 prefix: str = "blocks.attn."):
     """Full-sequence attention (training; whisper's encoder and
     cross-attention too): rotary positions unless ``rope`` is off (the
     keys of ``kv_input`` at 0..Skv-1), masked causally unless ``causal``
     is off and to ``window`` (default ``cfg.sliding_window``).  With
-    ``tp`` this rank's heads, column-parallel ``wq``/``wk``/``wv`` and
-    row-parallel ``wo`` (:class:`repro_torch.dist.tp.TensorParallel`)."""
+    ``return_kv`` also the (roped) k and v, (B, Skv, KV, hd): the decode
+    cache's contents after a prefill of this sequence.  With ``tp`` this
+    rank's heads, column-parallel ``wq``/``wk``/``wv`` and row-parallel
+    ``wo`` (:class:`repro_torch.dist.tp.TensorParallel`; ``prefix`` names
+    the leaves, ``"blocks.xattn."`` for whisper's cross-attention, whose
+    ``kv_input`` every model rank holds whole and reads with its own
+    columns of ``wk`` and ``wv``: it enters through ``tp.copy`` too)."""
     b, s, _ = x.shape
     if tp is not None:
-        p, x = tp.attention(p, x)
+        p, x = tp.attention(p, x, prefix)
+        if kv_input is not None and tp.split(prefix + "wk"):
+            kv_input = tp.copy(kv_input)
     q, k, v = _project_qkv(p, x, cfg, kv_input, tp)
     if rope:
         kv_pos = positions if kv_input is None else torch.arange(
@@ -239,7 +247,9 @@ def attend_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
     window = cfg.sliding_window if window is None else window
     out = masked_attention(q, k, v, window, causal=causal).reshape(
         b, s, -1) @ p["wo"]
-    return out if tp is None else tp.attention_out(out)
+    if tp is not None:
+        out = tp.attention_out(out, prefix)
+    return (out, (k, v)) if return_kv else out
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +291,8 @@ def _softmax_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attend(p: dict, x: torch.Tensor, pos, cache: KVCache,
                   cfg: ArchConfig, *, window: int = 0,
-                  cross_kv: Optional[tuple] = None, tp=None) -> tuple:
+                  cross_kv: Optional[tuple] = None, cross_len: int = 0,
+                  tp=None) -> tuple:
     """One-token decode.  x: (B, 1, d); pos: the current position.  The
     heads are those the leaves of ``p`` and the cache hold (all, or a
     model rank's share; ``tp`` gathers a KV head its ranks share).
@@ -293,7 +304,9 @@ def decode_attend(p: dict, x: torch.Tensor, pos, cache: KVCache,
     or ``pos % cap`` (ring); returns (out (B, 1, d), cache).  With
     ``cross_kv = (k, v)``, each (B, Skv, KV, hd), this is cross-attention
     against the encoder's K and V (whisper): q is not roped, every key is
-    valid, and ``cache`` is returned untouched.
+    valid, and ``cache`` is returned untouched.  ``cross_len`` is taken
+    and not read, as in JAX, whose body never reads it either.  With
+    ``tp`` the cross-attention reads this rank's heads of ``cross_kv``.
     """
     b, s, _ = x.shape
     if s != 1:

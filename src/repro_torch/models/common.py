@@ -61,6 +61,10 @@ class ArchConfig:
     # the MXU); the smoke configs turn it off, as JAX's do
     mxu_f32_accum: bool = True
 
+    def acc_dtype(self):
+        """The accumulation dtype of bf16 products (None = the input's)."""
+        return torch.float32 if self.mxu_f32_accum else None
+
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads

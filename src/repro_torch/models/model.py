@@ -50,7 +50,7 @@ prompt holds no (S, d_ff) tensor; the MoE feed-forward takes the whole
 prompt (its groups and capacities are per sequence); whisper's blocks
 take a prompt (at most 448 tokens) and the 1500 frames whole.
 
-Serving over a model axis (the dense, vlm, MoE and ssm families):
+Serving over a model axis (the dense, vlm, MoE, ssm and audio families):
 :func:`prefill`,
 :func:`decode_step` and :func:`init_decode_state` take ``tp`` (a
 :class:`repro_torch.dist.tp.TensorParallel` under the serving layout,
@@ -62,11 +62,15 @@ ranks than KV heads the ``M / KV`` ranks that share a head each hold
 the rope, and hold equal caches of it), its experts (the MoE layer,
 :func:`repro_torch.models.moe.moe_forward`), its RWKV6 heads and their
 states (not padded; :func:`repro_torch.models.ssm.rwkv6_forward` and
-:func:`_cmix`), sums the row-parallel
+:func:`_cmix`), whisper's encoder, self- and cross-attention heads and
+its heads of ``enc_kv``, sums the row-parallel
 ``wo``, MLP and expert products over "model", looks tokens up in its
 rows of the vocabulary, and returns its ``padded_vocab / M`` columns of
 the logits, unsliced (the caller gathers them, then slices to
-``vocab_size``).
+``vocab_size``: ``TensorParallel.vocab_logits``, so that no pick takes a
+padded row's column).  Training over a model axis reads the same leaves
+as FSDP x TP or TP blocks (:func:`forward_aux`), whisper's encoder
+blocks gathered under their own names (``"encoder.blocks."``).
 """
 from __future__ import annotations
 
@@ -87,10 +91,11 @@ from .common import ArchConfig, init_linear, rms_norm, swiglu
 BLOCKS = "blocks."
 SHARED = "shared_attn."
 ENCODER = "encoder."
+XATTN = BLOCKS + "xattn."         # whisper's cross-attention leaves
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 # the families :func:`param_plan` draws leaf by leaf, and that run over a
 # model axis
-PLANNED = ("dense", "vlm", "moe", "ssm")
+PLANNED = ("dense", "vlm", "moe", "ssm", "audio")
 
 
 def _leaf_key(name: str) -> tuple:
@@ -113,13 +118,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
         "unembed": init_linear((d, cfg.padded_vocab), dt, generator),
         "final_norm": ones(d),
     }
-    if cfg.family == "audio":
-        params.update({BLOCKS + k: v for k, v in _encdec_params(
-            cfg, generator, L).items()})
-        params.update({ENCODER + BLOCKS + k: v for k, v in _dense_params(
-            cfg, generator, cfg.encoder_layers).items()})
-        params[ENCODER + "final_norm"] = ones(d)
-        return ordered(params)
     params["blocks.ln1"] = ones(L, d)                    # the hybrid
     for k, v in ssm.mamba2_params(cfg, generator, L).items():
         params[f"blocks.mamba.{k}"] = v
@@ -130,12 +128,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
 
 
 def param_plan(cfg: ArchConfig) -> list:
-    """The dense, vlm, MoE and ssm families' leaves in :func:`init_params`'
-    draw order, each as ``(name, make(generator))``: making them one at a
-    time draws what :func:`init_params` draws, so a caller can keep a
-    slice of each leaf and drop the rest before the next is made (the
-    sharded sessions; an expert leaf's ``make`` is a
-    :class:`repro_torch.models.moe.Layered`)."""
+    """The dense, vlm, MoE, ssm and audio families' leaves in
+    :func:`init_params`' draw order, each as ``(name, make(generator))``:
+    making them one at a time draws what :func:`init_params` draws, so a
+    caller can keep a slice of each leaf and drop the rest before the next
+    is made (the sharded sessions; an expert leaf's ``make`` is a
+    :class:`repro_torch.models.moe.Layered`).  Audio: the head, the
+    decoder blocks (a dense block's leaves, then ``ln_x`` and the
+    cross-attention's), the encoder blocks, the encoder's final norm."""
     if cfg.family not in PLANNED:
         raise ValueError(f"param_plan covers the {', '.join(PLANNED)} "
                          f"families, got {cfg.family!r}")
@@ -144,9 +144,18 @@ def param_plan(cfg: ArchConfig) -> list:
             ("unembed", lambda g: init_linear((d, v), dt, g)),
             ("final_norm", lambda g: torch.ones((d,), dtype=torch.float32,
                                                 device=g.device))]
-    plan = _ssm_plan(cfg, cfg.num_layers) if cfg.family == "ssm" \
-        else _dense_plan(cfg, cfg.num_layers)
-    return head + [(BLOCKS + k, make) for k, make in plan]
+    if cfg.family == "ssm":
+        plan = _ssm_plan(cfg, cfg.num_layers)
+    elif cfg.family == "audio":
+        plan = _encdec_plan(cfg, cfg.num_layers)
+    else:
+        plan = _dense_plan(cfg, cfg.num_layers)
+    plan = head + [(BLOCKS + k, make) for k, make in plan]
+    if cfg.family == "audio":
+        plan += [(ENCODER + BLOCKS + k, make)
+                 for k, make in _dense_plan(cfg, cfg.encoder_layers)]
+        plan.append((ENCODER + "final_norm", head[2][1]))
+    return plan
 
 
 def _makers(cfg: ArchConfig, layers: int) -> tuple:
@@ -202,18 +211,15 @@ def _dense_params(cfg: ArchConfig, generator: torch.Generator,
     return {k: make(generator) for k, make in _dense_plan(cfg, layers)}
 
 
-def _encdec_params(cfg: ArchConfig, generator: torch.Generator,
-                   layers: int) -> dict:
-    """A whisper decoder block's leaves, stacked over ``layers``: a dense
-    block's (ln1, the self-attention, ln2, the MLP), then ln_x and the
-    cross-attention (no QKV bias)."""
-    p = _dense_params(cfg, generator, layers)
-    p["ln_x"] = torch.ones((layers, cfg.d_model), dtype=torch.float32,
-                           device=generator.device)
-    for k, v in attn.attention_params(cfg, generator, layers,
-                                      cross=True).items():
-        p[f"xattn.{k}"] = v
-    return p
+def _encdec_plan(cfg: ArchConfig, layers: int) -> list:
+    """``(key below the block, make(generator))`` of a whisper decoder
+    block's leaves, stacked over ``layers``, in draw order: a dense
+    block's (the norms, the MLP, the self-attention), then ``ln_x`` and
+    the cross-attention (no QKV bias)."""
+    ones, _ = _makers(cfg, layers)
+    return (_dense_plan(cfg, layers) + [("ln_x", ones)]
+            + [(f"xattn.{k}", make)
+               for k, make in attn.attention_plan(cfg, layers, cross=True)])
 
 
 def ordered(params: dict) -> dict:
@@ -238,37 +244,44 @@ def _nest(flat: dict) -> dict:
 
 def _dense_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
                  p: dict, causal: bool = True, group=None,
-                 tp=None) -> tuple:
+                 tp=None, prefix: str = BLOCKS) -> tuple:
     """(the block's output, its load-balance loss: None without experts;
     ``group`` as in :func:`repro_torch.models.moe.moe_forward`).  With
     ``tp`` (:class:`repro_torch.dist.tp.TensorParallel`) ``p`` holds this
-    rank's blocks, gathered over "data" here, and the attention and MLP
-    run tensor-parallel over "model"."""
+    rank's blocks of the leaves under ``prefix`` (``"encoder.blocks."``:
+    whisper's encoder), gathered over "data" here, and the attention and
+    MLP run tensor-parallel over "model"."""
     if tp is not None:
-        p = tp.block(p)
+        p = tp.block(p, prefix)
     x = x + attn.attend_train(p["attn"], rms_norm(x, p["ln1"]), positions,
-                              cfg, causal=causal, tp=tp)
-    h, aux = _ffn(x, p, cfg, group, tp)
+                              cfg, causal=causal, tp=tp,
+                              prefix=prefix + "attn.")
+    h, aux = _ffn(x, p, cfg, group, tp, prefix)
     return x + h, aux
 
 
 def _encoder_block(x: torch.Tensor, positions: torch.Tensor,
-                   cfg: ArchConfig, p: dict) -> torch.Tensor:
+                   cfg: ArchConfig, p: dict, tp=None) -> torch.Tensor:
     """A whisper encoder block: a dense block with no causal mask (its
     self-attention roped over the frames)."""
-    return _dense_block(x, positions, cfg, p, causal=False)[0]
+    return _dense_block(x, positions, cfg, p, causal=False, tp=tp,
+                        prefix=ENCODER + BLOCKS)[0]
 
 
 def _encdec_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
-                  p: dict, enc_out: torch.Tensor) -> torch.Tensor:
+                  p: dict, enc_out: torch.Tensor, tp=None) -> torch.Tensor:
     """A whisper decoder block: causal self-attention, cross-attention to
-    ``enc_out`` (no rope, no mask), the MLP."""
+    ``enc_out`` (no rope, no mask), the MLP.  With ``tp`` this rank's
+    heads of both attentions (the cross-attention's ``wk`` and ``wv``
+    columns read ``enc_out``, which every model rank holds whole)."""
+    if tp is not None:
+        p = tp.block(p)
     x = x + attn.attend_train(p["attn"], rms_norm(x, p["ln1"]), positions,
-                              cfg)
+                              cfg, tp=tp)
     x = x + attn.attend_train(p["xattn"], rms_norm(x, p["ln_x"]), positions,
                               cfg, causal=False, window=0, kv_input=enc_out,
-                              rope=False)
-    return x + _ffn(x, p, cfg)[0]
+                              rope=False, tp=tp, prefix=XATTN)
+    return x + _ffn(x, p, cfg, tp=tp)[0]
 
 
 def _cmix(x: torch.Tensor, xn: torch.Tensor, xp: torch.Tensor,
@@ -338,7 +351,7 @@ def _layers(params: dict, cfg: ArchConfig, prefix: str = BLOCKS):
 
 
 def _ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, group=None,
-         tp=None) -> tuple:
+         tp=None, prefix: str = BLOCKS) -> tuple:
     """The block's feed-forward of the residual x: (h, the fp32
     load-balance loss, None without experts)."""
     xn = rms_norm(x, p["ln2"])
@@ -347,7 +360,8 @@ def _ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, group=None,
     mp = p["mlp"]
     if tp is not None:
         return tp.mlp(lambda h: swiglu(h, mp["w_gate"], mp["w_up"],
-                                       mp["w_down"]), xn), None
+                                       mp["w_down"]), xn,
+                      prefix + "mlp."), None
     return swiglu(xn, mp["w_gate"], mp["w_up"], mp["w_down"]), None
 
 
@@ -372,13 +386,16 @@ def _run(fn, x: torch.Tensor, *args, **kwargs):
 
 
 def _encoder_forward(params: dict, cfg: ArchConfig,
-                     enc_embeds: torch.Tensor) -> torch.Tensor:
+                     enc_embeds: torch.Tensor, tp=None) -> torch.Tensor:
     """Whisper's encoder over (B, frames, d) embeddings: the blocks with
-    no causal mask, each checkpointed, then the final norm."""
+    no causal mask, each checkpointed, then the final norm (replicated:
+    every model rank holds the output whole).  With ``tp`` this rank's
+    heads and MLP columns."""
     x = enc_embeds.to(cfg.torch_dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    extra = {} if tp is None else {"tp": tp}
     for lp in _layers(params, cfg, ENCODER + BLOCKS):
-        x = _run(_encoder_block, x, positions, cfg, lp)
+        x = _run(_encoder_block, x, positions, cfg, lp, **extra)
     return rms_norm(x, params[ENCODER + "final_norm"])
 
 
@@ -399,9 +416,10 @@ def forward_aux(params: dict, cfg: ArchConfig, batch, group=None,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "audio":
-        enc_out = _encoder_forward(params, cfg, batch["enc_embeds"])
+        enc_out = _encoder_forward(params, cfg, batch["enc_embeds"], tp)
+        extra = {} if tp is None else {"tp": tp}
         for lp in _layers(params, cfg):
-            x = _run(_encdec_block, x, positions, cfg, lp, enc_out)
+            x = _run(_encdec_block, x, positions, cfg, lp, enc_out, **extra)
         return rms_norm(x, params["final_norm"]), aux
     block = {"ssm": _rwkv_block, "hybrid": _mamba_block}.get(cfg.family,
                                                              _dense_block)
@@ -435,7 +453,8 @@ def logits_fn(params: dict, cfg: ArchConfig, hidden: torch.Tensor,
               tp=None) -> torch.Tensor:
     """(..., d) hidden -> (..., vocab_size) logits.  With ``tp`` splitting
     the vocabulary over "model": this rank's ``padded_vocab / M`` columns,
-    not sliced (slice the gathered columns)."""
+    not sliced (the last rank's hold the padded rows' columns: take the
+    whole logits through ``tp.vocab_logits``, which cuts them)."""
     logits = hidden @ params["unembed"]
     if tp is not None and tp.split("unembed"):
         return logits
@@ -580,14 +599,16 @@ def _ring_from_linear(k: torch.Tensor, cap: int) -> torch.Tensor:
 
 def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
                          caches: Optional[attn.KVCache], row: int, *,
-                         causal: bool = True, tp=None) -> None:
+                         causal: bool = True, tp=None,
+                         prefix: str = BLOCKS) -> None:
     """One dense or MoE block ``p`` over a prompt, in place on ``x``: its
     token-wise work ``attn.PREFILL_ROWS`` tokens at a time, its attention
     through the flash kernel (with no causal mask unless ``causal``: the
     whisper encoder), its k and v written into cache row ``row`` (linear:
     rows 0..S-1; ring: packed as it comes; ``caches`` None: kept
     nowhere).  With ``tp`` this rank's heads, the row-parallel products
-    summed over "model"."""
+    summed over "model" (``prefix``: where the block's leaves sit,
+    ``"encoder.blocks."`` for whisper's encoder)."""
     b, s, _ = x.shape
     hd = cfg.hd
     kvh = cfg.num_kv_heads if tp is None else tp.kv_heads(cfg)
@@ -595,7 +616,7 @@ def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     positions = torch.arange(s, device=x.device)[None, :]
     chunks = [slice(c, min(c + attn.PREFILL_ROWS, s))
               for c in range(0, s, attn.PREFILL_ROWS)]
-    ap = p["attn"] if tp is None else tp.heads(p["attn"])
+    ap = p["attn"] if tp is None else tp.heads(p["attn"], prefix + "attn.")
     q = x.new_empty((b, s, kvh, qh // kvh, hd))
     if caches is None or caches.ring:
         k, v = x.new_empty((b, s, kvh, hd)), x.new_empty((b, s, kvh, hd))
@@ -613,9 +634,10 @@ def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     del k, v
     for c in chunks:
         h = out[:, c] @ ap["wo"]
-        x[:, c].add_(h if tp is None else tp.attention_out(h))
+        x[:, c].add_(h if tp is None else tp.attention_out(h,
+                                                           prefix + "attn."))
         if not cfg.is_moe:
-            x[:, c].add_(_ffn(x[:, c], p, cfg, tp=tp)[0])
+            x[:, c].add_(_ffn(x[:, c], p, cfg, tp=tp, prefix=prefix)[0])
     del out
     if cfg.is_moe:
         x.add_(_ffn(x, p, cfg, tp=tp)[0])
@@ -623,16 +645,17 @@ def _prefill_dense_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 def _prefill_encdec_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
                           enc_out: torch.Tensor, caches: attn.KVCache,
-                          enc_kv: tuple, row: int) -> None:
+                          enc_kv: tuple, row: int, tp=None) -> None:
     """One whisper decoder block over a prompt, in place on ``x``: causal
     self-attention through the flash kernel (its k and v into cache row
     ``row``), cross-attention to ``enc_out`` through the flash kernel with
     no mask and no rope (its k and v into ``enc_kv``'s row ``row``), the
-    MLP."""
+    MLP.  With ``tp`` this rank's heads of both, the row-parallel products
+    summed over "model"."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = attn.qkv_rope(p["attn"], rms_norm(x, p["ln1"]), positions,
-                            cfg)
+    ap = p["attn"] if tp is None else tp.heads(p["attn"])
+    q, k, v = attn.qkv_rope(ap, rms_norm(x, p["ln1"]), positions, cfg, tp)
     if caches.ring:
         cap = caches.k.shape[2]
         caches.k[row] = _ring_from_linear(k, cap)
@@ -640,36 +663,43 @@ def _prefill_encdec_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     else:
         caches.k[row, :, :s] = k
         caches.v[row, :, :s] = v
-    x.add_(attn.flash_prefill(q, k, v, cfg.sliding_window)
-           @ p["attn"]["wo"])
-    q, k, v = attn._project_qkv(p["xattn"], rms_norm(x, p["ln_x"]), cfg,
-                                kv_input=enc_out)
+    h = attn.flash_prefill(q, k, v, cfg.sliding_window) @ ap["wo"]
+    x.add_(h if tp is None else tp.attention_out(h))
+    xp = p["xattn"] if tp is None else tp.heads(p["xattn"], XATTN)
+    q, k, v = attn._project_qkv(xp, rms_norm(x, p["ln_x"]), cfg,
+                                kv_input=enc_out, tp=tp)
     enc_kv[0][row], enc_kv[1][row] = k, v
-    x.add_(attn.flash_prefill(q, k, v, 0, causal=False) @ p["xattn"]["wo"])
-    x.add_(_ffn(x, p, cfg)[0])
+    h = attn.flash_prefill(q, k, v, 0, causal=False) @ xp["wo"]
+    x.add_(h if tp is None else tp.attention_out(h, XATTN))
+    x.add_(_ffn(x, p, cfg, tp=tp)[0])
 
 
 def _prefill_audio(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                   enc_embeds: torch.Tensor, cap: int) -> tuple:
+                   enc_embeds: torch.Tensor, cap: int, tp=None) -> tuple:
     """Whisper over a prompt: the encoder (its blocks through
     :func:`_prefill_dense_block` with no causal mask and no cache), then
     the decoder in place on ``x``; returns (the decoder's KV caches of
-    ``cap`` rows, ``enc_kv``: (k, v) each (L, B, frames, KV, hd))."""
+    ``cap`` rows, ``enc_kv``: (k, v) each (L, B, frames, KV, hd); with
+    ``tp`` this rank's KV heads of both)."""
     enc = enc_embeds.to(cfg.torch_dtype, copy=True)
     for lp in _layers(params, cfg, ENCODER + BLOCKS):
-        _prefill_dense_block(lp, cfg, enc, None, 0, causal=False)
+        _prefill_dense_block(lp, cfg, enc, None, 0, causal=False, tp=tp,
+                             prefix=ENCODER + BLOCKS)
     enc = rms_norm(enc, params[ENCODER + "final_norm"])
     b = x.shape[0]
-    caches = _kv_caches(cfg, cfg.num_layers, b, cap, x.dtype, x.device)
-    enc_kv = _enc_kv(cfg, b, enc.shape[1], x.device)
+    caches = _kv_caches(cfg, cfg.num_layers, b, cap, x.dtype, x.device, tp)
+    enc_kv = _enc_kv(cfg, b, enc.shape[1], x.device, tp)
     for layer, lp in enumerate(_layers(params, cfg)):
-        _prefill_encdec_block(lp, cfg, x, enc, caches, enc_kv, layer)
+        _prefill_encdec_block(lp, cfg, x, enc, caches, enc_kv, layer, tp)
     return caches, enc_kv
 
 
-def _enc_kv(cfg: ArchConfig, batch: int, frames: int, device) -> tuple:
-    """Zero cross-attention K and V, (L, B, frames, KV, hd) each."""
-    shape = (cfg.num_layers, batch, frames, cfg.num_kv_heads, cfg.hd)
+def _enc_kv(cfg: ArchConfig, batch: int, frames: int, device,
+            tp=None) -> tuple:
+    """Zero cross-attention K and V, (L, B, frames, KV, hd) each (with
+    ``tp``, this rank's KV heads)."""
+    kv = cfg.num_kv_heads if tp is None else tp.kv_heads(cfg)
+    shape = (cfg.num_layers, batch, frames, kv, cfg.hd)
     return tuple(torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
                  for _ in range(2))
 
@@ -762,7 +792,7 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
         x, caches = _prefill_hybrid(params, cfg, x, cap)
     elif cfg.family == "audio":
         caches, enc_kv = _prefill_audio(params, cfg, x, batch["enc_embeds"],
-                                        cap)
+                                        cap, tp)
     else:
         caches = _kv_caches(cfg, cfg.num_layers, b, cap, x.dtype, x.device,
                             tp)
@@ -791,7 +821,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     cap = min(cfg.sliding_window, cache_len) if ring else cache_len
     enc_kv = None
     if cfg.family == "audio":
-        enc_kv = _enc_kv(cfg, batch, cfg.encoder_seq or 1500, device)
+        enc_kv = _enc_kv(cfg, batch, cfg.encoder_seq or 1500, device, tp)
     if cfg.family == "ssm":
         caches = _ssm_caches(cfg, batch, device, tp)
     elif cfg.family == "hybrid":
@@ -850,7 +880,7 @@ def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
     else:
         x = tp.embed(params["embed"], token.long())[:, None, :]
     if cfg.family == "audio":
-        x = _decode_audio(params, cfg, state, x)
+        x = _decode_audio(params, cfg, state, x, tp)
     elif cfg.family == "ssm":
         x = _decode_ssm(params, cfg, state.caches, x, tp)
     elif cfg.family == "hybrid":
@@ -887,21 +917,25 @@ def _decode_dense(params: dict, cfg: ArchConfig, caches: attn.KVCache,
 
 
 def _decode_audio(params: dict, cfg: ArchConfig, state: DecodeState,
-                  x: torch.Tensor) -> torch.Tensor:
+                  x: torch.Tensor, tp=None) -> torch.Tensor:
     """One token through whisper's decoder: self-attention to the KV
-    caches (rows written in place), cross-attention to ``enc_kv``."""
+    caches (rows written in place), cross-attention to ``enc_kv``.  With
+    ``tp`` this rank's heads of both (its heads of ``enc_kv``), the
+    row-parallel products summed over "model"."""
     caches, (ek, ev) = state.caches, state.enc_kv
     for layer, lp in enumerate(_layers(params, cfg)):
         cache = attn.KVCache(caches.k[layer], caches.v[layer], caches.ring)
-        h, _ = attn.decode_attend(lp["attn"], rms_norm(x, lp["ln1"]),
-                                  state.pos, cache, cfg,
-                                  window=cfg.sliding_window)
-        x = x + h
-        h, _ = attn.decode_attend(lp["xattn"], rms_norm(x, lp["ln_x"]),
-                                  state.pos, cache, cfg,
-                                  cross_kv=(ek[layer], ev[layer]))
-        x = x + h
-        x = x + _ffn(x, lp, cfg)[0]
+        ap = lp["attn"] if tp is None else tp.heads(lp["attn"])
+        h, _ = attn.decode_attend(ap, rms_norm(x, lp["ln1"]), state.pos,
+                                  cache, cfg, window=cfg.sliding_window,
+                                  tp=tp)
+        x = x + (h if tp is None else tp.attention_out(h))
+        xp = lp["xattn"] if tp is None else tp.heads(lp["xattn"], XATTN)
+        h, _ = attn.decode_attend(xp, rms_norm(x, lp["ln_x"]), state.pos,
+                                  cache, cfg, cross_kv=(ek[layer], ev[layer]),
+                                  tp=tp)
+        x = x + (h if tp is None else tp.attention_out(h, XATTN))
+        x = x + _ffn(x, lp, cfg, tp=tp)[0]
     return x
 
 

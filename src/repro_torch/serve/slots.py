@@ -206,8 +206,8 @@ class SlotEngine:
             return logits
         if self._mine(slot):
             if self._vocab_split():
-                logits = self.tp.all_gather_model(logits, -1)[
-                    :, :self.cfg.vocab_size].contiguous()
+                logits = self.tp.vocab_logits(logits,
+                                              self.cfg.vocab_size).contiguous()
         else:
             logits = torch.empty((1, self.cfg.vocab_size),
                                  dtype=self.params["unembed"].dtype,

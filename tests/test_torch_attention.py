@@ -275,6 +275,67 @@ def test_attend_train_prefill_matches_jax():
                                atol=1e-6)
 
 
+def test_attend_train_return_kv_matches_jax():
+    """``return_kv=True``: the output and the roped k and v, JAX's on the
+    same inputs (self-attention), and the unroped k and v of a
+    ``kv_input`` (a cross-attention with no rope)."""
+    jcfg, cfg = _smoke_cfgs()
+    jp, tp = _attn_params(jcfg, seed=2)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, 20, cfg.d_model)).astype(np.float32)
+    pos = np.arange(12)[None, :]
+    for kw, jkw in (({}, {}),
+                    (dict(kv_input=torch.from_numpy(enc), rope=False,
+                          causal=False, window=0),
+                     dict(kv_input=jnp.asarray(enc), rope=False,
+                          causal=False, window=0))):
+        jout, (jk, jv) = jattn.attend_train(
+            jp, jnp.asarray(x), jnp.asarray(pos), jcfg, return_kv=True,
+            **jkw)
+        out, (k, v) = attn.attend_train(tp, torch.from_numpy(x),
+                                        torch.from_numpy(pos), cfg,
+                                        return_kv=True, **kw)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(k.numpy(), np.asarray(jk), **F32)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv), **F32)
+        assert torch.equal(out, attn.attend_train(
+            tp, torch.from_numpy(x), torch.from_numpy(pos), cfg, **kw))
+
+
+@pytest.mark.parametrize("cross_len", [0, 7, 20])
+def test_decode_attend_takes_cross_len_and_ignores_it(cross_len):
+    """``cross_len`` is taken and not read, as in JAX (its body never
+    reads it): a cross-attention decode against a 20-row encoder K and V
+    gives the same output at any ``cross_len``, JAX's, and leaves the
+    cache untouched."""
+    jcfg, cfg = _smoke_cfgs()
+    jp, tp = _attn_params(jcfg, seed=3)
+    jp = {k: v for k, v in jp.items() if not k.startswith("b")}
+    tp = {k: v for k, v in tp.items() if not k.startswith("b")}
+    rng = np.random.default_rng(6)
+    b = 2
+    x = rng.standard_normal((b, 1, cfg.d_model)).astype(np.float32)
+    ek = rng.standard_normal((b, 20, cfg.num_kv_heads, cfg.hd)).astype(
+        np.float32)
+    ev = rng.standard_normal(ek.shape).astype(np.float32)
+    jcache = jattn.init_cache(jcfg, b, 4, ring=False)
+    jout, _ = jattn.decode_attend(jp, jnp.asarray(x), jnp.asarray(3),
+                                  jcache, jcfg,
+                                  cross_kv=(jnp.asarray(ek), jnp.asarray(ev)),
+                                  cross_len=cross_len)
+    cache = attn.init_cache(cfg, b, 4, ring=False, device="cpu")
+    kw = dict(cross_kv=(torch.from_numpy(ek), torch.from_numpy(ev)))
+    out, same = attn.decode_attend(tp, torch.from_numpy(x), 3, cache, cfg,
+                                   cross_len=cross_len, **kw)
+    assert same is cache and not cache.k.any() and not cache.v.any()
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-4,
+                               atol=1e-5)
+    assert torch.equal(out, attn.decode_attend(
+        tp, torch.from_numpy(x), 3, cache, cfg, **kw)[0])
+
+
 @pytest.mark.parametrize("per_slot", [True, False])
 def test_decode_attend_matches_jax(per_slot):
     jcfg, cfg = _smoke_cfgs()

@@ -58,6 +58,58 @@ def test_dense_gossip_and_exact_average(rounds):
         atol=1e-6)
 
 
+# (per-node round counts, max_rounds): JAX's own case
+# (tests/test_consensus.py::test_gossip_per_node_rounds), the uniform
+# case, a max_rounds above the largest count, and no max_rounds
+PER_NODE = [([0, 1, 2, 3, 4, 5], 5), ([3] * 6, 3), ([2, 0, 1, 2, 0, 1], 7),
+            ([1, 4, 0, 2, 2, 3], None)]
+
+
+@pytest.mark.parametrize("counts,max_rounds", PER_NODE)
+def test_gossip_per_node_rounds_match_jax(counts, max_rounds):
+    """An (n,) count r_i(t) a node (the paper's fixed T_c, in which nodes
+    finish different numbers of rounds): a node past its count keeps its
+    value; the same numbers as JAX's ``gossip`` on the same inputs."""
+    n = len(counts)
+    rng = np.random.default_rng(sum(counts))
+    m = rng.standard_normal((n, 3, 2)).astype(np.float32)
+    p = jcns.metropolis_weights(jcns.ring_graph(n), 0.5)
+    want = np.asarray(jcns.gossip(jnp.asarray(m), jnp.asarray(p, jnp.float32),
+                                  jnp.asarray(counts), max_rounds=max_rounds))
+    got = cns.gossip(torch.from_numpy(m), p, torch.tensor(counts),
+                     max_rounds=max_rounds)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    for i in np.nonzero(np.asarray(counts) == 0)[0]:
+        np.testing.assert_array_equal(got[i].numpy(), m[i])
+    if len(set(counts)) == 1:          # uniform counts: the scalar rounds
+        np.testing.assert_allclose(
+            got.numpy(), cns.gossip(torch.from_numpy(m), p,
+                                    counts[0]).numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_gossip_scalar_rounds_with_max_rounds_match_jax():
+    """A scalar count with a static ``max_rounds`` above it: every node
+    stops at the count, as JAX's masked loop does."""
+    rng = np.random.default_rng(2)
+    m = rng.standard_normal((5, 4)).astype(np.float32)
+    p = jcns.metropolis_weights(jcns.ring_graph(5), 0.5)
+    want = np.asarray(jcns.gossip(jnp.asarray(m), jnp.asarray(p, jnp.float32),
+                                  2, max_rounds=6))
+    got = cns.gossip(torch.from_numpy(m), p, 2, max_rounds=6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        got.numpy(), cns.gossip(torch.from_numpy(m), p, 2).numpy(),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_graphs_dict_matches_jax():
+    """``GRAPHS``: the same builders by name, the same graphs."""
+    assert sorted(cns.GRAPHS) == sorted(jcns.GRAPHS)
+    for name, build in cns.GRAPHS.items():
+        args = () if name == "paper" else (6,)
+        np.testing.assert_array_equal(build(*args), jcns.GRAPHS[name](*args))
+
+
 @pytest.mark.parametrize("budget", [0.0, 0.004, 0.02, 1e3])
 def test_amb_batch_sizes_match(budget):
     rng = np.random.default_rng(1)

@@ -275,6 +275,29 @@ def test_measured_clock_matches_jax(straggler, compute_time):
         assert tc.sec_per_grad == pytest.approx(jc.sec_per_grad, rel=1e-12)
 
 
+@pytest.mark.parametrize("straggler", ["shifted_exp", "deterministic"])
+def test_measured_clock_times_match_jax(straggler):
+    """``MeasuredClock.times``: the (n, b_max) per-gradient times in
+    measured seconds, JAX's ``times(key)`` on the same relative draws,
+    before the first measured step and after two; ``epoch`` returns the
+    same times."""
+    jc = jclock.make_clock(JClockSpec(straggler=straggler), N, PER)
+    tc = clock.make_clock(ClockSpec(straggler=straggler), N, PER)
+    for t, (step_s, gb) in enumerate([(0.8, 8.0), (0.3, 5.0), (0.0, 0.0)]):
+        key = jax.random.PRNGKey(t)
+        draws = torch.tensor(np.asarray(
+            jc.model.per_gradient_times(key, N, PER)))
+        tc.model = types.SimpleNamespace(
+            per_gradient_times=lambda gen, n, b, d=draws: d)
+        times = tc.times(torch.Generator().manual_seed(t))
+        assert times.shape == (N, PER)
+        np.testing.assert_allclose(times.numpy(), np.asarray(jc.times(key)),
+                                   rtol=1e-6)
+        assert torch.equal(tc.epoch(torch.Generator())[0], times)
+        jc.update(step_s, gb)
+        tc.update(step_s, gb)
+
+
 def test_session_default_clock_is_measured_and_fed_each_step():
     session = AMBSession(TRAIN, device="cpu")
     assert isinstance(session.clock, clock.MeasuredClock)

@@ -158,8 +158,11 @@ def _record(session, losses) -> dict:
 def _refusals(params, mesh, mesh14) -> dict:
     from repro_torch.api import TrainSpec
     tries = {
+        # model 2 does not divide 3 heads (whisper-base-smoke's 4 run:
+        # tests/test_torch_tp_audio.py)
         "audio": lambda: _session("exact", None, mesh,
-                                  cfg=_cfg("whisper-base")),
+                                  cfg=_cfg("whisper-base", num_heads=3,
+                                           num_kv_heads=3)),
         "hybrid": lambda: _session("exact", None, mesh,
                                    cfg=_cfg("zamba2-1.2b")),
         # model 4 does not divide 6 query heads
@@ -651,10 +654,12 @@ def test_train_cli_with_a_model_axis_matches_the_one_process_cli(
 
 
 def test_what_model_gt_1_still_refuses_names_item_4a(ranks):
-    """The audio and hybrid families, and a model extent that does not
-    divide the query heads, name item 4a.5 (the MoE family and more model
-    ranks than KV heads run since: tests/test_torch_tp_moe.py; the vlm and
-    ssm families: tests/test_torch_tp_ssm.py)."""
+    """The hybrid family, and a model extent that does not divide the
+    query heads (an audio model's 3 heads at model 2 among them), name
+    item 4a.5 (the MoE family and more model ranks than KV heads run
+    since: tests/test_torch_tp_moe.py; the vlm and ssm families:
+    tests/test_torch_tp_ssm.py; the audio family where model divides its
+    heads: tests/test_torch_tp_audio.py)."""
     for got in ranks:
         assert sorted(got["refusals"]) == sorted(REFUSED)
         for what, msg in got["refusals"].items():

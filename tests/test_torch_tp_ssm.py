@@ -632,13 +632,14 @@ def _engine_matches(got: dict, want: dict, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("fsdp", ["data", None])
-@pytest.mark.parametrize("arch", [RWKV, VLM])
+@pytest.mark.parametrize("arch", [RWKV, VLM, "whisper-base"])
 def test_init_shards_are_slices_of_init_params_bit_for_bit(arch, fsdp):
     """Each coordinate's blocks, drawn a whole leaf at a time in
     ``init_params``' order, equal its slices of ``init_params`` bit for
     bit; RWKV6's layout is JAX's ``param_spec`` (the LoRA's rank, the
     bonus's head dim and the mixes' d_model on "model", ``cmix.w_v`` by
-    its d_model columns)."""
+    its d_model columns); whisper's encoder and cross-attention leaves
+    take a dense block's rules."""
     from repro_torch import models
     from repro_torch.dist import params as P
     cfg = _cfg(arch)
@@ -652,6 +653,14 @@ def test_init_shards_are_slices_of_init_params_bit_for_bit(arch, fsdp):
                            ("blocks.cmix.w_v", (None, fsdp, "model")),
                            ("blocks.tmix.ln_x", ())):
             assert P.param_spec(name, tree[name].shape, mesh, fsdp) == spec
+    if cfg.family == "audio":
+        for name, spec in (("encoder.blocks.attn.wq", (None, fsdp, "model")),
+                           ("encoder.blocks.mlp.w_down",
+                            (None, "model", fsdp)),
+                           ("blocks.xattn.wk", (None, fsdp, "model")),
+                           ("blocks.xattn.wo", (None, "model", fsdp)),
+                           ("blocks.ln_x", ()), ("encoder.final_norm", ())):
+            assert P.param_spec(name, tree[name].shape, mesh, fsdp) == spec
     for c in np.ndindex(N, M):
         got = P.init_shards(cfg, torch.Generator().manual_seed(5), mesh, c,
                             fsdp)
@@ -661,12 +670,14 @@ def test_init_shards_are_slices_of_init_params_bit_for_bit(arch, fsdp):
             assert got[k].dtype == v.dtype and torch.equal(got[k], v), (c, k)
 
 
-@pytest.mark.parametrize("arch, model", [(RWKV, 4), ("whisper-base", 2),
+@pytest.mark.parametrize("arch, model", [(RWKV, 4), ("whisper-base", 16),
                                          ("zamba2-1.2b", 2)])
 def test_what_still_refuses_names_item_4a(arch, model):
-    """A model extent that does not divide the RWKV6 heads (the smoke
-    config's 2 at 4), the audio and the hybrid families raise, naming
-    module item 4a.5; rwkv6-3b at 2 and 4 and the vlm pass."""
+    """A model extent that does not divide the heads (the RWKV6 smoke
+    config's 2 at 4, whisper-base-smoke's 4 at 16) and the hybrid family
+    raise, naming module item 4a.5; rwkv6-3b at 2 and 4, whisper-base at
+    2, 4 and 8 (its 8 heads; tests/test_torch_tp_audio.py runs it) and
+    the vlm pass."""
     from repro_torch import configs
     from repro_torch.dist.tp import check_supported
     with pytest.raises(ValueError, match=r"ROADMAP.md, module item 4a.5"):
@@ -675,6 +686,8 @@ def test_what_still_refuses_names_item_4a(arch, model):
         check_supported(_cfg(name), m)
     for m in (2, 4):
         check_supported(configs.get_config(RWKV), m)
+    for m in (2, 4, 8):
+        check_supported(configs.get_config("whisper-base"), m)
 
 
 @pytest.mark.parametrize("kind", ["train", "decode"])
