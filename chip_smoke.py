@@ -350,7 +350,34 @@ Phases (any failure ends the run with a non-zero exit code):
      model 2 (the one-process archive restored, saved and read back bit
      for bit; after the launch the ranks' save is that archive, leaf for
      leaf).  Flash at whisper's rank shapes runs in phase 3;
- 21. print the kernels' JSON line, the card line, and the final ok line.
+ 21. the hybrid family over a model axis: after phase 20's references
+     (beside phase 20's ranks) the parent writes phase 21's
+     (``axis21_references``: zamba2-1.2b at full width through the plain
+     8-slot engine and its twin over (data 2, model 2), ``hybrid_twin``:
+     the tokens, the twin's prefill and first-round logits within
+     HYBRID21_LOGIT_TOL of the plain engine's, each rank's share of the
+     Mamba2 states, conv tails and KV caches by digest; one exact epoch
+     at HYBRID21_EXACT_LAYERS (two shared applications), plain and under
+     ``tp_sums`` (its Mamba2 twin block), whose move sets each leaf's
+     limit; one fp32 gossip epoch at HYBRID21_GOSSIP_LAYERS under
+     ``tp_sums``: each rank's block's digest; an exact session at
+     HYBRID21_CKPT_LAYERS saved for the ranks to restore); then the
+     launch's eighth turn (``rank_axis21``): zamba2's engine over (data
+     2, model 2) at all 38 layers, 32 Mamba2 heads and 16 attention heads
+     a rank, JAX's packed ``w_in`` and ``conv_w`` blocks gathered and cut
+     once (8 requests of 2048 +- 512 tokens into 8 slots, 32 new; the
+     twin's tokens, the count that differ from the plain engine's, each
+     rank's states and caches its share of the twin's by digest, 6
+     tensor-core flash launches a request at (B 1, H 16, KV 16, hd 64),
+     the decode round's ms, bytes and collectives), its exact epoch (the
+     bytes over "data" and "model" exactly the dry-run's, 20
+     ``dual_update`` launches, the loss and each leaf against the
+     twin's), its fp32 gossip epoch (each rank's dual block bit for bit
+     the twin's, ``wire_bytes_per_round(d_block)`` a round) and a
+     checkpoint at model 2 (restored, saved and read back bit for bit;
+     after the launch the ranks' save is the one-process archive, leaf
+     for leaf).  Flash at zamba2's rank shape runs in phase 3;
+ 22. print the kernels' JSON line, the card line, and the final ok line.
 """
 import concurrent.futures
 import contextlib
@@ -4962,10 +4989,11 @@ def drivers_after(torch, rt, work: Path, refs: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 MODEL_AXIS = (2, 2)            # (data, model): two workers of two ranks
-# qwen2-1.5b width cut to 2 layers: at 8 the command took 1,168.8 s of
+# qwen2-1.5b width cut to 1 layer: at 8 the command took 1,168.8 s of
 # its 1,200 on an H100 at 700 W, before the quantized gossip checks; at 4
-# (PRs 25 to 27) 1,195.4 s with phase 17
-MODEL_LAYERS = 2
+# 1,195.4 s with phase 17; at 2 1,054.5 s with phase 20, before phase 21's
+# ranks added about 54 s after the parent's steps
+MODEL_LAYERS = 1
 MODEL_CLI_ARGV = ["--smoke", "--sim-clock", "--steps", str(MESH_EPOCHS),
                   "--data", str(MODEL_AXIS[0])]
 MODEL_CLI = ("exact", "gossip", "gossip_q8")
@@ -5178,14 +5206,16 @@ def tp_sums(torch, rt, m: int = 2):
     rank's backward and the column-parallel sum over "model" do), each
     block's row-parallel product summed in fp32 in rank order and rounded
     once, and the vocab-parallel cross-entropy (``_PartsTP``); an RWKV6
-    block as ``_twin_rwkv_block``.  Whisper's cross-attention projects
+    block as ``_twin_rwkv_block``, a Mamba2 block as ``_twin_mamba_block``
+    (the hybrid's shared block is a dense block).  Whisper's
+    cross-attention projects
     each rank's k and v columns from its own view of the encoder's output
     (``kv_input``, fanned per layer as the ranks copy it per layer), with
     no rope.  Wider than ``split_sums``, which splits the forward
     row-parallel sums only."""
     model, attn, amb = rt.models.model, rt.models.attention, rt.dist.amb
-    plain_mlp, plain_attend, plain_loss, plain_rwkv = (
-        model.swiglu, attn.attend_train, amb.lm_loss, model._rwkv_block)
+    plain = (model.swiglu, attn.attend_train, amb.lm_loss, model._rwkv_block,
+             model._mamba_block)
     parts = _PartsTP(torch, m)
     fan = parts.fan
 
@@ -5247,16 +5277,16 @@ def tp_sums(torch, rt, m: int = 2):
         return out.to(x.dtype)
 
     def loss(params, cfg, batch, *args, tp=None, **kwargs):
-        return plain_loss(params, cfg, batch, *args, tp=parts, **kwargs)
+        return plain[2](params, cfg, batch, *args, tp=parts, **kwargs)
 
-    model.swiglu, attn.attend_train, amb.lm_loss, model._rwkv_block = (
-        mlp, attend, loss, _twin_rwkv_block(torch, rt, m))
+    (model.swiglu, attn.attend_train, amb.lm_loss, model._rwkv_block,
+     model._mamba_block) = (mlp, attend, loss, _twin_rwkv_block(torch, rt, m),
+                            _twin_mamba_block(torch, rt, m))
     try:
         yield
     finally:
-        (model.swiglu, attn.attend_train, amb.lm_loss,
-         model._rwkv_block) = (plain_mlp, plain_attend, plain_loss,
-                               plain_rwkv)
+        (model.swiglu, attn.attend_train, amb.lm_loss, model._rwkv_block,
+         model._mamba_block) = plain
 
 
 def order_limits(moves: dict) -> dict:
@@ -7496,6 +7526,45 @@ def _twin_rwkv_block(torch, rt, m: int):
     return block
 
 
+def _twin_mamba_block(torch, rt, m: int):
+    """``models.model._mamba_block`` as a worker's ``m`` model ranks run it
+    under autograd (``tp_sums``): rank r's inner pass from its own view
+    of the normed input and of each packed or partly read leaf (``_fan``:
+    their gradients summed in fp32 in rank order, as ``tp.copy`` and the
+    whole-leaf gathers sum them), cut to its heads by the port's own
+    ``mamba2_rank_leaves``; the ranks' sums of squares put together and
+    viewed once a rank (``_fan``, as their gather sums its gradient); each
+    rank's output from its rows of ``w_out``, summed in fp32 in rank
+    order."""
+    ssm, common = rt.models.ssm, rt.models.common
+    fan = _fan(torch, m)
+    fanned = ("w_in", "conv_w", "a_log", "dt_bias", "d_skip", "norm_z")
+
+    def block(x, positions, cfg, p, tp=None):
+        mp = p["mamba"]
+        d_in = mp["norm_z"].shape[-1]
+        c = d_in // m
+        views = {k: fan(mp[k]) for k in fanned}
+        xs = fan(common.rms_norm(x, p["ln1"]))
+        leaves, ys, zs = [], [], []
+        for r in range(m):
+            pr = ssm.mamba2_rank_leaves(
+                dict(mp, **{k: views[k][r] for k in fanned}), r, m)
+            pr["w_out"] = mp["w_out"][r * c:(r + 1) * c]
+            y, z, _ = ssm.mamba2_inner(pr, xs[r], cfg)
+            leaves.append(pr)
+            ys.append(y)
+            zs.append(z)
+        squares = fan(torch.cat([(y * y).sum(dim=-1, keepdim=True)
+                                 for y in ys], dim=-1))
+        outs = [ssm.mamba2_norm_out(leaves[r], ys[r], zs[r], xs[r], d_in,
+                                    list(squares[r].split(1, dim=-1)))
+                for r in range(m)]
+        return x + _rank_sum(torch, outs, x.dtype), None
+
+    return block
+
+
 @contextlib.contextmanager
 def ssm_twin(torch, rt, cfg, m: int, workers: int):
     """``rank_twin`` for the RWKV6 family: a one-process slot engine as
@@ -8728,12 +8797,586 @@ def axis20_after(torch, rt, work: Path) -> dict:
     return {"launches": launches, "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the hybrid family over a model axis
+# ---------------------------------------------------------------------------
+
+HYBRID_AXIS = (2, 2)           # (data, model): 32 of zamba2's 64 Mamba2
+# heads and 16 of its shared block's 32 attention heads a rank.
+# zamba2-1.2b at full width over (data 2, model 2), bf16: the slot engine
+# at all 38 layers (8 requests of 2048 +- 512 tokens into 8 slots, 32 new
+# tokens: each worker owns 4 slots and prefills its 4 requests), an exact
+# epoch at HYBRID21_EXACT_LAYERS (the shared block applied twice, so its
+# gradient accumulates over two applications before the reduce-scatter),
+# an fp32 gossip epoch at HYBRID21_GOSSIP_LAYERS (one application) with
+# HYBRID21_ROUNDS rounds, and a checkpoint at model 2 of an exact session
+# at HYBRID21_CKPT_LAYERS (its archive 2.5 GB: the embedding, the
+# unembedding and the shared block are most of it at any depth)
+HYBRID21_SERVE = dict(requests=8, new=32, slots=8, prompt=2048, jitter=512,
+                      seed=50)
+HYBRID21_EXACT_LAYERS = 12
+HYBRID21_GOSSIP_LAYERS = 6
+HYBRID21_ROUNDS = 2
+HYBRID21_CKPT_LAYERS = 2
+# the exact epoch starts from the seed's parameters with the two Mamba2
+# leaves that init makes zero drawn as Mamba2's own init draws them
+# (HYBRID21_REDRAW_SEED: A uniform in [1, 16], a_log = log A; dt
+# log-uniform in [0.001, 0.1], dt_bias its inverse softplus), as real
+# checkpoints hold them: from JAX's zeros the first exact step's a_log and
+# dt_bias are their rounding-bound updates alone, which the ranks'
+# summation order moved by 0.0925 and 0.0452 of their largest values (an
+# H100 at 700 W), past MESH_PARAM_TOL, where no limit could tell a fault
+# from the order
+HYBRID21_REDRAW_SEED = 21
+# the engine's twin against the plain engine (the same parameters, the
+# same prompts): each prefill's logits, and the first round's on the rows
+# whose first token agrees, within HYBRID21_LOGIT_TOL of the plain logits'
+# largest magnitude.  The twin differs from the plain engine by summation
+# order only: about one bf16 unit (2 ** -8) of the residual for each
+# row-parallel sum on a request's path, 50 of them (each of 38 Mamba2
+# layers' w_out, two in each of 6 shared applications), and the packed
+# projection and the scan at a rank's width, rounded up to 64; a
+# misplaced head, channel or leaf block moves random-weight logits by
+# about their own size
+HYBRID21_LOGIT_TOL = 64 * 2.0 ** -8
+FLASH_ZAMBA_RANK = dict(b=1, h=16, kv=16, hd=64)  # zamba2, a rank of model 2
+FLASH21_SEQS = (2048,)
+
+
+def hybrid21_params(torch, rt, cfg) -> dict:
+    """zamba2-1.2b's whole parameters at ``cfg`` on the card from seed 0
+    (``init_params``), ``a_log`` and ``dt_bias`` drawn from
+    HYBRID21_REDRAW_SEED (see there): the same on every rank."""
+    params = rt.models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(HYBRID21_REDRAW_SEED)
+    shape = params["blocks.mamba.a_log"].shape
+    a = 1.0 + 15.0 * torch.rand(shape, generator=gen, device="cuda")
+    lo, hi = math.log(1e-3), math.log(0.1)
+    dt = torch.exp(lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                               device="cuda"))
+    params["blocks.mamba.a_log"] = torch.log(a)
+    params["blocks.mamba.dt_bias"] = dt + torch.log(-torch.expm1(-dt))
+    return params
+
+
+def _rank_channels(torch, cfg, r: int, m: int):
+    """Rank r of m's channels of the hybrid's whole conv tail: its heads'
+    x channels, then B and C."""
+    d_in, ns = 2 * cfg.d_model, cfg.ssm_state
+    c = d_in // m
+    return torch.cat([torch.arange(r * c, (r + 1) * c),
+                      torch.arange(d_in, d_in + 2 * ns)])
+
+
+@contextlib.contextmanager
+def hybrid_twin(torch, rt, cfg, m: int, workers: int):
+    """``rank_twin`` for the hybrid family: a one-process slot engine as
+    ``workers`` workers of ``m`` model ranks serve.  The shared block's
+    attention, MLP and the logits are ``rank_twin``'s; each Mamba2 layer
+    runs once a rank on the port's own cut of the whole leaves
+    (``mamba2_rank_leaves``: its heads' x, z and dt columns and B, C
+    whole; its rows of ``w_out``), from the same normed input, each
+    rank's sum of squares put together in rank order, the ranks' outputs
+    summed in fp32 in rank order and rounded once.  The states keep the
+    whole layout (rank r's are heads r H / m to (r + 1) H / m, its conv
+    channels ``_rank_channels``), and a decode round runs each worker's
+    rows alone."""
+    model, ssm, common = rt.models.model, rt.models.ssm, rt.models.common
+    attn = rt.models.attention
+    slots_mod = sys.modules["repro_torch.serve.slots"]
+    d_in, heads, _ = ssm.mamba2_dims(cfg)
+    c, h = d_in // m, heads // m
+    chans = [_rank_channels(torch, cfg, r, m) for r in range(m)]
+
+    def mamba(lp, xn, states=None):
+        """One Mamba2 layer as the ranks run it: (its output, each rank's
+        state after it); ``states``: each rank's before a decode step
+        (None: a prefill)."""
+        leaves, ys, zs, news = [], [], [], []
+        for r in range(m):
+            pr = ssm.mamba2_rank_leaves(lp, r, m)
+            pr["w_out"] = lp["w_out"][r * c:(r + 1) * c]
+            if states is None:
+                y, z, st = ssm.mamba2_inner(pr, xn, cfg)
+            else:
+                y, z, st = ssm.mamba2_step(pr, xn, states[r], cfg)
+            leaves.append(pr)
+            ys.append(y)
+            zs.append(z)
+            news.append(st)
+        squares = [(y * y).sum(dim=-1, keepdim=True) for y in ys]
+        outs = [ssm.mamba2_norm_out(leaves[r], ys[r], zs[r], xn, d_in,
+                                    squares) for r in range(m)]
+        return _rank_sum(torch, outs, xn.dtype), news
+
+    def prefill_hybrid(params, cfg_, x, cap, tp=None):
+        caches = model._hybrid_caches(cfg, x.shape[0], cap, x.device)
+        shared, app = model._shared(params), 0
+        for layer, lp in enumerate(model._layers(params, cfg)):
+            out, news = mamba(lp["mamba"], common.rms_norm(x, lp["ln1"]))
+            x.add_(out)
+            for r, st in enumerate(news):
+                caches["mamba"].h[layer][:, r * h:(r + 1) * h] = st.h
+                caches["mamba"].conv[layer][..., chans[r]] = st.conv
+            if model._applies_shared(cfg, layer):
+                model._prefill_dense_block(shared, cfg, x, caches["attn"],
+                                           app)
+                app += 1
+        return x, caches
+
+    def decode(params, cfg_, state, token, tp=None, group=None):
+        rows = token.shape[0] // workers
+        caches, pos = state.caches, state.pos
+        mc, kv = caches["mamba"], caches["attn"]
+        shared = model._shared(params)
+        out = []
+        for w in range(workers):
+            a = slice(w * rows, (w + 1) * rows)
+            x = torch.nn.functional.embedding(token[a].long(),
+                                              params["embed"])[:, None, :]
+            app = 0
+            for layer, lp in enumerate(model._layers(params, cfg)):
+                states = [ssm.MambaState(mc.h[layer][a, r * h:(r + 1) * h],
+                                         mc.conv[layer][a][..., chans[r]])
+                          for r in range(m)]
+                o, news = mamba(lp["mamba"], common.rms_norm(x, lp["ln1"]),
+                                states)
+                for r, st in enumerate(news):
+                    mc.h[layer][a, r * h:(r + 1) * h] = st.h
+                    mc.conv[layer][a, :, chans[r]] = st.conv
+                x = x + o
+                if model._applies_shared(cfg, layer):
+                    cache = attn.KVCache(kv.k[app][a], kv.v[app][a], kv.ring)
+                    o, _ = attn.decode_attend(
+                        shared["attn"], common.rms_norm(x, shared["ln1"]),
+                        pos[a], cache, cfg, window=cfg.sliding_window)
+                    x = x + o
+                    x = x + model._ffn(x, shared, cfg)[0]
+                    app += 1
+            out.append(model.logits_fn(params, cfg, common.rms_norm(
+                x, params["final_norm"])))
+        return (torch.cat(out)[:, 0],
+                model.DecodeState(caches, pos + 1, state.enc_kv))
+
+    with rank_twin(torch, rt, cfg, m, workers):
+        plain = (model._prefill_hybrid, slots_mod.decode_step)
+        model._prefill_hybrid, slots_mod.decode_step = prefill_hybrid, decode
+        try:
+            yield
+        finally:
+            model._prefill_hybrid, slots_mod.decode_step = plain
+
+
+def hybrid_state_digests(torch, cfg, caches, rows: slice, r: int,
+                         m: int) -> list:
+    """The digest of slot rows ``rows`` of hybrid decode caches as model
+    rank ``r`` of ``m`` holds them (``m`` 1: as they are): its heads' h,
+    its conv channels (``_rank_channels``), its KV heads of the shared
+    block's caches."""
+    mc, kv = caches["mamba"], caches["attn"]
+    if m == 1:
+        tree = {"h": mc.h[:, rows], "conv": mc.conv[:, rows],
+                "k": kv.k[:, rows], "v": kv.v[:, rows]}
+    else:
+        h = mc.h.shape[2] // m
+        g = kv.k.shape[3] // m
+        tree = {"h": mc.h[:, rows, r * h:(r + 1) * h],
+                "conv": mc.conv[:, rows][..., _rank_channels(torch, cfg, r,
+                                                             m)],
+                "k": kv.k[:, rows, :, r * g:(r + 1) * g],
+                "v": kv.v[:, rows, :, r * g:(r + 1) * g]}
+    return as_json(digest(torch, tree))
+
+
+def axis21_references(torch, rt, work: Path) -> None:
+    """Phase 21's references, in the parent after phase 20's (beside
+    phase 20's ranks), written for the ranks:
+      * zamba2-1.2b at full width through the plain 8-slot engine and its
+        twin over (data 2, model 2) (``hybrid_twin``): the greedy tokens,
+        the twin held to the plain engine (``check_ssm19_twin``), and
+        after the first decode round the digest of each rank's share of
+        the twin's states and caches (its worker's rows, its heads);
+      * one exact epoch at HYBRID21_EXACT_LAYERS of the one-process
+        data=2 session from ``hybrid21_params``, plain and under
+        ``tp_sums`` (its Mamba2 twin block): each leaf's move sets its
+        limit; the twin's parameters and loss are what the ranks are
+        held to;
+      * one fp32 gossip epoch at HYBRID21_GOSSIP_LAYERS, HYBRID21_ROUNDS
+        rounds, under ``tp_sums``: the digest of each rank's block of its
+        worker's dual (``block_digests``);
+      * one exact epoch at HYBRID21_CKPT_LAYERS of the one-process data=2
+        session (model 2 in its TrainSpec), saved (``ck21_one``): the
+        archive the ranks restore."""
+    lap = stamps("phase 21 references")
+    refs = {}
+    data, m = HYBRID_AXIS
+    full = rt.configs.get_config(ZAMBA_ARCH)
+    reqs, slots, cache, seed = serve_spec(rt, full, HYBRID21_SERVE)
+    params = rt.models.init_params(
+        full, torch.Generator(device="cuda").manual_seed(seed))
+    engine = rt.serve.SlotEngine(params, full, slots=slots, cache_len=cache)
+    plain_seen = sampled_logits(engine, len(reqs) + 1)
+    drain(engine, reqs)
+    plain_tokens = [r.out_tokens for r in reqs]
+    del engine
+    release(torch)
+    reqs = serve_spec(rt, full, HYBRID21_SERVE)[0]
+    per = slots // data
+    with hybrid_twin(torch, rt, full, m, data):
+        engine = rt.serve.SlotEngine(params, full, slots=slots,
+                                     cache_len=cache)
+        twin_seen = sampled_logits(engine, len(reqs) + 1)
+        digests = drain_first(engine, reqs, lambda caches: [
+            hybrid_state_digests(torch, full, caches,
+                                 slice(w * per, (w + 1) * per), r, m)
+            for w in range(data) for r in range(m)])
+    twin_tokens = [r.out_tokens for r in reqs]
+    refs["serve"] = {"plain_tokens": plain_tokens, "twin_tokens": twin_tokens,
+                     "digests": digests}
+    del engine, params
+    release(torch)
+    check_ssm19_twin(torch, plain_seen, twin_seen, plain_tokens, twin_tokens,
+                     HYBRID21_LOGIT_TOL, "bf16",
+                     "phase 21 reference: the zamba2")
+    lap("the zamba2 serve twin done")
+    cfg = dataclasses.replace(full, num_layers=HYBRID21_EXACT_LAYERS)
+    with deterministic(torch):
+        session = mesh_session(rt, cfg, "exact", False, data=data,
+                               params=hybrid21_params(torch, rt, cfg))
+        res = mesh_epochs(torch, rt, session, "phase 21 hybrid exact "
+                          "reference", 1)
+        plain = {k: v.detach() for k, v in session.params.items()}
+        del session
+        release(torch)
+        with tp_sums(torch, rt, m):
+            session = mesh_session(rt, cfg, "exact", False, data=data,
+                                   params=hybrid21_params(torch, rt, cfg))
+            twin = mesh_epochs(torch, rt, session, "phase 21 hybrid exact "
+                               "twin", 1)
+        moves = leaf_errs(torch, session.params, plain)
+        torch.save({k: v.detach().cpu() for k, v in session.params.items()},
+                   work / "hybrid21_twin.pt")
+        del session, plain
+        release(torch)
+    refs["exact"] = {"losses": twin["losses"],
+                     "plain_losses": res["losses"], "moves": moves,
+                     "limits": check_order("phase 21 hybrid exact", moves)}
+    print(f"phase 21 reference hybrid exact ({HYBRID21_EXACT_LAYERS} layers, "
+          f"one process, {data} workers): losses {res['losses']} epoch_s "
+          f"{res['epoch_s']} peak_GiB {res['peak_gib']:.2f}; the twin's over "
+          f"{m} model ranks {twin['losses']} [{card_line()}]", flush=True)
+    lap("the zamba2 exact references done")
+    cfg = dataclasses.replace(full, num_layers=HYBRID21_GOSSIP_LAYERS,
+                              dtype="float32")
+    with deterministic(torch), tp_sums(torch, rt, m):
+        session = mesh_session(rt, cfg, "gossip", False, data=data,
+                               rounds=HYBRID21_ROUNDS)
+        res = mesh_epochs(torch, rt, session, "phase 21 hybrid gossip twin",
+                          1)
+        refs["gossip"] = {"losses": res["losses"],
+                          "digests": block_digests(torch, rt,
+                                                   session.state["z"])}
+        del session
+        release(torch)
+    print(f"phase 21 reference hybrid gossip ({HYBRID21_GOSSIP_LAYERS} "
+          f"layers, fp32, one process, {data} workers, r {HYBRID21_ROUNDS}, "
+          f"tp_sums): losses {res['losses']} epoch_s {res['epoch_s']} "
+          f"peak_GiB {res['peak_gib']:.2f} [{card_line()}]", flush=True)
+    lap("the zamba2 gossip twin done")
+    cfg = dataclasses.replace(full, num_layers=HYBRID21_CKPT_LAYERS)
+    session = mesh_session(rt, cfg, "exact", False, data=data, model=m)
+    mesh_epochs(torch, rt, session, "phase 21 hybrid checkpoint session", 1)
+    session.save(work / "ck21_one")
+    del session
+    release(torch)
+    lap("the zamba2 archive saved")
+    torch.save(refs, work / "axis21_refs.pt")
+
+
+def rank_hybrid_serve(torch, rt, dist, refs: dict, lap) -> dict:
+    """zamba2-1.2b at full width and depth, bf16, through the slot engine
+    over (data 2, model 2), clock-free (``drain_first``): each rank's
+    serving blocks from the seed (``init_shards``, the serving layout;
+    ``w_in`` and ``conv_w`` gathered and cut to its heads once, when the
+    engine loads them); the greedy tokens equal to the twin's
+    (``hybrid_twin``) and the count that differ from the plain engine's;
+    each rank's Mamba2 states, conv tails and KV caches after the first
+    decode round its share of the twin's by digest; 6 tensor-core flash
+    launches a request on its worker's ranks at (B 1, H 16, KV 16, hd
+    64); per rank the prefill seconds, the decode round's ms (p50, p99),
+    the bytes summed and gathered over "model" and the collectives a
+    round, the peak."""
+    rank = dist.get_rank()
+    router = rt.kernels.router
+    label = f"phase 21 hybrid serve rank {rank}"
+    cfg = rt.configs.get_config(ZAMBA_ARCH)
+    ref = refs["serve"]
+    reqs, slots, cache, seed = serve_spec(rt, cfg, HYBRID21_SERVE)
+    engine, group, tp = rank_engine(torch, rt, cfg, seed, slots, cache,
+                                    lambda: lap("the zamba2 serving blocks "
+                                                "drawn"))
+    with count_collectives(dist) as calls:
+        probe = EngineProbe(torch, rt, engine, lambda: (
+            tp.reduced_bytes, tp.model_gathered_bytes, sum(calls.values())))
+        with probe.watch():
+            got = drain_first(engine, reqs, lambda caches: (
+                hybrid_state_digests(torch, cfg, caches, slice(None), 0, 1)))
+    launches = router.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lap("the zamba2 requests served")
+    tokens = [r.out_tokens for r in reqs]
+    if tokens != ref["twin_tokens"]:
+        fail(f"{label}: greedy tokens differ from the one-process twin's "
+             f"(hybrid_twin): {tokens} vs {ref['twin_tokens']}")
+    if got != ref["digests"][rank]:
+        fail(f"{label}: its Mamba2 states, conv tails and KV caches after "
+             f"the first round differ from its share of the twin's (worker "
+             f"{group.worker}'s rows, model rank {group.m}'s heads)")
+    apps = cfg.num_layers // cfg.attn_every
+    owned = probe.check_flash(label, reqs, apps, FLASH_ZAMBA_RANK, launches)
+    expect(label, launches, {"dual_update": 0})
+    rank_shape = tuple(FLASH_ZAMBA_RANK[x] for x in ("b", "h", "kv", "hd"))
+    differ = sum(a != b for x, y in zip(tokens, ref["plain_tokens"])
+                 for a, b in zip(x, y))
+    rounds = probe.rounds()
+    per_round = rounds["bytes_per_round"][2]
+    row = {"owned": owned, "flash_per_request": apps,
+           "heads": tp.mamba_heads(cfg), "prefill_s": probe.prefill_s,
+           "decode_rounds": rounds["decode_rounds"],
+           "round_ms_p50": rounds["round_ms_p50"],
+           "round_ms_p99": rounds["round_ms_p99"],
+           "reduced_bytes_per_round": rounds["bytes_per_round"][0],
+           "gathered_bytes_per_round": rounds["bytes_per_round"][1],
+           "collectives_per_round": per_round, "peak_gib": peak,
+           "tokens_differing_from_plain": differ, "launches": launches}
+    print(f"  {label} (worker {group.worker}, model {group.m}): "
+          f"{tp.mamba_heads(cfg)} Mamba2 heads; greedy tokens equal to the "
+          f"twin's; {differ} of {sum(map(len, tokens))} differ from the "
+          f"plain engine's; states, conv tails and KV caches its share of "
+          f"the twin's; flash {apps} a request on the tensor cores at (B, "
+          f"H, KV, hd) {rank_shape} x {owned} requests; prefill_s "
+          f"{[round(x, 4) for x in probe.prefill_s]}; decode rounds "
+          f"{row['decode_rounds']}, ms p50 {row['round_ms_p50']:.2f} p99 "
+          f"{row['round_ms_p99']:.2f}; {row['reduced_bytes_per_round']} B "
+          f"summed over \"model\" and {row['gathered_bytes_per_round']} B "
+          f"gathered a round; {per_round} collectives a round (one token a "
+          f"slot); peak_GiB {peak:.2f} [{card_line()}]", flush=True)
+    del engine
+    release(torch)
+    return row
+
+
+def rank_hybrid_exact(torch, rt, dist, refs: dict, work: Path, lap) -> dict:
+    """zamba2-1.2b at HYBRID21_EXACT_LAYERS over (data 2, model 2) from
+    ``hybrid21_params``, one exact epoch (FSDP x TP, 32 Mamba2 heads and
+    16 attention heads a rank; the shared block applied twice) under
+    deterministic algorithms:
+    20 ``dual_update`` launches on the blocks; the bytes over "data" the
+    dry-run's ``rank_fsdp_bytes`` and over "model" its
+    ``rank_model_bytes``, to the byte; the loss within MESH_LOSS_TOL of
+    the twin's (``tp_sums``), the replicated leaves equal on every rank,
+    and each gathered leaf within its ``order_limits`` of the twin's
+    (rank 0)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract
+    rank = dist.get_rank()
+    label = f"phase 21 hybrid exact rank {rank}"
+    cfg = dataclasses.replace(rt.configs.get_config(ZAMBA_ARCH),
+                              num_layers=HYBRID21_EXACT_LAYERS)
+    mesh = rt.launch.mesh.make_host_mesh(*HYBRID_AXIS, device="cuda")
+    ref = refs["exact"]
+    with deterministic(torch):
+        session = mesh_session(rt, cfg, "exact", mesh, HYBRID_AXIS[0],
+                               model=HYBRID_AXIS[1],
+                               params=hybrid21_params(torch, rt, cfg))
+        release(torch)
+        res = mesh_epochs(torch, rt, session, label, 1)
+    lap("the zamba2 exact epoch done")
+    tp = session.tp
+    leaves = len(session.state["params"])
+    expect(label, res["launches"], {"dual_update": leaves})
+    check_losses("phase 21 hybrid exact", rank, res["losses"],
+                 ref["losses"])
+    same_replicated(torch, dist, session, session.state["params"], "exact")
+    amesh = abstract(HYBRID_AXIS, ("data", "model"))
+    held = {k: getattr(tp, k) for k in ("gathered_bytes", "scattered_bytes",
+                                        "model_gathered_bytes",
+                                        "reduced_bytes")}
+    want = dict(dryrun.rank_fsdp_bytes(cfg, amesh),
+                **dryrun.rank_model_bytes(cfg, amesh, PER_WORKER * SEQ))
+    if held != want:
+        fail(f"{label}: {held}, the dry-run's {want}")
+    row = {"epoch_s": res["epoch_s"], "peak_gib": res["peak_gib"],
+           "losses": res["losses"], "launches": res["launches"],
+           "heads": tp.mamba_heads(cfg), **held}
+    print(f"  {label} (worker {session.group.worker}, model "
+          f"{session.group.m}): {tp.mamba_heads(cfg)} Mamba2 heads; over "
+          f"\"data\" gathered {held['gathered_bytes']} B, reduce-scattered "
+          f"{held['scattered_bytes']} B; over \"model\" gathered "
+          f"{held['model_gathered_bytes']} B, summed "
+          f"{held['reduced_bytes']} B (all the dry-run's); the replicated "
+          f"leaves equal on every rank; epoch_s "
+          f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} losses {res['losses']} (the twin's "
+          f"{ref['losses']}); dual_update "
+          f"{res['launches'].get('dual_update', 0)} [{card_line()}]",
+          flush=True)
+    whole = session.params
+    if rank == 0:
+        twin = torch.load(work / "hybrid21_twin.pt")
+        row["limit_share"] = check_leaves(
+            "phase 21 hybrid exact (the ranks against the twin)",
+            leaf_errs(torch, whole, twin), ref["limits"])
+        del twin
+    del session, whole
+    release(torch)
+    return row
+
+
+def rank_hybrid_gossip(torch, rt, dist, refs: dict, lap) -> dict:
+    """zamba2-1.2b at HYBRID21_GOSSIP_LAYERS in fp32 over (data 2, model
+    2), one ring gossip epoch (TP) of HYBRID21_ROUNDS rounds under
+    deterministic algorithms: each rank's dual block bit for bit its
+    block of the one-process twin's (``tp_sums``), the wire exactly
+    ``wire_bytes_per_round(d_block)`` a round, 20 ``dual_update`` and
+    HYBRID21_ROUNDS ``gossip_combine`` launches."""
+    rank = dist.get_rank()
+    label = f"phase 21 hybrid gossip rank {rank}"
+    cfg = dataclasses.replace(rt.configs.get_config(ZAMBA_ARCH),
+                              num_layers=HYBRID21_GOSSIP_LAYERS,
+                              dtype="float32")
+    mesh = rt.launch.mesh.make_host_mesh(*HYBRID_AXIS, device="cuda")
+    ref = refs["gossip"]
+    with deterministic(torch):
+        session = mesh_session(rt, cfg, "gossip", mesh, HYBRID_AXIS[0],
+                               model=HYBRID_AXIS[1], rounds=HYBRID21_ROUNDS)
+        res = mesh_epochs(torch, rt, session, label, 1)
+    lap("the zamba2 gossip epoch done")
+    g = session.group
+    leaves = len(session.state["z"])
+    expect(label, res["launches"], {"dual_update": leaves,
+                                    "gossip_combine": HYBRID21_ROUNDS})
+    check_losses("phase 21 hybrid gossip", rank, res["losses"],
+                 ref["losses"])
+    width = session.tp.row_block().block_width
+    strat = rt.dist.amb.strategy_from_config(
+        dataclasses.replace(session.protocol.amb, active=None),
+        HYBRID_AXIS[0])
+    wire = strat.wire_bytes_per_round(width)
+    if g.sent_bytes != HYBRID21_ROUNDS * wire:
+        fail(f"{label}: sent {g.sent_bytes} bytes in {HYBRID21_ROUNDS} "
+             f"rounds; wire_bytes_per_round({width}) {wire}")
+    z = {k: v[0] for k, v in session.state["z"].items()}
+    if as_json(digest(torch, z)) != ref["digests"][rank]:
+        fail(f"{label}: its dual block differs from its block of the "
+             f"one-process session under tp_sums")
+    row = {"epoch_s": res["epoch_s"], "peak_gib": res["peak_gib"],
+           "losses": res["losses"], "launches": res["launches"],
+           "block_width": width, "wire_bytes_per_round": wire}
+    print(f"  {label} (worker {g.worker}, model {g.m}): dual block bit for "
+          f"bit its block of the one-process session under tp_sums; "
+          f"{g.sent_bytes // HYBRID21_ROUNDS} bytes a round = "
+          f"wire_bytes_per_round(d_block {width}); epoch_s "
+          f"{[round(x, 4) for x in res['epoch_s']]} peak_GiB "
+          f"{res['peak_gib']:.2f} losses {res['losses']} [{card_line()}]",
+          flush=True)
+    del session, z
+    release(torch)
+    return row
+
+
+def rank_hybrid_ckpt(torch, rt, dist, work: Path, lap) -> dict:
+    """A zamba2 checkpoint at model 2: each rank restores the parent's
+    one-process exact archive (``ck21_one``, HYBRID21_CKPT_LAYERS),
+    saves it (``ck21_back``), and restores its own save: the state read
+    back bit for bit, block for block; the archive's bytes, save and
+    restore seconds."""
+    rank = dist.get_rank()
+    label = f"phase 21 hybrid checkpoint rank {rank}"
+    cfg = dataclasses.replace(rt.configs.get_config(ZAMBA_ARCH),
+                              num_layers=HYBRID21_CKPT_LAYERS)
+    session = rt.api.AMBSession.restore(work / "ck21_one", cfg=cfg,
+                                        device="cuda")
+    if session.tp is None or session.group.model != HYBRID_AXIS[1]:
+        fail(f"{label}: the restore is not over (data 2, model 2)")
+    before = as_json(digest(torch, session.state))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session.save(work / "ck21_back")
+    save_s = time.perf_counter() - t0
+    del session
+    release(torch)
+    t0 = time.perf_counter()
+    back = rt.api.AMBSession.restore(work / "ck21_back", cfg=cfg,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if as_json(digest(torch, back.state)) != before:
+        fail(f"{label}: the state read back is not the state saved")
+    nbytes = dir_bytes(work / "ck21_back")
+    print(f"  {label}: the state read back bit for bit, block for block; "
+          f"{nbytes} B, save {save_s:.3f} s "
+          f"({nbytes / save_s / 1e9:.3f} GB/s), restore {restore_s:.3f} s "
+          f"({nbytes / restore_s / 1e9:.3f} GB/s)", flush=True)
+    del back
+    release(torch)
+    lap("the zamba2 checkpoint done")
+    return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s}
+
+
+def rank_axis21(torch, rt, dist, work: Path) -> None:
+    """Phase 21's turn of the gloo launch, once the parent's references
+    are written: zamba2-1.2b's slot engine, its exact and fp32 gossip
+    epochs and a checkpoint over (data 2, model 2); each rank's results
+    to ``axis21_rank<r>.json``."""
+    rank = dist.get_rank()
+    lap = stamps("phase 21 rank 0", rank)
+    refs = torch.load(work / "axis21_refs.pt")
+    out = {"hybrid serve": rank_hybrid_serve(torch, rt, dist, refs, lap),
+           "hybrid exact": rank_hybrid_exact(torch, rt, dist, refs, work,
+                                             lap),
+           "hybrid gossip": rank_hybrid_gossip(torch, rt, dist, refs, lap),
+           "hybrid ckpt": rank_hybrid_ckpt(torch, rt, dist, work, lap)}
+    (work / f"axis21_rank{rank}.json").write_text(json.dumps(out))
+
+
+def axis21_after(torch, rt, work: Path) -> dict:
+    """Phase 21 after the gloo ranks: the ranks' save of the one-process
+    archive leaf for leaf that archive (the packed Mamba2 leaves and the
+    shared block's among them); their rows and launch counts."""
+    ranks = [json.loads((work / f"axis21_rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    ckpt = rt.ckpt.checkpoint
+    for sub in ("", "session_state"):
+        a = ckpt._Reader(work / "ck21_one" / sub, 1)
+        b = ckpt._Reader(work / "ck21_back" / sub, 1)
+        if not any("mamba/w_in" in k for k in a.data.files) or not any(
+                "shared_attn" in k for k in a.data.files):
+            fail(f"phase 21 checkpoint: the archive lacks the Mamba2 or the "
+                 f"shared block's leaves ({sub or 'primal'})")
+        if a.manifest != b.manifest or any(
+                not (a.data[k].dtype == b.data[k].dtype
+                     and (a.data[k] == b.data[k]).all())
+                for k in a.data.files):
+            fail(f"phase 21 checkpoint: the ranks' save of the restored "
+                 f"archive is not the one-process archive "
+                 f"({sub or 'primal'})")
+    launches = {f"{run} rank {r}": res[run]["launches"]
+                for r, res in enumerate(ranks) for run in res
+                if "launches" in res[run]}
+    print(f"phase 21: every rank's checks held; the ranks' save of the "
+          f"one-process zamba2 archive is that archive, leaf for leaf; "
+          f"launches {json.dumps(launches)} [{card_line()}]", flush=True)
+    return {"launches": launches, "ranks": ranks}
+
+
 def rank_gloo(torch, rt, dist, work: Path) -> None:
-    """The four gloo ranks of phases 14 to 20 in one launch, each phase's
+    """The four gloo ranks of phases 14 to 21 in one launch, each phase's
     sessions building their meshes over the one group: ``rank_gloo4``,
     ``rank_drivers``, ``rank_model``, ``rank_serve``, ``rank_axis18``,
-    ``rank_axis19`` and ``rank_axis20`` in turn, each once the parent's
-    steps before it are done
+    ``rank_axis19``, ``rank_axis20`` and ``rank_axis21`` in turn, each once
+    the parent's steps before it are done
     (``wait_parent``), a barrier after each; rank 0 prints when each
     ended and writes ``done<phase>`` (the parent's phase-18 references
     wait for phase 16's)."""
@@ -8741,7 +9384,7 @@ def rank_gloo(torch, rt, dist, work: Path) -> None:
     for phase, fn in ((14, rank_gloo4), (15, rank_drivers),
                       (16, rank_model), (17, rank_serve),
                       (18, rank_axis18), (19, rank_axis19),
-                      (20, rank_axis20)):
+                      (20, rank_axis20), (21, rank_axis21)):
         wait_parent(work, dist.get_rank(), phase)
         fn(torch, rt, dist, work)
         release(torch)
@@ -8757,7 +9400,7 @@ RANK_PHASES = {"gloo": rank_gloo}
 
 def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
                     beside14, beside17) -> tuple:
-    """Phases 14 to 20 around one launch of four gloo ranks
+    """Phases 14 to 21 around one launch of four gloo ranks
     (``rank_gloo``), started first: phases 14 to 16's parent steps before
     the ranks (the references, the NCCL rank) run while the ranks come
     up; phase 17's references and ``beside14()`` (a part of an earlier
@@ -8765,10 +9408,10 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
     run phase 14; phase 18's references once the ranks have ended phase
     16, then ``beside17()`` (other parts) while they run phases 17 and
     18 (each phase's ranks start once ``parent_ready`` says its steps are
-    done), and after it phase 19's and phase 20's references; then each
-    phase's parent steps after them, ``stamp(phase)`` as each ends.
-    Returns (phase 14's, 15's, 16's, 17's, 18's, 19's and 20's
-    results)."""
+    done), and after it phase 19's, phase 20's and phase 21's references;
+    then each phase's parent steps after them, ``stamp(phase)`` as each
+    ends.  Returns (phase 14's, 15's, 16's, 17's, 18's, 19's, 20's and
+    21's results)."""
     release(torch)
     work = Path(tempfile.mkdtemp(prefix="ranks-", dir=ROOT / "build"))
     t0 = time.perf_counter()
@@ -8816,6 +9459,12 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
             parent_ready(work, 20)
             release(torch)
             t20 = time.perf_counter()
+            # phase 21's references (near 20 GiB) beside phase 20's ranks
+            # (under 2.3 GiB each)
+            axis21_references(torch, rt, work)
+            parent_ready(work, 21)
+            release(torch)
+            t21 = time.perf_counter()
         except BaseException:
             stop_ranks("gloo", proc)
             raise
@@ -8837,12 +9486,14 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
         axis19 = axis19_after(work)
         stamp(19)
         axis20 = axis20_after(torch, rt, work)
+        stamp(20)
+        axis21 = axis21_after(torch, rt, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t_end = time.perf_counter()
-    print(f"phases 14 to 20 (one process per worker, the drivers, a model "
+    print(f"phases 14 to 21 (one process per worker, the drivers, a model "
           f"axis, serving over it, the MoE family and more model ranks "
-          f"than KV heads, the vlm, ssm and audio families): "
+          f"than KV heads, the vlm, ssm, audio and hybrid families): "
           f"{t_end - t0:.1f} s; the parent before "
           f"the gloo ranks {t14 - t0:.1f} s (phase 14, the NCCL rank "
           f"included), {t15 - t14:.1f} (15), {t16 - t15:.1f} (16), the "
@@ -8851,11 +9502,12 @@ def run_rank_phases(torch, rt, ops, full, beta: float, stamp,
           f"ranks {t17b - t17:.1f}, then phase 18's references "
           f"{t18 - t17c:.1f} (after waiting {t17c - t17b:.1f} for phase "
           f"16's ranks) and the phase beside phases 17 and 18's ranks "
-          f"{t18b - t18:.1f}, then phase 19's references {t19 - t18b:.1f} "
-          f"and phase 20's {t20 - t19:.1f}; the ranks after the parent's "
-          f"steps {t_ranks - t20:.1f}; the parent after them "
-          f"{t_end - t_ranks:.1f}", flush=True)
-    return mesh, ranks15, model_axis, served, axis18, axis19, axis20
+          f"{t18b - t18:.1f}, then phase 19's references {t19 - t18b:.1f}, "
+          f"phase 20's {t20 - t19:.1f} and phase 21's {t21 - t20:.1f}; the "
+          f"ranks after the parent's steps {t_ranks - t21:.1f}; the parent "
+          f"after them {t_end - t_ranks:.1f}", flush=True)
+    return (mesh, ranks15, model_axis, served, axis18, axis19, axis20,
+            axis21)
 
 
 def time_quantized_block(torch, rt, ops, d: int) -> dict:
@@ -9056,6 +9708,10 @@ def main() -> int:
     flash_zoo += check_flash_whisper(
         torch, ops, rt.kernels.flash_attention, FLASH_WHISPER_RANK,
         ", a model rank over (data 2, model 2)")
+    flash_zoo += check_flash_rank(torch, ops, rt.kernels.flash_attention,
+                                  FLASH_ZAMBA_RANK, FLASH21_SEQS,
+                                  "zamba2-1.2b's shared block over (data 2, "
+                                  "model 2)")
     rank_err, rwkv["rank_shapes"] = time_rwkv6(
         torch, ops, rt.kernels.rwkv6_scan, RWKV_RANK,
         "a rank of rwkv6-3b over (data 2, model 2)")
@@ -9167,10 +9823,10 @@ def main() -> int:
                                                    SERVE_ZAMBA_ARGV)
         stamp(12, ": zamba2's serve CLI beside phases 17 and 18's ranks")
 
-    (mesh, ranks15, model_axis, served17, axis18, axis19,
-     axis20) = run_rank_phases(torch, rt, ops, full, beta, stamp, beside14,
+    (mesh, ranks15, model_axis, served17, axis18, axis19, axis20,
+     axis21) = run_rank_phases(torch, rt, ops, full, beta, stamp, beside14,
                                beside17)
-    stamp(20)
+    stamp(21)
     du[torch.float32]["model_axis"] = model_axis["dual_update"]
     squant["model_axis"] = model_axis["stochastic_quantize"]
     qcomb["model_axis"] = model_axis["quantized_combine"]
@@ -9180,7 +9836,8 @@ def main() -> int:
             runs, served, sim["launches"], cli_launches, drivers,
             coded_launches, zoo, mesh["launches"], ranks15["launches"],
             model_axis["launches"], served17["launches"],
-            axis18["launches"], axis19["launches"], axis20["launches"])
+            axis18["launches"], axis19["launches"], axis20["launches"],
+            axis21["launches"])
             for c in group.values())
 
     def per_epoch(name):
@@ -9223,6 +9880,9 @@ def main() -> int:
                     launches_audio_axis={
                         a: c.get(name, 0)
                         for a, c in axis20["launches"].items()},
+                    launches_hybrid_axis={
+                        a: c.get(name, 0)
+                        for a, c in axis21["launches"].items()},
                     max_abs_err=err,
                     **timing)
 

@@ -89,9 +89,12 @@ cross-attention on each rank's heads; a worker's rows of
 ``batch["enc_embeds"]`` go with its rows of tokens, as every key of a
 batch is cut by its first dim).  More model ranks than KV heads run too:
 the ranks that share a head hold its columns and gather them
-(:meth:`repro_torch.dist.tp.TensorParallel.gather_kv`).  The hybrid
-family and a model extent that does not divide the heads raise, naming
-ROADMAP.md's module item 4a.5.
+(:meth:`repro_torch.dist.tp.TensorParallel.gather_kv`), and so does the
+hybrid family (zamba2: each rank's Mamba2 heads cut from JAX's blocks of
+the packed ``w_in`` and ``conv_w``, :meth:`repro_torch.dist.tp.
+TensorParallel.mamba_leaves`, and its shared block's heads).  A model
+extent that does not divide the heads raises, naming ROADMAP.md's module
+item 4a.5.3.
 """
 from __future__ import annotations
 
@@ -133,8 +136,8 @@ def not_ported(what: str, model: int) -> ValueError:
     run yet."""
     return ValueError(f"{what} at model > 1 (a worker spread over {model} "
                       f"ranks) is not ported yet (ROADMAP.md, module item "
-                      f"4a.5); every driver and option of the dense, vlm, "
-                      f"moe, ssm and audio families runs")
+                      f"4a.5); every driver and option of every family "
+                      f"runs")
 
 
 class AMBSession:

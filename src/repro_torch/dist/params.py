@@ -203,8 +203,7 @@ def init_shards(cfg, generator: torch.Generator, mesh, coord,
     stream is the same), and only its block is kept, so at most one whole
     leaf is live; an expert leaf (``models.moe.Layered``) is drawn a
     layer at a time, and only the layer's block is kept, so its stack is
-    never whole.  The families ``models.param_plan`` plans (dense, vlm,
-    MoE, ssm)."""
+    never whole.  Every family (``models.param_plan``)."""
     from ..models.model import ordered, param_plan
     from ..models.moe import Layered
     out = {}

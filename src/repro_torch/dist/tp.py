@@ -108,13 +108,32 @@ rank's share and the gather's backward sums it over "model"; the output
 channels feed the replicated residual, whose gradient is whole on every
 rank, so that gather's backward only cuts.
 
+The hybrid (zamba2) keeps JAX's blocks too, and its Mamba2 heads split
+over "model" at compute time only: JAX puts "model" on the packed columns
+of ``w_in`` ([x | z | B C | dt]) and ``conv_w`` ([x | B C]), whose blocks
+do not follow the heads, so each rank gathers the two leaves whole and
+cuts its heads' x, z and dt columns and B, C whole (:meth:`mamba_leaves`;
+serving gathers and cuts them once, :meth:`serving_leaves`); the gather's
+backward sums the whole leaf's gradient over "model" (only B and C's
+columns take a part from every rank), a layer's (d, 2 d_in + 2 ns +
+heads) in fp32.  The gated norm's mean square spans every head: each
+rank's sum of squares over its channels is gathered over "model" and
+summed in model order (:func:`repro_torch.models.ssm.mamba2_squares`,
+the backward summed), and ``w_out`` is row-parallel.  The shared
+attention block is a dense block whose leaves have no layer dim
+(``"shared_attn.*"``): its heads set the KV layout (``self.wq``), and
+the training forward gathers it over "data" once a step, so its
+gradient accumulates over its applications before the one
+reduce-scatter.
+
 ``gathered_bytes`` and ``scattered_bytes`` count what this rank received
 from the other ranks of "data" in the all-gathers and sent to them in the
 reduce-scatters, ``model_gathered_bytes`` what it received in the
 "model" all-gathers (the router's logits, a shared KV head, RWKV6's
-leaves, key and output channels), and ``reduced_bytes`` the fp32 bytes
-of its sums over "model" (``launch.dryrun.rank_model_bytes`` counts an
-RWKV6 step's).
+leaves, key and output channels, Mamba2's packed leaves and its norm's
+sums of squares), and ``reduced_bytes`` the fp32 bytes of its sums over
+"model" (``launch.dryrun.rank_model_bytes`` counts an RWKV6, whisper or
+hybrid step's).
 """
 from __future__ import annotations
 
@@ -128,8 +147,8 @@ from torch.autograd import Function
 
 from ..kernels import ops as kops
 from ..launch.mesh import axis_names, mesh_shape
-from ..models.model import PLANNED, ordered
-from ..models.ssm import LORA, RWKV_HD
+from ..models.model import SHARED, ordered
+from ..models.ssm import LORA, RWKV_HD, mamba2_dims, mamba2_rank_leaves
 from .params import block_slices, param_spec, shard_leaf
 
 # leaves that each rank reads in part: the gradient of its part must be
@@ -139,6 +158,10 @@ PARTIAL_REPLICATED = ("bq", "bk", "bv", "q_norm", "k_norm")
 # replicated ones it reads its channels of (``TensorParallel.ssm_leaves``)
 SSM_WHOLE = ("mu", "decay_a", "decay_b", "u_bonus")
 SSM_PARTIAL = ("decay_bias", "ln_x")
+# Mamba2: the packed leaves each rank gathers whole over "model" and cuts
+# to its heads (``TensorParallel.mamba_leaves``)
+MAMBA = "blocks.mamba."
+MAMBA_WHOLE = ("w_in", "conv_w")
 
 
 class _Copy(Function):
@@ -337,10 +360,14 @@ class TensorParallel:
         self.d = 0
         if self.D > 1:
             self.d = dist.get_rank(group.data_pg)
+        # the attention whose heads set the KV layout: the blocks', or the
+        # hybrid's shared block's
+        self.wq = next((k for k in ("blocks.attn.wq", SHARED + "attn.wq")
+                        if k in self.shapes), "blocks.attn.wq")
         # the model ranks that share this rank's KV head (M > KV): their
         # group, their count and this rank's place among them
         self.kv_share, self.kv_pg, self.kv_i = 1, None, 0
-        if self.split("blocks.attn.wq") and self.M > cfg.num_kv_heads:
+        if self.split(self.wq) and self.M > cfg.num_kv_heads:
             check_heads(cfg, self.M)
             self.kv_share = self.M // cfg.num_kv_heads
             self.kv_pg = group.head_groups(self.kv_share)
@@ -349,7 +376,8 @@ class TensorParallel:
         self.scattered_bytes = 0
         self.reduced_bytes = 0
         self.model_gathered_bytes = 0
-        # the leaves ssm_leaves takes as whole (:meth:`holding_whole`)
+        # the leaves ssm_leaves takes as whole, and mamba_leaves as cut
+        # (:meth:`holding_whole`)
         self.held_whole: frozenset = frozenset()
 
     # -- the layout --------------------------------------------------------
@@ -434,9 +462,12 @@ class TensorParallel:
         return _Gather.apply(x, self, dim - int(layered))
 
     def block(self, p: dict, prefix: str = "blocks.") -> dict:
-        """One layer's nested block leaves, each gathered over "data"."""
+        """One layer's nested block leaves, each gathered over "data" (a
+        leaf outside ``blocks``, the hybrid's shared block, has no layer
+        dim: JAX's spec leads with none)."""
+        layered = "blocks" in prefix.split(".")
         return {k: self.block(v, f"{prefix}{k}.") if isinstance(v, dict)
-                else self.gather(prefix + k, v, layered=True)
+                else self.gather(prefix + k, v, layered=layered)
                 for k, v in p.items()}
 
     # -- the model's parallel regions --------------------------------------
@@ -454,14 +485,14 @@ class TensorParallel:
         """The KV heads this rank holds (whole: with M > KV its ranks
         gather the head, :meth:`gather_kv`)."""
         kv = cfg.num_kv_heads
-        if not self.split("blocks.attn.wq"):
+        if not self.split(self.wq):
             return kv
         return max(1, kv // self.M)
 
     def q_heads(self, cfg) -> int:
         """The query heads this rank computes."""
         h = cfg.num_heads
-        return h // self.M if self.split("blocks.attn.wq") else h
+        return h // self.M if self.split(self.wq) else h
 
     def gather_kv(self, k: torch.Tensor, v: torch.Tensor) -> tuple:
         """k and v (..., c) of this rank's columns of its KV head (M > KV:
@@ -626,14 +657,37 @@ class TensorParallel:
                 p[k] = self.copy(p[k]).narrow(-1, self.m * c, c)
         return p
 
+    def mamba_heads(self, cfg) -> int:
+        """The Mamba2 heads this rank holds: ``d_in / 64 / M``."""
+        return mamba2_dims(cfg)[1] // self.M
+
+    def mamba_leaves(self, p: dict) -> dict:
+        """One layer's Mamba2 leaves as this rank's heads read them: the
+        packed ``w_in`` and ``conv_w`` gathered whole over "model" (JAX's
+        column blocks do not follow the heads: at M 2 rank 0's block of
+        ``w_in`` is all of x and the first columns of z) and cut to its x,
+        z and dt columns and B, C whole; ``a_log``, ``dt_bias``, ``d_skip``
+        and ``norm_z`` (replicated) read in part through :meth:`copy`
+        (:func:`repro_torch.models.ssm.mamba2_rank_leaves`).  ``w_out``'s
+        block is its rows already.  Under :meth:`holding_whole` of the two
+        packed leaves (:meth:`serving_leaves`) they are the rank's
+        already."""
+        cut = MAMBA + "w_in" not in self.held_whole
+        if cut:
+            p = dict(p, **{k: self._whole_leaf(MAMBA + k, p[k],
+                                               stacked=False)
+                           for k in MAMBA_WHOLE})
+        return mamba2_rank_leaves(p, self.m, self.M, self.copy, cut=cut)
+
     @torch.no_grad()
     def serving_leaves(self, params: dict) -> tuple:
         """(``params``, this rank's serving blocks, with the RWKV6 leaves
-        that :meth:`ssm_leaves` reads whole gathered whole, stacked over
-        the layers; their names).  A prefill or decode step under
-        :meth:`holding_whole` of those names gathers none of them; any
-        other family's leaves stay as they are.  Every rank calls it
-        together (it runs the gathers)."""
+        that :meth:`ssm_leaves` reads whole gathered whole and Mamba2's
+        packed leaves gathered and cut to this rank's heads
+        (:meth:`mamba_leaves`), stacked over the layers; their names).  A
+        prefill or decode step under :meth:`holding_whole` of those names
+        gathers none of them; any other family's leaves stay as they are.
+        Every rank calls it together (it runs the gathers)."""
         out, names = dict(params), []
         for prefix in ("blocks.tmix.", "blocks.cmix."):
             for k in SSM_WHOLE:
@@ -641,13 +695,23 @@ class TensorParallel:
                 if name in out and self.split(name):
                     out[name] = self._whole_leaf(name, out[name], stacked=True)
                     names.append(name)
+        if MAMBA + "w_in" in out:
+            layers = {k[len(MAMBA):]: v for k, v in out.items()
+                      if k.startswith(MAMBA)}
+            for k in MAMBA_WHOLE:
+                layers[k] = self._whole_leaf(MAMBA + k, layers[k],
+                                             stacked=True)
+            cut = mamba2_rank_leaves(layers, self.m, self.M)
+            for k in MAMBA_WHOLE:
+                out[MAMBA + k] = cut[k].contiguous()
+                names.append(MAMBA + k)
         return out, frozenset(names)
 
     @contextlib.contextmanager
     def holding_whole(self, names: frozenset):
         """While open, :meth:`ssm_leaves` takes the leaves ``names`` as
-        whole (:meth:`serving_leaves`' result) and gathers only the
-        others."""
+        whole and :meth:`mamba_leaves` its packed leaves as cut
+        (:meth:`serving_leaves`' result), and neither gathers them."""
         before, self.held_whole = self.held_whole, frozenset(names)
         try:
             yield
@@ -808,6 +872,9 @@ class CheckpointBlocks:
         return rb.take(whole, whole.new_empty(rb.block_width - (not count)))
 
 
+ITEM = "ROADMAP.md, module item 4a.5.3"
+
+
 def check_heads(cfg, model: int) -> None:
     """Refuse a head layout a model axis of ``model`` ranks cannot split:
     M must divide the query heads, and divide the KV heads or be a
@@ -815,28 +882,32 @@ def check_heads(cfg, model: int) -> None:
     ``hd / (M / KV)`` of its columns); RWKV6 (the ssm family): M must
     divide its ``d_model / 64`` heads, the head dim, the decay's LoRA rank
     and the ffn width, so that each rank holds whole heads and its block
-    of every leaf."""
+    of every leaf; the hybrid: M must divide its Mamba2 heads and the
+    shared block's ffn width, and its shared block's heads as a dense
+    block's."""
     if cfg.family == "ssm":
         if any(n % model for n in (cfg.d_model // RWKV_HD, RWKV_HD, LORA,
                                    cfg.d_ff)):
             raise ValueError(f"model={model} must divide the "
                              f"{cfg.d_model // RWKV_HD} RWKV6 heads, the "
                              f"head dim 64, the decay's LoRA rank 64 and "
-                             f"d_ff {cfg.d_ff} (ROADMAP.md, module item "
-                             f"4a.5)")
+                             f"d_ff {cfg.d_ff} ({ITEM})")
         return
+    if cfg.family == "hybrid":
+        heads = mamba2_dims(cfg)[1]
+        if heads % model or cfg.d_ff % model:
+            raise ValueError(f"model={model} must divide the {heads} "
+                             f"Mamba2 heads and the shared block's d_ff "
+                             f"{cfg.d_ff} ({ITEM})")
     h, kv = cfg.num_heads, cfg.num_kv_heads
     if h % model or (kv % model and model % kv) \
             or (model > kv and cfg.hd % (model // kv)):
         raise ValueError(f"model={model} must divide the {h} query heads "
                          f"and divide the {kv} KV heads or be a multiple "
-                         f"of them (ROADMAP.md, module item 4a.5)")
+                         f"of them ({ITEM})")
 
 
 def check_supported(cfg, model: int) -> None:
-    """Refuse what a model axis of ``model`` ranks cannot run yet."""
-    if cfg.family not in PLANNED:
-        raise ValueError(f"the {cfg.family!r} family at model > 1 is not "
-                         f"ported yet (ROADMAP.md, module item 4a.5); the "
-                         f"{', '.join(PLANNED)} families run")
+    """Refuse what a model axis of ``model`` ranks cannot run yet: a head
+    layout it cannot split (:func:`check_heads`); every family runs."""
     check_heads(cfg, model)

@@ -70,7 +70,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..configs import ARCH_NAMES, SHAPES, InputShape, get_config
 from ..dist.amb import make_train_step
 from ..dist.params import param_spec, shard_extent
-from ..dist.tp import SSM_PARTIAL, SSM_WHOLE
+from ..dist.tp import MAMBA, MAMBA_WHOLE, SSM_PARTIAL, SSM_WHOLE
 from ..kernels import ops as kops
 from ..models import decode_step, prefill
 from ..optim import DualAveragingOpt
@@ -305,6 +305,10 @@ def _layout(cfg, shape: InputShape, mesh) -> dict:
         for op, nbytes, calls, _ in ssm_model_collectives(cfg, mesh, tokens,
                                                           train):
             add(op, nbytes, calls)
+    elif m > 1 and cfg.family == "hybrid":
+        for op, nbytes, calls, _ in hybrid_model_collectives(cfg, mesh,
+                                                             tokens, train):
+            add(op, nbytes, calls)
     elif m > 1 and cfg.family == "audio":
         for op, nbytes, calls, _ in audio_model_collectives(
                 cfg, mesh, tokens, rows * (cfg.encoder_seq or 1500), train,
@@ -364,7 +368,9 @@ def rank_fsdp_bytes(cfg, mesh) -> dict:
     "data" once in the forward, a block leaf again in its checkpointed
     block's recompute) and ``scattered_bytes`` sent in the fp32
     reduce-scatters of the gradients (once each); (D - 1) blocks each
-    time, as :class:`repro_torch.dist.tp.TensorParallel` counts them."""
+    time, as :class:`repro_torch.dist.tp.TensorParallel` counts them.  The
+    hybrid's shared block (``shared_attn.*``, outside ``blocks``) is
+    gathered once a step, outside the checkpointed applications."""
     d = mesh_shape(mesh).get("data", 1)
     gathered = scattered = 0
     for name, leaf in S.abstract_params(cfg).items():
@@ -476,17 +482,73 @@ def audio_model_collectives(cfg, mesh, tokens: int, frames: int,
     return out
 
 
+def hybrid_model_collectives(cfg, mesh, tokens: int, train: bool) -> list:
+    """The hybrid's (zamba2's) collectives over "model" in one worker's
+    step of ``tokens`` tokens, as the port runs them (:meth:`repro_torch.
+    dist.tp.TensorParallel.mamba_leaves`, :func:`repro_torch.models.ssm.
+    mamba2_forward` and the shared dense block), each as
+    :func:`ssm_model_collectives` gives them.  A Mamba2 layer's forward
+    (training: again in the checkpointed block's recompute) gathers the
+    packed ``w_in`` and ``conv_w`` whole (serving: once, when the engine
+    loads them) and the norm's fp32 sums of squares, one a token and
+    rank, and sums the row-parallel ``w_out``, the block's last sum, which
+    the recompute stops before; its training backward sums the two
+    packed leaves' gradients whole, those of ``a_log``, ``dt_bias``,
+    ``d_skip`` and ``norm_z`` (read in part), the block's input and the
+    gathered sums of squares.  Each application of the shared block sums
+    a dense block's two row-parallel products, its training recompute
+    the attention's again and its backward the two column-parallel
+    inputs.  The vocab-parallel lookup sums its rows once, and the
+    cross-entropy's copy of the hidden state its gradient."""
+    m = mesh_shape(mesh)["model"]
+    layers, d = cfg.num_layers, cfg.d_model
+    apps = layers // cfg.attn_every if cfg.attn_every else 0
+    e = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    params = S.abstract_params(cfg)
+    fwd = 2 if train else 1
+    out = []
+
+    def gather(nbytes, calls):
+        out.append(("all-gather", nbytes, calls, nbytes * (m - 1) // m))
+
+    def reduce(numel, calls, nbytes=None):
+        if calls:
+            out.append(("all-reduce", numel * e if nbytes is None
+                        else nbytes, calls, 4 * numel))
+
+    if train:
+        for k in MAMBA_WHOLE:
+            leaf = params[MAMBA + k]
+            numel = leaf.numel() // layers
+            gather(numel * leaf.element_size(), fwd * layers)
+            reduce(numel, layers, 4 * numel)
+        for k in ("a_log", "dt_bias", "d_skip", "norm_z"):
+            numel = params[MAMBA + k].numel() // layers
+            reduce(numel, layers, 4 * numel)
+        reduce(tokens * d, layers)                      # the block's input
+        reduce(tokens * m, layers, 4 * tokens * m)      # the sums of squares
+    gather(4 * tokens * m, fwd * layers)                # the sums of squares
+    reduce(tokens * d, layers)                          # w_out
+    reduce(tokens * d, apps * (2 + train * 3))          # the shared block
+    if "model" in param_spec("embed", params["embed"].shape, mesh, None):
+        reduce(tokens * d, 1)                           # the lookup
+        reduce(tokens * d, train)                       # the logits' input
+    return out
+
+
 def rank_model_bytes(cfg, mesh, tokens: int, train: bool = True,
                      frames: int = 0) -> dict:
-    """What one rank of an RWKV6 or whisper worker's step of ``tokens``
-    tokens (whisper: and ``frames`` encoder frames) moves over "model", as
-    :class:`repro_torch.dist.tp.TensorParallel` counts it:
+    """What one rank of an RWKV6, hybrid or whisper worker's step of
+    ``tokens`` tokens (whisper: and ``frames`` encoder frames) moves over
+    "model", as :class:`repro_torch.dist.tp.TensorParallel` counts it:
     ``model_gathered_bytes`` received in the all-gathers and
     ``reduced_bytes`` summed (:func:`ssm_model_collectives`,
-    :func:`audio_model_collectives`)."""
+    :func:`hybrid_model_collectives`, :func:`audio_model_collectives`)."""
     got = {"model_gathered_bytes": 0, "reduced_bytes": 0}
     if cfg.family == "audio":
         entries = audio_model_collectives(cfg, mesh, tokens, frames, train)
+    elif cfg.family == "hybrid":
+        entries = hybrid_model_collectives(cfg, mesh, tokens, train)
     else:
         entries = ssm_model_collectives(cfg, mesh, tokens, train)
     for op, _, calls, counted in entries:

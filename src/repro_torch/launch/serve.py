@@ -25,7 +25,8 @@ worker owns ``--batch / --data`` slot rows, each of its model ranks its
 heads of them (the TP-only layout; the MoE family its experts, each
 decode round dispatched over every worker's rows as one group; a KV
 head split over M / KV ranks where ``--model`` exceeds the KV heads;
-RWKV6 its heads' states; the vlm's prompts go in as embedding rows
+RWKV6 its heads' states; the hybrid its Mamba2 heads' states and its
+shared block's KV heads; the vlm's prompts go in as embedding rows
 from the vocab-parallel lookup);
 every rank reads rank 0's clock, and only rank 0 prints the report.
 
@@ -38,9 +39,9 @@ Four ranks on one card, two workers of two model ranks each:
       --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --data 2 --model 2 --batch 8 --requests 8 --prompt-len 2048 \\
       --new-tokens 32 --finetune 2 --dist-backend gloo
-(``--arch qwen3-moe-30b-a3b``, ``--arch rwkv6-3b`` and ``--arch
-internvl2-76b`` the same; ``--arch qwen2-1.5b --data 1 --model 4`` two
-ranks to each of its KV heads.)
+(``--arch qwen3-moe-30b-a3b``, ``--arch rwkv6-3b``, ``--arch
+zamba2-1.2b`` and ``--arch internvl2-76b`` the same; ``--arch
+qwen2-1.5b --data 1 --model 4`` two ranks to each of its KV heads.)
 """
 from __future__ import annotations
 

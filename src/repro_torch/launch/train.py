@@ -21,17 +21,20 @@ and each rank runs the worker at its (pod, data) coordinate: one process
 per worker, or with ``--model M`` > 1 one worker over M ranks (FSDP x TP
 for exact consensus, TP for fp32 gossip and for ``gossip_q8`` /
 ``gossip_q4``, whose grid is reduced over the model ranks each round; the
-dense and vlm families, the MoE family with its experts on "model" and
-the RWKV6 ssm family with its heads on "model"; a model extent past the
-KV heads splits each head's columns over M / KV ranks).
+dense and vlm families, the MoE family with its experts on "model", the
+RWKV6 ssm family with its heads on "model", the audio family and the
+hybrid with its Mamba2 heads and its shared block's heads on "model"; a
+model extent past the KV heads splits each head's columns over M / KV
+ranks).
 NCCL takes one card per rank; gloo may put several ranks on one card,
 keeps the compute there and sends the gossip rows through pinned host
 buffers (the bytes are printed per rank at the end).  Every driver and
 option runs over the ranks (quantized gossip, ``--pipeline``, ``--async``,
 ``--redundancy``, ``--controller``, ``--churn``, ``--ckpt-dir`` and
 ``--restore``), at ``--model 1`` and, for the dense family, at
-``--model`` > 1 (the MoE, vlm and ssm families there: exact, the gossip
-epochs and the checkpoints, and every driver the session admits; the
+``--model`` > 1 (the MoE, vlm, ssm, audio and hybrid families there:
+exact, the gossip epochs and the checkpoints, and every driver the
+session admits; the
 checkpoint is JAX's archive of whole leaves either way, so it restores
 at another (data, model) or in one process).  Only
 rank 0 prints the steps and writes the metrics and the checkpoint.

@@ -50,7 +50,7 @@ prompt holds no (S, d_ff) tensor; the MoE feed-forward takes the whole
 prompt (its groups and capacities are per sequence); whisper's blocks
 take a prompt (at most 448 tokens) and the 1500 frames whole.
 
-Serving over a model axis (the dense, vlm, MoE, ssm and audio families):
+Serving over a model axis (every family):
 :func:`prefill`,
 :func:`decode_step` and :func:`init_decode_state` take ``tp`` (a
 :class:`repro_torch.dist.tp.TensorParallel` under the serving layout,
@@ -63,14 +63,19 @@ the rope, and hold equal caches of it), its experts (the MoE layer,
 :func:`repro_torch.models.moe.moe_forward`), its RWKV6 heads and their
 states (not padded; :func:`repro_torch.models.ssm.rwkv6_forward` and
 :func:`_cmix`), whisper's encoder, self- and cross-attention heads and
-its heads of ``enc_kv``, sums the row-parallel
+its heads of ``enc_kv``, the hybrid's Mamba2 heads (their states: h
+by heads, the conv tail the heads' x channels and B, C;
+:func:`repro_torch.models.ssm.mamba2_forward`) and its shared block's
+heads, sums the row-parallel
 ``wo``, MLP and expert products over "model", looks tokens up in its
 rows of the vocabulary, and returns its ``padded_vocab / M`` columns of
 the logits, unsliced (the caller gathers them, then slices to
 ``vocab_size``: ``TensorParallel.vocab_logits``, so that no pick takes a
 padded row's column).  Training over a model axis reads the same leaves
 as FSDP x TP or TP blocks (:func:`forward_aux`), whisper's encoder
-blocks gathered under their own names (``"encoder.blocks."``).
+blocks gathered under their own names (``"encoder.blocks."``), the
+hybrid's shared block gathered over "data" once a step and applied after
+every ``attn_every``-th layer.
 """
 from __future__ import annotations
 
@@ -93,9 +98,6 @@ SHARED = "shared_attn."
 ENCODER = "encoder."
 XATTN = BLOCKS + "xattn."         # whisper's cross-attention leaves
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
-# the families :func:`param_plan` draws leaf by leaf, and that run over a
-# model axis
-PLANNED = ("dense", "vlm", "moe", "ssm", "audio")
 
 
 def _leaf_key(name: str) -> tuple:
@@ -104,41 +106,23 @@ def _leaf_key(name: str) -> tuple:
 
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     """Random parameters on the generator's device, JAX names and layout."""
-    if cfg.family not in FAMILIES:
-        raise ValueError(f"only the {', '.join(FAMILIES)} families are "
-                         f"ported, got {cfg.family!r}")
-    if cfg.family in PLANNED:
-        return ordered({k: make(generator) for k, make in param_plan(cfg)})
-    L, d = cfg.num_layers, cfg.d_model
-    dt, dev = cfg.torch_dtype, generator.device
-    ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=dev)
-    params = {
-        "embed": init_linear((cfg.padded_vocab, d), dt, generator,
-                             scale=1.0),
-        "unembed": init_linear((d, cfg.padded_vocab), dt, generator),
-        "final_norm": ones(d),
-    }
-    params["blocks.ln1"] = ones(L, d)                    # the hybrid
-    for k, v in ssm.mamba2_params(cfg, generator, L).items():
-        params[f"blocks.mamba.{k}"] = v
-    if cfg.attn_every:
-        params.update({SHARED + k: v[0] for k, v in _dense_params(
-            cfg, generator, 1).items()})
-    return ordered(params)
+    return ordered({k: make(generator) for k, make in param_plan(cfg)})
 
 
 def param_plan(cfg: ArchConfig) -> list:
-    """The dense, vlm, MoE, ssm and audio families' leaves in
-    :func:`init_params`' draw order, each as ``(name, make(generator))``:
-    making them one at a time draws what :func:`init_params` draws, so a
-    caller can keep a slice of each leaf and drop the rest before the next
-    is made (the sharded sessions; an expert leaf's ``make`` is a
-    :class:`repro_torch.models.moe.Layered`).  Audio: the head, the
-    decoder blocks (a dense block's leaves, then ``ln_x`` and the
-    cross-attention's), the encoder blocks, the encoder's final norm."""
-    if cfg.family not in PLANNED:
-        raise ValueError(f"param_plan covers the {', '.join(PLANNED)} "
-                         f"families, got {cfg.family!r}")
+    """Every leaf in :func:`init_params`' draw order, each as ``(name,
+    make(generator))``: making them one at a time draws what
+    :func:`init_params` draws, so a caller can keep a slice of each leaf
+    and drop the rest before the next is made (the sharded sessions; an
+    expert leaf's ``make`` is a :class:`repro_torch.models.moe.Layered`).
+    Audio: the head, the decoder blocks (a dense block's leaves, then
+    ``ln_x`` and the cross-attention's), the encoder blocks, the
+    encoder's final norm.  Hybrid: the head, the blocks (``ln1``, then the
+    Mamba2 leaves), the shared block drawn as a one-layer dense block and
+    cut to its layer."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"only the {', '.join(FAMILIES)} families are "
+                         f"ported, got {cfg.family!r}")
     d, dt, v = cfg.d_model, cfg.torch_dtype, cfg.padded_vocab
     head = [("embed", lambda g: init_linear((v, d), dt, g, scale=1.0)),
             ("unembed", lambda g: init_linear((d, v), dt, g)),
@@ -146,6 +130,10 @@ def param_plan(cfg: ArchConfig) -> list:
                                                 device=g.device))]
     if cfg.family == "ssm":
         plan = _ssm_plan(cfg, cfg.num_layers)
+    elif cfg.family == "hybrid":
+        ones, _ = _makers(cfg, cfg.num_layers)
+        plan = [("ln1", ones)] + [(f"mamba.{k}", make) for k, make in
+                                  ssm.mamba2_plan(cfg, cfg.num_layers)]
     elif cfg.family == "audio":
         plan = _encdec_plan(cfg, cfg.num_layers)
     else:
@@ -155,6 +143,9 @@ def param_plan(cfg: ArchConfig) -> list:
         plan += [(ENCODER + BLOCKS + k, make)
                  for k, make in _dense_plan(cfg, cfg.encoder_layers)]
         plan.append((ENCODER + "final_norm", head[2][1]))
+    if cfg.family == "hybrid" and cfg.attn_every:
+        plan += [(SHARED + k, lambda g, make=make: make(g)[0])
+                 for k, make in _dense_plan(cfg, 1)]
     return plan
 
 
@@ -204,13 +195,6 @@ def _dense_plan(cfg: ArchConfig, layers: int) -> list:
                for k, make in attn.attention_plan(cfg, layers)])
 
 
-def _dense_params(cfg: ArchConfig, generator: torch.Generator,
-                  layers: int) -> dict:
-    """A dense (or MoE) block's leaves, stacked over ``layers``, keyed
-    below the block (``"attn.wq"``)."""
-    return {k: make(generator) for k, make in _dense_plan(cfg, layers)}
-
-
 def _encdec_plan(cfg: ArchConfig, layers: int) -> list:
     """``(key below the block, make(generator))`` of a whisper decoder
     block's leaves, stacked over ``layers``, in draw order: a dense
@@ -244,14 +228,17 @@ def _nest(flat: dict) -> dict:
 
 def _dense_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
                  p: dict, causal: bool = True, group=None,
-                 tp=None, prefix: str = BLOCKS) -> tuple:
+                 tp=None, prefix: str = BLOCKS,
+                 gathered: bool = False) -> tuple:
     """(the block's output, its load-balance loss: None without experts;
     ``group`` as in :func:`repro_torch.models.moe.moe_forward`).  With
     ``tp`` (:class:`repro_torch.dist.tp.TensorParallel`) ``p`` holds this
     rank's blocks of the leaves under ``prefix`` (``"encoder.blocks."``:
-    whisper's encoder), gathered over "data" here, and the attention and
-    MLP run tensor-parallel over "model"."""
-    if tp is not None:
+    whisper's encoder; ``"shared_attn."``: the hybrid's shared block),
+    gathered over "data" here unless ``gathered`` (the caller gathered
+    them), and the attention and MLP run tensor-parallel over
+    "model"."""
+    if tp is not None and not gathered:
         p = tp.block(p, prefix)
     x = x + attn.attend_train(p["attn"], rms_norm(x, p["ln1"]), positions,
                               cfg, causal=causal, tp=tp,
@@ -321,10 +308,14 @@ def _rwkv_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
 
 
 def _mamba_block(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
-                 p: dict) -> tuple:
-    """(the block's output, None: no load-balance loss)."""
-    return x + ssm.mamba2_forward(p["mamba"], rms_norm(x, p["ln1"]),
-                                  cfg), None
+                 p: dict, tp=None) -> tuple:
+    """(the block's output, None: no load-balance loss).  With ``tp`` ``p``
+    holds this rank's blocks, gathered over "data" here, and Mamba2 runs
+    on the rank's heads (:func:`repro_torch.models.ssm.mamba2_forward`)."""
+    if tp is not None:
+        p = tp.block(p)
+    return x + ssm.mamba2_forward(p["mamba"], rms_norm(x, p["ln1"]), cfg,
+                                  tp=tp), None
 
 
 def _shared(params: dict) -> dict:
@@ -408,8 +399,8 @@ def forward_aux(params: dict, cfg: ArchConfig, batch, group=None,
     ``group``: this process's worker of a process group, whose MoE layers
     take the routing counts across the workers (the exact step).
     ``tp``: this rank's place in a worker spread over a model axis
-    (:class:`repro_torch.dist.tp.TensorParallel`; the families of
-    :data:`PLANNED`), whose blocks ``params`` holds."""
+    (:class:`repro_torch.dist.tp.TensorParallel`), whose blocks
+    ``params`` holds."""
     if isinstance(batch, torch.Tensor):
         batch = {"tokens": batch}
     x = _embed(params, cfg, batch, tp)
@@ -423,16 +414,25 @@ def forward_aux(params: dict, cfg: ArchConfig, batch, group=None,
         return rms_norm(x, params["final_norm"]), aux
     block = {"ssm": _rwkv_block, "hybrid": _mamba_block}.get(cfg.family,
                                                              _dense_block)
-    shared = _shared(params) if cfg.family == "hybrid" else None
     extra = {"group": group} if group is not None and cfg.is_moe else {}
+    shared, shared_extra = None, {}
+    if cfg.family == "hybrid":
+        shared = _shared(params)
     if tp is not None:
         extra["tp"] = tp
+        if shared is not None:
+            # gathered over "data" once a step, outside the checkpointed
+            # applications: the gradient accumulates over every
+            # application before the one reduce-scatter
+            shared = tp.block(shared, SHARED)
+            shared_extra = {"tp": tp, "prefix": SHARED, "gathered": True}
     for layer, lp in enumerate(_layers(params, cfg)):
         x, a = _run(block, x, positions, cfg, lp, **extra)
         if a is not None:
             aux = aux + a
         if _applies_shared(cfg, layer):
-            x, _ = _run(_dense_block, x, positions, cfg, shared)
+            x, _ = _run(_dense_block, x, positions, cfg, shared,
+                        **shared_extra)
     return rms_norm(x, params["final_norm"]), aux
 
 
@@ -715,43 +715,41 @@ def _kv_caches(cfg: ArchConfig, rows: int, batch: int, cap: int, dtype,
                         cfg.sliding_window > 0)
 
 
-def _hybrid_caches(cfg: ArchConfig, batch: int, cap: int, device) -> dict:
+def _hybrid_caches(cfg: ArchConfig, batch: int, cap: int, device,
+                   tp=None) -> dict:
     """Zero hybrid caches: every layer's Mamba2 state, and a KV cache of
     ``cap`` rows for each application of the shared block (one, unused,
-    without it, as in JAX)."""
-    one = ssm.mamba2_init_state(cfg, batch, device)
+    without it, as in JAX); with ``tp`` this rank's Mamba2 heads (its conv
+    tail its x channels and B, C) and KV heads."""
+    one = ssm.mamba2_init_state(cfg, batch, device,
+                                0 if tp is None else tp.mamba_heads(cfg))
     apps = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
     return {"mamba": ssm.MambaState(*(t.new_zeros((cfg.num_layers,)
                                                   + t.shape) for t in one)),
             "attn": _kv_caches(cfg, max(apps, 1), batch, cap,
-                               cfg.torch_dtype, device)}
+                               cfg.torch_dtype, device, tp)}
 
 
 def _prefill_hybrid(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                    cap: int) -> tuple:
+                    cap: int, tp=None) -> tuple:
     """The hybrid stack over a prompt: (the last layer's output, {"mamba":
     each layer's state after the prompt, "attn": each application's KV
-    cache of ``cap`` rows}).  ``x`` is updated in place."""
-    caches = _hybrid_caches(cfg, x.shape[0], cap, x.device)
+    cache of ``cap`` rows}; with ``tp`` this rank's heads of both).  ``x``
+    is updated in place."""
+    caches = _hybrid_caches(cfg, x.shape[0], cap, x.device, tp)
     shared, app = _shared(params), 0
     for layer, lp in enumerate(_layers(params, cfg)):
         h, st = ssm.mamba2_forward(lp["mamba"], rms_norm(x, lp["ln1"]), cfg,
-                                   return_state=True)
+                                   return_state=True, tp=tp)
         x.add_(h)
         caches["mamba"].h[layer] = st.h
         caches["mamba"].conv[layer] = st.conv
         del h, st
         if _applies_shared(cfg, layer):
-            _prefill_dense_block(shared, cfg, x, caches["attn"], app)
+            _prefill_dense_block(shared, cfg, x, caches["attn"], app, tp=tp,
+                                 prefix=SHARED)
             app += 1
     return x, caches
-
-
-def _check_tp(cfg: ArchConfig, tp) -> None:
-    if tp is not None and cfg.family not in PLANNED:
-        raise ValueError(f"serving the {cfg.family!r} family over a model "
-                         f"axis is not ported yet (ROADMAP.md, module item "
-                         f"4a.5); the {', '.join(PLANNED)} families run")
 
 
 @torch.no_grad()
@@ -776,11 +774,9 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     caches, sized as the dense family's, and ``enc_kv``.  The batch is
     ``{"tokens"}`` or ``{"embeds"}`` (vlm), with ``"enc_embeds"`` for
     audio; the logits have ``vocab_size`` columns.  ``tp``: this rank's
-    blocks over a model axis (the families of :data:`PLANNED`; see the
-    module note).
+    blocks over a model axis (see the module note).
     """
     _check_servable(cfg)
-    _check_tp(cfg, tp)
     x = _embed(params, cfg, batch, tp)
     b, s, _ = x.shape
     window = cfg.sliding_window
@@ -789,7 +785,7 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict,
     if cfg.family == "ssm":
         x, caches = _prefill_ssm(params, cfg, x, tp)
     elif cfg.family == "hybrid":
-        x, caches = _prefill_hybrid(params, cfg, x, cap)
+        x, caches = _prefill_hybrid(params, cfg, x, cap, tp)
     elif cfg.family == "audio":
         caches, enc_kv = _prefill_audio(params, cfg, x, batch["enc_embeds"],
                                         cap, tp)
@@ -812,10 +808,9 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     ``enc_kv`` of ``encoder_seq`` frames, 1500 if it is unset, as in JAX);
     ``per_slot_pos`` gives a (batch,) position vector (the slot array,
     rows decode at their own depths) instead of a shared scalar.  ``tp``:
-    this rank's KV heads' caches, or its RWKV6 heads' states (the
-    families of :data:`PLANNED` over a model axis)."""
+    this rank's KV heads' caches, or its RWKV6 or Mamba2 heads' states
+    (over a model axis)."""
     _check_servable(cfg)
-    _check_tp(cfg, tp)
     device = resolve_device(device)
     ring = cfg.sliding_window > 0
     cap = min(cfg.sliding_window, cache_len) if ring else cache_len
@@ -825,7 +820,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     if cfg.family == "ssm":
         caches = _ssm_caches(cfg, batch, device, tp)
     elif cfg.family == "hybrid":
-        caches = _hybrid_caches(cfg, batch, cap, device)
+        caches = _hybrid_caches(cfg, batch, cap, device, tp)
     else:
         caches = _kv_caches(cfg, cfg.num_layers, batch, cap,
                             cfg.torch_dtype, device, tp)
@@ -865,16 +860,13 @@ def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
                 token: torch.Tensor, tp=None, group=None) -> tuple:
     """One-token decode.  token: (B,) -> (logits (B, vocab_size),
     DecodeState at ``pos + 1`` over the same, updated, caches).  ``tp``:
-    this rank's blocks over a model axis (the families of
-    :data:`PLANNED`):
-    the vocab-parallel lookup, its heads, and its columns of the logits
-    (see :func:`logits_fn`).  ``group``: the
+    this rank's blocks over a model axis: the vocab-parallel lookup, its
+    heads, and its columns of the logits (see :func:`logits_fn`).  ``group``: the
     :class:`repro_torch.dist.group.WorkerGroup` whose workers each hold
     B of the slot rows (the slot engine over a group): an MoE layer
     gathers every worker's rows and dispatches them as one group, as JAX
     dispatches a decode batch."""
     _check_servable(cfg)
-    _check_tp(cfg, tp)
     if tp is None:
         x = F.embedding(token.long(), params["embed"])[:, None, :]
     else:
@@ -884,7 +876,7 @@ def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
     elif cfg.family == "ssm":
         x = _decode_ssm(params, cfg, state.caches, x, tp)
     elif cfg.family == "hybrid":
-        x = _decode_hybrid(params, cfg, state.caches, state.pos, x)
+        x = _decode_hybrid(params, cfg, state.caches, state.pos, x, tp)
     else:
         x = _decode_dense(params, cfg, state.caches, state.pos, x, tp,
                           group if cfg.is_moe else None)
@@ -960,25 +952,30 @@ def _decode_ssm(params: dict, cfg: ArchConfig, caches: dict,
 
 
 def _decode_hybrid(params: dict, cfg: ArchConfig, caches: dict,
-                   pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+                   pos: torch.Tensor, x: torch.Tensor,
+                   tp=None) -> torch.Tensor:
     """One token through the hybrid stack: each Mamba2 layer's state and
-    each application's KV row are updated in place."""
+    each application's KV row are updated in place (with ``tp``, this
+    rank's heads', the row-parallel products summed over "model")."""
     mamba, kv = caches["mamba"], caches["attn"]
     shared, app = _shared(params), 0
+    prefix = SHARED + "attn."
     for layer, lp in enumerate(_layers(params, cfg)):
         h, new = ssm.mamba2_decode(
             lp["mamba"], rms_norm(x, lp["ln1"]),
-            ssm.MambaState(mamba.h[layer], mamba.conv[layer]), cfg)
+            ssm.MambaState(mamba.h[layer], mamba.conv[layer]), cfg, tp)
         mamba.h[layer] = new.h
         mamba.conv[layer] = new.conv
         x = x + h
         if _applies_shared(cfg, layer):
             cache = attn.KVCache(kv.k[app], kv.v[app], kv.ring)
-            h, _ = attn.decode_attend(shared["attn"],
-                                      rms_norm(x, shared["ln1"]), pos,
-                                      cache, cfg, window=cfg.sliding_window)
-            x = x + h
-            x = x + _ffn(x, shared, cfg)[0]
+            ap = shared["attn"] if tp is None else tp.heads(shared["attn"],
+                                                            prefix)
+            h, _ = attn.decode_attend(ap, rms_norm(x, shared["ln1"]), pos,
+                                      cache, cfg, window=cfg.sliding_window,
+                                      tp=tp)
+            x = x + (h if tp is None else tp.attention_out(h, prefix))
+            x = x + _ffn(x, shared, cfg, tp=tp, prefix=SHARED)[0]
             app += 1
     return x
 

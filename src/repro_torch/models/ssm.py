@@ -12,6 +12,11 @@ JAX package's are plain ``jnp`` (it has no Pallas kernel):
     its gradient is 0 x inf = NaN once a chunk holds about 130 tokens);
   * decode, :func:`mamba2_decode`: the O(1)-state one-token step.
 
+Over a model axis both take ``tp`` and run a rank's heads: the whole
+packed leaves cut to them (:func:`mamba2_rank_leaves`), up to the gated
+norm (:func:`mamba2_inner`, :func:`mamba2_step`), whose mean square sums
+every rank's part (:func:`mamba2_squares`, :func:`mamba2_norm_out`).
+
 The wkv recurrence of RWKV6 runs in two forms:
 
   * prefill and training, :func:`rwkv6_forward`: under autograd the plain
@@ -48,31 +53,36 @@ def mamba2_dims(cfg: ArchConfig) -> tuple:
     return d_in, d_in // MAMBA_HD, MAMBA_HD
 
 
-def mamba2_params(cfg: ArchConfig, generator: torch.Generator,
-                  layers: int) -> dict:
-    """The Mamba2 leaves, stacked over ``layers``, with JAX's names, dtypes
-    and init: ``w_in`` projects to [x | z | B C | dt], the depthwise conv
-    is truncated normal times 0.5, a_log and dt_bias 0, the D skip and
-    the output norm 1 (fp32)."""
+def mamba2_plan(cfg: ArchConfig, layers: int) -> list:
+    """``(name, make(generator))`` of the Mamba2 leaves, stacked over
+    ``layers``, in draw order, with JAX's names, dtypes and init: ``w_in``
+    projects to [x | z | B C | dt], the depthwise conv is truncated normal
+    times 0.5, a_log and dt_bias 0, the D skip and the output norm 1
+    (fp32)."""
     d, L, ns = cfg.d_model, layers, cfg.ssm_state
     d_in, heads, _ = mamba2_dims(cfg)
-    dt, dev = cfg.torch_dtype, generator.device
+    dt = cfg.torch_dtype
+
+    def lin(*shape, scale=None):
+        return lambda g: init_linear((L,) + shape, dt, g, scale=scale)
 
     def f32(fill, *shape):
-        return torch.full((L,) + shape, fill, dtype=torch.float32,
-                          device=dev)
+        return lambda g: torch.full((L,) + shape, fill, dtype=torch.float32,
+                                    device=g.device)
 
-    return {
-        "w_in": init_linear((L, d, 2 * d_in + 2 * ns + heads), dt,
-                            generator),
-        "conv_w": init_linear((L, cfg.conv_width, d_in + 2 * ns), dt,
-                              generator, scale=0.5),
-        "a_log": f32(0.0, heads),
-        "dt_bias": f32(0.0, heads),
-        "d_skip": f32(1.0, heads),
-        "w_out": init_linear((L, d_in, d), dt, generator),
-        "norm_z": f32(1.0, d_in),
-    }
+    return [("w_in", lin(d, 2 * d_in + 2 * ns + heads)),
+            ("conv_w", lin(cfg.conv_width, d_in + 2 * ns, scale=0.5)),
+            ("a_log", f32(0.0, heads)),
+            ("dt_bias", f32(0.0, heads)),
+            ("d_skip", f32(1.0, heads)),
+            ("w_out", lin(d_in, d)),
+            ("norm_z", f32(1.0, d_in))]
+
+
+def mamba2_params(cfg: ArchConfig, generator: torch.Generator,
+                  layers: int) -> dict:
+    """The Mamba2 leaves of :func:`mamba2_plan`, drawn."""
+    return {k: make(generator) for k, make in mamba2_plan(cfg, layers)}
 
 
 class MambaState(NamedTuple):
@@ -80,15 +90,44 @@ class MambaState(NamedTuple):
     conv: torch.Tensor     # (B, conv_width - 1, d_in + 2 ns) conv tail
 
 
+def mamba2_rank_leaves(p: dict, r: int, m: int, copy=None,
+                       cut: bool = True) -> dict:
+    """One layer's Mamba2 leaves (or the layer-stacked ones) as model rank
+    ``r`` of ``m`` reads them, its ``heads / m`` heads: from the whole
+    ``w_in`` its x and z columns, B and C whole and its dt columns (packed
+    as ``_mamba_split`` reads them), from the whole ``conv_w`` its x
+    channels and B and C; ``a_log``, ``dt_bias`` and ``d_skip`` its heads
+    and ``norm_z`` its channels, each through ``copy`` (a replicated leaf
+    read in part: its gradient is summed over the ranks).  ``cut`` False:
+    ``w_in`` and ``conv_w`` are the rank's already.  ``w_out`` is taken
+    as it is (its rows are the rank's block)."""
+    d_in = p["norm_z"].shape[-1]
+    heads = p["a_log"].shape[-1]
+    c, h = d_in // m, heads // m
+    out = dict(p)
+    if cut:
+        ns = (p["conv_w"].shape[-1] - d_in) // 2
+        w, cw = p["w_in"], p["conv_w"]
+        out["w_in"] = torch.cat([w.narrow(-1, a, n) for a, n in (
+            (r * c, c), (d_in + r * c, c), (2 * d_in, 2 * ns),
+            (2 * d_in + 2 * ns + r * h, h))], dim=-1)
+        out["conv_w"] = torch.cat([cw.narrow(-1, r * c, c),
+                                   cw.narrow(-1, d_in, 2 * ns)], dim=-1)
+    copy = copy or (lambda t: t)
+    for k in ("a_log", "dt_bias", "d_skip"):
+        out[k] = copy(p[k]).narrow(-1, r * h, h)
+    out["norm_z"] = copy(p["norm_z"]).narrow(-1, r * c, c)
+    return out
+
+
 def _mamba_split(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple:
-    """x @ w_in split into x (..., d_in), z (..., d_in), B C (..., 2 ns)
-    and dt (..., heads)."""
-    d_in, _, _ = mamba2_dims(cfg)
-    ns = cfg.ssm_state
+    """x @ w_in split into x (..., c), z (..., c), B C (..., 2 ns) and dt
+    (..., heads), c the inner channels ``p`` holds (d_in, or a model
+    rank's, :func:`mamba2_rank_leaves`)."""
+    c, ns = p["norm_z"].shape[-1], cfg.ssm_state
     proj = x @ p["w_in"]
-    return (proj[..., :d_in], proj[..., d_in:2 * d_in],
-            proj[..., 2 * d_in:2 * d_in + 2 * ns],
-            proj[..., 2 * d_in + 2 * ns:])
+    return (proj[..., :c], proj[..., c:2 * c], proj[..., 2 * c:2 * c + 2 * ns],
+            proj[..., 2 * c + 2 * ns:])
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, tail) -> tuple:
@@ -149,11 +188,34 @@ def ssd_chunked_scan(x: torch.Tensor, b_mat: torch.Tensor,
     return torch.cat(ys, dim=1)[:, :s], state
 
 
-def _gated_norm_out(p: dict, y: torch.Tensor, z: torch.Tensor,
-                    x: torch.Tensor) -> torch.Tensor:
-    """The gated RMS norm of y (..., d_in) fp32 by SiLU(z), then the
-    output projection in x's dtype."""
-    y = y * torch.rsqrt((y * y).mean(dim=-1, keepdim=True) + 1e-6)
+def mamba2_squares(y: torch.Tensor, tp=None) -> list:
+    """The gated norm's statistic of y (..., c) fp32: with ``tp`` each
+    model rank's sum of squares over its channels (..., 1), gathered over
+    "model" in model order (``tp.gather_model``, summed: every rank's
+    norm reads every rank's part, so each part's gradient is summed over
+    them); else None (the mean over y's own channels)."""
+    if tp is None:
+        return None
+    parts = tp.gather_model((y * y).sum(dim=-1, keepdim=True), -1,
+                            summed=True)
+    return list(parts.split(1, dim=-1))
+
+
+def mamba2_norm_out(p: dict, y: torch.Tensor, z: torch.Tensor,
+                    x: torch.Tensor, d_in: int, squares=None) -> torch.Tensor:
+    """The gated RMS norm of y (..., c) fp32 by SiLU(z), then the output
+    projection in x's dtype.  The mean square is over y's channels, or
+    (``squares``: every model rank's sum of squares, in model order,
+    :func:`mamba2_squares`) their sum in that order over all ``d_in``
+    channels, JAX's mean over the whole inner width."""
+    if squares is None:
+        var = (y * y).mean(dim=-1, keepdim=True)
+    else:
+        var = squares[0]
+        for part in squares[1:]:
+            var = var + part
+        var = var / d_in
+    y = y * torch.rsqrt(var + 1e-6)
     y = y * p["norm_z"] * F.silu(z.float())
     return y.to(x.dtype) @ p["w_out"]
 
@@ -164,59 +226,102 @@ def _dt_decay(p: dict, dt: torch.Tensor) -> tuple:
     return dt, torch.exp(dt * -torch.exp(p["a_log"]))
 
 
-def mamba2_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                   chunk: int = 0, return_state: bool = False):
-    """Mamba2 over a sequence.  x: (B, S, d), normed -> (B, S, d).
-
-    The SSD scan is :func:`ssd_chunked_scan` at ``chunk`` (or
-    ``cfg.ssm_chunk``).  ``return_state`` also returns the
-    :class:`MambaState` after the sequence (the decode hand-off)."""
+def mamba2_inner(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                 chunk: int = 0) -> tuple:
+    """Mamba2 over a sequence up to its gated norm, on the heads ``p``
+    holds.  x: (B, S, d), normed.  Returns (y (B, S, c) fp32, z (B, S, c),
+    the :class:`MambaState` after the sequence, its conv tail in the
+    model's dtype)."""
     b, s, _ = x.shape
-    d_in, heads, hd = mamba2_dims(cfg)
     k = cfg.conv_width
+    c = p["norm_z"].shape[-1]
+    heads, hd = c // MAMBA_HD, MAMBA_HD
     xi, z, bc, dt = _mamba_split(p, x, cfg)
     conv_in = torch.cat([xi, bc], dim=-1)
     conv_tail = (conv_in[:, s - (k - 1):] if s >= k - 1
                  else F.pad(conv_in, (0, 0, k - 1 - s, 0)))
     conv_out, _ = _causal_conv(conv_in, p["conv_w"], None)
-    bmat, cmat = conv_out[..., d_in:].float().chunk(2, dim=-1)
+    bmat, cmat = conv_out[..., c:].float().chunk(2, dim=-1)
     dt, decay = _dt_decay(p, dt)
-    xh = conv_out[..., :d_in].reshape(b, s, heads, hd).float()
+    xh = conv_out[..., :c].reshape(b, s, heads, hd).float()
     y, h_final = ssd_chunked_scan(xh * dt[..., None], bmat, cmat, decay,
                                   chunk or cfg.ssm_chunk)
-    y = (y + p["d_skip"][:, None] * xh).reshape(b, s, d_in)
-    out = _gated_norm_out(p, y, z, x)
-    if return_state:
-        return out, MambaState(h_final, conv_tail.to(cfg.torch_dtype))
-    return out
+    y = (y + p["d_skip"][:, None] * xh).reshape(b, s, c)
+    return y, z, MambaState(h_final, conv_tail.to(cfg.torch_dtype))
 
 
-def mamba2_init_state(cfg: ArchConfig, batch: int, device) -> MambaState:
-    d_in, heads, hd = mamba2_dims(cfg)
+def mamba2_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                   chunk: int = 0, return_state: bool = False, tp=None):
+    """Mamba2 over a sequence.  x: (B, S, d), normed -> (B, S, d).
+
+    The SSD scan is :func:`ssd_chunked_scan` at ``chunk`` (or
+    ``cfg.ssm_chunk``).  ``return_state`` also returns the
+    :class:`MambaState` after the sequence (the decode hand-off).
+
+    With ``tp`` (a :class:`repro_torch.dist.tp.TensorParallel`) ``p``
+    holds this rank's blocks: ``tp.mamba_leaves`` gives the leaves as its
+    ``heads / M`` heads read them, x enters through ``tp.copy``, the gated
+    norm's mean square sums every rank's part (:func:`mamba2_squares`)
+    and the row-parallel ``w_out`` product is summed over "model"; the
+    state is the rank's heads, its conv tail its x channels and B, C."""
+    if tp is not None:
+        p = tp.mamba_leaves(p)
+        x = tp.copy(x)
+    y, z, state = mamba2_inner(p, x, cfg, chunk)
+    out = mamba2_norm_out(p, y, z, x, mamba2_dims(cfg)[0],
+                          mamba2_squares(y, tp))
+    if tp is not None:
+        out = tp.reduce(out)
+    return (out, state) if return_state else out
+
+
+def mamba2_init_state(cfg: ArchConfig, batch: int, device,
+                      heads: int = 0) -> MambaState:
+    """Zero states of ``heads`` heads (default all; a model rank's: its
+    conv tail its heads' x channels and B, C)."""
+    d_in, all_heads, hd = mamba2_dims(cfg)
+    heads = heads or all_heads
     return MambaState(
         torch.zeros((batch, heads, hd, cfg.ssm_state), dtype=torch.float32,
                     device=device),
-        torch.zeros((batch, cfg.conv_width - 1, d_in + 2 * cfg.ssm_state),
+        torch.zeros((batch, cfg.conv_width - 1,
+                     heads * hd + 2 * cfg.ssm_state),
                     dtype=cfg.torch_dtype, device=device))
 
 
-def mamba2_decode(p: dict, x: torch.Tensor, state: MambaState,
-                  cfg: ArchConfig) -> tuple:
-    """One-token step.  x: (B, 1, d), normed.  Returns (out (B, 1, d), the
-    new :class:`MambaState`)."""
+def mamba2_step(p: dict, x: torch.Tensor, state: MambaState,
+                cfg: ArchConfig) -> tuple:
+    """One token up to the gated norm, on the heads ``p`` holds.  x: (B,
+    1, d), normed.  Returns (y (B, 1, c) fp32, z, the new
+    :class:`MambaState`)."""
     b = x.shape[0]
-    d_in, heads, hd = mamba2_dims(cfg)
+    c = p["norm_z"].shape[-1]
+    heads, hd = c // MAMBA_HD, MAMBA_HD
     xi, z, bc, dt = _mamba_split(p, x, cfg)
     conv_out, tail = _causal_conv(torch.cat([xi, bc], dim=-1), p["conv_w"],
                                   state.conv)
-    bmat, cmat = conv_out[:, 0, d_in:].float().chunk(2, dim=-1)
+    bmat, cmat = conv_out[:, 0, c:].float().chunk(2, dim=-1)
     dt, decay = _dt_decay(p, dt[:, 0])                    # (B, heads)
-    xh = conv_out[:, 0, :d_in].reshape(b, heads, hd).float()
+    xh = conv_out[:, 0, :c].reshape(b, heads, hd).float()
     h_new = decay[..., None, None] * state.h + torch.einsum(
         "bhd,bs->bhds", xh * dt[..., None], bmat)
     y = torch.einsum("bhds,bs->bhd", h_new, cmat) + p["d_skip"][:, None] * xh
-    return (_gated_norm_out(p, y.reshape(b, 1, d_in), z, x),
-            MambaState(h_new, tail))
+    return y.reshape(b, 1, c), z, MambaState(h_new, tail)
+
+
+def mamba2_decode(p: dict, x: torch.Tensor, state: MambaState,
+                  cfg: ArchConfig, tp=None) -> tuple:
+    """One-token step.  x: (B, 1, d), normed.  Returns (out (B, 1, d), the
+    new :class:`MambaState`).  ``tp`` as in :func:`mamba2_forward`: the
+    state holds this rank's heads."""
+    if tp is not None:
+        p = tp.mamba_leaves(p)
+    y, z, new = mamba2_step(p, x, state, cfg)
+    out = mamba2_norm_out(p, y, z, x, mamba2_dims(cfg)[0],
+                          mamba2_squares(y, tp))
+    if tp is not None:
+        out = tp.reduce(out)
+    return out, new
 
 
 # ---------------------------------------------------------------------------

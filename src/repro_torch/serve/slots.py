@@ -5,7 +5,8 @@ The decode batch is a fixed array of ``slots`` rows sharing one
 ``decode_step``: per-slot KV rows and positions
 (:func:`repro_torch.models.init_decode_state` with ``per_slot_pos=True``).
 Requests are prefilled one at a time (batch 1), through the flash kernel
-(dense) or the wkv scan kernel (ssm) on the card (vlm prompts go in as
+(dense; the hybrid's shared block) or the wkv scan kernel (ssm) on the
+card (vlm prompts go in as
 their embedding rows, ``prompt_batch``; over a model axis the
 vocab-parallel lookup), and written into a free
 row by :func:`repro_torch.models.insert_decode_state`; retirement (EOS or
@@ -26,8 +27,8 @@ under the serving layout when each worker spans M > 1 model ranks) the
 slot rows lie on the workers as JAX's ``decode_state_specs`` puts the
 batch on the worker axes: when the n workers divide the slots, worker j
 owns rows ``j * slots / n`` to ``(j + 1) * slots / n`` and holds their
-caches (each of its model ranks its KV heads', or its RWKV6 heads'
-states), else every worker holds every row.  A request is prefilled by the worker that owns its slot
+caches (each of its model ranks its KV heads', or its RWKV6 or Mamba2
+heads' states), else every worker holds every row.  A request is prefilled by the worker that owns its slot
 (its model ranks together); its first token's logits go to every rank
 from the owner.  A decode round runs every worker on its rows, then one
 all-gather over the group puts the whole (slots, vocab) logits on every

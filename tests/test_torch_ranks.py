@@ -85,9 +85,9 @@ def _run(session) -> dict:
 
 def _refusals() -> dict:
     """The message of each combination a group still refuses: what a
-    model axis > 1 does not run yet (module item 4a.5 on a (2, 2) mesh:
-    the hybrid family, and whisper with 3 heads, which model 2 does not
-    divide; the audio family runs where it divides them)."""
+    model axis > 1 does not run yet (module item 4a.5.3 on a (2, 2) mesh:
+    a hybrid with 3 Mamba2 heads and whisper with 3 heads, which model 2
+    does not divide; both families run where it divides them)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch import configs
 
@@ -98,7 +98,7 @@ def _refusals() -> dict:
                                 make_host_mesh(2, 2, device="cpu"), cfg=cfg)
     tries = {"model_audio": refused("whisper-base", num_heads=3,
                                     num_kv_heads=3),
-             "model_hybrid": refused("zamba2-1.2b")}
+             "model_hybrid": refused("zamba2-1.2b", d_model=96)}
     out = {}
     for name, fn in tries.items():
         try:
@@ -309,10 +309,11 @@ def test_train_cli_over_ranks_matches_the_one_process_cli(spawned, tmp_path):
 
 def test_group_refusals_name_their_roadmap_item(ranks):
     """What a group still refuses names its item: what a model axis > 1
-    does not run yet is module item 4a.5 (the hybrid family, and an audio
-    model whose heads model 2 does not divide; the rest in
-    ``tests/test_torch_tp.py``; the audio family runs where model divides
-    its heads, ``tests/test_torch_tp_audio.py``; the MoE family runs,
+    does not run yet is module item 4a.5.3 (a hybrid and an audio model
+    whose heads model 2 does not divide; the rest in
+    ``tests/test_torch_tp.py``; the audio and hybrid families run where
+    model divides their heads, ``tests/test_torch_tp_audio.py`` and
+    ``tests/test_torch_tp_hybrid.py``; the MoE family runs,
     ``tests/test_torch_tp_moe.py``, and the vlm and ssm families,
     ``tests/test_torch_tp_ssm.py``; quantized gossip and every driver run,
     ``tests/test_torch_tp_quantized.py`` and
@@ -323,7 +324,7 @@ def test_group_refusals_name_their_roadmap_item(ranks):
         assert sorted(got["refusals"]) == ["model_audio", "model_hybrid"]
         for what, msg in got["refusals"].items():
             assert msg is not None, what
-            assert "ROADMAP.md, module item 4a.5" in msg, (what, msg)
+            assert "ROADMAP.md, module item 4a.5.3" in msg, (what, msg)
 
 
 def test_strategy_rounds_over_the_group_match_the_stacked_ones(ranks):

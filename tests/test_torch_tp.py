@@ -24,9 +24,10 @@ batches, ``EPOCHS`` epochs at the minibatch sizes ``BS``:
     the norm is the whole leaf's;
   * the train CLI with ``--model 2``, exact and gossip, against the
     one-process ``--data 2`` CLI;
-  * what is still refused at model > 1 (the families but dense and moe,
-    a model extent that does not divide the query heads) raising with its
-    item, 4a.5 (the MoE family and more model ranks than KV heads:
+  * what is still refused at model > 1 (a model extent that does not
+    divide the heads: an audio model's, a hybrid's Mamba2 heads, a dense
+    model's query heads) raising with its item, 4a.5.3 (the MoE family
+    and more model ranks than KV heads:
     ``tests/test_torch_tp_moe.py``; quantized gossip runs:
     ``tests/test_torch_tp_quantized.py``; every other driver and option:
     ``tests/test_torch_tp_drivers.py``; checkpoints and serving:
@@ -163,8 +164,10 @@ def _refusals(params, mesh, mesh14) -> dict:
         "audio": lambda: _session("exact", None, mesh,
                                   cfg=_cfg("whisper-base", num_heads=3,
                                            num_kv_heads=3)),
+        # model 2 does not divide 3 Mamba2 heads (d_in 192; the smoke
+        # config's 4 run: tests/test_torch_tp_hybrid.py)
         "hybrid": lambda: _session("exact", None, mesh,
-                                   cfg=_cfg("zamba2-1.2b")),
+                                   cfg=_cfg("zamba2-1.2b", d_model=96)),
         # model 4 does not divide 6 query heads
         "heads": lambda: _session("exact", None, mesh14,
                                   cfg=_cfg(num_heads=6, head_dim=32),
@@ -654,17 +657,18 @@ def test_train_cli_with_a_model_axis_matches_the_one_process_cli(
 
 
 def test_what_model_gt_1_still_refuses_names_item_4a(ranks):
-    """The hybrid family, and a model extent that does not divide the
-    query heads (an audio model's 3 heads at model 2 among them), name
-    item 4a.5 (the MoE family and more model ranks than KV heads run
-    since: tests/test_torch_tp_moe.py; the vlm and ssm families:
-    tests/test_torch_tp_ssm.py; the audio family where model divides its
-    heads: tests/test_torch_tp_audio.py)."""
+    """A model extent that does not divide the heads (an audio model's 3
+    heads at model 2, a hybrid's 3 Mamba2 heads at model 2, 6 query heads
+    at model 4) names item 4a.5.3 (the MoE family and more model ranks
+    than KV heads run since: tests/test_torch_tp_moe.py; the vlm and ssm
+    families: tests/test_torch_tp_ssm.py; the audio family where model
+    divides its heads: tests/test_torch_tp_audio.py; the hybrid family
+    where it divides them: tests/test_torch_tp_hybrid.py)."""
     for got in ranks:
         assert sorted(got["refusals"]) == sorted(REFUSED)
         for what, msg in got["refusals"].items():
             assert msg is not None, what
-            assert "ROADMAP.md, module item 4a.5" in msg, (what, msg)
+            assert "ROADMAP.md, module item 4a.5.3" in msg, (what, msg)
 
 
 if __name__ == "__main__":

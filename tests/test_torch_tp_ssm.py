@@ -632,14 +632,16 @@ def _engine_matches(got: dict, want: dict, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("fsdp", ["data", None])
-@pytest.mark.parametrize("arch", [RWKV, VLM, "whisper-base"])
+@pytest.mark.parametrize("arch", [RWKV, VLM, "whisper-base", "zamba2-1.2b"])
 def test_init_shards_are_slices_of_init_params_bit_for_bit(arch, fsdp):
     """Each coordinate's blocks, drawn a whole leaf at a time in
     ``init_params``' order, equal its slices of ``init_params`` bit for
     bit; RWKV6's layout is JAX's ``param_spec`` (the LoRA's rank, the
     bonus's head dim and the mixes' d_model on "model", ``cmix.w_v`` by
     its d_model columns); whisper's encoder and cross-attention leaves
-    take a dense block's rules."""
+    take a dense block's rules; the hybrid's packed Mamba2 leaves put
+    "model" on their columns (``conv_w`` "data" on its 4 taps) and its
+    shared block's leaves have no layer dim."""
     from repro_torch import models
     from repro_torch.dist import params as P
     cfg = _cfg(arch)
@@ -652,6 +654,15 @@ def test_init_shards_are_slices_of_init_params_bit_for_bit(arch, fsdp):
                            ("blocks.tmix.mu", (None, fsdp, "model")),
                            ("blocks.cmix.w_v", (None, fsdp, "model")),
                            ("blocks.tmix.ln_x", ())):
+            assert P.param_spec(name, tree[name].shape, mesh, fsdp) == spec
+    if cfg.family == "hybrid":
+        for name, spec in (("blocks.mamba.w_in", (None, fsdp, "model")),
+                           ("blocks.mamba.conv_w", (None, fsdp, "model")),
+                           ("blocks.mamba.w_out", (None, "model", fsdp)),
+                           ("blocks.mamba.norm_z", ()),
+                           ("shared_attn.attn.wq", (fsdp, "model")),
+                           ("shared_attn.mlp.w_down", ("model", fsdp)),
+                           ("shared_attn.ln1", ())):
             assert P.param_spec(name, tree[name].shape, mesh, fsdp) == spec
     if cfg.family == "audio":
         for name, spec in (("encoder.blocks.attn.wq", (None, fsdp, "model")),
@@ -670,22 +681,32 @@ def test_init_shards_are_slices_of_init_params_bit_for_bit(arch, fsdp):
             assert got[k].dtype == v.dtype and torch.equal(got[k], v), (c, k)
 
 
+# the configs that still refuse: a hybrid whose 3 Mamba2 heads (d_model 96)
+# model 2 does not divide
+REFUSED_KW = {"zamba2-1.2b": dict(d_model=96)}
+
+
 @pytest.mark.parametrize("arch, model", [(RWKV, 4), ("whisper-base", 16),
                                          ("zamba2-1.2b", 2)])
 def test_what_still_refuses_names_item_4a(arch, model):
     """A model extent that does not divide the heads (the RWKV6 smoke
-    config's 2 at 4, whisper-base-smoke's 4 at 16) and the hybrid family
-    raise, naming module item 4a.5; rwkv6-3b at 2 and 4, whisper-base at
-    2, 4 and 8 (its 8 heads; tests/test_torch_tp_audio.py runs it) and
-    the vlm pass."""
+    config's 2 at 4, whisper-base-smoke's 4 at 16, a hybrid's 3 Mamba2
+    heads at 2) raises, naming module item 4a.5.3; rwkv6-3b at 2 and 4,
+    whisper-base at 2, 4 and 8 (its 8 heads; tests/test_torch_tp_audio.py
+    runs it), zamba2-1.2b and its smoke config at 2 and 4
+    (tests/test_torch_tp_hybrid.py runs them) and the vlm pass."""
     from repro_torch import configs
     from repro_torch.dist.tp import check_supported
-    with pytest.raises(ValueError, match=r"ROADMAP.md, module item 4a.5"):
-        check_supported(configs.smoke_config(arch), model)
+    cfg = dataclasses.replace(configs.smoke_config(arch),
+                              **REFUSED_KW.get(arch, {}))
+    with pytest.raises(ValueError, match=r"ROADMAP.md, module item 4a.5.3"):
+        check_supported(cfg, model)
     for name, m in ((RWKV, 2), (VLM, 4)):
         check_supported(_cfg(name), m)
     for m in (2, 4):
         check_supported(configs.get_config(RWKV), m)
+        check_supported(configs.get_config("zamba2-1.2b"), m)
+        check_supported(configs.smoke_config("zamba2-1.2b"), m)
     for m in (2, 4, 8):
         check_supported(configs.get_config("whisper-base"), m)
 
